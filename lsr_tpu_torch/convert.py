@@ -1,0 +1,95 @@
+"""Carry scene state from lsr_tpu's dataclasses into this package's.
+
+from_numpy_state reads every field through np.asarray(getattr(x, name)), so
+it takes lsr_tpu's registered dataclasses (or anything with the same field
+names) without importing jax.  The parity tests use it so both packages
+render exactly the same geometry, lights, materials, texture and camera.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lsr_tpu_torch.lighting.light_types import COLUMNS, LightsSoA, lights_from_numpy
+from lsr_tpu_torch.scene.scene import (
+    CameraState,
+    GeometryBatch,
+    ObjectsSoA,
+    geometry_from_numpy,
+)
+from lsr_tpu_torch.shading.common import MaterialsSoA
+from lsr_tpu_torch.shading.models import ShadeContext, make_shade_context
+
+_GEOM = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
+_OBJECTS = ("model", "prev_model", "normal_mat", "local_min", "local_max",
+            "casts_shadow", "visible", "material")
+_MATERIALS = ("base_color", "metallic", "roughness", "ao", "emissive",
+              "tex_id", "normal_tex", "orm_tex", "emissive_tex")
+
+
+def _np(x, name):
+    return np.asarray(getattr(x, name))
+
+
+def _tensor(a: np.ndarray, device):
+    if a.dtype == np.bool_:
+        return torch.as_tensor(np.array(a), device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
+def geometry(geom, device) -> GeometryBatch:
+    return geometry_from_numpy({k: _np(geom, k) for k in _GEOM}, device)
+
+
+def objects_soa(objects, device) -> ObjectsSoA:
+    return ObjectsSoA(**{k: _tensor(_np(objects, k), device) for k in _OBJECTS})
+
+
+def lights_soa(lights, device) -> LightsSoA:
+    return lights_from_numpy({k: _np(lights, k) for k in COLUMNS}, device)
+
+
+def materials_soa(materials, device) -> MaterialsSoA:
+    return MaterialsSoA(
+        **{k: _tensor(_np(materials, k), device) for k in _MATERIALS})
+
+
+def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:
+    if getattr(ctx, "shadow", None) is not None:
+        raise NotImplementedError("sun shadow contexts are not ported yet")
+    if getattr(ctx, "ibl", None) is not None:
+        raise NotImplementedError("image-based lighting is not ported yet")
+    tex = getattr(ctx, "textures", None)
+    return make_shade_context(
+        materials,
+        light_dir_ws=_np(ctx, "light_dir_ws"),
+        light_color=_np(ctx, "light_color"),
+        light_intensity=_np(ctx, "light_intensity"),
+        camera_pos=_np(ctx, "camera_pos"),
+        textures=None if tex is None else _tensor(np.asarray(tex), device),
+        device=device,
+    )
+
+
+def camera_state(camera, device) -> CameraState:
+    t = lambda k: _tensor(_np(camera, k), device)  # noqa: E731
+    return CameraState(
+        view=t("view"), proj=t("proj"), viewproj=t("viewproj"),
+        prev_viewproj=t("prev_viewproj"), eye=t("eye"),
+        zn=float(np.float32(_np(camera, "zn"))),
+        zf=float(np.float32(_np(camera, "zf"))),
+    )
+
+
+def from_numpy_state(geom, objects, lights, materials, ctx, camera, device):
+    """lsr_tpu scene state -> this package's dataclasses on `device`.
+
+    Returns (geom, objects, lights, materials, ctx, camera); ctx holds the
+    converted materials."""
+    mats = materials_soa(materials, device)
+    return (geometry(geom, device), objects_soa(objects, device),
+            lights_soa(lights, device), mats, shade_context(ctx, mats, device),
+            camera_state(camera, device))

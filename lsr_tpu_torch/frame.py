@@ -1,0 +1,144 @@
+"""The flagship forward+ frame, without shadows or scene culling.
+
+The composition of bench.py:make_flagship_frame (:242-287) with
+with_local=False, with_cull=False and no sun shadow map (sun visibility 1):
+
+  scene_setup -> rasterize_direct(spatial_sort=True)      [kernel B1]
+  -> interpolate_gbuffer(materials, no face normals)
+  -> shade_forward_plus(tiled_depth_range, 16 px, cap 128, pbr_mr)  [B2]
+  -> tonemap_pass -> fxaa_pass
+
+The scene is the procedural stand-in for the bench's monkey grid: a 5x5
+grid of make_uv_sphere(rings=16, sectors=32) (1,024 triangles each) plus the
+ground plane, with the bench's 256-light set, materials and checkerboard
+texture drawn from default_rng(seed) in the bench's order (bench.py:44-95).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from lsr_tpu_torch.core import math3d as m3
+from lsr_tpu_torch.io.obj import make_plane, make_uv_sphere
+from lsr_tpu_torch.lighting.light_types import LightSetBuilder
+from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
+from lsr_tpu_torch.passes.post import fxaa_pass
+from lsr_tpu_torch.passes.tonemap import tonemap_pass
+from lsr_tpu_torch.raster.interp import interpolate_gbuffer
+from lsr_tpu_torch.raster.setup import scene_setup
+from lsr_tpu_torch.raster.tiled import rasterize_direct
+from lsr_tpu_torch.scene.scene import SceneBuilder, make_camera
+from lsr_tpu_torch.shading.common import checkerboard_texture, make_materials
+from lsr_tpu_torch.shading.models import make_shade_context
+
+EYE0 = (6.0, 6.5, -10.0)
+FOV = np.pi / 3.2
+
+
+def build_flagship_scene(n_lights: int = 256, seed: int = 42, grid: int = 5,
+                         device=None):
+    """Procedural flagship scene.  Returns (geom, objects, lights, ctx)."""
+    rng = np.random.default_rng(seed)
+    sphere = make_uv_sphere(rings=16, sectors=32)
+    sb = SceneBuilder()
+    for i in range(grid * grid):
+        x = (i % grid - grid // 2) * 2.4
+        z = (i // grid - grid // 2) * 2.4
+        rot = float(rng.uniform(0, 2 * np.pi))
+        model = (m3.translate([x, 0.0, z]) @ m3.rotate_y(rot)).numpy()
+        sb.add(sphere, model, material=i % 4)
+    sb.add(make_plane(10.0, y=-1.0), material=4, casts_shadow=False)
+    geom, objects = sb.build(device)
+
+    lb = LightSetBuilder()
+    for _ in range(8):
+        x, z = float(rng.uniform(-5, 5)), float(rng.uniform(-5, 5))
+        color = tuple(rng.uniform(0.2, 1.0, 3).tolist())
+        lb.spot((x, 3.0, z), (0, -1, 0), color=color, intensity=2.4,
+                range=5.0, inner_angle=0.4, outer_angle=0.7)
+    for _ in range(2):
+        x, z = float(rng.uniform(-3, 3)), float(rng.uniform(-3, 3))
+        lb.point((x, 1.2, z), color=tuple(rng.uniform(0.2, 1.0, 3).tolist()),
+                 intensity=1.8, range=3.5)
+    for i in range(max(0, n_lights - 10)):
+        x = float(rng.uniform(-7, 7))
+        z = float(rng.uniform(-7, 7))
+        y = float(rng.uniform(0.2, 2.2))
+        color = tuple(rng.uniform(0.2, 1.0, 3).tolist())
+        if i % 4 == 0:
+            lb.spot((x, y + 1.0, z), (0, -1, 0), color=color, intensity=2.0,
+                    range=3.5, inner_angle=0.35, outer_angle=0.6)
+        else:
+            lb.point((x, y, z), color=color, intensity=1.5, range=2.5)
+    lights = lb.build(device)
+
+    mats = make_materials(
+        base_color=[(0.85, 0.5, 0.3), (0.4, 0.65, 0.85), (0.6, 0.8, 0.45),
+                    (0.9, 0.85, 0.5), (0.5, 0.5, 0.55)],
+        metallic=[0.05, 0.4, 0.0, 0.8, 0.0],
+        roughness=[0.4, 0.25, 0.7, 0.35, 0.9],
+        tex_id=[-1, -1, -1, -1, 0],
+        device=device,
+    )
+    ctx = make_shade_context(
+        mats, light_dir_ws=(0.35, -0.75, 0.45), light_color=(1.0, 0.96, 0.9),
+        light_intensity=2.0, camera_pos=EYE0,
+        textures=torch.as_tensor(checkerboard_texture(128),
+                                 device=device)[None],
+        device=device,
+    )
+    return geom, objects, lights, ctx
+
+
+def flagship_camera(i: int, ctx, width: int, height: int, device=None):
+    """Frame i of the bench's orbit (bench.py:346-354): (cam, ctx_i)."""
+    ang = 0.02 * i
+    eye = (float(EYE0[0] * np.cos(ang) - EYE0[2] * np.sin(ang)),
+           float(EYE0[1]),
+           float(EYE0[0] * np.sin(ang) + EYE0[2] * np.cos(ang)))
+    cam = make_camera(width, height, eye, (0, 0, 0), fov=FOV, device=device)
+    return cam, dataclasses.replace(
+        ctx, camera_pos=torch.as_tensor(eye, dtype=torch.float32,
+                                        device=device))
+
+
+def flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width: int,
+                    height: int):
+    """Setup -> raster -> interp -> forward+; returns the intermediates
+    (setup, depth, tid, max_sup, gb, hdr, stats)."""
+    setup = scene_setup(
+        geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
+        geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj,
+        width, height, obj_visible=objects.visible)
+    depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
+                                           cam.zf, spatial_sort=True)
+    gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
+                             want_face_normal=False)
+    hdr, stats = shade_forward_plus(
+        gb, ctx_t, lights, cam.view, cam.proj, cam.zn, cam.zf, width, height,
+        tile_size=16, cap=128, mode="tiled_depth_range", sun_model="pbr_mr")
+    return dict(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
+                hdr=hdr, stats=stats)
+
+
+def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int):
+    """frame(cam, ctx_t) -> (ldr_u8 (H, W, 3), n_valid, max_sup,
+    max_lights_per_bin, overflow_bins), all tensors on the scene's device.
+
+    Float32 products on the card run in full precision: TF32 is switched
+    off here for matmuls (the vertex transform) and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def frame(cam, ctx_t):
+        st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width,
+                             height)
+        ldr = fxaa_pass(tonemap_pass(st["hdr"]))
+        return (ldr, st["setup"].valid.sum(), st["max_sup"],
+                st["stats"]["max_lights_per_bin"],
+                st["stats"]["overflow_bins"])
+
+    return frame

@@ -1,0 +1,120 @@
+"""Tiled light binning (port of the tiled parts of
+lsr_tpu/lighting/light_culling.py: tile_side_planes, _mask_to_lists,
+cull_lights_tiled, tile_depth_ranges_from_buffer).
+
+Per-tile light index lists with a hard cap, built from masks + cumsum +
+scatter, submission order preserved.  No host sync: the stats stay tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lsr_tpu_torch.core.util import cdiv, device_const
+from lsr_tpu_torch.geometry.support_shapes import (
+    light_culling_shapes,
+    support_max_dot,
+    transform_shapes,
+)
+
+
+def _tile_grid(width, height, tile_w, tile_h=None):
+    th = tile_w if tile_h is None else tile_h
+    return cdiv(width, tile_w), cdiv(height, th)
+
+
+def tile_side_planes(width, height, tile_size, proj, tile_h=None):
+    """Per-tile view-space side planes through the origin, inward-positive
+    normals.  Returns (tiles, 4, 3) for [left, right, bottom, top]."""
+    th = tile_size if tile_h is None else tile_h
+    tiles_x, tiles_y = _tile_grid(width, height, tile_size, th)
+    dev = proj.device
+    tan_x = 1.0 / proj[0, 0]
+    tan_y = 1.0 / proj[1, 1]
+
+    def borders(n_tiles, limit, step):
+        edge_px = torch.arange(n_tiles + 1, dtype=torch.float32,
+                               device=dev) * step
+        edge_px = torch.clamp(edge_px, max=limit)
+        return edge_px / limit * 2.0 - 1.0
+
+    bx = borders(tiles_x, width - 1, tile_size) * tan_x
+    by = borders(tiles_y, height - 1, th) * tan_y
+
+    def plane(slope, sign, axis):
+        comp = [torch.zeros_like(slope), torch.zeros_like(slope)]
+        comp[axis] = torch.full_like(slope, sign)
+        n = torch.stack(comp + [-sign * slope], -1)
+        return n / torch.sqrt((n * n).sum(-1, keepdim=True))
+
+    left = plane(bx[:-1], 1.0, 0)
+    right = plane(bx[1:], -1.0, 0)
+    bottom = plane(by[:-1], 1.0, 1)
+    top = plane(by[1:], -1.0, 1)
+    shape = (tiles_y, tiles_x, 3)
+    planes = torch.stack([left[None].expand(shape), right[None].expand(shape),
+                          bottom[:, None].expand(shape),
+                          top[:, None].expand(shape)], dim=2)
+    return planes.reshape(tiles_y * tiles_x, 4, 3)
+
+
+def _mask_to_lists(mask, cap):
+    """(tiles, L) bool -> (lists (tiles, cap) i64 -1 padded, counts (tiles,)
+    i64 clamped to cap, stats {"max_count": raw max, "overflow_bins"})."""
+    num_tiles, num_lights = mask.shape
+    dev = mask.device
+    pos = torch.cumsum(mask.to(torch.int64), dim=1) - 1
+    counts = mask.sum(dim=1)
+    keep = mask & (pos < cap)
+    base = (torch.arange(num_tiles, device=dev) * cap)[:, None]
+    flat = torch.where(keep, base + pos,
+                       torch.full_like(pos, num_tiles * cap))
+    ids = torch.arange(num_lights, device=dev).expand(num_tiles, num_lights)
+    lists = torch.full((num_tiles * cap + 1,), -1, dtype=torch.int64,
+                       device=dev)
+    lists[flat.reshape(-1)] = ids.reshape(-1)
+    stats = {"max_count": counts.max(), "overflow_bins": (counts > cap).sum()}
+    return lists[:-1].reshape(num_tiles, cap), torch.clamp(counts, max=cap), \
+        stats
+
+
+def cull_lights_tiled(lights, view, proj, width: int, height: int,
+                      tile_size: int = 16, cap: int = 128,
+                      tile_depth_range=None, tile_h: int | None = None):
+    """Tiled light binning with each light's analytic support shape against
+    the tile planes (and, with tile_depth_range (tiles, 2), the tile's view-z
+    range).  Directional / env-probe lights never enter tile lists.
+    Returns (lists (tiles, cap), counts (tiles,), stats)."""
+    planes = tile_side_planes(width, height, tile_size, proj, tile_h)
+    num_tiles = planes.shape[0]
+    rec_v = transform_shapes(light_culling_shapes(lights), view[:3, :3],
+                             view[:3, 3])
+    sup = support_max_dot(rec_v, planes.reshape(num_tiles * 4, 3))
+    inside = torch.all(sup.reshape(-1, num_tiles, 4) >= 0.0, dim=2).T
+    zdirs = device_const([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], view.device)
+    zsup = support_max_dot(rec_v, zdirs)
+    zmax_l, zmin_l = zsup[:, 0], -zsup[:, 1]
+
+    local = (lights.type != 0) & (lights.type != 5) & lights.enabled
+    mask = inside & local[None, :]
+    if tile_depth_range is not None:
+        zmin = tile_depth_range[:, 0][:, None]
+        zmax = tile_depth_range[:, 1][:, None]
+        mask = mask & (zmax_l[None, :] >= zmin) & (zmin_l[None, :] <= zmax)
+    return _mask_to_lists(mask, cap)
+
+
+def tile_depth_ranges_from_buffer(depth01, zn, zf, width, height, tile_size,
+                                  tile_h=None):
+    """Per-tile [min, max] view depth reduced from the depth buffer."""
+    th = tile_size if tile_h is None else tile_h
+    tiles_x, tiles_y = _tile_grid(width, height, tile_size, th)
+    ph, pw = tiles_y * th, tiles_x * tile_size
+    d = torch.nn.functional.pad(
+        depth01, (0, pw - depth01.shape[1], 0, ph - depth01.shape[0]),
+        value=1.0)
+    d = d.reshape(tiles_y, th, tiles_x, tile_size)
+    view_z = zn + d * (zf - zn)
+    zmin = view_z.amin(dim=(1, 3)).reshape(-1)
+    zmax = view_z.amax(dim=(1, 3)).reshape(-1)
+    return torch.stack([zmin, zmax], dim=-1)

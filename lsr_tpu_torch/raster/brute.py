@@ -1,0 +1,75 @@
+"""Plain visibility rasterizer: the plain PyTorch version of kernel B1
+(port of lsr_tpu/raster/brute.py:rasterize_brute).
+
+Evaluates coverage of fixed-size triangle chunks over the whole framebuffer
+and resolves by (min depth, first submitted), which equals the
+lexicographic (depth, triangle id) minimum.  O(T * W * H): the correctness
+anchor for rasterize_direct, and what rasterize_direct runs for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lsr_tpu_torch.raster.setup import DEPTH_VIEWZ, TriSetup
+
+
+def depth_params(zn: float, zf: float):
+    """(zn, inv_range) as the float32 values the raster uses:
+    inv_range = 1 / max(zf - zn, 1e-6), all in f32 like lsr_tpu."""
+    zn32 = np.float32(zn)
+    rng = np.maximum(np.float32(zf) - zn32, np.float32(1e-6))
+    return float(zn32), float(np.float32(1.0) / rng)
+
+
+def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
+                    zf: float, depth_init=None, tid_init=None,
+                    depth_mode: int = DEPTH_VIEWZ, chunk: int = 64):
+    """Rasterize all triangles in `setup`; returns (depth01 (H, W) f32,
+    tid (H, W) i32)."""
+    dev = setup.coef.device
+    n = setup.coef.shape[0]
+    zn_f, inv_range = depth_params(zn, zf)
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    # Pixel centers in the last row/column ((W-1)+0.5) are never covered:
+    # the reference clips to screen coords [0, W-1] x [0, H-1].
+    ndc_mask = (px <= (width - 1)) & (py <= (height - 1))
+    depth = torch.ones((height, width), dtype=torch.float32, device=dev) \
+        if depth_init is None else depth_init.clone()
+    tid = torch.full((height, width), -1, dtype=torch.int32, device=dev) \
+        if tid_init is None else tid_init.clone()
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+
+    for s in range(0, n, chunk):
+        c = setup.coef[s:s + chunk]
+        w_ = setup.iw[s:s + chunk]
+        z_ = setup.ziw[s:s + chunk]
+        v_ = setup.valid[s:s + chunk]
+
+        def col(a, j):
+            return a[:, j][:, None, None]
+
+        def bc(i):
+            return (col(c, 3 * i) * px[None] + col(c, 3 * i + 1) * py[None]
+                    + col(c, 3 * i + 2))
+
+        bc0, bc1, bc2 = bc(0), bc(1), bc(2)
+        inside = ((bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0)
+                  & v_[:, None, None] & ndc_mask[None])
+        denom = bc0 * col(w_, 0) + bc1 * col(w_, 1) + bc2 * col(w_, 2)
+        inside &= denom > 1e-10
+        if depth_mode == DEPTH_VIEWZ:
+            view_z = 1.0 / torch.clamp(denom, min=1e-10)
+            z01 = torch.clamp((view_z - zn_f) * inv_range, 0.0, 1.0)
+        else:
+            zlin = (bc0 * col(z_, 0) + bc1 * col(z_, 1) + bc2 * col(z_, 2)) \
+                / torch.clamp(denom, min=1e-10)
+            z01 = torch.clamp(zlin * 0.5 + 0.5, 0.0, 1.0)
+        cand = torch.where(inside, z01, torch.full_like(z01, float("inf")))
+        best, kidx = torch.min(cand, dim=0)   # first minimum = first submitted
+        upd = best < depth
+        depth = torch.where(upd, best, depth)
+        tid = torch.where(upd, ids[s:s + chunk][kidx], tid)
+    return depth, tid

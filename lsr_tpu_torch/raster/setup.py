@@ -1,0 +1,167 @@
+"""Triangle setup: vertex transform -> near clip -> screen-space edge setup
+(port of lsr_tpu/raster/setup.py: TriSetup, vertex_stage, assemble_and_clip,
+build_setup, scene_setup).
+
+Per-triangle setup precomputes the affine barycentric coefficients
+bc_i(x, y) = A_i x + B_i y + C_i, the per-corner 1/w and the screen bbox, so
+the raster kernel does only multiply-adds per (triangle, pixel).  The vertex
+transform's (V, 4) x (4, 4) product stays torch.matmul; on the card it runs
+in full float32 (torch.backends.cuda.matmul.allow_tf32 must be False, which
+lsr_tpu_torch.frame sets).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from lsr_tpu_torch.raster.clip import clip_triangles_near
+
+CULL_NONE = 0
+CULL_BACK = 1
+CULL_FRONT = 2
+
+DEPTH_VIEWZ = 0   # z01 = (1/denom - zn) / (zf - zn)
+DEPTH_NDC01 = 1   # z01 = z_ndc * 0.5 + 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class TriSetup:
+    """Post-clip per-triangle SoA raster setup (N = 2 * input triangles)."""
+
+    coef: torch.Tensor    # (N, 9) f32: A0,B0,C0,A1,B1,C1,A2,B2,C2
+    iw: torch.Tensor      # (N, 3) f32: per-corner 1/w_clip
+    ziw: torch.Tensor     # (N, 3) f32: per-corner z_ndc * (1/w)
+    bbox: torch.Tensor    # (N, 4) i64: x0, y0, x1, y1 (inclusive, clamped)
+    valid: torch.Tensor   # (N,) bool
+    obj_id: torch.Tensor  # (N,) i64 object index
+    wp: torch.Tensor      # (N, 3, 3) f32 per-corner world position
+    nw: torch.Tensor      # (N, 3, 3) f32 per-corner world normal
+    uv: torch.Tensor      # (N, 3, 2) f32 per-corner uv
+
+    @property
+    def count(self) -> int:
+        return int(self.coef.shape[0])
+
+
+def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats,
+                 viewproj):
+    """Batched vertex shader.  Returns (world (V,3), clip (V,4),
+    normal_ws (V,3))."""
+    o = models.shape[0]
+    xf = torch.cat([models.reshape(o, 16), normal_mats.reshape(o, 9)],
+                   dim=-1)[vtx_obj]                    # (V, 25)
+    x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
+
+    def row4(c):
+        return xf[:, c] * x + xf[:, c + 1] * y + xf[:, c + 2] * z + xf[:, c + 3]
+
+    world_h = torch.stack([row4(0), row4(4), row4(8), row4(12)], dim=-1)
+    world = world_h[:, :3]
+    clip = world_h @ viewproj.T
+    nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
+
+    def nrow(c):
+        return xf[:, 16 + c] * nx + xf[:, 17 + c] * ny + xf[:, 18 + c] * nz
+
+    n_ws = torch.stack([nrow(0), nrow(3), nrow(6)], dim=-1)
+    n_len = torch.sqrt((n_ws * n_ws).sum(-1, keepdim=True))
+    return world, clip, n_ws / torch.clamp(n_len, min=1e-12)
+
+
+def assemble_and_clip(clip_v, world_v, normal_v, uv_v, indices, tri_obj):
+    """Gather triangle corners and near-clip with static expansion.
+    Returns flattened post-clip arrays of length N = 2 * T."""
+    vrec = torch.cat([clip_v, world_v, normal_v, uv_v], dim=-1)
+    crec = vrec[indices]                               # (T, 3, 12)
+    attrs = {"wp": crec[..., 4:7], "normal": crec[..., 7:10],
+             "uv": crec[..., 10:12]}
+    clip2, attrs2, valid2 = clip_triangles_near(attrs, crec[..., 0:4])
+    t = indices.shape[0]
+    flat = lambda x: x.reshape((2 * t,) + x.shape[2:])  # noqa: E731
+    obj2 = tri_obj[:, None].expand(t, 2).reshape(-1)
+    return (flat(clip2), {k: flat(v) for k, v in attrs2.items()},
+            valid2.reshape(-1), obj2)
+
+
+def build_setup(clip_tris, attrs, valid, obj_id, width: int, height: int,
+                cull_mode: int = CULL_BACK,
+                front_face_ccw: bool = True) -> TriSetup:
+    """Screen-space raster setup for post-clip triangles.
+    clip_tris: (N, 3, 4); attrs: dict wp/normal/uv (N, 3, A); valid: (N,)."""
+    w_clip = clip_tris[..., 3]
+    w_ok = torch.all(w_clip > 1e-8, dim=-1)
+    iw = torch.where(w_clip > 1e-8, 1.0 / torch.clamp(w_clip, min=1e-8),
+                     torch.zeros_like(w_clip))
+    ndc = clip_tris[..., :3] * iw[..., None]
+    finite = torch.isfinite(ndc).all(dim=-1).all(dim=-1)
+
+    # Screen mapping: bottom-left origin canvas.
+    sx = (ndc[..., 0] * 0.5 + 0.5) * (width - 1)
+    sy = (ndc[..., 1] * 0.5 + 0.5) * (height - 1)
+
+    e0x, e0y = sx[:, 1] - sx[:, 0], sy[:, 1] - sy[:, 0]
+    e1x, e1y = sx[:, 2] - sx[:, 0], sy[:, 2] - sy[:, 0]
+    area2 = e0x * e1y - e0y * e1x
+    nondegenerate = torch.abs(area2) >= 1e-10
+    is_front = (area2 > 0.0) == front_face_ccw
+    if cull_mode == CULL_BACK:
+        face_ok = is_front
+    elif cull_mode == CULL_FRONT:
+        face_ok = ~is_front
+    else:
+        face_ok = torch.ones_like(is_front)
+
+    # bc_i = cross(s_k - s_j, p - s_j) / area2 for (i, j, k) cyclic.
+    safe_area = torch.where(nondegenerate, area2, torch.ones_like(area2))
+    inv_area = torch.where(nondegenerate, 1.0 / safe_area,
+                           torch.zeros_like(area2))
+
+    def edge_coef(j, k):
+        a = (sy[:, j] - sy[:, k]) * inv_area
+        b = (sx[:, k] - sx[:, j]) * inv_area
+        c = (sx[:, j] * sy[:, k] - sx[:, k] * sy[:, j]) * inv_area
+        return a, b, c
+
+    a0, b0, c0 = edge_coef(1, 2)
+    a1, b1, c1 = edge_coef(2, 0)
+    a2, b2, c2 = edge_coef(0, 1)
+    coef = torch.stack([a0, b0, c0, a1, b1, c1, a2, b2, c2], dim=-1)
+
+    sx_min, sx_max = sx.min(dim=1).values, sx.max(dim=1).values
+    sy_min, sy_max = sy.min(dim=1).values, sy.max(dim=1).values
+    x0 = torch.clamp(torch.floor(sx_min), 0, width - 1).to(torch.int64)
+    x1 = torch.clamp(torch.ceil(sx_max), 0, width - 1).to(torch.int64)
+    y0 = torch.clamp(torch.floor(sy_min), 0, height - 1).to(torch.int64)
+    y1 = torch.clamp(torch.ceil(sy_max), 0, height - 1).to(torch.int64)
+    on_screen = ((sx_max >= 0.0) & (sx_min <= width - 1)
+                 & (sy_max >= 0.0) & (sy_min <= height - 1))
+    bbox = torch.stack([x0, y0, x1, y1], dim=-1)
+
+    ok = valid & w_ok & finite & nondegenerate & face_ok & on_screen
+    n = clip_tris.shape[0]
+    zero = lambda a: torch.zeros(  # noqa: E731
+        (n, 3, a), dtype=torch.float32, device=clip_tris.device)
+    return TriSetup(
+        coef=coef, iw=iw, ziw=ndc[..., 2] * iw, bbox=bbox, valid=ok,
+        obj_id=obj_id.to(torch.int64),
+        wp=attrs.get("wp", zero(0)), nw=attrs.get("normal", zero(0)),
+        uv=attrs.get("uv", zero(0)),
+    )
+
+
+def scene_setup(positions, normals, uvs, indices, vtx_obj, tri_obj, models,
+                normal_mats, viewproj, width: int, height: int,
+                cull_mode: int = CULL_BACK, front_face_ccw: bool = True,
+                obj_visible=None) -> TriSetup:
+    """Full geometry front-end: vertex stage + clip + setup.
+    obj_visible: optional (O,) bool mask folded into triangle validity."""
+    world, clip_v, n_ws = vertex_stage(
+        positions, normals, uvs, vtx_obj, models, normal_mats, viewproj)
+    clip_t, attrs, valid, obj2 = assemble_and_clip(
+        clip_v, world, n_ws, uvs, indices, tri_obj)
+    if obj_visible is not None:
+        valid = valid & obj_visible[obj2]
+    return build_setup(clip_t, attrs, valid, obj2, width, height, cull_mode,
+                       front_face_ccw)

@@ -1,0 +1,358 @@
+"""lsr_tpu_torch light binning, fused shading (kernel B2's plain path) and
+the per-pixel passes around it vs lsr_tpu (CPU).
+
+Every comparison feeds both packages the same inputs: lsr_tpu's own G-buffer
+of a small rendered scene (tests/torch_scenes.py), handed over as numpy.
+The JAX side runs shade_fused_pallas in Pallas interpret mode, as its own
+CPU tests do; the torch side runs the plain versions.  Each test states its
+tolerance; the residual differences are f32 rounding (XLA:CPU fuses
+multiply-adds into FMAs, torch does not).
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_scenes import jax_camera, jax_flagship_scene, to_torch, torch_setup
+
+W, H = 128, 96
+
+
+def _t(a):
+    a = np.asarray(a)
+    if a.dtype == np.int32:
+        a = a.astype(np.int64)
+    return torch.as_tensor(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """Scene state on both sides plus lsr_tpu's G-buffer (brute raster)."""
+    from lsr_tpu.raster.brute import rasterize_brute
+    from lsr_tpu.raster.interp import interpolate_gbuffer
+    from lsr_tpu.raster.setup import scene_setup
+
+    geom, objects, lights, ctx = jax_flagship_scene(n_lights=16, grid=2)
+    cam, ctx_t = jax_camera(0, ctx, W, H)
+    setup = scene_setup(geom.positions, geom.normals, geom.uvs, geom.indices,
+                        geom.vtx_obj, geom.tri_obj, objects.model,
+                        objects.normal_mat, cam.viewproj, W, H)
+    depth, tid = rasterize_brute(setup, W, H, cam.zn, cam.zf)
+    gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
+                             want_face_normal=False)
+    return dict(j=(geom, objects, lights, ctx, cam, ctx_t),
+                t=to_torch(geom, objects, lights, ctx, cam, ctx_t),
+                setup=setup, depth=depth, tid=tid, gb=gb)
+
+
+def _light_set(kind, seed=11):
+    """Spot+point (the flagship's types) or a mixed set with rect and tube
+    lights and non-unit attenuation powers; lsr_tpu LightsSoA."""
+    from lsr_tpu.lighting.light_types import LightSetBuilder
+
+    rng = np.random.default_rng(seed)
+    b = LightSetBuilder()
+    for i in range(12):
+        p = tuple(rng.uniform([-2.5, 0.0, -2.5], [2.5, 2.0, 2.5]).tolist())
+        c = tuple(rng.uniform(0.3, 1.0, 3).tolist())
+        if kind == "mixed" and i % 4 == 1:
+            b.rect_area(p, (0, -1, 0), color=c, intensity=1.5, range=4.0)
+        elif kind == "mixed" and i % 4 == 2:
+            b.tube_area(p, axis=(1, 0, 0), color=c, intensity=1.5, range=4.0,
+                        atten_power=1.5, atten_model=i % 3)
+        elif i % 2 == 0:
+            b.spot(p, (0, -1, 0), color=c, intensity=2.0, range=4.0)
+        else:
+            b.point(p, color=c, intensity=1.5, range=3.0)
+    return b.build()
+
+
+# ---------------------------------------------------------------------------
+# Light binning
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tiles,depth_range", [
+    ((16, 16, 128), False), ((128, 64, 256), False), ((128, 64, 256), True)])
+def test_cull_lights_tiled_matches_jax(scene, tiles, depth_range):
+    """Tile lists, counts and bin stats are the same integers."""
+    from lsr_tpu.lighting.light_culling import (
+        cull_lights_tiled as jcull, tile_depth_ranges_from_buffer as jtdr)
+
+    from lsr_tpu_torch.lighting.light_culling import (
+        cull_lights_tiled as tcull, tile_depth_ranges_from_buffer as ttdr)
+
+    tw, th, cap = tiles
+    _, _, jl, _, cam, _ = scene["j"]
+    _, _, tl, _, tcam, _ = scene["t"]
+    jd = jtdr(scene["depth"], cam.zn, cam.zf, W, H, tw, tile_h=th) \
+        if depth_range else None
+    td = ttdr(_t(scene["depth"]), tcam.zn, tcam.zf, W, H, tw, tile_h=th) \
+        if depth_range else None
+    if depth_range:
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    jlists, jcounts, jst = jcull(jl, cam.view, cam.proj, W, H, tile_size=tw,
+                                 tile_h=th, cap=cap, tile_depth_range=jd)
+    tlists, tcounts, tst = tcull(tl, tcam.view, tcam.proj, W, H, tile_size=tw,
+                                 tile_h=th, cap=cap, tile_depth_range=td)
+    np.testing.assert_array_equal(tlists.numpy(), np.asarray(jlists))
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
+    for k in ("max_count", "overflow_bins"):
+        assert int(tst[k]) == int(jst[k]), k
+
+
+def test_light_records_and_local_lights_match_jax(scene):
+    """pack_light_records exact; eval_local_lights (the per-light evaluator
+    of the non-fused path) within 1e-6 on every type."""
+    from lsr_tpu.lighting.light_runtime import (
+        eval_local_lights as jeval, pack_light_records as jpack,
+        unpack_light_records)
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.light_runtime import (
+        eval_local_lights as teval, pack_light_records as tpack)
+
+    jl = _light_set("mixed")
+    tl = convert.lights_soa(jl, "cpu")
+    jrec = np.asarray(jpack(jl))
+    np.testing.assert_array_equal(tpack(tl).numpy(), jrec)
+    gb = scene["gb"]
+    wp = np.asarray(gb.world_pos)[::8, ::8]
+    n = np.asarray(gb.normal_ws)[::8, ::8]
+    v = np.asarray(scene["j"][5].camera_pos)[None, None] - wp
+    v = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    cols = unpack_light_records(jnp.asarray(jrec))
+    jd, js = jeval(cols, jnp.asarray(wp), jnp.asarray(n), jnp.asarray(v))
+    tcols = {k: _t(np.asarray(c)) for k, c in cols.items()}
+    td, ts = teval(tcols, _t(wp), _t(n), _t(v))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Fused shading (kernel B2's plain path)
+# ---------------------------------------------------------------------------
+
+def _fused_inputs(scene):
+    """lsr_tpu's G-buffer with the scene's own materials (roughness >= 0.25)
+    and a seeded sun-visibility plane."""
+    gb = scene["gb"]
+    mat = np.asarray(gb.mat)
+    vis = np.random.default_rng(3).uniform(0.0, 1.0, (H, W)).astype(np.float32)
+    return (np.asarray(gb.world_pos), np.asarray(gb.normal_ws),
+            np.asarray(gb.covered), mat[..., 0:3], mat[..., 3], mat[..., 4],
+            vis)
+
+
+@pytest.mark.parametrize("model", ["pbr_mr", "blinn_phong"])
+@pytest.mark.parametrize("kind", ["spot_point", "mixed"])
+@pytest.mark.parametrize("sun", [False, True])
+def test_shade_fused_matches_jax(scene, model, kind, sun):
+    """Same G-buffer, lights and camera into lsr_tpu's shade_fused_pallas
+    (interpret mode, with its trace-time apow1 / light_kinds) and the port's
+    shade_fused.
+
+    Local lights alone (sun radiance 0): lit rgb within 1e-5.  With the sun
+    term: within 1e-5 + 5e-5 * |lit|.  Near the GGX highlight peak
+    dden = ndh^2 (a^4 - 1) + 1 cancels to ~a^4 (4e-3 at roughness 0.25), so
+    its rounding is amplified ~250x; XLA:CPU evaluates it as one FMA, torch
+    (and the CUDA kernel, built with -fmad=false) round the product first.
+    Blinn-Phong's pow(ndh, up to 128) amplifies ulps the same way."""
+    from lsr_tpu.lighting.shade_kernel import shade_fused_pallas
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+
+    jl = _light_set(kind)
+    tl = convert.lights_soa(jl, "cpu")
+    cam, tcam = scene["j"][4], scene["t"][4]
+    eye = np.asarray(scene["j"][5].camera_pos, np.float32)
+    sun_dir = np.asarray([0.35, -0.75, 0.45], np.float32)
+    rad = np.asarray([2.0, 1.92, 1.8] if sun else [0.0, 0.0, 0.0], np.float32)
+    ins = _fused_inputs(scene)
+    kinds = tuple(sorted(int(t) for t in np.unique(np.asarray(jl.type))))
+    fast = ("apow1",) if tl.apow1 else ()
+    jlit, jst = shade_fused_pallas(
+        *[jnp.asarray(a) for a in ins], jnp.asarray(eye),
+        jnp.asarray(sun_dir), jnp.asarray(rad), jl, cam.view, cam.proj, W, H,
+        tile_h=64, tile_w=128, cap=256, chunk=8, sun_model=model,
+        fastmath=fast, light_kinds=kinds)
+    tlit, tst = shade_fused(
+        *[_t(a) for a in ins], _t(eye), _t(sun_dir), _t(rad), tl, tcam.view,
+        tcam.proj, W, H, sun_model=model)
+    jlit = np.asarray(jlit)
+    np.testing.assert_allclose(tlit.numpy(), jlit, rtol=5e-5 if sun else 0,
+                               atol=1e-5)
+    assert int(tst["max_count"]) == int(jst["max_count"])
+    assert np.abs(jlit).max() > 0.2      # the lights do reach the pixels
+
+
+def test_shade_plain_light_kinds_bit_exact(scene):
+    """The plain version drops math for light types absent from
+    lights.kinds; that must be bit-exact against evaluating every type."""
+    import dataclasses
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+
+    tl = convert.lights_soa(_light_set("spot_point"), "cpu")
+    tcam = scene["t"][4]
+    args = [_t(a) for a in _fused_inputs(scene)] + [
+        _t(np.asarray([0.5, 2.5, -4.0], np.float32)),
+        _t(np.asarray([0.3, -0.7, 0.5], np.float32)),
+        _t(np.asarray([2.0, 2.0, 2.0], np.float32))]
+    a, _ = shade_fused(*args, tl, tcam.view, tcam.proj, W, H)
+    every = dataclasses.replace(tl, kinds=(0, 1, 2, 3, 4, 5))
+    b, _ = shade_fused(*args, every, tcam.view, tcam.proj, W, H)
+    assert torch.equal(a, b)
+
+
+def test_shade_fused_rejects_unported_options(scene):
+    """Local-shadow planes and clustered slices raise, never fall through."""
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+
+    tl = scene["t"][2]
+    tcam = scene["t"][4]
+    args = [_t(a) for a in _fused_inputs(scene)] + [
+        torch.zeros(3), torch.tensor([0.0, -1.0, 0.0]), torch.ones(3), tl,
+        tcam.view, tcam.proj, W, H]
+    with pytest.raises(NotImplementedError, match="local shadow"):
+        shade_fused(*args, local_vis_stack=torch.ones(H, W, 2))
+    with pytest.raises(NotImplementedError, match="clustered"):
+        shade_fused(*args, slices=4)
+
+
+# ---------------------------------------------------------------------------
+# G-buffer, materials, texture, ambient, post
+# ---------------------------------------------------------------------------
+
+def test_interpolate_gbuffer_matches_jax(scene):
+    """Same setup + visibility buffer: attributes within 2e-5 (world
+    positions ~1-10: f32 interpolation with FMA vs without), ids, coverage
+    and material records exact."""
+    from lsr_tpu_torch.raster.interp import interpolate_gbuffer
+
+    s = scene["setup"]
+    tsetup = torch_setup(s)
+    gb = interpolate_gbuffer(tsetup, _t(scene["depth"]), _t(scene["tid"]),
+                             materials=scene["t"][3].materials,
+                             want_face_normal=True)
+    from lsr_tpu.raster.interp import interpolate_gbuffer as jinterp
+
+    jgb = jinterp(s, scene["depth"], scene["tid"],
+                  materials=scene["j"][3].materials, want_face_normal=True)
+    for f in ("world_pos", "normal_ws", "uv", "bary", "face_normal",
+              "tangent"):
+        np.testing.assert_allclose(getattr(gb, f).numpy(),
+                                   np.asarray(getattr(jgb, f)), rtol=0,
+                                   atol=2e-5, err_msg=f)
+    for f in ("obj_id", "covered", "tri_id", "mat"):
+        np.testing.assert_array_equal(getattr(gb, f).numpy(),
+                                      np.asarray(getattr(jgb, f)), err_msg=f)
+
+
+def test_material_lookup_clamps_like_jax():
+    """Object ids past the end of the material table clamp to its last row
+    (lsr_tpu's XLA gather semantics, which the 26-object / 5-material
+    flagship scene relies on)."""
+    from lsr_tpu.shading.common import gather_materials as jgm
+    from lsr_tpu.shading.common import make_materials as jmm
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.shading.common import gather_materials as tgm
+
+    jm = jmm(base_color=[(0.1, 0.2, 0.3), (0.4, 0.5, 0.6), (0.7, 0.8, 0.9)],
+             metallic=[0.1, 0.2, 0.3], roughness=[0.4, 0.5, 0.6],
+             tex_id=[-1, 0, -1])
+    ids = np.array([[-1, 0, 1], [2, 3, 25]], np.int32)
+    want = jgm(jm, jnp.asarray(ids))
+    got = tgm(convert.materials_soa(jm, "cpu"), _t(ids))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_texture_and_ambient_match_jax(scene):
+    """Bilinear texture sampling (quads path) and the fake-IBL ambient within
+    1e-6 on the scene's G-buffer."""
+    from lsr_tpu.shading.common import eval_fake_ibl as jibl
+    from lsr_tpu.shading.common import sample_texture_bilinear as jtex
+
+    from lsr_tpu_torch.shading.common import eval_fake_ibl as tibl
+    from lsr_tpu_torch.shading.common import sample_texture_bilinear as ttex
+
+    jctx, tctx = scene["j"][3], scene["t"][3]
+    gb = scene["gb"]
+    rng = np.random.default_rng(4)
+    uv = rng.uniform(-3.0, 3.0, (H, W, 2)).astype(np.float32)
+    tex_id = rng.integers(-1, 1, (H, W)).astype(np.int32)
+    want = jtex(jctx.textures, jnp.asarray(tex_id), jnp.asarray(uv),
+                quads=jctx.texture_quads)
+    got = ttex(tctx.textures, _t(tex_id), _t(uv), quads=tctx.texture_quads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    n = np.asarray(gb.normal_ws)
+    v = rng.standard_normal((H, W, 3)).astype(np.float32)
+    alb = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    m, r, ao = (rng.uniform(0, 1, (H, W, 1)).astype(np.float32)
+                for _ in range(3))
+    want = jibl(*[jnp.asarray(a) for a in (n, v, alb, m, r, ao)])
+    got = tibl(*[_t(a) for a in (n, v, alb, m, r, ao)])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+def test_tonemap_and_fxaa_match_jax():
+    """Same HDR into both post chains (gradients and hard-edged discs):
+    tonemap within 1 LSB everywhere and exact on >= 99.9% of channels
+    (pow(c, 1/2.2) ulps can cross a rounding boundary); FXAA on the same LDR
+    within 1 LSB everywhere and exact on >= 99.9% of pixels (its luma is one
+    FMA chain under XLA:CPU, so a luma tie can break the other way)."""
+    from lsr_tpu.passes.post import fxaa_pass as jfx
+    from lsr_tpu.passes.tonemap import tonemap_pass as jtm
+
+    from lsr_tpu_torch.passes.post import fxaa_pass as tfx
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass as ttm
+
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    hdr = np.stack([xx / W * 2.0, yy / H * 1.5, 0.3 + 0.0 * xx], -1)
+    for cx, cy, r, c in ((40, 30, 18, (3.0, 0.2, 0.1)),
+                         (90, 60, 25, (0.1, 0.8, 2.5)),
+                         (70, 20, 9, (0.0, 0.0, 0.0))):
+        hdr[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = c
+    hdr = hdr.astype(np.float32)
+    jl = np.asarray(jtm(jnp.asarray(hdr))).astype(int)
+    tl = ttm(_t(hdr)).numpy().astype(int)
+    d = np.abs(jl - tl)
+    assert d.max() <= 1 and (d == 0).mean() >= 0.999, (d.max(), (d == 0).mean())
+    ldr = jl.astype(np.uint8)
+    ja = np.asarray(jfx(jnp.asarray(ldr))).astype(int)
+    ta = tfx(torch.as_tensor(ldr)).numpy().astype(int)
+    d = np.abs(ja - ta).max(-1)
+    assert (ja != jl).any(-1).mean() > 0.02     # FXAA is active on the edges
+    assert d.max() <= 1 and (d == 0).mean() >= 0.999, (d.max(), (d == 0).mean())
+
+
+def test_forward_plus_rejects_unported_options(scene):
+    """Branches the slice does not port raise NotImplementedError."""
+    import dataclasses
+
+    from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
+    from lsr_tpu_torch.raster.interp import GBuffer
+
+    _, _, tl, tctx, tcam, _ = scene["t"]
+    gb = GBuffer(**{f.name: None for f in dataclasses.fields(GBuffer)})
+    base = (gb, tctx, tl, tcam.view, tcam.proj, tcam.zn, tcam.zf, W, H)
+    for kw, msg in ((dict(use_kernel=False), "use_kernel"),
+                    (dict(mode="clustered"), "clustered"),
+                    (dict(env_probes=True), "env_probes"),
+                    (dict(local_shadows=object()), "local_shadows"),
+                    (dict(sun_model="toon"), "sun_model")):
+        with pytest.raises(NotImplementedError, match=msg):
+            shade_forward_plus(*base, **kw)
+    for ctx, msg in ((dataclasses.replace(tctx, surface_maps=True),
+                      "surface maps"),
+                     (dataclasses.replace(tctx, shadow=object()), "shadow")):
+        with pytest.raises(NotImplementedError, match=msg):
+            shade_forward_plus(gb, ctx, *base[2:])

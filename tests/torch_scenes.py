@@ -1,0 +1,139 @@
+"""Shared fixtures of the lsr_tpu_torch parity tests (tests/test_torch_*.py).
+
+Builds the procedural flagship stand-in (a grid of UV spheres + ground
+plane, bench-style lights, materials and checkerboard texture) with the JAX
+package, renders lsr_tpu's reference for the forward+ slice (no shadows, no
+scene culling), and hands the same scene state to lsr_tpu_torch through
+lsr_tpu_torch.convert.  Inputs come from numpy seeds only.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from lsr_tpu.core import math3d as m3
+from lsr_tpu.io.obj import make_plane, make_uv_sphere
+from lsr_tpu.lighting.light_types import LightSetBuilder
+from lsr_tpu.scene.scene import SceneBuilder, make_camera
+from lsr_tpu.shading.common import checkerboard_texture, make_materials
+from lsr_tpu.shading.models import make_shade_context
+from lsr_tpu_torch import convert
+
+EYE0 = (6.0, 6.5, -10.0)
+FOV = np.pi / 3.2
+
+# The test shapes are small, and under pytest-xdist several workers share the
+# host's cores with XLA's own thread pools: torch's spinning OpenMP workers
+# would then slow every process several-fold.  One intra-op thread is enough.
+torch.set_num_threads(1)
+
+
+def jax_flagship_scene(n_lights=256, seed=42, grid=5, rings=16, sectors=32):
+    """lsr_tpu twin of lsr_tpu_torch.frame.build_flagship_scene (same rng
+    draws in the same order).  Returns (geom, objects, lights, ctx)."""
+    rng = np.random.default_rng(seed)
+    sphere = make_uv_sphere(rings=rings, sectors=sectors)
+    sb = SceneBuilder()
+    for i in range(grid * grid):
+        x = (i % grid - grid // 2) * 2.4
+        z = (i // grid - grid // 2) * 2.4
+        rot = float(rng.uniform(0, 2 * np.pi))
+        sb.add(sphere, np.asarray(m3.translate([x, 0.0, z]) @ m3.rotate_y(rot)),
+               material=i % 4)
+    sb.add(make_plane(10.0, y=-1.0), material=4, casts_shadow=False)
+    geom, objects = sb.build()
+    lb = LightSetBuilder()
+    for _ in range(8):
+        x, z = float(rng.uniform(-5, 5)), float(rng.uniform(-5, 5))
+        color = tuple(rng.uniform(0.2, 1.0, 3).tolist())
+        lb.spot((x, 3.0, z), (0, -1, 0), color=color, intensity=2.4,
+                range=5.0, inner_angle=0.4, outer_angle=0.7)
+    for _ in range(2):
+        x, z = float(rng.uniform(-3, 3)), float(rng.uniform(-3, 3))
+        lb.point((x, 1.2, z), color=tuple(rng.uniform(0.2, 1.0, 3).tolist()),
+                 intensity=1.8, range=3.5)
+    for i in range(max(0, n_lights - 10)):
+        x = float(rng.uniform(-7, 7))
+        z = float(rng.uniform(-7, 7))
+        y = float(rng.uniform(0.2, 2.2))
+        color = tuple(rng.uniform(0.2, 1.0, 3).tolist())
+        if i % 4 == 0:
+            lb.spot((x, y + 1.0, z), (0, -1, 0), color=color, intensity=2.0,
+                    range=3.5, inner_angle=0.35, outer_angle=0.6)
+        else:
+            lb.point((x, y, z), color=color, intensity=1.5, range=2.5)
+    lights = lb.build()
+    mats = make_materials(
+        base_color=[(0.85, 0.5, 0.3), (0.4, 0.65, 0.85), (0.6, 0.8, 0.45),
+                    (0.9, 0.85, 0.5), (0.5, 0.5, 0.55)],
+        metallic=[0.05, 0.4, 0.0, 0.8, 0.0],
+        roughness=[0.4, 0.25, 0.7, 0.35, 0.9],
+        tex_id=[-1, -1, -1, -1, 0],
+    )
+    ctx = make_shade_context(
+        mats, light_dir_ws=(0.35, -0.75, 0.45), light_color=(1.0, 0.96, 0.9),
+        light_intensity=2.0, camera_pos=EYE0,
+        textures=jnp.asarray(checkerboard_texture(128))[None])
+    return geom, objects, lights, ctx
+
+
+def jax_camera(i, ctx, width, height):
+    """Frame i of the bench orbit (bench.py:346-354) on the JAX side."""
+    import dataclasses
+
+    ang = 0.02 * i
+    eye = (float(EYE0[0] * np.cos(ang) - EYE0[2] * np.sin(ang)),
+           float(EYE0[1]),
+           float(EYE0[0] * np.sin(ang) + EYE0[2] * np.cos(ang)))
+    cam = make_camera(width, height, eye, (0, 0, 0), fov=FOV)
+    return cam, dataclasses.replace(ctx, camera_pos=jnp.asarray(eye, jnp.float32))
+
+
+def to_torch(geom, objects, lights, ctx, cam, ctx_t, device="cpu"):
+    """The JAX scene state as lsr_tpu_torch dataclasses (ctx_t's camera_pos
+    replaces ctx's).  Returns (geom, objects, lights, ctx, cam, ctx_t)."""
+    import dataclasses
+
+    g, o, lt, _, c, cm = convert.from_numpy_state(
+        geom, objects, lights, ctx.materials, ctx, cam, device)
+    c_t = dataclasses.replace(c, camera_pos=torch.as_tensor(
+        np.array(ctx_t.camera_pos), device=device))
+    return g, o, lt, c, cm, c_t
+
+
+def jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, width, height):
+    """lsr_tpu's forward+ slice (bench.py:242-287 without shadows/culling):
+    setup -> rasterize_direct(spatial_sort) -> interp -> fused shade."""
+    from lsr_tpu.passes.forward_plus import shade_forward_plus
+    from lsr_tpu.raster.interp import interpolate_gbuffer
+    from lsr_tpu.raster.setup import scene_setup
+    from lsr_tpu.raster.tiled import rasterize_direct
+
+    setup = scene_setup(
+        geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
+        geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj,
+        width, height, obj_visible=objects.visible)
+    depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
+                                           cam.zf, spatial_sort=True)
+    gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
+                             want_face_normal=False)
+    hdr, stats = shade_forward_plus(
+        gb, ctx_t, lights, cam.view, cam.proj, cam.zn, cam.zf, width, height,
+        tile_size=16, cap=128, mode="tiled_depth_range", sun_model="pbr_mr")
+    return dict(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
+                hdr=hdr, stats=stats)
+
+
+def torch_setup(s):
+    """lsr_tpu's TriSetup as an lsr_tpu_torch TriSetup on the CPU."""
+    from lsr_tpu_torch.raster.setup import TriSetup
+
+    def t(name):
+        a = np.asarray(getattr(s, name))
+        return torch.as_tensor(a.astype(np.int64) if a.dtype == np.int32
+                               else np.array(a))
+
+    return TriSetup(**{f: t(f) for f in ("coef", "iw", "ziw", "bbox", "valid",
+                                         "obj_id", "wp", "nw", "uv")})
