@@ -21,6 +21,32 @@ first use, into build/kernels/), then:
    median ms per frame, the launch counts and the frame statistics, and
    writes out/torch_flagship.png.
 
+Then the high-poly path, on the 33x33 sphere field (1,115,136 triangles,
+lsr_tpu_torch.highpoly):
+
+5. Extra modes of B3 (rasterize_tiled) and B4 (rasterize_chunklist) at
+   480x270 on the compact setup of the same scene: each wrapper against its
+   plain version on the same lists, B3 at render_forward's 32x128 / chunk 8,
+   B4 in NDC01 depth only and on a y_offset half band.  Depth and tid bit
+   for bit.
+6. The raster at 1920x1080 on the compact setup: B3 at the pipeline's
+   64x128 / chunk 16 with the fitted cap, B3 with a cap below the largest
+   bin, and B4 at 128x128 / sub_h 32, each wrapper against its plain version
+   on the same lists, bit for bit.  Then B1 (unsorted), B3 and B4 against
+   each other: a pixel may differ only where a winner is "stray", a sliver
+   triangle whose f32 edge functions cover a pixel outside its bbox, which
+   each kernel's culling grain keeps or skips; everywhere else depth and
+   tid are equal bit for bit.  Times each kernel alone on prebuilt lists
+   and each wrapper (CUDA events).
+7. The high-poly forward+ frame (make_highpoly_frame) at 1920x1080, counts
+   reset: compact setup -> B3 -> interp -> B2 -> tonemap -> FXAA; no
+   triangle may be dropped.  Writes out/torch_highpoly.png.
+8. The bench's end-to-end step, compact setup + B4, counts reset: against
+   the chunk-list raster of the full setup, coverage and depth equal on
+   every pixel but stray sliver ones (as in phase 6).
+9. render_forward on the flagship scene (B1 route) and on the high-poly
+   scene (B3 route), counts reset before each.
+
 Any failed phase raises, so the script exits non-zero.  Its output ends with
 the card's name and power limit, one JSON line of per-kernel results and,
 last, {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -45,6 +71,9 @@ SEED = 42
 WARMUP, FRAMES = 3, 12
 SMALL_W, SMALL_H = 192, 108
 B2_TOL = 1e-4
+PLAIN_W, PLAIN_H = 480, 270        # B3 / B4 against their plain versions
+HP_GRID = 33
+HP_WARMUP, HP_FRAMES = 2, 5
 
 
 def log(msg):
@@ -249,6 +278,354 @@ def small_reference(dev):
           "small reference differs")
 
 
+def reset_counts():
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+    from lsr_tpu_torch.raster import tiled
+
+    for fn in (tiled.rasterize_direct, tiled.rasterize_tiled,
+               tiled.rasterize_chunklist, shade_fused):
+        fn.launches = 0
+
+
+def read_counts():
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+    from lsr_tpu_torch.raster import tiled
+
+    return {"direct_raster": tiled.rasterize_direct.launches,
+            "tiled_raster": tiled.rasterize_tiled.launches,
+            "chunklist_raster": tiled.rasterize_chunklist.launches,
+            "shade_fused": shade_fused.launches}
+
+
+def targets(w, h, dev):
+    from lsr_tpu_torch.raster.tiled import _targets
+
+    return _targets(None, None, h, w, dev)
+
+
+def stray(tid, bbox):
+    """(H, W) bool: the pixel's winner is a triangle whose bbox does not
+    hold the pixel.  The f32 edge functions of a sliver triangle can cover
+    such pixels; lsr_tpu's kernels, like the port's, evaluate a triangle
+    only where their own culling grain lets them, so different raster
+    routes keep different ones of these pixels (ROADMAP C8)."""
+    h, w = tid.shape
+    b = bbox[torch.clamp(tid, min=0).to(torch.int64)]
+    x = torch.arange(w, device=tid.device)[None, :]
+    y = torch.arange(h, device=tid.device)[:, None]
+    inside = ((b[..., 0] <= x) & (x <= b[..., 2]) & (b[..., 1] <= y)
+              & (y <= b[..., 3]))
+    return (tid >= 0) & ~inside
+
+
+def same_but_strays(name, d_a, t_a, bbox_a, d_b, t_b, bbox_b, same_ids):
+    """Two rasters of the same triangles: every pixel where they differ
+    must have a stray winner on one side (see stray); on all other pixels
+    coverage (tids when same_ids) and depth must be equal bit for bit."""
+    s = stray(t_a, bbox_a) | stray(t_b, bbox_b)
+    diff = (t_a != t_b) if same_ids else ((t_a >= 0) != (t_b >= 0))
+    diff |= d_a != d_b
+    n_diff, n_other = int(diff.sum()), int((diff & ~s).sum())
+    log(f"{name}: {n_diff} px differ, all but {n_other} with a stray sliver "
+        f"winner ({int(s.sum())} stray px in either); max |depth diff| "
+        f"{float((d_a - d_b).abs().max())}, off the stray px "
+        f"{float((d_a - d_b).abs()[~s].max())}")
+    check(n_other == 0, f"{name}: {n_other} px differ without a stray "
+          "winner")
+    return n_diff
+
+
+def _vs_plain(name, kern, plain, track=True):
+    """Run a wrapper on the card, then its plain version on the same inputs;
+    depth (and tid when tracked) must be equal bit for bit.  Returns (max
+    abs depth error, plain ms)."""
+    dk, tk, extra = kern()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    dp, tp = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_start) * 1e3
+    depth_mis = int((dk != dp).sum())
+    tid_mis = int((tk != tp).sum()) if track else 0
+    err = float((dk - dp).abs().max())
+    log(f"{name} [{extra}]: depth mismatches {depth_mis}, max abs {err}, "
+        f"tid mismatches {tid_mis} of {int((tp >= 0).sum())} covered; plain "
+        f"{plain_ms:.1f} ms")
+    check(depth_mis == 0 and tid_mis == 0, f"{name} differs from plain")
+    return err, plain_ms
+
+
+def _b3_vs_plain(name, setup, w, h, zn, zf, tile_h, chunk, cap, fit_cap,
+                 d0, t0):
+    from lsr_tpu_torch.raster import tiled
+
+    def kern():
+        d, t, max_bin = tiled.rasterize_tiled(
+            setup, w, h, zn, zf, tile_h=tile_h, cap=cap, chunk=chunk,
+            fit_cap=fit_cap)
+        used = tiled.fitted_cap(cap, int(max_bin)) if fit_cap else cap
+        return d, t, f"max_bin {int(max_bin)}, cap {used}"
+
+    def plain():
+        rec, lists, n_walk, _ = tiled.tiled_inputs(
+            setup, w, h, tile_h, 128, cap, chunk, fit_cap=fit_cap)
+        return tiled.rasterize_tiled_plain(rec, lists, n_walk, d0, t0, w, h,
+                                           zn, zf, tile_h=tile_h, chunk=chunk)
+
+    return _vs_plain(f"B3 {name}", kern, plain)
+
+
+def _b4_vs_plain(name, setup, w, h, zn, zf, mode, track, y_off, full_h):
+    from lsr_tpu_torch.raster import tiled
+
+    hb = h - y_off
+    db, tb = targets(w, hb, setup.coef.device)
+
+    def kern():
+        d, t, mc = tiled.rasterize_chunklist(
+            setup, w, hb, zn, zf, depth_mode=mode, y_offset=y_off,
+            full_height=full_h, track_ids=track)
+        return d, t, f"max chunks/tile {int(mc)}"
+
+    def plain():
+        rec, cl, cc, _ = tiled.chunklist_inputs(setup, w, hb, 128, 128, 16,
+                                                None, 32, y_off)
+        return tiled.rasterize_chunklist_plain(
+            rec, cl, cc, db, tb, w, hb, zn, zf, mode, y_offset=y_off,
+            full_height=full_h, track_ids=track)
+
+    return _vs_plain(f"B4 {name}", kern, plain, track)
+
+
+def b3_b4_small_phase(geom, objects, ctx, dev):
+    """B3 and B4 wrappers against their plain versions on the same lists in
+    the modes the 1080p main path does not run, at 480x270."""
+    from lsr_tpu_torch.highpoly import compact_setup, highpoly_camera
+    from lsr_tpu_torch.raster.setup import DEPTH_NDC01, DEPTH_VIEWZ
+
+    w, h = PLAIN_W, PLAIN_H
+    cam, _ = highpoly_camera(ctx, w, h, HP_GRID, device=dev)
+    setup, cst = compact_setup(geom, objects, cam, w, h)
+    check(not bool(cst.overflow), "480x270 compact setup overflowed")
+    log(f"B3/B4 vs plain, extra modes at {w}x{h} (the same compact setup "
+        f"geometry, {setup.count} rows): n_direct {int(cst.n_direct)}, "
+        f"n_clip {int(cst.n_clip)}")
+    d0, t0 = targets(w, h, dev)
+    _b3_vs_plain("render_forward 32x128 chunk 8", setup, w, h, cam.zn,
+                 cam.zf, 32, 8, 1024, True, d0, t0)
+    _b4_vs_plain("ndc01, depth only", setup, w, h, cam.zn, cam.zf,
+                 DEPTH_NDC01, False, 0, h)
+    _b4_vs_plain("viewz, ids, y_offset half band", setup, w, h, cam.zn,
+                 cam.zf, DEPTH_VIEWZ, True, h // 2, h)
+
+
+def raster_1080p_phase(geom, objects, cam, dev):
+    """On the 1080p compact setup: B3 and B4 wrappers against their plain
+    versions on the same lists at the main path's shapes (and B3 under a
+    cap that truncates); B1 (unsorted), B3 and B4 against each other;
+    kernel and wrapper times.  Returns {kernel: {max_abs_err, plain_ms, ms,
+    kernel_ms}}."""
+    from lsr_tpu_torch.highpoly import compact_setup
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.setup import DEPTH_VIEWZ
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    setup, cst = compact_setup(geom, objects, cam, WIDTH, HEIGHT)
+    check(not bool(cst.overflow), "1080p compact setup overflowed")
+    zn, zf = cam.zn, cam.zf
+    d0, t0 = targets(WIDTH, HEIGHT, dev)
+    out = {}
+    err, plain_ms = _b3_vs_plain("_raster 64x128 chunk 16, fitted cap",
+                                 setup, WIDTH, HEIGHT, zn, zf, 64, 16, 1024,
+                                 True, d0, t0)
+    out["tiled_raster"] = {"max_abs_err": err, "plain_ms": plain_ms}
+    _, _, max_bin = tiled.bin_triangles(setup, WIDTH, HEIGHT, 64, 128, 1)
+    cap = tiled.fitted_cap(1024, int(max_bin))
+    _b3_vs_plain("64x128 chunk 16, cap below max_bin", setup, WIDTH, HEIGHT,
+                 zn, zf, 64, 16, cap // 2, False, d0, t0)
+    err, plain_ms = _b4_vs_plain("viewz, ids", setup, WIDTH, HEIGHT, zn, zf,
+                                 DEPTH_VIEWZ, True, 0, HEIGHT)
+    out["chunklist_raster"] = {"max_abs_err": err, "plain_ms": plain_ms}
+
+    # B1, B3 and B4 apply the same first-submitted rule over the same rows,
+    # but each evaluates a triangle only where its own culling grain lets
+    # it (B1 16x16 blocks, B3 64x128 tiles, B4 tile row bands): they may
+    # differ only on stray sliver pixels.
+    runs = {
+        "direct_raster": lambda: tiled.rasterize_direct(
+            setup, WIDTH, HEIGHT, zn, zf),
+        "tiled_raster": lambda: tiled.rasterize_tiled(
+            setup, WIDTH, HEIGHT, zn, zf, tile_h=64, cap=1024, chunk=16,
+            fit_cap=True),
+        "chunklist_raster": lambda: tiled.rasterize_chunklist(
+            setup, WIDTH, HEIGHT, zn, zf),
+    }
+    res = {k: fn() for k, fn in runs.items()}
+    torch.cuda.synchronize()
+    d1, t1, max_sup = res["direct_raster"]
+    log(f"cross-kernel 1080p: {int((t1 >= 0).sum())} px covered by B1")
+    for k in ("tiled_raster", "chunklist_raster"):
+        same_but_strays(f"cross-kernel 1080p, {k} vs direct_raster",
+                        res[k][0], res[k][1], setup.bbox, d1, t1, setup.bbox,
+                        True)
+    max_cnt = int(res["chunklist_raster"][2])
+    log(f"1080p compact setup: {setup.count} rows ({int(setup.valid.sum())} "
+        f"valid, n_direct {int(cst.n_direct)} / cap {cst.cap_direct}, n_clip "
+        f"{int(cst.n_clip)} / cap {cst.cap_clip}); max_bin {int(max_bin)}, "
+        f"cap used {cap}, max_chunks_per_tile {max_cnt}, "
+        f"max_supers_per_tile {int(max_sup)}")
+    del res
+
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rec, ss, n_pad = tiled.pack_direct_records(setup, False)
+    cbb = tiled._chunk_bboxes(ss, n_pad, 16)
+    sl, scnt, _ = tiled._super_lists(cbb, 16, 15, 9, 128, 128)
+    _, lists, n_walk, _ = tiled.tiled_inputs(setup, WIDTH, HEIGHT, 64, 128,
+                                             1024, 16, fit_cap=True)
+    _, cl, cc, _ = tiled.chunklist_inputs(setup, WIDTH, HEIGHT, 128, 128, 16,
+                                          None, 32)
+    kerns = {
+        "direct_raster": lambda: tiled._direct_launch(
+            lib, rec, cbb, sl, scnt, d0, t0, WIDTH, HEIGHT, zn, zf, 0, True,
+            False, stream),
+        "tiled_raster": lambda: tiled._tiled_launch(
+            lib, rec, lists, n_walk, d0, t0, WIDTH, HEIGHT, zn, zf, 0, 64,
+            128, 0, HEIGHT, stream),
+        "chunklist_raster": lambda: tiled._chunklist_launch(
+            lib, rec, cl, cc, d0, t0, WIDTH, HEIGHT, zn, zf, 0, 128, 128, 16,
+            32, 0, HEIGHT, True, stream),
+    }
+    for k in runs:
+        kerns[k]()
+        kernel_ms = cuda_ms(kerns[k], 5)
+        runs[k]()
+        ms = cuda_ms(runs[k], 5)
+        out.setdefault(k, {}).update(ms=ms, kernel_ms=kernel_ms)
+        log(f"{k} on the 1080p compact setup: wrapper {ms:.3f} ms, kernel "
+            f"alone {kernel_ms:.3f} ms")
+    return out
+
+
+def highpoly_frame_phase(geom, objects, lights, ctx, dev):
+    """The main path of the high-poly slice; returns (launches, median ms)."""
+    from lsr_tpu_torch.highpoly import (
+        highpoly_camera, highpoly_frame_params, make_highpoly_frame)
+    from lsr_tpu_torch.io.png import write_png
+
+    cam, ctx_t = highpoly_camera(ctx, WIDTH, HEIGHT, HP_GRID, device=dev)
+    fp = highpoly_frame_params(WIDTH, HEIGHT)
+    frame = make_highpoly_frame(geom, objects, lights, ctx, fp)
+    reset_counts()
+    ms = []
+    for _ in range(HP_WARMUP + HP_FRAMES):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ldr, st = frame(cam, ctx_t)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    launches = read_counts()
+    rs = st["raster_stats"]
+    n_valid = int(rs["tri_after_clip"])
+    log(f"high-poly frame {WIDTH}x{HEIGHT}: {HP_FRAMES} frames after "
+        f"{HP_WARMUP} warm-up, median {statistics.median(ms[HP_WARMUP:]):.3f} "
+        f"ms/frame device events (all {[round(m, 3) for m in ms]}); "
+        f"launches {launches}; tri_input {rs['tri_input']}, CompactStats "
+        f"n_direct {int(rs['compact_n_direct'])}, n_clip "
+        f"{int(rs['compact_n_clip'])}, overflow "
+        f"{bool(rs['compact_overflow'])}; compact_fallback "
+        f"{rs['compact_fallback']}, raster_max_bin "
+        f"{int(rs['raster_max_bin'])}, raster_cap_used "
+        f"{rs['raster_cap_used']}, n_valid {n_valid}")
+    check(launches["tiled_raster"] > 0 and launches["shade_fused"] > 0,
+          f"a kernel of the high-poly path never launched: {launches}")
+    check(rs["raster_cap_used"] >= int(rs["raster_max_bin"]),
+          "the high-poly frame dropped triangles past the list cap")
+    check(not bool(rs["compact_overflow"]) or rs["compact_fallback"],
+          "compact overflow left unhandled")
+    check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8,
+          f"bad high-poly frame {tuple(ldr.shape)} {ldr.dtype}")
+    lit = float((ldr.int().sum(-1) > 0).float().mean())
+    check(n_valid > 0 and lit > 0.5 and bool(torch.isfinite(st["hdr"]).all()),
+          "high-poly frame is empty or not finite")
+    write_png(os.path.join("out", "torch_highpoly.png"),
+              ldr.cpu().numpy()[::-1])
+    return launches, statistics.median(ms[HP_WARMUP:])
+
+
+def e2e_phase(geom, objects, ctx, dev):
+    """Compact setup + chunk-list raster (bench_highpoly.py:156-166)."""
+    from lsr_tpu_torch.highpoly import e2e_compact_chunklist, highpoly_camera
+    from lsr_tpu_torch.raster.setup import scene_setup
+    from lsr_tpu_torch.raster.tiled import rasterize_chunklist
+
+    cam, _ = highpoly_camera(ctx, WIDTH, HEIGHT, HP_GRID, device=dev)
+    run = lambda: e2e_compact_chunklist(  # noqa: E731
+        geom, objects, cam, WIDTH, HEIGHT)
+    reset_counts()
+    d_e, t_e, max_cnt, setup, cst = run()
+    launches = read_counts()
+    check(launches["chunklist_raster"] > 0,
+          f"the end-to-end step never launched B4: {launches}")
+    check(not bool(cst.overflow), "end-to-end compact setup overflowed")
+    ms = cuda_ms(run, 5)
+    full = scene_setup(geom.positions, geom.normals, geom.uvs, geom.indices,
+                       geom.vtx_obj, geom.tri_obj, objects.model,
+                       objects.normal_mat, cam.viewproj, WIDTH, HEIGHT)
+    d_f, t_f, _ = rasterize_chunklist(full, WIDTH, HEIGHT, cam.zn, cam.zf)
+    cov_mis = int(((t_e >= 0) != (t_f >= 0)).sum())
+    log(f"end to end (compact setup + chunklist) {WIDTH}x{HEIGHT}: "
+        f"{ms:.3f} ms (CUDA events, mean of 5); launches {launches}; "
+        f"max_chunks_per_tile {int(max_cnt)}, rows {setup.count} vs "
+        f"{full.count} full; vs full-setup chunklist: coverage mismatches "
+        f"{cov_mis}")
+    # The two setups number their rows differently: coverage, not tids.
+    same_but_strays("compact vs full setup, chunklist", d_e, t_e,
+                    setup.bbox, d_f, t_f, full.bbox, False)
+    return launches, ms
+
+
+def render_forward_phase(dev):
+    """render_forward through both raster routes, counts reset before each."""
+    from lsr_tpu_torch.frame import build_flagship_scene, flagship_camera
+    from lsr_tpu_torch.highpoly import build_highpoly_scene, highpoly_camera
+    from lsr_tpu_torch.render import render_forward
+
+    cols = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
+    for name, scene, camera, kernel in (
+            ("flagship", lambda: build_flagship_scene(N_LIGHTS, SEED,
+                                                      device=dev),
+             lambda ctx: flagship_camera(0, ctx, WIDTH, HEIGHT, device=dev),
+             "direct_raster"),
+            ("high-poly", lambda: build_highpoly_scene(HP_GRID, device=dev),
+             lambda ctx: highpoly_camera(ctx, WIDTH, HEIGHT, HP_GRID,
+                                         device=dev),
+             "tiled_raster")):
+        geom, objects, _, ctx = scene()
+        cam, ctx_t = camera(ctx)
+        batch = {k: getattr(geom, k) for k in cols}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ldr, gb = render_forward(batch, objects.model, objects.normal_mat,
+                                 cam.viewproj, cam.zn, cam.zf, ctx_t, WIDTH,
+                                 HEIGHT, model_name="pbr_mr")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        covered = int((gb.tri_id >= 0).sum())
+        log(f"render_forward [{name}]: {wall:.1f} ms wall (first call), "
+            f"launches {launches}, covered {covered} px")
+        check(launches[kernel] > 0, f"render_forward {name} never launched "
+              f"{kernel}: {launches}")
+        check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8
+              and covered > 0 and int(ldr.int().sum()) > 0,
+              f"render_forward {name}: empty frame")
+        del geom, objects, gb, ldr
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -261,9 +638,8 @@ def main():
     from lsr_tpu_torch.frame import (
         build_flagship_scene, flagship_camera, flagship_stages,
         make_flagship_frame)
+    from lsr_tpu_torch.highpoly import build_highpoly_scene, highpoly_camera
     from lsr_tpu_torch.io.png import write_png
-    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
-    from lsr_tpu_torch.raster.tiled import rasterize_direct
     from lsr_tpu_torch.utils.cuda_build import build_info, load_kernels
 
     dev = torch.device("cuda", 0)
@@ -271,7 +647,9 @@ def main():
     log(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     load_kernels()
-    log(f"# kernels built in {build_info['seconds']:.1f} s: {build_info['path']}")
+    log(f"# kernel library {'built' if build_info['built'] else 'reused'} "
+        f"in {build_info['seconds']:.1f} s (one nvcc per source, in "
+        f"parallel, then a link): {build_info['path']}")
     for line in build_info["log"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"#   ptxas: {line.strip()}")
@@ -292,8 +670,7 @@ def main():
     small_reference(dev)
 
     # Main path: counts from zero, a few frames through the entry point.
-    rasterize_direct.launches = 0
-    shade_fused.launches = 0
+    reset_counts()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in cams]
     wall = []
@@ -312,8 +689,7 @@ def main():
         out = frame(cam, ctx_i)
     torch.cuda.synchronize()
     pipelined = (time.perf_counter() - t0) * 1e3 / FRAMES
-    launches = {"direct_raster": rasterize_direct.launches,
-                "shade_fused": shade_fused.launches}
+    launches = read_counts()
     ms = [e0.elapsed_time(e1) for e0, e1 in ev][WARMUP:]
     ldr, n_valid, max_sup, max_lights, overflow = out
     check(launches["direct_raster"] > 0 and launches["shade_fused"] > 0,
@@ -333,7 +709,28 @@ def main():
     os.makedirs("out", exist_ok=True)
     write_png(os.path.join("out", "torch_flagship.png"),
               ldr.cpu().numpy()[::-1])   # canvas row 0 is the bottom row
+    del geom, objects, frame, st, out, ldr
 
+    # The high-poly path.
+    t_scene = time.perf_counter()
+    hp_geom, hp_objects, hp_lights, hp_ctx = build_highpoly_scene(
+        HP_GRID, device=dev)
+    log(f"# high-poly scene: {hp_geom.indices.shape[0]} triangles, "
+        f"{hp_objects.model.shape[0]} objects, built in "
+        f"{time.perf_counter() - t_scene:.1f} s")
+    b3_b4_small_phase(hp_geom, hp_objects, hp_ctx, dev)
+    hp_cam, _ = highpoly_camera(hp_ctx, WIDTH, HEIGHT, HP_GRID, device=dev)
+    r1080 = raster_1080p_phase(hp_geom, hp_objects, hp_cam, dev)
+    hp_launches, hp_ms = highpoly_frame_phase(hp_geom, hp_objects, hp_lights,
+                                              hp_ctx, dev)
+    e2e_launches, e2e_ms = e2e_phase(hp_geom, hp_objects, hp_ctx, dev)
+    del hp_geom, hp_objects
+    render_forward_phase(dev)
+    log(f"summary: flagship frame {statistics.median(ms):.3f} ms, high-poly "
+        f"frame {hp_ms:.3f} ms, end to end compact + chunklist {e2e_ms:.3f} "
+        f"ms ({card})")
+
+    at_1080p = f"{WIDTH}x{HEIGHT} high-poly compact setup"
     kernels = [
         {"name": "direct_raster", "route": "cuda",
          "source": "lsr_tpu_torch/csrc/direct_raster.cu",
@@ -347,6 +744,22 @@ def main():
          "launches": launches["shade_fused"],
          "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
          "plain_ms": b2["plain_ms"]},
+        {"name": "tiled_raster", "route": "cuda",
+         "source": "lsr_tpu_torch/csrc/tiled_raster.cu",
+         "replaces": "lsr_tpu/raster/tiled.py:125",
+         "launches": hp_launches["tiled_raster"],
+         "max_abs_err": r1080["tiled_raster"]["max_abs_err"],
+         "ms": r1080["tiled_raster"]["ms"],
+         "kernel_ms": r1080["tiled_raster"]["kernel_ms"],
+         "plain_ms": r1080["tiled_raster"]["plain_ms"], "at": at_1080p},
+        {"name": "chunklist_raster", "route": "cuda",
+         "source": "lsr_tpu_torch/csrc/chunklist_raster.cu",
+         "replaces": "lsr_tpu/raster/tiled.py:697",
+         "launches": e2e_launches["chunklist_raster"],
+         "max_abs_err": r1080["chunklist_raster"]["max_abs_err"],
+         "ms": r1080["chunklist_raster"]["ms"],
+         "kernel_ms": r1080["chunklist_raster"]["kernel_ms"],
+         "plain_ms": r1080["chunklist_raster"]["plain_ms"], "at": at_1080p},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,15 +3,22 @@
 from_numpy_state reads every field through np.asarray(getattr(x, name)), so
 it takes lsr_tpu's registered dataclasses (or anything with the same field
 names) without importing jax.  The parity tests use it so both packages
-render exactly the same geometry, lights, materials, texture and camera.
+render exactly the same geometry, lights, materials, texture and camera;
+frame_params, compact_stats and batch carry a FrameParams, a CompactStats
+and a concat_scene batch the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import numpy as np
 import torch
 
+from lsr_tpu_torch.core.frame import FrameParams
 from lsr_tpu_torch.lighting.light_types import COLUMNS, LightsSoA, lights_from_numpy
+from lsr_tpu_torch.raster.setup import CompactStats
 from lsr_tpu_torch.scene.scene import (
     CameraState,
     GeometryBatch,
@@ -82,6 +89,43 @@ def camera_state(camera, device) -> CameraState:
         zn=float(np.float32(_np(camera, "zn"))),
         zf=float(np.float32(_np(camera, "zf"))),
     )
+
+
+def batch(b: dict, device) -> dict:
+    """A concat_scene batch (dict of arrays) as tensors on `device`, with
+    the integer columns as int64 (render_forward's input)."""
+    return {k: _tensor(np.asarray(v), device) for k, v in b.items()}
+
+
+def compact_stats(stats) -> CompactStats:
+    """lsr_tpu's CompactStats as this package's (CPU tensors)."""
+    t = lambda k: torch.as_tensor(np.array(_np(stats, k)))  # noqa: E731
+    return CompactStats(n_direct=t("n_direct").to(torch.int64),
+                        n_clip=t("n_clip").to(torch.int64),
+                        overflow=t("overflow"),
+                        cap_direct=int(stats.cap_direct),
+                        cap_clip=int(stats.cap_clip))
+
+
+def _dataclass_like(cls, src):
+    """An instance of dataclass `cls` with every field read from `src` by
+    name: nested dataclasses recurse, enums convert by value."""
+    default = cls()
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v, d = getattr(src, f.name), getattr(default, f.name)
+        if dataclasses.is_dataclass(d):
+            v = _dataclass_like(type(d), v)
+        elif isinstance(d, enum.Enum):
+            v = type(d)(v.value)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def frame_params(fp) -> FrameParams:
+    """lsr_tpu's FrameParams as this package's: the fields the port has,
+    read by name (the blocks of unported passes are left behind)."""
+    return _dataclass_like(FrameParams, fp)
 
 
 def from_numpy_state(geom, objects, lights, materials, ctx, camera, device):

@@ -1,0 +1,115 @@
+"""FrameParams: the per-frame configuration plane (port of
+lsr_tpu/core/frame.py).
+
+Only the blocks that the ported passes read are here: the raster route
+(raster_*, use_tiled_raster, compact_*), the fused forward+ lighting
+(technique, shading_model, shadow.sun_vis_scale), tonemap, FXAA and the
+background.  The feature toggles of passes not ported yet are kept so that
+configurations carry over; a pass that would need one raises
+NotImplementedError naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class TechniqueMode(enum.IntFlag):
+    """Rendering technique bitmask (technique_mode.hpp:19-61)."""
+
+    NONE = 0
+    FORWARD = 1
+    FORWARD_PLUS = 2
+    DEFERRED = 4
+    TILED_DEFERRED = 8
+    CLUSTERED_FORWARD = 16
+    ALL = 31
+
+
+class DebugViewMode(enum.Enum):
+    NONE = "none"
+    ALBEDO = "albedo"
+    NORMAL = "normal"
+    DEPTH = "depth"
+
+
+class LightCullingMode(enum.Enum):
+    NONE = "none"
+    TILED = "tiled"
+    TILED_DEPTH_RANGE = "tiled_depth_range"
+    CLUSTERED = "clustered"
+
+
+@dataclasses.dataclass
+class TonemapParams:
+    exposure: float = 1.0
+    gamma: float = 2.2
+
+
+@dataclasses.dataclass
+class ShadowPassParams:
+    map_size: int = 2048
+    bias_const: float = 0.0008
+    bias_slope: float = 0.0015
+    pcf_radius: int = 2
+    pcf_step: int = 1
+    strength: float = 1.0
+    filter_mode: str = "pcf"
+    sun_vis_scale: int = 1
+
+
+@dataclasses.dataclass
+class PassParamBlocks:
+    tonemap: TonemapParams = dataclasses.field(default_factory=TonemapParams)
+    shadow: ShadowPassParams = dataclasses.field(
+        default_factory=ShadowPassParams)
+
+
+@dataclasses.dataclass
+class TechniqueParams:
+    mode: TechniqueMode = TechniqueMode.FORWARD
+    depth_prepass: bool = False
+    light_culling: LightCullingMode = LightCullingMode.NONE
+    tile_size: int = 16
+    max_lights_per_tile: int = 128
+    cluster_slices: int = 16
+
+
+@dataclasses.dataclass
+class FrameParams:
+    width: int = 1280
+    height: int = 720
+    dt: float = 1.0 / 60.0
+    time: float = 0.0
+
+    enable_shadows: bool = True
+    enable_motion_vectors: bool = False
+    enable_motion_blur: bool = False
+    enable_light_shafts: bool = False
+    enable_dof: bool = False
+    enable_fxaa: bool = False
+    enable_taa: bool = False
+    enable_bloom: bool = False
+    enable_ibl: bool = False
+
+    debug_view: DebugViewMode = DebugViewMode.NONE
+    shading_model: str = "pbr_mr"
+    cull_mode: int = 1  # CULL_BACK
+
+    pass_params: PassParamBlocks = dataclasses.field(
+        default_factory=PassParamBlocks)
+    technique: TechniqueParams = dataclasses.field(
+        default_factory=TechniqueParams)
+
+    # Raster route: the binned kernel's tile / list cap / chunk, and the
+    # density switch to the compact geometry front-end.
+    raster_tile_h: int = 64
+    raster_tile_w: int = 128
+    raster_cap: int = 1024
+    raster_chunk: int = 16
+    use_tiled_raster: bool = True
+    compact_setup_threshold: int = 300_000
+    compact_cap_fraction: float = 0.62
+
+    background: tuple = (0.04, 0.06, 0.1)

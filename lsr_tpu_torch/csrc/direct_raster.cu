@@ -19,13 +19,15 @@
 // share (a broadcast from L1).  Each thread owns its pixel, so the resolve is
 // a sequential compare in registers: no atomics, no shared memory.
 //
-// Numerics: built with -fmad=false and written with __fmul_rn/__fadd_rn/
-// __fdiv_rn in the operation order of lsr_tpu's kernel (tiled.py:374-391), so
-// coverage, depth and ids match the plain PyTorch version (rasterize_brute)
-// bit for bit.
+// Numerics: the per-(triangle, pixel) arithmetic is lsr::tri_depth
+// (raster_common.cuh), in the operation order of lsr_tpu's kernel
+// (tiled.py:374-391), so coverage, depth and ids match the plain PyTorch
+// version (rasterize_brute) bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "raster_common.cuh"
 
 namespace {
 
@@ -33,10 +35,6 @@ constexpr int kTile = 128;   // screen tile of the super lists
 constexpr int kBlock = 16;   // pixel block edge (16x16 threads)
 constexpr int kChunk = 16;   // triangles per chunk
 constexpr int kChunksPerSuper = 16;  // 256-triangle supers
-
-__device__ __forceinline__ float clamp01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
-}
 
 __global__ void __launch_bounds__(kBlock * kBlock)
 direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
@@ -82,34 +80,12 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
       const float4 bb = chunk_bb[c];
       if (!(bb.x <= bx1 && bb.z >= bx0 && bb.y <= by1 && bb.w >= by0)) continue;
       for (int k = 0; k < kChunk; ++k) {
-        const float4* r = rec + (size_t)(c * kChunk + k) * 4;
-        const float4 r0 = __ldg(r + 0);  // A0 B0 C0 A1
-        const float4 r1 = __ldg(r + 1);  // B1 C1 A2 B2
-        const float4 r2 = __ldg(r + 2);  // C2 iw0 iw1 iw2
+        const float4* r = rec + (size_t)(c * kChunk + k) * lsr::kRecVec;
         const float4 r3 = __ldg(r + 3);  // ziw0 ziw1 ziw2 tid
-        const float bc0 = __fadd_rn(__fadd_rn(__fmul_rn(r0.x, px),
-                                              __fmul_rn(r0.y, py)), r0.z);
-        const float bc1 = __fadd_rn(__fadd_rn(__fmul_rn(r0.w, px),
-                                              __fmul_rn(r1.x, py)), r1.y);
-        const float bc2 = __fadd_rn(__fadd_rn(__fmul_rn(r1.z, px),
-                                              __fmul_rn(r1.w, py)), r2.x);
-        if (!(bc0 >= 0.0f && bc1 >= 0.0f && bc2 >= 0.0f && r3.w >= 0.0f))
-          continue;
-        const float denom = __fadd_rn(__fadd_rn(__fmul_rn(bc0, r2.y),
-                                                __fmul_rn(bc1, r2.z)),
-                                      __fmul_rn(bc2, r2.w));
-        if (!(denom > 1e-10f)) continue;
         float z01;
-        if (depth_mode == 0) {
-          const float view_z = __fdiv_rn(1.0f, fmaxf(denom, 1e-10f));
-          z01 = clamp01(__fmul_rn(__fsub_rn(view_z, zn), inv_range));
-        } else {
-          const float zsum = __fadd_rn(__fadd_rn(__fmul_rn(bc0, r3.x),
-                                                 __fmul_rn(bc1, r3.y)),
-                                       __fmul_rn(bc2, r3.z));
-          const float zlin = __fdiv_rn(zsum, fmaxf(denom, 1e-10f));
-          z01 = clamp01(__fadd_rn(__fmul_rn(zlin, 0.5f), 0.5f));
-        }
+        if (!lsr::tri_depth(__ldg(r), __ldg(r + 1), __ldg(r + 2), r3, px, py,
+                            depth_mode, zn, inv_range, z01))
+          continue;
         const int tri = (int)r3.w;
         bool upd = z01 < d;
         if (track_ids && tie_tid) upd = upd || (z01 == d && tri < t);

@@ -1,6 +1,6 @@
 """Triangle setup: vertex transform -> near clip -> screen-space edge setup
 (port of lsr_tpu/raster/setup.py: TriSetup, vertex_stage, assemble_and_clip,
-build_setup, scene_setup).
+build_setup, scene_setup, CompactStats, scene_setup_compact).
 
 Per-triangle setup precomputes the affine barycentric coefficients
 bc_i(x, y) = A_i x + B_i y + C_i, the per-corner 1/w and the screen bbox, so
@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from lsr_tpu_torch.core.util import cdiv
 from lsr_tpu_torch.raster.clip import clip_triangles_near
 
 CULL_NONE = 0
@@ -165,3 +166,124 @@ def scene_setup(positions, normals, uvs, indices, vtx_obj, tri_obj, models,
         valid = valid & obj_visible[obj2]
     return build_setup(clip_t, attrs, valid, obj2, width, height, cull_mode,
                        front_face_ccw)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactStats:
+    """Occupancy / overflow counters of scene_setup_compact.  An overflow
+    means dropped triangles: callers fall back to scene_setup."""
+
+    n_direct: torch.Tensor   # () i64 surviving unclipped triangles
+    n_clip: torch.Tensor     # () i64 surviving near-clipping triangles
+    overflow: torch.Tensor   # () bool: either cap exceeded
+    cap_direct: int = 0
+    cap_clip: int = 0
+
+
+def compact_prefilter(tri_clip, width: int, height: int,
+                      cull_mode: int = CULL_BACK, front_face_ccw: bool = True):
+    """The compact front-end's cheap stage on (T, 3, 4) clip corners.
+    Returns (keep_direct, needs_clip), each (T,) bool.
+
+    keep_direct is build_setup's validity of an all-inside triangle,
+    computed on the corner order the near clip emits for it ([v1, v2, v0]),
+    with the same torch expressions in the same order as build_setup, so
+    the two decisions are the same (tests/test_torch_highpoly.py holds
+    them equal)."""
+    d = tri_clip[..., 2] + tri_clip[..., 3]
+    n_in = (d >= 0.0).sum(-1)
+    all_in = n_in == 3
+    needs_clip = (n_in > 0) & ~all_in
+    rot = tri_clip[:, (1, 2, 0)]
+    w_clip = rot[..., 3]
+    w_ok = torch.all(w_clip > 1e-8, dim=-1)
+    iw = torch.where(w_clip > 1e-8, 1.0 / torch.clamp(w_clip, min=1e-8),
+                     torch.zeros_like(w_clip))
+    ndc = rot[..., :3] * iw[..., None]
+    finite = torch.isfinite(ndc).all(dim=-1).all(dim=-1)
+    sx = (ndc[..., 0] * 0.5 + 0.5) * (width - 1)
+    sy = (ndc[..., 1] * 0.5 + 0.5) * (height - 1)
+    e0x, e0y = sx[:, 1] - sx[:, 0], sy[:, 1] - sy[:, 0]
+    e1x, e1y = sx[:, 2] - sx[:, 0], sy[:, 2] - sy[:, 0]
+    area2 = e0x * e1y - e0y * e1x
+    nondegenerate = torch.abs(area2) >= 1e-10
+    is_front = (area2 > 0.0) == front_face_ccw
+    if cull_mode == CULL_BACK:
+        face_ok = is_front
+    elif cull_mode == CULL_FRONT:
+        face_ok = ~is_front
+    else:
+        face_ok = torch.ones_like(is_front)
+    on_screen = ((sx.max(dim=1).values >= 0.0)
+                 & (sx.min(dim=1).values <= width - 1)
+                 & (sy.max(dim=1).values >= 0.0)
+                 & (sy.min(dim=1).values <= height - 1))
+    keep = all_in & w_ok & finite & nondegenerate & face_ok & on_screen
+    return keep, needs_clip
+
+
+def scene_setup_compact(positions, normals, uvs, indices, vtx_obj, tri_obj,
+                        models, normal_mats, viewproj, width: int,
+                        height: int, cull_mode: int = CULL_BACK,
+                        front_face_ccw: bool = True, obj_visible=None,
+                        cap_fraction: float = 0.62, clip_cap: int = 8192):
+    """High-density geometry front-end: cull and compact before the wide
+    work (port of lsr_tpu/raster/setup.py:scene_setup_compact).
+
+    1. compact_prefilter on the clip corners only;
+    2. stable compaction of the survivors to cap_direct =
+       ceil(T * cap_fraction / 128) * 128 rows (original order kept) and of
+       the near-plane-crossing triangles to cap_clip = min(T, clip_cap);
+    3. the corner gather and build_setup on those rows only, the clipped
+       ones through the near-clip case tables.
+
+    Rows are [direct survivors, clipped pairs]: the raster coverage, depth
+    and attributes of scene_setup; only z-tie order between a clipped and
+    an unclipped triangle may differ.  Returns (TriSetup, CompactStats); on
+    overflow triangles past a cap are dropped and the caller must fall back
+    to scene_setup.  No host sync."""
+    t = indices.shape[0]
+    cap_d = min(t, cdiv(int(t * cap_fraction), 128) * 128)
+    cap_c = min(t, clip_cap)
+    world, clip_v, n_ws = vertex_stage(
+        positions, normals, uvs, vtx_obj, models, normal_mats, viewproj)
+    keep_direct, keep_clip = compact_prefilter(
+        clip_v[indices], width, height, cull_mode, front_face_ccw)
+    if obj_visible is not None:
+        vis = obj_visible[tri_obj]
+        keep_direct = keep_direct & vis
+        keep_clip = keep_clip & vis
+    n_direct = keep_direct.sum()
+    n_clip = keep_clip.sum()
+    order_d = torch.argsort((~keep_direct).to(torch.uint8), stable=True)[:cap_d]
+    order_c = torch.argsort((~keep_clip).to(torch.uint8), stable=True)[:cap_c]
+    dev = indices.device
+    row_d_ok = torch.arange(cap_d, device=dev) < n_direct
+    row_c_ok = torch.arange(cap_c, device=dev) < n_clip
+
+    # Direct rows: the corners in the near clip's case-111 order, normals
+    # re-normalized as the clip path re-normalizes them.
+    vrec = torch.cat([clip_v, world, n_ws, uvs], dim=-1)           # (V, 12)
+    crec = vrec[indices[order_d][:, (1, 2, 0)]]                     # (D, 3, 12)
+    nrm = crec[..., 7:10]
+    nrm = nrm / torch.clamp(torch.sqrt((nrm * nrm).sum(-1, keepdim=True)),
+                            min=1e-12)
+    attrs_d = {"wp": crec[..., 4:7], "normal": nrm, "uv": crec[..., 10:12]}
+
+    crec_c = vrec[indices[order_c]]
+    clip2, attrs2, valid2 = clip_triangles_near(
+        {"wp": crec_c[..., 4:7], "normal": crec_c[..., 7:10],
+         "uv": crec_c[..., 10:12]}, crec_c[..., 0:4])
+    flat_c = lambda x: x.reshape((2 * cap_c,) + x.shape[2:])  # noqa: E731
+    obj_c = tri_obj[order_c][:, None].expand(cap_c, 2).reshape(-1)
+    valid_c = valid2.reshape(-1) & row_c_ok.repeat_interleave(2)
+
+    setup = build_setup(
+        torch.cat([crec[..., 0:4], flat_c(clip2)]),
+        {k: torch.cat([attrs_d[k], flat_c(attrs2[k])]) for k in attrs_d},
+        torch.cat([row_d_ok, valid_c]), torch.cat([tri_obj[order_d], obj_c]),
+        width, height, cull_mode, front_face_ccw)
+    return setup, CompactStats(
+        n_direct=n_direct, n_clip=n_clip,
+        overflow=(n_direct > cap_d) | (n_clip > cap_c),
+        cap_direct=cap_d, cap_clip=cap_c)

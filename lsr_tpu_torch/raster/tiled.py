@@ -1,19 +1,32 @@
-"""Listless tiled rasterizer: kernel B1 (port of lsr_tpu/raster/tiled.py:
-_chunk_bboxes, _super_lists, rasterize_direct / _direct_kernel).
+"""Tiled rasterizers: kernels B1, B3 and B4 (port of lsr_tpu/raster/tiled.py).
 
-Setup records stay resident; triangles are grouped in supers of 256
-(_SUPER), each made of chunks of 16.  Per 128x128 screen tile, torch ops
-build the list of supers whose bbox overlaps the tile; the CUDA kernel
-(csrc/direct_raster.cu) walks its tile's list, skips chunks whose bbox
-misses its 16x16 pixel block, and resolves (min depth, first submitted) or,
-with spatial_sort, the lexicographic (depth, tid) minimum.
+- B1 rasterize_direct (_direct_kernel): setup records stay resident;
+  triangles are grouped in supers of 256 (_SUPER), each made of chunks of
+  16.  Per 128x128 screen tile, torch ops build the list of supers whose
+  bbox overlaps the tile; the CUDA kernel (csrc/direct_raster.cu) walks its
+  tile's list and skips chunks whose bbox misses its 16x16 pixel block.
+- B3 rasterize_tiled (_raster_kernel): per-tile triangle lists (bin
+  triangles, capped at `cap`), walked in list order by
+  csrc/tiled_raster.cu, which reads each listed row from the resident
+  records (lsr_tpu gathers a per-tile copy of them).
+- B4 rasterize_chunklist (_chunklist_kernel): per-tile worklists of
+  overlapping 16-triangle chunks with their row bands, walked by
+  csrc/chunklist_raster.cu over the resident records.
 
-Setup record layout (16 f32 per triangle):
+All three resolve (min depth, first submitted); B1 with spatial_sort
+resolves the lexicographic (depth, tid) minimum, which is the same rule.
+
+Setup record layout (_REC = 16 f32 per triangle, lsr_tpu's):
   [0:9] A0,B0,C0,A1,B1,C1,A2,B2,C2 | [9:12] 1/w | [12:15] z_ndc/w |
   [15] triangle id as f32 (-1 = invalid; exact below 2^24 triangles)
 
-For CPU tensors rasterize_direct runs its plain version, rasterize_brute,
-which gives the same depth and, in both tie modes, the same tids.
+Per-tile lists are built without lsr_tpu's dense (tiles, N) mask: each
+valid row is expanded to its (row, tile) pairs from its tile range, the
+pairs are stably sorted by tile and each tile's segment gives its list.
+The lists, counts and maxima are the same integers as lsr_tpu's.
+
+Each wrapper runs its plain PyTorch version for CPU tensors only, walking
+the same lists the kernel gets; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -25,8 +38,70 @@ from lsr_tpu_torch.raster.brute import depth_params, rasterize_brute
 from lsr_tpu_torch.raster.setup import DEPTH_NDC01, DEPTH_VIEWZ, TriSetup
 from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
-_SUPER = 256  # triangles per super-chunk
+_SUPER = 256      # triangles per super-chunk
+_REC = 16         # f32 lanes per setup record
+_CHUNK = 16       # triangles per chunk of kernel B1
+_BAND_BITS = 5    # low bits of a chunk-list entry: band_start, band_count - 1
+_KERNEL_BLOCK = 16  # B3/B4 pixel blocks are 16x16 and lie inside one tile
+_PLAIN_GROUP = 64   # triangles per step of the plain B4 walk
 
+# Setups with more rows than this take the binned kernel B3 instead of B1,
+# in render_forward and in the pipeline raster (lsr_tpu's routing limit,
+# render.py:125 and standard_passes.py:83).  Both read it at call time.
+DIRECT_ROW_LIMIT = 150_000
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+def _check_depth_mode(name, depth_mode):
+    if depth_mode not in (DEPTH_VIEWZ, DEPTH_NDC01):
+        raise ValueError(f"{name}: unknown depth_mode {depth_mode}")
+
+
+def _targets(depth_init, tid_init, height, width, dev):
+    """Default (cleared) depth / tid targets."""
+    if depth_init is None:
+        depth_init = torch.ones((height, width), dtype=torch.float32,
+                                device=dev)
+    if tid_init is None:
+        tid_init = torch.full((height, width), -1, dtype=torch.int32,
+                              device=dev)
+    return depth_init, tid_init
+
+
+def _check_cuda_targets(name, dev, height, width, depth_init, tid_init):
+    for tname, t, dt in (("depth_init", depth_init, torch.float32),
+                         ("tid_init", tid_init, torch.int32)):
+        if (t.device != dev or t.dtype != dt or t.shape != (height, width)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {tname} must be a contiguous {dt} "
+                             f"({height}, {width}) tensor on {dev}")
+
+
+def _check_kernel_tiles(name, tile_h, tile_w):
+    if tile_h % _KERNEL_BLOCK or tile_w % _KERNEL_BLOCK:
+        raise ValueError(f"{name}: the CUDA kernel needs tile_h and tile_w "
+                         f"to be multiples of {_KERNEL_BLOCK}, got "
+                         f"{tile_h}x{tile_w}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _device(name, setup: TriSetup):
+    """The setup's device: CPU (plain version) or CUDA (kernel)."""
+    dev = setup.coef.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1: listless (direct) raster
+# ---------------------------------------------------------------------------
 
 def _chunk_bboxes(setup: TriSetup, n_pad: int, chunk: int):
     """(n_pad/chunk, 4) f32 chunk bboxes (x0,y0,x1,y1); empty for invalid."""
@@ -46,14 +121,9 @@ def _chunk_bboxes(setup: TriSetup, n_pad: int, chunk: int):
                         col(3, -big).max(dim=1).values], dim=-1)
 
 
-def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
-                 tile_w: int, tile_h: int):
-    """Per-tile overlapping-super lists from chunk bboxes.
-
-    Lists are sized by the number of supers, the bound of every count, so
-    no list is ever clamped (the TPU clamped them to fit its SMEM).
-    Returns (lists (tiles, S) i32 -1 padded, counts (tiles,) i32,
-    max_count () i32)."""
+def _super_mask(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
+                tile_w: int, tile_h: int):
+    """(tiles, S) bool: super s overlaps tile t (super bbox from chunks)."""
     dev = chunk_bb.device
     cps = _SUPER // chunk
     s = chunk_bb.shape[0] // cps
@@ -66,8 +136,19 @@ def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
     ty = torch.arange(tiles_y, dtype=torch.float32, device=dev) * tile_h
     ox = (sx0[None, :] <= tx[:, None] + (tile_w - 1)) & (sx1[None, :] >= tx[:, None])
     oy = (sy0[None, :] <= ty[:, None] + (tile_h - 1)) & (sy1[None, :] >= ty[:, None])
-    mask = (oy[:, None, :] & ox[None, :, :]).reshape(tiles_y * tiles_x, s)
-    return _mask_to_lists(mask)
+    return (oy[:, None, :] & ox[None, :, :]).reshape(tiles_y * tiles_x, s)
+
+
+def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
+                 tile_w: int, tile_h: int):
+    """Per-tile overlapping-super lists from chunk bboxes.
+
+    Lists are sized by the number of supers, the bound of every count, so
+    no list is ever clamped (the TPU clamped them to fit its SMEM).
+    Returns (lists (tiles, S) i32 -1 padded, counts (tiles,) i32,
+    max_count () i32)."""
+    return _mask_to_lists(_super_mask(chunk_bb, chunk, tiles_x, tiles_y,
+                                      tile_w, tile_h))
 
 
 def _mask_to_lists(mask):
@@ -87,7 +168,7 @@ def _mask_to_lists(mask):
 
 def pack_direct_records(setup: TriSetup, spatial_sort: bool,
                         tile_w: int = 128, tile_h: int = 128):
-    """Sorted-or-not setup -> (rec (n_pad, 16) f32, sorted setup rows).
+    """Sorted-or-not setup -> (rec (n_pad, _REC) f32, sorted setup rows).
 
     spatial_sort reorders rows by bbox-center tile (stable), so chunk and
     super bboxes are tight; lane 15 keeps the CALLER's triangle ids."""
@@ -106,7 +187,7 @@ def pack_direct_records(setup: TriSetup, spatial_sort: bool,
             coef[order], iw[order], ziw[order], bbox[order], valid[order],
             ids[order])
     n_pad = cdiv(max(n, 1), _SUPER) * _SUPER
-    rec = torch.zeros((n_pad, 16), dtype=torch.float32, device=dev)
+    rec = torch.zeros((n_pad, _REC), dtype=torch.float32, device=dev)
     rec[:n, 0:9] = coef
     rec[:n, 9:12] = iw
     rec[:n, 12:15] = ziw
@@ -146,6 +227,10 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     """Listless tiled rasterization.  Returns (depth01 (H, W) f32,
     tid (H, W) i32, max_supers_per_tile () i32).
 
+    The kernel keeps its own blocking (128x128 super lists, 16-triangle
+    chunks); tile_h / tile_w / chunk are the caller's, as in lsr_tpu: they
+    set the spatial-sort key and the tile grid at which max_supers_per_tile
+    is counted, and change neither depth nor tid.
     track_ids=False resolves depth only (tid comes back as tid_init).
     spatial_sort=True resolves exact z ties by min tid, which equals the
     unsorted first-submitted rule; emitted tids index the caller's rows.
@@ -157,27 +242,24 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     if y_offset != 0:
         raise NotImplementedError("rasterize_direct: y_offset != 0 (screen "
                                   "bands) is not ported yet")
-    if (tile_h, tile_w, chunk) != (128, 128, 16):
-        raise ValueError("rasterize_direct: the kernel is built for 128x128 "
-                         "tiles and 16-triangle chunks")
-    if depth_mode not in (DEPTH_VIEWZ, DEPTH_NDC01):
-        raise ValueError(f"rasterize_direct: unknown depth_mode {depth_mode}")
-    dev = setup.coef.device
-    tiles_x = cdiv(width, tile_w)
-    tiles_y = cdiv(height, tile_h)
+    if _SUPER % chunk:
+        raise ValueError(f"rasterize_direct: chunk {chunk} must divide "
+                         f"{_SUPER}")
+    _check_depth_mode("rasterize_direct", depth_mode)
+    dev = _device("rasterize_direct", setup)
 
     rec, sorted_setup, n_pad = pack_direct_records(setup, spatial_sort,
                                                    tile_w, tile_h)
-    chunk_bb = _chunk_bboxes(sorted_setup, n_pad, chunk)
-    slists, counts, max_sup = _super_lists(chunk_bb, chunk, tiles_x, tiles_y,
-                                           tile_w, tile_h)
-
-    if depth_init is None:
-        depth_init = torch.ones((height, width), dtype=torch.float32,
-                                device=dev)
-    if tid_init is None:
-        tid_init = torch.full((height, width), -1, dtype=torch.int32,
-                              device=dev)
+    chunk_bb = _chunk_bboxes(sorted_setup, n_pad, _CHUNK)
+    slists, counts, max_sup = _super_lists(
+        chunk_bb, _CHUNK, cdiv(width, 128), cdiv(height, 128), 128, 128)
+    if (tile_h, tile_w) != (128, 128):
+        # A super's bbox spans all its 256 rows whatever the chunk size, so
+        # the kernel's chunk bboxes give the caller's count too.
+        max_sup = _super_mask(chunk_bb, _CHUNK, cdiv(width, tile_w),
+                              cdiv(height, tile_h), tile_w, tile_h
+                              ).sum(dim=1, dtype=torch.int32).max()
+    depth_init, tid_init = _targets(depth_init, tid_init, height, width, dev)
 
     if dev.type == "cpu":
         depth, tid = rasterize_brute(setup, width, height, zn, zf,
@@ -185,20 +267,439 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
                                      depth_mode=depth_mode)
         return depth, (tid if track_ids else tid_init.clone()), max_sup
 
-    if dev.type != "cuda":
-        raise ValueError(f"rasterize_direct: unsupported device {dev}")
-    for name, t, dt in (("depth_init", depth_init, torch.float32),
-                        ("tid_init", tid_init, torch.int32)):
-        if (t.device != dev or t.dtype != dt or t.shape != (height, width)
-                or not t.is_contiguous()):
-            raise ValueError(f"rasterize_direct: {name} must be a contiguous "
-                             f"{dt} ({height}, {width}) tensor on {dev}")
+    _check_cuda_targets("rasterize_direct", dev, height, width, depth_init,
+                        tid_init)
     depth, tid = _direct_launch(
         load_kernels(), rec, chunk_bb, slists, counts, depth_init, tid_init,
         width, height, zn, zf, depth_mode, track_ids, spatial_sort,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _stream(dev))
     rasterize_direct.launches += 1
     return depth, (tid if track_ids else tid_init.clone()), max_sup
 
 
 rasterize_direct.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Sparse per-tile lists (B3 bins, B4 chunk worklists)
+# ---------------------------------------------------------------------------
+
+def _spans(x0, y0, x1, y1, ok, tiles_x: int, tiles_y: int, tile_w: int,
+           tile_h: int):
+    """Inclusive tile ranges of integer boxes, clipped to the grid.
+    Returns (tx0, tx1, ty0, ty1, ok) with ok False where nothing overlaps."""
+    fd = lambda a, b: torch.div(a, b, rounding_mode="floor")  # noqa: E731
+    tx0, tx1, ty0, ty1 = fd(x0, tile_w), fd(x1, tile_w), fd(y0, tile_h), \
+        fd(y1, tile_h)
+    ok = (ok & (tx0 <= tx1) & (ty0 <= ty1) & (tx1 >= 0) & (ty1 >= 0)
+          & (tx0 < tiles_x) & (ty0 < tiles_y))
+    return (tx0.clamp(0, tiles_x - 1), tx1.clamp(0, tiles_x - 1),
+            ty0.clamp(0, tiles_y - 1), ty1.clamp(0, tiles_y - 1), ok)
+
+
+def _span_counts(spans, tiles_x: int, tiles_y: int):
+    """(tiles,) i64 number of boxes overlapping each tile: a 2-D difference
+    array over the tile grid, O(boxes + tiles), no host sync."""
+    tx0, tx1, ty0, ty1, ok = spans
+    w = ok.to(torch.int64)
+    stride = tiles_x + 1
+    grid = torch.zeros((tiles_y + 1) * stride, dtype=torch.int64,
+                       device=w.device)
+    for yy, xx, sign in ((ty0, tx0, 1), (ty0, tx1 + 1, -1),
+                         (ty1 + 1, tx0, -1), (ty1 + 1, tx1 + 1, 1)):
+        grid.index_add_(0, yy * stride + xx, w * sign)
+    grid = grid.view(tiles_y + 1, stride).cumsum(0).cumsum(1)
+    return grid[:tiles_y, :tiles_x].reshape(-1)
+
+
+def _spans_to_lists(spans, counts, tiles_x: int, cap: int, value, fill: int):
+    """Per-tile lists (tiles, cap) i32 of value(row, tile_row) for every
+    (box row, tile) pair, ascending row within a tile; entries past `cap`
+    are dropped.  One host sync: the number of pairs."""
+    tx0, tx1, ty0, ty1, ok = spans
+    dev = ok.device
+    nx = tx1 - tx0 + 1
+    per_row = torch.where(ok, nx * (ty1 - ty0 + 1), torch.zeros_like(nx))
+    n_pairs = int(counts.sum())
+    rows = torch.repeat_interleave(
+        torch.arange(per_row.shape[0], device=dev), per_row,
+        output_size=n_pairs)
+    local = torch.arange(n_pairs, device=dev) \
+        - (torch.cumsum(per_row, 0) - per_row)[rows]
+    nxr = nx[rows]
+    ty = ty0[rows] + torch.div(local, nxr, rounding_mode="floor")
+    tile = ty * tiles_x + tx0[rows] + local % nxr
+    tile, perm = torch.sort(tile, stable=True)
+    rows, ty = rows[perm], ty[perm]
+    num_tiles = counts.shape[0]
+    pos = torch.arange(n_pairs, device=dev) \
+        - (torch.cumsum(counts, 0) - counts)[tile]
+    slot = torch.where(pos < cap, tile * cap + pos,
+                       torch.full_like(pos, num_tiles * cap))
+    lists = torch.full((num_tiles * cap + 1,), fill, dtype=torch.int32,
+                       device=dev)
+    lists[slot] = value(rows, ty).to(torch.int32)
+    return lists[:-1].view(num_tiles, cap)
+
+
+def _bbox_spans(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h,
+                y_offset):
+    bb = setup.bbox.to(torch.int64)
+    return _spans(bb[:, 0], bb[:, 1] - y_offset, bb[:, 2], bb[:, 3] - y_offset,
+                  setup.valid, tiles_x, tiles_y, tile_w, tile_h)
+
+
+def fitted_cap(cap: int, max_bin: int) -> int:
+    """max(cap, ceil(max_bin/256)*256): the smallest list cap of at least
+    `cap` that drops no triangle, the rule of lsr_tpu's own bench
+    (scripts/bench_highpoly.py:97-103)."""
+    return max(cap, cdiv(max_bin, 256) * 256)
+
+
+def bin_triangles(setup: TriSetup, width: int, height: int, tile_h: int,
+                  tile_w: int, cap: int, y_offset: int = 0,
+                  fit_cap: bool = False):
+    """Per-tile triangle lists.  Returns (lists (tiles, cap) i32 -1 padded,
+    counts (tiles,) i32 capped, max_count () i32 before capping).
+
+    Lists keep submission order (the first-wins depth tie rule); a tile
+    with more than `cap` triangles keeps its first `cap`.  fit_cap=True
+    first raises cap to fitted_cap(cap, max_count), so nothing is dropped;
+    lists.shape[1] is the cap used.  y_offset is the global row of this
+    target's first row (screen bands)."""
+    tiles_x, tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+    spans = _bbox_spans(setup, tiles_x, tiles_y, tile_w, tile_h, y_offset)
+    counts = _span_counts(spans, tiles_x, tiles_y)
+    max_count = counts.max()
+    if fit_cap:
+        cap = fitted_cap(cap, int(max_count))
+    lists = _spans_to_lists(spans, counts, tiles_x, cap,
+                            lambda rows, ty: rows, -1)
+    return (lists, torch.clamp(counts, max=cap).to(torch.int32),
+            max_count.to(torch.int32))
+
+
+def _chunk_lists(setup: TriSetup, n_pad: int, chunk: int, tiles_x: int,
+                 tiles_y: int, tile_w: int, tile_h: int, ccap: int,
+                 y_offset: int, sub_h: int):
+    """Per-tile overlapping-chunk worklists with packed row-band info.
+
+    Returns (lists (tiles, ccap) i32 0 padded, counts (tiles,) i32 capped,
+    max_count () i32).  Entries are id << 5 | band_start << 2 |
+    (band_count - 1), bands of sub_h rows, ascending chunk id."""
+    cbb = _chunk_bboxes(setup, n_pad, chunk)
+    ok = cbb[:, 0] <= cbb[:, 2]               # empty chunks have x0 > x1
+    box = torch.where(ok[:, None], cbb, torch.zeros_like(cbb)).to(torch.int64)
+    y0, y1 = box[:, 1] - y_offset, box[:, 3] - y_offset
+    spans = _spans(box[:, 0], y0, box[:, 2], y1, ok, tiles_x, tiles_y,
+                   tile_w, tile_h)
+    counts = _span_counts(spans, tiles_x, tiles_y)
+    nb_max = tile_h // sub_h
+
+    def entry(cid, ty):
+        band = lambda y: torch.div(  # noqa: E731
+            y[cid] - ty * tile_h, sub_h, rounding_mode="floor").clamp(
+                0, nb_max - 1)
+        bs, be = band(y0), band(y1)
+        return (cid << _BAND_BITS) | (bs << 2) | (be - bs)
+
+    lists = _spans_to_lists(spans, counts, tiles_x, ccap, entry, 0)
+    return (lists, torch.clamp(counts, max=ccap).to(torch.int32),
+            counts.max().to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of B3 and B4: the same lists, vectorised over tiles
+# ---------------------------------------------------------------------------
+
+def _tri_depth(blk, fr, zn: float, inv_range: float, depth_mode: int):
+    """Coverage and depth of records blk (T, K, _REC) at the pixels of the
+    tiles of fr (a _TileFrame), in the operation order of
+    csrc/raster_common.cuh.  Returns (inside, z01), each (T, K, H, W)."""
+    def f(j):
+        return blk[..., j][..., None, None]
+
+    px, py = fr.px, fr.py
+    bc0 = f(0) * px + f(1) * py + f(2)
+    bc1 = f(3) * px + f(4) * py + f(5)
+    bc2 = f(6) * px + f(7) * py + f(8)
+    inside = (bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0) & (f(15) >= 0.0)
+    denom = bc0 * f(9) + bc1 * f(10) + bc2 * f(11)
+    inside &= denom > 1e-10
+    if depth_mode == DEPTH_VIEWZ:
+        view_z = 1.0 / torch.clamp(denom, min=1e-10)
+        z01 = torch.clamp((view_z - zn) * inv_range, 0.0, 1.0)
+    else:
+        zlin = (bc0 * f(12) + bc1 * f(13) + bc2 * f(14)) \
+            / torch.clamp(denom, min=1e-10)
+        z01 = torch.clamp(zlin * 0.5 + 0.5, 0.0, 1.0)
+    return inside, z01
+
+
+class _TileFrame:
+    """The padded (tiles_y*tile_h, tiles_x*tile_w) target as (T, th, tw)
+    tiles, with each tile's pixel centers (px, py) and coverage bound."""
+
+    def __init__(self, width, height, tile_w, tile_h, y_offset, full_height,
+                 dev):
+        self.w, self.h, self.tw, self.th = width, height, tile_w, tile_h
+        self.tx, self.ty = cdiv(width, tile_w), cdiv(height, tile_h)
+        t = torch.arange(self.tx * self.ty, device=dev)
+        xs = (t % self.tx)[:, None] * tile_w + torch.arange(tile_w, device=dev)
+        ys = (t // self.tx)[:, None] * tile_h \
+            + torch.arange(tile_h, device=dev) + y_offset
+        self.px = xs.to(torch.float32)[:, None, None, :] + 0.5
+        self.py = ys.to(torch.float32)[:, None, :, None] + 0.5
+        self.ndc_ok = ((self.px <= float(width - 1))
+                       & (self.py <= float(full_height - 1)))[:, 0]
+
+    def split(self, img, fill):
+        pad = torch.full((self.ty * self.th, self.tx * self.tw), fill,
+                         dtype=img.dtype, device=img.device)
+        pad[:self.h, :self.w] = img
+        return pad.view(self.ty, self.th, self.tx, self.tw).permute(
+            0, 2, 1, 3).reshape(-1, self.th, self.tw)
+
+    def join(self, tiles):
+        return tiles.view(self.ty, self.tx, self.th, self.tw).permute(
+            0, 2, 1, 3).reshape(self.ty * self.th, self.tx * self.tw)[
+                :self.h, :self.w]
+
+
+def _resolve(inside, z01, ids, d, t, track_ids: bool):
+    """Fold one group of candidates (T, K, H, W), in list order, into the
+    (T, H, W) depth / tid: (min depth, first in the group), strict '<'
+    against the target.  Equals a sequential strict walk."""
+    cand = torch.where(inside, z01, torch.full_like(z01, float("inf")))
+    best, k = torch.min(cand, dim=1)      # first minimum = first in list
+    upd = best < d
+    d = torch.where(upd, best, d)
+    if track_ids:
+        win = torch.gather(ids, 1, k.flatten(1)).view_as(k)
+        t = torch.where(upd, win.to(torch.int32), t)
+    return d, t
+
+
+def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
+                          width: int, height: int, zn: float, zf: float,
+                          depth_mode: int = DEPTH_VIEWZ, tile_h: int = 32,
+                          tile_w: int = 128, chunk: int = 8,
+                          y_offset: int = 0, full_height: int | None = None):
+    """Plain version of kernel B3: walks each tile's first counts[t] list
+    entries (rows of rec) in chunks of `chunk`, all tiles at once."""
+    dev = rec.device
+    zn_f, inv_range = depth_params(zn, zf)
+    fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
+                    height if full_height is None else full_height, dev)
+    d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
+    n_max = int(counts.max()) if counts.numel() else 0
+    for s in range(0, n_max, chunk):
+        ent = lists[:, s:s + chunk]
+        blk = rec[torch.clamp(ent, min=0).to(torch.int64)]
+        inside, z01 = _tri_depth(blk, fr, zn_f, inv_range, depth_mode)
+        live = torch.arange(s, s + ent.shape[1], device=dev)[None] \
+            < counts[:, None]
+        inside &= live[..., None, None] & fr.ndc_ok[:, None]
+        d, t = _resolve(inside, z01, blk[..., 15], d, t, True)
+    return fr.join(d), fr.join(t)
+
+
+def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
+                              width: int, height: int, zn: float, zf: float,
+                              depth_mode: int = DEPTH_VIEWZ,
+                              tile_h: int = 128, tile_w: int = 128,
+                              chunk: int = 16, sub_h: int = 32,
+                              y_offset: int = 0,
+                              full_height: int | None = None,
+                              track_ids: bool = True):
+    """Plain version of kernel B4: walks each tile's first counts[t]
+    worklist entries, all tiles at once, _PLAIN_GROUP triangles per step;
+    an entry only touches the rows of its bands."""
+    dev = rec.device
+    zn_f, inv_range = depth_params(zn, zf)
+    fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
+                    height if full_height is None else full_height, dev)
+    d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
+    row_band = torch.arange(tile_h, device=dev) // sub_h
+    k = torch.arange(chunk, device=dev)
+    step = max(1, _PLAIN_GROUP // chunk)
+    n_max = int(counts.max()) if counts.numel() else 0
+    for s in range(0, n_max, step):
+        e = clists[:, s:s + step].to(torch.int64)            # (T, g)
+        g = e.shape[1]
+        live = torch.arange(s, s + g, device=dev)[None] < counts[:, None]
+        bs = (e >> 2) & 3
+        be = bs + (e & 3)
+        rows_ok = ((row_band >= bs[..., None]) & (row_band <= be[..., None])
+                   & live[..., None])                        # (T, g, th)
+        blk = rec[((e >> _BAND_BITS)[..., None] * chunk + k)].flatten(1, 2)
+        inside, z01 = _tri_depth(blk, fr, zn_f, inv_range, depth_mode)
+        mask = rows_ok[:, :, None, :].expand(-1, -1, chunk, -1).flatten(1, 2)
+        inside &= mask[..., None] & fr.ndc_ok[:, None]
+        d, t = _resolve(inside, z01, blk[..., 15], d, t, track_ids)
+    return fr.join(d), fr.join(t)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3: binned raster
+# ---------------------------------------------------------------------------
+
+def _tiled_launch(lib, rec, lists, counts, depth_init, tid_init, width,
+                  height, zn, zf, depth_mode, tile_h, tile_w, y_offset,
+                  full_height, stream):
+    """Launch kernel B3 through the C interface; returns (depth, tid).
+    The kernel walks min(counts[t], cap) entries of tile t's list."""
+    dev = rec.device
+    zn_f, inv_range = depth_params(zn, zf)
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    err = lib.lsr_tiled_raster(
+        rec.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+        depth_init.data_ptr(), tid_init.data_ptr(), depth.data_ptr(),
+        tid.data_ptr(), width, height, tile_w, tile_h, cdiv(width, tile_w),
+        cdiv(height, tile_h), lists.shape[1], zn_f, inv_range, int(y_offset),
+        float(full_height - 1), depth_mode, stream)
+    check_launch("lsr_tiled_raster", err)
+    return depth, tid
+
+
+def tiled_inputs(setup: TriSetup, width: int, height: int, tile_h: int,
+                 tile_w: int, cap: int, chunk: int, y_offset: int = 0,
+                 fit_cap: bool = False):
+    """What kernel B3 and its plain version take: (records (n_pad, _REC),
+    lists (tiles, cap) i32, entries to walk per tile (tiles,) i32, max_bin
+    () i32).  fit_cap as in bin_triangles."""
+    rec, _, _ = pack_direct_records(setup, False)
+    lists, counts, max_bin = bin_triangles(setup, width, height, tile_h,
+                                           tile_w, cap, y_offset, fit_cap)
+    # lsr_tpu's kernel walks min(ceil(count/chunk), cap//chunk) chunks;
+    # counts <= cap already, so no tile walks past its list.
+    n_walk = torch.clamp(counts, max=lists.shape[1] // chunk * chunk)
+    return rec, lists, n_walk, max_bin
+
+
+def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
+                    zf: float, depth_init=None, tid_init=None,
+                    depth_mode: int = DEPTH_VIEWZ, tile_h: int = 32,
+                    tile_w: int = 128, cap: int = 512, chunk: int = 8,
+                    y_offset: int = 0, full_height: int | None = None,
+                    fit_cap: bool = False):
+    """Tile-parallel binned rasterization.  Returns (depth01 (H, W),
+    tid (H, W), max_bin).
+
+    max_bin is the largest per-tile triangle count BEFORE capping: if it
+    exceeds `cap`, triangles were dropped.  fit_cap=True raises the cap to
+    fitted_cap(cap, max_bin) first, so none is.  y_offset / full_height
+    render global rows [y_offset, y_offset + height) of a full_height
+    framebuffer.
+    CPU tensors run rasterize_tiled_plain; CUDA tensors launch kernel B3
+    (csrc/tiled_raster.cu) or raise."""
+    _check_depth_mode("rasterize_tiled", depth_mode)
+    full_height = height if full_height is None else full_height
+    dev = _device("rasterize_tiled", setup)
+    rec, lists, n_walk, max_bin = tiled_inputs(
+        setup, width, height, tile_h, tile_w, cap, chunk, y_offset, fit_cap)
+    depth_init, tid_init = _targets(depth_init, tid_init, height, width, dev)
+    if dev.type == "cpu":
+        depth, tid = rasterize_tiled_plain(
+            rec, lists, n_walk, depth_init, tid_init, width, height, zn, zf,
+            depth_mode, tile_h, tile_w, chunk, y_offset, full_height)
+        return depth, tid, max_bin
+    _check_kernel_tiles("rasterize_tiled", tile_h, tile_w)
+    _check_cuda_targets("rasterize_tiled", dev, height, width, depth_init,
+                        tid_init)
+    depth, tid = _tiled_launch(
+        load_kernels(), rec, lists, n_walk, depth_init, tid_init, width,
+        height, zn, zf, depth_mode, tile_h, tile_w, y_offset, full_height,
+        _stream(dev))
+    rasterize_tiled.launches += 1
+    return depth, tid, max_bin
+
+
+rasterize_tiled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B4: chunk-worklist raster
+# ---------------------------------------------------------------------------
+
+def _chunklist_launch(lib, rec, clists, counts, depth_init, tid_init, width,
+                      height, zn, zf, depth_mode, tile_h, tile_w, chunk,
+                      sub_h, y_offset, full_height, track_ids, stream):
+    """Launch kernel B4 through the C interface; returns (depth, tid)."""
+    dev = rec.device
+    zn_f, inv_range = depth_params(zn, zf)
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    err = lib.lsr_chunklist_raster(
+        rec.data_ptr(), clists.data_ptr(), counts.data_ptr(),
+        depth_init.data_ptr(), tid_init.data_ptr(), depth.data_ptr(),
+        tid.data_ptr(), width, height, tile_w, tile_h, cdiv(width, tile_w),
+        cdiv(height, tile_h), clists.shape[1], chunk, sub_h, zn_f, inv_range,
+        int(y_offset), float(full_height - 1), depth_mode, int(track_ids),
+        stream)
+    check_launch("lsr_chunklist_raster", err)
+    return depth, tid
+
+
+def chunklist_inputs(setup: TriSetup, width: int, height: int, tile_h: int,
+                     tile_w: int, chunk: int, ccap: int | None, sub_h: int,
+                     y_offset: int = 0):
+    """What kernel B4 and its plain version take: (records (n_pad, _REC),
+    worklists (tiles, ccap) i32, counts (tiles,) i32, max_count () i32).
+    ccap=None sizes the worklists by the number of chunks."""
+    rec, _, n_pad = pack_direct_records(setup, False)
+    ccap = max(8, n_pad // chunk if ccap is None else ccap)
+    return (rec,) + _chunk_lists(setup, n_pad, chunk, cdiv(width, tile_w),
+                                 cdiv(height, tile_h), tile_w, tile_h, ccap,
+                                 y_offset, sub_h)
+
+
+def rasterize_chunklist(setup: TriSetup, width: int, height: int, zn: float,
+                        zf: float, depth_init=None, tid_init=None,
+                        depth_mode: int = DEPTH_VIEWZ, tile_h: int = 128,
+                        tile_w: int = 128, chunk: int = 16,
+                        ccap: int | None = None, sub_h: int = 32,
+                        y_offset: int = 0, full_height: int | None = None,
+                        track_ids: bool = True):
+    """Chunk-worklist tiled rasterization.  Returns (depth01, tid,
+    max_chunks_per_tile).
+
+    ccap=None sizes every worklist by the number of chunks, so none can
+    overflow (lsr_tpu also clamped it to its SMEM budget; the port does
+    not).  An explicit ccap keeps lsr_tpu's semantics: a tile's entries past
+    ccap are dropped and max_chunks_per_tile reports it.
+    track_ids=False resolves depth only (tid comes back as tid_init).
+    CPU tensors run rasterize_chunklist_plain; CUDA tensors launch kernel B4
+    (csrc/chunklist_raster.cu) or raise."""
+    if tile_h % sub_h or tile_h // sub_h > 4:
+        raise ValueError("rasterize_chunklist: band encoding uses 2 bits: "
+                         "tile_h must be a multiple of sub_h and "
+                         "tile_h/sub_h <= 4")
+    if _SUPER % chunk:
+        raise ValueError(f"rasterize_chunklist: chunk {chunk} must divide "
+                         f"{_SUPER}")
+    _check_depth_mode("rasterize_chunklist", depth_mode)
+    full_height = height if full_height is None else full_height
+    dev = _device("rasterize_chunklist", setup)
+    rec, clists, counts, max_cnt = chunklist_inputs(
+        setup, width, height, tile_h, tile_w, chunk, ccap, sub_h, y_offset)
+    depth_init, tid_init = _targets(depth_init, tid_init, height, width, dev)
+    if dev.type == "cpu":
+        depth, tid = rasterize_chunklist_plain(
+            rec, clists, counts, depth_init, tid_init, width, height, zn, zf,
+            depth_mode, tile_h, tile_w, chunk, sub_h, y_offset, full_height,
+            track_ids)
+    else:
+        _check_kernel_tiles("rasterize_chunklist", tile_h, tile_w)
+        _check_cuda_targets("rasterize_chunklist", dev, height, width,
+                            depth_init, tid_init)
+        depth, tid = _chunklist_launch(
+            load_kernels(), rec, clists, counts, depth_init, tid_init, width,
+            height, zn, zf, depth_mode, tile_h, tile_w, chunk, sub_h,
+            y_offset, full_height, track_ids, _stream(dev))
+        rasterize_chunklist.launches += 1
+    return depth, (tid if track_ids else tid_init.clone()), max_cnt
+
+
+rasterize_chunklist.launches = 0

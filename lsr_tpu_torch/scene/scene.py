@@ -86,12 +86,17 @@ def morton_order(mesh) -> np.ndarray:
     return np.argsort(code, kind="stable").astype(np.int64)
 
 
-def concat_scene(meshes, spatial_sort=True):
-    """Concatenate host meshes into one SoA batch with per-vertex object ids
-    (object i = mesh i).  Returns a dict of numpy arrays."""
+def concat_scene(meshes, object_of_mesh=None, spatial_sort=True):
+    """Concatenate host meshes into one SoA batch with per-vertex object ids.
+
+    object_of_mesh: optional object index per mesh (defaults to 0..len-1);
+    spatial_sort reorders each mesh's triangles into Morton order.  Returns
+    a dict of numpy arrays."""
+    if object_of_mesh is None:
+        object_of_mesh = list(range(len(meshes)))
     pos, nrm, uv, idx, vobj, tobj = [], [], [], [], [], []
     base = 0
-    for obj, mesh in enumerate(meshes):
+    for mesh, obj in zip(meshes, object_of_mesh):
         pos.append(mesh.positions)
         nrm.append(mesh.normals)
         uv.append(mesh.uvs)

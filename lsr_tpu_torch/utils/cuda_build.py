@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels (lsr_tpu_torch/csrc/*.cu).
 
-The kernels expose a plain C interface and are compiled by nvcc into ONE
-shared library at first use, then loaded with ctypes.  The library lands in
-<repo>/build/kernels/ (gitignored), named by a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+The kernels expose a plain C interface and are built by nvcc into ONE shared
+library at first use, then loaded with ctypes: one nvcc process compiles
+each source to an object, all of them started together, and one more links
+the objects.  The library lands in <repo>/build/kernels/ (gitignored), named
+by a hash of the sources, the shared headers and the flags, so an edited
+source rebuilds and an unchanged one is reused.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -21,11 +23,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
-# -fmad=false: no contraction of a*b+c into FMA, so B1's coverage and depth
-# arithmetic rounds exactly like its plain PyTorch version (separate torch
-# ops never contract).  No -use_fast_math for the same reason.
+# -fmad=false: no contraction of a*b+c into FMA, so the raster kernels'
+# coverage and depth arithmetic rounds exactly like their plain PyTorch
+# versions (separate torch ops never contract).  No -use_fast_math for the
+# same reason.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -41,6 +45,16 @@ SIGNATURES = {
     # tiles_x, cap, sun_model, apow1, stream
     "lsr_shade_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P),
+    # rec, lists, counts, depth_in, tid_in, depth_out, tid_out, width,
+    # height, tile_w, tile_h, tiles_x, tiles_y, cap, zn, inv_range, y_offset,
+    # max_py, depth_mode, stream
+    "lsr_tiled_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _F, _I, _F, _I, _P),
+    # rec, clists, counts, depth_in, tid_in, depth_out, tid_out, width,
+    # height, tile_w, tile_h, tiles_x, tiles_y, ccap, chunk, sub_h, zn,
+    # inv_range, y_offset, max_py, depth_mode, track_ids, stream
+    "lsr_chunklist_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _P),
 }
 
 _lib = None
@@ -63,35 +77,58 @@ def _sources() -> list[str]:
                   if f.endswith((".cu", ".cuh")))
 
 
+def _build(srcs: list[str], so: str) -> str:
+    """Compile every .cu at once (one nvcc each), link them into `so`;
+    returns the compilers' output."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = f"{so}.{os.getpid()}"
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [f"{tmp}.{i}.o" for i in range(len(cus))]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cus, objs)]
+    logs, failed = [], []
+    for src, proc in zip(cus, procs):
+        logs.append(f"== {os.path.basename(src)}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode})")
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    res = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{tmp}.so", *objs],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(f"{tmp}.so", so)
+    for obj in objs:
+        os.remove(obj)
+    return log
+
+
 def load_kernels():
     """The loaded kernel library (ctypes.CDLL), building it if needed."""
     global _lib
     if _lib is not None:
         return _lib
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, f"liblsr_kernels_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
-    log = ""
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, so)
+    built = not os.path.exists(so)
+    log = _build(srcs, so) if built else ""
     lib = ctypes.CDLL(so)
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
-    build_info.update(path=so, seconds=time.perf_counter() - t0, log=log)
+    build_info.update(path=so, built=built,
+                      seconds=time.perf_counter() - t0, log=log)
     _lib = lib
     return lib
 

@@ -323,6 +323,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import lsr_tpu_torch.frame, lsr_tpu_torch.convert\n"
         "import lsr_tpu_torch.raster.brute, lsr_tpu_torch.io.png\n"
+        "import lsr_tpu_torch.highpoly, lsr_tpu_torch.render\n"
+        "import lsr_tpu_torch.passes.standard_passes\n"
+        "import lsr_tpu_torch.raster.tiled, lsr_tpu_torch.core.frame\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'lsr_tpu' or m.startswith('lsr_tpu.')]\n"
         "assert not bad, bad\n"

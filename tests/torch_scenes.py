@@ -79,6 +79,34 @@ def jax_flagship_scene(n_lights=256, seed=42, grid=5, rings=16, sectors=32):
     return geom, objects, lights, ctx
 
 
+def jax_highpoly_scene(grid=3, seed=7, n_lights=16):
+    """lsr_tpu twin of lsr_tpu_torch.highpoly.build_highpoly_scene: a grid
+    of UV spheres at 1.2 spacing (bench_highpoly.py:28-43 with the sphere
+    for the monkey), the flagship's lights and shade context."""
+    rng = np.random.default_rng(seed)
+    sphere = make_uv_sphere(rings=16, sectors=32)
+    sb = SceneBuilder()
+    for i in range(grid * grid):
+        x = (i % grid - grid // 2) * 1.2
+        z = (i // grid - grid // 2) * 1.2
+        rot = float(rng.uniform(0, 2 * np.pi))
+        sb.add(sphere, np.asarray(m3.translate([x, 0.0, z]) @ m3.rotate_y(rot)),
+               material=i % 4)
+    geom, objects = sb.build()
+    _, _, lights, ctx = jax_flagship_scene(n_lights=n_lights, seed=42)
+    return geom, objects, lights, ctx
+
+
+def jax_highpoly_camera(ctx, width, height, grid):
+    """The high, oblique bench view (bench_highpoly.py:61-64)."""
+    import dataclasses
+
+    ext = grid * 1.2 * 0.72
+    eye = (ext, ext * 0.9, -ext)
+    cam = make_camera(width, height, eye, (0, 0, 0), fov=np.pi / 3.0)
+    return cam, dataclasses.replace(ctx, camera_pos=jnp.asarray(eye, jnp.float32))
+
+
 def jax_camera(i, ctx, width, height):
     """Frame i of the bench orbit (bench.py:346-354) on the JAX side."""
     import dataclasses
