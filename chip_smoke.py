@@ -14,12 +14,13 @@ first use, into build/kernels/), then:
 2. B2 (shade_fused) at the flagship shapes: the kernel against its plain
    version on the card, pbr_mr and blinn_phong, on the flagship light set and
    on a mixed set with rect and tube lights.  Lit rgb within 1e-4.
-3. A small-input reference: the same scene rendered by the plain versions on
-   the CPU and by the kernels on the card, at 192x108.
+3. A small-input reference: the same scene with a 256^2 ESM sun map,
+   rendered by the plain versions on the CPU and by the kernels on the card,
+   at 192x108.
 4. The main path: launch counters reset, then the 1920x1080, 256-light
-   forward+ frame (make_flagship_frame) along the bench orbit; prints the
-   median ms per frame, the launch counts and the frame statistics, and
-   writes out/torch_flagship.png.
+   forward+ frame (make_flagship_frame, B2 route, 2048^2 ESM sun map) along
+   the bench orbit; prints the median ms per frame, the launch counts and
+   the frame statistics, and writes out/torch_flagship.png.
 
 Then the high-poly path, on the 33x33 sphere field (1,115,136 triangles,
 lsr_tpu_torch.highpoly):
@@ -47,6 +48,39 @@ lsr_tpu_torch.highpoly):
 9. render_forward on the flagship scene (B1 route) and on the high-poly
    scene (B3 route), counts reset before each.
 
+Then the slice of the sun shadow, B5 and B6, on the flagship scene:
+
+10. The 2048^2 sun map: B1 in NDC01 depth-only mode against rasterize_brute
+    on the card, bit for bit; then phase 3's ESM soft map and sun
+    visibility, card against CPU, on the same map and receivers.
+11. B5 (resolve_fused) at 1920x1080: the kernel against resolve_fused_plain
+    on the card, pbr_mr and blinn_phong, flagship and mixed lights, 8- and
+    16-light chunks; HDR within 1e-4.
+12. B6 (accumulate_lights) at 1920x1080 on the flagship G-buffer, 64x128
+    and 16x128 tiles: the kernel against its plain version; diffuse and
+    specular within 1e-4.  Then its entry point once, counts reset.
+13. The resolve frame (make_flagship_frame(use_resolve=True)) at 1920x1080,
+    counts reset: two direct_raster launches (sun map, camera) and one
+    resolve_fused launch per frame, median and pipelined ms per frame,
+    out/torch_flagship_resolve.png, and its HDR against the B2 route's on
+    the same camera (lsr_tpu's bar: mean |dHDR| < 5e-3, < 1% of pixels
+    over 0.05).
+14. Where the flagship frame's time goes, both routes: each stage alone on
+    the previous stage's outputs (host enqueue ms, device ms by CUDA
+    events), then whole frames: median ms by CUDA events, and
+    torch.profiler's device busy ms and kernel launches per frame.
+
+Every kernel's bound is the larger of the bytes it must move over 3.35
+TB/s and the f32 operations this run's data needs over 67 TFLOP/s (the
+H100 SXM's published peaks), counted from the inputs of this run: a raster
+does RASTER_OPS per (triangle, pixel) pair inside a valid triangle's bbox,
+a light loop LIGHT_OPS per (covered pixel, binned light) pair, plus the
+per-pixel work of the sun term and, for B5, interpolation and ambient.
+The bytes count each input the work needs once and each output once.  A
+raster's outputs, depth and tid, count once as written; the cleared
+targets its kernel starts from (and reads today) are constants the work
+does not need, so they are not counted as inputs.
+
 Any failed phase raises, so the script exits non-zero.  Its output ends with
 the card's name and power limit, one JSON line of per-kernel results and,
 last, {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -55,6 +89,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -74,6 +109,19 @@ B2_TOL = 1e-4
 PLAIN_W, PLAIN_H = 480, 270        # B3 / B4 against their plain versions
 HP_GRID = 33
 HP_WARMUP, HP_FRAMES = 2, 5
+SHADOW = 2048                      # the bench's sun map
+SMALL_S = 256                      # the sun map of the CPU reference
+ESM_TOL = 1.3e-3                   # one soft-map quantum: exp(80/65535) - 1
+RES_FRAMES = 8                     # resolve frames after warm-up
+
+# Work counts for the bounds (f32 operations, sqrt / division / powf / cosf
+# counted as one each).
+RASTER_OPS = 25     # 3 edge functions, coverage test, 1/w sum, depth
+LIGHT_OPS = 60      # one local light at one pixel (light_loop.cuh)
+SUN_OPS = 60        # sun BRDF, view vector, combine, per pixel
+RESOLVE_OPS = 100   # B5's interpolation, normal and fake-IBL ambient
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 def log(msg):
@@ -95,6 +143,37 @@ def cuda_ms(fn, iters):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes, n_ops):
+    """{bound_ms, bound_by, bytes, ops}: the least time the card could take
+    (bytes over peak bandwidth or operations over the f32 peak)."""
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": int(n_bytes), "ops": int(n_ops)}
+
+
+def raster_pairs(setup):
+    """(triangle, pixel) pairs inside the bboxes of the valid triangles."""
+    b = setup.bbox[setup.valid].to(torch.int64)
+    return int(((b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)).sum())
+
+
+def light_pairs(counts, covered, tile_h, tile_w, cap):
+    """(covered pixel, binned light) pairs: each tile's walked light count
+    times its covered pixels."""
+    h, w = covered.shape
+    ty, tx = -(-h // tile_h), -(-w // tile_w)
+    cov = torch.nn.functional.pad(covered.to(torch.int64),
+                                  (0, tx * tile_w - w, 0, ty * tile_h - h))
+    per_tile = cov.reshape(ty, tile_h, tx, tile_w).sum(dim=(1, 3)).reshape(-1)
+    return int((torch.clamp(counts.to(torch.int64), max=cap)
+                * per_tile).sum())
 
 
 def b1_phase(setup, cam, dev):
@@ -152,9 +231,11 @@ def b1_phase(setup, cam, dev):
     kernel_ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(lambda: rasterize_brute(setup, WIDTH, HEIGHT, cam.zn,
                                                cam.zf), 2)
+    b = bound(nbytes(rec, cbb, sl, cnt) + 8 * WIDTH * HEIGHT,
+              raster_pairs(setup) * RASTER_OPS)
     log(f"B1 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
-        f"plain (rasterize_brute) {plain_ms:.3f} ms")
-    result.update(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms)
+        f"plain (rasterize_brute) {plain_ms:.3f} ms; bound {b}")
+    result.update(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, **b)
     return result
 
 
@@ -232,33 +313,42 @@ def b2_phase(gb, ctx_t, lights, cam, dev):
     kernel_ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(lambda: sk.shade_fused_plain(*args(lights, "pbr_mr")),
                        2)
+    n_cov = int(gb.covered.sum())
+    b = bound(nbytes(gbuf[:13], trec, cnts, uni) + 12 * WIDTH * HEIGHT,
+              light_pairs(cnts, gb.covered, 64, 128, trec.shape[1])
+              * LIGHT_OPS + n_cov * SUN_OPS)
     log(f"B2 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms; bound {b}")
     return {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **b}
 
 
 def small_reference(dev):
-    """The same scene through the plain versions on the CPU and through the
-    kernels on the card, at a small size.  The two sides build their own
-    setups (matmul order differs), so a few edge pixels may pick another
-    triangle; FXAA's luma decisions can amplify a 1-LSB tonemap difference,
-    so the final LDR is held at 99.5% and the tonemapped LDR at 99.9%."""
+    """The same scene, with a SMALL_S^2 ESM sun map, through the plain
+    versions on the CPU and through the kernels on the card, at a small
+    size.  The two sides build their own camera setups (matmul order
+    differs), so a few edge pixels may pick another triangle; FXAA's luma
+    decisions can amplify a 1-LSB tonemap difference, so the final LDR is
+    held at 99.5% and the tonemapped LDR at 99.9%.  Returns both sides'
+    stages for phase 10."""
     from lsr_tpu_torch.frame import (
         build_flagship_scene, flagship_camera, flagship_stages)
     from lsr_tpu_torch.passes.post import fxaa_pass
     from lsr_tpu_torch.passes.tonemap import tonemap_pass
 
-    out = {}
+    out, stages = {}, {}
     for d in ("cpu", dev):
+        t0 = time.perf_counter()
         geom, objects, lights, ctx = build_flagship_scene(N_LIGHTS, SEED,
                                                           device=d)
         cam, ctx_t = flagship_camera(0, ctx, SMALL_W, SMALL_H, device=d)
         st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, SMALL_W,
-                             SMALL_H)
+                             SMALL_H, shadow_size=SMALL_S)
         tm = tonemap_pass(st["hdr"])
         out[str(d)] = (st["tid"].cpu(), st["hdr"].cpu(), tm.cpu(),
                        fxaa_pass(tm).cpu())
+        stages[str(d)] = (st, ctx_t)
+        log(f"small reference on {d}: {time.perf_counter() - t0:.1f} s")
     (t_c, h_c, m_c, l_c), (t_g, h_g, m_g, l_g) = out["cpu"], out[str(dev)]
     same = t_c == t_g
 
@@ -276,25 +366,29 @@ def small_reference(dev):
     check(tid_mis <= 0.005, "small reference: too many tid mismatches")
     check(hdr_ok >= 0.999 and tm_ok >= 0.999 and ldr_ok >= 0.995,
           "small reference differs")
+    return stages["cpu"], stages[str(dev)]
 
 
-def reset_counts():
+def _wrappers():
+    from lsr_tpu_torch.lighting.fplus_kernel import accumulate_lights
+    from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
     from lsr_tpu_torch.lighting.shade_kernel import shade_fused
     from lsr_tpu_torch.raster import tiled
 
-    for fn in (tiled.rasterize_direct, tiled.rasterize_tiled,
-               tiled.rasterize_chunklist, shade_fused):
+    return {"direct_raster": tiled.rasterize_direct,
+            "tiled_raster": tiled.rasterize_tiled,
+            "chunklist_raster": tiled.rasterize_chunklist,
+            "shade_fused": shade_fused, "resolve_fused": resolve_fused,
+            "fplus_accumulate": accumulate_lights}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
-    from lsr_tpu_torch.raster import tiled
-
-    return {"direct_raster": tiled.rasterize_direct.launches,
-            "tiled_raster": tiled.rasterize_tiled.launches,
-            "chunklist_raster": tiled.rasterize_chunklist.launches,
-            "shade_fused": shade_fused.launches}
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def targets(w, h, dev):
@@ -496,14 +590,22 @@ def raster_1080p_phase(geom, objects, cam, dev):
             lib, rec, cl, cc, d0, t0, WIDTH, HEIGHT, zn, zf, 0, 128, 128, 16,
             32, 0, HEIGHT, True, stream),
     }
+    ops = raster_pairs(setup) * RASTER_OPS
+    targets_bytes = 8 * WIDTH * HEIGHT       # depth and tid, written once
+    bounds = {"direct_raster": bound(nbytes(rec, cbb, sl, scnt)
+                                     + targets_bytes, ops),
+              "tiled_raster": bound(nbytes(rec, lists, n_walk)
+                                    + targets_bytes, ops),
+              "chunklist_raster": bound(nbytes(rec, cl, cc) + targets_bytes,
+                                        ops)}
     for k in runs:
         kerns[k]()
         kernel_ms = cuda_ms(kerns[k], 5)
         runs[k]()
         ms = cuda_ms(runs[k], 5)
-        out.setdefault(k, {}).update(ms=ms, kernel_ms=kernel_ms)
+        out.setdefault(k, {}).update(ms=ms, kernel_ms=kernel_ms, **bounds[k])
         log(f"{k} on the 1080p compact setup: wrapper {ms:.3f} ms, kernel "
-            f"alone {kernel_ms:.3f} ms")
+            f"alone {kernel_ms:.3f} ms; bound {bounds[k]}")
     return out
 
 
@@ -626,6 +728,424 @@ def render_forward_phase(dev):
         del geom, objects, gb, ldr
 
 
+def sun_map_phase(geom, objects, ctx, cpu_side, card_side, dev):
+    """Phase 10.  The bench's 2048^2 sun map: B1 (NDC01, depth only,
+    128x128 tiles, spatial sort) against rasterize_brute on the card, bit
+    for bit.  Then phase 3's small scene: the card's sun map against the
+    CPU's (equal: the light camera and depth-only setup are elementwise),
+    its ESM soft map within one q16 quantum, and the sun visibility of the
+    card's context against the CPU's on the same receivers within ESM_TOL.
+    Returns the sun map's B1 result entry."""
+    from lsr_tpu_torch.lighting.shadow_sample import (
+        make_shadow_context, shadow_visibility_dir)
+    from lsr_tpu_torch.passes.shadow import render_shadow_map, shadow_map_setup
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.brute import rasterize_brute
+    from lsr_tpu_torch.raster.setup import DEPTH_NDC01
+
+    setup, light_vp = shadow_map_setup(geom, objects, ctx.light_dir_ws,
+                                       SHADOW)
+    run = lambda: tiled.rasterize_direct(  # noqa: E731
+        setup, SHADOW, SHADOW, 0.0, 1.0, depth_mode=DEPTH_NDC01,
+        track_ids=False, tile_h=128, tile_w=128, spatial_sort=True)
+    d_k, _, max_sup = run()
+    d_m, vp_m = render_shadow_map(geom, objects, ctx.light_dir_ws, SHADOW)
+    t0 = time.perf_counter()
+    d_p, _ = rasterize_brute(setup, SHADOW, SHADOW, 0.0, 1.0,
+                             depth_mode=DEPTH_NDC01)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mis = int((d_k != d_p).sum())
+    covered = int((d_p < 1.0).sum())
+    log(f"sun map {SHADOW}^2 (B1 NDC01 depth only): {mis} depth mismatches "
+        f"against rasterize_brute of {covered} covered texels, "
+        f"render_shadow_map equal {bool((d_m == d_k).all())}, light "
+        f"view-projection equal {bool((vp_m == light_vp).all())}, max "
+        f"supers/tile {int(max_sup)}; plain {plain_ms:.1f} ms")
+    check(mis == 0 and covered > 0, "sun map differs from rasterize_brute")
+    check(bool((d_m == d_k).all()), "render_shadow_map differs")
+    ms = cuda_ms(run, 10)
+    rec, ss, n_pad = tiled.pack_direct_records(setup, True, 128, 128)
+    cbb = tiled._chunk_bboxes(ss, n_pad, 16)
+    sl, cnt, _ = tiled._super_lists(cbb, 16, SHADOW // 128, SHADOW // 128,
+                                    128, 128)
+    d0, t0_ = targets(SHADOW, SHADOW, dev)
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kern = lambda: tiled._direct_launch(  # noqa: E731
+        lib, rec, cbb, sl, cnt, d0, t0_, SHADOW, SHADOW, 0.0, 1.0,
+        DEPTH_NDC01, False, True, stream)
+    kern()
+    kernel_ms = cuda_ms(kern, 10)
+    b = bound(nbytes(rec, cbb, sl, cnt) + 4 * SHADOW * SHADOW,
+              raster_pairs(setup) * RASTER_OPS)
+    log(f"sun map B1 time: wrapper {ms:.3f} ms, kernel alone "
+        f"{kernel_ms:.3f} ms; bound {b}")
+
+    # Phase 3's scene: the card's sun map, soft map and visibility against
+    # the CPU's.
+    (st_c, ctx_c), (st_g, _) = cpu_side, card_side
+    same_map = bool((st_g["sun_depth"].cpu() == st_c["sun_depth"]).all())
+    same_vp = bool((st_g["light_viewproj"].cpu()
+                    == st_c["light_viewproj"]).all())
+    sc_c = make_shadow_context(st_c["sun_depth"], st_c["light_viewproj"],
+                               pcf_radius=2, filter_mode="esm")
+    sc_g = make_shadow_context(st_g["sun_depth"], st_g["light_viewproj"],
+                               pcf_radius=2, filter_mode="esm")
+    dq = (sc_g.taps_q16.cpu().to(torch.int64)
+          - sc_c.taps_q16.to(torch.int64)).abs()
+    gb = st_c["gb"]
+    l_dir = -ctx_c.light_dir_ws / torch.linalg.norm(ctx_c.light_dir_ws)
+    ndl = torch.clamp((gb.normal_ws * l_dir).sum(-1), min=0.0)
+    v_c = shadow_visibility_dir(sc_c, gb.world_pos, ndl)
+    v_g = shadow_visibility_dir(sc_g, gb.world_pos.to(dev),
+                                ndl.to(dev)).cpu()
+    err = float((v_g - v_c).abs().max())
+    shadowed = int(((v_c < 1.0) & gb.covered).sum())
+    log(f"sun map {SMALL_S}^2 at {SMALL_W}x{SMALL_H}, card vs CPU: map equal "
+        f"{same_map}, light view-projection equal {same_vp}; ESM soft map "
+        f"q16 equal on {float((dq == 0).float().mean()):.4%} of texels, max "
+        f"{int(dq.max())} quantum; visibility max abs {err:.3g} (tol "
+        f"{ESM_TOL}) over {shadowed} shadowed covered px")
+    check(same_map and same_vp, "the card's sun map differs from the CPU's")
+    check(int(dq.max()) <= 1 and err <= ESM_TOL and shadowed > 0,
+          "ESM soft map / visibility: card differs from CPU")
+    return {"max_abs_err": float((d_k - d_p).abs().max()), "ms": ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, **b}
+
+
+def b5_phase(st, ctx_t, lights, cam, dev):
+    """Phase 11.  B5 against resolve_fused_plain on the card at 1080p, on
+    the flagship frame's visibility buffer, ESM sun visibility and texture
+    albedo (resolve_inputs)."""
+    from lsr_tpu_torch.lighting import resolve_kernel as rk
+    from lsr_tpu_torch.lighting.shade_kernel import (
+        SUN_MODELS, bin_light_records)
+    from lsr_tpu_torch.passes.forward_plus import resolve_inputs
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    table, vis, tex = resolve_inputs(
+        st["setup"], st["depth"], st["tid"],
+        dataclasses.replace(ctx_t, shadow=st["shadow"]), cam.view, cam.proj,
+        cam.zn, cam.zf, WIDTH, HEIGHT)
+    rad = ctx_t.light_color * ctx_t.light_intensity
+    bg = (0.04, 0.06, 0.1)
+
+    def args(light_set, model, chunk=8):
+        return (table, st["tid"], vis, tex, ctx_t.camera_pos,
+                ctx_t.light_dir_ws, rad, bg, light_set, cam.view, cam.proj,
+                WIDTH, HEIGHT, 64, 128, 256, chunk, None, model, "lanes")
+
+    # Chunk 8 is the resolve route's; 16 (the public default) is a kernel
+    # variant of its own (a 16-light staging and tree sum).
+    worst = 0.0
+    for lname, light_set in (("flagship", lights), ("mixed", mixed_lights(dev))):
+        for model in SUN_MODELS:
+            for chunk in (8, 16):
+                h_k, stats = rk.resolve_fused(*args(light_set, model, chunk))
+                h_p, _ = rk.resolve_fused_plain(*args(light_set, model, chunk))
+                torch.cuda.synchronize()
+                err = float((h_k - h_p).abs().max())
+                finite = bool(torch.isfinite(h_k).all())
+                log(f"B5 [{lname}, {model}, chunk {chunk}]: max abs {err:.3g} "
+                    f"(tol {B2_TOL}), max |hdr| {float(h_p.abs().max()):.4g}, "
+                    f"max lights/bin {int(stats['max_count'])}, finite "
+                    f"{finite}")
+                check(finite and err <= B2_TOL,
+                      f"B5 {lname} {model} chunk {chunk} differs")
+                worst = max(worst, err)
+
+    ms = cuda_ms(lambda: rk.resolve_fused(*args(lights, "pbr_mr")), 20)
+    trec, cnts, _ = bin_light_records(lights, cam.view, cam.proj, WIDTH,
+                                      HEIGHT, 64, 128, 256, None)
+    uni = rk._uniforms(ctx_t.camera_pos, ctx_t.light_dir_ws, rad, bg, dev)
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kern = lambda: rk._resolve_launch(  # noqa: E731
+        lib, table, st["tid"], vis, tex, trec, cnts, uni, WIDTH, HEIGHT, 64,
+        128, 8, "pbr_mr", stream)
+    kern()
+    kernel_ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(lambda: rk.resolve_fused_plain(
+        *args(lights, "pbr_mr")), 2)
+    covered = st["tid"] >= 0
+    n_cov = int(covered.sum())
+    n_rows = int(torch.unique(st["tid"][covered]).numel())
+    # The kernel reads 31 lanes of each visible triangle's record; per
+    # pixel its tid, visibility and albedo; it writes 12 bytes a pixel.
+    b = bound(n_rows * 31 * 4 + WIDTH * HEIGHT * (4 + 4 + 12 + 12)
+              + nbytes(trec, cnts, uni),
+              light_pairs(cnts, covered, 64, 128, 256) * LIGHT_OPS
+              + n_cov * (SUN_OPS + RESOLVE_OPS))
+    log(f"B5 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms; bound {b}")
+    return {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, **b}
+
+
+def b6_phase(gb, ctx_t, lights, cam, dev):
+    """Phase 12.  B6 against accumulate_lights_plain on the card at 1080p
+    on the flagship G-buffer, at 64x128 (cap 256, chunk 16) and 16x128
+    (cap 64, chunk 8); then its entry point once with counts reset.
+    Returns (result entry, launches)."""
+    from lsr_tpu_torch.lighting import fplus_kernel as fk
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    def args(tile_h, cap, chunk, light_set=lights):
+        return (gb.world_pos, gb.normal_ws, gb.covered, ctx_t.camera_pos,
+                light_set, cam.view, cam.proj, WIDTH, HEIGHT, tile_h, 128,
+                cap, chunk)
+
+    worst = 0.0
+    for tile_h, cap, chunk in ((64, 256, 16), (16, 64, 8)):
+        for lname, light_set in (("flagship", lights),
+                                 ("mixed", mixed_lights(dev))):
+            d_k, s_k, stats = fk.accumulate_lights(
+                *args(tile_h, cap, chunk, light_set))
+            d_p, s_p, _ = fk.accumulate_lights_plain(
+                *args(tile_h, cap, chunk, light_set))
+            torch.cuda.synchronize()
+            err = max(float((d_k - d_p).abs().max()),
+                      float((s_k - s_p).abs().max()))
+            log(f"B6 [{tile_h}x128, cap {cap}, chunk {chunk}, {lname}]: "
+                f"max abs {err:.3g} (tol {B2_TOL}), max diffuse "
+                f"{float(d_p.max()):.4g}, max lights/bin "
+                f"{int(stats['max_count'])}")
+            check(bool(torch.isfinite(d_k).all() and torch.isfinite(s_k).all())
+                  and err <= B2_TOL, f"B6 {tile_h}x128 {lname} differs")
+            worst = max(worst, err)
+
+    reset_counts()
+    fk.accumulate_lights(*args(64, 256, 16))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["fplus_accumulate"] == 1,
+          f"accumulate_lights did not launch B6: {launches}")
+    ms = cuda_ms(lambda: fk.accumulate_lights(*args(64, 256, 16)), 20)
+    gbuf, trec, cnts, uni, _, _ = fk._prepare(*args(64, 256, 16), None)
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kern = lambda: fk._accumulate_launch(  # noqa: E731
+        lib, gbuf, trec, cnts, uni, WIDTH, HEIGHT, 64, 128, 16, stream)
+    kern()
+    kernel_ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(lambda: fk.accumulate_lights_plain(
+        *args(64, 256, 16)), 2)
+    b = bound(nbytes(gbuf[:7], trec, cnts, uni) + 24 * WIDTH * HEIGHT,
+              light_pairs(cnts, gb.covered, 64, 128, 256) * LIGHT_OPS)
+    log(f"B6 time (64x128, chunk 16): wrapper {ms:.3f} ms, kernel alone "
+        f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b}")
+    return ({"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+             "plain_ms": plain_ms, **b}, launches)
+
+
+def resolve_frame_phase(geom, objects, lights, ctx, cams, dev):
+    """Phase 13.  The resolve route's frame at 1080p, counts reset: two
+    direct_raster launches and one resolve_fused launch per frame; median
+    and pipelined ms; its HDR against the B2 route's on the first camera.
+    Returns (launches, median ms, pipelined ms)."""
+    from lsr_tpu_torch.frame import flagship_stages, make_flagship_frame
+    from lsr_tpu_torch.io.png import write_png
+
+    frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH, HEIGHT,
+                                use_resolve=True)
+    cams = cams[:WARMUP + RES_FRAMES]
+    reset_counts()
+    ms = []
+    for cam, ctx_i in cams:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = frame(cam, ctx_i)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    t0 = time.perf_counter()
+    for cam, ctx_i in cams[WARMUP:]:
+        out = frame(cam, ctx_i)
+    torch.cuda.synchronize()
+    pipelined = (time.perf_counter() - t0) * 1e3 / RES_FRAMES
+    launches = read_counts()
+    n_frames = len(cams) + RES_FRAMES
+    check(launches["direct_raster"] == 2 * n_frames
+          and launches["resolve_fused"] == n_frames
+          and launches["shade_fused"] == 0,
+          f"resolve frame launches {launches} for {n_frames} frames")
+    ldr = out[0]
+    check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8
+          and float((ldr.int().sum(-1) > 0).float().mean()) > 0.5,
+          "resolve frame is empty")
+    write_png(os.path.join("out", "torch_flagship_resolve.png"),
+              ldr.cpu().numpy()[::-1])
+    med = statistics.median(ms[WARMUP:])
+    log(f"resolve frame {WIDTH}x{HEIGHT}: {RES_FRAMES} frames after {WARMUP} "
+        f"warm-up, median {med:.3f} ms/frame device events (all "
+        f"{[round(m, 3) for m in ms]}), pipelined {pipelined:.3f} ms/frame; "
+        f"launches {launches} over {n_frames} frames")
+
+    cam, ctx_i = cams[0]
+    h_r = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
+                          HEIGHT, use_resolve=True)["hdr"]
+    h_b = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
+                          HEIGHT)["hdr"]
+    d = (h_r - h_b).abs()
+    mean, over = float(d.mean()), float((d.amax(-1) > 0.05).float().mean())
+    log(f"resolve vs B2 route, same camera: mean |dHDR| {mean:.3g} (< 5e-3), "
+        f"pixels over 0.05 {over:.4%} (< 1%), finite "
+        f"{bool(torch.isfinite(h_r).all())}")
+    check(bool(torch.isfinite(h_r).all()) and mean < 5e-3 and over < 0.01,
+          "resolve route differs from the B2 route")
+    return launches, med, pipelined
+
+
+def _stage_ms(fn, iters=5):
+    """(host enqueue ms, device ms per call) of fn on warm inputs: the median
+    wall time of one call, returning before the card is done, and CUDA
+    events around iters back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(host), cuda_ms(fn, iters)
+
+
+def _profile_frames(run, n=3):
+    """torch.profiler over n frames: device busy ms per frame (the sum of
+    its kernels' times), kernel launches per frame and the eight largest
+    device consumers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    t = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                          getattr(e, "self_cuda_time_total", 0.0))
+    top = sorted(cuda, key=t, reverse=True)[:8]
+    return {"device_busy_ms": sum(t(e) for e in cuda) / 1e3 / n,
+            "kernels_per_frame": sum(e.count for e in cuda) / n,
+            "top": [(e.key[:60], round(t(e) / 1e3 / n, 3)) for e in top]}
+
+
+def profile_phase(geom, objects, lights, ctx, cam, ctx_t):
+    """Phase 14.  Where the flagship frame's time goes, on both routes: each
+    stage alone on the previous stage's outputs (host enqueue and device
+    ms), then whole frames (median of 5 by CUDA events after 2 warm-up,
+    and torch.profiler over 3).  Returns {route: frame breakdown}."""
+    from lsr_tpu_torch.camera.light_camera import build_dir_light_camera
+    from lsr_tpu_torch.frame import flagship_stages
+    from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
+    from lsr_tpu_torch.lighting.shadow_sample import make_shadow_context
+    from lsr_tpu_torch.passes.forward_plus import (
+        resolve_inputs, shade_forward_plus)
+    from lsr_tpu_torch.passes.post import fxaa_pass
+    from lsr_tpu_torch.passes.shadow import render_shadow_map, shadow_map_setup
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+    from lsr_tpu_torch.raster.interp import interpolate_gbuffer
+    from lsr_tpu_torch.raster.setup import (
+        DEPTH_NDC01, scene_setup, scene_setup_depth)
+    from lsr_tpu_torch.raster.tiled import rasterize_direct
+    from lsr_tpu_torch.scene.scene import shadow_caster_aabb
+
+    w, h, s = WIDTH, HEIGHT, SHADOW
+    depth_s, vp = render_shadow_map(geom, objects, ctx_t.light_dir_ws, s)
+    shadow = make_shadow_context(depth_s, vp, filter_mode="esm")
+    ctx_sh = dataclasses.replace(ctx_t, shadow=shadow)
+    setup = scene_setup(geom.positions, geom.normals, geom.uvs, geom.indices,
+                        geom.vtx_obj, geom.tri_obj, objects.model,
+                        objects.normal_mat, cam.viewproj, w, h,
+                        obj_visible=objects.visible)
+    depth, tid, _ = rasterize_direct(setup, w, h, cam.zn, cam.zf,
+                                     spatial_sort=True)
+    gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
+                             want_face_normal=False)
+    hdr, _ = shade_forward_plus(gb, ctx_sh, lights, cam.view, cam.proj,
+                                cam.zn, cam.zf, w, h, tile_size=16, cap=128,
+                                mode="tiled_depth_range")
+    table, vis, tex = resolve_inputs(setup, depth, tid, ctx_sh, cam.view,
+                                     cam.proj, cam.zn, cam.zf, w, h)
+    ldr = tonemap_pass(hdr)
+    sun_setup, _ = shadow_map_setup(geom, objects, ctx_t.light_dir_ws, s)
+    stages = {
+        "sun map (setup + B1)": lambda: render_shadow_map(
+            geom, objects, ctx_t.light_dir_ws, s),
+        "  sun: caster AABB + light camera": lambda: build_dir_light_camera(
+            *shadow_caster_aabb(objects), ctx_t.light_dir_ws, s, 10.0),
+        "  sun: scene_setup_depth": lambda: scene_setup_depth(
+            geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
+            objects.model, vp, s, s,
+            obj_visible=objects.casts_shadow & objects.visible),
+        "  sun: rasterize_direct (lists + B1, NDC01)": lambda:
+            rasterize_direct(sun_setup, s, s, 0.0, 1.0,
+                             depth_mode=DEPTH_NDC01, track_ids=False,
+                             spatial_sort=True),
+        "shadow context (ESM prefilter, q16)": lambda: make_shadow_context(
+            depth_s, vp, filter_mode="esm"),
+        "scene_setup": lambda: scene_setup(
+            geom.positions, geom.normals, geom.uvs, geom.indices,
+            geom.vtx_obj, geom.tri_obj, objects.model, objects.normal_mat,
+            cam.viewproj, w, h, obj_visible=objects.visible),
+        "rasterize_direct (lists + B1)": lambda: rasterize_direct(
+            setup, w, h, cam.zn, cam.zf, spatial_sort=True),
+        "B2 route: interpolate_gbuffer": lambda: interpolate_gbuffer(
+            setup, depth, tid, materials=ctx.materials,
+            want_face_normal=False),
+        "B2 route: shade_forward_plus (visibility, binning, B2, ambient)":
+            lambda: shade_forward_plus(
+                gb, ctx_sh, lights, cam.view, cam.proj, cam.zn, cam.zf, w, h,
+                tile_size=16, cap=128, mode="tiled_depth_range"),
+        "resolve route: resolve_inputs (records, visibility, texture)":
+            lambda: resolve_inputs(setup, depth, tid, ctx_sh, cam.view,
+                                   cam.proj, cam.zn, cam.zf, w, h),
+        "resolve route: resolve_fused (binning + B5)": lambda: resolve_fused(
+            table, tid, vis, tex, ctx_sh.camera_pos, ctx_sh.light_dir_ws,
+            ctx_sh.light_color * ctx_sh.light_intensity, (0.04, 0.06, 0.1),
+            lights, cam.view, cam.proj, w, h, cap=256, chunk=8),
+        "tonemap": lambda: tonemap_pass(hdr),
+        "fxaa": lambda: fxaa_pass(ldr),
+    }
+    log(f"stage times {w}x{h}, sun map {s}^2 (each stage alone):")
+    log("| stage | host enqueue ms | device ms |")
+    log("|---|---|---|")
+    for name, fn in stages.items():
+        host, dev_ms = _stage_ms(fn)
+        log(f"| {name} | {host:.3f} | {dev_ms:.3f} |")
+
+    out = {}
+    for route, use_resolve in (("b2", False), ("resolve", True)):
+        def run():
+            st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, w, h,
+                                 use_resolve=use_resolve, shadow_size=s)
+            return fxaa_pass(tonemap_pass(st["hdr"]))
+
+        ms = []
+        for _ in range(7):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        out[route] = {"frame_ms": statistics.median(ms[2:]),
+                      **_profile_frames(run)}
+        log(f"frame breakdown [{route} route]: {json.dumps(out[route])}")
+        check(out[route]["kernels_per_frame"] > 0,
+              f"the profiler saw no device kernel on the {route} route")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -667,7 +1187,7 @@ def main():
     check(bool(torch.isfinite(st["hdr"]).all()), "frame 0 HDR not finite")
     b1 = b1_phase(st["setup"], cam0, dev)
     b2 = b2_phase(st["gb"], ctx0, lights, cam0, dev)
-    small_reference(dev)
+    cpu_side, card_side = small_reference(dev)
 
     # Main path: counts from zero, a few frames through the entry point.
     reset_counts()
@@ -692,8 +1212,11 @@ def main():
     launches = read_counts()
     ms = [e0.elapsed_time(e1) for e0, e1 in ev][WARMUP:]
     ldr, n_valid, max_sup, max_lights, overflow = out
-    check(launches["direct_raster"] > 0 and launches["shade_fused"] > 0,
-          f"a kernel of the main path never launched: {launches}")
+    n_frames = len(cams) + FRAMES
+    check(launches["direct_raster"] == 2 * n_frames
+          and launches["shade_fused"] == n_frames,
+          f"main path launches {launches} for {n_frames} frames (a sun map "
+          "and a camera view B1, one B2 per frame)")
     check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8,
           f"bad frame {tuple(ldr.shape)} {ldr.dtype}")
     lit_frac = float((ldr.int().sum(-1) > 0).float().mean())
@@ -709,7 +1232,7 @@ def main():
     os.makedirs("out", exist_ok=True)
     write_png(os.path.join("out", "torch_flagship.png"),
               ldr.cpu().numpy()[::-1])   # canvas row 0 is the bottom row
-    del geom, objects, frame, st, out, ldr
+    del frame, out, ldr
 
     # The high-poly path.
     t_scene = time.perf_counter()
@@ -726,41 +1249,55 @@ def main():
     e2e_launches, e2e_ms = e2e_phase(hp_geom, hp_objects, hp_ctx, dev)
     del hp_geom, hp_objects
     render_forward_phase(dev)
-    log(f"summary: flagship frame {statistics.median(ms):.3f} ms, high-poly "
-        f"frame {hp_ms:.3f} ms, end to end compact + chunklist {e2e_ms:.3f} "
-        f"ms ({card})")
+
+    # The sun shadow, B5 and B6 on the flagship scene.
+    sun = sun_map_phase(geom, objects, ctx, cpu_side, card_side, dev)
+    b5 = b5_phase(st, ctx0, lights, cam0, dev)
+    b6, b6_launches = b6_phase(st["gb"], ctx0, lights, cam0, dev)
+    res_launches, res_ms, res_pipe = resolve_frame_phase(
+        geom, objects, lights, ctx, cams, dev)
+    prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
+    log(f"summary: flagship frame {statistics.median(ms):.3f} ms (B2 route), "
+        f"{res_ms:.3f} ms (resolve route, pipelined {res_pipe:.3f}), "
+        f"high-poly frame {hp_ms:.3f} ms, end to end compact + chunklist "
+        f"{e2e_ms:.3f} ms; device busy {prof['b2']['device_busy_ms']:.3f} / "
+        f"{prof['resolve']['device_busy_ms']:.3f} ms a frame in "
+        f"{prof['b2']['kernels_per_frame']:.0f} / "
+        f"{prof['resolve']['kernels_per_frame']:.0f} kernels (B2 / resolve "
+        f"route) ({card})")
 
     at_1080p = f"{WIDTH}x{HEIGHT} high-poly compact setup"
+    keys = ("max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by")
+
+    def entry(name, src, replaces, n, res, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"lsr_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": n, **{k: res[k] for k in keys},
+                "library_ms": None, **extra}
+
+    sun_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err")
     kernels = [
-        {"name": "direct_raster", "route": "cuda",
-         "source": "lsr_tpu_torch/csrc/direct_raster.cu",
-         "replaces": "lsr_tpu/raster/tiled.py:289",
-         "launches": launches["direct_raster"],
-         "max_abs_err": b1["max_abs_err"], "ms": b1["ms"],
-         "plain_ms": b1["plain_ms"]},
-        {"name": "shade_fused", "route": "cuda",
-         "source": "lsr_tpu_torch/csrc/shade_fused.cu",
-         "replaces": "lsr_tpu/lighting/shade_kernel.py:40",
-         "launches": launches["shade_fused"],
-         "max_abs_err": b2["max_abs_err"], "ms": b2["ms"],
-         "plain_ms": b2["plain_ms"]},
-        {"name": "tiled_raster", "route": "cuda",
-         "source": "lsr_tpu_torch/csrc/tiled_raster.cu",
-         "replaces": "lsr_tpu/raster/tiled.py:125",
-         "launches": hp_launches["tiled_raster"],
-         "max_abs_err": r1080["tiled_raster"]["max_abs_err"],
-         "ms": r1080["tiled_raster"]["ms"],
-         "kernel_ms": r1080["tiled_raster"]["kernel_ms"],
-         "plain_ms": r1080["tiled_raster"]["plain_ms"], "at": at_1080p},
-        {"name": "chunklist_raster", "route": "cuda",
-         "source": "lsr_tpu_torch/csrc/chunklist_raster.cu",
-         "replaces": "lsr_tpu/raster/tiled.py:697",
-         "launches": e2e_launches["chunklist_raster"],
-         "max_abs_err": r1080["chunklist_raster"]["max_abs_err"],
-         "ms": r1080["chunklist_raster"]["ms"],
-         "kernel_ms": r1080["chunklist_raster"]["kernel_ms"],
-         "plain_ms": r1080["chunklist_raster"]["plain_ms"], "at": at_1080p},
+        entry("direct_raster", "direct_raster.cu",
+              "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
+              sun_map={k: sun[k] for k in sun_keys}),
+        entry("shade_fused", "shade_fused.cu",
+              "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
+              b2),
+        entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
+              hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p),
+        entry("chunklist_raster", "chunklist_raster.cu",
+              "lsr_tpu/raster/tiled.py:697", e2e_launches["chunklist_raster"],
+              r1080["chunklist_raster"], at=at_1080p),
+        entry("resolve_fused", "resolve_fused.cu",
+              "lsr_tpu/lighting/resolve_kernel.py:65",
+              res_launches["resolve_fused"], b5),
+        entry("fplus_accumulate", "fplus_accumulate.cu",
+              "lsr_tpu/lighting/fplus_kernel.py:46",
+              b6_launches["fplus_accumulate"], b6),
     ]
+    check(all(k["launches"] > 0 for k in kernels), "a kernel never launched: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ from_numpy_state reads every field through np.asarray(getattr(x, name)), so
 it takes lsr_tpu's registered dataclasses (or anything with the same field
 names) without importing jax.  The parity tests use it so both packages
 render exactly the same geometry, lights, materials, texture and camera;
-frame_params, compact_stats and batch carry a FrameParams, a CompactStats
-and a concat_scene batch the same way.
+frame_params, compact_stats, batch and shadow_context carry a FrameParams, a
+CompactStats, a concat_scene batch and a sun ShadowContext the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from lsr_tpu_torch.core.frame import FrameParams
 from lsr_tpu_torch.lighting.light_types import COLUMNS, LightsSoA, lights_from_numpy
+from lsr_tpu_torch.lighting.shadow_sample import ShadowContext
 from lsr_tpu_torch.raster.setup import CompactStats
 from lsr_tpu_torch.scene.scene import (
     CameraState,
@@ -64,13 +65,50 @@ def materials_soa(materials, device) -> MaterialsSoA:
         **{k: _tensor(_np(materials, k), device) for k in _MATERIALS})
 
 
+def shadow_context(sc, device) -> ShadowContext:
+    """lsr_tpu's ShadowContext as this package's.  Its tap table becomes the
+    (S, S) int32 q16 plane: ESM's soft map is unpacked from its u32 texel
+    pairs (low half = even texel), unit-step PCF's from its per-anchor u16
+    tap windows (anchor (ay, ax) lane (li, lj) holds texel (ay * stride - r
+    + li, ax * stride - r + lj), clamped)."""
+    depth = np.array(sc.depth, np.float32)
+    s = depth.shape[0]
+    taps = None if sc.depth_taps is None else np.asarray(sc.depth_taps)
+    if taps is not None:
+        if taps.dtype != np.uint32:
+            raise NotImplementedError("shadow_context: only lsr_tpu's u16 "
+                                      "tap tables (TAPS_U16) are carried")
+        lo, hi = taps & 0xFFFF, taps >> 16
+        pairs = np.stack([lo, hi], axis=-1).reshape(taps.shape[:-1] + (-1,))
+        if sc.filter_mode == "esm":
+            taps = pairs.reshape(s, s)
+        else:
+            st, r = int(sc.tap_stride), int(sc.pcf_radius)
+            win = st + 2 * r
+            win_tab = pairs.reshape(-1, win, win)
+            n_anchor = -(-s // st)
+            y, x = np.mgrid[0:s, 0:s]
+            taps = win_tab[(y // st) * n_anchor + x // st, y % st + r,
+                           x % st + r]
+        taps = torch.as_tensor(taps.astype(np.int32), device=device)
+    f = lambda k: float(np.float32(_np(sc, k)))  # noqa: E731
+    return ShadowContext(
+        depth=torch.as_tensor(depth, device=device),
+        light_viewproj=torch.as_tensor(
+            np.array(sc.light_viewproj, np.float32), device=device),
+        bias_const=f("bias_const"), bias_slope=f("bias_slope"),
+        strength=f("strength"), pcf_radius=int(sc.pcf_radius),
+        pcf_step=int(sc.pcf_step), taps_q16=taps, filter_mode=sc.filter_mode, esm_c=float(sc.esm_c))
+
+
 def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:
-    if getattr(ctx, "shadow", None) is not None:
-        raise NotImplementedError("sun shadow contexts are not ported yet")
+    """lsr_tpu's ShadeContext (with its sun ShadowContext, if any) as this
+    package's."""
     if getattr(ctx, "ibl", None) is not None:
         raise NotImplementedError("image-based lighting is not ported yet")
     tex = getattr(ctx, "textures", None)
-    return make_shade_context(
+    shadow = getattr(ctx, "shadow", None)
+    sc = make_shade_context(
         materials,
         light_dir_ws=_np(ctx, "light_dir_ws"),
         light_color=_np(ctx, "light_color"),
@@ -79,6 +117,9 @@ def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:
         textures=None if tex is None else _tensor(np.asarray(tex), device),
         device=device,
     )
+    if shadow is None:
+        return sc
+    return dataclasses.replace(sc, shadow=shadow_context(shadow, device))
 
 
 def camera_state(camera, device) -> CameraState:

@@ -14,10 +14,60 @@ def _f32(x, device=None):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+# The small vector ops below round as lsr_tpu's do when it runs them one at a
+# time on XLA:CPU, which contracts a * b + c into a fused multiply-add
+# inside jnp.linalg.norm and jnp.cross but not inside jnp.dot.  Elementwise
+# float32 and float64 ops round the same on the CPU and the card, so each
+# device gives the same bits.  They work on whole vectors and matrices at
+# once: each op is a launch on the card, and the light camera runs every
+# frame.
+
+
+def fma(a, b, c):
+    """float32 a * b + c rounded once, as a fused multiply-add.
+
+    The product of two float32 values is exact in float64, but rounding the
+    float64 sum to nearest and then to float32 rounds twice: a sum just off
+    a float32 midpoint can land on it and tie the wrong way.  So the sum is
+    rounded to odd instead (round to nearest, then step one float64 ulp
+    toward the exact value when the sum was inexact and its last bit is
+    even; the error comes from Knuth's TwoSum).  Rounding to odd with two
+    or more spare bits, then to nearest, equals one rounding to nearest."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+def dot3(a, b):
+    """Dot product over a last axis of 3, summed left to right (jnp.dot)."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def norm3(v):
+    """Length over a last axis of 3 (jnp.linalg.norm: fused squares,
+    sqrt(fma(z, z, fma(y, y, x * x))))."""
+    sq = (v.double() * v.double())        # exact squares
+    s = (sq[..., 1] + (v[..., 0] * v[..., 0]).double()).float()
+    return torch.sqrt((sq[..., 2] + s.double()).float())
+
+
+def cross3(a, b):
+    """Cross product over a last axis of 3 (jnp.cross: component k is
+    fma(a_i, b_j, -(a_j * b_i)) for (i, j) = (1, 2), (2, 0), (0, 1))."""
+    i, j = [1, 2, 0], [2, 0, 1]
+    return fma(a[..., i], b[..., j], -(a[..., j] * b[..., i]))
+
+
 def normalize(v, eps: float = 1e-12):
-    """Normalize along the last axis (eps-guarded norm)."""
-    n = torch.sqrt((v * v).sum(-1, keepdim=True))
-    return v / torch.clamp(n, min=eps)
+    """Normalize 3-vectors along the last axis (eps-guarded norm)."""
+    return v / torch.clamp(norm3(v)[..., None], min=eps)
 
 
 def perspective_lh_no(fovy, aspect, znear, zfar, device=None):
@@ -32,22 +82,26 @@ def perspective_lh_no(fovy, aspect, znear, zfar, device=None):
     return m
 
 
+def ortho_lh_no(left, right, bottom, top, znear, zfar, device=None):
+    """Left-handed orthographic, NDC z in [-1, 1] (glm::orthoLH_NO).  The
+    bounds may be 0-d tensors on a device (a fitted light camera)."""
+    lo = torch.stack([_f32(x, device) for x in (left, bottom, znear)])
+    hi = torch.stack([_f32(x, device) for x in (right, top, zfar)])
+    d = hi - lo
+    rows = torch.cat([torch.diag(2.0 / d), (-(hi + lo) / d)[:, None]], dim=1)
+    return torch.cat([rows, torch.eye(4, device=lo.device)[3:]])
+
+
 def look_at_lh(eye, center, up, device=None):
     """Left-handed look-at view matrix (glm::lookAtLH)."""
     eye = _f32(eye, device)
     center = _f32(center, device)
     up = _f32(up, device)
     f = normalize(center - eye)
-    s = normalize(torch.linalg.cross(up, f))
-    u = torch.linalg.cross(f, s)
-    m = torch.eye(4, dtype=torch.float32, device=device)
-    m[0, :3] = s
-    m[1, :3] = u
-    m[2, :3] = f
-    m[0, 3] = -(s * eye).sum()
-    m[1, 3] = -(u * eye).sum()
-    m[2, 3] = -(f * eye).sum()
-    return m
+    s = normalize(cross3(up, f))
+    rot = torch.stack([s, cross3(f, s), f])
+    rows = torch.cat([rot, -dot3(rot, eye)[:, None]], dim=1)
+    return torch.cat([rows, torch.eye(4, device=rot.device)[3:]])
 
 
 def translate(t, device=None):
@@ -86,3 +140,24 @@ def normal_matrix(model):
     if bool(torch.abs(det) > 1e-8):
         return torch.linalg.inv(m3).T.contiguous()
     return m3.clone()
+
+
+def transform_points_h(m, pts):
+    """(..., N, 3) points -> homogeneous (..., N, 4) via clip = M @ [p,1].
+    Each row sums as (m0 x + m1 y) + (m2 z + m3), the order of lsr_tpu's
+    (N, 4) @ (4, 4) product on XLA:CPU, on every device."""
+    pts = _f32(pts, m.device)
+    hom = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    p = hom[..., None, :] * m                 # p[..., n, i, k] = m_ik h_k
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+
+def transform_points(m, pts):
+    """Affine transform of (..., N, 3) points; drops w (assumes affine m)."""
+    return transform_points_h(m, pts)[..., :3]
+
+
+def matmul4(a, b):
+    """(4, 4) @ (4, 4) with transform_points_h's summation order."""
+    p = a[:, None, :] * b.T[None, :, :]        # p[i, j, k] = a_ik b_kj
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])

@@ -1,17 +1,23 @@
-"""The flagship forward+ frame, without shadows or scene culling.
+"""The flagship forward+ frame with its sun shadow map, without scene
+culling or the local shadow atlas.
 
-The composition of bench.py:make_flagship_frame (:242-287) with
-with_local=False, with_cull=False and no sun shadow map (sun visibility 1):
+The composition of bench.py:make_flagship_frame (:179-288) with
+with_local=False and with_cull=False:
 
-  scene_setup -> rasterize_direct(spatial_sort=True)      [kernel B1]
-  -> interpolate_gbuffer(materials, no face normals)
-  -> shade_forward_plus(tiled_depth_range, 16 px, cap 128, pbr_mr)  [B2]
+  render_shadow_map (2048^2, NDC01, depth only)           [kernel B1]
+  -> make_shadow_context (ESM: prefilter_esm + q16 soft map, or PCF)
+  -> scene_setup -> rasterize_direct(spatial_sort=True)   [kernel B1]
+  -> use_resolve=False: interpolate_gbuffer(materials)
+                        -> shade_forward_plus(tiled_depth_range, 16 px,
+                           cap 128, pbr_mr)               [kernel B2]
+     use_resolve=True:  resolve_forward_plus(cap 128, pbr_mr)  [kernel B5]
   -> tonemap_pass -> fxaa_pass
 
 The scene is the procedural stand-in for the bench's monkey grid: a 5x5
 grid of make_uv_sphere(rings=16, sectors=32) (1,024 triangles each) plus the
 ground plane, with the bench's 256-light set, materials and checkerboard
 texture drawn from default_rng(seed) in the bench's order (bench.py:44-95).
+Everything lives on the card unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -22,10 +28,16 @@ import numpy as np
 import torch
 
 from lsr_tpu_torch.core import math3d as m3
+from lsr_tpu_torch.core.frame import ShadowPassParams
+from lsr_tpu_torch.core.util import resolve_device
 from lsr_tpu_torch.io.obj import make_plane, make_uv_sphere
 from lsr_tpu_torch.lighting.light_types import LightSetBuilder
-from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
+from lsr_tpu_torch.passes.forward_plus import (
+    resolve_forward_plus,
+    shade_forward_plus,
+)
 from lsr_tpu_torch.passes.post import fxaa_pass
+from lsr_tpu_torch.passes.shadow import make_sun_shadow
 from lsr_tpu_torch.passes.tonemap import tonemap_pass
 from lsr_tpu_torch.raster.interp import interpolate_gbuffer
 from lsr_tpu_torch.raster.setup import scene_setup
@@ -40,7 +52,9 @@ FOV = np.pi / 3.2
 
 def build_flagship_scene(n_lights: int = 256, seed: int = 42, grid: int = 5,
                          device=None):
-    """Procedural flagship scene.  Returns (geom, objects, lights, ctx)."""
+    """Procedural flagship scene on `device` (default: the card,
+    core.util.default_device).  Returns (geom, objects, lights, ctx)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     sphere = make_uv_sphere(rings=16, sectors=32)
     sb = SceneBuilder()
@@ -95,6 +109,7 @@ def build_flagship_scene(n_lights: int = 256, seed: int = 42, grid: int = 5,
 
 def flagship_camera(i: int, ctx, width: int, height: int, device=None):
     """Frame i of the bench's orbit (bench.py:346-354): (cam, ctx_i)."""
+    device = resolve_device(device)
     ang = 0.02 * i
     eye = (float(EYE0[0] * np.cos(ang) - EYE0[2] * np.sin(ang)),
            float(EYE0[1]),
@@ -106,27 +121,53 @@ def flagship_camera(i: int, ctx, width: int, height: int, device=None):
 
 
 def flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width: int,
-                    height: int):
-    """Setup -> raster -> interp -> forward+; returns the intermediates
-    (setup, depth, tid, max_sup, gb, hdr, stats)."""
+                    height: int, use_resolve: bool = False,
+                    shadow_size: int = 2048, shadow_filter: str = "esm",
+                    sun_vis_scale: int = 1):
+    """Sun map -> setup -> raster -> (interp -> forward+ | resolve); returns
+    the intermediates: setup, depth, tid, max_sup, gb (None on the resolve
+    route), hdr, stats, sun_depth (S, S), light_viewproj (4, 4), shadow (the
+    ShadowContext) and sun_vis (H, W).  sun_vis_scale > 1 raises
+    NotImplementedError (ROADMAP A8)."""
+    shadow = make_sun_shadow(geom, objects, ctx_t.light_dir_ws,
+                             ShadowPassParams(map_size=shadow_size,
+                                              pcf_radius=2,
+                                              filter_mode=shadow_filter))
+    ctx_sh = dataclasses.replace(ctx_t, shadow=shadow)
+
     setup = scene_setup(
         geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
         geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj,
         width, height, obj_visible=objects.visible)
     depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
                                            cam.zf, spatial_sort=True)
-    gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
-                             want_face_normal=False)
-    hdr, stats = shade_forward_plus(
-        gb, ctx_t, lights, cam.view, cam.proj, cam.zn, cam.zf, width, height,
-        tile_size=16, cap=128, mode="tiled_depth_range", sun_model="pbr_mr")
+    gb = None
+    if use_resolve:
+        hdr, stats = resolve_forward_plus(
+            setup, depth, tid, ctx_sh, lights, cam.view, cam.proj, cam.zn,
+            cam.zf, width, height, cap=128, sun_model="pbr_mr",
+            rec_layout="lanes", sun_vis_scale=sun_vis_scale)
+    else:
+        gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
+                                 want_face_normal=False)
+        hdr, stats = shade_forward_plus(
+            gb, ctx_sh, lights, cam.view, cam.proj, cam.zn, cam.zf, width,
+            height, tile_size=16, cap=128, mode="tiled_depth_range",
+            sun_model="pbr_mr", sun_vis_scale=sun_vis_scale)
     return dict(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
-                hdr=hdr, stats=stats)
+                hdr=hdr, stats=stats, sun_depth=shadow.depth,
+                light_viewproj=shadow.light_viewproj, shadow=shadow,
+                sun_vis=stats["sun_vis"])
 
 
-def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int):
+def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int,
+                        use_resolve: bool = False, shadow_size: int = 2048,
+                        shadow_filter: str = "esm", sun_vis_scale: int = 1):
     """frame(cam, ctx_t) -> (ldr_u8 (H, W, 3), n_valid, max_sup,
     max_lights_per_bin, overflow_bins), all tensors on the scene's device.
+    The arguments are bench.py's: use_resolve picks kernel B5's route over
+    interp + B2; the sun map is shadow_size^2 with PCF radius 2, filtered
+    by shadow_filter ("esm", the bench default, or "pcf").
 
     Float32 products on the card run in full precision: TF32 is switched
     off here for matmuls (the vertex transform) and cuDNN."""
@@ -135,7 +176,10 @@ def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int):
 
     def frame(cam, ctx_t):
         st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width,
-                             height)
+                             height, use_resolve=use_resolve,
+                             shadow_size=shadow_size,
+                             shadow_filter=shadow_filter,
+                             sun_vis_scale=sun_vis_scale)
         ldr = fxaa_pass(tonemap_pass(st["hdr"]))
         return (ldr, st["setup"].valid.sum(), st["max_sup"],
                 st["stats"]["max_lights_per_bin"],

@@ -28,6 +28,7 @@ from lsr_tpu_torch.core.frame import (
     LightCullingMode,
     TechniqueMode,
 )
+from lsr_tpu_torch.core.util import resolve_device
 from lsr_tpu_torch.frame import build_flagship_scene
 from lsr_tpu_torch.io.obj import make_uv_sphere
 from lsr_tpu_torch.passes.post import fxaa_pass
@@ -42,7 +43,9 @@ SPACING = 1.2
 
 def build_highpoly_scene(grid: int = 33, seed: int = 7, n_lights: int = 256,
                          device=None):
-    """Returns (geom, objects, lights, ctx)."""
+    """Returns (geom, objects, lights, ctx) on `device` (default: the
+    card, core.util.default_device)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     sphere = make_uv_sphere(rings=16, sectors=32)
     sb = SceneBuilder()
@@ -61,6 +64,7 @@ def highpoly_camera(ctx, width: int, height: int, grid: int = 33,
                     device=None):
     """The bench's high, oblique view over the whole grid
     (bench_highpoly.py:61-64).  Returns (cam, ctx with its camera_pos)."""
+    device = resolve_device(device)
     ext = grid * SPACING * 0.72
     eye = (ext, ext * 0.9, -ext)
     cam = make_camera(width, height, eye, (0, 0, 0), fov=np.pi / 3.0,

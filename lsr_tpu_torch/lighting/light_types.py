@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from lsr_tpu_torch.core.util import resolve_device
+
 LIGHT_DIRECTIONAL = 0
 LIGHT_POINT = 1
 LIGHT_SPOT = 2
@@ -126,6 +128,7 @@ class LightSetBuilder:
                          color=color, intensity=intensity, range=range, **kw)
 
     def build(self, device=None) -> LightsSoA:
+        device = resolve_device(device)
         if not self._rows:
             raise ValueError("LightSetBuilder.build: no lights added")
         cols = {k: np.asarray([r[k] for r in self._rows]) for k in COLUMNS}

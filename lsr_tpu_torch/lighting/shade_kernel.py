@@ -105,158 +105,208 @@ def _sun_term(g, uni, sun_model):
     return dr * sun_vis, dg * sun_vis, db * sun_vis
 
 
+def tile_planes(planes, th, tw, tiles_y, tiles_x):
+    """(C, ph, pw) planes -> (C, tiles, 1, th * tw), tile-major: the layout
+    the plain versions evaluate a tile's light list in."""
+    c_all = planes.shape[0]
+    return planes.reshape(c_all, tiles_y, th, tiles_x, tw) \
+        .permute(0, 1, 3, 2, 4).reshape(c_all, tiles_y * tiles_x, 1, th * tw)
+
+
+def untile_planes(t, th, tw, tiles_y, tiles_x):
+    """Inverse of tile_planes for (C, tiles, 1, th * tw) -> (C, ph, pw)."""
+    c_all = t.shape[0]
+    return t.reshape(c_all, tiles_y, tiles_x, th, tw).permute(0, 1, 3, 2, 4) \
+        .reshape(c_all, tiles_y * th, tiles_x * tw)
+
+
+def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
+                kinds):
+    """One chunk of every tile's list against the tile's pixels, in the
+    kernels' operation order (csrc/light_loop.cuh:local_light).
+    blk: (T, chunk, 32) records; pixel planes (T, 1, P).  Returns the
+    clamped light colors ((T, chunk, 1) x 3), wd and ws (T, chunk, P).
+    kinds: the light types to evaluate (math for absent types is skipped,
+    bit-exact)."""
+    def f(j):
+        return blk[:, :, j:j + 1]                           # (T, chunk, 1)
+
+    has_spot = LIGHT_SPOT in kinds
+    has_rect = LIGHT_RECT_AREA in kinds
+    has_tube = LIGHT_TUBE_AREA in kinds
+    ltype = f(0)
+    posx, posy, posz = f(1), f(2), f(3)
+    if has_spot or has_rect:
+        fwdx, fwdy, fwdz = _unit3(f(4), f(5), f(6))
+    if has_rect:
+        upx, upy, upz = _unit3(f(7), f(8), f(9))
+    if has_tube:
+        axx, axy, axz = _unit3(f(10), f(11), f(12))
+    colr, colg, colb = f(13), f(14), f(15)
+    intensity = f(16)
+    rng = torch.clamp(f(17), min=0.001)
+    inner = torch.clamp(f(18), 0.02, _HALF_PI - 0.02)
+    outer = torch.minimum(torch.maximum(torch.maximum(inner + 0.005, f(19)),
+                                        inner + 0.005),
+                          _f(inner, _HALF_PI - 0.005))
+    hex_ = torch.clamp(f(20), min=0.05)
+    hey = torch.clamp(f(21), min=0.05)
+    thl = torch.clamp(f(22), min=0.1)
+    amodel = f(24)
+    apow = torch.clamp(f(25), min=0.001)
+    abias = torch.clamp(f(26), min=1e-5)
+    acut = f(27)
+    is_spot = ltype == float(LIGHT_SPOT)
+    is_rect = ltype == float(LIGHT_RECT_AREA)
+    is_tube = ltype == float(LIGHT_TUBE_AREA)
+
+    emx, emy, emz = posx, posy, posz
+    if has_rect or has_tube:
+        dxp, dyp, dzp = px - posx, py - posy, pz - posz
+    if has_rect:
+        rx0, ry0, rz0 = _unit3(upy * fwdz - upz * fwdy,
+                               upz * fwdx - upx * fwdz,
+                               upx * fwdy - upy * fwdx)
+        u2x, u2y, u2z = _unit3(fwdy * rz0 - fwdz * ry0,
+                               fwdz * rx0 - fwdx * rz0,
+                               fwdx * ry0 - fwdy * rx0)
+        rx, ry, rz = _unit3(u2y * fwdz - u2z * fwdy,
+                            u2z * fwdx - u2x * fwdz,
+                            u2x * fwdy - u2y * fwdx)
+        ux = torch.minimum(torch.maximum(dxp * rx + dyp * ry + dzp * rz,
+                                         -hex_), hex_)
+        uy = torch.minimum(torch.maximum(dxp * u2x + dyp * u2y + dzp * u2z,
+                                         -hey), hey)
+        emx = torch.where(is_rect, posx + rx * ux + u2x * uy, emx)
+        emy = torch.where(is_rect, posy + ry * ux + u2y * uy, emy)
+        emz = torch.where(is_rect, posz + rz * ux + u2z * uy, emz)
+    if has_tube:
+        ax2, ay2, az2 = axx * (2.0 * thl), axy * (2.0 * thl), axz * (2.0 * thl)
+        a0x, a0y, a0z = posx - axx * thl, posy - axy * thl, posz - axz * thl
+        denom_seg = torch.clamp(ax2 * ax2 + ay2 * ay2 + az2 * az2, min=1e-8)
+        tseg = torch.clamp(((px - a0x) * ax2 + (py - a0y) * ay2
+                            + (pz - a0z) * az2) / denom_seg, 0.0, 1.0)
+        emx = torch.where(is_tube, a0x + ax2 * tseg, emx)
+        emy = torch.where(is_tube, a0y + ay2 * tseg, emy)
+        emz = torch.where(is_tube, a0z + az2 * tseg, emz)
+
+    tlx, tly, tlz = emx - px, emy - py, emz - pz
+    dist = torch.sqrt(torch.clamp(tlx * tlx + tly * tly + tlz * tlz,
+                                  min=1e-16))
+    inv_d = 1.0 / dist
+    llx, lly, llz = tlx * inv_d, tly * inv_d, tlz * inv_d
+
+    shaping = torch.ones_like(dist)
+    if has_spot:
+        cos_t = -(llx * fwdx + lly * fwdy + llz * fwdz)
+        cin = torch.cos(inner)
+        cout = torch.cos(outer)
+        tt = torch.clamp((cos_t - cout) / torch.clamp(cin - cout, min=1e-5),
+                         0.0, 1.0)
+        spot = torch.where(cos_t > cout, tt * tt * (3.0 - 2.0 * tt),
+                           torch.zeros_like(tt))
+        shaping = torch.where(is_spot, spot, shaping)
+    if has_rect:
+        facing = torch.clamp(-(fwdx * llx + fwdy * lly + fwdz * llz), min=0.0)
+        rect = torch.where(facing > 0.0, 0.65 + 0.55 * facing,
+                           torch.zeros_like(facing))
+        shaping = torch.where(is_rect, rect, shaping)
+    if has_tube:
+        soft = torch.clamp(1.0 - dist / rng, 0.0, 1.0)
+        shaping = torch.where(is_tube, 0.75 + 0.35 * soft, shaping)
+    spec_pw = torch.where(is_spot, _f(ltype, 34.0), _f(ltype, 36.0))
+    spec_sc = torch.where(is_spot, _f(ltype, 0.32), _f(ltype, 0.30))
+    if has_rect:
+        spec_pw = torch.where(is_rect, _f(ltype, 26.0), spec_pw)
+        spec_sc = torch.where(is_rect, _f(ltype, 0.26), spec_sc)
+    if has_tube:
+        spec_pw = torch.where(is_tube, _f(ltype, 22.0), spec_pw)
+        spec_sc = torch.where(is_tube, _f(ltype, 0.20), spec_sc)
+
+    norm = torch.clamp(1.0 - dist / rng, 0.0, 1.0)
+    smooth = norm * norm * (3.0 - 2.0 * norm)
+    invsq = torch.clamp((rng * rng) / torch.maximum(dist * dist, abias),
+                        max=1.0) * norm * norm
+    fall = torch.where(amodel == 0.0, norm,
+                       torch.where(amodel == 1.0, smooth, invsq))
+    if not apow1:
+        fall = torch.pow(torch.clamp(fall, min=1e-9), apow)
+    fall = torch.where((acut > 0.0) & (fall < acut), torch.zeros_like(fall),
+                       fall)
+    atten = torch.where(dist < rng, fall, torch.zeros_like(fall)) \
+        * torch.clamp(shaping, min=0.0)
+
+    lndl = torch.clamp(nx * llx + ny * lly + nz * llz, min=0.0)
+    live = (dist > 1e-4) & (lndl > 0.0) & (atten > 0.0) & covered
+    gain = torch.where(live, intensity * atten, torch.zeros_like(atten))
+    hxl, hyl, hzl = llx + vx, lly + vy, llz + vz
+    hll = _rsqrt(torch.clamp(hxl * hxl + hyl * hyl + hzl * hzl, min=1e-16))
+    lndh = torch.clamp(nx * (hxl * hll) + ny * (hyl * hll) + nz * (hzl * hll),
+                       min=0.0)
+    spec = spec_sc * torch.pow(torch.clamp(lndh, min=1e-9), spec_pw)
+    cols = [torch.clamp(c, min=0.0) for c in (colr, colg, colb)]
+    return cols, gain * lndl, gain * spec
+
+
+def walk_chunks(tile_rec, counts, chunk):
+    """The chunks of every tile's list that the kernels walk: the largest
+    tile's min(ceil(count / chunk), cap / chunk) (one host sync); smaller
+    tiles meet zero records past their count, which add exactly zero.
+    Yields (T, chunk, 32) record blocks."""
+    cap = tile_rec.shape[1]
+    n_chunks = min(cdiv(int(counts.max()), chunk), cap // chunk)
+    for ci in range(n_chunks):
+        yield tile_rec[:, ci * chunk:(ci + 1) * chunk, :]
+
+
 def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
                  chunk, sun_model, apow1, kinds):
     """Plain PyTorch version of kernel B2: every tile's list evaluated per
     pixel in the kernel's operation order, in (tiles, chunk, pixels) layout.
     Returns (3, ph, pw) lit planes."""
-    c_all = gbuf.shape[0]
-    nt = tiles_y * tiles_x
-    g = gbuf.reshape(c_all, tiles_y, th, tiles_x, tw).permute(0, 1, 3, 2, 4) \
-        .reshape(c_all, nt, 1, th * tw)
+    g = tile_planes(gbuf, th, tw, tiles_y, tiles_x)
     px, py, pz = g[0], g[1], g[2]
     nx, ny, nz = g[3], g[4], g[5]
     covered = g[6] > 0.0
     dr, dg, db = _sun_term(g, uni, sun_model)
     vx, vy, vz = _unit3(uni[0] - px, uni[1] - py, uni[2] - pz)
 
-    has_spot = LIGHT_SPOT in kinds
-    has_rect = LIGHT_RECT_AREA in kinds
-    has_tube = LIGHT_TUBE_AREA in kinds
     acc = [torch.zeros_like(px) for _ in range(6)]
-    cap = tile_rec.shape[1]
-    n_chunks = min(cdiv(int(counts.max()), chunk), cap // chunk)
-    for ci in range(n_chunks):
-        blk = tile_rec[:, ci * chunk:(ci + 1) * chunk, :]   # (T, chunk, 32)
-
-        def f(j, blk=blk):
-            return blk[:, :, j:j + 1]                       # (T, chunk, 1)
-
-        ltype = f(0)
-        posx, posy, posz = f(1), f(2), f(3)
-        if has_spot or has_rect:
-            fwdx, fwdy, fwdz = _unit3(f(4), f(5), f(6))
-        if has_rect:
-            upx, upy, upz = _unit3(f(7), f(8), f(9))
-        if has_tube:
-            axx, axy, axz = _unit3(f(10), f(11), f(12))
-        colr, colg, colb = f(13), f(14), f(15)
-        intensity = f(16)
-        rng = torch.clamp(f(17), min=0.001)
-        inner = torch.clamp(f(18), 0.02, _HALF_PI - 0.02)
-        outer = torch.minimum(torch.maximum(torch.maximum(inner + 0.005, f(19)),
-                                            inner + 0.005),
-                              _f(inner, _HALF_PI - 0.005))
-        hex_ = torch.clamp(f(20), min=0.05)
-        hey = torch.clamp(f(21), min=0.05)
-        thl = torch.clamp(f(22), min=0.1)
-        amodel = f(24)
-        apow = torch.clamp(f(25), min=0.001)
-        abias = torch.clamp(f(26), min=1e-5)
-        acut = f(27)
-        is_spot = ltype == float(LIGHT_SPOT)
-        is_rect = ltype == float(LIGHT_RECT_AREA)
-        is_tube = ltype == float(LIGHT_TUBE_AREA)
-
-        emx, emy, emz = posx, posy, posz
-        if has_rect or has_tube:
-            dxp, dyp, dzp = px - posx, py - posy, pz - posz
-        if has_rect:
-            rx0, ry0, rz0 = _unit3(upy * fwdz - upz * fwdy,
-                                   upz * fwdx - upx * fwdz,
-                                   upx * fwdy - upy * fwdx)
-            u2x, u2y, u2z = _unit3(fwdy * rz0 - fwdz * ry0,
-                                   fwdz * rx0 - fwdx * rz0,
-                                   fwdx * ry0 - fwdy * rx0)
-            rx, ry, rz = _unit3(u2y * fwdz - u2z * fwdy,
-                                u2z * fwdx - u2x * fwdz,
-                                u2x * fwdy - u2y * fwdx)
-            ux = torch.minimum(torch.maximum(dxp * rx + dyp * ry + dzp * rz,
-                                             -hex_), hex_)
-            uy = torch.minimum(torch.maximum(dxp * u2x + dyp * u2y + dzp * u2z,
-                                             -hey), hey)
-            emx = torch.where(is_rect, posx + rx * ux + u2x * uy, emx)
-            emy = torch.where(is_rect, posy + ry * ux + u2y * uy, emy)
-            emz = torch.where(is_rect, posz + rz * ux + u2z * uy, emz)
-        if has_tube:
-            ax2, ay2, az2 = axx * (2.0 * thl), axy * (2.0 * thl), axz * (2.0 * thl)
-            a0x, a0y, a0z = posx - axx * thl, posy - axy * thl, posz - axz * thl
-            denom_seg = torch.clamp(ax2 * ax2 + ay2 * ay2 + az2 * az2, min=1e-8)
-            tseg = torch.clamp(((px - a0x) * ax2 + (py - a0y) * ay2
-                                + (pz - a0z) * az2) / denom_seg, 0.0, 1.0)
-            emx = torch.where(is_tube, a0x + ax2 * tseg, emx)
-            emy = torch.where(is_tube, a0y + ay2 * tseg, emy)
-            emz = torch.where(is_tube, a0z + az2 * tseg, emz)
-
-        tlx, tly, tlz = emx - px, emy - py, emz - pz
-        dist = torch.sqrt(torch.clamp(tlx * tlx + tly * tly + tlz * tlz,
-                                      min=1e-16))
-        inv_d = 1.0 / dist
-        llx, lly, llz = tlx * inv_d, tly * inv_d, tlz * inv_d
-
-        shaping = torch.ones_like(dist)
-        if has_spot:
-            cos_t = -(llx * fwdx + lly * fwdy + llz * fwdz)
-            cin = torch.cos(inner)
-            cout = torch.cos(outer)
-            tt = torch.clamp((cos_t - cout) / torch.clamp(cin - cout, min=1e-5),
-                             0.0, 1.0)
-            spot = torch.where(cos_t > cout, tt * tt * (3.0 - 2.0 * tt),
-                               torch.zeros_like(tt))
-            shaping = torch.where(is_spot, spot, shaping)
-        if has_rect:
-            facing = torch.clamp(-(fwdx * llx + fwdy * lly + fwdz * llz),
-                                 min=0.0)
-            rect = torch.where(facing > 0.0, 0.65 + 0.55 * facing,
-                               torch.zeros_like(facing))
-            shaping = torch.where(is_rect, rect, shaping)
-        if has_tube:
-            soft = torch.clamp(1.0 - dist / rng, 0.0, 1.0)
-            shaping = torch.where(is_tube, 0.75 + 0.35 * soft, shaping)
-        spec_pw = torch.where(is_spot, _f(ltype, 34.0), _f(ltype, 36.0))
-        spec_sc = torch.where(is_spot, _f(ltype, 0.32), _f(ltype, 0.30))
-        if has_rect:
-            spec_pw = torch.where(is_rect, _f(ltype, 26.0), spec_pw)
-            spec_sc = torch.where(is_rect, _f(ltype, 0.26), spec_sc)
-        if has_tube:
-            spec_pw = torch.where(is_tube, _f(ltype, 22.0), spec_pw)
-            spec_sc = torch.where(is_tube, _f(ltype, 0.20), spec_sc)
-
-        norm = torch.clamp(1.0 - dist / rng, 0.0, 1.0)
-        smooth = norm * norm * (3.0 - 2.0 * norm)
-        invsq = torch.clamp((rng * rng) / torch.maximum(dist * dist, abias),
-                            max=1.0) * norm * norm
-        fall = torch.where(amodel == 0.0, norm,
-                           torch.where(amodel == 1.0, smooth, invsq))
-        if not apow1:
-            fall = torch.pow(torch.clamp(fall, min=1e-9), apow)
-        fall = torch.where((acut > 0.0) & (fall < acut), torch.zeros_like(fall),
-                           fall)
-        atten = torch.where(dist < rng, fall, torch.zeros_like(fall)) \
-            * torch.clamp(shaping, min=0.0)
-
-        lndl = torch.clamp(nx * llx + ny * lly + nz * llz, min=0.0)
-        live = (dist > 1e-4) & (lndl > 0.0) & (atten > 0.0) & covered
-        gain = torch.where(live, intensity * atten, torch.zeros_like(atten))
-        hxl, hyl, hzl = llx + vx, lly + vy, llz + vz
-        hll = _rsqrt(torch.clamp(hxl * hxl + hyl * hyl + hzl * hzl, min=1e-16))
-        lndh = torch.clamp(nx * (hxl * hll) + ny * (hyl * hll)
-                           + nz * (hzl * hll), min=0.0)
-        spec = spec_sc * torch.pow(torch.clamp(lndh, min=1e-9), spec_pw)
-        wd = gain * lndl
-        ws = gain * spec
-        cols = [torch.clamp(c, min=0.0) for c in (colr, colg, colb)]
+    for blk in walk_chunks(tile_rec, counts, chunk):
+        cols, wd, ws = light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz,
+                                   covered, apow1, kinds)
         for i, c in enumerate(cols):
             acc[i] = acc[i] + (c * wd).sum(dim=1, keepdim=True)
             acc[3 + i] = acc[3 + i] + (c * ws).sum(dim=1, keepdim=True)
 
     covf = covered.to(torch.float32)
     sun = (dr, dg, db)
-    lit = torch.cat([(sun[i] + g[7 + i] * acc[i] + acc[3 + i]) * covf
-                     for i in range(3)], dim=1)
-    ph, pw = tiles_y * th, tiles_x * tw
-    return lit.reshape(tiles_y, tiles_x, 3, th, tw).permute(2, 0, 3, 1, 4) \
-        .reshape(3, ph, pw)
+    lit = torch.stack([(sun[i] + g[7 + i] * acc[i] + acc[3 + i]) * covf
+                       for i in range(3)])
+    return untile_planes(lit, th, tw, tiles_y, tiles_x)
+
+
+def bin_light_records(lights, view, proj, width, height, tile_h, tile_w, cap,
+                      tile_depth_range):
+    """Bin the lights per screen tile and gather each tile's 32-lane
+    records; empty list slots hold zero records.
+    Returns (tile_rec (tiles, cap, 32), counts (tiles,), bin_stats)."""
+    lists, counts, bin_stats = cull_lights_tiled(
+        lights, view, proj, width, height, tile_size=tile_w, tile_h=tile_h,
+        cap=cap, tile_depth_range=tile_depth_range)
+    packed = pack_light_records(lights)
+    tile_rec = torch.where((lists >= 0)[..., None],
+                           packed[torch.clamp(lists, min=0)],
+                           torch.zeros((), dtype=torch.float32,
+                                       device=packed.device))
+    return tile_rec, counts, bin_stats
+
+
+def pad_planes(planes, ph, pw):
+    """(H, W) planes -> one (C, ph, pw) f32 stack, zero padded."""
+    return torch.stack([torch.nn.functional.pad(
+        p.to(torch.float32), (0, pw - p.shape[1], 0, ph - p.shape[0]))
+        for p in planes])
 
 
 def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
@@ -277,33 +327,18 @@ def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
     if (tile_h, tile_w, chunk) != (64, 128, 8) or cap % chunk:
         raise ValueError("shade_fused: the kernel is built for 64x128 tiles, "
                          "8-light chunks and a cap that is a multiple of 8")
-    dev = gb_world_pos.device
     tiles_x = cdiv(width, tile_w)
     tiles_y = cdiv(height, tile_h)
     ph, pw = tiles_y * tile_h, tiles_x * tile_w
-
-    lists, counts, bin_stats = cull_lights_tiled(
-        lights, view, proj, width, height, tile_size=tile_w, tile_h=tile_h,
-        cap=cap, tile_depth_range=tile_depth_range)
-    packed = pack_light_records(lights)
-    tile_rec = torch.where((lists >= 0)[..., None],
-                           packed[torch.clamp(lists, min=0)],
-                           torch.zeros((), dtype=torch.float32, device=dev))
-
-    def padp(x):
-        return torch.nn.functional.pad(x.to(torch.float32),
-                                       (0, pw - width, 0, ph - height))
-
-    zeros = torch.zeros((ph, pw), dtype=torch.float32, device=dev)
-    gbuf = torch.stack([
-        padp(gb_world_pos[..., 0]), padp(gb_world_pos[..., 1]),
-        padp(gb_world_pos[..., 2]),
-        padp(gb_normal[..., 0]), padp(gb_normal[..., 1]),
-        padp(gb_normal[..., 2]), padp(gb_covered),
-        padp(albedo[..., 0]), padp(albedo[..., 1]), padp(albedo[..., 2]),
-        padp(metallic), padp(roughness), padp(sun_shadow_vis),
-        zeros, zeros, zeros,
-    ])
+    tile_rec, counts, bin_stats = bin_light_records(
+        lights, view, proj, width, height, tile_h, tile_w, cap,
+        tile_depth_range)
+    zeros = torch.zeros_like(metallic)
+    gbuf = pad_planes([
+        gb_world_pos[..., 0], gb_world_pos[..., 1], gb_world_pos[..., 2],
+        gb_normal[..., 0], gb_normal[..., 1], gb_normal[..., 2], gb_covered,
+        albedo[..., 0], albedo[..., 1], albedo[..., 2], metallic, roughness,
+        sun_shadow_vis, zeros, zeros, zeros], ph, pw)
     sd = sun_dir_ws / torch.clamp(torch.sqrt((sun_dir_ws * sun_dir_ws).sum()),
                                   min=1e-8)
     uni = torch.cat([camera_pos.reshape(3), sd.reshape(3),

@@ -1,8 +1,12 @@
-"""Forward+ lighting pass, fused path (port of the fused branch of
-lsr_tpu/passes/forward_plus.py:shade_forward_plus, :68-176).
+"""Forward+ lighting passes (port of lsr_tpu/passes/forward_plus.py: the
+fused branch of shade_forward_plus, :68-176, and resolve_forward_plus,
+:290-409).
 
-Sun BRDF + binned local lights run in kernel B2 (lighting/shade_kernel.py);
-ambient (fake IBL), emissive and the background stay torch ops.
+shade_forward_plus shades a G-buffer: sun BRDF x sun shadow visibility +
+binned local lights in kernel B2 (lighting/shade_kernel.py); ambient (fake
+IBL), emissive and the background stay torch ops.  resolve_forward_plus
+goes from the visibility buffer to HDR in kernel B5
+(lighting/resolve_kernel.py), with no G-buffer.
 """
 
 from __future__ import annotations
@@ -11,9 +15,30 @@ import torch
 
 from lsr_tpu_torch.core.util import device_const
 from lsr_tpu_torch.lighting.light_culling import tile_depth_ranges_from_buffer
+from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
 from lsr_tpu_torch.lighting.shade_kernel import SUN_MODELS, shade_fused
+from lsr_tpu_torch.lighting.shadow_sample import shadow_visibility_dir
+from lsr_tpu_torch.raster.interp import (
+    pack_interp_records,
+    reconstruct_world_pos,
+)
 from lsr_tpu_torch.shading.common import gather_materials, sample_texture_bilinear
 from lsr_tpu_torch.shading.models import _ambient, _norm, composite_over_background
+
+
+def _sun_visibility(ctx, world_pos, n, like, sun_vis_scale):
+    """Sun visibility per pixel: the shadow map sampled where N.L > 0, 1
+    elsewhere and without a shadow context."""
+    if ctx.shadow is None:
+        return torch.ones_like(like)
+    if sun_vis_scale > 1:
+        raise NotImplementedError("sun_vis_scale > 1 (strided sun visibility "
+                                  "with bilinear upsampling) is not ported "
+                                  "yet (ROADMAP A8)")
+    l_dir = _norm(-ctx.light_dir_ws)
+    ndl = torch.clamp((n * l_dir[None, None]).sum(-1), min=0.0)
+    vis = shadow_visibility_dir(ctx.shadow, world_pos, ndl)
+    return torch.where(ndl > 0.0, vis, torch.ones_like(vis))
 
 
 def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
@@ -24,7 +49,8 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
                        local_shadows=None, env_probes: bool = False,
                        sun_vis_scale: int = 1):
     """Full lit HDR frame from a G-buffer + light set.
-    Returns (hdr (H, W, 3), stats dict of tensors).
+    Returns (hdr (H, W, 3), stats dict of tensors; stats["sun_vis"] is the
+    (H, W) sun visibility).
 
     The fused kernel bins lights per 64x128 tile with twice the per-16px-tile
     cap (cap * 2), as lsr_tpu does; tile_size / chunk / slices belong to the
@@ -49,9 +75,6 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     if local_shadows is not None:
         raise NotImplementedError("shade_forward_plus: local_shadows are not "
                                   "ported yet")
-    if ctx.shadow is not None:
-        raise NotImplementedError("shade_forward_plus: sun shadow maps are "
-                                  "not ported yet (ctx.shadow must be None)")
 
     mat_base, metal, rough, ao, emissive, tex_id = gather_materials(
         ctx.materials, gb.obj_id, mat_rec=gb.mat)
@@ -61,7 +84,7 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
             ctx.textures, tex_id, gb.uv, quads=ctx.texture_quads)
     albedo = torch.clamp(albedo, min=0.0)
     n = _norm(gb.normal_ws)
-    vis = torch.ones_like(gb.depth01)      # no sun shadow map: visibility 1
+    vis = _sun_visibility(ctx, gb.world_pos, n, gb.depth01, sun_vis_scale)
 
     tdr = None
     if mode == "tiled_depth_range":
@@ -79,4 +102,73 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     hdr = composite_over_background(hdr, gb, bg)
     return hdr, {"max_lights_per_bin": bin_stats["max_count"],
                  "overflow_bins": bin_stats["overflow_bins"],
-                 "total_bins": 0}
+                 "total_bins": 0, "sun_vis": vis}
+
+
+def resolve_inputs(setup, depth01, tid, ctx, view, proj, zn, zf, width: int,
+                   height: int, sun_vis_scale: int = 1):
+    """What lsr_tpu's resolve route computes in XLA before its kernel: the
+    record table (pack_interp_records with materials), the sun visibility
+    (sampled at positions reconstructed from depth, with the slope bias from
+    each triangle's corner-0 normal; lsr_tpu's approximation) and the
+    texture albedo (uv interpolated from the record).  Only the record lanes
+    these need are gathered per pixel.  Returns (table (rows, 56), sun_vis
+    (H, W), tex_albedo (H, W, 3))."""
+    dev = tid.device
+    safe = torch.where(tid >= 0, tid, torch.zeros_like(tid)).to(torch.int64)
+    table = pack_interp_records(setup, ctx.materials)
+
+    if ctx.shadow is not None:
+        wp_r = reconstruct_world_pos(depth01, view, proj, zn, zf, width,
+                                     height)
+        n0 = _norm(table[:, 21:24][safe])
+        vis = _sun_visibility(ctx, wp_r, n0, depth01, sun_vis_scale)
+    else:
+        vis = torch.ones_like(depth01)
+
+    if ctx.textures is None:
+        return table, vis, torch.ones(depth01.shape + (3,),
+                                      dtype=torch.float32, device=dev)
+    # coef | iw | uv | tex_id lanes of each pixel's record: (H, W, 19)
+    rec = torch.cat([table[:, 0:12], table[:, 30:36], table[:, 49:50]],
+                    dim=1)[safe]
+    xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5
+    ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    w = [(rec[..., 3 * i] * xs + rec[..., 3 * i + 1] * ys
+          + rec[..., 3 * i + 2]) * rec[..., 9 + i] for i in range(3)]
+    inv_den = 1.0 / torch.clamp(w[0] + w[1] + w[2], min=1e-12)
+    u = (w[0] * rec[..., 12] + w[1] * rec[..., 14] + w[2] * rec[..., 16]) \
+        * inv_den
+    v = (w[0] * rec[..., 13] + w[1] * rec[..., 15] + w[2] * rec[..., 17]) \
+        * inv_den
+    tex_albedo = sample_texture_bilinear(
+        ctx.textures, rec[..., 18].to(torch.int64), torch.stack([u, v], -1),
+        quads=ctx.texture_quads)
+    return table, vis, tex_albedo
+
+
+def resolve_forward_plus(setup, depth01, tid, ctx, lights, view, proj, zn, zf,
+                         width: int, height: int, cap: int = 128,
+                         sun_model: str = "pbr_mr",
+                         background=(0.04, 0.06, 0.1),
+                         rec_layout: str = "planes", local_shadows=None,
+                         sun_vis_scale: int = 1):
+    """Visibility buffer -> lit HDR in kernel B5, with no G-buffer: torch
+    keeps what lsr_tpu keeps in XLA (resolve_inputs), and the kernel reads
+    each pixel's record through tid.  Fake-IBL ambient only (ctx.ibl is
+    ignored, as in lsr_tpu).  Returns (hdr, stats) like
+    shade_forward_plus."""
+    if local_shadows is not None:
+        raise NotImplementedError("resolve_forward_plus: local_shadows are "
+                                  "not ported yet (ROADMAP A10)")
+    table, vis, tex_albedo = resolve_inputs(setup, depth01, tid, ctx, view,
+                                            proj, zn, zf, width, height,
+                                            sun_vis_scale)
+    hdr, bin_stats = resolve_fused(
+        table, tid, vis, tex_albedo, ctx.camera_pos, ctx.light_dir_ws,
+        ctx.light_color * ctx.light_intensity, background, lights, view,
+        proj, width, height, tile_h=64, tile_w=128, cap=cap * 2, chunk=8,
+        sun_model=sun_model, rec_layout=rec_layout)
+    return hdr, {"max_lights_per_bin": bin_stats["max_count"],
+                 "overflow_bins": bin_stats["overflow_bins"],
+                 "total_bins": 0, "sun_vis": vis}

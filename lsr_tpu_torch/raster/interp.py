@@ -1,5 +1,6 @@
 """Attribute interpolation: visibility buffer -> G-buffer (port of
-lsr_tpu/raster/interp.py: GBuffer, pack_interp_records, interpolate_gbuffer).
+lsr_tpu/raster/interp.py: GBuffer, pack_interp_records,
+reconstruct_world_pos, interpolate_gbuffer).
 """
 
 from __future__ import annotations
@@ -55,6 +56,28 @@ def pack_interp_records(setup: TriSetup, materials=None):
         mat = pack_material_records(materials)
         cols.append(mat[torch.clamp(setup.obj_id, 0, mat.shape[0] - 1)])
     return torch.cat(cols, dim=-1)
+
+
+def reconstruct_world_pos(depth01, view, proj, zn, zf, width: int,
+                          height: int):
+    """World position from the view-z depth plane and the camera rays (no
+    record gather), inverting the raster's DEPTH_VIEWZ storage and the
+    screen mapping sx = (ndc * 0.5 + 0.5) * (W - 1) at pixel centres.
+    lsr_tpu's resolve route samples the sun shadow at these positions.
+    Returns (H, W, 3)."""
+    dev = depth01.device
+    view_z = zn + depth01 * (zf - zn)
+    xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5
+    ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    ndc_x = xs / (width - 1) * 2.0 - 1.0
+    ndc_y = ys / (height - 1) * 2.0 - 1.0
+    vx = ndc_x * (1.0 / proj[0, 0]) * view_z
+    vy = ndc_y * (1.0 / proj[1, 1]) * view_z
+    # view = [R | t]; world = R^T (v - t).
+    rot, t = view[:3, :3], view[:3, 3]
+    ax, ay, az = vx - t[0], vy - t[1], view_z - t[2]
+    return torch.stack([rot[0, i] * ax + rot[1, i] * ay + rot[2, i] * az
+                        for i in range(3)], dim=-1)
 
 
 def interpolate_gbuffer(setup: TriSetup, depth01, tid, y_offset=0,

@@ -1,6 +1,7 @@
 """Triangle setup: vertex transform -> near clip -> screen-space edge setup
 (port of lsr_tpu/raster/setup.py: TriSetup, vertex_stage, assemble_and_clip,
-build_setup, scene_setup, CompactStats, scene_setup_compact).
+build_setup, scene_setup, vertex_stage_world, scene_setup_depth,
+CompactStats, scene_setup_compact).
 
 Per-triangle setup precomputes the affine barycentric coefficients
 bc_i(x, y) = A_i x + B_i y + C_i, the per-corner 1/w and the screen bbox, so
@@ -166,6 +167,48 @@ def scene_setup(positions, normals, uvs, indices, vtx_obj, tri_obj, models,
         valid = valid & obj_visible[obj2]
     return build_setup(clip_t, attrs, valid, obj2, width, height, cull_mode,
                        front_face_ccw)
+
+
+def vertex_stage_world(positions, vtx_obj, models):
+    """World-only vertex stage for depth targets: vertex_stage's model
+    transform in the same order, without normals or uvs.  Returns the
+    homogeneous world positions (V, 4)."""
+    o = models.shape[0]
+    xf = models.reshape(o, 16)[vtx_obj]                # (V, 16)
+    x, y, z = positions[:, 0], positions[:, 1], positions[:, 2]
+
+    def row4(c):
+        return xf[:, c] * x + xf[:, c + 1] * y + xf[:, c + 2] * z + xf[:, c + 3]
+
+    return torch.stack([row4(0), row4(4), row4(8), row4(12)], dim=-1)
+
+
+def scene_setup_depth(positions, indices, vtx_obj, tri_obj, models, viewproj,
+                      width: int, height: int, cull_mode: int = CULL_NONE,
+                      front_face_ccw: bool = True,
+                      obj_visible=None) -> TriSetup:
+    """Depth-only geometry front-end for shadow targets
+    (lsr_tpu/raster/setup.py:227-272): world positions, then the clip
+    transform as explicit multiply-adds in lsr_tpu's row order (no matmul),
+    the near clip on 4-wide clip corners only, and build_setup.  The
+    returned TriSetup carries zero-width wp / nw / uv."""
+    world_h = vertex_stage_world(positions, vtx_obj, models)
+    wx, wy, wz, ww = (world_h[:, 0], world_h[:, 1], world_h[:, 2],
+                      world_h[:, 3])
+
+    def crow(r):
+        return (viewproj[r, 0] * wx + viewproj[r, 1] * wy
+                + viewproj[r, 2] * wz + viewproj[r, 3] * ww)
+
+    clip_v = torch.stack([crow(0), crow(1), crow(2), crow(3)], dim=-1)
+    clip2, _, valid2 = clip_triangles_near({}, clip_v[indices])
+    t = indices.shape[0]
+    obj2 = tri_obj[:, None].expand(t, 2).reshape(-1)
+    valid = valid2.reshape(-1)
+    if obj_visible is not None:
+        valid = valid & obj_visible[obj2]
+    return build_setup(clip2.reshape(2 * t, 3, 4), {}, valid, obj2, width,
+                       height, cull_mode, front_face_ccw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from lsr_tpu_torch.core import math3d as m3
-from lsr_tpu_torch.core.util import device_const
+from lsr_tpu_torch.core.util import device_const, resolve_device
 from lsr_tpu_torch.passes.tonemap import tonemap_pass
 from lsr_tpu_torch.raster import tiled
 from lsr_tpu_torch.raster.brute import rasterize_brute
@@ -28,6 +28,7 @@ from lsr_tpu_torch.shading.models import (
 
 def upload_mesh(mesh, device=None):
     """Host MeshData -> dict of device tensors (indices as int64)."""
+    device = resolve_device(device)
     return dict(
         positions=torch.as_tensor(mesh.positions, device=device),
         normals=torch.as_tensor(mesh.normals, device=device),
@@ -75,6 +76,7 @@ def simple_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1,
                   zf=100.0, up=(0, 1, 0), device=None):
     """(viewproj (4, 4), zn, zf) of a look-at perspective camera; zn / zf
     come back as the float32 values the raster uses."""
+    device = resolve_device(device)
     view = m3.look_at_lh(eye, target, up, device=device)
     proj = m3.perspective_lh_no(fov, width / height, zn, zf, device=device)
     return proj @ view, float(np.float32(zn)), float(np.float32(zf))

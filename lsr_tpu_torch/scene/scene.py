@@ -1,8 +1,9 @@
 """Retained scene: objects SoA + camera, as frozen dataclasses of tensors.
 
 Port of lsr_tpu/scene/scene.py (GeometryBatch, ObjectsSoA, CameraState,
-make_camera, SceneBuilder) plus the concat_scene / morton_order helpers of
-lsr_tpu/render.py that SceneBuilder.build uses.
+make_camera, SceneBuilder, object_world_aabbs, shadow_caster_aabb) plus the
+concat_scene / morton_order helpers of lsr_tpu/render.py that
+SceneBuilder.build uses.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from lsr_tpu_torch.core import math3d as m3
+from lsr_tpu_torch.core.util import resolve_device
+from lsr_tpu_torch.geometry.volumes import merge_aabbs, transform_aabb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +58,7 @@ class CameraState:
 
 def make_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1, zf=100.0,
                 up=(0, 1, 0), prev_viewproj=None, device=None) -> CameraState:
+    device = resolve_device(device)
     view = m3.look_at_lh(eye, target, up, device=device)
     proj = m3.perspective_lh_no(fov, width / height, zn, zf, device=device)
     vp = proj @ view
@@ -127,6 +131,24 @@ def geometry_from_numpy(batch: dict, device) -> GeometryBatch:
         indices=i64("indices"), vtx_obj=i64("vtx_obj"), tri_obj=i64("tri_obj"))
 
 
+def object_world_aabbs(objects: ObjectsSoA):
+    """Per-object world AABBs (mins (O, 3), maxs (O, 3))."""
+    return transform_aabb(objects.model, objects.local_min, objects.local_max)
+
+
+def shadow_caster_aabb(objects: ObjectsSoA):
+    """Merged world AABB of the visible shadow casters
+    (pass_shadow_map.hpp:70-131); the unit box [-1, 1]^3 when there is
+    none.  No host sync."""
+    wmin, wmax = object_world_aabbs(objects)
+    mask = objects.casts_shadow & objects.visible
+    smin, smax = merge_aabbs(wmin, wmax, mask)
+    any_caster = mask.any()
+    one = torch.ones(3, dtype=torch.float32, device=smin.device)
+    return (torch.where(any_caster, smin, -one),
+            torch.where(any_caster, smax, one))
+
+
 class SceneBuilder:
     """Host-side scene assembly -> device dataclasses."""
 
@@ -152,6 +174,7 @@ class SceneBuilder:
         return len(self._meshes) - 1
 
     def build(self, device=None):
+        device = resolve_device(device)
         geom = geometry_from_numpy(concat_scene(self._meshes), device)
         models = torch.as_tensor(np.stack(self._models), device=device)
         nmats = torch.stack([m3.normal_matrix(m) for m in models])

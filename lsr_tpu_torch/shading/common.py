@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from lsr_tpu_torch.core.util import device_const
+from lsr_tpu_torch.core.util import device_const, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +36,7 @@ def make_materials(base_color=((1.0, 1.0, 1.0),), metallic=(0.0,),
                    roughness=(0.6,), ao=(1.0,), emissive=None, tex_id=None,
                    normal_tex=None, orm_tex=None, emissive_tex=None,
                    device=None) -> MaterialsSoA:
+    device = resolve_device(device)
     base = torch.as_tensor(np.asarray(base_color, np.float32), device=device)
     o = base.shape[0]
 

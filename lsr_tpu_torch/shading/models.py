@@ -3,8 +3,8 @@ lsr_tpu/shading/models.py): ShadeContext, make_shade_context, _ambient,
 _norm, the blinn_phong and pbr_mr models that render_forward calls,
 SHADING_MODELS and composite_over_background.
 
-Sun shadow maps are not ported yet: ShadeContext.shadow stays None and
-sun visibility is 1.  The stylized and debug models raise
+A sun shadow context (lighting/shadow_sample.py) in ShadeContext.shadow
+scales the sun term by its visibility.  The stylized and debug models raise
 NotImplementedError (ROADMAP A14).
 """
 
@@ -15,6 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from lsr_tpu_torch.core.util import resolve_device
+from lsr_tpu_torch.lighting.shadow_sample import (
+    ShadowContext,
+    shadow_visibility_dir,
+)
 from lsr_tpu_torch.shading.common import (
     MaterialsSoA,
     eval_fake_ibl,
@@ -36,7 +41,7 @@ class ShadeContext:
     camera_pos: torch.Tensor       # (3,)
     materials: MaterialsSoA
     textures: torch.Tensor | None = None       # (NT, S, S, 3) linear
-    shadow: object | None = None               # sun shadow context (not ported)
+    shadow: ShadowContext | None = None        # sun shadow map, sampling
     texture_quads: torch.Tensor | None = None  # pack_texture_quads(textures)
     ibl: tuple | None = None                   # real IBL maps (not ported)
     surface_maps: bool = False  # host: any normal/ORM/emissive slot used
@@ -46,6 +51,7 @@ def make_shade_context(materials: MaterialsSoA, light_dir_ws=(0.0, -1.0, 0.0),
                        light_color=(1.0, 1.0, 1.0), light_intensity=1.0,
                        camera_pos=(0.0, 0.0, 0.0), textures=None,
                        device=None) -> ShadeContext:
+    device = resolve_device(device)
     surface_maps = textures is not None and bool(
         (materials.normal_tex >= 0).any() or (materials.orm_tex >= 0).any()
         or (materials.emissive_tex >= 0).any())
@@ -95,11 +101,12 @@ def _common_vectors(gb, ctx):
 
 
 def _shadow_term(gb, ctx, ndl):
-    """Sun visibility: 1 without a shadow context."""
-    if ctx.shadow is not None:
-        raise NotImplementedError("sun shadow maps are not ported yet "
-                                  "(ROADMAP A8)")
-    return 1.0
+    """Sun visibility (H, W, 1), sampled only where N.L > 0 (the shading
+    is zero elsewhere anyway); 1 without a shadow context."""
+    if ctx.shadow is None:
+        return 1.0
+    vis = shadow_visibility_dir(ctx.shadow, gb.world_pos, ndl[..., 0])
+    return torch.where(ndl[..., 0] > 0.0, vis, torch.ones_like(vis))[..., None]
 
 
 def shade_blinn_phong(gb, ctx: ShadeContext):

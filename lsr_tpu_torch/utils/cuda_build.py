@@ -55,6 +55,14 @@ SIGNATURES = {
     # inv_range, y_offset, max_py, depth_mode, track_ids, stream
     "lsr_chunklist_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _P),
+    # table, tid, sun_vis, tex, tile_rec, counts, uniforms, out, width,
+    # height, tile_h, tile_w, tiles_x, tiles_y, cap, chunk, sun_model, stream
+    "lsr_resolve_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P),
+    # gbuf, tile_rec, counts, uniforms, diffuse, specular, width, height, ph,
+    # pw, tile_h, tile_w, tiles_x, cap, chunk, stream
+    "lsr_fplus_accumulate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
 }
 
 _lib = None

@@ -1,10 +1,12 @@
-"""The whole forward+ slice, lsr_tpu_torch vs lsr_tpu (CPU).
+"""The whole flagship frame on its B2 route, lsr_tpu_torch vs lsr_tpu
+(CPU), and the rule that the port's entry points run on the card.
 
 lsr_tpu_torch.frame.make_flagship_frame (plain versions on CPU tensors)
-against lsr_tpu's own stages composed the same way (bench.py:242-287 with
-no shadows and no scene culling; rasterize_direct and shade_fused_pallas in
-Pallas interpret mode), on the same procedural scene, lights, materials,
-texture and camera.  128x96, 4 spheres + ground plane, 16 lights.
+against lsr_tpu's own stages composed the same way (bench.py:179-288 with
+the ESM sun map and no scene culling or local atlas; the sun map op by op,
+rasterize_direct and shade_fused_pallas in Pallas interpret mode), on the
+same procedural scene, lights, materials, texture and camera.  128x96, a
+128^2 sun map, 4 spheres + ground plane, 16 lights.
 
 Tolerances: each package builds its own triangle setup, and XLA:CPU fuses
 the JAX package's multiply-adds into FMAs where torch rounds twice.  The
@@ -12,14 +14,16 @@ edge functions of these sub-pixel triangles are ill-conditioned in f32, so
 depth01 may differ by up to 2e-3 and a winning triangle may flip on edge or
 tie pixels (<= 0.5% allowed).  Where both pick the same triangle, HDR
 agrees within 1e-4 on >= 99.9% of pixels and within 2e-3 everywhere (GGX
-highlight peaks, see test_torch_shade.py); LDR after tonemap + FXAA agrees
-within 1 LSB on >= 99.9% of pixels.
+highlight peaks, see test_torch_shade.py; an ESM soft-map quantum moves the
+sun visibility by at most 1.2e-3); LDR after tonemap + FXAA agrees within 1
+LSB on >= 99.9% of pixels.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch
 
 from torch_scenes import (
     jax_camera,
@@ -29,6 +33,7 @@ from torch_scenes import (
 )
 
 W, H = 128, 96
+S = 128
 
 
 @pytest.fixture(scope="module")
@@ -47,16 +52,20 @@ def rendered(request, jax_scene):
 
     geom, objects, lights, ctx = jax_scene
     cam, ctx_t = jax_camera(request.param, ctx, W, H)
-    ref = jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, W, H)
+    ref = jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, W, H,
+                               shadow_size=S)
     ref["ldr"] = np.asarray(jfx(jtm(ref["hdr"])))
     tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam, ctx_t)
-    out = make_flagship_frame(tg, to, tl, tc, W, H)(tcam, tct)
-    st = flagship_stages(tg, to, tl, tc, tcam, tct, W, H)
+    out = make_flagship_frame(tg, to, tl, tc, W, H, shadow_size=S)(tcam, tct)
+    st = flagship_stages(tg, to, tl, tc, tcam, tct, W, H, shadow_size=S)
     return ref, st, out
 
 
 def test_frame_hdr_and_ldr_match_jax(rendered):
     ref, st, out = rendered
+    np.testing.assert_array_equal(st["light_viewproj"].numpy(),
+                                  np.asarray(ref["light_viewproj"]))
+    assert float(st["sun_vis"].min()) < 0.5           # the sun map shadows
     tid_j, tid_t = np.asarray(ref["tid"]), st["tid"].numpy()
     same = tid_j == tid_t
     covered = max(int((tid_j >= 0).sum()), 1)
@@ -93,7 +102,88 @@ def test_frame_is_deterministic(jax_scene):
     geom, objects, lights, ctx = jax_scene
     cam, ctx_t = jax_camera(3, ctx, W, H)
     tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam, ctx_t)
-    frame = make_flagship_frame(tg, to, tl, tc, W, H)
+    frame = make_flagship_frame(tg, to, tl, tc, W, H, shadow_size=S)
     a = frame(tcam, tct)[0]
     b = frame(tcam, tct)[0]
     assert (a == b).all()
+
+
+def _entry_points():
+    """(name, call(device)) of the port's builders and constructors."""
+    from lsr_tpu_torch.frame import build_flagship_scene, flagship_camera
+    from lsr_tpu_torch.highpoly import build_highpoly_scene, highpoly_camera
+    from lsr_tpu_torch.io.obj import make_uv_sphere
+    from lsr_tpu_torch.lighting.light_types import LightSetBuilder
+    from lsr_tpu_torch.render import simple_camera, upload_mesh
+    from lsr_tpu_torch.scene.scene import SceneBuilder, make_camera
+    from lsr_tpu_torch.shading.common import make_materials
+    from lsr_tpu_torch.shading.models import make_shade_context
+
+    def scene(device):
+        sb = SceneBuilder()
+        sb.add(make_uv_sphere(rings=4, sectors=8), np.eye(4, dtype=np.float32))
+        return sb.build(device)
+
+    def lights(device):
+        b = LightSetBuilder()
+        b.point((0.0, 1.0, 0.0))
+        return b.build(device)
+
+    def ctx(device):
+        return make_shade_context(make_materials(device=device),
+                                  device=device)
+
+    cpu_ctx = build_flagship_scene(n_lights=16, grid=1, device="cpu")[3]
+    return {
+        "build_flagship_scene": lambda d: build_flagship_scene(
+            n_lights=16, grid=1, device=d),
+        "flagship_camera": lambda d: flagship_camera(0, cpu_ctx, W, H,
+                                                     device=d),
+        "build_highpoly_scene": lambda d: build_highpoly_scene(
+            1, n_lights=16, device=d),
+        "highpoly_camera": lambda d: highpoly_camera(cpu_ctx, W, H, 1,
+                                                     device=d),
+        "make_camera": lambda d: make_camera(W, H, (0, 1, -3), (0, 0, 0),
+                                             device=d),
+        "SceneBuilder.build": scene,
+        "LightSetBuilder.build": lights,
+        "make_materials": lambda d: make_materials(device=d),
+        "make_shade_context": ctx,
+        "upload_mesh": lambda d: upload_mesh(make_uv_sphere(4, 8), device=d),
+        "simple_camera": lambda d: simple_camera(W, H, (0, 1, -3), (0, 0, 0),
+                                                 device=d),
+    }
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif hasattr(x, "__dataclass_fields__"):
+        for f in x.__dataclass_fields__:
+            yield from _tensors(getattr(x, f))
+
+
+ENTRY_POINTS = ["build_flagship_scene", "flagship_camera",
+                "build_highpoly_scene", "highpoly_camera", "make_camera",
+                "SceneBuilder.build", "LightSetBuilder.build",
+                "make_materials", "make_shade_context", "upload_mesh",
+                "simple_camera"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_run_on_the_card_by_default(monkeypatch, name):
+    """Called with no device on a machine without CUDA, an entry point
+    raises (it never returns CPU tensors); with device="cpu" it works and
+    every tensor it returns lies on the CPU."""
+    call = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(None)
+    out = list(_tensors(call("cpu")))
+    assert out and all(t.device.type == "cpu" for t in out)

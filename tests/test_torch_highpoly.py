@@ -113,7 +113,7 @@ def test_highpoly_scene_matches_jax():
     from lsr_tpu_torch.lighting.light_types import COLUMNS
 
     jg, jo, jl, _ = jax_highpoly_scene(GRID, n_lights=16)
-    tg, to, tl, _ = build_highpoly_scene(GRID, n_lights=16)
+    tg, to, tl, _ = build_highpoly_scene(GRID, n_lights=16, device="cpu")
     assert tg.indices.shape[0] == GRID * GRID * 1024
     for f in ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj"):
         np.testing.assert_array_equal(getattr(tg, f).numpy(),
@@ -428,8 +428,8 @@ def test_e2e_compact_chunklist_matches_full_setup():
     from lsr_tpu_torch.raster.setup import scene_setup
     from lsr_tpu_torch.raster.tiled import rasterize_chunklist
 
-    geom, objects, _, ctx = build_highpoly_scene(2, n_lights=16)
-    cam, _ = highpoly_camera(ctx, W, H, 2)
+    geom, objects, _, ctx = build_highpoly_scene(2, n_lights=16, device="cpu")
+    cam, _ = highpoly_camera(ctx, W, H, 2, device="cpu")
     d_e, t_e, max_cnt, setup, cst = e2e_compact_chunklist(geom, objects, cam,
                                                           W, H)
     assert not bool(cst.overflow) and int(max_cnt) > 0

@@ -63,7 +63,8 @@ def test_flagship_scene_matches_jax(grid, n_lights):
     from lsr_tpu_torch.frame import build_flagship_scene, flagship_camera
 
     jg, jo, jl, jc = jax_flagship_scene(n_lights=n_lights, grid=grid)
-    tg, to, tl, tc = build_flagship_scene(n_lights=n_lights, grid=grid)
+    tg, to, tl, tc = build_flagship_scene(n_lights=n_lights, grid=grid,
+                                         device="cpu")
     for f in ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj"):
         np.testing.assert_array_equal(getattr(tg, f).numpy(),
                                       np.asarray(getattr(jg, f)), err_msg=f)
@@ -88,7 +89,7 @@ def test_flagship_scene_matches_jax(grid, n_lights):
     np.testing.assert_array_equal(tc.texture_quads.numpy(),
                                   np.asarray(jc.texture_quads))
     for i in (0, 7):
-        tcam, tct = flagship_camera(i, tc, W, H)
+        tcam, tct = flagship_camera(i, tc, W, H, device="cpu")
         jcam, jct = jax_camera(i, jc, W, H)
         for f in ("view", "proj", "viewproj"):
             np.testing.assert_allclose(getattr(tcam, f).numpy(),

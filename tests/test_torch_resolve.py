@@ -1,0 +1,255 @@
+"""lsr_tpu_torch's fused resolve (kernel B5's plain path), the resolve
+route of the forward+ pass and the resolve frame vs lsr_tpu (CPU).
+
+The JAX side runs resolve_fused_pallas in Pallas interpret mode, as its own
+CPU tests do; the torch side the plain versions.  Both get the same scene
+(tests/torch_scenes.py: 4 spheres + ground plane, 16 lights), lsr_tpu's own
+setup and visibility buffer, and, with a sun shadow, lsr_tpu's own 256^2
+ESM map carried over by convert.shadow_context.  Each test states its
+tolerance; the residual differences are f32 rounding (XLA:CPU fuses
+multiply-adds into FMAs, torch does not) and ESM's one-quantum soft-map
+differences.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_scenes import (
+    jax_camera,
+    jax_flagship_scene,
+    jax_reference_stages,
+    jax_sun_shadow,
+    to_torch,
+    torch_setup,
+)
+
+W, H = 128, 96
+S = 256
+
+
+def _t(a):
+    a = np.asarray(a)
+    if a.dtype == np.int32:
+        a = a.astype(np.int64)
+    return torch.as_tensor(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """Scene state on both sides, lsr_tpu's setup and visibility buffer
+    (brute raster) and its 256^2 ESM sun map."""
+    from lsr_tpu.raster.brute import rasterize_brute
+    from lsr_tpu.raster.setup import scene_setup
+
+    from lsr_tpu_torch import convert
+
+    geom, objects, lights, ctx = jax_flagship_scene(n_lights=16, grid=2)
+    cam, ctx_t = jax_camera(0, ctx, W, H)
+    setup = scene_setup(geom.positions, geom.normals, geom.uvs, geom.indices,
+                        geom.vtx_obj, geom.tri_obj, objects.model,
+                        objects.normal_mat, cam.viewproj, W, H)
+    depth, tid = rasterize_brute(setup, W, H, cam.zn, cam.zf)
+    _, _, sc = jax_sun_shadow(geom, objects, ctx, S)
+    return dict(j=(geom, objects, lights, ctx, cam, ctx_t),
+                t=to_torch(geom, objects, lights, ctx, cam, ctx_t),
+                setup=setup, depth=depth, tid=tid, shadow=sc,
+                tshadow=convert.shadow_context(sc, "cpu"))
+
+
+def _mixed_lights():
+    """Point / spot / rect / tube lights with non-unit attenuation powers
+    and every attenuation model; lsr_tpu LightsSoA."""
+    from lsr_tpu.lighting.light_types import LightSetBuilder
+
+    rng = np.random.default_rng(11)
+    b = LightSetBuilder()
+    for i in range(12):
+        p = tuple(rng.uniform([-2.5, 0.0, -2.5], [2.5, 2.0, 2.5]).tolist())
+        c = tuple(rng.uniform(0.3, 1.0, 3).tolist())
+        if i % 4 == 1:
+            b.rect_area(p, (0, -1, 0), color=c, intensity=1.5, range=4.0)
+        elif i % 4 == 2:
+            b.tube_area(p, axis=(1, 0, 0), color=c, intensity=1.5, range=4.0,
+                        atten_power=1.5, atten_model=i % 3)
+        elif i % 4 == 0:
+            b.spot(p, (0, -1, 0), color=c, intensity=2.0, range=4.0)
+        else:
+            b.point(p, color=c, intensity=1.5, range=3.0, atten_power=0.7)
+    return b.build()
+
+
+@pytest.mark.parametrize("lights_kind,sun_model,chunk", [
+    ("flagship", "pbr_mr", 8), ("flagship", "blinn_phong", 8),
+    ("mixed", "pbr_mr", 8), ("mixed", "blinn_phong", 8),
+    ("mixed", "pbr_mr", 16)])
+def test_resolve_fused_matches_pallas(scene, lights_kind, sun_model, chunk):
+    """resolve_fused (records through tid) against resolve_fused_pallas on
+    the gathered records, the same sun visibility (seeded, in [0, 1]) and
+    texture albedo: HDR within 1e-4 everywhere, background included."""
+    from lsr_tpu.lighting.resolve_kernel import resolve_fused_pallas
+    from lsr_tpu.raster.interp import pack_interp_records
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
+
+    _, _, lights, ctx, cam, ctx_t = scene["j"]
+    _, _, tl, _, tcam, tct = scene["t"]
+    if lights_kind == "mixed":
+        lights = _mixed_lights()
+        tl = convert.lights_soa(lights, "cpu")
+    rng = np.random.default_rng(3)
+    vis = rng.uniform(0.0, 1.0, (H, W)).astype(np.float32)
+    tex = rng.uniform(0.3, 1.0, (H, W, 3)).astype(np.float32)
+    table = pack_interp_records(scene["setup"], ctx.materials)
+    tid = np.asarray(scene["tid"])
+    rec = np.asarray(table)[np.where(tid >= 0, tid, 0)]
+    radiance = ctx_t.light_color * ctx_t.light_intensity
+    bg = (0.04, 0.06, 0.1)
+    jh, jst = resolve_fused_pallas(
+        jnp.asarray(rec), jnp.asarray(vis), jnp.asarray(tid >= 0),
+        jnp.asarray(tex), ctx_t.camera_pos, ctx_t.light_dir_ws, radiance,
+        jnp.asarray(bg, jnp.float32), lights, cam.view, cam.proj, W, H,
+        cap=256, chunk=chunk, sun_model=sun_model, interpret=True)
+    th, tst = resolve_fused(
+        _t(table), _t(tid), _t(vis), _t(tex), tct.camera_pos,
+        tct.light_dir_ws, tct.light_color * tct.light_intensity, bg, tl,
+        tcam.view, tcam.proj, W, H, cap=256, chunk=chunk,
+        sun_model=sun_model)
+    assert int(tst["max_count"]) == int(jst["max_count"]) > 0
+    jh = np.asarray(jh)
+    assert np.isfinite(jh).all() and jh.max() > 0.1
+    np.testing.assert_allclose(th.numpy(), jh, rtol=0, atol=1e-4)
+
+
+def test_reconstruct_world_pos_matches_jax(scene):
+    """Within f32 rounding of lsr_tpu's (1e-6 relative to the scene's
+    extent, 2e-5 absolute), on every pixel."""
+    from lsr_tpu.raster.interp import reconstruct_world_pos as jrec
+
+    from lsr_tpu_torch.raster.interp import reconstruct_world_pos
+
+    _, _, _, _, cam, _ = scene["j"]
+    _, _, _, _, tcam, _ = scene["t"]
+    j = np.asarray(jrec(scene["depth"], cam.view, cam.proj, cam.zn, cam.zf,
+                        W, H))
+    t = reconstruct_world_pos(_t(scene["depth"]), tcam.view, tcam.proj,
+                              tcam.zn, tcam.zf, W, H).numpy()
+    np.testing.assert_allclose(t, j, rtol=1e-6, atol=2e-5)
+
+
+@pytest.mark.parametrize("sun_model", ["pbr_mr", "blinn_phong"])
+def test_resolve_forward_plus_matches_jax(scene, sun_model):
+    """resolve_forward_plus with the ESM sun shadow, on lsr_tpu's setup,
+    depth and tid: sun visibility within 1.3e-3 (one soft-map quantum) and
+    HDR within 1e-4 on >= 99.9% of pixels, within 3e-3 everywhere (the
+    visibility difference times the sun term)."""
+    from lsr_tpu.passes.forward_plus import resolve_forward_plus as jres
+
+    from lsr_tpu_torch.passes.forward_plus import resolve_forward_plus
+
+    _, _, lights, _, cam, ctx_t = scene["j"]
+    _, _, tl, _, tcam, tct = scene["t"]
+    jctx = dataclasses.replace(ctx_t, shadow=scene["shadow"])
+    tctx = dataclasses.replace(tct, shadow=scene["tshadow"])
+    jh, jst = jres(scene["setup"], scene["depth"], scene["tid"], jctx, lights,
+                   cam.view, cam.proj, cam.zn, cam.zf, W, H, cap=128,
+                   sun_model=sun_model)
+    th, tst = resolve_forward_plus(
+        torch_setup(scene["setup"]), _t(scene["depth"]),
+        _t(scene["tid"]).to(torch.int32), tctx, tl, tcam.view, tcam.proj,
+        tcam.zn, tcam.zf, W, H, cap=128, sun_model=sun_model)
+    assert int(tst["max_lights_per_bin"]) == int(jst["max_lights_per_bin"])
+    assert float(tst["sun_vis"].min()) < 0.5          # the shadow shows
+    d = np.abs(th.numpy() - np.asarray(jh)).max(-1)
+    assert (d <= 1e-4).mean() >= 0.999, (d <= 1e-4).mean()
+    assert d.max() <= 3e-3, d.max()
+
+
+def test_resolve_route_matches_b2_route(scene):
+    """The port's two routes on the same visibility buffer and ESM shadow:
+    resolve_forward_plus against interpolate_gbuffer + shade_forward_plus
+    at lsr_tpu's own bar (tests/test_resolve_kernel.py:96-97): mean |dHDR|
+    < 5e-3 and < 1% of pixels over 0.05 (the resolve route samples the
+    shadow at reconstructed positions with corner-0 normals)."""
+    from lsr_tpu_torch.passes.forward_plus import (
+        resolve_forward_plus, shade_forward_plus)
+    from lsr_tpu_torch.raster.interp import interpolate_gbuffer
+
+    _, _, tl, tc, tcam, tct = scene["t"]
+    tctx = dataclasses.replace(tct, shadow=scene["tshadow"])
+    setup = torch_setup(scene["setup"])
+    depth, tid = _t(scene["depth"]), _t(scene["tid"]).to(torch.int32)
+    hr, _ = resolve_forward_plus(setup, depth, tid, tctx, tl, tcam.view,
+                                 tcam.proj, tcam.zn, tcam.zf, W, H, cap=128)
+    gb = interpolate_gbuffer(setup, depth, tid, materials=tc.materials,
+                             want_face_normal=False)
+    hb, _ = shade_forward_plus(gb, tctx, tl, tcam.view, tcam.proj, tcam.zn,
+                               tcam.zf, W, H, tile_size=16, cap=128,
+                               mode="tiled")
+    d = (hr - hb).abs().numpy()
+    assert d.mean() < 5e-3, d.mean()
+    assert (d.max(-1) > 0.05).mean() < 0.01, (d.max(-1) > 0.05).mean()
+
+
+def test_resolve_rejects_unported_options(scene):
+    """Local shadow maps (ROADMAP A10) and strided sun visibility (A8)
+    raise NotImplementedError, never fall through."""
+    from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
+    from lsr_tpu_torch.passes.forward_plus import resolve_forward_plus
+
+    _, _, tl, _, tcam, tct = scene["t"]
+    tctx = dataclasses.replace(tct, shadow=scene["tshadow"])
+    base = (torch_setup(scene["setup"]), _t(scene["depth"]),
+            _t(scene["tid"]).to(torch.int32), tctx, tl, tcam.view, tcam.proj,
+            tcam.zn, tcam.zf, W, H)
+    with pytest.raises(NotImplementedError, match="A10"):
+        resolve_forward_plus(*base, local_shadows=object())
+    with pytest.raises(NotImplementedError, match="A8"):
+        resolve_forward_plus(*base, sun_vis_scale=2)
+    ones = torch.ones((H, W))
+    with pytest.raises(NotImplementedError, match="A10"):
+        resolve_fused(torch.zeros((1, 56)), base[2], ones,
+                      torch.ones((H, W, 3)), tct.camera_pos,
+                      tct.light_dir_ws, tct.light_color, (0.0, 0.0, 0.0), tl,
+                      tcam.view, tcam.proj, W, H, local_vis_planes=ones[None])
+
+
+def test_resolve_frame_matches_jax():
+    """make_flagship_frame(use_resolve=True) at 192x108 with a 256^2 ESM sun
+    map against lsr_tpu's same composition (sun map op by op, then setup,
+    rasterize_direct, resolve_forward_plus, tonemap, FXAA): the sun map's
+    light camera equal, tids on >= 99.5% of covered pixels, LDR within 1
+    LSB on >= 99.9% of pixels."""
+    from lsr_tpu.passes.post import fxaa_pass as jfx
+    from lsr_tpu.passes.tonemap import tonemap_pass as jtm
+
+    from lsr_tpu_torch.frame import flagship_stages, make_flagship_frame
+
+    w, h = 192, 108
+    geom, objects, lights, ctx = jax_flagship_scene(n_lights=16, grid=2)
+    cam, ctx_t = jax_camera(0, ctx, w, h)
+    ref = jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, w, h,
+                               shadow_size=S, use_resolve=True)
+    jl = np.asarray(jfx(jtm(ref["hdr"])))
+    tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam,
+                                         ctx_t)
+    frame = make_flagship_frame(tg, to, tl, tc, w, h, use_resolve=True,
+                                shadow_size=S)
+    ldr = frame(tcam, tct)[0].numpy()
+    st = flagship_stages(tg, to, tl, tc, tcam, tct, w, h, use_resolve=True,
+                         shadow_size=S)
+    np.testing.assert_array_equal(st["light_viewproj"].numpy(),
+                                  np.asarray(ref["light_viewproj"]))
+    assert st["gb"] is None and float(st["sun_vis"].min()) < 0.5
+    tid_j, tid_t = np.asarray(ref["tid"]), st["tid"].numpy()
+    covered = int((tid_j >= 0).sum())
+    assert (tid_j != tid_t).sum() <= 0.005 * covered
+    assert ldr.shape == (h, w, 3) and ldr.dtype == np.uint8
+    d = np.abs(jl.astype(int) - ldr.astype(int)).max(-1)
+    assert (d <= 1).mean() >= 0.999, (d <= 1).mean()

@@ -351,8 +351,6 @@ def test_forward_plus_rejects_unported_options(scene):
                     (dict(sun_model="toon"), "sun_model")):
         with pytest.raises(NotImplementedError, match=msg):
             shade_forward_plus(*base, **kw)
-    for ctx, msg in ((dataclasses.replace(tctx, surface_maps=True),
-                      "surface maps"),
-                     (dataclasses.replace(tctx, shadow=object()), "shadow")):
-        with pytest.raises(NotImplementedError, match=msg):
-            shade_forward_plus(gb, ctx, *base[2:])
+    with pytest.raises(NotImplementedError, match="surface maps"):
+        shade_forward_plus(gb, dataclasses.replace(tctx, surface_maps=True),
+                           *base[2:])

@@ -2,9 +2,10 @@
 
 Builds the procedural flagship stand-in (a grid of UV spheres + ground
 plane, bench-style lights, materials and checkerboard texture) with the JAX
-package, renders lsr_tpu's reference for the forward+ slice (no shadows, no
-scene culling), and hands the same scene state to lsr_tpu_torch through
-lsr_tpu_torch.convert.  Inputs come from numpy seeds only.
+package, renders lsr_tpu's reference for the flagship frame (sun shadow
+map, no scene culling or local atlas; the B2 or the resolve route), and
+hands the same scene state to lsr_tpu_torch through lsr_tpu_torch.convert.
+Inputs come from numpy seeds only.
 """
 
 from __future__ import annotations
@@ -131,27 +132,69 @@ def to_torch(geom, objects, lights, ctx, cam, ctx_t, device="cpu"):
     return g, o, lt, c, cm, c_t
 
 
-def jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, width, height):
-    """lsr_tpu's forward+ slice (bench.py:242-287 without shadows/culling):
-    setup -> rasterize_direct(spatial_sort) -> interp -> fused shade."""
-    from lsr_tpu.passes.forward_plus import shade_forward_plus
+def jax_sun_shadow(geom, objects, ctx, size, filter_mode="esm"):
+    """lsr_tpu's sun map and its sampling context as bench.py builds them
+    (bench.py:226-240).  render_shadow_map runs op by op (__wrapped__): its
+    light camera's texel snap sits on a knife edge (the window corner is
+    -S/2 texels in exact arithmetic), and jit's fused arithmetic may move
+    the whole map by a texel where the op-by-op form does not.
+    Returns (depth (S, S), light_viewproj, ShadowContext)."""
+    from lsr_tpu.core.frame import ShadowPassParams
+    from lsr_tpu.lighting.shadow_sample import make_shadow_context
+    from lsr_tpu.passes.shadow import render_shadow_map
+
+    params = ShadowPassParams(map_size=size, pcf_radius=2)
+    depth, light_vp = render_shadow_map.__wrapped__(
+        geom, objects, ctx.light_dir_ws, map_size=size)
+    sc = make_shadow_context(
+        depth, light_vp, bias_const=params.bias_const,
+        bias_slope=params.bias_slope, strength=params.strength,
+        pcf_radius=params.pcf_radius, pcf_step=params.pcf_step,
+        filter_mode=filter_mode)
+    return depth, light_vp, sc
+
+
+def jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, width, height,
+                         shadow_size=None, use_resolve=False):
+    """lsr_tpu's flagship frame (bench.py:179-288 without culling or the
+    local atlas): the ESM sun map (shadow_size^2; none when None) -> setup
+    -> rasterize_direct(spatial_sort) -> interp + fused shade, or the fused
+    resolve."""
+    import dataclasses
+
+    from lsr_tpu.passes.forward_plus import (
+        resolve_forward_plus, shade_forward_plus)
     from lsr_tpu.raster.interp import interpolate_gbuffer
     from lsr_tpu.raster.setup import scene_setup
     from lsr_tpu.raster.tiled import rasterize_direct
 
+    out = {}
+    if shadow_size is not None:
+        out["sun_depth"], out["light_viewproj"], sc = jax_sun_shadow(
+            geom, objects, ctx_t, shadow_size)
+        ctx_t = dataclasses.replace(ctx_t, shadow=sc)
     setup = scene_setup(
         geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
         geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj,
         width, height, obj_visible=objects.visible)
     depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
                                            cam.zf, spatial_sort=True)
-    gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
-                             want_face_normal=False)
-    hdr, stats = shade_forward_plus(
-        gb, ctx_t, lights, cam.view, cam.proj, cam.zn, cam.zf, width, height,
-        tile_size=16, cap=128, mode="tiled_depth_range", sun_model="pbr_mr")
-    return dict(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
-                hdr=hdr, stats=stats)
+    gb = None
+    if use_resolve:
+        hdr, stats = resolve_forward_plus(
+            setup, depth, tid, ctx_t, lights, cam.view, cam.proj, cam.zn,
+            cam.zf, width, height, cap=128, sun_model="pbr_mr",
+            rec_layout="lanes")
+    else:
+        gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
+                                 want_face_normal=False)
+        hdr, stats = shade_forward_plus(
+            gb, ctx_t, lights, cam.view, cam.proj, cam.zn, cam.zf, width,
+            height, tile_size=16, cap=128, mode="tiled_depth_range",
+            sun_model="pbr_mr")
+    out.update(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
+               hdr=hdr, stats=stats)
+    return out
 
 
 def torch_setup(s):
