@@ -28,8 +28,9 @@ lsr_tpu_torch.highpoly):
 5. Extra modes of B3 (rasterize_tiled) and B4 (rasterize_chunklist) at
    480x270 on the compact setup of the same scene: each wrapper against its
    plain version on the same lists, B3 at render_forward's 32x128 / chunk 8,
-   B4 in NDC01 depth only and on a y_offset half band.  Depth and tid bit
-   for bit.
+   B4 in NDC01 depth only, on a y_offset half band, and at 32x128 tiles with
+   8-row bands, chunks of 8 and a worklist cap that truncates.  Depth and
+   tid bit for bit.
 6. The raster at 1920x1080 on the compact setup: B3 at the pipeline's
    64x128 / chunk 16 with the fitted cap, B3 with a cap below the largest
    bin, and B4 at 128x128 / sub_h 32, each wrapper against its plain version
@@ -38,7 +39,11 @@ lsr_tpu_torch.highpoly):
    triangle whose f32 edge functions cover a pixel outside its bbox, which
    each kernel's culling grain keeps or skips; everywhere else depth and
    tid are equal bit for bit.  Times each kernel alone on prebuilt lists
-   and each wrapper (CUDA events).
+   and each wrapper (CUDA events).  Counts, from the lists and the plain
+   model of the kernels' block cull run on the card, what B3 and B4 walk:
+   the (triangle, pixel) pairs of the design without the cull, the pairs
+   left after it, the pairs inside valid bboxes, the entries per tile and
+   the survivors per 16x16 block.
 7. The high-poly forward+ frame (make_highpoly_frame) at 1920x1080, counts
    reset: compact setup -> B3 -> interp -> B2 -> tonemap -> FXAA; no
    triangle may be dropped.  Writes out/torch_highpoly.png.
@@ -65,10 +70,12 @@ Then the slice of the sun shadow, B5 and B6, on the flagship scene:
     out/torch_flagship_resolve.png, and its HDR against the B2 route's on
     the same camera (lsr_tpu's bar: mean |dHDR| < 5e-3, < 1% of pixels
     over 0.05).
-14. Where the flagship frame's time goes, both routes: each stage alone on
-    the previous stage's outputs (host enqueue ms, device ms by CUDA
-    events), then whole frames: median ms by CUDA events, and
-    torch.profiler's device busy ms and kernel launches per frame.
+14. Where the time goes: for the flagship frame on both routes, the
+    high-poly frame and the end-to-end step, each stage alone on the
+    previous stage's outputs (host enqueue ms, device ms by CUDA events),
+    then whole frames: median ms by CUDA events, and torch.profiler's
+    device busy ms and kernel launches per frame.  (The high-poly part
+    runs after phase 8, while its scene is on the card.)
 
 Every kernel's bound is the larger of the bytes it must move over 3.35
 TB/s and the f32 operations this run's data needs over 67 TFLOP/s (the
@@ -174,6 +181,51 @@ def light_pairs(counts, covered, tile_h, tile_w, cap):
     per_tile = cov.reshape(ty, tile_h, tx, tile_w).sum(dim=(1, 3)).reshape(-1)
     return int((torch.clamp(counts.to(torch.int64), max=cap)
                 * per_tile).sum())
+
+
+def walk_stats(name, lists, n, chunk, sub_h, tile_h, pairs_needed, rec):
+    """Log and return what a list raster walks on the 1080p compact setup,
+    from the lists themselves and the plain model of the kernels' cull
+    (tiled.walk_survivors) on the card's tensors.  lists (tiles, cap), n
+    (tiles,) entries walked per tile; chunk=None for B3's row lists, else
+    B4's worklists of packed entries (id << 5 | band_start << 2 |
+    band_count - 1, bands of sub_h rows).  pairs_tested: the (triangle,
+    pixel) pairs of the design before the cull, every listed triangle at
+    every pixel of its tile (B4: of its band rows); pairs_needed: the pairs
+    inside valid bboxes; per 16x16 block the survivors of the first cull
+    level, which the block queues, and per 8x4 warp rectangle those of both
+    levels, which its 32 pixels evaluate; read_bytes: what the walk must
+    read, each listed entry and each distinct listed record once."""
+    from lsr_tpu_torch.raster import tiled
+
+    per_block, per_warp = tiled.walk_survivors(
+        rec, lists, n, WIDTH, HEIGHT, tile_h, 128, chunk, sub_h)
+    n64 = n.to(torch.int64)
+    if chunk is None:
+        pairs_tested = n64.sum() * tile_h * 128
+    else:
+        live = torch.arange(lists.shape[1], device=n.device)[None] \
+            < n64[:, None]
+        band_rows = (((lists.to(torch.int64) & 3) + 1) * sub_h * live).sum()
+        pairs_tested = band_rows * 128 * chunk
+    rows = tiled.listed_rows(lists, n, chunk)
+    nf = n.to(torch.float64)
+    out = {"pairs_tested": int(pairs_tested), "pairs_needed": pairs_needed,
+           "pairs_after_block_cull": int(per_block.sum()) * 256,
+           "pairs_after_warp_cull": int(per_warp.sum()) * 32,
+           "list_sum": int(n64.sum()), "list_mean": float(nf.mean()),
+           "list_max": int(n64.max()), "listed_rows": rows,
+           "survivors_per_block_mean": float(
+               per_block.to(torch.float64).mean()),
+           "survivors_per_block_max": int(per_block.max()),
+           "survivors_per_warp_mean": float(
+               per_warp.to(torch.float64).mean()),
+           "survivors_per_warp_max": int(per_warp.max()),
+           # entries (4 B each), records (64 B a row), counts (i32) and
+           # the tile order (i64) per tile.
+           "read_bytes": 4 * int(n64.sum()) + 64 * rows + 12 * n.numel()}
+    log(f"{name} walk on the {WIDTH}x{HEIGHT} compact setup: {out}")
+    return out
 
 
 def b1_phase(setup, cam, dev):
@@ -469,7 +521,8 @@ def _b3_vs_plain(name, setup, w, h, zn, zf, tile_h, chunk, cap, fit_cap,
     return _vs_plain(f"B3 {name}", kern, plain)
 
 
-def _b4_vs_plain(name, setup, w, h, zn, zf, mode, track, y_off, full_h):
+def _b4_vs_plain(name, setup, w, h, zn, zf, mode, track, y_off, full_h,
+                 tile_h=128, chunk=16, ccap=None, sub_h=32):
     from lsr_tpu_torch.raster import tiled
 
     hb = h - y_off
@@ -477,16 +530,17 @@ def _b4_vs_plain(name, setup, w, h, zn, zf, mode, track, y_off, full_h):
 
     def kern():
         d, t, mc = tiled.rasterize_chunklist(
-            setup, w, hb, zn, zf, depth_mode=mode, y_offset=y_off,
-            full_height=full_h, track_ids=track)
+            setup, w, hb, zn, zf, depth_mode=mode, tile_h=tile_h, chunk=chunk,
+            ccap=ccap, sub_h=sub_h, y_offset=y_off, full_height=full_h,
+            track_ids=track)
         return d, t, f"max chunks/tile {int(mc)}"
 
     def plain():
-        rec, cl, cc, _ = tiled.chunklist_inputs(setup, w, hb, 128, 128, 16,
-                                                None, 32, y_off)
+        rec, cl, cc, _ = tiled.chunklist_inputs(setup, w, hb, tile_h, 128,
+                                                chunk, ccap, sub_h, y_off)
         return tiled.rasterize_chunklist_plain(
-            rec, cl, cc, db, tb, w, hb, zn, zf, mode, y_offset=y_off,
-            full_height=full_h, track_ids=track)
+            rec, cl, cc, db, tb, w, hb, zn, zf, mode, tile_h, 128, chunk,
+            sub_h, y_off, full_h, track)
 
     return _vs_plain(f"B4 {name}", kern, plain, track)
 
@@ -511,6 +565,9 @@ def b3_b4_small_phase(geom, objects, ctx, dev):
                  DEPTH_NDC01, False, 0, h)
     _b4_vs_plain("viewz, ids, y_offset half band", setup, w, h, cam.zn,
                  cam.zf, DEPTH_VIEWZ, True, h // 2, h)
+    _b4_vs_plain("32x128 tiles, sub_h 8, chunk 8, ccap 8192 (truncating)",
+                 setup, w, h, cam.zn, cam.zf, DEPTH_VIEWZ, True, 0, h,
+                 tile_h=32, chunk=8, ccap=8192, sub_h=8)
 
 
 def raster_1080p_phase(geom, objects, cam, dev):
@@ -579,28 +636,38 @@ def raster_1080p_phase(geom, objects, cam, dev):
                                              1024, 16, fit_cap=True)
     _, cl, cc, _ = tiled.chunklist_inputs(setup, WIDTH, HEIGHT, 128, 128, 16,
                                           None, 32)
+    # The tile orders are sorted once here, so that kernel_ms is the launch
+    # alone as for the other kernels; the wrappers' ms includes the sort.
+    order3, order4 = tiled.tile_order(n_walk), tiled.tile_order(cc)
     kerns = {
         "direct_raster": lambda: tiled._direct_launch(
             lib, rec, cbb, sl, scnt, d0, t0, WIDTH, HEIGHT, zn, zf, 0, True,
             False, stream),
         "tiled_raster": lambda: tiled._tiled_launch(
             lib, rec, lists, n_walk, d0, t0, WIDTH, HEIGHT, zn, zf, 0, 64,
-            128, 0, HEIGHT, stream),
+            128, 0, HEIGHT, stream, order3),
         "chunklist_raster": lambda: tiled._chunklist_launch(
             lib, rec, cl, cc, d0, t0, WIDTH, HEIGHT, zn, zf, 0, 128, 128, 16,
-            32, 0, HEIGHT, True, stream),
+            32, 0, HEIGHT, True, stream, order4),
     }
-    ops = raster_pairs(setup) * RASTER_OPS
+    n_pairs = raster_pairs(setup)
+    out["tiled_raster"].update(walk_stats("B3", lists, n_walk, None, None, 64,
+                                          n_pairs, rec))
+    out["chunklist_raster"].update(walk_stats("B4", cl, cc, 16, 32, 128,
+                                              n_pairs, rec))
+    ops = n_pairs * RASTER_OPS
     targets_bytes = 8 * WIDTH * HEIGHT       # depth and tid, written once
+    # B3 / B4: the bytes this run's lists name (each listed entry and each
+    # distinct listed record once), not the padded list arrays.
     bounds = {"direct_raster": bound(nbytes(rec, cbb, sl, scnt)
-                                     + targets_bytes, ops),
-              "tiled_raster": bound(nbytes(rec, lists, n_walk)
-                                    + targets_bytes, ops),
-              "chunklist_raster": bound(nbytes(rec, cl, cc) + targets_bytes,
-                                        ops)}
+                                     + targets_bytes, ops)}
+    for k in ("tiled_raster", "chunklist_raster"):
+        bounds[k] = bound(out[k].pop("read_bytes") + targets_bytes, ops)
+    log(f"tile order alone (torch.argsort, inside the B3 / B4 wrappers): "
+        f"{cuda_ms(lambda: tiled.tile_order(n_walk), 20):.4f} ms")
     for k in runs:
         kerns[k]()
-        kernel_ms = cuda_ms(kerns[k], 5)
+        kernel_ms = cuda_ms(kerns[k], 20)
         runs[k]()
         ms = cuda_ms(runs[k], 5)
         out.setdefault(k, {}).update(ms=ms, kernel_ms=kernel_ms, **bounds[k])
@@ -1038,6 +1105,34 @@ def _profile_frames(run, n=3):
             "top": [(e.key[:60], round(t(e) / 1e3 / n, 3)) for e in top]}
 
 
+def _stage_table(title, stages):
+    log(title)
+    log("| stage | host enqueue ms | device ms |")
+    log("|---|---|---|")
+    for name, fn in stages.items():
+        host, dev_ms = _stage_ms(fn)
+        log(f"| {name} | {host:.3f} | {dev_ms:.3f} |")
+
+
+def _frame_breakdown(name, run):
+    """Median ms of 5 runs by CUDA events after 2 warm-up, and
+    torch.profiler's device busy ms and kernel count over 3."""
+    ms = []
+    for _ in range(7):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    out = {"frame_ms": statistics.median(ms[2:]), **_profile_frames(run)}
+    log(f"frame breakdown [{name}]: {json.dumps(out)}")
+    check(out["kernels_per_frame"] > 0,
+          f"the profiler saw no device kernel in {name}")
+    return out
+
+
 def profile_phase(geom, objects, lights, ctx, cam, ctx_t):
     """Phase 14.  Where the flagship frame's time goes, on both routes: each
     stage alone on the previous stage's outputs (host enqueue and device
@@ -1115,12 +1210,8 @@ def profile_phase(geom, objects, lights, ctx, cam, ctx_t):
         "tonemap": lambda: tonemap_pass(hdr),
         "fxaa": lambda: fxaa_pass(ldr),
     }
-    log(f"stage times {w}x{h}, sun map {s}^2 (each stage alone):")
-    log("| stage | host enqueue ms | device ms |")
-    log("|---|---|---|")
-    for name, fn in stages.items():
-        host, dev_ms = _stage_ms(fn)
-        log(f"| {name} | {host:.3f} | {dev_ms:.3f} |")
+    _stage_table(f"stage times {w}x{h}, sun map {s}^2 (each stage alone):",
+                 stages)
 
     out = {}
     for route, use_resolve in (("b2", False), ("resolve", True)):
@@ -1129,21 +1220,71 @@ def profile_phase(geom, objects, lights, ctx, cam, ctx_t):
                                  use_resolve=use_resolve, shadow_size=s)
             return fxaa_pass(tonemap_pass(st["hdr"]))
 
-        ms = []
-        for _ in range(7):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            run()
-            e1.record()
-            torch.cuda.synchronize()
-            ms.append(e0.elapsed_time(e1))
-        out[route] = {"frame_ms": statistics.median(ms[2:]),
-                      **_profile_frames(run)}
-        log(f"frame breakdown [{route} route]: {json.dumps(out[route])}")
-        check(out[route]["kernels_per_frame"] > 0,
-              f"the profiler saw no device kernel on the {route} route")
+        out[route] = _frame_breakdown(f"{route} route", run)
     return out
+
+
+def highpoly_profile_phase(geom, objects, lights, ctx, dev):
+    """Phase 14, high-poly part.  Where the high-poly frame
+    (make_highpoly_frame) and the end-to-end step (compact setup + B4) spend
+    their time: each stage alone on the previous stage's outputs, then the
+    whole frame and step as in the flagship part.  Returns {"highpoly":
+    breakdown, "e2e": breakdown}."""
+    from lsr_tpu_torch.highpoly import (
+        compact_setup, e2e_compact_chunklist, highpoly_camera,
+        highpoly_frame_params, make_highpoly_frame)
+    from lsr_tpu_torch.passes.post import fxaa_pass
+    from lsr_tpu_torch.passes.standard_passes import fused_lighting
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.interp import interpolate_gbuffer
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    w, h = WIDTH, HEIGHT
+    cam, ctx_t = highpoly_camera(ctx, w, h, HP_GRID, device=dev)
+    fp = highpoly_frame_params(w, h)
+    frame = make_highpoly_frame(geom, objects, lights, ctx, fp)
+    _, st = frame(cam, ctx_t)
+    setup, depth, tid = st["setup"], st["depth"], st["tid"]
+    ldr = tonemap_pass(st["hdr"])
+    zn, zf = cam.zn, cam.zf
+    d0, t0 = targets(w, h, dev)
+    rec, lists, n_walk, _ = tiled.tiled_inputs(setup, w, h, 64, 128, 1024, 16,
+                                               fit_cap=True)
+    _, cl, cc, _ = tiled.chunklist_inputs(setup, w, h, 128, 128, 16, None, 32)
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    shade_in = {k: v for k, v in st.items() if k != "hdr"}
+    _stage_table(f"high-poly stage times {w}x{h} (each stage alone):", {
+        "compact setup (scene_setup_compact)": lambda: compact_setup(
+            geom, objects, cam, w, h),
+        "B3 route: rasterize_tiled (binning + tile order + B3)": lambda:
+            tiled.rasterize_tiled(setup, w, h, zn, zf, tile_h=64, cap=1024,
+                                  chunk=16, fit_cap=True),
+        "  binning (records, lists, counts)": lambda: tiled.tiled_inputs(
+            setup, w, h, 64, 128, 1024, 16, fit_cap=True),
+        "  tile order + B3 launch": lambda: tiled._tiled_launch(
+            lib, rec, lists, n_walk, d0, t0, w, h, zn, zf, 0, 64, 128, 0, h,
+            stream),
+        "interpolate_gbuffer": lambda: interpolate_gbuffer(
+            setup, depth, tid, materials=ctx_t.materials),
+        "fused_lighting (binning, B2, ambient, background)": lambda:
+            fused_lighting(shade_in, fp),
+        "tonemap": lambda: tonemap_pass(st["hdr"]),
+        "fxaa": lambda: fxaa_pass(ldr),
+        "end to end: rasterize_chunklist (worklists + tile order + B4)":
+            lambda: tiled.rasterize_chunklist(setup, w, h, zn, zf),
+        "  worklists (records, chunk lists, counts)": lambda:
+            tiled.chunklist_inputs(setup, w, h, 128, 128, 16, None, 32),
+        "  tile order + B4 launch": lambda: tiled._chunklist_launch(
+            lib, rec, cl, cc, d0, t0, w, h, zn, zf, 0, 128, 128, 16, 32, 0, h,
+            True, stream),
+    })
+    return {"highpoly": _frame_breakdown("high-poly frame",
+                                         lambda: frame(cam, ctx_t)),
+            "e2e": _frame_breakdown(
+                "end-to-end step", lambda: e2e_compact_chunklist(
+                    geom, objects, cam, w, h))}
 
 
 def main():
@@ -1247,6 +1388,8 @@ def main():
     hp_launches, hp_ms = highpoly_frame_phase(hp_geom, hp_objects, hp_lights,
                                               hp_ctx, dev)
     e2e_launches, e2e_ms = e2e_phase(hp_geom, hp_objects, hp_ctx, dev)
+    hp_prof = highpoly_profile_phase(hp_geom, hp_objects, hp_lights, hp_ctx,
+                                     dev)
     del hp_geom, hp_objects
     render_forward_phase(dev)
 
@@ -1264,7 +1407,11 @@ def main():
         f"{prof['resolve']['device_busy_ms']:.3f} ms a frame in "
         f"{prof['b2']['kernels_per_frame']:.0f} / "
         f"{prof['resolve']['kernels_per_frame']:.0f} kernels (B2 / resolve "
-        f"route) ({card})")
+        f"route), {hp_prof['highpoly']['device_busy_ms']:.3f} ms in "
+        f"{hp_prof['highpoly']['kernels_per_frame']:.0f} kernels (high-poly "
+        f"frame), {hp_prof['e2e']['device_busy_ms']:.3f} ms in "
+        f"{hp_prof['e2e']['kernels_per_frame']:.0f} kernels (end-to-end "
+        f"step) ({card})")
 
     at_1080p = f"{WIDTH}x{HEIGHT} high-poly compact setup"
     keys = ("max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
@@ -1277,6 +1424,8 @@ def main():
                 "library_ms": None, **extra}
 
     sun_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err")
+    pair_keys = ("pairs_tested", "pairs_after_block_cull",
+                 "pairs_after_warp_cull", "pairs_needed")
     kernels = [
         entry("direct_raster", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
@@ -1285,10 +1434,12 @@ def main():
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
               b2),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
-              hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p),
+              hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,
+              **{k: r1080["tiled_raster"][k] for k in pair_keys}),
         entry("chunklist_raster", "chunklist_raster.cu",
               "lsr_tpu/raster/tiled.py:697", e2e_launches["chunklist_raster"],
-              r1080["chunklist_raster"], at=at_1080p),
+              r1080["chunklist_raster"], at=at_1080p,
+              **{k: r1080["chunklist_raster"][k] for k in pair_keys}),
         entry("resolve_fused", "resolve_fused.cu",
               "lsr_tpu/lighting/resolve_kernel.py:65",
               res_launches["resolve_fused"], b5),

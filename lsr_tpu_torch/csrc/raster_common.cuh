@@ -1,5 +1,7 @@
 // Per-(triangle, pixel) arithmetic shared by the raster kernels B1
-// (direct_raster.cu), B3 (tiled_raster.cu) and B4 (chunklist_raster.cu).
+// (direct_raster.cu), B3 (tiled_raster.cu) and B4 (chunklist_raster.cu),
+// and the exact cull of a triangle against a rectangle of pixels that B3
+// and B4 use (block_walk.cuh).
 //
 // A setup record is lsr_tpu's 16 f32, read as four float4:
 //   r0 = A0 B0 C0 A1 | r1 = B1 C1 A2 B2 | r2 = C2 iw0 iw1 iw2 |
@@ -55,6 +57,38 @@ __device__ __forceinline__ bool tri_depth(float4 r0, float4 r1, float4 r2,
     z01 = clamp01(__fadd_rn(__fmul_rn(zlin, 0.5f), 0.5f));
   }
   return true;
+}
+
+// The pixel centers of a rectangle of pixels: px in [x0, x1], py in
+// [y0, y1], each bound the very float a pixel of the rectangle uses.
+struct Rect {
+  float x0, x1, y0, y1;
+};
+
+// The largest value one edge function takes over the pixel centers of a
+// rectangle, in f32 as tri_depth computes it.  Each step of
+// fadd(fadd(fmul(a, px), fmul(b, py)), c) rounds to nearest, and rounding
+// is monotone, so the rounded value is non-decreasing in px when a >= 0 and
+// non-increasing otherwise (likewise py and b): the maximum is the value at
+// the corner picked by the signs of a and b, spelled with the same
+// intrinsics.  A NaN (non-finite coefficients, inf - inf) compares false
+// with '< 0', so it never rejects.
+__device__ __forceinline__ float edge_max(float a, float b, float c,
+                                          const Rect& q) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, a >= 0.0f ? q.x1 : q.x0),
+                             __fmul_rn(b, b >= 0.0f ? q.y1 : q.y0)), c);
+}
+
+// True when no pixel center of the rectangle can pass tri_depth's coverage
+// test: one edge function is negative at its largest corner, or the id lane
+// marks the record invalid.  Exact in f32: it uses no bbox, so the stray
+// pixels a sliver's edge functions cover outside its bbox are kept.  Takes
+// the ten lanes the test reads: r0, r1, C2 (lane 8) and the id (lane 15).
+__device__ __forceinline__ bool rect_reject(float4 r0, float4 r1, float c2,
+                                            float id, const Rect& q) {
+  return edge_max(r0.x, r0.y, r0.z, q) < 0.0f
+         || edge_max(r0.w, r1.x, r1.y, q) < 0.0f
+         || edge_max(r1.z, r1.w, c2, q) < 0.0f || id < 0.0f;
 }
 
 }  // namespace lsr

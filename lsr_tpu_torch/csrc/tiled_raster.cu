@@ -10,38 +10,77 @@
 // the records for the TPU's VMEM; here each block reads its tile's rows
 // through the list, so nothing is gathered or padded.
 //
-// What bounds it on this card: every pixel of a tile tests every entry of
-// the tile's list, so the work is sum(tile count) x tile pixels, ~20 f32
-// operations and one IEEE division per pair; at 1080p on the high-poly
-// scene that is billions of pairs: issue rate.  Device memory traffic is
-// small: each 16x16 block reads its tile's list (4 B an entry) and those
-// records (64 B each, from L2 after the first block of the tile) once, and
-// writes 2 KB of depth/tid.
+// What bounds it on this card: redundant (triangle, pixel) tests, not
+// memory.  A tile's pixels would test every entry of its list (4.47e9 pairs
+// at 1080p on the 1.1M-triangle scene, whose triangles cover a pixel or
+// two: 6.3e6 pairs lie inside bboxes); the listed entries, the records they
+// name and the targets are 52 MB, 0.015 ms at the card's memory rate.
+// After the cull the limits are the survivors (3.98e8 pairs reach a block's
+// queue and 6.3e7 a pixel's evaluation after the warp cull: thin triangles
+// survive in every block that straddles the lines of their two long edges,
+// also far from the triangle, and 8.9% of a tile's entries survive per
+// block instead of the 4% their size suggests), the L2 reads of the cull
+// (each of a tile's 32 blocks reads the tile's records), and the longest
+// list (29,406 entries against a mean of 2,142).
 //
-// What the design does about it: one thread per pixel, 16x16 blocks, each
-// block inside one tile of the caller's shape.  The block stages the
-// records of 16 list entries (1 KB) in shared memory, one 16-byte load per
-// thread, then every thread walks them in list order with a strict '<'
-// resolve in registers.  That sequential walk equals lsr_tpu's per-chunk
-// (min depth, first in chunk) then strict-across-chunks rule, with no
-// atomics.  Culling whole chunks per warp is left for a later change.
+// What the design does about it (block_walk.cuh): a block of 256 threads
+// owns 16x16 pixels of one tile and culls its tile's list, 256 entries a
+// step, against its own footprint with an exact test of the footprint's
+// corners (lsr::rect_reject); survivors are queued in shared memory in list
+// order, culled once more per warp (8x4 pixels) and only then evaluated by
+// every pixel, with a strict '<' in registers: first submitted wins, no
+// atomics.  The launcher orders the tiles by falling list length, so the
+// blocks of the longest lists start first.
 //
-// Numerics: lsr::tri_depth (raster_common.cuh), bit-exact with the plain
-// version rasterize_tiled_plain.
+// The choices, measured on an NVIDIA H100 80GB HBM3 at 700 W at the shapes
+// above while the walk was designed: each alternative was built, held
+// against the plain versions bit for bit and timed by CUDA events in one
+// run (ms of B3 / B4, the sort of the tile order included; the design
+// without the cull took 7.615 / 5.430 in the same run).  Only the first row
+// is kept in the source:
+//   as built (256 entries a step, queue of 512 staged records,
+//   warp cull, prefetch, longest list first)              0.393 / 0.554
+//   no second cull level per warp                         0.789 / 0.974
+//   queue of 256 (evaluate after every step) / of 1024    0.435 / 0.611,
+//                                                         0.406 / 0.598
+//   queue of row ids instead of staged records            0.496 / 0.616
+//   no prefetch of the next step's records                0.422 / 0.553
+//   512 entries a step (queue 512 / 1024)                 0.440 / 0.783,
+//                                                         0.407 / 0.718
+//   1024 entries a step, no prefetch                      0.456 / 0.763
+//   blocks in raster order                                0.453 / 0.624
+// Larger steps cost registers (80-107 against 60-64) and gain nothing: the
+// walk is bound by the evaluation, not by the barriers.  With every list
+// clamped to 1,837 entries B3 takes 0.175 ms: most of the time is the few
+// long lists, which is why their blocks go first.  The prefetch is a
+// register pipeline (the next step's ten cull lanes and the list entries of
+// the step after it); cp.async into shared memory would stage the same
+// bytes and was not needed.
+//
+// Numerics: lsr::tri_depth and lsr::rect_reject (raster_common.cuh),
+// bit-exact with the plain version rasterize_tiled_plain.
 
 #include <cuda_runtime.h>
 
-#include "raster_common.cuh"
+#include "block_walk.cuh"
 
 namespace {
 
-constexpr int kBlock = 16;  // pixel block edge (16x16 threads)
-constexpr int kStage = 16;  // records staged in shared memory per step
+// Candidate i of a tile is entry i of its list.
+struct ListSource {
+  const int* __restrict__ list;
+  __device__ __forceinline__ void operator()(int i, int& row,
+                                             int& bands) const {
+    row = __ldg(list + i);
+    bands = 0;
+  }
+};
 
-__global__ void __launch_bounds__(kBlock * kBlock)
+__global__ void __launch_bounds__(lsr::kThreads)
 tiled_raster_kernel(const float4* __restrict__ rec,   // (n_pad, 16) f32
                     const int* __restrict__ lists,    // (tiles, cap)
                     const int* __restrict__ counts,   // (tiles,)
+                    const long long* __restrict__ order,  // (tiles,)
                     const float* __restrict__ depth_in,
                     const int* __restrict__ tid_in,
                     float* __restrict__ depth_out,
@@ -49,69 +88,46 @@ tiled_raster_kernel(const float4* __restrict__ rec,   // (n_pad, 16) f32
                     int width, int height, int tile_w, int tile_h,
                     int tiles_x, int cap, float zn, float inv_range,
                     int y_offset, float max_py, int depth_mode) {
-  __shared__ float4 srec[kStage * lsr::kRecVec];
-  const int x = blockIdx.x * kBlock + threadIdx.x;
-  const int y = blockIdx.y * kBlock + threadIdx.y;
-  const int lane = threadIdx.y * kBlock + threadIdx.x;
-  const bool in_img = x < width && y < height;
-  const float px = (float)x + 0.5f;
-  const float py = (float)(y + y_offset) + 0.5f;
-  const bool ndc_ok = px <= (float)(width - 1) && py <= max_py;
-
+  // The block lies inside one tile (tile_w, tile_h are multiples of 16).
+  int bx, by;
+  const int tile = lsr::walk_block(order, tile_w, tile_h, tiles_x, bx, by);
+  const lsr::WalkPixel p = lsr::walk_pixel(bx, by, width, y_offset, max_py);
+  const bool in_img = p.x < width && p.y < height;
   float d = 1.0f;
   int t = -1;
   if (in_img) {
-    d = depth_in[(size_t)y * width + x];
-    t = tid_in[(size_t)y * width + x];
+    d = depth_in[(size_t)p.y * width + p.x];
+    t = tid_in[(size_t)p.y * width + p.x];
   }
 
-  // The block lies inside one tile (tile_w, tile_h are multiples of 16).
-  const int tile = (blockIdx.y * kBlock / tile_h) * tiles_x
-                   + blockIdx.x * kBlock / tile_w;
   const int n = min(counts[tile], cap);  // never past the tile's own list
-  const int* list = lists + (size_t)tile * cap;
-
-  for (int s = 0; s < n; s += kStage) {
-    const int m = min(kStage, n - s);
-    __syncthreads();  // the previous step's records are no longer read
-    if (lane < m * lsr::kRecVec) {
-      const int row = list[s + lane / lsr::kRecVec];
-      srec[lane] = rec[(size_t)row * lsr::kRecVec + lane % lsr::kRecVec];
-    }
-    __syncthreads();
-    if (!ndc_ok) continue;
-    for (int k = 0; k < m; ++k) {
-      const float4* r = srec + lsr::kRecVec * k;
-      float z01;
-      if (lsr::tri_depth(r[0], r[1], r[2], r[3], px, py, depth_mode, zn,
-                         inv_range, z01)
-          && z01 < d) {
-        d = z01;
-        t = (int)r[3].w;
-      }
-    }
-  }
+  const ListSource src{lists + (size_t)tile * cap};
+  lsr::block_walk<false>(src, n, rec, p, 0, 0, 0, depth_mode, zn, inv_range,
+                         d, t);
   if (in_img) {
-    depth_out[(size_t)y * width + x] = d;
-    tid_out[(size_t)y * width + x] = t;
+    depth_out[(size_t)p.y * width + p.x] = d;
+    tid_out[(size_t)p.y * width + p.x] = t;
   }
 }
 
 }  // namespace
 
 extern "C" int lsr_tiled_raster(const void* rec, const void* lists,
-                                const void* counts, const void* depth_in,
-                                const void* tid_in, void* depth_out,
+                                const void* counts, const void* order,
+                                const void* depth_in, const void* tid_in,
+                                void* depth_out,
                                 void* tid_out, int width, int height,
                                 int tile_w, int tile_h, int tiles_x,
                                 int tiles_y, int cap, float zn,
                                 float inv_range, int y_offset, float max_py,
                                 int depth_mode, void* stream) {
-  dim3 block(kBlock, kBlock);
-  dim3 grid(tiles_x * tile_w / kBlock, tiles_y * tile_h / kBlock);
-  tiled_raster_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  constexpr size_t smem = lsr::walk_smem_bytes(false);
+  const int grid = tiles_x * tiles_y * (tile_w / lsr::kBlock)
+                   * (tile_h / lsr::kBlock);
+  tiled_raster_kernel<<<grid, lsr::kThreads, smem, (cudaStream_t)stream>>>(
       (const float4*)rec, (const int*)lists, (const int*)counts,
-      (const float*)depth_in, (const int*)tid_in, (float*)depth_out,
+      (const long long*)order, (const float*)depth_in, (const int*)tid_in,
+      (float*)depth_out,
       (int*)tid_out, width, height, tile_w, tile_h, tiles_x, cap, zn,
       inv_range, y_offset, max_py, depth_mode);
   return (int)cudaGetLastError();

@@ -12,6 +12,10 @@
 - B4 rasterize_chunklist (_chunklist_kernel): per-tile worklists of
   overlapping 16-triangle chunks with their row bands, walked by
   csrc/chunklist_raster.cu over the resident records.
+  Both kernels walk their lists per 16x16 pixel block and first drop the
+  triangles that an exact test of the block's corners rules out
+  (csrc/block_walk.cuh; cull_rejects is its plain model, walk_survivors
+  counts what the cull keeps).
 
 All three resolve (min depth, first submitted); B1 with spatial_sort
 resolves the lexicographic (depth, tid) minimum, which is the same rule.
@@ -41,8 +45,10 @@ from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 _SUPER = 256      # triangles per super-chunk
 _REC = 16         # f32 lanes per setup record
 _CHUNK = 16       # triangles per chunk of kernel B1
+_PLAIN_WALK_STEP = 1024  # triangles per step of walk_survivors
 _BAND_BITS = 5    # low bits of a chunk-list entry: band_start, band_count - 1
 _KERNEL_BLOCK = 16  # B3/B4 pixel blocks are 16x16 and lie inside one tile
+_KERNEL_WARP = (8, 4)  # a warp of a B3/B4 block owns 8x4 (w x h) pixels
 _PLAIN_GROUP = 64   # triangles per step of the plain B4 walk
 
 # Setups with more rows than this take the binned kernel B3 instead of B1,
@@ -85,6 +91,12 @@ def _check_kernel_tiles(name, tile_h, tile_w):
         raise ValueError(f"{name}: the CUDA kernel needs tile_h and tile_w "
                          f"to be multiples of {_KERNEL_BLOCK}, got "
                          f"{tile_h}x{tile_w}")
+
+
+def tile_order(counts):
+    """(tiles,) i64: the tiles by falling list length.  Kernels B3 and B4
+    start their blocks in this order, so the longest walks begin first."""
+    return torch.argsort(counts, descending=True, stable=True)
 
 
 def _stream(dev):
@@ -436,6 +448,70 @@ def _tri_depth(blk, fr, zn: float, inv_range: float, depth_mode: int):
     return inside, z01
 
 
+def _edge_max(a, b, c, x0, x1, y0, y1):
+    """The largest f32 value of the edge function a*px + b*py + c over pixel
+    centers px in [x0, x1], py in [y0, y1], in _tri_depth's operation order.
+    Every step rounds to nearest and rounding is monotone, so the maximum is
+    the value at the corner picked by the signs of a and b."""
+    return (a * torch.where(a >= 0.0, x1, x0)
+            + b * torch.where(b >= 0.0, y1, y0) + c)
+
+
+def cull_rejects(blk, x0, x1, y0, y1):
+    """Plain model of the kernels' exact cull (lsr::rect_reject in
+    csrc/raster_common.cuh): True where no pixel center of the rectangle
+    [x0, x1] x [y0, y1] can pass _tri_depth's coverage test, because an
+    edge function is negative at its largest corner or the id lane marks
+    the record invalid.  A NaN corner compares False and keeps the record.
+    blk is (..., _REC); the bounds broadcast against blk[..., 0] and are the
+    very floats the rectangle's pixels use as centers."""
+    worst = [_edge_max(blk[..., e], blk[..., e + 1], blk[..., e + 2],
+                       x0, x1, y0, y1) for e in (0, 3, 6)]
+    return ((worst[0] < 0.0) | (worst[1] < 0.0) | (worst[2] < 0.0)
+            | (blk[..., 15] < 0.0))
+
+
+def _rect_keep(blk, fr, bw, bh, bands=None, sub_h=None):
+    """(T, K, th // bh, tw // bw) bool: record k of tile t survives the cull
+    against each bw x bh pixel rectangle of the tile and, with bands (T, K)
+    packed as start << 2 | (count - 1) in rows of sub_h, its bands meet the
+    rectangle's rows (band_hit in csrc/block_walk.cuh)."""
+    keep = ~cull_rejects(blk[:, :, None, None, :],
+                         fr.px[..., ::bw], fr.px[..., bw - 1::bw],
+                         fr.py[:, :, ::bh], fr.py[:, :, bh - 1::bh])
+    if bands is not None:
+        row0 = torch.arange(0, fr.th, bh, device=blk.device)
+        bs = ((bands >> 2) & 3)[..., None]
+        be = bs + (bands & 3)[..., None]
+        hit = ((row0 + bh - 1) // sub_h >= bs) & (row0 // sub_h <= be)
+        keep = keep & hit[..., None]
+    return keep
+
+
+def _walk_keep(blk, fr, bands=None, sub_h=None):
+    """(T, K, H, W) bool: at each pixel, whether record k of tile t reaches
+    the pixel's evaluation in kernels B3 and B4: it survives the cull
+    against the pixel's 16x16 block and against its warp's 8x4 rectangle,
+    and (B4) its bands meet the rows of both."""
+    _check_kernel_tiles("block cull", fr.th, fr.tw)
+    keep = None
+    for bw, bh in ((_KERNEL_BLOCK, _KERNEL_BLOCK), _KERNEL_WARP):
+        level = _rect_keep(blk, fr, bw, bh, bands, sub_h).repeat_interleave(
+            bh, dim=2).repeat_interleave(bw, dim=3)
+        keep = level if keep is None else keep & level
+    return keep
+
+
+def _chunk_triangles(e, chunk):
+    """Worklist entries e (T, g) i64 -> (setup rows, packed bands), each
+    (T, g * chunk): the triangles of the listed chunks, in list order."""
+    k = torch.arange(chunk, device=e.device)
+    rows = ((e >> _BAND_BITS)[..., None] * chunk + k).flatten(1)
+    bands = (e & ((1 << _BAND_BITS) - 1))[..., None].expand(
+        -1, -1, chunk).flatten(1)
+    return rows, bands
+
+
 class _TileFrame:
     """The padded (tiles_y*tile_h, tiles_x*tile_w) target as (T, th, tw)
     tiles, with each tile's pixel centers (px, py) and coverage bound."""
@@ -484,9 +560,14 @@ def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
                           width: int, height: int, zn: float, zf: float,
                           depth_mode: int = DEPTH_VIEWZ, tile_h: int = 32,
                           tile_w: int = 128, chunk: int = 8,
-                          y_offset: int = 0, full_height: int | None = None):
+                          y_offset: int = 0, full_height: int | None = None,
+                          block_cull: bool = False):
     """Plain version of kernel B3: walks each tile's first counts[t] list
-    entries (rows of rec) in chunks of `chunk`, all tiles at once."""
+    entries (rows of rec) in chunks of `chunk`, all tiles at once.
+    block_cull=True masks out the (record, pixel) pairs that kernel B3
+    never evaluates, those its cull against the pixel's 16x16 block or its
+    warp's 8x4 rectangle rejects; the cull is exact, so the result is the
+    same."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
@@ -500,6 +581,8 @@ def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
         live = torch.arange(s, s + ent.shape[1], device=dev)[None] \
             < counts[:, None]
         inside &= live[..., None, None] & fr.ndc_ok[:, None]
+        if block_cull:
+            inside &= _walk_keep(blk, fr)
         d, t = _resolve(inside, z01, blk[..., 15], d, t, True)
     return fr.join(d), fr.join(t)
 
@@ -511,17 +594,19 @@ def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
                               chunk: int = 16, sub_h: int = 32,
                               y_offset: int = 0,
                               full_height: int | None = None,
-                              track_ids: bool = True):
+                              track_ids: bool = True,
+                              block_cull: bool = False):
     """Plain version of kernel B4: walks each tile's first counts[t]
     worklist entries, all tiles at once, _PLAIN_GROUP triangles per step;
-    an entry only touches the rows of its bands."""
+    an entry only touches the rows of its bands.  block_cull as in
+    rasterize_tiled_plain; kernel B4 also skips an entry whose bands miss
+    the block's or the warp's rows, which the mask models too."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
                     height if full_height is None else full_height, dev)
     d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
     row_band = torch.arange(tile_h, device=dev) // sub_h
-    k = torch.arange(chunk, device=dev)
     step = max(1, _PLAIN_GROUP // chunk)
     n_max = int(counts.max()) if counts.numel() else 0
     for s in range(0, n_max, step):
@@ -532,12 +617,70 @@ def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
         be = bs + (e & 3)
         rows_ok = ((row_band >= bs[..., None]) & (row_band <= be[..., None])
                    & live[..., None])                        # (T, g, th)
-        blk = rec[((e >> _BAND_BITS)[..., None] * chunk + k)].flatten(1, 2)
+        rows, bands = _chunk_triangles(e, chunk)
+        blk = rec[rows]
         inside, z01 = _tri_depth(blk, fr, zn_f, inv_range, depth_mode)
         mask = rows_ok[:, :, None, :].expand(-1, -1, chunk, -1).flatten(1, 2)
         inside &= mask[..., None] & fr.ndc_ok[:, None]
+        if block_cull:
+            inside &= _walk_keep(blk, fr, bands, sub_h)
         d, t = _resolve(inside, z01, blk[..., 15], d, t, track_ids)
     return fr.join(d), fr.join(t)
+
+
+def walk_survivors(rec, lists, counts, width: int, height: int,
+                   tile_h: int, tile_w: int, chunk: int | None = None,
+                   sub_h: int | None = None, y_offset: int = 0,
+                   full_height: int | None = None):
+    """What kernels B3 and B4 keep of their walks, counted with the plain
+    model of their cull on the kernels' own inputs.  chunk=None: lists are
+    B3's (setup rows); otherwise B4's worklists of packed entries, `chunk`
+    triangles each, in bands of sub_h rows.
+
+    Returns (per_block (T, tile_h/16, tile_w/16), per_warp (T, tile_h/4,
+    tile_w/8)) i64: of tile t's first counts[t] entries, the triangles that
+    survive the cull against each 16x16 pixel block (and whose bands meet
+    its rows), and those that also survive it against each 8x4 warp
+    rectangle, whose 32 pixels evaluate them."""
+    dev = rec.device
+    _check_kernel_tiles("walk_survivors", tile_h, tile_w)
+    fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
+                    height if full_height is None else full_height, dev)
+    (ww, wh), b = _KERNEL_WARP, _KERNEL_BLOCK
+    n = counts.to(torch.int64)
+    per_block = torch.zeros((n.numel(), tile_h // b, tile_w // b),
+                            dtype=torch.int64, device=dev)
+    per_warp = torch.zeros((n.numel(), tile_h // wh, tile_w // ww),
+                           dtype=torch.int64, device=dev)
+    step = _PLAIN_WALK_STEP // (chunk or 1)
+    for s in range(0, int(n.max()) if n.numel() else 0, step):
+        e = lists[:, s:s + step].to(torch.int64)
+        live = torch.arange(s, s + e.shape[1], device=dev)[None] < n[:, None]
+        if chunk is None:
+            rows, bands = torch.clamp(e, min=0), None
+        else:
+            rows, bands = _chunk_triangles(e, chunk)
+            live = live[..., None].expand(-1, -1, chunk).flatten(1)
+        blk = rec[rows]
+        kb = _rect_keep(blk, fr, b, b, bands, sub_h) & live[:, :, None, None]
+        kw = _rect_keep(blk, fr, ww, wh, bands, sub_h) \
+            & kb.repeat_interleave(b // wh, dim=2).repeat_interleave(
+                b // ww, dim=3)
+        per_block += kb.sum(1)
+        per_warp += kw.sum(1)
+    return per_block, per_warp
+
+
+def listed_rows(lists, counts, chunk: int | None = None):
+    """How many distinct setup rows the first counts[t] entries of the
+    lists name: what a walk has to read of the records.  chunk as in
+    walk_survivors (a listed chunk names `chunk` rows)."""
+    live = torch.arange(lists.shape[1], device=lists.device)[None] \
+        < counts[:, None]
+    e = lists[live]
+    if chunk is None:
+        return int(torch.unique(e).numel())
+    return int(torch.unique(e >> _BAND_BITS).numel()) * chunk
 
 
 # ---------------------------------------------------------------------------
@@ -546,15 +689,19 @@ def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
 
 def _tiled_launch(lib, rec, lists, counts, depth_init, tid_init, width,
                   height, zn, zf, depth_mode, tile_h, tile_w, y_offset,
-                  full_height, stream):
+                  full_height, stream, order=None):
     """Launch kernel B3 through the C interface; returns (depth, tid).
-    The kernel walks min(counts[t], cap) entries of tile t's list."""
+    The kernel walks min(counts[t], cap) entries of tile t's list, the
+    tiles with the longest walks first (order: tile_order(counts), sorted
+    here when not given)."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    if order is None:
+        order = tile_order(counts)
     err = lib.lsr_tiled_raster(
-        rec.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+        rec.data_ptr(), lists.data_ptr(), counts.data_ptr(), order.data_ptr(),
         depth_init.data_ptr(), tid_init.data_ptr(), depth.data_ptr(),
         tid.data_ptr(), width, height, tile_w, tile_h, cdiv(width, tile_w),
         cdiv(height, tile_h), lists.shape[1], zn_f, inv_range, int(y_offset),
@@ -625,15 +772,21 @@ rasterize_tiled.launches = 0
 
 def _chunklist_launch(lib, rec, clists, counts, depth_init, tid_init, width,
                       height, zn, zf, depth_mode, tile_h, tile_w, chunk,
-                      sub_h, y_offset, full_height, track_ids, stream):
-    """Launch kernel B4 through the C interface; returns (depth, tid)."""
+                      sub_h, y_offset, full_height, track_ids, stream,
+                      order=None):
+    """Launch kernel B4 through the C interface; returns (depth, tid).
+    The tiles with the longest worklists start first (order:
+    tile_order(counts), sorted here when not given)."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
+    if order is None:
+        order = tile_order(counts)
     err = lib.lsr_chunklist_raster(
         rec.data_ptr(), clists.data_ptr(), counts.data_ptr(),
-        depth_init.data_ptr(), tid_init.data_ptr(), depth.data_ptr(),
+        order.data_ptr(), depth_init.data_ptr(), tid_init.data_ptr(),
+        depth.data_ptr(),
         tid.data_ptr(), width, height, tile_w, tile_h, cdiv(width, tile_w),
         cdiv(height, tile_h), clists.shape[1], chunk, sub_h, zn_f, inv_range,
         int(y_offset), float(full_height - 1), depth_mode, int(track_ids),

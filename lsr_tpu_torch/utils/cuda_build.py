@@ -45,16 +45,16 @@ SIGNATURES = {
     # tiles_x, cap, sun_model, apow1, stream
     "lsr_shade_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P),
-    # rec, lists, counts, depth_in, tid_in, depth_out, tid_out, width,
+    # rec, lists, counts, order, depth_in, tid_in, depth_out, tid_out, width,
     # height, tile_w, tile_h, tiles_x, tiles_y, cap, zn, inv_range, y_offset,
     # max_py, depth_mode, stream
-    "lsr_tiled_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _F, _I, _F, _I, _P),
-    # rec, clists, counts, depth_in, tid_in, depth_out, tid_out, width,
-    # height, tile_w, tile_h, tiles_x, tiles_y, ccap, chunk, sub_h, zn,
+    "lsr_tiled_raster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _F, _I, _F, _I, _P),
+    # rec, clists, counts, order, depth_in, tid_in, depth_out, tid_out,
+    # width, height, tile_w, tile_h, tiles_x, tiles_y, ccap, chunk, sub_h, zn,
     # inv_range, y_offset, max_py, depth_mode, track_ids, stream
-    "lsr_chunklist_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _P),
+    "lsr_chunklist_raster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _P),
     # table, tid, sun_vis, tex, tile_rec, counts, uniforms, out, width,
     # height, tile_h, tile_w, tiles_x, tiles_y, cap, chunk, sun_model, stream
     "lsr_resolve_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -377,3 +377,333 @@ def test_b3_b4_wrappers_do_not_fall_back(scene):
         rasterize_chunklist(meta, W, H, 0.1, 100.0)
     with pytest.raises(ValueError, match="band encoding"):
         rasterize_chunklist(ts, W, H, 0.1, 100.0, tile_h=128, sub_h=16)
+
+
+# ---------------------------------------------------------------------------
+# The exact block cull of kernels B3 / B4 (plain model: cull_rejects)
+# ---------------------------------------------------------------------------
+
+def _sweep_records(kind, rng, n_rect, k):
+    """(n_rect, k, 16) f32 records around the origin of each rectangle.
+
+    Each record's edge functions come from three screen vertices near the
+    rectangle (within [-12, 28) of its corner), normalised like the setup's
+    (divided by the doubled area), so many triangles straddle the
+    rectangle's border.  "sliver": nearly collinear vertices, coefficients
+    scaled up to |coef| ~ 2.5e7; "nonfinite": a tenth of the coefficients
+    replaced by +-inf / nan / +-3e38; "negzero": a fifth replaced by -0.0 or
+    +0.0; "ids": ordinary triangles, a third with an invalid id lane."""
+    v0 = rng.uniform(-12.0, 28.0, (n_rect, k, 2))
+    d = rng.normal(0.0, 6.0, (n_rect, k, 2))
+    e = rng.normal(0.0, 6.0, (n_rect, k, 2))
+    if kind == "sliver":
+        e = d * rng.uniform(-1.5, 1.5, (n_rect, k, 1)) \
+            + rng.normal(0.0, 1.0, (n_rect, k, 2)) \
+            * 10.0 ** rng.uniform(-7.0, -1.0, (n_rect, k, 1))
+    v = np.stack([v0, v0 + d, v0 + e], axis=2)            # (n, k, 3, 2)
+    a = np.roll(v, -1, 2)
+    b = np.roll(v, -2, 2)
+    A = a[..., 1] - b[..., 1]
+    B = b[..., 0] - a[..., 0]
+    C = a[..., 0] * b[..., 1] - b[..., 0] * a[..., 1]
+    area = (A * v[..., 0] + B * v[..., 1] + C)[..., :1]
+    area = np.where(np.abs(area) < 1e-30, 1e-30, area)
+    coef = np.stack([A, B, C], axis=-1) / area[..., None]  # (n, k, 3, 3)
+    coef = np.clip(coef, -2.5e7, 2.5e7).reshape(n_rect, k, 9)
+    rec = np.zeros((n_rect, k, 16), np.float32)
+    rec[..., :9] = coef
+    rec[..., 9:12] = 1.0          # 1/w: denom is the sum of the edge values
+    rec[..., 12:15] = 0.5
+    rec[..., 15] = np.arange(k, dtype=np.float32)
+    if kind == "nonfinite":
+        bad = rng.choice(np.array([np.inf, -np.inf, np.nan, 3e38, -3e38],
+                                  np.float32), (n_rect, k, 9))
+        rec[..., :9] = np.where(rng.random((n_rect, k, 9)) < 0.1, bad,
+                                rec[..., :9])
+    elif kind == "negzero":
+        z = rng.choice(np.array([-0.0, 0.0], np.float32), (n_rect, k, 9))
+        rec[..., :9] = np.where(rng.random((n_rect, k, 9)) < 0.2, z,
+                                rec[..., :9])
+    elif kind == "ids":
+        rec[..., 15] = np.where(rng.random((n_rect, k)) < 1 / 3, -1.0,
+                                rec[..., 15])
+    return torch.from_numpy(rec)
+
+
+def _sweep_rects(rng, n_rect, w, h):
+    """n_rect pixel rectangles (w x h) at random origins and y offsets, as
+    a frame-like object (px (T,1,1,w), py (T,1,h,1)) and their bounds."""
+    import types
+
+    x0 = torch.from_numpy(rng.integers(0, 4096, n_rect))
+    y0 = torch.from_numpy(rng.integers(0, 2048, n_rect)
+                          + rng.choice([0, 540, 8192], n_rect))
+    px = (x0[:, None] + torch.arange(w)).to(torch.float32) + 0.5
+    py = (y0[:, None] + torch.arange(h)).to(torch.float32) + 0.5
+    fr = types.SimpleNamespace(px=px[:, None, None, :], py=py[:, None, :, None])
+    bounds = (px[:, :1], px[:, -1:], py[:, :1], py[:, -1:])   # each (T, 1)
+    return fr, bounds, x0, y0
+
+
+def _cull_violations(kind, seed, w, h, n_rect=96, k=192):
+    """Run the cull model and _tri_depth on a sweep.  Returns (pairs that
+    were rejected although a pixel of the rectangle is covered, rejected
+    pairs, kept pairs with a covered pixel, all pairs)."""
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.setup import DEPTH_VIEWZ
+
+    rng = np.random.default_rng(seed)
+    fr, bounds, x0, y0 = _sweep_rects(rng, n_rect, w, h)
+    rec = _sweep_records(kind, rng, n_rect, k)
+    # Move each record's triangle to its rectangle: C -= A*x0 + B*y0.
+    shift = (rec[..., 0:9:3] * x0[:, None, None]
+             + rec[..., 1:9:3] * y0[:, None, None])
+    rec[..., 2:9:3] = (rec[..., 2:9:3] - shift).to(torch.float32)
+    rej = tiled.cull_rejects(rec, *bounds)                       # (T, K)
+    inside, _ = tiled._tri_depth(rec, fr, 0.1, 0.01, DEPTH_VIEWZ)
+    # The coverage test alone (tri_depth's first exit), same op order.
+    cov = torch.ones_like(inside)
+    for e in (0, 3, 6):
+        bc = (rec[..., e, None, None] * fr.px + rec[..., e + 1, None, None]
+              * fr.py + rec[..., e + 2, None, None])
+        cov &= bc >= 0.0
+    cov &= (rec[..., 15] >= 0.0)[..., None, None]
+    assert not bool((inside & ~cov).any())
+    covered = cov.flatten(2).any(-1)
+    return (int((rej & covered).sum()), int(rej.sum()),
+            int((~rej & covered).sum()), rej.numel())
+
+
+@pytest.mark.parametrize("kind,w,h", [
+    ("sliver", 16, 16), ("sliver", 8, 4), ("nonfinite", 16, 16),
+    ("nonfinite", 8, 4), ("negzero", 16, 16), ("ids", 16, 16),
+    ("ids", 4, 8)])
+def test_cull_rejects_no_covered_pair(kind, w, h):
+    """Seeded sweep: no (record, rectangle) pair that cull_rejects drops
+    has a pixel center that passes _tri_depth's coverage test, for slivers
+    with |coef| up to 2.5e7, non-finite coefficients, signed zeros and
+    invalid ids, on 16x16 block and 8x4 / 4x8 warp rectangles at origins up
+    to 4096 x 10240 (y_offset bands).  The sweep rejects and covers enough
+    pairs to mean something."""
+    bad = n_rej = n_cov = n_all = 0
+    for seed in range(3):
+        b, r, c, a = _cull_violations(kind, seed, w, h)
+        bad, n_rej, n_cov, n_all = bad + b, n_rej + r, n_cov + c, n_all + a
+    assert bad == 0, (bad, n_rej)
+    assert n_rej > 0.2 * n_all and n_cov > 0.01 * n_all, (n_rej, n_cov, n_all)
+
+
+@pytest.mark.parametrize("kind", ["sliver", "ids"])
+def test_cull_sweep_catches_a_wrong_corner(kind, monkeypatch):
+    """The test of the test: with the corner choice inverted (the smallest
+    corner instead of the largest) the same sweep finds rejected pairs that
+    are covered."""
+    from lsr_tpu_torch.raster import tiled
+
+    def wrong(a, b, c, x0, x1, y0, y1):
+        return (a * torch.where(a >= 0.0, x0, x1)
+                + b * torch.where(b >= 0.0, y0, y1) + c)
+
+    monkeypatch.setattr(tiled, "_edge_max", wrong)
+    bad, _, _, _ = _cull_violations(kind, 0, 16, 16)
+    assert bad > 0
+
+
+def test_cull_keeps_nan_corners_and_negative_zero():
+    """A corner that is NaN (inf - inf, nan coefficients) never rejects;
+    an edge value of -0.0 passes '>= 0' at every pixel and is kept; -inf at
+    the largest corner and an invalid id reject."""
+    from lsr_tpu_torch.raster.tiled import cull_rejects
+
+    inf, nan = float("inf"), float("nan")
+    ok = [1.0, 0.0, 0.0]                       # bc = px > 0 everywhere
+    rows = {
+        "inf-inf": [inf, -inf, 0.0] + ok + ok,
+        "nan": ok + [nan, 1.0, 1.0] + ok,
+        "inf+c=-inf": ok + ok + [inf, 0.0, -inf],
+        "-0": [-0.0, -0.0, -0.0] + ok + ok,
+        "tiny negative at the far corner only": [-1.0, 0.0, 31.5] + ok + ok,
+        "-inf": ok + [-inf, 0.0, 0.0] + ok,
+        "negative everywhere": ok + ok + [-1.0, -1.0, 10.0],
+        "invalid id": ok + ok + ok,
+    }
+    rec = torch.zeros((len(rows), 16))
+    rec[:, :9] = torch.tensor(list(rows.values()))
+    rec[-1, 15] = -1.0
+    x0, x1, y0, y1 = (torch.tensor(v) for v in (16.5, 31.5, 32.5, 47.5))
+    got = cull_rejects(rec, x0, x1, y0, y1).tolist()
+    assert dict(zip(rows, got)) == {
+        "inf-inf": False, "nan": False, "inf+c=-inf": False, "-0": False,
+        "tiny negative at the far corner only": False, "-inf": True,
+        "negative everywhere": True, "invalid id": True}
+
+
+@pytest.mark.parametrize("tile_h,y_offset", [(32, 0), (64, 48), (16, 31)])
+def test_block_cull_on_ragged_frames(scene, tile_h, y_offset):
+    """On the frames the kernels see (160x96: a ragged last tile column,
+    blocks past the right and bottom edges, y_offset bands whose rows cross
+    the NDC bound), no pixel that passes _tri_depth inside its NDC bounds
+    belongs to a (record, 16x16 block) or (record, 8x4 warp rectangle) pair
+    the cull rejects; and the cull rejects most of the scene's pairs."""
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.setup import DEPTH_VIEWZ
+
+    rec, _, _ = tiled.pack_direct_records(scene["ts"], False)
+    fr = tiled._TileFrame(W, H - y_offset, 128, tile_h, y_offset, H,
+                          torch.device("cpu"))
+    rows = torch.nonzero(rec[:, 15] >= 0)[:, 0]
+    blk = rec[rows][None].expand(fr.tx * fr.ty, -1, -1)
+    keep_all, lost = 0, 0
+    for s in range(0, blk.shape[1], 256):
+        part = blk[:, s:s + 256]
+        inside, _ = tiled._tri_depth(part, fr, 0.1, 0.01, DEPTH_VIEWZ)
+        inside &= fr.ndc_ok[:, None]
+        keep = tiled._walk_keep(part, fr)
+        lost += int((inside & ~keep).sum())
+        keep_all += int(keep.sum())
+    assert lost == 0
+    assert keep_all < 0.25 * blk.shape[0] * blk.shape[1] * tile_h * 128
+
+
+@pytest.mark.parametrize("kernel,tile_h,chunk,mode,y_offset", [
+    ("b3", 32, 8, "viewz", 0), ("b3", 64, 16, "ndc01", 0),
+    ("b3", 32, 16, "viewz", 48), ("b4", 128, 16, "viewz", 0),
+    ("b4", 32, 16, "ndc01", 48), ("b4", 64, 8, "viewz", 0),
+    ("b4", 32, 8, "viewz", 16)])
+def test_plain_rasters_unchanged_by_block_cull(scene, kernel, tile_h, chunk,
+                                               mode, y_offset):
+    """rasterize_tiled_plain / rasterize_chunklist_plain with the rejected
+    (record, block) and (record, warp rectangle) pairs masked out, and for
+    B4 the entries whose bands miss the block's or the warp's rows, equal
+    the unmasked versions bit for bit on the grid-2 scene, whose pole
+    slivers cover pixels outside their bboxes: neither cull level nor the
+    band tests drop anything the kernels' results need."""
+    from lsr_tpu_torch.raster import tiled
+
+    ts, zn, zf = scene["ts"], scene["zn"], scene["zf"]
+    hb = H - y_offset
+    d0, t0 = tiled._targets(None, None, hb, W, torch.device("cpu"))
+    if kernel == "b3":
+        rec, lists, n_walk, _ = tiled.tiled_inputs(
+            ts, W, hb, tile_h, 128, 256, chunk, y_offset, fit_cap=True)
+
+        def run(cull):
+            return tiled.rasterize_tiled_plain(
+                rec, lists, n_walk, d0, t0, W, hb, zn, zf, _mode(mode),
+                tile_h, 128, chunk, y_offset, H, block_cull=cull)
+    else:
+        # 32x128 tiles with chunk 8: bands of 8 rows, two to a block.
+        sub_h = {128: 32, 64: 16, 32: 8 if chunk == 8 else 16}[tile_h]
+        rec, cl, cc, _ = tiled.chunklist_inputs(ts, W, hb, tile_h, 128, chunk,
+                                                None, sub_h, y_offset)
+
+        def run(cull):
+            return tiled.rasterize_chunklist_plain(
+                rec, cl, cc, d0, t0, W, hb, zn, zf, _mode(mode), tile_h, 128,
+                chunk, sub_h, y_offset, H, block_cull=cull)
+
+    (d_a, t_a), (d_b, t_b) = run(False), run(True)
+    assert torch.equal(d_a, d_b) and torch.equal(t_a, t_b)
+    assert int((t_a >= 0).sum()) > 1000
+
+
+def test_tile_order_longest_first():
+    """The kernels' block order: tiles by falling count, ties in tile order
+    (a permutation, so every tile is still rasterized once)."""
+    from lsr_tpu_torch.raster.tiled import tile_order
+
+    counts = torch.tensor([3, 0, 7, 3, 7, 1], dtype=torch.int32)
+    assert tile_order(counts).tolist() == [2, 4, 0, 3, 5, 1]
+
+
+@pytest.mark.parametrize("tile_h,sub_h", [(128, 32), (64, 16), (32, 8),
+                                          (64, 32), (16, 16)])
+def test_band_hit_of_rectangles_is_exact(tile_h, sub_h):
+    """The band test kernel B4 applies to a block's and a warp's rows
+    (band_hit in csrc/block_walk.cuh, _rect_keep here): for every packed
+    band range, a 16-row block or a 4-row warp rectangle meets the bands
+    exactly when one of its rows lies in them, so no row the per-pixel test
+    would accept is skipped, and no rectangle is walked for nothing."""
+    import types
+
+    from lsr_tpu_torch.raster import tiled
+
+    nb = tile_h // sub_h
+    packed = [(bs << 2) | (cnt - 1) for bs in range(nb)
+              for cnt in range(1, nb - bs + 1)]
+    bands = torch.tensor(packed)[None]                          # (1, K)
+    rec = torch.zeros((1, len(packed), 16))
+    rec[..., 0:9:3] = 1.0            # every edge value is px > 0: all kept
+    fr = types.SimpleNamespace(
+        th=tile_h, tw=16,
+        px=(torch.arange(16.0) + 0.5)[None, None, None, :],
+        py=(torch.arange(float(tile_h)) + 0.5)[None, None, :, None])
+    band_of_row = torch.arange(tile_h) // sub_h
+    bs = (bands[0] >> 2) & 3
+    row_ok = ((band_of_row >= bs[:, None])
+              & (band_of_row <= (bs + (bands[0] & 3))[:, None]))  # (K, th)
+    assert bool(row_ok.any(1).all()) and (nb == 1 or not bool(row_ok.all()))
+    for bw, bh in ((16, 16), tiled._KERNEL_WARP):
+        got = tiled._rect_keep(rec, fr, bw, bh, bands, sub_h)[0, ..., 0]
+        want = row_ok.view(len(packed), tile_h // bh, bh).any(-1)
+        assert torch.equal(got, want), (bw, bh)
+
+
+@pytest.mark.parametrize("kernel,tile_h,y_offset", [
+    ("b3", 64, 0), ("b3", 32, 48), ("b4", 128, 0), ("b4", 64, 48)])
+def test_walk_survivors_counts_the_mask(scene, kernel, tile_h, y_offset):
+    """walk_survivors (the counts chip_smoke.py reports) equals a direct
+    count of the plain versions' mask on the kernels' own lists: per warp
+    rectangle the pairs of _walk_keep over live entries, per block the
+    first cull level alone; and the warp level keeps no more than the block
+    level, which keeps no more than the list."""
+    from lsr_tpu_torch.raster import tiled
+
+    ts, hb = scene["ts"], H - y_offset
+    if kernel == "b3":
+        rec, lists, n, _ = tiled.tiled_inputs(ts, W, hb, tile_h, 128, 256, 16,
+                                              y_offset, fit_cap=True)
+        chunk = sub_h = None
+    else:
+        chunk, sub_h = 16, tile_h // 4
+        rec, lists, n, _ = tiled.chunklist_inputs(ts, W, hb, tile_h, 128,
+                                                  chunk, None, sub_h, y_offset)
+    per_block, per_warp = tiled.walk_survivors(
+        rec, lists, n, W, hb, tile_h, 128, chunk, sub_h, y_offset, H)
+    fr = tiled._TileFrame(W, hb, 128, tile_h, y_offset, H, torch.device("cpu"))
+    e = lists[:, :int(n.max())].to(torch.int64)
+    live = torch.arange(e.shape[1])[None] < n[:, None]
+    if chunk is None:
+        rows, bands = torch.clamp(e, min=0), None
+    else:
+        rows, bands = tiled._chunk_triangles(e, chunk)
+        live = live[..., None].expand(-1, -1, chunk).flatten(1)
+    keep = tiled._walk_keep(rec[rows], fr, bands, sub_h) \
+        & live[..., None, None]
+    ww, wh = tiled._KERNEL_WARP
+    want = keep.sum(1).view(-1, tile_h // wh, wh, 128 // ww, ww)
+    assert torch.equal(want[:, :, 0, :, 0], per_warp)
+    assert bool((want == want[:, :, :1, :, :1]).all())
+    kb = tiled._rect_keep(rec[rows], fr, 16, 16, bands, sub_h) \
+        & live[..., None, None]
+    assert torch.equal(kb.sum(1), per_block)
+    wb = per_warp.view(-1, tile_h // 16, 16 // wh, 128 // 16, 16 // ww)
+    assert bool((wb <= per_block[:, :, None, :, None]).all())
+    per_tile = n.to(torch.int64) * (chunk or 1)
+    assert bool((per_block <= per_tile[:, None, None]).all())
+    assert 0 < int(per_warp.sum()) < int(per_block.sum()) * 8
+
+
+def test_listed_rows_counts_distinct_rows():
+    """listed_rows: the distinct setup rows a walk reads, entries past a
+    tile's count left out; a chunk-list entry names `chunk` rows whatever
+    its band bits."""
+    from lsr_tpu_torch.raster.tiled import listed_rows
+
+    lists = torch.tensor([[4, 7, 9, 0], [7, 4, 0, 0], [0, 0, 0, 0]],
+                         dtype=torch.int32)
+    counts = torch.tensor([3, 2, 0], dtype=torch.int32)
+    assert listed_rows(lists, counts) == 3
+    cl = torch.tensor([[(2 << 5) | 0b0101, (3 << 5) | 3],
+                       [(2 << 5) | 0b1000, 0]], dtype=torch.int32)
+    assert listed_rows(cl, torch.tensor([2, 1], dtype=torch.int32), 16) == 32
