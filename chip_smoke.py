@@ -9,8 +9,9 @@ It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
 
 1. B1 (rasterize_direct) at the flagship shapes: the kernel against its
-   plain version (rasterize_brute) on the card, in each supported mode.
-   Depth must match bit for bit and tids exactly.
+   plain version (rasterize_brute) on the card, in each supported mode and
+   over given targets.  Depth must match bit for bit and tids exactly.
+   Counts what its walk tests before and after the per-triangle cull.
 2. B2 (shade_fused) at the flagship shapes: the kernel against its plain
    version on the card, pbr_mr and blinn_phong, on the flagship light set and
    on a mixed set with rect and tube lights.  Lit rgb within 1e-4.
@@ -56,11 +57,14 @@ lsr_tpu_torch.highpoly):
 Then the slice of the sun shadow, B5 and B6, on the flagship scene:
 
 10. The 2048^2 sun map: B1 in NDC01 depth-only mode against rasterize_brute
-    on the card, bit for bit; then phase 3's ESM soft map and sun
-    visibility, card against CPU, on the same map and receivers.
+    on the card, bit for bit, with the counts of its walk; then phase 3's
+    ESM soft map and sun visibility, card against CPU, on the same map and
+    receivers.
 11. B5 (resolve_fused) at 1920x1080: the kernel against resolve_fused_plain
     on the card, pbr_mr and blinn_phong, flagship and mixed lights, 8- and
-    16-light chunks; HDR within 1e-4.
+    16-light chunks; HDR within 1e-4.  Counts the (pixel, light) pairs its
+    walk meets, the binned and the live ones, and the lights a vote per
+    warp rectangle, pixel row or block would keep.
 12. B6 (accumulate_lights) at 1920x1080 on the flagship G-buffer, 64x128
     and 16x128 tiles: the kernel against its plain version; diffuse and
     specular within 1e-4.  Then its entry point once, counts reset.
@@ -85,8 +89,10 @@ a light loop LIGHT_OPS per (covered pixel, binned light) pair, plus the
 per-pixel work of the sun term and, for B5, interpolation and ambient.
 The bytes count each input the work needs once and each output once.  A
 raster's outputs, depth and tid, count once as written; the cleared
-targets its kernel starts from (and reads today) are constants the work
-does not need, so they are not counted as inputs.
+targets a walk starts from are constants the work does not need, so they
+are not counted as inputs (B1 reads none unless the caller gives them).
+The build's `ptxas -v` lines give each kernel's registers, spilled bytes
+and static shared memory, logged and kept in the kernels line.
 
 Any failed phase raises, so the script exits non-zero.  Its output ends with
 the card's name and power limit, one JSON line of per-kernel results and,
@@ -183,48 +189,65 @@ def light_pairs(counts, covered, tile_h, tile_w, cap):
                 * per_tile).sum())
 
 
-def walk_stats(name, lists, n, chunk, sub_h, tile_h, pairs_needed, rec):
-    """Log and return what a list raster walks on the 1080p compact setup,
-    from the lists themselves and the plain model of the kernels' cull
+def walk_stats(name, rec, lists, n, width, height, tile_h, pairs_needed,
+               chunk=None, sub_h=None, chunk_bb=None):
+    """Log and return what a raster walks on one setup, from the lists
+    themselves and the plain model of the kernels' cull
     (tiled.walk_survivors) on the card's tensors.  lists (tiles, cap), n
-    (tiles,) entries walked per tile; chunk=None for B3's row lists, else
-    B4's worklists of packed entries (id << 5 | band_start << 2 |
-    band_count - 1, bands of sub_h rows).  pairs_tested: the (triangle,
-    pixel) pairs of the design before the cull, every listed triangle at
-    every pixel of its tile (B4: of its band rows); pairs_needed: the pairs
-    inside valid bboxes; per 16x16 block the survivors of the first cull
-    level, which the block queues, and per 8x4 warp rectangle those of both
-    levels, which its 32 pixels evaluate; read_bytes: what the walk must
-    read, each listed entry and each distinct listed record once."""
+    (tiles,) entries walked per tile.  chunk=None: B3's row lists; with
+    chunk, B4's worklists of packed entries (id << 5 | band_start << 2 |
+    band_count - 1, bands of sub_h rows); with chunk_bb, B1's super lists
+    (tile_h 128).  pairs_tested: the (triangle, pixel) pairs of the design
+    before the per-triangle cull: every listed triangle at every pixel of
+    its tile (B4: of its band rows; B1: the 16 triangles of every chunk
+    whose bbox meets a 16x16 block, at its 256 pixels); pairs_needed: the
+    pairs inside valid bboxes; per 16x16 block the survivors of the first
+    cull level, which the block queues, and per 8x4 warp rectangle those of
+    both levels, which its 32 pixels evaluate; read_bytes (B3 / B4): what
+    the walk must read, each listed entry and each distinct listed record
+    once."""
     from lsr_tpu_torch.raster import tiled
 
     per_block, per_warp = tiled.walk_survivors(
-        rec, lists, n, WIDTH, HEIGHT, tile_h, 128, chunk, sub_h)
+        rec, lists, n, width, height, tile_h, 128, chunk, sub_h,
+        chunk_bb=chunk_bb)
     n64 = n.to(torch.int64)
-    if chunk is None:
+    out = {}
+    if chunk_bb is not None:
+        hits = tiled.direct_chunk_hits(chunk_bb, lists, n, width, height)
+        pairs_tested = hits.sum() * 16 * 256
+        # Every block of a tile tests the 16 chunk bboxes of each listed
+        # super.
+        out.update(chunk_tests_per_block_mean=float(
+            n.to(torch.float64).mean()) * 16,
+            chunk_tests_per_block_max=int(n64.max()) * 16,
+            chunk_hits_per_block_mean=float(hits.to(torch.float64).mean()),
+            chunk_hits_per_block_max=int(hits.max()))
+    elif chunk is None:
         pairs_tested = n64.sum() * tile_h * 128
     else:
         live = torch.arange(lists.shape[1], device=n.device)[None] \
             < n64[:, None]
         band_rows = (((lists.to(torch.int64) & 3) + 1) * sub_h * live).sum()
         pairs_tested = band_rows * 128 * chunk
-    rows = tiled.listed_rows(lists, n, chunk)
     nf = n.to(torch.float64)
-    out = {"pairs_tested": int(pairs_tested), "pairs_needed": pairs_needed,
-           "pairs_after_block_cull": int(per_block.sum()) * 256,
-           "pairs_after_warp_cull": int(per_warp.sum()) * 32,
-           "list_sum": int(n64.sum()), "list_mean": float(nf.mean()),
-           "list_max": int(n64.max()), "listed_rows": rows,
-           "survivors_per_block_mean": float(
-               per_block.to(torch.float64).mean()),
-           "survivors_per_block_max": int(per_block.max()),
-           "survivors_per_warp_mean": float(
-               per_warp.to(torch.float64).mean()),
-           "survivors_per_warp_max": int(per_warp.max()),
-           # entries (4 B each), records (64 B a row), counts (i32) and
-           # the tile order (i64) per tile.
-           "read_bytes": 4 * int(n64.sum()) + 64 * rows + 12 * n.numel()}
-    log(f"{name} walk on the {WIDTH}x{HEIGHT} compact setup: {out}")
+    out.update({
+        "pairs_tested": int(pairs_tested), "pairs_needed": pairs_needed,
+        "pairs_after_block_cull": int(per_block.sum()) * 256,
+        "pairs_after_warp_cull": int(per_warp.sum()) * 32,
+        "list_sum": int(n64.sum()), "list_mean": float(nf.mean()),
+        "list_max": int(n64.max()),
+        "survivors_per_block_mean": float(per_block.to(torch.float64).mean()),
+        "survivors_per_block_max": int(per_block.max()),
+        "survivors_per_warp_mean": float(per_warp.to(torch.float64).mean()),
+        "survivors_per_warp_max": int(per_warp.max())})
+    if chunk_bb is None:
+        rows = tiled.listed_rows(lists, n, chunk)
+        # entries (4 B each), records (64 B a row), counts (i32) and the
+        # tile order (i64) per tile.
+        out.update(listed_rows=rows, read_bytes=4 * int(n64.sum()) + 64 * rows
+                   + 12 * n.numel())
+    log(f"{name} walk at {width}x{height}: {out}")
     return out
 
 
@@ -260,6 +283,23 @@ def b1_phase(setup, cam, dev):
             result = {"max_abs_err": err, "max_sup": int(max_sup),
                       "covered": covered}
 
+    # Given targets are read: a second draw over a mid-depth plane that
+    # carries ids of its own.
+    d_in = torch.full((HEIGHT, WIDTH), 0.25, dtype=torch.float32, device=dev)
+    t_in = torch.full((HEIGHT, WIDTH), 1 << 20, dtype=torch.int32, device=dev)
+    d_k, t_k, _ = tiled.rasterize_direct(setup, WIDTH, HEIGHT, cam.zn, cam.zf,
+                                         depth_init=d_in, tid_init=t_in,
+                                         spatial_sort=True)
+    d_p, t_p = rasterize_brute(setup, WIDTH, HEIGHT, cam.zn, cam.zf,
+                               depth_init=d_in, tid_init=t_in)
+    torch.cuda.synchronize()
+    won = int((t_p != t_in).sum())
+    log(f"B1 [sort,viewz,ids, given targets]: depth mismatches "
+        f"{int((d_k != d_p).sum())}, tid mismatches {int((t_k != t_p).sum())}"
+        f", {won} px won against the plane")
+    check(bool((d_k == d_p).all() and (t_k == t_p).all()) and 0 < won
+          < result["covered"], "B1 with given targets differs from plain")
+
     # Timing at the main-path mode: the wrapper (list building + kernel),
     # the kernel alone on prebuilt lists, and the plain version.
     run = lambda: tiled.rasterize_direct(  # noqa: E731
@@ -270,24 +310,26 @@ def b1_phase(setup, cam, dev):
     cbb = tiled._chunk_bboxes(ss, n_pad, 16)
     sl, cnt, _ = tiled._super_lists(cbb, 16, -(-WIDTH // 128),
                                     -(-HEIGHT // 128), 128, 128)
-    d0 = torch.ones((HEIGHT, WIDTH), dtype=torch.float32, device=dev)
-    t0 = torch.full((HEIGHT, WIDTH), -1, dtype=torch.int32, device=dev)
     from lsr_tpu_torch.utils.cuda_build import load_kernels
 
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # As the frame calls it: no targets given, none read.
     kern = lambda: tiled._direct_launch(  # noqa: E731
-        lib, rec, cbb, sl, cnt, d0, t0, WIDTH, HEIGHT, cam.zn, cam.zf, 0,
+        lib, rec, cbb, sl, cnt, None, None, WIDTH, HEIGHT, cam.zn, cam.zf, 0,
         True, True, stream)
     kern()
     kernel_ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(lambda: rasterize_brute(setup, WIDTH, HEIGHT, cam.zn,
                                                cam.zf), 2)
+    n_pairs = raster_pairs(setup)
     b = bound(nbytes(rec, cbb, sl, cnt) + 8 * WIDTH * HEIGHT,
-              raster_pairs(setup) * RASTER_OPS)
+              n_pairs * RASTER_OPS)
     log(f"B1 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
         f"plain (rasterize_brute) {plain_ms:.3f} ms; bound {b}")
-    result.update(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, **b)
+    result.update(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, **b,
+                  **walk_stats("B1 (camera view)", rec, sl, cnt, WIDTH,
+                               HEIGHT, 128, n_pairs, chunk_bb=cbb))
     return result
 
 
@@ -641,8 +683,8 @@ def raster_1080p_phase(geom, objects, cam, dev):
     order3, order4 = tiled.tile_order(n_walk), tiled.tile_order(cc)
     kerns = {
         "direct_raster": lambda: tiled._direct_launch(
-            lib, rec, cbb, sl, scnt, d0, t0, WIDTH, HEIGHT, zn, zf, 0, True,
-            False, stream),
+            lib, rec, cbb, sl, scnt, None, None, WIDTH, HEIGHT, zn, zf, 0,
+            True, False, stream),
         "tiled_raster": lambda: tiled._tiled_launch(
             lib, rec, lists, n_walk, d0, t0, WIDTH, HEIGHT, zn, zf, 0, 64,
             128, 0, HEIGHT, stream, order3),
@@ -651,10 +693,11 @@ def raster_1080p_phase(geom, objects, cam, dev):
             32, 0, HEIGHT, True, stream, order4),
     }
     n_pairs = raster_pairs(setup)
-    out["tiled_raster"].update(walk_stats("B3", lists, n_walk, None, None, 64,
-                                          n_pairs, rec))
-    out["chunklist_raster"].update(walk_stats("B4", cl, cc, 16, 32, 128,
-                                              n_pairs, rec))
+    out["tiled_raster"].update(walk_stats(
+        "B3 (compact setup)", rec, lists, n_walk, WIDTH, HEIGHT, 64, n_pairs))
+    out["chunklist_raster"].update(walk_stats(
+        "B4 (compact setup)", rec, cl, cc, WIDTH, HEIGHT, 128, n_pairs, 16,
+        32))
     ops = n_pairs * RASTER_OPS
     targets_bytes = 8 * WIDTH * HEIGHT       # depth and tid, written once
     # B3 / B4: the bytes this run's lists name (each listed entry and each
@@ -836,20 +879,22 @@ def sun_map_phase(geom, objects, ctx, cpu_side, card_side, dev):
     cbb = tiled._chunk_bboxes(ss, n_pad, 16)
     sl, cnt, _ = tiled._super_lists(cbb, 16, SHADOW // 128, SHADOW // 128,
                                     128, 128)
-    d0, t0_ = targets(SHADOW, SHADOW, dev)
     from lsr_tpu_torch.utils.cuda_build import load_kernels
 
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     kern = lambda: tiled._direct_launch(  # noqa: E731
-        lib, rec, cbb, sl, cnt, d0, t0_, SHADOW, SHADOW, 0.0, 1.0,
+        lib, rec, cbb, sl, cnt, None, None, SHADOW, SHADOW, 0.0, 1.0,
         DEPTH_NDC01, False, True, stream)
     kern()
     kernel_ms = cuda_ms(kern, 10)
+    n_pairs = raster_pairs(setup)
     b = bound(nbytes(rec, cbb, sl, cnt) + 4 * SHADOW * SHADOW,
-              raster_pairs(setup) * RASTER_OPS)
+              n_pairs * RASTER_OPS)
     log(f"sun map B1 time: wrapper {ms:.3f} ms, kernel alone "
         f"{kernel_ms:.3f} ms; bound {b}")
+    walk = walk_stats("B1 (sun map)", rec, sl, cnt, SHADOW, SHADOW, 128,
+                      n_pairs, chunk_bb=cbb)
 
     # Phase 3's scene: the card's sun map, soft map and visibility against
     # the CPU's.
@@ -880,7 +925,7 @@ def sun_map_phase(geom, objects, ctx, cpu_side, card_side, dev):
     check(int(dq.max()) <= 1 and err <= ESM_TOL and shadowed > 0,
           "ESM soft map / visibility: card differs from CPU")
     return {"max_abs_err": float((d_k - d_p).abs().max()), "ms": ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms, **b}
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, **b, **walk}
 
 
 def b5_phase(st, ctx_t, lights, cam, dev):
@@ -948,8 +993,11 @@ def b5_phase(st, ctx_t, lights, cam, dev):
               + n_cov * (SUN_OPS + RESOLVE_OPS))
     log(f"B5 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms; bound {b}")
+    walk = rk.walk_counts(table, st["tid"], tex, trec, cnts, WIDTH, HEIGHT,
+                          64, 128, 8, lights.kinds)
+    log(f"B5 light walk at {WIDTH}x{HEIGHT} (64x128 tiles, chunk 8): {walk}")
     return {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, **b}
+            "plain_ms": plain_ms, **b, **walk}
 
 
 def b6_phase(gb, ctx_t, lights, cam, dev):
@@ -1301,7 +1349,8 @@ def main():
         make_flagship_frame)
     from lsr_tpu_torch.highpoly import build_highpoly_scene, highpoly_camera
     from lsr_tpu_torch.io.png import write_png
-    from lsr_tpu_torch.utils.cuda_build import build_info, load_kernels
+    from lsr_tpu_torch.utils.cuda_build import (
+        build_info, kernel_resources, load_kernels)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1311,9 +1360,10 @@ def main():
     log(f"# kernel library {'built' if build_info['built'] else 'reused'} "
         f"in {build_info['seconds']:.1f} s (one nvcc per source, in "
         f"parallel, then a link): {build_info['path']}")
-    for line in build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"#   ptxas: {line.strip()}")
+    resources = kernel_resources(build_info["log"])
+    for src, fns in resources.items():
+        for fn in fns:
+            log(f"#   ptxas {src}: {fn}")
 
     geom, objects, lights, ctx = build_flagship_scene(N_LIGHTS, SEED,
                                                       device=dev)
@@ -1421,15 +1471,24 @@ def main():
         return {"name": name, "route": "cuda",
                 "source": f"lsr_tpu_torch/csrc/{src}", "replaces": replaces,
                 "launches": n, **{k: res[k] for k in keys},
-                "library_ms": None, **extra}
+                "library_ms": None, "resources": resources.get(src, []),
+                **extra}
 
-    sun_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "max_abs_err")
     pair_keys = ("pairs_tested", "pairs_after_block_cull",
                  "pairs_after_warp_cull", "pairs_needed")
+    b1_keys = pair_keys + (
+        "list_mean", "list_max", "chunk_tests_per_block_mean",
+        "chunk_tests_per_block_max", "chunk_hits_per_block_mean",
+        "chunk_hits_per_block_max")
+    sun_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                "max_abs_err") + b1_keys
+    b5_keys = tuple(k for k in b5 if k.startswith(("pairs_", "lights_")))
     kernels = [
         entry("direct_raster", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
-              sun_map={k: sun[k] for k in sun_keys}),
+              sun_map={k: sun[k] for k in sun_keys},
+              highpoly_unsorted_kernel_ms=r1080["direct_raster"]["kernel_ms"],
+              **{k: b1[k] for k in b1_keys}),
         entry("shade_fused", "shade_fused.cu",
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
               b2),
@@ -1442,7 +1501,8 @@ def main():
               **{k: r1080["chunklist_raster"][k] for k in pair_keys}),
         entry("resolve_fused", "resolve_fused.cu",
               "lsr_tpu/lighting/resolve_kernel.py:65",
-              res_launches["resolve_fused"], b5),
+              res_launches["resolve_fused"], b5,
+              **{k: b5[k] for k in b5_keys}),
         entry("fplus_accumulate", "fplus_accumulate.cu",
               "lsr_tpu/lighting/fplus_kernel.py:46",
               b6_launches["fplus_accumulate"], b6),

@@ -1,8 +1,9 @@
-// The cull-and-evaluate walk shared by the list rasterizers B3
-// (tiled_raster.cu) and B4 (chunklist_raster.cu).
+// The cull-and-evaluate walk shared by the rasterizers B1
+// (direct_raster.cu), B3 (tiled_raster.cu) and B4 (chunklist_raster.cu).
 //
 // A block of 256 threads owns a 16x16 pixel block inside one screen tile
-// and walks that tile's candidates (B3: the listed setup rows; B4: the
+// and walks that tile's candidates (B1: the triangles of the listed supers
+// whose chunk bbox meets the block; B3: the listed setup rows; B4: the
 // triangles of the listed chunks) in list order, in steps:
 //
 //  (a) cull: each thread takes one candidate of the step, reads the ten
@@ -134,7 +135,10 @@ __device__ __forceinline__ void load_lanes(const float4* __restrict__ rec,
 }
 
 // Fold one queued record into the pixel's depth and id: strict '<', so the
-// earlier entry keeps a tie.
+// earlier entry keeps a tie; with kTieTid an exact depth tie goes to the
+// smaller triangle id instead (B1's spatially sorted rows, whose list order
+// is not submission order).
+template <bool kTieTid>
 __device__ __forceinline__ void resolve_entry(float4 r0, float4 r1, float4 r2,
                                               float4 r3, const WalkPixel& p,
                                               int depth_mode, float zn,
@@ -143,7 +147,7 @@ __device__ __forceinline__ void resolve_entry(float4 r0, float4 r1, float4 r2,
   float z01;
   if (p.live
       && tri_depth(r0, r1, r2, r3, p.px, p.py, depth_mode, zn, inv_range, z01)
-      && z01 < d) {
+      && (z01 < d || (kTieTid && z01 == d && (int)r3.w < t))) {
     d = z01;
     t = (int)r3.w;
   }
@@ -160,8 +164,8 @@ __device__ __forceinline__ float4& queue_rec(float4* qrec, int j, int u) {
 // (it leaves row at -1 where there is none); kBands: a candidate only
 // touches the rows of its bands, my_band is the thread's band and
 // [warp_band_lo, warp_band_hi] its warp's.  d and t are the pixel's depth
-// and triangle id, updated in list order.
-template <bool kBands, class Source>
+// and triangle id, updated in list order; kTieTid as in resolve_entry.
+template <bool kBands, bool kTieTid, class Source>
 __device__ __forceinline__ void block_walk(
     const Source& src, int n, const float4* __restrict__ rec,
     const WalkPixel& p, int my_band, int warp_band_lo, int warp_band_hi,
@@ -229,9 +233,11 @@ __device__ __forceinline__ void block_walk(
           const int j = base + __ffs(m) - 1;
           m &= m - 1;
           if (!kBands || band_hit(qband[j], my_band, my_band))
-            resolve_entry(queue_rec(qrec, j, 0), queue_rec(qrec, j, 1),
-                          queue_rec(qrec, j, 2), queue_rec(qrec, j, 3), p,
-                          depth_mode, zn, inv_range, d, t);
+            resolve_entry<kTieTid>(queue_rec(qrec, j, 0),
+                                   queue_rec(qrec, j, 1),
+                                   queue_rec(qrec, j, 2),
+                                   queue_rec(qrec, j, 3), p, depth_mode, zn,
+                                   inv_range, d, t);
         }
       }
       qn = 0;

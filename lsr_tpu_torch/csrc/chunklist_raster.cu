@@ -91,11 +91,11 @@ chunklist_raster_kernel(const float4* __restrict__ rec,   // (n_pad, 16)
   const int warp_row0 = row0 + (threadIdx.x >> 5) / 2 * lsr::kWarpH;
   const ChunkSource src{clists + (size_t)tile * ccap, chunk_log2,
                         row0 / sub_h, (row0 + lsr::kBlock - 1) / sub_h};
-  lsr::block_walk<true>(src, counts[tile] << chunk_log2, rec, p,
-                        (row0 + p.y % lsr::kBlock) / sub_h,
-                        warp_row0 / sub_h,
-                        (warp_row0 + lsr::kWarpH - 1) / sub_h, depth_mode, zn,
-                        inv_range, d, t);
+  lsr::block_walk<true, false>(src, counts[tile] << chunk_log2, rec, p,
+                               (row0 + p.y % lsr::kBlock) / sub_h,
+                               warp_row0 / sub_h,
+                               (warp_row0 + lsr::kWarpH - 1) / sub_h,
+                               depth_mode, zn, inv_range, d, t);
   if (in_img) {
     depth_out[(size_t)p.y * width + p.x] = d;
     if (track_ids) tid_out[(size_t)p.y * width + p.x] = t;

@@ -3,107 +3,116 @@
 // Replaces lsr_tpu/raster/tiled.py:_direct_kernel (wrapper rasterize_direct,
 // pallas_call at tiled.py:623).
 //
-// What bounds it on this card: per (triangle, pixel) pair it does ~20 f32
-// operations plus one IEEE division, against 64 bytes of setup record per
-// triangle that every pixel of a block reads.  At 1080p with ~51K setup
-// rows the work is the pairs that survive the chunk-bbox test, so it is
-// bound by issue rate (ALU + the record loads through L1), not by device
-// memory: the frame writes 16 MB of depth/tid and reads the setup once per
-// block from L2.
+// Input: the packed setup records (n_pad, 16) f32, resident, grouped in
+// supers of 256 rows made of 16-row chunks; the chunks' bboxes; per 128x128
+// screen tile the list of supers whose bbox overlaps it, in row order;
+// optional depth / tid targets (H, W).
 //
-// What the design does about it: one thread per pixel, one 16x16 block per
-// 256 pixels.  The block walks its 128x128 tile's super list (built by torch
-// ops, ordered by super id) and tests each 16-triangle chunk's bbox against
-// the block's 16x16 footprint, so a chunk costs one uniform branch unless it
-// overlaps.  Records are read with 16-byte loads that all threads of a warp
-// share (a broadcast from L1).  Each thread owns its pixel, so the resolve is
-// a sequential compare in registers: no atomics, no shared memory.
+// What bounds it on this card: redundant (triangle, pixel) tests and the
+// latency of a short dependent walk, not memory (the frame writes 16.6 MB
+// of depth and tid and reads 3.4 MB of records).  A chunk whose bbox meets
+// a 16x16 block had all 16 triangles evaluated at all 256 pixels: 7.06e7
+// pairs on the 1080p flagship view (1.50e8 on its 2048^2 sun map) for
+// 2.70e6 (3.50e6) pairs inside valid bboxes, through a walk in which every
+// thread read list entry, chunk bbox and records one dependent load after
+// another.  A tile lists 2.9 supers on average (at most 13), so a block's
+// walk is a few steps long and what is left is mostly its latency: with
+// the walk compiled out the launch takes 0.007 ms (0.012 ms at 2048^2).
 //
-// Numerics: the per-(triangle, pixel) arithmetic is lsr::tri_depth
-// (raster_common.cuh), in the operation order of lsr_tpu's kernel
-// (tiled.py:374-391), so coverage, depth and ids match the plain PyTorch
-// version (rasterize_brute) bit for bit.
+// What the design does about it: B1 is a third source of the
+// cull-and-evaluate walk of block_walk.cuh.  One step takes one listed
+// super: thread k takes its triangle k, the 16 threads of a chunk share
+// the chunk's bbox test against the block (kept at the block's grain, so
+// the set of (triangle, pixel) pairs that can win is what it always was),
+// then the exact per-triangle cull against the block (lsr::rect_reject),
+// the survivors queued in row order in shared memory (9.6e6 pairs; 2.2e7
+// on the sun map), culled once more per 8x4 warp rectangle (3.1e6; 5.7e6)
+// and evaluated per pixel in registers, strict '<' for the unsorted rows,
+// (depth, id) order for spatially sorted ones.  List entry and chunk bbox
+// are prefetched two steps ahead, the cull lanes one.  Without targets
+// from the caller the walk starts from depth 1 / id -1 and reads none.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (kernel ms by CUDA events;
+// torch.profiler's device time agrees): 0.065 ms on the camera view, 0.122
+// ms on the sun map (0.296 / 0.563 before the cull).  A queue of 256
+// records instead of 512 gave 0.069 / 0.124, the same: B1's lists are
+// short and a block queues 4.3 survivors on average, so the choices
+// measured for B3 and B4 (tiled_raster.cu) are kept as they are.
+//
+// Numerics: lsr::tri_depth and lsr::rect_reject (raster_common.cuh), in the
+// operation order of lsr_tpu's kernel (tiled.py:374-391), so coverage,
+// depth and ids match the plain PyTorch version (rasterize_brute) bit for
+// bit wherever the winner lies inside its chunk's bbox.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
-#include "raster_common.cuh"
+#include "block_walk.cuh"
 
 namespace {
 
-constexpr int kTile = 128;   // screen tile of the super lists
-constexpr int kBlock = 16;   // pixel block edge (16x16 threads)
-constexpr int kChunk = 16;   // triangles per chunk
-constexpr int kChunksPerSuper = 16;  // 256-triangle supers
+constexpr int kTile = 128;           // screen tile of the super lists
+constexpr int kSuper = lsr::kStep;   // triangles per super: one walk step
+constexpr int kChunk = 16;           // triangles per chunk
+constexpr int kChunksPerSuper = kSuper / kChunk;
 
-__global__ void __launch_bounds__(kBlock * kBlock)
+// Candidate i of a tile is triangle i % 256 of listed super i / 256, if the
+// bbox of its 16-triangle chunk meets the block's 16x16 pixels (the first
+// and last pixel, as the chunk bboxes are stored: inclusive pixel indices).
+struct SuperSource {
+  const int* __restrict__ list;
+  const float4* __restrict__ chunk_bb;
+  float x0, x1, y0, y1;
+  __device__ __forceinline__ void operator()(int i, int& row,
+                                             int& bands) const {
+    const int s = __ldg(list + i / kSuper), k = i % kSuper;
+    const float4 bb = __ldg(chunk_bb + s * kChunksPerSuper + k / kChunk);
+    if (bb.x <= x1 && bb.z >= x0 && bb.y <= y1 && bb.w >= y0)
+      row = s * kSuper + k;
+  }
+};
+
+template <bool kTieTid>
+__global__ void __launch_bounds__(lsr::kThreads)
 direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
                      const float4* __restrict__ chunk_bb, // (n_chunks, 4) f32
                      const int* __restrict__ slists,      // (tiles, scap)
                      const int* __restrict__ counts,      // (tiles,)
-                     const float* __restrict__ depth_in,
-                     const int* __restrict__ tid_in,
+                     const float* __restrict__ depth_in,  // or null: 1.0
+                     const int* __restrict__ tid_in,      // or null: -1
                      float* __restrict__ depth_out,
                      int* __restrict__ tid_out,
                      int width, int height, int tiles_x, int scap,
                      float zn, float inv_range, float max_py,
-                     int depth_mode, int track_ids, int tie_tid) {
-  const int x = blockIdx.x * kBlock + threadIdx.x;
-  const int y = blockIdx.y * kBlock + threadIdx.y;
-  const bool in_img = x < width && y < height;
-  const float px = (float)x + 0.5f;
-  const float py = (float)y + 0.5f;
-  const bool ndc_ok = px <= (float)(width - 1) && py <= max_py;
-
+                     int depth_mode, int track_ids) {
+  const int bx = blockIdx.x * lsr::kBlock, by = blockIdx.y * lsr::kBlock;
+  const lsr::WalkPixel p = lsr::walk_pixel(bx, by, width, 0, max_py);
+  const bool in_img = p.x < width && p.y < height;
   float d = 1.0f;
   int t = -1;
   if (in_img) {
-    d = depth_in[y * width + x];
-    t = tid_in[y * width + x];
+    if (depth_in) d = depth_in[(size_t)p.y * width + p.x];
+    if (tid_in) t = tid_in[(size_t)p.y * width + p.x];
   }
+  const int t_init = t;
 
-  const float bx0 = (float)(blockIdx.x * kBlock);
-  const float bx1 = bx0 + (float)(kBlock - 1);
-  const float by0 = (float)(blockIdx.y * kBlock);
-  const float by1 = by0 + (float)(kBlock - 1);
-  const int tile = (blockIdx.y * kBlock / kTile) * tiles_x
-                   + blockIdx.x * kBlock / kTile;
-  const int n_sup = counts[tile];
-  const int* list = slists + (size_t)tile * scap;
-
-  // Pixels outside the coverage bound (last row/column, padding) never
-  // change; they skip the walk.  No barrier follows, so divergence is safe.
-  for (int i = 0; ndc_ok && i < n_sup; ++i) {
-    const int s = list[i];
-    for (int j = 0; j < kChunksPerSuper; ++j) {
-      const int c = s * kChunksPerSuper + j;
-      const float4 bb = chunk_bb[c];
-      if (!(bb.x <= bx1 && bb.z >= bx0 && bb.y <= by1 && bb.w >= by0)) continue;
-      for (int k = 0; k < kChunk; ++k) {
-        const float4* r = rec + (size_t)(c * kChunk + k) * lsr::kRecVec;
-        const float4 r3 = __ldg(r + 3);  // ziw0 ziw1 ziw2 tid
-        float z01;
-        if (!lsr::tri_depth(__ldg(r), __ldg(r + 1), __ldg(r + 2), r3, px, py,
-                            depth_mode, zn, inv_range, z01))
-          continue;
-        const int tri = (int)r3.w;
-        bool upd = z01 < d;
-        if (track_ids && tie_tid) upd = upd || (z01 == d && tri < t);
-        if (upd) {
-          d = z01;
-          t = tri;
-        }
-      }
-    }
-  }
+  const int tile = (by / kTile) * tiles_x + bx / kTile;
+  const SuperSource src{slists + (size_t)tile * scap, chunk_bb, (float)bx,
+                        (float)(bx + lsr::kBlock - 1), (float)by,
+                        (float)(by + lsr::kBlock - 1)};
+  lsr::block_walk<false, kTieTid>(src, counts[tile] * kSuper, rec, p, 0, 0, 0,
+                                  depth_mode, zn, inv_range, d, t);
   if (in_img) {
-    depth_out[y * width + x] = d;
-    if (track_ids) tid_out[y * width + x] = t;
+    depth_out[(size_t)p.y * width + p.x] = d;
+    tid_out[(size_t)p.y * width + p.x] = track_ids ? t : t_init;
   }
 }
 
 }  // namespace
 
+// depth_in / tid_in may be null: the walk then starts from a cleared target
+// (depth 1, id -1).  track_ids 0: depth only, tid_out gets the ids the walk
+// started from.  tie_tid: an exact depth tie goes to the smaller id
+// (spatially sorted rows); else to the earlier row.
 extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  const void* slists, const void* counts,
                                  const void* depth_in, const void* tid_in,
@@ -112,12 +121,15 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  float zn, float inv_range, float max_py,
                                  int depth_mode, int track_ids, int tie_tid,
                                  void* stream) {
-  dim3 block(kBlock, kBlock);
-  dim3 grid((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock);
-  direct_raster_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  constexpr size_t smem = lsr::walk_smem_bytes(false);
+  dim3 grid((width + lsr::kBlock - 1) / lsr::kBlock,
+            (height + lsr::kBlock - 1) / lsr::kBlock);
+  auto kern = track_ids && tie_tid ? direct_raster_kernel<true>
+                                   : direct_raster_kernel<false>;
+  kern<<<grid, lsr::kThreads, smem, (cudaStream_t)stream>>>(
       (const float4*)rec, (const float4*)chunk_bb, (const int*)slists,
       (const int*)counts, (const float*)depth_in, (const int*)tid_in,
       (float*)depth_out, (int*)tid_out, width, height, tiles_x, scap, zn,
-      inv_range, max_py, depth_mode, track_ids, tie_tid);
+      inv_range, max_py, depth_mode, track_ids);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,37 @@
 // _resolve_kernel and _fplus_kernel share these formulas, from
 // lighting/light_runtime.py).  Built with -fmad=false and no fast math, so
 // each function rounds like the plain PyTorch versions beside the kernels.
+//
+// What bounds the light loop on this card is the operations it executes,
+// and most were spent where they bought nothing: on work that belongs to
+// the light, not to the pixel, and on pairs whose gain is 0.  So one light
+// at one pixel is three steps:
+//   light_prepare  record -> Light: everything that does not depend on the
+//                  pixel (unit axis, cone cosines, rect frame, tube
+//                  segment, clamps);
+//   light_reach    Light x pixel -> distance, direction, N.L, cone cosine,
+//                  and whether the light can add anything at the pixel;
+//   light_shade    the attenuation, the half vector and the specular pow.
+// B5 runs light_prepare once per light (one thread a light, into shared
+// memory) and lets a warp skip light_shade when light_reach says no for
+// all of its pixels; measured on an NVIDIA H100 80GB HBM3 at 700 W, the
+// hoist alone is worth 10% of B5's old time and the skips 65% (the table
+// is in resolve_fused.cu).  B2 and B6 still run the three steps back to
+// back for every pixel (local_light), with the same floats as before.
+//
+// The three steps take the light's kind as a template parameter: 0 reads it
+// from the record at run time (B5, whose staged lights are of any kind), 2,
+// 3, 4 and 1 (spot, rect, tube, point) fix it when the code is compiled.
+// local_light branches once on the kind, uniform in a block since all its
+// pixels walk one list, into four specialised copies, so no copy carries
+// another kind's fields or branches.  On the same card, same frame, one
+// call, parent / one generic copy / four copies: B2 0.547 / 0.570 / 0.482
+// ms, B6 1.114 / 1.149 / 1.012 ms, bit for bit the same output; the same
+// dispatch in B5 gave 0.370 against 0.378 ms and was not kept.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace lsr {
 
@@ -86,34 +114,80 @@ __device__ __forceinline__ void sun_term(
   db = res[2];
 }
 
-// One local light (record f, 32 floats of pack_light_records) at a pixel:
-// the diffuse weight wd = gain * N.L and the specular weight ws = gain *
-// spec, to be multiplied by the light's clamped color.  Point, spot, rect
-// and tube lights; the type branches are uniform across a block that walks
-// one list.  apow1 skips the attenuation pow (B2 only, when every power is
-// 1); B5 and B6 always apply it, as their TPU kernels do.
-__device__ __forceinline__ void local_light(
-    const float* f, float px, float py, float pz, float nx, float ny,
-    float nz, float vx, float vy, float vz, bool covered, int apow1,
-    float& wd, float& ws) {
-  const float ltype = f[0];
-  const float posx = f[1], posy = f[2], posz = f[3];
-  const bool is_spot = ltype == 2.0f;
-  const bool is_rect = ltype == 3.0f;
-  const bool is_tube = ltype == 4.0f;
+// A light as the per-pixel math reads it: what light_prepare derives from a
+// packed record (32 floats of pack_light_records) without looking at a
+// pixel.  Staged in shared memory, every field is read as a broadcast.
+struct Light {
+  float ltype;             // 2 spot, 3 rect, 4 tube, anything else a point
+  float posx, posy, posz;
+  float fwdx, fwdy, fwdz;  // unit forward
+  float rng, rng2;         // clamped range, rng * rng
+  float amodel, apow, abias, acut;
+  float intensity;
+  float colr, colg, colb;  // clamped color
+  float spec_pw, spec_sc;
+  float cout, cden;        // spot: cos(outer), max(cos(inner) - cos(outer))
+  float zero_ok;           // 1: color * 0 is +0 (no infinite channel)
+  // rect: right (ax, ay, az), up (bx, by, bz), half extents (ex, ey);
+  // tube: segment start (ax..), segment (bx..), its squared length (ex).
+  float ax, ay, az, bx, by, bz, ex, ey;
+};
+
+// Everything of a light that does not depend on the pixel, in the
+// operations and the order the per-pixel code used when it did this work
+// itself, so every field is the float it was: only who computes it changes.
+// A zero record (a list slot past the count) gives a point light of range
+// 0.001 at the origin with no color.
+// Whether a light of type ltype is of kind k (2 spot, 3 rect, 4 tube), known
+// when the code is compiled unless KIND is 0.
+template <int KIND>
+__device__ __forceinline__ bool is_kind(float ltype, int k) {
+  return KIND ? KIND == k : ltype == (float)k;
+}
+
+template <int KIND = 0>
+__device__ __forceinline__ Light light_prepare(const float* f) {
+  Light L;
+  L.ltype = f[0];
+  L.posx = f[1];
+  L.posy = f[2];
+  L.posz = f[3];
   float fwdx = f[4], fwdy = f[5], fwdz = f[6];
   unit3(fwdx, fwdy, fwdz);
-  const float rng = fmaxf(f[17], 0.001f);
-  const float amodel = f[24];
-  const float abias = fmaxf(f[26], 1e-5f);
-  const float acut = f[27];
-
-  float emx = posx, emy = posy, emz = posz;
-  if (is_rect) {
+  L.fwdx = fwdx;
+  L.fwdy = fwdy;
+  L.fwdz = fwdz;
+  L.rng = fmaxf(f[17], 0.001f);
+  L.rng2 = L.rng * L.rng;
+  L.amodel = f[24];
+  L.apow = fmaxf(f[25], 0.001f);
+  L.abias = fmaxf(f[26], 1e-5f);
+  L.acut = f[27];
+  L.intensity = f[16];
+  L.colr = fmaxf(f[13], 0.0f);
+  L.colg = fmaxf(f[14], 0.0f);
+  L.colb = fmaxf(f[15], 0.0f);
+  L.zero_ok = (L.colr < CUDART_INF_F && L.colg < CUDART_INF_F
+               && L.colb < CUDART_INF_F) ? 1.0f : 0.0f;
+  L.spec_pw = 36.0f;
+  L.spec_sc = 0.30f;
+  L.cout = 0.0f;
+  L.cden = 0.0f;
+  L.ax = L.ay = L.az = L.bx = L.by = L.bz = L.ex = L.ey = 0.0f;
+  if (is_kind<KIND>(L.ltype, 2)) {
+    const float inner = clampf(f[18], 0.02f, kInnerHi);
+    const float outer = clampf(fmaxf(inner + 0.005f, f[19]), inner + 0.005f,
+                               kOuterHi);
+    const float cin = cosf(inner);
+    L.cout = cosf(outer);
+    L.cden = fmaxf(cin - L.cout, 1e-5f);
+    L.spec_pw = 34.0f;
+    L.spec_sc = 0.32f;
+  } else if (is_kind<KIND>(L.ltype, 3)) {
     float upx = f[7], upy = f[8], upz = f[9];
     unit3(upx, upy, upz);
-    const float hex = fmaxf(f[20], 0.05f), hey = fmaxf(f[21], 0.05f);
-    const float dxp = px - posx, dyp = py - posy, dzp = pz - posz;
+    L.ex = fmaxf(f[20], 0.05f);
+    L.ey = fmaxf(f[21], 0.05f);
     float rx0 = upy * fwdz - upz * fwdy;
     float ry0 = upz * fwdx - upx * fwdz;
     float rz0 = upx * fwdy - upy * fwdx;
@@ -126,82 +200,166 @@ __device__ __forceinline__ void local_light(
     float ry = u2z * fwdx - u2x * fwdz;
     float rz = u2x * fwdy - u2y * fwdx;
     unit3(rx, ry, rz);
-    const float ux = clampf(dxp * rx + dyp * ry + dzp * rz, -hex, hex);
-    const float uy = clampf(dxp * u2x + dyp * u2y + dzp * u2z, -hey, hey);
-    emx = posx + rx * ux + u2x * uy;
-    emy = posy + ry * ux + u2y * uy;
-    emz = posz + rz * ux + u2z * uy;
-  } else if (is_tube) {
+    L.ax = rx;
+    L.ay = ry;
+    L.az = rz;
+    L.bx = u2x;
+    L.by = u2y;
+    L.bz = u2z;
+    L.spec_pw = 26.0f;
+    L.spec_sc = 0.26f;
+  } else if (is_kind<KIND>(L.ltype, 4)) {
     float axx = f[10], axy = f[11], axz = f[12];
     unit3(axx, axy, axz);
     const float thl = fmaxf(f[22], 0.1f);
-    const float ax2 = axx * (2.0f * thl), ay2 = axy * (2.0f * thl),
-                az2 = axz * (2.0f * thl);
-    const float a0x = posx - axx * thl, a0y = posy - axy * thl,
-                a0z = posz - axz * thl;
-    const float denom_seg = fmaxf(ax2 * ax2 + ay2 * ay2 + az2 * az2, 1e-8f);
-    const float tseg = clampf(((px - a0x) * ax2 + (py - a0y) * ay2
-                               + (pz - a0z) * az2) / denom_seg,
-                              0.0f, 1.0f);
-    emx = a0x + ax2 * tseg;
-    emy = a0y + ay2 * tseg;
-    emz = a0z + az2 * tseg;
+    L.bx = axx * (2.0f * thl);
+    L.by = axy * (2.0f * thl);
+    L.bz = axz * (2.0f * thl);
+    L.ax = L.posx - axx * thl;
+    L.ay = L.posy - axy * thl;
+    L.az = L.posz - axz * thl;
+    L.ex = fmaxf(L.bx * L.bx + L.by * L.by + L.bz * L.bz, 1e-8f);
+    L.spec_pw = 22.0f;
+    L.spec_sc = 0.20f;
   }
+  return L;
+}
 
-  const float tlx = emx - px, tly = emy - py, tlz = emz - pz;
-  const float dist = sqrtf(fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-16f));
-  const float inv_d = 1.0f / dist;
-  const float llx = tlx * inv_d, lly = tly * inv_d, llz = tlz * inv_d;
+// The first half of one light at one pixel: the emitter point, the distance
+// and the unit direction to it, N.L and, for spots and rects, the cosine
+// against the light's forward axis.
+struct Reach {
+  float dist, llx, lly, llz, lndl, cfwd;
+};
 
-  float shaping = 1.0f;
-  float spec_pw = 36.0f, spec_sc = 0.30f;
-  if (is_spot) {
-    const float inner = clampf(f[18], 0.02f, kInnerHi);
-    const float outer = clampf(fmaxf(inner + 0.005f, f[19]), inner + 0.005f,
-                               kOuterHi);
-    const float cos_t = -(llx * fwdx + lly * fwdy + llz * fwdz);
-    const float cin = cosf(inner);
-    const float cout = cosf(outer);
-    const float tt = clampf((cos_t - cout) / fmaxf(cin - cout, 1e-5f), 0.0f,
-                            1.0f);
-    shaping = cos_t > cout ? tt * tt * (3.0f - 2.0f * tt) : 0.0f;
-    spec_pw = 34.0f;
-    spec_sc = 0.32f;
-  } else if (is_rect) {
-    const float facing = fmaxf(-(fwdx * llx + fwdy * lly + fwdz * llz), 0.0f);
-    shaping = facing > 0.0f ? 0.65f + 0.55f * facing : 0.0f;
-    spec_pw = 26.0f;
-    spec_sc = 0.26f;
+// Fills r and returns whether the light can add anything at this pixel.
+// False implies gain == 0 in light_shade, whatever the rest computes: the
+// pixel is uncovered or at the emitter (live is false), out of range
+// (atten is 0 * shaping: 0 or NaN, never > 0), faces away (lndl is 0) or
+// lies outside a spot's cone or behind a rect (shaping is 0).  A NaN in any
+// of these compares false here exactly where it makes live false there.
+template <int KIND = 0>
+__device__ __forceinline__ bool light_reach(const Light& L, float px, float py,
+                                            float pz, float nx, float ny,
+                                            float nz, bool covered, Reach& r) {
+  const bool is_spot = is_kind<KIND>(L.ltype, 2);
+  const bool is_rect = is_kind<KIND>(L.ltype, 3);
+  const bool is_tube = is_kind<KIND>(L.ltype, 4);
+  float emx = L.posx, emy = L.posy, emz = L.posz;
+  if (is_rect) {
+    const float dxp = px - L.posx, dyp = py - L.posy, dzp = pz - L.posz;
+    const float ux = clampf(dxp * L.ax + dyp * L.ay + dzp * L.az, -L.ex, L.ex);
+    const float uy = clampf(dxp * L.bx + dyp * L.by + dzp * L.bz, -L.ey, L.ey);
+    emx = L.posx + L.ax * ux + L.bx * uy;
+    emy = L.posy + L.ay * ux + L.by * uy;
+    emz = L.posz + L.az * ux + L.bz * uy;
   } else if (is_tube) {
+    const float tseg = clampf(((px - L.ax) * L.bx + (py - L.ay) * L.by
+                               + (pz - L.az) * L.bz) / L.ex,
+                              0.0f, 1.0f);
+    emx = L.ax + L.bx * tseg;
+    emy = L.ay + L.by * tseg;
+    emz = L.az + L.bz * tseg;
+  }
+  const float tlx = emx - px, tly = emy - py, tlz = emz - pz;
+  r.dist = sqrtf(fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-16f));
+  const float inv_d = 1.0f / r.dist;
+  r.llx = tlx * inv_d;
+  r.lly = tly * inv_d;
+  r.llz = tlz * inv_d;
+  r.lndl = fmaxf(nx * r.llx + ny * r.lly + nz * r.llz, 0.0f);
+  r.cfwd = 0.0f;
+  bool shaped = true;
+  if (is_spot) {
+    r.cfwd = -(r.llx * L.fwdx + r.lly * L.fwdy + r.llz * L.fwdz);
+    shaped = r.cfwd > L.cout;
+  } else if (is_rect) {
+    r.cfwd = -(L.fwdx * r.llx + L.fwdy * r.lly + L.fwdz * r.llz);
+    shaped = fmaxf(r.cfwd, 0.0f) > 0.0f;
+  }
+  return covered && r.dist > 1e-4f && r.dist < L.rng && r.lndl > 0.0f
+         && shaped;
+}
+
+// The second half: the diffuse weight wd = gain * N.L and the specular
+// weight ws = gain * spec, to be multiplied by the light's clamped color.
+// apow1 skips the attenuation pow (B2 only, when every power is 1); B5 and
+// B6 always apply it, as their TPU kernels do.
+template <int KIND = 0>
+__device__ __forceinline__ void light_shade(const Light& L, const Reach& r,
+                                            float nx, float ny, float nz,
+                                            float vx, float vy, float vz,
+                                            bool covered, int apow1,
+                                            float& wd, float& ws) {
+  const float dist = r.dist, rng = L.rng;
+  float shaping = 1.0f;
+  if (is_kind<KIND>(L.ltype, 2)) {
+    const float tt = clampf((r.cfwd - L.cout) / L.cden, 0.0f, 1.0f);
+    shaping = r.cfwd > L.cout ? tt * tt * (3.0f - 2.0f * tt) : 0.0f;
+  } else if (is_kind<KIND>(L.ltype, 3)) {
+    const float facing = fmaxf(r.cfwd, 0.0f);
+    shaping = facing > 0.0f ? 0.65f + 0.55f * facing : 0.0f;
+  } else if (is_kind<KIND>(L.ltype, 4)) {
     const float soft = clampf(1.0f - dist / rng, 0.0f, 1.0f);
     shaping = 0.75f + 0.35f * soft;
-    spec_pw = 22.0f;
-    spec_sc = 0.20f;
   }
 
   const float norm = clampf(1.0f - dist / rng, 0.0f, 1.0f);
   float fall;
-  if (amodel == 0.0f) {
+  if (L.amodel == 0.0f) {
     fall = norm;
-  } else if (amodel == 1.0f) {
+  } else if (L.amodel == 1.0f) {
     fall = norm * norm * (3.0f - 2.0f * norm);
   } else {
-    fall = fminf(1.0f, (rng * rng) / fmaxf(dist * dist, abias)) * norm * norm;
+    fall = fminf(1.0f, L.rng2 / fmaxf(dist * dist, L.abias)) * norm * norm;
   }
-  if (!apow1) fall = powf(fmaxf(fall, 1e-9f), fmaxf(f[25], 0.001f));
-  if (acut > 0.0f && fall < acut) fall = 0.0f;
+  if (!apow1) fall = powf(fmaxf(fall, 1e-9f), L.apow);
+  if (L.acut > 0.0f && fall < L.acut) fall = 0.0f;
   const float atten = (dist < rng ? fall : 0.0f) * fmaxf(shaping, 0.0f);
 
-  const float lndl = fmaxf(nx * llx + ny * lly + nz * llz, 0.0f);
-  const bool live = dist > 1e-4f && lndl > 0.0f && atten > 0.0f && covered;
-  const float gain = live ? f[16] * atten : 0.0f;
-  const float hxl = llx + vx, hyl = lly + vy, hzl = llz + vz;
+  const bool live = dist > 1e-4f && r.lndl > 0.0f && atten > 0.0f && covered;
+  const float gain = live ? L.intensity * atten : 0.0f;
+  const float hxl = r.llx + vx, hyl = r.lly + vy, hzl = r.llz + vz;
   const float hll = rsqrt_rn(fmaxf(hxl * hxl + hyl * hyl + hzl * hzl, 1e-16f));
   const float lndh = fmaxf(nx * (hxl * hll) + ny * (hyl * hll)
                            + nz * (hzl * hll), 0.0f);
-  const float spec = spec_sc * powf(fmaxf(lndh, 1e-9f), spec_pw);
-  wd = gain * lndl;
+  const float spec = L.spec_sc * powf(fmaxf(lndh, 1e-9f), L.spec_pw);
+  wd = gain * r.lndl;
   ws = gain * spec;
+}
+
+// One local light of a known kind at a pixel, start to end.
+template <int KIND>
+__device__ __forceinline__ void light_of_kind(
+    const float* f, float px, float py, float pz, float nx, float ny,
+    float nz, float vx, float vy, float vz, bool covered, int apow1,
+    float& wd, float& ws) {
+  const Light L = light_prepare<KIND>(f);
+  Reach r;
+  light_reach<KIND>(L, px, py, pz, nx, ny, nz, covered, r);
+  light_shade<KIND>(L, r, nx, ny, nz, vx, vy, vz, covered, apow1, wd, ws);
+}
+
+// One local light at a pixel (B2 and B6, whose every pixel still prepares
+// every light itself): the copy of its kind.
+__device__ __forceinline__ void local_light(
+    const float* f, float px, float py, float pz, float nx, float ny,
+    float nz, float vx, float vy, float vz, bool covered, int apow1,
+    float& wd, float& ws) {
+#define LSR_LIGHT_OF_KIND(K) \
+  light_of_kind<K>(f, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1, \
+                   wd, ws)
+  const float ltype = f[0];
+  if (ltype == 2.0f) {
+    LSR_LIGHT_OF_KIND(2);
+  } else if (ltype == 3.0f) {
+    LSR_LIGHT_OF_KIND(3);
+  } else if (ltype == 4.0f) {
+    LSR_LIGHT_OF_KIND(4);
+  } else {
+    LSR_LIGHT_OF_KIND(1);
+  }
+#undef LSR_LIGHT_OF_KIND
 }
 
 // Stage rows [0, n) of a light chunk (n * kRec floats) into shared memory,

@@ -6,25 +6,76 @@
 // Replaces lsr_tpu/lighting/resolve_kernel.py:_resolve_kernel (wrapper
 // resolve_fused_pallas, pallas_call at resolve_kernel.py:537).
 //
-// What bounds it on this card: arithmetic, as for B2: ~60 f32 operations
-// with two square roots and one or two powf per (pixel, light), over up to
-// 256 binned lights per 64x128 tile, against ~40 bytes read and 12 written
-// per pixel.
+// What bounds it on this card: operations executed for (pixel, light) pairs
+// that add nothing, not memory (~40 bytes read and 12 written per pixel).
+// A tile's list is binned for 64x128 pixels.  On the 1080p flagship frame
+// (256 spot and point lights, up to 127 a tile) the walk meets 82.1 M
+// (pixel, listed light) pairs, 56.3 M of them on covered pixels, and only
+// 6.0 M are live: in range, inside the cone, facing the light.  An 8x4
+// pixel rectangle has a live pixel for 3.2 of the 39.3 lights its tile
+// lists on average (at most 34), a 32x1 row for 3.7, a 32x8 block for 4.1.
+// A pair cost about 400 machine operations whether live or not (a square
+// root and a division for the light's axis, two cosf for a spot, two powf,
+// IEEE divisions: no fast math, no FMA contraction, to round like the plain
+// version).
 //
 // What the design does about it: one thread per pixel, 32x8 blocks inside
-// one 64x128 light tile, the tile's light records staged in shared memory
-// one chunk (8 or 16 lights, 1-2 KB) at a time and read as broadcasts, as in
-// B2.  Records through tid: lsr_tpu gathers a (H, W, 56) record per pixel
-// in XLA first (465 MB at 1080p) because a TPU kernel cannot gather; here
-// each covered thread reads the 31 lanes it needs of its triangle's row of
-// pack_interp_records' (rows, 56) table directly, and neighbouring pixels
-// share rows in cache.  An uncovered pixel reads row 0, as lsr_tpu's
-// gather of a clamped tid does, and gets the background.  Each chunk's
-// eight or sixteen per-light terms are summed as lsr_tpu's pairwise tree
-// (_sum0, resolve_kernel.py:50-62), then added to the running sums; the
-// plain version uses the same order.
+// one light tile, a warp on an 8x4 rectangle.
+//  - A light's own work once per light: the block takes the list 32 lights
+//    at a time; one thread per light runs lsr::light_prepare (unit axis,
+//    cone cosines, rect frame, tube segment) into shared memory, and every
+//    pixel reads the derived fields as broadcasts.
+//  - Lights that cannot reach a warp are never evaluated.  First each warp
+//    boxes the world positions of its covered pixels and lane k tests
+//    light k of the group against the box (light_near_box, provably
+//    conservative in f32, see there); a group no warp wants is not even
+//    prepared.  Then, for a light that passed, the warp votes after the
+//    distance, cone and N.L tests (lsr::light_reach) and skips the
+//    attenuation, half vector and both powf when no lane can be lit.  A
+//    warp without a covered pixel has an empty box and walks nothing.
+//  - Sums unchanged: a skipped light enters lsr_tpu's pairwise chunk tree
+//    (_sum0, resolve_kernel.py:50-62) as the +0 it would have added, at
+//    its own position, so grouping and result are those of the plain
+//    version.  The tree is a binary counter over named registers, and the
+//    loop over a chunk is not unrolled.
+//  - Records through tid: lsr_tpu gathers a (H, W, 56) record per pixel in
+//    XLA first (465 MB at 1080p) because a TPU kernel cannot gather; here
+//    each thread reads the 31 lanes it needs of its triangle's row of
+//    pack_interp_records' (rows, 56) table with eleven 16-byte loads, and
+//    neighbouring pixels share rows in cache.  An uncovered pixel reads row
+//    0, as lsr_tpu's gather of a clamped tid does, runs the per-pixel part
+//    like any other and gets the background.
+//
+// The choices, measured on an NVIDIA H100 80GB HBM3 at 700 W on that frame
+// (kernel ms by CUDA events, chunk 8 / chunk 16, every variant within
+// 1.9e-6 of the plain version, one run; the kernel before this design took
+// 1.444 / -).  Only the first row is kept in the source:
+//   as built (80 registers by __launch_bounds__(256, 3),
+//   376 / 496 bytes spilled)                               0.378 / 0.432
+//   no register bound (107 / 118 registers, no spill)      0.407 / 0.464
+//   64 registers (__launch_bounds__(256, 4))               0.370 / 0.471
+//   chunk loop fully unrolled                              0.419 / 0.620
+//   a warp on a 32x1 row instead of 8x4                    0.450 / 0.475
+//   no box test (votes only)                               0.645 / 0.711
+//   no vote (box test only)                                0.435 / 0.494
+//   neither, uncovered warps still skipped                 1.130 / 1.235
+//   neither, and every warp walks the list                 1.423 / 1.572
+//   the same with light_prepare per pixel (the old work
+//   in the new layout)                                     1.590 / 1.757
+//   light_prepare per pixel, all skips kept                0.447 / 0.500
+//   31 scalar record loads instead of 11 float4            0.411 / 0.468
+//   per-warp prepare of the wanted lights, no block
+//   barrier (32 KB of shared memory)                       0.412 / 0.466
+//   the sun term after the light loop / no `top` copy      0.408, 0.434
+//   one copy of light_reach and light_shade per light
+//   kind, as B2 and B6 have (light_loop.cuh)               0.370 / -
+// With every light rejected the kernel takes 0.170 ms and with an empty
+// list 0.064 ms: the box tests (dependent loads of eight record fields a
+// lane per group) are about 0.1 ms and the evaluation of the 4.6 lights a
+// warp keeps on average about 0.2 ms, at three blocks an SM.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "light_loop.cuh"
 
@@ -33,7 +84,10 @@ namespace {
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kThreads = kBlockX * kBlockY;
+constexpr int kWarpW = 8, kWarpH = 4;  // a warp's pixel footprint
+constexpr int kGroup = 32;             // lights prepared per barrier pair
 constexpr int kRecLanes = 56;
+constexpr unsigned kFullMask = 0xffffffffu;
 using lsr::kRec;
 
 // Fake-IBL environment: ground + ((horizon + (zenith - horizon) * up) -
@@ -43,8 +97,71 @@ __device__ __forceinline__ float env(float up, float g, float h, float zh) {
   return g + ((h + zh * up) - g) * up;
 }
 
+// The box of the world positions of a warp's covered pixels (empty: lo =
+// +inf, hi = -inf; fminf / fmaxf drop a NaN position, whose pixel no light
+// reaches anyway).
+struct Box {
+  float x0, x1, y0, y1, z0, z1;
+};
+
+__device__ __forceinline__ Box warp_box(bool covered, float px, float py,
+                                        float pz) {
+  Box b = {covered ? px : CUDART_INF_F, covered ? px : -CUDART_INF_F,
+           covered ? py : CUDART_INF_F, covered ? py : -CUDART_INF_F,
+           covered ? pz : CUDART_INF_F, covered ? pz : -CUDART_INF_F};
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    b.x0 = fminf(b.x0, __shfl_xor_sync(kFullMask, b.x0, d));
+    b.x1 = fmaxf(b.x1, __shfl_xor_sync(kFullMask, b.x1, d));
+    b.y0 = fminf(b.y0, __shfl_xor_sync(kFullMask, b.y0, d));
+    b.y1 = fmaxf(b.y1, __shfl_xor_sync(kFullMask, b.y1, d));
+    b.z0 = fminf(b.z0, __shfl_xor_sync(kFullMask, b.z0, d));
+    b.z1 = fmaxf(b.z1, __shfl_xor_sync(kFullMask, b.z1, d));
+  }
+  return b;
+}
+
+// The offset from the nearest point of [lo, hi] to e along one axis, as the
+// per-pixel code subtracts (emitter - pixel).
+__device__ __forceinline__ float axis_gap(float e, float lo, float hi) {
+  return e < lo ? e - lo : (e > hi ? e - hi : 0.0f);
+}
+
+// The eight fields of a packed light record that the box test reads.
+struct BoxRec {
+  float ltype, x, y, z, colr, colg, colb, rng;
+};
+
+__device__ __forceinline__ BoxRec load_box_rec(const float* f) {
+  return {f[0], f[1], f[2], f[3], f[13], f[14], f[15], f[17]};
+}
+
+// False only when the light cannot be in range of any pixel of the box.
+// For a point or a spot the emitter is the light's position, and
+// light_reach computes dist = sqrt(max(tx*tx + ty*ty + tz*tz, 1e-16)) with
+// t = emitter - pixel and asks dist < rng.  Every step rounds to nearest,
+// and rounding is monotone: along each axis |emitter - pixel| is at least
+// |axis_gap| for every pixel of the box, so each square, each sum, the
+// square root and therefore dist are at least the values computed here in
+// the same order, and dist < rng fails at every pixel when it fails here.
+// Rect and tube emitters move with the pixel and a light with an infinite
+// color channel must reach the sum as 0 * inf: both are always kept.
+__device__ __forceinline__ bool light_near_box(const BoxRec& f,
+                                               const Box& b) {
+  if (f.ltype == 3.0f || f.ltype == 4.0f) return true;
+  if (!(fmaxf(f.colr, 0.0f) < CUDART_INF_F
+        && fmaxf(f.colg, 0.0f) < CUDART_INF_F
+        && fmaxf(f.colb, 0.0f) < CUDART_INF_F))
+    return true;
+  const float tx = axis_gap(f.x, b.x0, b.x1);
+  const float ty = axis_gap(f.y, b.y0, b.y1);
+  const float tz = axis_gap(f.z, b.z0, b.z1);
+  const float dist = sqrtf(fmaxf(tx * tx + ty * ty + tz * tz, 1e-16f));
+  return dist < fmaxf(f.rng, 0.001f);
+}
+
 template <int CHUNK>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
                      const int* __restrict__ tid,         // (H, W)
                      const float* __restrict__ sun_vis,   // (H, W)
@@ -55,33 +172,41 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
                      float* __restrict__ out,             // (H, W, 3)
                      int width, int height, int tile_h, int tile_w,
                      int tiles_x, int cap, int sun_model) {
-  constexpr int kLevels = CHUNK == 16 ? 5 : 4;  // log2(CHUNK) + 1
-  __shared__ float lrec[CHUNK * kRec];
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int lane = threadIdx.y * kBlockX + threadIdx.x;
+  constexpr int kLevels = CHUNK == 16 ? 4 : 3;  // log2(CHUNK)
+  __shared__ lsr::Light lights[kGroup];
+  // Warp w of the block owns the 8x4 pixels at (8 * (w % 4), 4 * (w / 4)).
+  const int lane = threadIdx.x, w = lane >> 5, wl = lane & 31;
+  const int x = blockIdx.x * kBlockX + (w & 3) * kWarpW + (wl & (kWarpW - 1));
+  const int y = blockIdx.y * kBlockY + (w >> 2) * kWarpH + wl / kWarpW;
   const bool inb = x < width && y < height;
   const size_t o = (size_t)y * width + x;
 
   const int t = inb ? tid[o] : -1;
   const bool covered = t >= 0;
-  const float* r = table + (size_t)(covered ? t : 0) * kRecLanes;
+  // The 31 lanes the pixel needs of its triangle's row, as 16-byte loads
+  // (a row is 224 bytes): lanes 0:32 and 40:52.
+  const float4* r4 = reinterpret_cast<const float4*>(
+      table + (size_t)(covered ? t : 0) * kRecLanes);
+  const float4 q0 = __ldg(r4), q1 = __ldg(r4 + 1), q2 = __ldg(r4 + 2),
+               q3 = __ldg(r4 + 3), q4 = __ldg(r4 + 4), q5 = __ldg(r4 + 5),
+               q6 = __ldg(r4 + 6), q7 = __ldg(r4 + 7), q10 = __ldg(r4 + 10),
+               q11 = __ldg(r4 + 11), q12 = __ldg(r4 + 12);
 
   // --- interp: weights from the coef lanes at this pixel's centre ----------
   const float sx = (float)x + 0.5f, sy = (float)y + 0.5f;
-  float w0 = (r[0] * sx + r[1] * sy + r[2]) * r[9];
-  float w1 = (r[3] * sx + r[4] * sy + r[5]) * r[10];
-  float w2 = (r[6] * sx + r[7] * sy + r[8]) * r[11];
+  float w0 = (q0.x * sx + q0.y * sy + q0.z) * q2.y;
+  float w1 = (q0.w * sx + q1.x * sy + q1.y) * q2.z;
+  float w2 = (q1.z * sx + q1.w * sy + q2.x) * q2.w;
   const float inv_den = 1.0f / fmaxf(w0 + w1 + w2, 1e-12f);
   w0 = w0 * inv_den;
   w1 = w1 * inv_den;
   w2 = w2 * inv_den;
-  const float px = w0 * r[12] + w1 * r[15] + w2 * r[18];
-  const float py = w0 * r[13] + w1 * r[16] + w2 * r[19];
-  const float pz = w0 * r[14] + w1 * r[17] + w2 * r[20];
-  float nx = w0 * r[21] + w1 * r[24] + w2 * r[27];
-  float ny = w0 * r[22] + w1 * r[25] + w2 * r[28];
-  float nz = w0 * r[23] + w1 * r[26] + w2 * r[29];
+  const float px = w0 * q3.x + w1 * q3.w + w2 * q4.z;
+  const float py = w0 * q3.y + w1 * q4.x + w2 * q4.w;
+  const float pz = w0 * q3.z + w1 * q4.y + w2 * q5.x;
+  float nx = w0 * q5.y + w1 * q6.x + w2 * q6.w;
+  float ny = w0 * q5.z + w1 * q6.y + w2 * q7.x;
+  float nz = w0 * q5.w + w1 * q6.z + w2 * q7.y;
   {
     const float nl = lsr::rsqrt_rn(fmaxf(nx * nx + ny * ny + nz * nz, 1e-24f));
     nx = nx * nl;
@@ -93,12 +218,13 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
   const float tr = inb ? tex[o * 3 + 0] : 0.0f;
   const float tg = inb ? tex[o * 3 + 1] : 0.0f;
   const float tb = inb ? tex[o * 3 + 2] : 0.0f;
-  const float ar = fmaxf(r[40], 0.0f) * tr;
-  const float ag = fmaxf(r[41], 0.0f) * tg;
-  const float ab = fmaxf(r[42], 0.0f) * tb;
-  const float metal = lsr::clampf(r[43], 0.0f, 1.0f);
-  const float rough = r[44];
-  const float ao = lsr::clampf(r[45], 0.0f, 1.0f);
+  const float ar = fmaxf(q10.x, 0.0f) * tr;
+  const float ag = fmaxf(q10.y, 0.0f) * tg;
+  const float ab = fmaxf(q10.z, 0.0f) * tb;
+  const float metal = lsr::clampf(q10.w, 0.0f, 1.0f);
+  const float rough = q11.x;
+  const float ao = lsr::clampf(q11.y, 0.0f, 1.0f);
+  const float emis[3] = {q11.z, q11.w, q12.x};
   const float svis = inb ? sun_vis[o] : 0.0f;
 
   float vx = uni[0] - px, vy = uni[1] - py, vz = uni[2] - pz;
@@ -114,40 +240,78 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
 
   // --- local lights of this block's tile -----------------------------------
   const int tile = (y / tile_h) * tiles_x + x / tile_w;  // uniform per block
-  const int n_chunks = min((counts[tile] + CHUNK - 1) / CHUNK, cap / CHUNK);
+  const int n_listed =
+      min((counts[tile] + CHUNK - 1) / CHUNK, cap / CHUNK) * CHUNK;
   const float* trec = tile_rec + (size_t)tile * cap * kRec;
+  const bool warp_covered = __any_sync(kFullMask, covered);
+  const Box box = warp_box(covered, px, py, pz);
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int ci = 0; ci < n_chunks; ++ci) {
+  for (int g0 = 0; g0 < n_listed; g0 += kGroup) {
+    // Lane wl asks whether light g0 + wl can reach the warp's pixels at all.
+    bool near = false;
+    if (warp_covered && g0 + wl < n_listed)
+      near = light_near_box(load_box_rec(trec + (size_t)(g0 + wl) * kRec),
+                            box);
+    const unsigned wm = __ballot_sync(kFullMask, near);
+    // The barrier also keeps the last group's records until every warp is
+    // done with them.  No warp wants a light of this group: nothing staged.
+    if (!__syncthreads_or(wm != 0u)) continue;
+    if (lane < kGroup && g0 + lane < n_listed)
+      lights[lane] = lsr::light_prepare(trec + (size_t)(g0 + lane) * kRec);
     __syncthreads();
-    lsr::stage_chunk(lrec, trec + (size_t)ci * CHUNK * kRec, CHUNK * kRec,
-                     lane, kThreads);
-    __syncthreads();
-    // Pairwise tree over the chunk as a binary counter: st[b] holds the sum
-    // of the last complete block of 2^b lights.
-    float st[kLevels][6];
+#pragma unroll 1
+    for (int c0 = 0; c0 < kGroup; c0 += CHUNK) {
+      const unsigned cm = (wm >> c0) & ((1u << CHUNK) - 1u);
+      // A chunk of skipped lights sums to +0, and acc + 0 is acc.
+      if (cm == 0u) continue;
+      // Pairwise tree over the chunk as a binary counter: st[b] holds the
+      // sum of the last complete block of 2^b lights; a skipped light
+      // enters as the +0 it would have added.
+      float st[kLevels][6];
+      float top[6];
+#pragma unroll 1
+      for (int li = 0; li < CHUNK; ++li) {
+        float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if ((cm >> li) & 1u) {
+          const lsr::Light& L = lights[c0 + li];
+          lsr::Reach r;
+          const bool may = lsr::light_reach(L, px, py, pz, nx, ny, nz,
+                                            covered, r);
+          // Uniform in the warp.  Where no pixel may be lit every gain is 0
+          // and the six terms are color * (0 * finite) = +0.
+          if (__any_sync(kFullMask, may) || L.zero_ok == 0.0f) {
+            float wd, ws;
+            lsr::light_shade(L, r, nx, ny, nz, vx, vy, vz, covered, 0, wd,
+                             ws);
+            v[0] = L.colr * wd;
+            v[1] = L.colg * wd;
+            v[2] = L.colb * wd;
+            v[3] = L.colr * ws;
+            v[4] = L.colg * ws;
+            v[5] = L.colb * ws;
+          }
+        }
+        bool placed = false;
 #pragma unroll
-    for (int li = 0; li < CHUNK; ++li) {
-      const float* f = lrec + li * kRec;
-      float wd, ws;
-      lsr::local_light(f, px, py, pz, nx, ny, nz, vx, vy, vz, covered, 0, wd,
-                       ws);
-      const float colr = fmaxf(f[13], 0.0f), colg = fmaxf(f[14], 0.0f),
-                  colb = fmaxf(f[15], 0.0f);
-      float v[6] = {colr * wd, colg * wd, colb * wd,
-                    colr * ws, colg * ws, colb * ws};
-      int level = 0;
+        for (int b = 0; b < kLevels; ++b) {
+          if (placed) continue;
+          if ((li >> b) & 1) {
 #pragma unroll
-      for (int b = 0; b < kLevels - 1; ++b) {
-        if (!((li >> b) & 1)) break;
+            for (int c = 0; c < 6; ++c) v[c] = st[b][c] + v[c];
+          } else {
 #pragma unroll
-        for (int c = 0; c < 6; ++c) v[c] = st[b][c] + v[c];
-        level = b + 1;
+            for (int c = 0; c < 6; ++c) st[b][c] = v[c];
+            placed = true;
+          }
+        }
+        if (!placed) {
+#pragma unroll
+          for (int c = 0; c < 6; ++c) top[c] = v[c];
+        }
       }
 #pragma unroll
-      for (int c = 0; c < 6; ++c) st[level][c] = v[c];
+      for (int c = 0; c < 6; ++c) acc[c] = acc[c] + top[c];
     }
-#pragma unroll
-    for (int c = 0; c < 6; ++c) acc[c] = acc[c] + st[kLevels - 1][c];
   }
 
   // --- fake-IBL ambient (eval_fake_ibl) ------------------------------------
@@ -178,7 +342,7 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
       const float amb = ((1.0f - fa) * (1.0f - metal) * alb[c] * env_n[c]
                          * 0.12f + env_r[c] * fa * spec_str) * ao;
       out[o * 3 + c] = (sun[c] + alb[c] * acc[c] + acc[3 + c]
-                        + (amb + r[46 + c])) * covf
+                        + (amb + emis[c])) * covf
                        + uni[9 + c] * (1.0f - covf);
     }
   }
@@ -195,10 +359,11 @@ extern "C" int lsr_resolve_fused(const void* table, const void* tid,
                                  int sun_model, void* stream) {
   if (tile_h % kBlockY || tile_w % kBlockX || (chunk != 8 && chunk != 16))
     return (int)cudaErrorInvalidValue;
-  dim3 block(kBlockX, kBlockY);
+  if (reinterpret_cast<uintptr_t>(table) % 16)
+    return (int)cudaErrorInvalidValue;  // rows are read with 16-byte loads
   dim3 grid(tiles_x * tile_w / kBlockX, tiles_y * tile_h / kBlockY);
   auto kern = chunk == 16 ? resolve_fused_kernel<16> : resolve_fused_kernel<8>;
-  kern<<<grid, block, 0, (cudaStream_t)stream>>>(
+  kern<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int*)tid, (const float*)sun_vis,
       (const float*)tex, (const float*)tile_rec, (const int*)counts,
       (const float*)uni, (float*)out, width, height, tile_h, tile_w, tiles_x,

@@ -102,8 +102,8 @@ tiled_raster_kernel(const float4* __restrict__ rec,   // (n_pad, 16) f32
 
   const int n = min(counts[tile], cap);  // never past the tile's own list
   const ListSource src{lists + (size_t)tile * cap};
-  lsr::block_walk<false>(src, n, rec, p, 0, 0, 0, depth_mode, zn, inv_range,
-                         d, t);
+  lsr::block_walk<false, false>(src, n, rec, p, 0, 0, 0, depth_mode, zn,
+                                inv_range, d, t);
   if (in_img) {
     depth_out[(size_t)p.y * width + p.x] = d;
     tid_out[(size_t)p.y * width + p.x] = t;

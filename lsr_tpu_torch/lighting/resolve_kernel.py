@@ -14,6 +14,11 @@ does, and takes the background.  Each chunk of per-light terms is summed
 as lsr_tpu's pairwise tree (_sum0), in the kernel and the plain version
 alike.  No attenuation-pow skip: B5 always applies it.
 
+The kernel prepares each light once per block and never evaluates a light
+for a warp (8x4 pixels) that it cannot reach: lights_near_box is the plain
+model of its first test, shade_kernel.light_live of the second, and
+walk_counts counts what the walk meets and what the tests leave of it.
+
 Uniforms (12,) f32: 0:3 camera_pos | 3:6 sun dir (unit) | 6:9 sun radiance
 | 9:12 background.
 """
@@ -29,6 +34,7 @@ from lsr_tpu_torch.lighting.shade_kernel import (
     _sun_term,
     _unit3,
     bin_light_records,
+    light_live,
     light_terms,
     pad_planes,
     tile_planes,
@@ -39,6 +45,8 @@ from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
 REC_LANES = 56
 REC_LAYOUTS = ("planes", "lanes")
+_KERNEL_WARP = (8, 4)    # a warp of kernel B5 owns 8x4 (w x h) pixels
+_KERNEL_BLOCK = (32, 8)  # of its 32x8 block, which lies inside one tile
 
 
 def _pairwise_sum(x):
@@ -87,13 +95,13 @@ def _uniforms(camera_pos, sun_dir_ws, sun_radiance, background, dev):
                      ).to(torch.float32)
 
 
-def _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,
-                   uni, width, height, th, tw, tiles_y, tiles_x, chunk,
-                   sun_model, kinds):
-    """Plain PyTorch version of kernel B5, in its operation order.
-    Returns (H, W, 3) HDR."""
+def _pixel_planes(rec_table, tid, sun_vis, tex_albedo, width, height, th, tw,
+                  tiles_y, tiles_x):
+    """The per-pixel inputs of the light loop, interpolated through tid in
+    kernel B5's operation order, as (17, tiles, 1, th * tw) tile planes:
+    0:3 world_pos | 3:6 unit normal | 6 covered | 7:10 albedo | 10 metallic
+    | 11 roughness | 12 sun visibility | 13 ao | 14:17 emissive."""
     dev = rec_table.device
-    ph, pw = tiles_y * th, tiles_x * tw
     covered = tid >= 0
     rec = rec_table[torch.where(covered, tid, torch.zeros_like(tid))
                     .to(torch.int64)]                       # (H, W, 56)
@@ -114,11 +122,107 @@ def _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,
                             min=1e-24))
     alb = [torch.clamp(r(40 + i), min=0.0) * tex_albedo[..., i]
            for i in range(3)]
-    g = tile_planes(pad_planes(
+    return tile_planes(pad_planes(
         p + [n * nl for n in n0] + [covered] + alb
         + [torch.clamp(r(43), 0.0, 1.0), r(44), sun_vis,
-           torch.clamp(r(45), 0.0, 1.0), r(46), r(47), r(48)], ph, pw),
-        th, tw, tiles_y, tiles_x)
+           torch.clamp(r(45), 0.0, 1.0), r(46), r(47), r(48)],
+        tiles_y * th, tiles_x * tw), th, tw, tiles_y, tiles_x)
+
+
+def _rect_any(mask, th, tw, rw, rh):
+    """(T, C, th * tw) bool -> (T, C, th / rh, tw / rw): any pixel of each
+    rw x rh pixel rectangle of the tile."""
+    t, c, _ = mask.shape
+    return mask.view(t, c, th // rh, rh, tw // rw, rw).any(5).any(3)
+
+
+def lights_near_box(blk, px, py, pz, covered, th, tw):
+    """(T, chunk, th / 4, tw / 8) bool: plain model of the first cull of
+    kernel B5 (warp_box and light_near_box in csrc/resolve_fused.cu).  Each
+    warp boxes the world positions of its covered 8x4 pixels and keeps a
+    point or spot light only if the box's nearest point is in range, in the
+    operation order of the per-pixel distance, so that it never drops a
+    light that is in range of a pixel; rect and tube lights and lights with
+    an infinite color channel are always kept."""
+    (rw, rh), inf = _KERNEL_WARP, float("inf")
+    t = px.shape[0]
+    ok = covered & ~(torch.isnan(px) | torch.isnan(py) | torch.isnan(pz))
+
+    def bounds(p):
+        v = p.view(t, 1, th // rh, rh, tw // rw, rw)
+        m = ok.view_as(v)
+        return (torch.where(m, v, inf).amin((3, 5)),
+                torch.where(m, v, -inf).amax((3, 5)))
+
+    def gap(e, lo, hi):
+        e = e[..., None]                                    # (T, chunk, 1, 1)
+        return torch.where(e < lo, e - lo,
+                           torch.where(e > hi, e - hi, torch.zeros_like(lo)))
+
+    tx, ty, tz = (gap(blk[..., 1 + i:2 + i], *bounds(p))
+                  for i, p in enumerate((px, py, pz)))
+    dist = torch.sqrt(torch.clamp(tx * tx + ty * ty + tz * tz, min=1e-16))
+    near = dist < torch.clamp(blk[..., 17], min=0.001)[..., None, None]
+    ltype = blk[..., 0]
+    always = ((ltype == 3.0) | (ltype == 4.0)
+              | ~(torch.clamp(blk[..., 13:16], min=0.0) < inf).all(-1))
+    return near | always[..., None, None]
+
+
+def walk_counts(rec_table, tid, tex_albedo, tile_rec, counts, width: int,
+                height: int, th: int, tw: int, chunk: int, kinds):
+    """What kernel B5's light loop walks, counted with the plain models on
+    the kernel's own inputs: the (pixel, listed light) pairs of the padded
+    frame (every chunk of each tile's walk, zero records included), the
+    (covered pixel, binned light) pairs, the live pairs (light_live), and
+    per 8x4 warp rectangle, 32x1 pixel row and 32x8 block the lights with at
+    least one live pixel (what a vote over that footprint keeps); also the
+    lights the warp's box test keeps (lights_near_box)."""
+    tiles_y, tiles_x = cdiv(height, th), cdiv(width, tw)
+    no_vis = torch.zeros_like(tid, dtype=torch.float32)   # not read here
+    g = _pixel_planes(rec_table, tid, no_vis, tex_albedo, width, height, th,
+                      tw, tiles_y, tiles_x)
+    px, py, pz, nx, ny, nz = (g[i] for i in range(6))
+    cov = g[6] > 0.0
+    cap = tile_rec.shape[1]
+    n64 = counts.to(torch.int64)
+    n_listed = torch.clamp((n64 + chunk - 1) // chunk, max=cap // chunk) * chunk
+    rects = {"warp": _KERNEL_WARP, "row": (32, 1), "block": _KERNEL_BLOCK}
+    kept = {k: 0 for k in rects}
+    near = 0
+    live_pairs = 0
+    for ci, blk in enumerate(walk_chunks(tile_rec, counts, chunk)):
+        live = light_live(blk, px, py, pz, nx, ny, nz, cov, kinds)
+        live_pairs += int(live.sum())
+        for k, (rw, rh) in rects.items():
+            kept[k] = kept[k] + _rect_any(live, th, tw, rw, rh).sum(1)
+        listed = (ci * chunk + torch.arange(chunk, device=blk.device))[None] \
+            < n_listed[:, None]
+        near = near + (lights_near_box(blk, px, py, pz, cov, th, tw)
+                       & listed[..., None, None]).sum(1)
+    out = {"pairs_walked": int((n_listed * th * tw).sum()),
+           "pairs_binned": int((torch.clamp(n64, max=cap)
+                                * cov.sum((1, 2))).sum()),
+           "pairs_live": live_pairs,
+           "lights_listed_per_block_mean": float(
+               n_listed.to(torch.float64).mean())}
+    for k, (rw, rh) in rects.items():
+        c = kept[k].to(torch.float64)
+        out[f"lights_live_per_{k}_mean"] = float(c.mean())
+        out[f"lights_live_per_{k}_max"] = int(c.max())
+        out[f"pairs_after_{k}_vote"] = int(c.sum()) * rw * rh
+    out["lights_near_per_warp_mean"] = float(near.to(torch.float64).mean())
+    out["pairs_after_warp_box"] = int(near.sum()) * 32
+    return out
+
+
+def _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,
+                   uni, width, height, th, tw, tiles_y, tiles_x, chunk,
+                   sun_model, kinds):
+    """Plain PyTorch version of kernel B5, in its operation order.
+    Returns (H, W, 3) HDR."""
+    g = _pixel_planes(rec_table, tid, sun_vis, tex_albedo, width, height, th,
+                      tw, tiles_y, tiles_x)
     px, py, pz, nx, ny, nz = g[0], g[1], g[2], g[3], g[4], g[5]
     cov = g[6] > 0.0
     metal, rough, ao = g[10], g[11], g[13]
@@ -231,9 +335,11 @@ def resolve_fused(rec_table, tid, sun_vis, tex_albedo, camera_pos,
         raise ValueError(f"resolve_fused: unsupported device {dev}")
     _check(rec_table, tile_h, tile_w, cap, chunk, sun_model, rec_layout,
            local_vis_planes, light_shadow_index)
-    if rec_table.dtype != torch.float32 or not rec_table.is_contiguous():
+    if (rec_table.dtype != torch.float32 or not rec_table.is_contiguous()
+            or rec_table.data_ptr() % 16):
         raise ValueError("resolve_fused: the record table must be "
-                         "contiguous f32")
+                         "contiguous f32, 16-byte aligned (the kernel reads "
+                         "its rows with 16-byte loads)")
     tile_rec, counts, bin_stats = bin_light_records(
         lights, view, proj, width, height, tile_h, tile_w, cap,
         tile_depth_range)

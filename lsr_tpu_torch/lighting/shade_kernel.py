@@ -121,13 +121,15 @@ def untile_planes(t, th, tw, tiles_y, tiles_x):
 
 
 def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
-                kinds):
+                kinds, want_reach=False):
     """One chunk of every tile's list against the tile's pixels, in the
-    kernels' operation order (csrc/light_loop.cuh:local_light).
+    kernels' operation order (csrc/light_loop.cuh: light_prepare,
+    light_reach, light_shade).
     blk: (T, chunk, 32) records; pixel planes (T, 1, P).  Returns the
     clamped light colors ((T, chunk, 1) x 3), wd and ws (T, chunk, P).
     kinds: the light types to evaluate (math for absent types is skipped,
-    bit-exact)."""
+    bit-exact).  want_reach also returns light_reach's verdict (see
+    light_live)."""
     def f(j):
         return blk[:, :, j:j + 1]                           # (T, chunk, 1)
 
@@ -197,6 +199,7 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
     llx, lly, llz = tlx * inv_d, tly * inv_d, tlz * inv_d
 
     shaping = torch.ones_like(dist)
+    shaped = torch.ones_like(dist, dtype=torch.bool)
     if has_spot:
         cos_t = -(llx * fwdx + lly * fwdy + llz * fwdz)
         cin = torch.cos(inner)
@@ -206,11 +209,13 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
         spot = torch.where(cos_t > cout, tt * tt * (3.0 - 2.0 * tt),
                            torch.zeros_like(tt))
         shaping = torch.where(is_spot, spot, shaping)
+        shaped = torch.where(is_spot, cos_t > cout, shaped)
     if has_rect:
         facing = torch.clamp(-(fwdx * llx + fwdy * lly + fwdz * llz), min=0.0)
         rect = torch.where(facing > 0.0, 0.65 + 0.55 * facing,
                            torch.zeros_like(facing))
         shaping = torch.where(is_rect, rect, shaping)
+        shaped = torch.where(is_rect, facing > 0.0, shaped)
     if has_tube:
         soft = torch.clamp(1.0 - dist / rng, 0.0, 1.0)
         shaping = torch.where(is_tube, 0.75 + 0.35 * soft, shaping)
@@ -245,7 +250,24 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
                        min=0.0)
     spec = spec_sc * torch.pow(torch.clamp(lndh, min=1e-9), spec_pw)
     cols = [torch.clamp(c, min=0.0) for c in (colr, colg, colb)]
+    if want_reach:
+        reach = (covered & (dist > 1e-4) & (dist < rng) & (lndl > 0.0)
+                 & shaped)
+        return cols, gain * lndl, gain * spec, reach
     return cols, gain * lndl, gain * spec
+
+
+def light_live(blk, px, py, pz, nx, ny, nz, covered, kinds):
+    """(T, chunk, P) bool: the (light, pixel) pairs that can add anything,
+    the plain model of light_reach's verdict in csrc/light_loop.cuh, on
+    which kernel B5's warps vote before they pay for a light's attenuation
+    and specular terms.  A pair is live when the pixel is covered, off the
+    emitter (dist > 1e-4), in range (dist < rng), faces the light (N.L > 0)
+    and lies inside a spot's cone or in front of a rect; anywhere else
+    light_terms' gain is 0 and its wd and ws are +0."""
+    zero = torch.zeros_like(px)
+    return light_terms(blk, px, py, pz, nx, ny, nz, zero, zero, zero,
+                       covered, True, kinds, want_reach=True)[3]
 
 
 def walk_chunks(tile_rec, counts, chunk):

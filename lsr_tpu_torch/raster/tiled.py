@@ -4,7 +4,8 @@
   triangles are grouped in supers of 256 (_SUPER), each made of chunks of
   16.  Per 128x128 screen tile, torch ops build the list of supers whose
   bbox overlaps the tile; the CUDA kernel (csrc/direct_raster.cu) walks its
-  tile's list and skips chunks whose bbox misses its 16x16 pixel block.
+  tile's list, one super a step, and skips chunks whose bbox misses its
+  16x16 pixel block.
 - B3 rasterize_tiled (_raster_kernel): per-tile triangle lists (bin
   triangles, capped at `cap`), walked in list order by
   csrc/tiled_raster.cu, which reads each listed row from the resident
@@ -15,7 +16,9 @@
   Both kernels walk their lists per 16x16 pixel block and first drop the
   triangles that an exact test of the block's corners rules out
   (csrc/block_walk.cuh; cull_rejects is its plain model, walk_survivors
-  counts what the cull keeps).
+  counts what the cull keeps).  B1 walks the same way: its candidates are
+  the triangles of the listed supers' chunks whose bbox meets the block
+  (rasterize_direct_plain is the plain model of that walk).
 
 All three resolve (min depth, first submitted); B1 with spatial_sort
 resolves the lexicographic (depth, tid) minimum, which is the same rule.
@@ -47,9 +50,9 @@ _REC = 16         # f32 lanes per setup record
 _CHUNK = 16       # triangles per chunk of kernel B1
 _PLAIN_WALK_STEP = 1024  # triangles per step of walk_survivors
 _BAND_BITS = 5    # low bits of a chunk-list entry: band_start, band_count - 1
-_KERNEL_BLOCK = 16  # B3/B4 pixel blocks are 16x16 and lie inside one tile
-_KERNEL_WARP = (8, 4)  # a warp of a B3/B4 block owns 8x4 (w x h) pixels
-_PLAIN_GROUP = 64   # triangles per step of the plain B4 walk
+_KERNEL_BLOCK = 16  # the rasters' pixel blocks are 16x16, inside one tile
+_KERNEL_WARP = (8, 4)  # a warp of such a block owns 8x4 (w x h) pixels
+_PLAIN_GROUP = 64   # triangles per step of the plain B1 and B4 walks
 
 # Setups with more rows than this take the binned kernel B3 instead of B1,
 # in render_forward and in the pipeline raster (lsr_tpu's routing limit,
@@ -78,8 +81,11 @@ def _targets(depth_init, tid_init, height, width, dev):
 
 
 def _check_cuda_targets(name, dev, height, width, depth_init, tid_init):
+    """Given targets must be what the kernels read; B1 also takes None."""
     for tname, t, dt in (("depth_init", depth_init, torch.float32),
                          ("tid_init", tid_init, torch.int32)):
+        if t is None:
+            continue
         if (t.device != dev or t.dtype != dt or t.shape != (height, width)
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: {tname} must be a contiguous {dt} "
@@ -214,7 +220,11 @@ def pack_direct_records(setup: TriSetup, spatial_sort: bool,
 def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
                    width, height, zn, zf, depth_mode, track_ids, tie_tid,
                    stream):
-    """Launch kernel B1 through the C interface; returns (depth, tid)."""
+    """Launch kernel B1 through the C interface; returns (depth, tid).
+    depth_init / tid_init None: the kernel starts from a cleared target
+    (depth 1, id -1) without reading one.  track_ids False: depth only,
+    tid comes back as it went in.  tie_tid: exact depth ties go to the
+    smaller id instead of the earlier row."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -222,7 +232,9 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
     chunk_bb = chunk_bb.contiguous()
     err = lib.lsr_direct_raster(
         rec.data_ptr(), chunk_bb.data_ptr(), slists.data_ptr(),
-        counts.data_ptr(), depth_init.data_ptr(), tid_init.data_ptr(),
+        counts.data_ptr(),
+        None if depth_init is None else depth_init.data_ptr(),
+        None if tid_init is None else tid_init.data_ptr(),
         depth.data_ptr(), tid.data_ptr(), width, height,
         cdiv(width, 128), slists.shape[1], zn_f, inv_range,
         float(height - 1), depth_mode, int(track_ids), int(tie_tid), stream)
@@ -247,7 +259,8 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     spatial_sort=True resolves exact z ties by min tid, which equals the
     unsorted first-submitted rule; emitted tids index the caller's rows.
     CPU tensors run the plain version (rasterize_brute); CUDA tensors launch
-    kernel B1 or raise."""
+    kernel B1 or raise.  Without depth_init / tid_init the kernel starts
+    from the cleared constants and no target is allocated for it to read."""
     if band_h:
         raise NotImplementedError("rasterize_direct: band_h (stacked atlas "
                                   "bands) is not ported yet")
@@ -271,9 +284,10 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
         max_sup = _super_mask(chunk_bb, _CHUNK, cdiv(width, tile_w),
                               cdiv(height, tile_h), tile_w, tile_h
                               ).sum(dim=1, dtype=torch.int32).max()
-    depth_init, tid_init = _targets(depth_init, tid_init, height, width, dev)
 
     if dev.type == "cpu":
+        depth_init, tid_init = _targets(depth_init, tid_init, height, width,
+                                        dev)
         depth, tid = rasterize_brute(setup, width, height, zn, zf,
                                      depth_init=depth_init, tid_init=tid_init,
                                      depth_mode=depth_mode)
@@ -281,12 +295,13 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
 
     _check_cuda_targets("rasterize_direct", dev, height, width, depth_init,
                         tid_init)
+    # Depth only: the tid the kernel writes is tid_init (or -1 everywhere).
     depth, tid = _direct_launch(
         load_kernels(), rec, chunk_bb, slists, counts, depth_init, tid_init,
         width, height, zn, zf, depth_mode, track_ids, spatial_sort,
         _stream(dev))
     rasterize_direct.launches += 1
-    return depth, (tid if track_ids else tid_init.clone()), max_sup
+    return depth, tid, max_sup
 
 
 rasterize_direct.launches = 0
@@ -488,6 +503,13 @@ def _rect_keep(blk, fr, bw, bh, bands=None, sub_h=None):
     return keep
 
 
+def _per_pixel(per_block, bh, bw):
+    """(..., H / bh, W / bw) -> (..., H, W): each rectangle's value at its
+    pixels."""
+    return per_block.repeat_interleave(bh, dim=-2).repeat_interleave(
+        bw, dim=-1)
+
+
 def _walk_keep(blk, fr, bands=None, sub_h=None):
     """(T, K, H, W) bool: at each pixel, whether record k of tile t reaches
     the pixel's evaluation in kernels B3 and B4: it survives the cull
@@ -496,8 +518,7 @@ def _walk_keep(blk, fr, bands=None, sub_h=None):
     _check_kernel_tiles("block cull", fr.th, fr.tw)
     keep = None
     for bw, bh in ((_KERNEL_BLOCK, _KERNEL_BLOCK), _KERNEL_WARP):
-        level = _rect_keep(blk, fr, bw, bh, bands, sub_h).repeat_interleave(
-            bh, dim=2).repeat_interleave(bw, dim=3)
+        level = _per_pixel(_rect_keep(blk, fr, bw, bh, bands, sub_h), bh, bw)
         keep = level if keep is None else keep & level
     return keep
 
@@ -542,18 +563,100 @@ class _TileFrame:
                 :self.h, :self.w]
 
 
-def _resolve(inside, z01, ids, d, t, track_ids: bool):
+def _resolve(inside, z01, ids, d, t, track_ids: bool, tie_tid: bool = False):
     """Fold one group of candidates (T, K, H, W), in list order, into the
     (T, H, W) depth / tid: (min depth, first in the group), strict '<'
-    against the target.  Equals a sequential strict walk."""
+    against the target.  Equals a sequential strict walk.  tie_tid: exact
+    depth ties, inside the group and against the target, go to the smaller
+    id instead (kernel B1 on spatially sorted rows)."""
     cand = torch.where(inside, z01, torch.full_like(z01, float("inf")))
     best, k = torch.min(cand, dim=1)      # first minimum = first in list
     upd = best < d
+    if track_ids and tie_tid:
+        tied = inside & (cand == best[:, None])
+        win = torch.where(tied, ids[..., None, None],
+                          torch.full_like(z01, float("inf"))).min(dim=1).values
+        upd = upd | ((best == d) & (win < t))
+    else:
+        win = torch.gather(ids, 1, k.flatten(1)).view_as(k)
     d = torch.where(upd, best, d)
     if track_ids:
-        win = torch.gather(ids, 1, k.flatten(1)).view_as(k)
         t = torch.where(upd, win.to(torch.int32), t)
     return d, t
+
+
+def _super_chunks(sup, chunk_bb, fr):
+    """Listed supers sup (T, g) i64 -> (setup rows (T, g * 256), hit
+    (T, g * 16, th / 16, tw / 16) bool): the triangles of the supers' chunks
+    in row order, and whether each chunk's bbox meets each 16x16 pixel block
+    of the tile, the test of kernel B1 (inclusive pixel indices against the
+    block's first and last pixel)."""
+    dev = sup.device
+    cps = _SUPER // _CHUNK
+    chunks = (sup[..., None] * cps + torch.arange(cps, device=dev)).flatten(1)
+    rows = (chunks[..., None] * _CHUNK
+            + torch.arange(_CHUNK, device=dev)).flatten(1)
+    bb = chunk_bb[chunks]                                    # (T, g*16, 4)
+    b = _KERNEL_BLOCK
+    x0 = (fr.px[:, 0, 0, ::b] - 0.5)[:, None, None, :]       # (T, 1, 1, bx)
+    y0 = (fr.py[:, 0, ::b, 0] - 0.5)[:, None, :, None]       # (T, 1, by, 1)
+    lane = lambda j: bb[..., j][..., None, None]  # noqa: E731
+    hit = ((lane(0) <= x0 + (b - 1)) & (lane(2) >= x0)
+           & (lane(1) <= y0 + (b - 1)) & (lane(3) >= y0))
+    return rows, hit
+
+
+def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
+                           tid_init, width: int, height: int, zn: float,
+                           zf: float, depth_mode: int = DEPTH_VIEWZ,
+                           track_ids: bool = True, tie_tid: bool = False,
+                           block_cull: bool = False):
+    """Plain model of kernel B1's walk on the kernel's own inputs: every
+    128x128 tile walks its first counts[t] listed supers in list order and
+    evaluates a triangle at a pixel only where its chunk's bbox meets the
+    pixel's 16x16 block (rasterize_brute, the plain version the wrapper runs
+    for CPU tensors, evaluates every triangle everywhere; the two differ
+    only where a sliver's edge functions cover a pixel outside its chunk's
+    bbox).  block_cull=True also masks out the pairs that the kernel's cull
+    against the block and against the warp's 8x4 rectangle rejects; the
+    cull is exact, so the result is the same.  tie_tid as in _resolve."""
+    dev = rec.device
+    zn_f, inv_range = depth_params(zn, zf)
+    fr = _TileFrame(width, height, 128, 128, 0, height, dev)
+    d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
+    b, per_step = _KERNEL_BLOCK, _PLAIN_GROUP // _CHUNK
+    for i in range(int(counts.max()) if counts.numel() else 0):
+        sup = torch.clamp(slists[:, i:i + 1], min=0).to(torch.int64)
+        rows, hit = _super_chunks(sup, chunk_bb, fr)
+        hit = hit & (i < counts)[:, None, None, None]
+        for c0 in range(0, hit.shape[1], per_step):
+            if not bool(hit[:, c0:c0 + per_step].any()):
+                continue          # no block of any tile meets these chunks
+            blk = rec[rows[:, c0 * _CHUNK:(c0 + per_step) * _CHUNK]]
+            inside, z01 = _tri_depth(blk, fr, zn_f, inv_range, depth_mode)
+            inside &= _per_pixel(hit[:, c0:c0 + per_step], b, b) \
+                .repeat_interleave(_CHUNK, dim=1) & fr.ndc_ok[:, None]
+            if block_cull:
+                inside &= _walk_keep(blk, fr)
+            d, t = _resolve(inside, z01, blk[..., 15], d, t, track_ids,
+                            tie_tid)
+    return fr.join(d), fr.join(t)
+
+
+def direct_chunk_hits(chunk_bb, slists, counts, width: int, height: int):
+    """(T, 8, 8) i64: of tile t's first counts[t] listed supers, the chunks
+    whose bbox meets each 16x16 pixel block.  Kernel B1 evaluated all 16
+    triangles of such a chunk at all 256 pixels of the block before it
+    culled per triangle."""
+    fr = _TileFrame(width, height, 128, 128, 0, height, chunk_bb.device)
+    n = counts.to(torch.int64)
+    hits = torch.zeros((n.numel(), 128 // _KERNEL_BLOCK, 128 // _KERNEL_BLOCK),
+                       dtype=torch.int64, device=chunk_bb.device)
+    for i in range(int(n.max()) if n.numel() else 0):
+        sup = torch.clamp(slists[:, i:i + 1], min=0).to(torch.int64)
+        _, hit = _super_chunks(sup, chunk_bb, fr)
+        hits += (hit & (i < n)[:, None, None, None]).sum(1)
+    return hits
 
 
 def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
@@ -631,11 +734,13 @@ def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
 def walk_survivors(rec, lists, counts, width: int, height: int,
                    tile_h: int, tile_w: int, chunk: int | None = None,
                    sub_h: int | None = None, y_offset: int = 0,
-                   full_height: int | None = None):
-    """What kernels B3 and B4 keep of their walks, counted with the plain
-    model of their cull on the kernels' own inputs.  chunk=None: lists are
-    B3's (setup rows); otherwise B4's worklists of packed entries, `chunk`
-    triangles each, in bands of sub_h rows.
+                   full_height: int | None = None, chunk_bb=None):
+    """What kernels B1, B3 and B4 keep of their walks, counted with the
+    plain model of their cull on the kernels' own inputs.  chunk=None: lists
+    are B3's (setup rows); otherwise B4's worklists of packed entries,
+    `chunk` triangles each, in bands of sub_h rows.  With chunk_bb, lists
+    are B1's super lists on 128x128 tiles and a triangle is a candidate of a
+    block only where its chunk's bbox meets the block.
 
     Returns (per_block (T, tile_h/16, tile_w/16), per_warp (T, tile_h/4,
     tile_w/8)) i64: of tile t's first counts[t] entries, the triangles that
@@ -652,20 +757,26 @@ def walk_survivors(rec, lists, counts, width: int, height: int,
                             dtype=torch.int64, device=dev)
     per_warp = torch.zeros((n.numel(), tile_h // wh, tile_w // ww),
                            dtype=torch.int64, device=dev)
-    step = _PLAIN_WALK_STEP // (chunk or 1)
+    per_entry = _SUPER if chunk_bb is not None else (chunk or 1)
+    step = _PLAIN_WALK_STEP // per_entry
     for s in range(0, int(n.max()) if n.numel() else 0, step):
         e = lists[:, s:s + step].to(torch.int64)
         live = torch.arange(s, s + e.shape[1], device=dev)[None] < n[:, None]
-        if chunk is None:
-            rows, bands = torch.clamp(e, min=0), None
+        live = live[..., None].expand(-1, -1, per_entry).flatten(1)
+        bands = None
+        if chunk_bb is not None:
+            rows, hit = _super_chunks(torch.clamp(e, min=0), chunk_bb, fr)
+            live = live[:, :, None, None] \
+                & hit.repeat_interleave(_CHUNK, dim=1)
+        elif chunk is None:
+            rows, live = torch.clamp(e, min=0), live[:, :, None, None]
         else:
             rows, bands = _chunk_triangles(e, chunk)
-            live = live[..., None].expand(-1, -1, chunk).flatten(1)
+            live = live[:, :, None, None]
         blk = rec[rows]
-        kb = _rect_keep(blk, fr, b, b, bands, sub_h) & live[:, :, None, None]
+        kb = _rect_keep(blk, fr, b, b, bands, sub_h) & live
         kw = _rect_keep(blk, fr, ww, wh, bands, sub_h) \
-            & kb.repeat_interleave(b // wh, dim=2).repeat_interleave(
-                b // ww, dim=3)
+            & _per_pixel(kb, b // wh, b // ww)
         per_block += kb.sum(1)
         per_warp += kw.sum(1)
     return per_block, per_warp

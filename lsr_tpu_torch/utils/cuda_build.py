@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -139,6 +140,31 @@ def load_kernels():
                       seconds=time.perf_counter() - t0, log=log)
     _lib = lib
     return lib
+
+
+def kernel_resources(log: str) -> dict:
+    """What `ptxas -v` said in a build log: {source file: [{"fn": mangled
+    entry function, "registers", "spill_bytes" (stores + loads),
+    "stack_bytes", "smem_bytes" (static)}]}."""
+    out: dict = {}
+    src, cur = None, None
+    for line in log.splitlines():
+        if m := re.match(r"== (\S+)", line):
+            src = m.group(1)
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = {"fn": m.group(1), "registers": None, "spill_bytes": 0,
+                   "stack_bytes": 0, "smem_bytes": 0}
+            out.setdefault(src, []).append(cur)
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line):
+                cur["stack_bytes"] = int(m.group(1))
+                cur["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+            if m := re.search(r"Used (\d+) registers", line):
+                cur["registers"] = int(m.group(1))
+                if s := re.search(r"(\d+) bytes smem", line):
+                    cur["smem_bytes"] = int(s.group(1))
+    return out
 
 
 def check_launch(name: str, err: int) -> None:

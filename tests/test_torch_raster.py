@@ -351,3 +351,34 @@ def test_kernel_wrappers_do_not_fall_back(setups):
         rasterize_direct(tsu, W, H, 0.1, 100.0, band_h=128)
     with pytest.raises(NotImplementedError, match="y_offset"):
         rasterize_direct(tsu, W, H, 0.1, 100.0, y_offset=64)
+
+
+def test_kernel_resources_reads_the_ptxas_log():
+    """kernel_resources: registers, spills and static shared memory per
+    entry function from an `nvcc -Xptxas -v` log, grouped by source."""
+    from lsr_tpu_torch.utils.cuda_build import kernel_resources
+
+    log = """== a.cu
+ptxas info    : 24 bytes gmem
+ptxas info    : Compiling entry function '_Z1aILi8EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi8EEvPf
+    56 bytes stack frame, 24 bytes spill stores, 60 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 56 bytes cumulative stack size, 1024 bytes smem
+ptxas info    : Compiling entry function '_Z1aILi16EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi16EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+== b.cu
+ptxas info    : Compiling entry function 'k' for 'sm_90a'
+ptxas info    : Function properties for k
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers
+"""
+    assert kernel_resources(log) == {
+        "a.cu": [{"fn": "_Z1aILi8EEvPf", "registers": 64, "spill_bytes": 84,
+                  "stack_bytes": 56, "smem_bytes": 1024},
+                 {"fn": "_Z1aILi16EEvPf", "registers": 80, "spill_bytes": 0,
+                  "stack_bytes": 0, "smem_bytes": 0}],
+        "b.cu": [{"fn": "k", "registers": 20, "spill_bytes": 0,
+                  "stack_bytes": 0, "smem_bytes": 0}]}
+    assert kernel_resources("") == {}

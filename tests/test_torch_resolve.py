@@ -253,3 +253,174 @@ def test_resolve_frame_matches_jax():
     assert ldr.shape == (h, w, 3) and ldr.dtype == np.uint8
     d = np.abs(jl.astype(int) - ldr.astype(int)).max(-1)
     assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+
+
+# ---------------------------------------------------------------------------
+# What kernel B5 skips: light_live (its warps' vote) and lights_near_box
+# (its warps' box test) against light_terms, on seeded records and pixels
+# ---------------------------------------------------------------------------
+
+TH, TW = 8, 32       # two warp rows of four 8x4 rectangles per tile
+
+
+def _seeded_lights(seed, tiles=3, chunk=16):
+    """(tiles, chunk, 32) packed records around the origin: point, spot,
+    rect and tube lights, the three attenuation models, powers 0.7 to 2,
+    a cutoff on a third, ranges 0.3 to 2.5; the last three slots of every
+    tile are zero records (list slots past the count)."""
+    rng = np.random.default_rng(seed)
+    n = tiles * chunk
+    f = np.zeros((n, 32), np.float32)
+    f[:, 0] = rng.choice([1.0, 2.0, 3.0, 4.0], n)
+    f[:, 1:4] = rng.uniform(-2.0, 2.0, (n, 3))
+    f[:, 4:7] = rng.normal(0.0, 1.0, (n, 3))
+    f[:, 7:10] = rng.normal(0.0, 1.0, (n, 3))
+    f[:, 10:13] = rng.normal(0.0, 1.0, (n, 3))
+    f[:, 13:16] = rng.uniform(0.1, 1.0, (n, 3))
+    f[:, 16] = rng.uniform(0.5, 3.0, n)
+    f[:, 17] = rng.uniform(0.3, 2.5, n)
+    f[:, 18] = rng.uniform(0.1, 0.6, n)
+    f[:, 19] = f[:, 18] + rng.uniform(0.0, 0.5, n)
+    f[:, 20:23] = rng.uniform(0.05, 0.6, (n, 3))
+    f[:, 24] = rng.choice([0.0, 1.0, 2.0], n)
+    f[:, 25] = rng.choice([0.7, 1.0, 1.5, 2.0], n)
+    f[:, 26] = 1e-3
+    f[:, 27] = np.where(rng.random(n) < 1 / 3, rng.uniform(0.01, 0.2, n), 0.0)
+    f = f.reshape(tiles, chunk, 32)
+    f[:, -3:] = 0.0
+    return torch.from_numpy(f)
+
+
+def _seeded_pixels(seed, tiles=3):
+    """Pixel planes (tiles, 1, TH * TW): positions in coherent patches per
+    8x4 rectangle (as a surface gives them), unit normals and view vectors,
+    a quarter of the pixels uncovered and one rectangle wholly so."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-2.0, 2.0, (tiles, TH // 4, 1, TW // 8, 1, 3))
+    p = (centre + rng.uniform(-0.15, 0.15, (tiles, TH // 4, 4, TW // 8, 8, 3))
+         ).reshape(tiles, 1, TH * TW, 3).astype(np.float32)
+
+    def unit():
+        v = rng.normal(0.0, 1.0, (tiles, 1, TH * TW, 3))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    cov = rng.random((tiles, TH // 4, 4, TW // 8, 8)) < 0.75
+    cov[0, 0, :, 1, :] = False
+    planes = [torch.from_numpy(np.ascontiguousarray(a[..., i]))
+              for a in (p, unit(), unit()) for i in range(3)]
+    return planes, torch.from_numpy(cov.reshape(tiles, 1, TH * TW))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _live_case(seed, apow1):
+    from lsr_tpu_torch.lighting.fplus_kernel import ALL_KINDS
+    from lsr_tpu_torch.lighting.shade_kernel import light_live, light_terms
+
+    blk = _seeded_lights(seed)
+    (px, py, pz, nx, ny, nz, vx, vy, vz), cov = _seeded_pixels(seed + 100)
+    _, wd, ws = light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, cov,
+                            apow1, ALL_KINDS)
+    live = light_live(blk, px, py, pz, nx, ny, nz, cov, ALL_KINDS)
+    return blk, (px, py, pz, nx, ny, nz), cov, wd, ws, live
+
+
+@pytest.mark.parametrize("seed,apow1", [(0, False), (1, False), (2, True)])
+def test_light_terms_are_zero_outside_light_live(seed, apow1):
+    """light_terms with every (light, pixel) pair outside light_live zeroed
+    equals light_terms bit for bit (the skipped terms are +0, not -0 and
+    not NaN): point, spot, rect and tube lights, the three attenuation
+    models, cutoffs, zero records past the count and uncovered pixels.  So
+    a warp of kernel B5 that finds no live pixel for a light may skip it.
+    The sweep has enough dead and enough lit pairs to mean something."""
+    _, _, cov, wd, ws, live = _live_case(seed, apow1)
+    zero = torch.zeros_like(wd)
+    assert torch.equal(_bits(torch.where(live, wd, zero)), _bits(wd))
+    assert torch.equal(_bits(torch.where(live, ws, zero)), _bits(ws))
+    assert not bool(live[:, -3:].any())            # zero records
+    assert not bool((live & ~cov).any())
+    lit = (wd > 0).float().mean()
+    assert 0.3 < float((~live).float().mean()) and float(lit) > 0.01
+
+
+def test_light_live_sweep_catches_an_eager_skip():
+    """The test of the test: a live test that gives up at 90% of the range
+    zeroes terms that light_terms does not."""
+    from lsr_tpu_torch.lighting.fplus_kernel import ALL_KINDS
+    from lsr_tpu_torch.lighting.shade_kernel import light_live
+
+    blk, (px, py, pz, nx, ny, nz), cov, wd, _, _ = _live_case(0, False)
+    eager = blk.clone()
+    eager[..., 17] *= 0.9
+    live = light_live(eager, px, py, pz, nx, ny, nz, cov, ALL_KINDS)
+    assert not torch.equal(_bits(torch.where(live, wd, torch.zeros_like(wd))),
+                           _bits(wd))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lights_near_box_keeps_every_live_pair(seed):
+    """Kernel B5's first cull (each warp boxes the positions of its covered
+    8x4 pixels and drops the point and spot lights whose range the box's
+    nearest point misses) never drops a light with a live pixel in the
+    rectangle, also with NaN positions and infinite colors in play; it
+    keeps every rect and tube light; it does drop most of the rest."""
+    from lsr_tpu_torch.lighting.resolve_kernel import (
+        _rect_any, lights_near_box)
+
+    blk, (px, py, pz, *_), cov, _, _, live = _live_case(seed, False)
+    px = px.clone()
+    px[1, 0, 5] = float("nan")
+    blk[2, 0, 13] = float("inf")
+    blk[2, 0, 0] = 1.0
+    near = lights_near_box(blk, px, py, pz, cov, TH, TW)
+    wanted = _rect_any(live, TH, TW, 8, 4)
+    assert not bool((wanted & ~near).any())
+    area = (blk[..., 0] == 3.0) | (blk[..., 0] == 4.0)
+    assert bool(near[area].all()) and bool(near[2, 0].all())
+    assert not bool(near[0, ~area[0], 0, 1].any())   # the uncovered rectangle
+    assert float(near[~area].float().mean()) < 0.5
+    assert int((wanted & ~area[..., None, None]).sum()) > 5
+
+
+def test_lights_near_box_sweep_catches_a_tight_box():
+    """The test of the test: with the box's range test 20% too tight the
+    same sweep finds a dropped light that has a live pixel."""
+    from lsr_tpu_torch.lighting import resolve_kernel as rk
+
+    blk, (px, py, pz, *_), cov, _, _, live = _live_case(0, False)
+    tight = blk.clone()
+    tight[..., 17] *= 0.8
+    near = rk.lights_near_box(tight, px, py, pz, cov, TH, TW)
+    assert bool((rk._rect_any(live, TH, TW, 8, 4) & ~near).any())
+
+
+def test_walk_counts_are_consistent(scene):
+    """walk_counts (what chip_smoke.py reports of B5's light walk) on the
+    grid-2 scene: live pairs within what a warp vote keeps, within what its
+    box test keeps, within the walk; a block vote keeps at least a warp
+    vote's lights; the binned pairs equal a direct count."""
+    from lsr_tpu.raster.interp import pack_interp_records
+
+    from lsr_tpu_torch.lighting import resolve_kernel as rk
+    from lsr_tpu_torch.lighting.shade_kernel import bin_light_records
+
+    _, _, _, ctx, _, _ = scene["j"]
+    _, _, tl, _, tcam, _ = scene["t"]
+    table = _t(pack_interp_records(scene["setup"], ctx.materials))
+    tid = _t(scene["tid"])
+    trec, cnts, _ = bin_light_records(tl, tcam.view, tcam.proj, W, H, 64, 128,
+                                      256, None)
+    c = rk.walk_counts(table, tid, torch.ones((H, W, 3)), trec, cnts, W, H,
+                       64, 128, 8, tl.kinds)
+    assert 0 < c["pairs_live"] <= c["pairs_after_warp_vote"] \
+        <= c["pairs_after_warp_box"] <= c["pairs_walked"]
+    assert c["pairs_after_warp_vote"] <= c["pairs_after_block_vote"]
+    assert c["pairs_live"] <= c["pairs_after_row_vote"]
+    assert c["pairs_live"] < c["pairs_binned"] <= c["pairs_walked"]
+    cov = (tid >= 0)
+    per_tile = [int(cov[y:y + 64, :128].sum()) for y in (0, 64)]
+    assert c["pairs_binned"] == sum(int(n) * p for n, p in zip(cnts, per_tile))
+    assert c["lights_live_per_warp_max"] <= c["lights_live_per_block_max"]

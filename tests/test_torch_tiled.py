@@ -707,3 +707,152 @@ def test_listed_rows_counts_distinct_rows():
     cl = torch.tensor([[(2 << 5) | 0b0101, (3 << 5) | 3],
                        [(2 << 5) | 0b1000, 0]], dtype=torch.int32)
     assert listed_rows(cl, torch.tensor([2, 1], dtype=torch.int32), 16) == 32
+
+
+# ---------------------------------------------------------------------------
+# B1 on the shared walk: its plain model, tie rule and counts
+# ---------------------------------------------------------------------------
+
+def _direct_inputs(ts, sort, w=W, h=H):
+    from lsr_tpu_torch.raster import tiled
+
+    rec, ss, n_pad = tiled.pack_direct_records(ts, sort)
+    cbb = tiled._chunk_bboxes(ss, n_pad, 16)
+    sl, cnt, _ = tiled._super_lists(cbb, 16, -(-w // 128), -(-h // 128), 128,
+                                    128)
+    return rec, cbb, sl, cnt
+
+
+@pytest.mark.parametrize("sort,mode,track", [
+    (True, "viewz", True), (False, "ndc01", True), (True, "viewz", False)])
+def test_direct_plain_walk_unchanged_by_block_cull(scene, brute, sort, mode,
+                                                   track):
+    """The plain model of kernel B1's walk (a triangle is evaluated only
+    where its chunk's bbox meets the pixel's 16x16 block), with the pairs
+    masked out that the cull against the block and the warp's 8x4 rectangle
+    rejects, equals the unmasked walk bit for bit, sorted (ties by id) and
+    unsorted (ties by row), view-z and NDC01, ids and depth only.  On this
+    scene the walk also equals rasterize_brute: no winner lies outside its
+    chunk's bbox."""
+    from lsr_tpu_torch.raster import tiled
+
+    rec, cbb, sl, cnt = _direct_inputs(scene["ts"], sort)
+    d0, t0 = tiled._targets(None, None, H, W, torch.device("cpu"))
+
+    def run(cull):
+        return tiled.rasterize_direct_plain(
+            rec, cbb, sl, cnt, d0, t0, W, H, scene["zn"], scene["zf"],
+            _mode(mode), track, sort, block_cull=cull)
+
+    (d_a, t_a), (d_b, t_b) = run(False), run(True)
+    assert torch.equal(d_a, d_b) and torch.equal(t_a, t_b)
+    d_r, t_r = brute[_mode(mode)]
+    assert torch.equal(d_a, d_r)
+    assert torch.equal(t_a, t_r if track else t0)
+    assert int((d_a < 1.0).sum()) > 1000
+
+
+@pytest.mark.parametrize("tie_tid", [False, True])
+def test_direct_plain_walk_on_the_sliver_sweep(tie_tid):
+    """The same on the seeded sliver sweep (|coef| up to 2.5e7, triangles
+    that straddle block and warp borders and cover pixels far from their
+    vertices): 768 records over one 128x96 tile, every chunk's bbox the
+    whole frame, so only the per-triangle cull decides what a pixel
+    evaluates.  Ids are shuffled so that the tie rules differ."""
+    from lsr_tpu_torch.raster import tiled
+
+    w, h, k = 128, 96, 192
+    rng = np.random.default_rng(5)
+    rec = _sweep_records("sliver", rng, 4, k)
+    x0 = torch.tensor([8.0, 72.0, 24.0, 90.0])[:, None, None]
+    y0 = torch.tensor([10.0, 20.0, 60.0, 70.0])[:, None, None]
+    shift = rec[..., 0:9:3] * x0 + rec[..., 1:9:3] * y0
+    rec[..., 2:9:3] = (rec[..., 2:9:3] - shift).to(torch.float32)
+    rec = rec.reshape(-1, 16).contiguous()
+    rec[:, 15] = torch.from_numpy(rng.permutation(4 * k).astype(np.float32))
+    cbb = torch.tensor([0.0, 0.0, w - 1.0, h - 1.0]).repeat(4 * k // 16, 1)
+    sl = torch.tensor([[0, 1, 2]], dtype=torch.int32)
+    cnt = torch.tensor([3], dtype=torch.int32)
+    d0, t0 = tiled._targets(None, None, h, w, torch.device("cpu"))
+
+    def run(cull):
+        return tiled.rasterize_direct_plain(rec, cbb, sl, cnt, d0, t0, w, h,
+                                            0.1, 100.0, tie_tid=tie_tid,
+                                            block_cull=cull)
+
+    (d_a, t_a), (d_b, t_b) = run(False), run(True)
+    assert torch.equal(d_a, d_b) and torch.equal(t_a, t_b)
+    assert int((t_a >= 0).sum()) > 500
+    assert len(torch.unique(t_a)) > 50
+
+
+def test_resolve_tie_rules():
+    """_resolve: the first of equal depths wins inside a group and a tie
+    with the target loses; with tie_tid the smaller id wins both."""
+    from lsr_tpu_torch.raster.tiled import _resolve
+
+    z = torch.tensor([0.5, 0.5, 0.25, 0.5]).view(1, 4, 1, 1).expand(1, 4, 1, 3)
+    inside = torch.tensor([[1, 1, 0], [1, 1, 1], [0, 0, 1], [0, 1, 1]],
+                          dtype=torch.bool).T.reshape(1, 3, 4).permute(
+                              0, 2, 1)[:, :, None, :]
+    ids = torch.tensor([[7.0, 3.0, 9.0, 1.0]])
+    d = torch.tensor([[[1.0, 0.5, 0.25]]])
+    t = torch.tensor([[[-1, 2, 4]]], dtype=torch.int32)
+    d1, t1 = _resolve(inside, z, ids, d, t, True)
+    assert d1.flatten().tolist() == [0.5, 0.5, 0.25]
+    assert t1.flatten().tolist() == [7, 2, 4]
+    d2, t2 = _resolve(inside, z, ids, d, t, True, tie_tid=True)
+    assert d2.flatten().tolist() == [0.5, 0.5, 0.25]
+    assert t2.flatten().tolist() == [3, 1, 4]
+    d3, t3 = _resolve(inside, z, ids, d, t, False, tie_tid=True)
+    assert d3.flatten().tolist() == [0.5, 0.5, 0.25]
+    assert t3.flatten().tolist() == [-1, 2, 4]
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_walk_survivors_counts_the_direct_walk(scene, sort):
+    """walk_survivors on B1's source (the triangles of the listed supers'
+    chunks whose bbox meets the block) equals a direct count of the plain
+    walk's mask, and direct_chunk_hits a direct count of the chunk test."""
+    from lsr_tpu_torch.raster import tiled
+
+    rec, cbb, sl, cnt = _direct_inputs(scene["ts"], sort)
+    per_block, per_warp = tiled.walk_survivors(rec, sl, cnt, W, H, 128, 128,
+                                               chunk_bb=cbb)
+    hits = tiled.direct_chunk_hits(cbb, sl, cnt, W, H)
+    fr = tiled._TileFrame(W, H, 128, 128, 0, H, torch.device("cpu"))
+    want_b = torch.zeros_like(per_block)
+    want_w = torch.zeros_like(per_warp)
+    want_h = torch.zeros_like(hits)
+    ww, wh = tiled._KERNEL_WARP
+    for t in range(sl.shape[0]):
+        for s in sl[t, :int(cnt[t])].tolist():
+            for c in range(s * 16, s * 16 + 16):
+                x0, y0, x1, y1 = cbb[c].tolist()
+                bx = torch.arange(8) * 16 + (t % fr.tx) * 128
+                by = torch.arange(8) * 16 + (t // fr.tx) * 128
+                hit = ((x0 <= bx + 15) & (x1 >= bx))[None, :] \
+                    & ((y0 <= by + 15) & (y1 >= by))[:, None]      # (8, 8)
+                want_h[t] += hit
+                if not bool(hit.any()):
+                    continue
+                blk = rec[c * 16:c * 16 + 16][None]
+                one = types_frame(fr, t)
+                kb = tiled._rect_keep(blk, one, 16, 16)[0] & hit[None]
+                kw = tiled._rect_keep(blk, one, ww, wh)[0] \
+                    & kb.repeat_interleave(16 // wh, 1).repeat_interleave(
+                        16 // ww, 2)
+                want_b[t] += kb.sum(0)
+                want_w[t] += kw.sum(0)
+    assert torch.equal(want_h, hits)
+    assert torch.equal(want_b, per_block) and torch.equal(want_w, per_warp)
+    assert 0 < int(per_warp.sum()) * 32 < int(per_block.sum()) * 256 \
+        < int(hits.sum()) * 16 * 256
+
+
+def types_frame(fr, t):
+    """Tile t of a _TileFrame as a one-tile frame."""
+    import types
+
+    return types.SimpleNamespace(th=fr.th, tw=fr.tw, px=fr.px[t:t + 1],
+                                 py=fr.py[t:t + 1])
