@@ -17,11 +17,20 @@ first use, into build/kernels/), then:
    on a mixed set with rect and tube lights.  Lit rgb within 1e-4.
 3. A small-input reference: the same scene with a 256^2 ESM sun map,
    rendered by the plain versions on the CPU and by the kernels on the card,
-   at 192x108.
-4. The main path: launch counters reset, then the 1920x1080, 256-light
-   forward+ frame (make_flagship_frame, B2 route, 2048^2 ESM sun map) along
-   the bench orbit; prints the median ms per frame, the launch counts and
-   the frame statistics, and writes out/torch_flagship.png.
+   at 192x108 (the cut frame: no cull, no local atlas).
+4. The main path: bench.py's whole flagship frame (make_flagship_frame:
+   per-frame cull of objects and lights, the 8-spot + 2-point local shadow
+   atlas, the sun map, raster, forward+ with local-shadow planes, tonemap,
+   FXAA) at 1920x1080 with 256 lights along the bench orbit, counts reset
+   before each configuration: (a) bench.py's ESM default (sun 1024^2, spot
+   slots 512^2, cube faces 256^2, planes and sun visibility at half
+   resolution), B2 route, "map" atlas, writing out/torch_flagship.png; (b)
+   the same with the "packed" atlas; (c) the ESM default on the resolve
+   route (out/torch_flagship_resolve.png); (d) the exact-PCF control (2048^2
+   / 1024^2 / 512^2, full resolution), B2 route.  Median device-event and
+   wall ms per frame, pipelined ms, the launches checked exactly (B1 3 + 20
+   a frame under "map", 3 + 2 under "packed", one B2 or B5), the visible
+   objects and lights per frame.
 
 Then the high-poly path, on the 33x33 sphere field (1,115,136 triangles,
 lsr_tpu_torch.highpoly):
@@ -68,18 +77,37 @@ Then the slice of the sun shadow, B5 and B6, on the flagship scene:
 12. B6 (accumulate_lights) at 1920x1080 on the flagship G-buffer, 64x128
     and 16x128 tiles: the kernel against its plain version; diffuse and
     specular within 1e-4.  Then its entry point once, counts reset.
-13. The resolve frame (make_flagship_frame(use_resolve=True)) at 1920x1080,
-    counts reset: two direct_raster launches (sun map, camera) and one
-    resolve_fused launch per frame, median and pipelined ms per frame,
-    out/torch_flagship_resolve.png, and its HDR against the B2 route's on
-    the same camera (lsr_tpu's bar: mean |dHDR| < 5e-3, < 1% of pixels
-    over 0.05).
-14. Where the time goes: for the flagship frame on both routes, the
+13. The cut resolve frame (no cull, no atlas, 2048^2 ESM sun map) at
+    1920x1080, counts reset: two direct_raster launches and one
+    resolve_fused launch per frame, median and pipelined ms per frame, and
+    its HDR against the B2 route's on the same camera (lsr_tpu's bar: mean
+    |dHDR| < 5e-3, < 1% of pixels over 0.05).
+
+Then the whole frame's kernel branches:
+
+15. The atlas on the card against the plain versions, bit for bit, in the
+    ESM default: B1 on the 320x180 occluders (view-z, depth only), on the
+    busiest spot slot and cube face (NDC01), B1a (band_h) on both stacks
+    (and against one launch a slot); the "packed" atlas against the "map"
+    atlas, whole-table equal, for both filters at their sizes.
+16. B2a and B5a (local-shadow planes) against their plain versions at
+    1920x1080 with the ESM default frame's real planes, within 1e-4, and
+    each kernel's time with and without the planes, in one call.
+17. The card against the CPU on the whole frame: the grid-2 scene, 32
+    lights, 192x108, ESM default with a 256^2 sun map and 128^2 slots and
+    faces, cull and atlas, both routes, under phase 3's contract.
+
+14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
     previous stage's outputs (host enqueue ms, device ms by CUDA events),
     then whole frames: median ms by CUDA events, and torch.profiler's
-    device busy ms and kernel launches per frame.  (The high-poly part
+    device busy ms and kernel launches per frame; then the whole frame's
+    own stages (cull, atlas by both strategies, planes, its sun map) and
+    its breakdown on both routes in the ESM default.  (The high-poly part
     runs after phase 8, while its scene is on the card.)
+
+Each phase that measures a kernel logs its entry of the final kernels line
+as it ends ("# kernels entry [...]"), so a cut run keeps its numbers.
 
 Every kernel's bound is the larger of the bytes it must move over 3.35
 TB/s and the f32 operations this run's data needs over 67 TFLOP/s (the
@@ -126,6 +154,10 @@ SHADOW = 2048                      # the bench's sun map
 SMALL_S = 256                      # the sun map of the CPU reference
 ESM_TOL = 1.3e-3                   # one soft-map quantum: exp(80/65535) - 1
 RES_FRAMES = 8                     # resolve frames after warm-up
+CUT = dict(with_cull=False, with_local=False)   # the cut frame
+WHOLE_FRAMES = 6                   # whole frames after warm-up, per config
+SMALL_LIGHTS = 32                  # lights of the small whole-frame check
+SMALL_LOCAL = 128                  # its spot slots and cube faces
 
 # Work counts for the bounds (f32 operations, sqrt / division / powf / cosf
 # counted as one each).
@@ -187,6 +219,34 @@ def light_pairs(counts, covered, tile_h, tile_w, cap):
     per_tile = cov.reshape(ty, tile_h, tx, tile_w).sum(dim=(1, 3)).reshape(-1)
     return int((torch.clamp(counts.to(torch.int64), max=cap)
                 * per_tile).sum())
+
+
+def shadowed_pairs(tile_rec, counts, covered, n_shadowed, tile_h, tile_w):
+    """(covered pixel, binned light with a shadow plane) pairs: the plane
+    texels B2a / B5a must read, one for each walked record whose lane 28
+    (its plane) is below n_shadowed."""
+    live = torch.arange(tile_rec.shape[1], device=counts.device)[None] \
+        < counts[:, None].to(torch.int64)
+    n = ((tile_rec[..., 28] < n_shadowed) & live).sum(1)
+    return light_pairs(n, covered, tile_h, tile_w, tile_rec.shape[1])
+
+
+def direct_read_bytes(rec, chunk_bb, lists, counts):
+    """What a B1 launch must read: its live super-list entries and its
+    tiles' counts, the chunk boxes of each distinct listed super and the
+    records of the valid rows in those supers.  Unlisted supers (outside
+    the view, a slot's padding) and invalid rows need no read."""
+    from lsr_tpu_torch.raster import tiled
+
+    live = torch.arange(lists.shape[1], device=lists.device)[None] \
+        < counts[:, None]
+    sup = torch.unique(lists[live]).to(torch.int64)
+    rows = int((rec.reshape(-1, tiled._SUPER, rec.shape[1])[sup, :, 15] >= 0)
+               .sum())
+    boxes = sup.numel() * (tiled._SUPER // tiled._CHUNK)
+    return (4 * int(live.sum()) + 4 * counts.numel()
+            + boxes * chunk_bb.shape[1] * chunk_bb.element_size()
+            + rows * rec.shape[1] * rec.element_size())
 
 
 def walk_stats(name, rec, lists, n, width, height, tile_h, pairs_needed,
@@ -323,7 +383,7 @@ def b1_phase(setup, cam, dev):
     plain_ms = cuda_ms(lambda: rasterize_brute(setup, WIDTH, HEIGHT, cam.zn,
                                                cam.zf), 2)
     n_pairs = raster_pairs(setup)
-    b = bound(nbytes(rec, cbb, sl, cnt) + 8 * WIDTH * HEIGHT,
+    b = bound(direct_read_bytes(rec, cbb, sl, cnt) + 8 * WIDTH * HEIGHT,
               n_pairs * RASTER_OPS)
     log(f"B1 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
         f"plain (rasterize_brute) {plain_ms:.3f} ms; bound {b}")
@@ -396,8 +456,8 @@ def b2_phase(gb, ctx_t, lights, cam, dev):
 
     run = lambda: sk.shade_fused(*args(lights, "pbr_mr"))  # noqa: E731
     ms = cuda_ms(run, 20)
-    gbuf, trec, cnts, uni, _, _ = sk._prepare(
-        *args(lights, "pbr_mr"), None, None, None, 0)
+    gbuf, trec, cnts, uni = sk._prepare(
+        *args(lights, "pbr_mr"), None, None, None, 0)[:4]
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     kern = lambda: sk._shade_launch(  # noqa: E731
@@ -437,7 +497,7 @@ def small_reference(dev):
                                                           device=d)
         cam, ctx_t = flagship_camera(0, ctx, SMALL_W, SMALL_H, device=d)
         st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, SMALL_W,
-                             SMALL_H, shadow_size=SMALL_S)
+                             SMALL_H, shadow_size=SMALL_S, **CUT)
         tm = tonemap_pass(st["hdr"])
         out[str(d)] = (st["tid"].cpu(), st["hdr"].cpu(), tm.cpu(),
                        fxaa_pass(tm).cpu())
@@ -700,9 +760,9 @@ def raster_1080p_phase(geom, objects, cam, dev):
         32))
     ops = n_pairs * RASTER_OPS
     targets_bytes = 8 * WIDTH * HEIGHT       # depth and tid, written once
-    # B3 / B4: the bytes this run's lists name (each listed entry and each
-    # distinct listed record once), not the padded list arrays.
-    bounds = {"direct_raster": bound(nbytes(rec, cbb, sl, scnt)
+    # The bytes this run's lists name (each listed entry and each distinct
+    # listed record once), not the padded list arrays.
+    bounds = {"direct_raster": bound(direct_read_bytes(rec, cbb, sl, scnt)
                                      + targets_bytes, ops)}
     for k in ("tiled_raster", "chunklist_raster"):
         bounds[k] = bound(out[k].pop("read_bytes") + targets_bytes, ops)
@@ -889,7 +949,7 @@ def sun_map_phase(geom, objects, ctx, cpu_side, card_side, dev):
     kern()
     kernel_ms = cuda_ms(kern, 10)
     n_pairs = raster_pairs(setup)
-    b = bound(nbytes(rec, cbb, sl, cnt) + 4 * SHADOW * SHADOW,
+    b = bound(direct_read_bytes(rec, cbb, sl, cnt) + 4 * SHADOW * SHADOW,
               n_pairs * RASTER_OPS)
     log(f"sun map B1 time: wrapper {ms:.3f} ms, kernel alone "
         f"{kernel_ms:.3f} ms; bound {b}")
@@ -938,7 +998,7 @@ def b5_phase(st, ctx_t, lights, cam, dev):
     from lsr_tpu_torch.passes.forward_plus import resolve_inputs
     from lsr_tpu_torch.utils.cuda_build import load_kernels
 
-    table, vis, tex = resolve_inputs(
+    table, vis, tex, _ = resolve_inputs(
         st["setup"], st["depth"], st["tid"],
         dataclasses.replace(ctx_t, shadow=st["shadow"]), cam.view, cam.proj,
         cam.zn, cam.zf, WIDTH, HEIGHT)
@@ -1065,7 +1125,7 @@ def resolve_frame_phase(geom, objects, lights, ctx, cams, dev):
     from lsr_tpu_torch.io.png import write_png
 
     frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH, HEIGHT,
-                                use_resolve=True)
+                                use_resolve=True, **CUT)
     cams = cams[:WARMUP + RES_FRAMES]
     reset_counts()
     ms = []
@@ -1102,9 +1162,9 @@ def resolve_frame_phase(geom, objects, lights, ctx, cams, dev):
 
     cam, ctx_i = cams[0]
     h_r = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
-                          HEIGHT, use_resolve=True)["hdr"]
+                          HEIGHT, use_resolve=True, **CUT)["hdr"]
     h_b = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
-                          HEIGHT)["hdr"]
+                          HEIGHT, **CUT)["hdr"]
     d = (h_r - h_b).abs()
     mean, over = float(d.mean()), float((d.amax(-1) > 0.05).float().mean())
     log(f"resolve vs B2 route, same camera: mean |dHDR| {mean:.3g} (< 5e-3), "
@@ -1113,6 +1173,408 @@ def resolve_frame_phase(geom, objects, lights, ctx, cams, dev):
     check(bool(torch.isfinite(h_r).all()) and mean < 5e-3 and over < 0.01,
           "resolve route differs from the B2 route")
     return launches, med, pipelined
+
+
+def entry_log(tag, res):
+    """Log a phase's entry of the final kernels line as the phase ends, so
+    a cut or failed run still leaves its numbers."""
+    keep = {k: v for k, v in res.items()
+            if isinstance(v, (int, float, str, bool, dict, list))}
+    log(f"# kernels entry [{tag}]: {json.dumps(keep)}")
+
+
+def _b1_depth_entry(name, setup, w, h, zn, zf, mode, run, plain, dev,
+                    band_h=0):
+    """Kernel B1 in a depth-only mode against its plain version on the card,
+    bit for bit, and its times: the wrapper (run), the kernel alone on
+    prebuilt lists, the plain version; its bound."""
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    d_k = run()
+    t0 = time.perf_counter()
+    d_p = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mis = int((d_k != d_p).sum())
+    covered = int((d_p < 1.0).sum())
+    check(mis == 0 and covered > 0,
+          f"{name}: {mis} depth mismatches against the plain version")
+    ms = cuda_ms(run, 10)
+    rec, ss, n_pad = tiled.pack_direct_records(setup, False)
+    cbb = tiled._chunk_bboxes(ss, n_pad, 16)
+    sl, cnt, _ = tiled._super_lists(cbb, 16, -(-w // 128), -(-h // 128), 128,
+                                    128)
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kern = lambda: tiled._direct_launch(  # noqa: E731
+        lib, rec, cbb, sl, cnt, None, None, w, h, zn, zf, mode, False, False,
+        stream, band_h)
+    kern()
+    kernel_ms = cuda_ms(kern, 10)
+    b = bound(direct_read_bytes(rec, cbb, sl, cnt) + 4 * w * h,
+              raster_pairs(setup) * RASTER_OPS)
+    res = {"max_abs_err": float((d_k - d_p).abs().max()), "ms": ms,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "covered": covered,
+           **b}
+    log(f"{name} {w}x{h}: {mis} depth mismatches against the plain version "
+        f"of {covered} covered texels; wrapper {ms:.3f} ms, kernel alone "
+        f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}")
+    return res
+
+
+def atlas_phase(geom, objects, lights, cam, casters, dev):
+    """Phase 15.  The atlas's kernel launches against their plain versions
+    on the card, bit for bit, in bench.py's ESM default (spot slots 512^2,
+    cube faces 256^2): B1 on the 320x180 occluders (view-z, depth only,
+    partial tiles in both axes), on one spot slot and one cube face (NDC01),
+    and B1a (band_h) on both stacks against rasterize_direct's plain
+    version and against one launch a slot.  Then the "packed" atlas against
+    the "map" atlas, whole-table equal, for both filters at their sizes.
+    Returns the entries {occluder, slot, band_h}."""
+    from lsr_tpu_torch.frame import bench_config
+    from lsr_tpu_torch.geometry.volumes import frustum_cull_objects
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.brute import rasterize_brute
+    from lsr_tpu_torch.raster.setup import (
+        CULL_BACK, CULL_NONE, DEPTH_NDC01, DEPTH_VIEWZ, scene_setup_depth,
+        scene_setup_slots_depth)
+    from lsr_tpu_torch.scene.scene import object_world_aabbs
+
+    wmin, wmax = object_world_aabbs(objects)
+    vis = objects.visible & frustum_cull_objects(cam.viewproj, wmin, wmax)
+    occ_setup = scene_setup_depth(
+        geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
+        objects.model, cam.viewproj, 320, 180, cull_mode=CULL_BACK,
+        obj_visible=vis)
+    out = {"occluder": _b1_depth_entry(
+        "B1 occluder (view-z, depth only)", occ_setup, 320, 180, cam.zn,
+        cam.zf, DEPTH_VIEWZ,
+        lambda: tiled.rasterize_direct(occ_setup, 320, 180, cam.zn, cam.zf,
+                                       track_ids=False)[0],
+        lambda: rasterize_brute(occ_setup, 320, 180, cam.zn, cam.zf)[0], dev)}
+
+    cfg = bench_config("esm", WIDTH, HEIGHT)
+    plan = ls.plan_slot_stacks(lights, *casters)
+    cm = objects.casts_shadow & objects.visible
+    stacks = ((plan[5], cfg["local_map"]), (plan[6], cfg["local_point"]))
+    for tag, (vps, size) in zip(("spot slot", "cube face"), stacks):
+        # The slot of the stack with the most casters in its frustum.
+        s = int((cm[None] & frustum_cull_objects(vps, wmin, wmax)).sum(1)
+                .argmax())
+        sm = cm & frustum_cull_objects(vps[s], wmin, wmax)
+        su = scene_setup_depth(geom.positions, geom.indices, geom.vtx_obj,
+                               geom.tri_obj, objects.model, vps[s], size,
+                               size, cull_mode=CULL_NONE, obj_visible=sm)
+        out[tag] = _b1_depth_entry(
+            f"B1 {tag} {s} (NDC01, depth only)", su, size, size, 0.0, 1.0,
+            DEPTH_NDC01,
+            lambda su=su, size=size: tiled.rasterize_direct(
+                su, size, size, 0.0, 1.0, depth_mode=DEPTH_NDC01,
+                track_ids=False)[0],
+            lambda su=su, size=size: rasterize_brute(
+                su, size, size, 0.0, 1.0, depth_mode=DEPTH_NDC01)[0], dev)
+    out["slot"] = out.pop("spot slot")
+    out["slot"]["cube_face"] = out.pop("cube face")
+
+    for tag, (vps, size) in zip(("spot", "point"), stacks):
+        n = vps.shape[0]
+        sm = cm[None] & frustum_cull_objects(vps, wmin, wmax)
+        st = ls._stack_slot_setups(scene_setup_slots_depth(
+            geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
+            objects.model, vps, size, cull_mode=CULL_NONE,
+            obj_visible_slots=sm), size)
+        d0, t0 = targets(size, n * size, dev)
+        res = _b1_depth_entry(
+            f"B1a {tag} stack ({n} slots of {size} rows)", st, size,
+            n * size, 0.0, 1.0, DEPTH_NDC01,
+            lambda st=st, size=size, n=n: tiled.rasterize_direct(
+                st, size, n * size, 0.0, 1.0, depth_mode=DEPTH_NDC01,
+                track_ids=False, band_h=size)[0],
+            lambda st=st, size=size, n=n, d0=d0, t0=t0: tiled._banded_brute(
+                st, size, n * size, size, 0.0, 1.0, d0, t0, DEPTH_NDC01)[0],
+            dev, band_h=size)
+        alone = ls.render_slot_depths(geom, objects, vps, size, cm, None,
+                                      False).reshape(n * size, size)
+        packed = ls.render_slot_depths(geom, objects, vps, size, cm, None,
+                                       True).reshape(n * size, size)
+        torch.cuda.synchronize()
+        check(bool((alone == packed).all()),
+              f"B1a {tag} stack differs from one launch a slot")
+        map_ms = cuda_ms(lambda vps=vps, size=size: ls.render_slot_depths(
+            geom, objects, vps, size, cm, None, False), 3)
+        packed_ms = cuda_ms(lambda vps=vps, size=size: ls.render_slot_depths(
+            geom, objects, vps, size, cm, None, True), 3)
+        res.update(map_ms=map_ms, packed_ms=packed_ms, slots=n, size=size)
+        log(f"B1a {tag} stack equals {n} launches of one slot; the stack's "
+            f"rasters: one a slot {map_ms:.3f} ms, packed {packed_ms:.3f} ms "
+            f"(setups included)")
+        out.setdefault("band_h", {})[tag] = res
+
+    for filt in ("esm", "pcf"):
+        c = bench_config(filt, WIDTH, HEIGHT)
+        kw = dict(map_size=c["local_map"], point_size=c["local_point"],
+                  pcf_radius=2, filter_mode=filt)
+        a = ls.render_local_shadow_maps(geom, objects, lights, *casters, **kw)
+        b = ls.render_local_shadow_maps(geom, objects, lights, *casters,
+                                        atlas_packed=True, **kw)
+        same = bool(torch.equal(a.spot_taps, b.spot_taps)
+                    and torch.equal(a.point_taps, b.point_taps))
+        log(f"atlas [{filt}, spots {c['local_map']}^2, faces "
+            f"{c['local_point']}^2]: packed tables equal the map tables "
+            f"{same}")
+        check(same, f"packed atlas differs from the map atlas ({filt})")
+    return out
+
+
+def planes_phase(geom, objects, lights, ctx, cam, ctx_t, casters, dev):
+    """Phase 16.  B2a and B5a (local-shadow planes) against their plain
+    versions on the card at 1920x1080 with the frame's real planes and
+    lights (bench.py's ESM default, light cull included), within B2_TOL;
+    each kernel's time with the planes beside the planeless launch of the
+    same inputs, in one call.  Returns {"b2": entry, "b5": entry}."""
+    from lsr_tpu_torch.frame import bench_config, flagship_stages
+    from lsr_tpu_torch.lighting import resolve_kernel as rk
+    from lsr_tpu_torch.lighting import shade_kernel as sk
+    from lsr_tpu_torch.lighting.light_culling import (
+        tile_depth_ranges_from_buffer)
+    from lsr_tpu_torch.passes.forward_plus import resolve_inputs
+    from lsr_tpu_torch.shading.common import (
+        gather_materials, sample_texture_bilinear)
+    from lsr_tpu_torch.shading.models import _norm
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    cfg = bench_config("esm", WIDTH, HEIGHT)
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rad = ctx_t.light_color * ctx_t.light_intensity
+    out = {}
+
+    st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH, HEIGHT,
+                         casters=casters, **cfg)
+    lf = dataclasses.replace(lights, enabled=st["light_enabled"])
+    local, gb = st["local"], st["gb"]
+    base, metal, rough, _, _, tex_id = gather_materials(
+        ctx_t.materials, gb.obj_id, mat_rec=gb.mat)
+    albedo = torch.clamp(base * sample_texture_bilinear(
+        ctx_t.textures, tex_id, gb.uv, quads=ctx_t.texture_quads), min=0.0)
+    tdr = tile_depth_ranges_from_buffer(gb.depth01, cam.zn, cam.zf, WIDTH,
+                                        HEIGHT, 128, tile_h=64)
+    a = (gb.world_pos, _norm(gb.normal_ws), gb.covered, albedo, metal[..., 0],
+         rough[..., 0], st["sun_vis"], ctx_t.camera_pos, ctx_t.light_dir_ws,
+         rad, lf, cam.view, cam.proj, WIDTH, HEIGHT, 64, 128, 256, 8, tdr,
+         "pbr_mr", st["local_vis"], local.light_shadow_index)
+    lit_k, _ = sk.shade_fused(*a)
+    lit_p, _ = sk.shade_fused_plain(*a)
+    lit_0, _ = sk.shade_fused(*(a[:21] + (None, None)))
+    torch.cuda.synchronize()
+    err = float((lit_k - lit_p).abs().max())
+    moved = float((lit_k - lit_0).abs().max())
+    check(bool(torch.isfinite(lit_k).all()) and err <= B2_TOL and moved > 0,
+          f"B2a differs from its plain version ({err})")
+    gbuf, trec, cnts, uni, _, _, planes = sk._prepare(*a, None, 0)
+    planes = planes.contiguous()
+    _, trec0, _, _, _, _, _ = sk._prepare(*(a[:21] + (None, None)), None, 0)
+    k_ms = cuda_ms(lambda: sk._shade_launch(
+        lib, gbuf, trec, cnts, uni, WIDTH, HEIGHT, "pbr_mr", lf.apow1, stream,
+        planes), 20)
+    k0_ms = cuda_ms(lambda: sk._shade_launch(
+        lib, gbuf, trec0, cnts, uni, WIDTH, HEIGHT, "pbr_mr", lf.apow1,
+        stream), 20)
+    ms = cuda_ms(lambda: sk.shade_fused(*a), 10)
+    plain_ms = cuda_ms(lambda: sk.shade_fused_plain(*a), 2)
+    n_cov = int(gb.covered.sum())
+    k = planes.shape[0] - 1
+    # Planes: one texel for each (covered pixel, binned shadowed light).
+    b = bound(nbytes(gbuf[:13], trec, cnts, uni) + 12 * WIDTH * HEIGHT
+              + 4 * shadowed_pairs(trec, cnts, gb.covered, k, 64, 128),
+              light_pairs(cnts, gb.covered, 64, 128, trec.shape[1])
+              * LIGHT_OPS + n_cov * SUN_OPS)
+    out["b2"] = {"max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
+                 "kernel_ms_planeless": k0_ms, "plain_ms": plain_ms,
+                 "planes_change": moved, "planes": k + 1, **b}
+    log(f"B2a (planes, ESM default frame, {k} shadowed planes): max abs "
+        f"{err:.3g} (tol {B2_TOL}), the planes move lit by up to {moved:.3g}; "
+        f"kernel {k_ms:.3f} ms with planes, {k0_ms:.3f} ms planeless, "
+        f"wrapper {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}")
+
+    st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH, HEIGHT,
+                         use_resolve=True, casters=casters, **cfg)
+    local = st["local"]
+    ctx_sh = dataclasses.replace(ctx_t, shadow=st["shadow"])
+    table, vis, tex, planes = resolve_inputs(
+        st["setup"], st["depth"], st["tid"], ctx_sh, cam.view, cam.proj,
+        cam.zn, cam.zf, WIDTH, HEIGHT, cfg["sun_vis_scale"], local)
+    bg = (0.04, 0.06, 0.1)
+    a = (table, st["tid"], vis, tex, ctx_t.camera_pos, ctx_t.light_dir_ws,
+         rad, bg, lf, cam.view, cam.proj, WIDTH, HEIGHT, 64, 128, 256, 8,
+         None, "pbr_mr", "lanes", planes, local.light_shadow_index)
+    h_k, _ = rk.resolve_fused(*a)
+    h_p, _ = rk.resolve_fused_plain(*a)
+    h_0, _ = rk.resolve_fused(*(a[:20] + (None, None)))
+    torch.cuda.synchronize()
+    err = float((h_k - h_p).abs().max())
+    moved = float((h_k - h_0).abs().max())
+    check(bool(torch.isfinite(h_k).all()) and err <= B2_TOL and moved > 0,
+          f"B5a differs from its plain version ({err})")
+    uni = rk._uniforms(ctx_t.camera_pos, ctx_t.light_dir_ws, rad, bg, dev)
+    trec, cnts, _ = rk._bin(lf, cam.view, cam.proj, WIDTH, HEIGHT, 64, 128,
+                            256, None, planes, local.light_shadow_index)
+    trec0, _, _ = rk._bin(lf, cam.view, cam.proj, WIDTH, HEIGHT, 64, 128, 256,
+                          None, None, None)
+    planes = planes.contiguous()
+    k_ms = cuda_ms(lambda: rk._resolve_launch(
+        lib, table, st["tid"], vis, tex, trec, cnts, uni, WIDTH, HEIGHT, 64,
+        128, 8, "pbr_mr", stream, planes), 20)
+    k0_ms = cuda_ms(lambda: rk._resolve_launch(
+        lib, table, st["tid"], vis, tex, trec0, cnts, uni, WIDTH, HEIGHT, 64,
+        128, 8, "pbr_mr", stream), 20)
+    ms = cuda_ms(lambda: rk.resolve_fused(*a), 10)
+    plain_ms = cuda_ms(lambda: rk.resolve_fused_plain(*a), 2)
+    covered = st["tid"] >= 0
+    n_cov = int(covered.sum())
+    n_rows = int(torch.unique(st["tid"][covered]).numel())
+    k = planes.shape[0] - 1
+    b = bound(n_rows * 31 * 4 + WIDTH * HEIGHT * (4 + 4 + 12 + 12)
+              + nbytes(trec, cnts, uni)
+              + 4 * shadowed_pairs(trec, cnts, covered, k, 64, 128),
+              light_pairs(cnts, covered, 64, 128, 256) * LIGHT_OPS
+              + n_cov * (SUN_OPS + RESOLVE_OPS))
+    out["b5"] = {"max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
+                 "kernel_ms_planeless": k0_ms, "plain_ms": plain_ms,
+                 "planes_change": moved, "planes": k + 1, **b}
+    log(f"B5a (planes, ESM default frame, {k} shadowed planes): max abs "
+        f"{err:.3g} (tol {B2_TOL}), the planes move HDR by up to {moved:.3g}; "
+        f"kernel {k_ms:.3f} ms with planes, {k0_ms:.3f} ms planeless, "
+        f"wrapper {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}")
+    return out
+
+
+def small_whole_phase(dev):
+    """Phase 17.  The card against the CPU on the whole frame: the grid-2
+    scene with SMALL_LIGHTS lights at SMALL_W x SMALL_H, bench.py's ESM
+    default with a 256^2 sun map and SMALL_LOCAL^2 spot slots and cube
+    faces, cull and atlas, on both routes; plain versions on the CPU,
+    kernels on the card.  C1's frame contract (as phase 3): tids on >=
+    99.5% of covered pixels, HDR within 1e-4 on >= 99.9% of agreeing
+    pixels, tonemapped LDR within 1 LSB on >= 99.9%, after FXAA on >=
+    99.5%; the cull masks equal."""
+    from lsr_tpu_torch.frame import (
+        bench_config, build_flagship_scene, flagship_camera, flagship_stages)
+    from lsr_tpu_torch.lighting.local_shadows import plan_shadow_casters
+    from lsr_tpu_torch.passes.post import fxaa_pass
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+
+    cfg = bench_config("esm", SMALL_W, SMALL_H)
+    cfg.update(shadow_size=SMALL_S, local_map=SMALL_LOCAL,
+               local_point=SMALL_LOCAL)
+    sides = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        geom, objects, lights, ctx = build_flagship_scene(
+            SMALL_LIGHTS, SEED, grid=2, device=d)
+        cam, ctx_t = flagship_camera(0, ctx, SMALL_W, SMALL_H, device=d)
+        casters = plan_shadow_casters(lights)
+        for route in (False, True):
+            st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t,
+                                 SMALL_W, SMALL_H, use_resolve=route,
+                                 casters=casters, **cfg)
+            tm = tonemap_pass(st["hdr"])
+            sides[(str(d), route)] = (
+                st["tid"].cpu(), st["hdr"].cpu(), tm.cpu(),
+                fxaa_pass(tm).cpu(), st["obj_visible"].cpu(),
+                st["light_enabled"].cpu())
+        log(f"small whole frame on {d}: {time.perf_counter() - t0:.1f} s "
+            f"(both routes)")
+    for route in (False, True):
+        (t_c, h_c, m_c, l_c, o_c, e_c) = sides[("cpu", route)]
+        (t_g, h_g, m_g, l_g, o_g, e_g) = sides[(str(dev), route)]
+        same = t_c == t_g
+        tid_mis = float((~same).float().mean())
+        hdr_err = (h_c - h_g).abs().amax(-1)
+        hdr_ok = float((hdr_err[same] <= 1e-4).float().mean())
+
+        def within_1(a, b):
+            return float(((a.int() - b.int()).abs().amax(-1) <= 1)
+                         .float().mean())
+
+        tm_ok, ldr_ok = within_1(m_c, m_g), within_1(l_c, l_g)
+        name = "resolve" if route else "b2"
+        log(f"small whole frame [{name}] {SMALL_W}x{SMALL_H} (CPU plain vs "
+            f"card kernels): tid mismatch {tid_mis:.4%}, HDR within 1e-4 on "
+            f"{hdr_ok:.4%} of agreeing pixels (max "
+            f"{float(hdr_err[same].max()):.3g}), within 1 LSB: tonemapped "
+            f"{tm_ok:.4%}, after FXAA {ldr_ok:.4%}; cull masks equal "
+            f"{bool(torch.equal(o_c, o_g) and torch.equal(e_c, e_g))}")
+        check(torch.equal(o_c, o_g) and torch.equal(e_c, e_g),
+              f"small whole frame [{name}]: the cull differs")
+        check(tid_mis <= 0.005 and hdr_ok >= 0.999 and tm_ok >= 0.999
+              and ldr_ok >= 0.995, f"small whole frame [{name}] differs")
+
+
+def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
+                      b1_per_frame, png=None, **cfg):
+    """Phases 4a-4d.  bench.py's whole frame through make_flagship_frame,
+    counts reset: WARMUP + WHOLE_FRAMES frames along the orbit (device
+    events and wall clock), the same frames again without a sync between
+    them (pipelined), then exactly b1_per_frame B1 launches and one B2 (or
+    B5) per frame; the visible objects and lights per frame (cull_frame
+    again, after the counts are read).  Returns the result."""
+    from lsr_tpu_torch.frame import cull_frame, make_flagship_frame
+    from lsr_tpu_torch.io.png import write_png
+
+    frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH, HEIGHT,
+                                use_resolve=route, **cfg)
+    cams = cams[:WARMUP + WHOLE_FRAMES]
+    reset_counts()
+    ms, wall = [], []
+    for cam, ctx_i in cams:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = frame(cam, ctx_i)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ms.append(e0.elapsed_time(e1))
+    t0 = time.perf_counter()
+    for cam, ctx_i in cams[WARMUP:]:
+        out = frame(cam, ctx_i)
+    torch.cuda.synchronize()
+    pipelined = (time.perf_counter() - t0) * 1e3 / WHOLE_FRAMES
+    launches = read_counts()
+    n = len(cams) + WHOLE_FRAMES
+    light_k = "resolve_fused" if route else "shade_fused"
+    other_k = "shade_fused" if route else "resolve_fused"
+    check(launches["direct_raster"] == b1_per_frame * n
+          and launches[light_k] == n and launches[other_k] == 0,
+          f"{name}: launches {launches} for {n} frames (expected "
+          f"{b1_per_frame} B1 and one {light_k} a frame)")
+    ldr = out[0]
+    check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8
+          and float((ldr.int().sum(-1) > 0).float().mean()) > 0.5,
+          f"{name}: the frame is empty")
+    if png:
+        os.makedirs("out", exist_ok=True)
+        write_png(os.path.join("out", png), ldr.cpu().numpy()[::-1])
+    seen = [cull_frame(geom, objects, lights, cam)[:2] for cam, _ in cams]
+    objs = [int(o.visible.sum()) for o, _ in seen]
+    lits = [int(lt.enabled.sum()) for _, lt in seen]
+    res = {"ms": statistics.median(ms[WARMUP:]),
+           "wall_ms": statistics.median(wall[WARMUP:]),
+           "pipelined_ms": pipelined, "frames": n,
+           "b1_per_frame": b1_per_frame, "launches": launches,
+           "objects_visible": objs, "lights_enabled": lits,
+           "frame_ms_all": [round(m, 3) for m in ms]}
+    log(f"{name} {WIDTH}x{HEIGHT}: {WHOLE_FRAMES} frames after {WARMUP} "
+        f"warm-up, median {res['ms']:.3f} ms/frame device events (min "
+        f"{min(ms[WARMUP:]):.3f}, max {max(ms[WARMUP:]):.3f}), median wall "
+        f"{res['wall_ms']:.3f} ms, pipelined {pipelined:.3f} ms/frame; "
+        f"launches {launches} over {n} frames; visible objects per frame "
+        f"{objs}, lights {lits} of {lights.count}")
+    return res
 
 
 def _stage_ms(fn, iters=5):
@@ -1216,8 +1678,8 @@ def profile_phase(geom, objects, lights, ctx, cam, ctx_t):
     hdr, _ = shade_forward_plus(gb, ctx_sh, lights, cam.view, cam.proj,
                                 cam.zn, cam.zf, w, h, tile_size=16, cap=128,
                                 mode="tiled_depth_range")
-    table, vis, tex = resolve_inputs(setup, depth, tid, ctx_sh, cam.view,
-                                     cam.proj, cam.zn, cam.zf, w, h)
+    table, vis, tex, _ = resolve_inputs(setup, depth, tid, ctx_sh, cam.view,
+                                        cam.proj, cam.zn, cam.zf, w, h)
     ldr = tonemap_pass(hdr)
     sun_setup, _ = shadow_map_setup(geom, objects, ctx_t.light_dir_ws, s)
     stages = {
@@ -1265,10 +1727,66 @@ def profile_phase(geom, objects, lights, ctx, cam, ctx_t):
     for route, use_resolve in (("b2", False), ("resolve", True)):
         def run():
             st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, w, h,
-                                 use_resolve=use_resolve, shadow_size=s)
+                                 use_resolve=use_resolve, shadow_size=s,
+                                 **CUT)
             return fxaa_pass(tonemap_pass(st["hdr"]))
 
         out[route] = _frame_breakdown(f"{route} route", run)
+    return out
+
+
+def esm_profile_phase(geom, objects, lights, ctx, cam, ctx_t, casters):
+    """Phase 14, whole-frame part.  bench.py's ESM default: the stages the
+    cut frame lacks, each alone on the previous stage's outputs (the cull,
+    the atlas by both strategies, the visibility planes, the 1024^2 sun
+    map), then whole frames on both routes (median of 5 by CUDA events,
+    torch.profiler's device busy time and kernels per frame).  Returns
+    {route: breakdown}."""
+    from lsr_tpu_torch.frame import bench_config, cull_frame, flagship_stages
+    from lsr_tpu_torch.geometry.occlusion import render_occluder_depth
+    from lsr_tpu_torch.lighting.local_shadows import (
+        local_shadow_vis_planes, render_local_shadow_maps)
+    from lsr_tpu_torch.passes.post import fxaa_pass
+    from lsr_tpu_torch.passes.shadow import render_shadow_map
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+
+    cfg = bench_config("esm", WIDTH, HEIGHT)
+    st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH, HEIGHT,
+                         casters=casters, **cfg)
+    gb, local = st["gb"], st["local"]
+    lf = dataclasses.replace(lights, enabled=st["light_enabled"])
+    kw = dict(map_size=cfg["local_map"], point_size=cfg["local_point"],
+              pcf_radius=2, vis_scale=cfg["vis_scale"],
+              caster_enabled=local.caster_enabled, filter_mode="esm")
+    n = gb.normal_ws / torch.clamp(torch.linalg.norm(
+        gb.normal_ws, dim=-1, keepdim=True), min=1e-12)
+    _stage_table(f"whole-frame stage times {WIDTH}x{HEIGHT}, bench.py's ESM "
+                 "default (each stage alone):", {
+        "cull (frustum, occluders, HiZ, lights)": lambda: cull_frame(
+            geom, objects, lights, cam),
+        "  occluder depth (setup + B1, 320x180)": lambda:
+            render_occluder_depth(geom, objects, cam.viewproj, cam.zn,
+                                  cam.zf),
+        "local atlas, map (20 setups + 20 B1, ESM tables)": lambda:
+            render_local_shadow_maps(geom, objects, lf, *casters, **kw),
+        "local atlas, packed (2 setups + 2 B1a, ESM tables)": lambda:
+            render_local_shadow_maps(geom, objects, lf, *casters,
+                                     atlas_packed=True, **kw),
+        "local planes (11, half resolution, upsampled)": lambda:
+            local_shadow_vis_planes(local, gb.world_pos, n),
+        f"sun map {cfg['shadow_size']}^2 (setup + B1)": lambda:
+            render_shadow_map(geom, objects, ctx_t.light_dir_ws,
+                              cfg["shadow_size"]),
+    })
+    out = {}
+    for route, use_resolve in (("esm_b2", False), ("esm_resolve", True)):
+        def run():
+            s2 = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH,
+                                 HEIGHT, use_resolve=use_resolve,
+                                 casters=casters, **cfg)
+            return fxaa_pass(tonemap_pass(s2["hdr"]))
+
+        out[route] = _frame_breakdown(f"{route} whole frame", run)
     return out
 
 
@@ -1345,15 +1863,16 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     from lsr_tpu_torch.frame import (
-        build_flagship_scene, flagship_camera, flagship_stages,
-        make_flagship_frame)
+        bench_config, build_flagship_scene, flagship_camera, flagship_stages)
     from lsr_tpu_torch.highpoly import build_highpoly_scene, highpoly_camera
-    from lsr_tpu_torch.io.png import write_png
+    from lsr_tpu_torch.lighting.local_shadows import plan_shadow_casters
     from lsr_tpu_torch.utils.cuda_build import (
         build_info, kernel_resources, load_kernels)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     load_kernels()
@@ -1367,63 +1886,47 @@ def main():
 
     geom, objects, lights, ctx = build_flagship_scene(N_LIGHTS, SEED,
                                                       device=dev)
-    frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH, HEIGHT)
     cams = [flagship_camera(i, ctx, WIDTH, HEIGHT, device=dev)
             for i in range(WARMUP + FRAMES)]
+    casters = plan_shadow_casters(lights)
+    n_slots = len(casters[0]) + 6 * len(casters[1])
     log(f"# scene: {geom.indices.shape[0]} triangles, {lights.count} lights "
-        f"(kinds {lights.kinds}, apow1 {lights.apow1}), {WIDTH}x{HEIGHT}")
+        f"(kinds {lights.kinds}, apow1 {lights.apow1}), {WIDTH}x{HEIGHT}; "
+        f"shadowed spots {casters[0]}, points {casters[1]} ({n_slots} atlas "
+        f"slots)")
 
     cam0, ctx0 = cams[0]
-    st = flagship_stages(geom, objects, lights, ctx, cam0, ctx0, WIDTH, HEIGHT)
+    st = flagship_stages(geom, objects, lights, ctx, cam0, ctx0, WIDTH, HEIGHT,
+                         **CUT)
     check(bool(torch.isfinite(st["hdr"]).all()), "frame 0 HDR not finite")
     b1 = b1_phase(st["setup"], cam0, dev)
+    entry_log("direct_raster (camera view)", b1)
     b2 = b2_phase(st["gb"], ctx0, lights, cam0, dev)
+    entry_log("shade_fused", b2)
     cpu_side, card_side = small_reference(dev)
 
-    # Main path: counts from zero, a few frames through the entry point.
-    reset_counts()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in cams]
-    wall = []
-    torch.cuda.synchronize()
-    for (cam, ctx_i), (e0, e1) in zip(cams, ev):
-        t0 = time.perf_counter()
-        e0.record()
-        out = frame(cam, ctx_i)
-        e1.record()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
-    # The same frames again without a sync between them (the bench's
-    # async-dispatch throughput).
-    t0 = time.perf_counter()
-    for cam, ctx_i in cams[WARMUP:]:
-        out = frame(cam, ctx_i)
-    torch.cuda.synchronize()
-    pipelined = (time.perf_counter() - t0) * 1e3 / FRAMES
-    launches = read_counts()
-    ms = [e0.elapsed_time(e1) for e0, e1 in ev][WARMUP:]
-    ldr, n_valid, max_sup, max_lights, overflow = out
-    n_frames = len(cams) + FRAMES
-    check(launches["direct_raster"] == 2 * n_frames
-          and launches["shade_fused"] == n_frames,
-          f"main path launches {launches} for {n_frames} frames (a sun map "
-          "and a camera view B1, one B2 per frame)")
-    check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8,
-          f"bad frame {tuple(ldr.shape)} {ldr.dtype}")
-    lit_frac = float((ldr.int().sum(-1) > 0).float().mean())
-    check(int(n_valid) > 0 and lit_frac > 0.5, "frame is empty")
-    log(f"main path: {FRAMES} frames after {WARMUP} warm-up, median "
-        f"{statistics.median(ms):.3f} ms/frame device events "
-        f"(min {min(ms):.3f}, max {max(ms):.3f}), median wall "
-        f"{statistics.median(wall[WARMUP:]):.3f} ms, pipelined "
-        f"{pipelined:.3f} ms/frame; launches {launches}; "
-        f"n_valid {int(n_valid)}, max_sup {int(max_sup)}, "
-        f"max_lights_per_bin {int(max_lights)}, overflow_bins "
-        f"{int(overflow)}")
-    os.makedirs("out", exist_ok=True)
-    write_png(os.path.join("out", "torch_flagship.png"),
-              ldr.cpu().numpy()[::-1])   # canvas row 0 is the bottom row
-    del frame, out, ldr
+    # Main path: bench.py's whole frame in its ESM default, B2 route, "map"
+    # atlas; counts from zero.  Then the packed atlas, the resolve route
+    # and the exact-PCF control, each with its own counts.
+    esm, pcf = bench_config("esm", WIDTH, HEIGHT), bench_config("pcf", WIDTH,
+                                                                 HEIGHT)
+    whole = {
+        "esm_b2": whole_frame_phase(
+            "main path [ESM default, B2 route, map atlas]", geom, objects,
+            lights, ctx, cams, dev, False, 3 + n_slots,
+            png="torch_flagship.png", **esm),
+        "esm_b2_packed": whole_frame_phase(
+            "[ESM default, B2 route, packed atlas]", geom, objects, lights,
+            ctx, cams, dev, False, 3 + 2, atlas_packed=True, **esm),
+        "esm_resolve": whole_frame_phase(
+            "[ESM default, resolve route, map atlas]", geom, objects, lights,
+            ctx, cams, dev, True, 3 + n_slots,
+            png="torch_flagship_resolve.png", **esm),
+        "pcf_b2": whole_frame_phase(
+            "[PCF control, B2 route, map atlas]", geom, objects, lights, ctx,
+            cams, dev, False, 3 + n_slots, **pcf),
+    }
+    launches = whole["esm_b2"]["launches"]
 
     # The high-poly path.
     t_scene = time.perf_counter()
@@ -1435,6 +1938,8 @@ def main():
     b3_b4_small_phase(hp_geom, hp_objects, hp_ctx, dev)
     hp_cam, _ = highpoly_camera(hp_ctx, WIDTH, HEIGHT, HP_GRID, device=dev)
     r1080 = raster_1080p_phase(hp_geom, hp_objects, hp_cam, dev)
+    entry_log("tiled_raster", r1080["tiled_raster"])
+    entry_log("chunklist_raster", r1080["chunklist_raster"])
     hp_launches, hp_ms = highpoly_frame_phase(hp_geom, hp_objects, hp_lights,
                                               hp_ctx, dev)
     e2e_launches, e2e_ms = e2e_phase(hp_geom, hp_objects, hp_ctx, dev)
@@ -1445,19 +1950,41 @@ def main():
 
     # The sun shadow, B5 and B6 on the flagship scene.
     sun = sun_map_phase(geom, objects, ctx, cpu_side, card_side, dev)
+    entry_log("direct_raster (sun map)", sun)
     b5 = b5_phase(st, ctx0, lights, cam0, dev)
+    entry_log("resolve_fused", b5)
     b6, b6_launches = b6_phase(st["gb"], ctx0, lights, cam0, dev)
+    entry_log("fplus_accumulate", b6)
     res_launches, res_ms, res_pipe = resolve_frame_phase(
         geom, objects, lights, ctx, cams, dev)
+
+    # The whole frame's kernel branches and the card against the CPU.
+    atlas = atlas_phase(geom, objects, lights, cam0, casters, dev)
+    entry_log("direct_raster (occluder, atlas slots, band_h)", atlas)
+    planes = planes_phase(geom, objects, lights, ctx, cam0, ctx0, casters,
+                          dev)
+    entry_log("shade_fused (planes)", planes["b2"])
+    entry_log("resolve_fused (planes)", planes["b5"])
+    small_whole_phase(dev)
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
-    log(f"summary: flagship frame {statistics.median(ms):.3f} ms (B2 route), "
-        f"{res_ms:.3f} ms (resolve route, pipelined {res_pipe:.3f}), "
-        f"high-poly frame {hp_ms:.3f} ms, end to end compact + chunklist "
-        f"{e2e_ms:.3f} ms; device busy {prof['b2']['device_busy_ms']:.3f} / "
-        f"{prof['resolve']['device_busy_ms']:.3f} ms a frame in "
+    prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
+                                  casters))
+    w = {k: f"{v['ms']:.3f}" for k, v in whole.items()}
+    log(f"summary: bench.py's whole frame {w} ms (ESM default: B2 route map "
+        f"/ packed atlas, resolve route; PCF control, B2 route); the cut "
+        f"frame (no cull, no atlas): {res_ms:.3f} ms (resolve route, "
+        f"pipelined {res_pipe:.3f}); high-poly frame {hp_ms:.3f} ms, end to end "
+        f"compact + chunklist {e2e_ms:.3f} ms; device busy "
+        f"{prof['esm_b2']['device_busy_ms']:.3f} / "
+        f"{prof['esm_resolve']['device_busy_ms']:.3f} ms a whole ESM frame in "
+        f"{prof['esm_b2']['kernels_per_frame']:.0f} / "
+        f"{prof['esm_resolve']['kernels_per_frame']:.0f} kernels (B2 / "
+        f"resolve route); cut frame {prof['b2']['device_busy_ms']:.3f} / "
+        f"{prof['resolve']['device_busy_ms']:.3f} ms in "
         f"{prof['b2']['kernels_per_frame']:.0f} / "
-        f"{prof['resolve']['kernels_per_frame']:.0f} kernels (B2 / resolve "
-        f"route), {hp_prof['highpoly']['device_busy_ms']:.3f} ms in "
+        f"{prof['resolve']['kernels_per_frame']:.0f} kernels; "
+        f"{hp_prof['highpoly']['device_busy_ms']:.3f} ms in "
         f"{hp_prof['highpoly']['kernels_per_frame']:.0f} kernels (high-poly "
         f"frame), {hp_prof['e2e']['device_busy_ms']:.3f} ms in "
         f"{hp_prof['e2e']['kernels_per_frame']:.0f} kernels (end-to-end "
@@ -1474,6 +2001,9 @@ def main():
                 "library_ms": None, "resources": resources.get(src, []),
                 **extra}
 
+    def sub(res, *more):
+        return {k: res[k] for k in keys + more if k in res}
+
     pair_keys = ("pairs_tested", "pairs_after_block_cull",
                  "pairs_after_warp_cull", "pairs_needed")
     b1_keys = pair_keys + (
@@ -1483,15 +2013,28 @@ def main():
     sun_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms",
                 "max_abs_err") + b1_keys
     b5_keys = tuple(k for k in b5 if k.startswith(("pairs_", "lights_")))
+    frames = {k: {f: v[f] for f in ("ms", "wall_ms", "pipelined_ms",
+                                    "frames", "b1_per_frame")}
+              for k, v in whole.items()}
     kernels = [
         entry("direct_raster", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
+              launches_per_frame={
+                  a: whole[c]["launches"]["direct_raster"] / whole[c]["frames"]
+                  for a, c in (("map", "esm_b2"), ("packed", "esm_b2_packed"))},
               sun_map={k: sun[k] for k in sun_keys},
+              occluder=sub(atlas["occluder"], "covered"),
+              atlas_slot=sub(atlas["slot"], "covered"),
+              atlas_cube_face=sub(atlas["slot"]["cube_face"], "covered"),
+              band_h={t: sub(v, "map_ms", "packed_ms", "slots", "size")
+                      for t, v in atlas["band_h"].items()},
               highpoly_unsorted_kernel_ms=r1080["direct_raster"]["kernel_ms"],
               **{k: b1[k] for k in b1_keys}),
         entry("shade_fused", "shade_fused.cu",
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
-              b2),
+              b2, planes=sub(planes["b2"], "kernel_ms_planeless",
+                             "planes_change", "planes"),
+              frames=frames),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
               hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,
               **{k: r1080["tiled_raster"][k] for k in pair_keys}),
@@ -1501,7 +2044,10 @@ def main():
               **{k: r1080["chunklist_raster"][k] for k in pair_keys}),
         entry("resolve_fused", "resolve_fused.cu",
               "lsr_tpu/lighting/resolve_kernel.py:65",
-              res_launches["resolve_fused"], b5,
+              whole["esm_resolve"]["launches"]["resolve_fused"], b5,
+              planes=sub(planes["b5"], "kernel_ms_planeless",
+                         "planes_change", "planes"),
+              cut_frame_launches=res_launches["resolve_fused"],
               **{k: b5[k] for k in b5_keys}),
         entry("fplus_accumulate", "fplus_accumulate.cu",
               "lsr_tpu/lighting/fplus_kernel.py:46",

@@ -4,8 +4,9 @@ from_numpy_state reads every field through np.asarray(getattr(x, name)), so
 it takes lsr_tpu's registered dataclasses (or anything with the same field
 names) without importing jax.  The parity tests use it so both packages
 render exactly the same geometry, lights, materials, texture and camera;
-frame_params, compact_stats, batch and shadow_context carry a FrameParams, a
-CompactStats, a concat_scene batch and a sun ShadowContext the same way.
+frame_params, compact_stats, batch, shadow_context and local_shadow_maps
+carry a FrameParams, a CompactStats, a concat_scene batch, a sun
+ShadowContext and a local shadow atlas the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from lsr_tpu_torch.core.frame import FrameParams
 from lsr_tpu_torch.lighting.light_types import COLUMNS, LightsSoA, lights_from_numpy
+from lsr_tpu_torch.lighting.local_shadows import LocalShadowMaps
 from lsr_tpu_torch.lighting.shadow_sample import ShadowContext
 from lsr_tpu_torch.raster.setup import CompactStats
 from lsr_tpu_torch.scene.scene import (
@@ -32,6 +34,7 @@ from lsr_tpu_torch.shading.models import ShadeContext, make_shade_context
 _GEOM = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
 _OBJECTS = ("model", "prev_model", "normal_mat", "local_min", "local_max",
             "casts_shadow", "visible", "material")
+_LOCAL_TAP_STRIDE = 6   # lsr_tpu's anchor stride of the local PCF windows
 _MATERIALS = ("base_color", "metallic", "roughness", "ao", "emissive",
               "tex_id", "normal_tex", "orm_tex", "emissive_tex")
 
@@ -65,32 +68,39 @@ def materials_soa(materials, device) -> MaterialsSoA:
         **{k: _tensor(_np(materials, k), device) for k in _MATERIALS})
 
 
+def _q16_planes(taps, n: int, s: int, filter_mode: str, stride: int,
+                radius: int) -> np.ndarray:
+    """n (S, S) int32 q16 planes from lsr_tpu's u16 tap table of n maps:
+    ESM's soft maps from their u32 texel pairs (low half = even texel),
+    unit-step PCF's depth from its per-anchor u16 tap windows (anchor
+    (ay, ax) lane (li, lj) holds texel (ay * stride - r + li, ax * stride -
+    r + lj), clamped)."""
+    taps = np.asarray(taps)
+    if taps.dtype != np.uint32:
+        raise NotImplementedError("only lsr_tpu's u16 tap tables (TAPS_U16) "
+                                  "are carried")
+    lo, hi = taps & 0xFFFF, taps >> 16
+    pairs = np.stack([lo, hi], axis=-1).reshape(taps.shape[:-1] + (-1,))
+    if filter_mode == "esm":
+        return pairs.reshape(n, s, s).astype(np.int32)
+    win = stride + 2 * radius
+    n_anchor = -(-s // stride)
+    win_tab = pairs.reshape(n, n_anchor * n_anchor, win, win)
+    y, x = np.mgrid[0:s, 0:s]
+    return win_tab[:, (y // stride) * n_anchor + x // stride,
+                   y % stride + radius, x % stride + radius].astype(np.int32)
+
+
 def shadow_context(sc, device) -> ShadowContext:
     """lsr_tpu's ShadowContext as this package's.  Its tap table becomes the
-    (S, S) int32 q16 plane: ESM's soft map is unpacked from its u32 texel
-    pairs (low half = even texel), unit-step PCF's from its per-anchor u16
-    tap windows (anchor (ay, ax) lane (li, lj) holds texel (ay * stride - r
-    + li, ax * stride - r + lj), clamped)."""
+    (S, S) int32 q16 plane (_q16_planes)."""
     depth = np.array(sc.depth, np.float32)
     s = depth.shape[0]
-    taps = None if sc.depth_taps is None else np.asarray(sc.depth_taps)
-    if taps is not None:
-        if taps.dtype != np.uint32:
-            raise NotImplementedError("shadow_context: only lsr_tpu's u16 "
-                                      "tap tables (TAPS_U16) are carried")
-        lo, hi = taps & 0xFFFF, taps >> 16
-        pairs = np.stack([lo, hi], axis=-1).reshape(taps.shape[:-1] + (-1,))
-        if sc.filter_mode == "esm":
-            taps = pairs.reshape(s, s)
-        else:
-            st, r = int(sc.tap_stride), int(sc.pcf_radius)
-            win = st + 2 * r
-            win_tab = pairs.reshape(-1, win, win)
-            n_anchor = -(-s // st)
-            y, x = np.mgrid[0:s, 0:s]
-            taps = win_tab[(y // st) * n_anchor + x // st, y % st + r,
-                           x % st + r]
-        taps = torch.as_tensor(taps.astype(np.int32), device=device)
+    taps = None
+    if sc.depth_taps is not None:
+        taps = torch.as_tensor(_q16_planes(
+            sc.depth_taps, 1, s, sc.filter_mode, int(sc.tap_stride),
+            int(sc.pcf_radius))[0], device=device)
     f = lambda k: float(np.float32(_np(sc, k)))  # noqa: E731
     return ShadowContext(
         depth=torch.as_tensor(depth, device=device),
@@ -99,6 +109,36 @@ def shadow_context(sc, device) -> ShadowContext:
         bias_const=f("bias_const"), bias_slope=f("bias_slope"),
         strength=f("strength"), pcf_radius=int(sc.pcf_radius),
         pcf_step=int(sc.pcf_step), taps_q16=taps, filter_mode=sc.filter_mode, esm_c=float(sc.esm_c))
+
+
+def local_shadow_maps(sh, device) -> LocalShadowMaps:
+    """lsr_tpu's LocalShadowMaps as this package's: each stack's tap table
+    as (n, S, S) int32 q16 planes (_q16_planes; lsr_tpu's PCF anchor stride
+    is 6), the other fields by name."""
+    def stack(taps, vp, size):
+        if taps is None:
+            return None
+        return torch.as_tensor(_q16_planes(
+            taps, np.asarray(vp).shape[0], size, sh.filter_mode,
+            _LOCAL_TAP_STRIDE, int(sh.pcf_radius)), device=device)
+
+    t = lambda k: _tensor(_np(sh, k), device)  # noqa: E731
+    en = getattr(sh, "caster_enabled", None)
+    return LocalShadowMaps(
+        spot_taps=stack(sh.spot_taps, sh.spot_viewproj, int(sh.spot_size)),
+        point_taps=stack(sh.point_taps, sh.point_viewproj,
+                         int(sh.point_size)),
+        spot_viewproj=t("spot_viewproj"), point_viewproj=t("point_viewproj"),
+        caster_pos=t("caster_pos"), caster_range=t("caster_range"),
+        light_shadow_index=t("light_shadow_index"), strength=t("strength"),
+        bias_const=float(np.float32(_np(sh, "bias_const"))),
+        bias_slope=float(np.float32(_np(sh, "bias_slope"))),
+        caster_enabled=None if en is None else _tensor(np.asarray(en),
+                                                       device),
+        spot_size=int(sh.spot_size), point_size=int(sh.point_size),
+        pcf_radius=int(sh.pcf_radius), kinds=tuple(sh.kinds),
+        base_slots=tuple(sh.base_slots), vis_scale=int(sh.vis_scale),
+        filter_mode=sh.filter_mode, esm_c=float(sh.esm_c))
 
 
 def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:

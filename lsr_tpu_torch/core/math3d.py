@@ -93,15 +93,17 @@ def ortho_lh_no(left, right, bottom, top, znear, zfar, device=None):
 
 
 def look_at_lh(eye, center, up, device=None):
-    """Left-handed look-at view matrix (glm::lookAtLH)."""
+    """Left-handed look-at view matrix (glm::lookAtLH).  Leading axes of the
+    (..., 3) arguments are a batch: (..., 4, 4) matrices."""
     eye = _f32(eye, device)
     center = _f32(center, device)
     up = _f32(up, device)
     f = normalize(center - eye)
     s = normalize(cross3(up, f))
-    rot = torch.stack([s, cross3(f, s), f])
-    rows = torch.cat([rot, -dot3(rot, eye)[:, None]], dim=1)
-    return torch.cat([rows, torch.eye(4, device=rot.device)[3:]])
+    rot = torch.stack([s, cross3(f, s), f], dim=-2)
+    rows = torch.cat([rot, -dot3(rot, eye[..., None, :])[..., None]], dim=-1)
+    last = torch.eye(4, device=rot.device)[3:].expand(rot.shape[:-2] + (1, 4))
+    return torch.cat([rows, last], dim=-2)
 
 
 def translate(t, device=None):
@@ -158,6 +160,6 @@ def transform_points(m, pts):
 
 
 def matmul4(a, b):
-    """(4, 4) @ (4, 4) with transform_points_h's summation order."""
-    p = a[:, None, :] * b.T[None, :, :]        # p[i, j, k] = a_ik b_kj
-    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+    """(..., 4, 4) @ (..., 4, 4) with transform_points_h's summation order."""
+    p = a[..., :, None, :] * b.transpose(-1, -2)[..., None, :, :]
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])   # a_ik b_kj

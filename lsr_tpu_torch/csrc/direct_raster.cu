@@ -43,6 +43,16 @@
 // operation order of lsr_tpu's kernel (tiled.py:374-391), so coverage,
 // depth and ids match the plain PyTorch version (rasterize_brute) bit for
 // bit wherever the winner lies inside its chunk's bbox.
+//
+// The stacked shadow atlas (variant B1a, band_h; lsr_tpu tiled.py:309-318)
+// renders n slots of band_h rows in one launch.  Each slot's setup rows are
+// slot-local and padded to whole supers, only their bboxes are shifted to
+// the slot's global rows.  A 16x16 block lies inside one band, evaluates at
+// its band-local rows and takes a chunk only if the chunk's global bbox
+// meets it, so no slot's triangle reaches another slot's pixels, and each
+// slot is bit for bit its own launch.  A 128-row list tile may span two
+// bands of 64 rows: it then lists both slots' supers, which the chunk test
+// skips.
 
 #include <cuda_runtime.h>
 
@@ -83,9 +93,14 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
                      int* __restrict__ tid_out,
                      int width, int height, int tiles_x, int scap,
                      float zn, float inv_range, float max_py,
-                     int depth_mode, int track_ids) {
+                     int depth_mode, int track_ids, int band_h) {
   const int bx = blockIdx.x * lsr::kBlock, by = blockIdx.y * lsr::kBlock;
-  const lsr::WalkPixel p = lsr::walk_pixel(bx, by, width, 0, max_py);
+  // A band_h stack (B1a): the block's coverage rows are its rows inside its
+  // band (band_h is a multiple of the block), bounded by band_h - 1; its
+  // lists and chunk bboxes stay in global rows.
+  const int band_off = band_h ? -(by / band_h) * band_h : 0;
+  const lsr::WalkPixel p = lsr::walk_pixel(
+      bx, by, width, band_off, band_h ? (float)(band_h - 1) : max_py);
   const bool in_img = p.x < width && p.y < height;
   float d = 1.0f;
   int t = -1;
@@ -112,7 +127,9 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
 // depth_in / tid_in may be null: the walk then starts from a cleared target
 // (depth 1, id -1).  track_ids 0: depth only, tid_out gets the ids the walk
 // started from.  tie_tid: an exact depth tie goes to the smaller id
-// (spatially sorted rows); else to the earlier row.
+// (spatially sorted rows); else to the earlier row.  band_h > 0: a stack of
+// height / band_h slots (a multiple of 16, unsorted rows), each evaluated at
+// its band-local rows.
 extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  const void* slists, const void* counts,
                                  const void* depth_in, const void* tid_in,
@@ -120,7 +137,9 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  int width, int height, int tiles_x, int scap,
                                  float zn, float inv_range, float max_py,
                                  int depth_mode, int track_ids, int tie_tid,
-                                 void* stream) {
+                                 int band_h, void* stream) {
+  if (band_h % lsr::kBlock || (band_h && tie_tid))
+    return (int)cudaErrorInvalidValue;
   constexpr size_t smem = lsr::walk_smem_bytes(false);
   dim3 grid((width + lsr::kBlock - 1) / lsr::kBlock,
             (height + lsr::kBlock - 1) / lsr::kBlock);
@@ -130,6 +149,6 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
       (const float4*)rec, (const float4*)chunk_bb, (const int*)slists,
       (const int*)counts, (const float*)depth_in, (const int*)tid_in,
       (float*)depth_out, (int*)tid_out, width, height, tiles_x, scap, zn,
-      inv_range, max_py, depth_mode, track_ids);
+      inv_range, max_py, depth_mode, track_ids, band_h);
   return (int)cudaGetLastError();
 }

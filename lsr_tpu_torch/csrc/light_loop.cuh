@@ -128,6 +128,7 @@ struct Light {
   float spec_pw, spec_sc;
   float cout, cden;        // spot: cos(outer), max(cos(inner) - cos(outer))
   float zero_ok;           // 1: color * 0 is +0 (no infinite channel)
+  float sidx;              // local-shadow plane (record lane 28)
   // rect: right (ax, ay, az), up (bx, by, bz), half extents (ex, ey);
   // tube: segment start (ax..), segment (bx..), its squared length (ex).
   float ax, ay, az, bx, by, bz, ex, ey;
@@ -163,6 +164,7 @@ __device__ __forceinline__ Light light_prepare(const float* f) {
   L.apow = fmaxf(f[25], 0.001f);
   L.abias = fmaxf(f[26], 1e-5f);
   L.acut = f[27];
+  L.sidx = f[28];
   L.intensity = f[16];
   L.colr = fmaxf(f[13], 0.0f);
   L.colg = fmaxf(f[14], 0.0f);
@@ -284,13 +286,16 @@ __device__ __forceinline__ bool light_reach(const Light& L, float px, float py,
 // The second half: the diffuse weight wd = gain * N.L and the specular
 // weight ws = gain * spec, to be multiplied by the light's clamped color.
 // apow1 skips the attenuation pow (B2 only, when every power is 1); B5 and
-// B6 always apply it, as their TPU kernels do.
+// B6 always apply it, as their TPU kernels do.  vis is the light's
+// local-shadow visibility at the pixel (B2a, B5a), which multiplies the
+// gain; 1 for an unshadowed light, and gain * 1 is gain.
 template <int KIND = 0>
 __device__ __forceinline__ void light_shade(const Light& L, const Reach& r,
                                             float nx, float ny, float nz,
                                             float vx, float vy, float vz,
                                             bool covered, int apow1,
-                                            float& wd, float& ws) {
+                                            float& wd, float& ws,
+                                            float vis = 1.0f) {
   const float dist = r.dist, rng = L.rng;
   float shaping = 1.0f;
   if (is_kind<KIND>(L.ltype, 2)) {
@@ -318,7 +323,7 @@ __device__ __forceinline__ void light_shade(const Light& L, const Reach& r,
   const float atten = (dist < rng ? fall : 0.0f) * fmaxf(shaping, 0.0f);
 
   const bool live = dist > 1e-4f && r.lndl > 0.0f && atten > 0.0f && covered;
-  const float gain = live ? L.intensity * atten : 0.0f;
+  const float gain = (live ? L.intensity * atten : 0.0f) * vis;
   const float hxl = r.llx + vx, hyl = r.lly + vy, hzl = r.llz + vz;
   const float hll = rsqrt_rn(fmaxf(hxl * hxl + hyl * hyl + hzl * hzl, 1e-16f));
   const float lndh = fmaxf(nx * (hxl * hll) + ny * (hyl * hll)
@@ -333,22 +338,23 @@ template <int KIND>
 __device__ __forceinline__ void light_of_kind(
     const float* f, float px, float py, float pz, float nx, float ny,
     float nz, float vx, float vy, float vz, bool covered, int apow1,
-    float& wd, float& ws) {
+    float& wd, float& ws, float vis) {
   const Light L = light_prepare<KIND>(f);
   Reach r;
   light_reach<KIND>(L, px, py, pz, nx, ny, nz, covered, r);
-  light_shade<KIND>(L, r, nx, ny, nz, vx, vy, vz, covered, apow1, wd, ws);
+  light_shade<KIND>(L, r, nx, ny, nz, vx, vy, vz, covered, apow1, wd, ws,
+                    vis);
 }
 
 // One local light at a pixel (B2 and B6, whose every pixel still prepares
-// every light itself): the copy of its kind.
+// every light itself): the copy of its kind.  vis as in light_shade.
 __device__ __forceinline__ void local_light(
     const float* f, float px, float py, float pz, float nx, float ny,
     float nz, float vx, float vy, float vz, bool covered, int apow1,
-    float& wd, float& ws) {
+    float& wd, float& ws, float vis = 1.0f) {
 #define LSR_LIGHT_OF_KIND(K) \
   light_of_kind<K>(f, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1, \
-                   wd, ws)
+                   wd, ws, vis)
   const float ltype = f[0];
   if (ltype == 2.0f) {
     LSR_LIGHT_OF_KIND(2);

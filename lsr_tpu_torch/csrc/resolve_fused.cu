@@ -73,6 +73,13 @@
 // list 0.064 ms: the box tests (dependent loads of eight record fields a
 // lane per group) are about 0.1 ms and the evaluation of the 4.6 lights a
 // warp keeps on average about 0.2 ms, at three blocks an SM.
+//
+// Local-shadow planes (variant B5a; lsr_tpu resolve_kernel.py:339-345):
+// record lane 28 is the light's plane, plane K the constant 1.0.  A plane
+// multiplies the gain of a light that is live and never makes a dead light
+// live, so the box test and the vote stay exact; a shadowed light (plane <
+// K) that passes both reads one texel of its plane, every other light's
+// gain is multiplied by 1.0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,6 +176,8 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
                      const float* __restrict__ tile_rec,  // (tiles, cap, 32)
                      const int* __restrict__ counts,      // (tiles,)
                      const float* __restrict__ uni,       // (12,)
+                     const float* __restrict__ vis,       // (K + 1, H, W)
+                     int n_shadowed,                      // K
                      float* __restrict__ out,             // (H, W, 3)
                      int width, int height, int tile_h, int tile_w,
                      int tiles_x, int cap, int sun_model) {
@@ -280,9 +289,13 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
           // Uniform in the warp.  Where no pixel may be lit every gain is 0
           // and the six terms are color * (0 * finite) = +0.
           if (__any_sync(kFullMask, may) || L.zero_ok == 0.0f) {
+            const float lvis =
+                inb && L.sidx < (float)n_shadowed
+                    ? vis[(size_t)L.sidx * width * height + o]
+                    : 1.0f;
             float wd, ws;
             lsr::light_shade(L, r, nx, ny, nz, vx, vy, vz, covered, 0, wd,
-                             ws);
+                             ws, lvis);
             v[0] = L.colr * wd;
             v[1] = L.colg * wd;
             v[2] = L.colb * wd;
@@ -350,14 +363,17 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
 
 }  // namespace
 
+// vis may be null (n_shadowed 0): no local-shadow planes.
 extern "C" int lsr_resolve_fused(const void* table, const void* tid,
                                  const void* sun_vis, const void* tex,
                                  const void* tile_rec, const void* counts,
-                                 const void* uni, void* out, int width,
+                                 const void* uni, const void* vis,
+                                 int n_shadowed, void* out, int width,
                                  int height, int tile_h, int tile_w,
                                  int tiles_x, int tiles_y, int cap, int chunk,
                                  int sun_model, void* stream) {
-  if (tile_h % kBlockY || tile_w % kBlockX || (chunk != 8 && chunk != 16))
+  if (tile_h % kBlockY || tile_w % kBlockX || (chunk != 8 && chunk != 16)
+      || (n_shadowed && !vis))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(table) % 16)
     return (int)cudaErrorInvalidValue;  // rows are read with 16-byte loads
@@ -366,7 +382,7 @@ extern "C" int lsr_resolve_fused(const void* table, const void* tid,
   kern<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int*)tid, (const float*)sun_vis,
       (const float*)tex, (const float*)tile_rec, (const int*)counts,
-      (const float*)uni, (float*)out, width, height, tile_h, tile_w, tiles_x,
-      cap, sun_model);
+      (const float*)uni, (const float*)vis, n_shadowed, (float*)out, width,
+      height, tile_h, tile_w, tiles_x, cap, sun_model);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,13 @@
 // as in lsr_tpu (shade_kernel.py:342-346); list slots past the count hold
 // zero records and add exactly zero.  The sun term and the per-light math
 // live in light_loop.cuh, shared with B5 and B6.
+//
+// Local-shadow planes (variant B2a; lsr_tpu shade_kernel.py:270-294): record
+// lane 28 holds the light's plane, plane K the constant 1.0 of unshadowed
+// lights.  lsr_tpu sums a one-hot select over all K + 1 planes for every
+// light of a chunk that holds a shadowed one; here a shadowed light (plane
+// < K) reads its own plane's texel, once per pixel, and the gain of every
+// other light is multiplied by 1.0, which leaves it as it is.
 
 #include <cuda_runtime.h>
 
@@ -32,11 +39,25 @@ constexpr int kBlockY = 8;
 constexpr int kChunk = 8;
 using lsr::kRec;
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+// kPlanes: the launch has local-shadow planes; planeless launches take a
+// copy without the plane code.  Four blocks an SM (64 registers).  Kernel
+// ms from `python -m lsr_tpu_torch.utils.b2_variants` on an NVIDIA H100
+// 80GB HBM3 at 700 W, one call, 1920x1080, medians of 4:
+//   variant                   ESM, planes  ESM, none  cut frame  high-poly
+//   two copies, (256, 4)            0.507      0.477      0.477      0.243
+//   one kernel, (256, 4)            0.507      0.506      0.507      0.258
+//   two copies, no bound            0.525      0.475      0.476      0.245
+//   one kernel, no bound (79 reg)   0.526      0.525      0.527      0.238
+// One kernel costs planeless launches 6%, so the copy stays; the bound
+// saves the planes launch 3.5% and the copy nothing.
+template <bool kPlanes>
+__global__ void __launch_bounds__(kBlockX * kBlockY, 4)
 shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
                    const float* __restrict__ tile_rec,  // (tiles, cap, 32)
                    const int* __restrict__ counts,      // (tiles,)
                    const float* __restrict__ uni,       // (9,)
+                   const float* __restrict__ vis,       // (K + 1, H, W)
+                   int n_shadowed,                      // K
                    float* __restrict__ out,             // (H, W, 3)
                    int width, int height, int ph, int pw, int tiles_x,
                    int cap, int sun_model, int apow1) {
@@ -57,6 +78,8 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
   const float metal = lsr::clampf(gbuf[10 * plane + o], 0.0f, 1.0f);
   const float rough = gbuf[11 * plane + o];
   const float sun_vis = gbuf[12 * plane + o];
+  const bool inb = x < width && y < height;
+  const size_t ovis = (size_t)y * width + x, vis_plane = (size_t)width * height;
 
   float vx = uni[0] - px, vy = uni[1] - py, vz = uni[2] - pz;
   lsr::unit3(vx, vy, vz);
@@ -86,9 +109,13 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
 #pragma unroll 1
     for (int li = 0; li < kChunk; ++li) {
       const float* f = lrec + li * kRec;
+      const float sidx = f[28];
+      const float lvis = kPlanes && inb && sidx < (float)n_shadowed
+                             ? vis[(size_t)sidx * vis_plane + ovis]
+                             : 1.0f;
       float wd, ws;
       lsr::local_light(f, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
-                       wd, ws);
+                       wd, ws, lvis);
       const float colr = fmaxf(f[13], 0.0f), colg = fmaxf(f[14], 0.0f),
                   colb = fmaxf(f[15], 0.0f);
       cdr += colr * wd;
@@ -106,7 +133,7 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
     lsb += csb;
   }
 
-  if (x < width && y < height) {
+  if (inb) {
     const float covf = covered ? 1.0f : 0.0f;
     float* po = out + ((size_t)y * width + x) * 3;
     po[0] = (dr + ar * ldr + lsr_) * covf;
@@ -117,16 +144,21 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
 
 }  // namespace
 
+// vis may be null (n_shadowed 0): no local-shadow planes.
 extern "C" int lsr_shade_fused(const void* gbuf, const void* tile_rec,
-                               const void* counts, const void* uni, void* out,
+                               const void* counts, const void* uni,
+                               const void* vis, int n_shadowed, void* out,
                                int width, int height, int ph, int pw,
                                int tiles_x, int cap, int sun_model, int apow1,
                                void* stream) {
+  if (n_shadowed && !vis) return (int)cudaErrorInvalidValue;
   dim3 block(kBlockX, kBlockY);
   dim3 grid(pw / kBlockX, ph / kBlockY);
-  shade_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  auto kern =
+      n_shadowed ? shade_fused_kernel<true> : shade_fused_kernel<false>;
+  kern<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)gbuf, (const float*)tile_rec, (const int*)counts,
-      (const float*)uni, (float*)out, width, height, ph, pw, tiles_x, cap,
-      sun_model, apow1);
+      (const float*)uni, (const float*)vis, n_shadowed, (float*)out, width,
+      height, ph, pw, tiles_x, cap, sun_model, apow1);
   return (int)cudaGetLastError();
 }

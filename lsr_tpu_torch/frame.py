@@ -1,17 +1,26 @@
-"""The flagship forward+ frame with its sun shadow map, without scene
-culling or the local shadow atlas.
+"""The flagship forward+ frame: the composition of
+bench.py:make_flagship_frame (:179-288), with its arguments and defaults.
 
-The composition of bench.py:make_flagship_frame (:179-288) with
-with_local=False and with_cull=False:
-
-  render_shadow_map (2048^2, NDC01, depth only)           [kernel B1]
+  with_cull: frustum_cull_objects -> render_occluder_depth (320x180,
+             view-z, depth only)                          [kernel B1]
+             -> occlusion_cull_aabbs -> cull_lights_camera
+  with_local: render_local_shadow_maps (8 spot + 2 point lights, caster_en
+             from the light cull; "map": a B1 launch a slot, "packed": one
+             B1a launch a stack)                          [kernel B1 / B1a]
+  -> render_shadow_map (NDC01, depth only)                [kernel B1]
   -> make_shadow_context (ESM: prefilter_esm + q16 soft map, or PCF)
-  -> scene_setup -> rasterize_direct(spatial_sort=True)   [kernel B1]
+  -> scene_setup (culled objects) -> rasterize_direct(spatial_sort=True)
+                                                          [kernel B1]
   -> use_resolve=False: interpolate_gbuffer(materials)
                         -> shade_forward_plus(tiled_depth_range, 16 px,
-                           cap 128, pbr_mr)               [kernel B2]
-     use_resolve=True:  resolve_forward_plus(cap 128, pbr_mr)  [kernel B5]
+                           cap 128, pbr_mr, local-shadow planes)
+                                                          [kernel B2 / B2a]
+     use_resolve=True:  resolve_forward_plus(cap 128, pbr_mr, planes)
+                                                          [kernel B5 / B5a]
   -> tonemap_pass -> fxaa_pass
+
+bench_config gives the arguments of bench.py main()'s two configurations:
+the ESM default and the exact-PCF control.
 
 The scene is the procedural stand-in for the bench's monkey grid: a 5x5
 grid of make_uv_sphere(rings=16, sectors=32) (1,024 triangles each) plus the
@@ -29,9 +38,20 @@ import torch
 
 from lsr_tpu_torch.core import math3d as m3
 from lsr_tpu_torch.core.frame import ShadowPassParams
-from lsr_tpu_torch.core.util import resolve_device
+from lsr_tpu_torch.core.util import device_const, resolve_device
+from lsr_tpu_torch.geometry.occlusion import (
+    occlusion_cull_aabbs,
+    render_occluder_depth,
+)
+from lsr_tpu_torch.geometry.volumes import frustum_cull_objects
 from lsr_tpu_torch.io.obj import make_plane, make_uv_sphere
+from lsr_tpu_torch.lighting.light_culling import cull_lights_camera
 from lsr_tpu_torch.lighting.light_types import LightSetBuilder
+from lsr_tpu_torch.lighting.local_shadows import (
+    default_vis_crop,
+    plan_shadow_casters,
+    render_local_shadow_maps,
+)
 from lsr_tpu_torch.passes.forward_plus import (
     resolve_forward_plus,
     shade_forward_plus,
@@ -42,7 +62,11 @@ from lsr_tpu_torch.passes.tonemap import tonemap_pass
 from lsr_tpu_torch.raster.interp import interpolate_gbuffer
 from lsr_tpu_torch.raster.setup import scene_setup
 from lsr_tpu_torch.raster.tiled import rasterize_direct
-from lsr_tpu_torch.scene.scene import SceneBuilder, make_camera
+from lsr_tpu_torch.scene.scene import (
+    SceneBuilder,
+    make_camera,
+    object_world_aabbs,
+)
 from lsr_tpu_torch.shading.common import checkerboard_texture, make_materials
 from lsr_tpu_torch.shading.models import make_shade_context
 
@@ -120,15 +144,75 @@ def flagship_camera(i: int, ctx, width: int, height: int, device=None):
                                         device=device))
 
 
+def bench_config(shadow_filter: str = "esm", width: int = 1920,
+                 height: int = 1080) -> dict:
+    """make_flagship_frame's arguments in bench.py main()'s configurations
+    (:312-331, :413-418): "esm", the default (sun 1024^2, spot slots 512^2,
+    point faces 256^2, visibility planes and sun visibility at half
+    resolution), or "pcf", the exact control (2048^2 / 1024^2 / 512^2, full
+    resolution); both with the cull, the local atlas and vis_crop auto."""
+    esm = shadow_filter == "esm"
+    return dict(shadow_size=1024 if esm else 2048,
+                local_map=512 if esm else 1024,
+                local_point=256 if esm else 512, with_local=True,
+                with_cull=True, vis_scale=2 if esm else 1,
+                sun_vis_scale=2 if esm else 1,
+                vis_crop=default_vis_crop(height, width),
+                shadow_filter=shadow_filter)
+
+
+def cull_frame(geom, objects, lights, cam):
+    """The per-frame cull (bench.py:188-207): the objects inside the camera
+    frustum, their depth raster at 320x180 as the occluders, the objects
+    and lights (range spheres) that the occluders do not hide.  Returns
+    (objects with the visibility mask, lights with the enable mask, the
+    occluder depth (180, 320))."""
+    wmin, wmax = object_world_aabbs(objects)
+    vis = objects.visible & frustum_cull_objects(cam.viewproj, wmin, wmax)
+    occ = render_occluder_depth(geom, objects, cam.viewproj, cam.zn, cam.zf,
+                                320, 180, occluder_mask=vis)
+    vis = vis & occlusion_cull_aabbs(occ, cam.viewproj, wmin, wmax, cam.zn,
+                                     cam.zf)
+    lmask = cull_lights_camera(lights, cam.viewproj, occ_depth=occ, zn=cam.zn,
+                               zf=cam.zf)
+    return (dataclasses.replace(objects, visible=vis),
+            dataclasses.replace(lights, enabled=lights.enabled & lmask), occ)
+
+
 def flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width: int,
                     height: int, use_resolve: bool = False,
                     shadow_size: int = 2048, shadow_filter: str = "esm",
-                    sun_vis_scale: int = 1):
-    """Sun map -> setup -> raster -> (interp -> forward+ | resolve); returns
-    the intermediates: setup, depth, tid, max_sup, gb (None on the resolve
-    route), hdr, stats, sun_depth (S, S), light_viewproj (4, 4), shadow (the
-    ShadowContext) and sun_vis (H, W).  sun_vis_scale > 1 raises
-    NotImplementedError (ROADMAP A8)."""
+                    sun_vis_scale: int = 1, with_cull: bool = True,
+                    with_local: bool = True, local_map: int = 1024,
+                    local_point: int = 512, vis_scale: int = 1,
+                    vis_crop: tuple = (), atlas_packed=False, casters=None):
+    """One flagship frame's stages (bench.py:185-288); returns the
+    intermediates: obj_visible (O,) and light_enabled (L,) after the cull,
+    occ_depth (180, 320) (None without the cull), local (LocalShadowMaps or
+    None), local_vis (the planes the shade kernel took), setup, depth, tid,
+    max_sup, gb (None on the resolve route), hdr, stats, sun_depth (S, S),
+    light_viewproj (4, 4), shadow (the ShadowContext) and sun_vis (H, W).
+    casters: plan_shadow_casters(lights), computed here (a host read) when
+    not given."""
+    objs, lights_f, caster_en, occ = objects, lights, None, None
+    spot_ids, point_ids = ((), ())
+    if with_local:
+        spot_ids, point_ids = (plan_shadow_casters(lights) if casters is None
+                               else casters)
+    if with_cull:
+        objs, lights_f, occ = cull_frame(geom, objects, lights, cam)
+        ids = list(spot_ids) + list(point_ids)
+        if ids:
+            caster_en = lights_f.enabled[device_const(
+                ids, lights.enabled.device, torch.int64)]
+    local = None
+    if spot_ids or point_ids:
+        local = render_local_shadow_maps(
+            geom, objects, lights_f, spot_ids, point_ids, map_size=local_map,
+            point_size=local_point, pcf_radius=2, vis_scale=vis_scale,
+            vis_crop=tuple(vis_crop), caster_enabled=caster_en,
+            filter_mode=shadow_filter, atlas_packed=atlas_packed)
+
     shadow = make_sun_shadow(geom, objects, ctx_t.light_dir_ws,
                              ShadowPassParams(map_size=shadow_size,
                                               pcf_radius=2,
@@ -137,49 +221,68 @@ def flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width: int,
 
     setup = scene_setup(
         geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
-        geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj,
-        width, height, obj_visible=objects.visible)
+        geom.tri_obj, objs.model, objs.normal_mat, cam.viewproj,
+        width, height, obj_visible=objs.visible)
     depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
                                            cam.zf, spatial_sort=True)
     gb = None
     if use_resolve:
         hdr, stats = resolve_forward_plus(
-            setup, depth, tid, ctx_sh, lights, cam.view, cam.proj, cam.zn,
+            setup, depth, tid, ctx_sh, lights_f, cam.view, cam.proj, cam.zn,
             cam.zf, width, height, cap=128, sun_model="pbr_mr",
-            rec_layout="lanes", sun_vis_scale=sun_vis_scale)
+            rec_layout="lanes", local_shadows=local,
+            sun_vis_scale=sun_vis_scale)
     else:
         gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
                                  want_face_normal=False)
         hdr, stats = shade_forward_plus(
-            gb, ctx_sh, lights, cam.view, cam.proj, cam.zn, cam.zf, width,
+            gb, ctx_sh, lights_f, cam.view, cam.proj, cam.zn, cam.zf, width,
             height, tile_size=16, cap=128, mode="tiled_depth_range",
-            sun_model="pbr_mr", sun_vis_scale=sun_vis_scale)
-    return dict(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
+            sun_model="pbr_mr", local_shadows=local,
+            sun_vis_scale=sun_vis_scale)
+    return dict(obj_visible=objs.visible, light_enabled=lights_f.enabled,
+                occ_depth=occ, local=local, local_vis=stats["local_vis"],
+                setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
                 hdr=hdr, stats=stats, sun_depth=shadow.depth,
                 light_viewproj=shadow.light_viewproj, shadow=shadow,
                 sun_vis=stats["sun_vis"])
 
 
 def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int,
-                        use_resolve: bool = False, shadow_size: int = 2048,
-                        shadow_filter: str = "esm", sun_vis_scale: int = 1):
+                        shadow_size: int = 2048, local_map: int = 1024,
+                        local_point: int = 512, with_local: bool = True,
+                        with_cull: bool = True, vis_scale: int = 1,
+                        vis_crop: tuple = (), use_resolve: bool = False,
+                        shadow_filter: str = "esm", sun_vis_scale: int = 1,
+                        atlas_packed=False):
     """frame(cam, ctx_t) -> (ldr_u8 (H, W, 3), n_valid, max_sup,
     max_lights_per_bin, overflow_bins), all tensors on the scene's device.
-    The arguments are bench.py's: use_resolve picks kernel B5's route over
-    interp + B2; the sun map is shadow_size^2 with PCF radius 2, filtered
-    by shadow_filter ("esm", the bench default, or "pcf").
+    The arguments and defaults are bench.py's make_flagship_frame's
+    (:98-105; shadow_filter "esm", sun_vis_scale 1 and atlas_packed False,
+    the "map" strategy, are its environment defaults): use_resolve picks
+    kernel B5's route over interp + B2; the sun map is shadow_size^2 with
+    PCF radius 2; with_cull culls objects and lights per frame; with_local
+    renders the local atlas (local_map^2 spot slots, local_point^2 cube
+    faces) and its visibility planes (every vis_scale-th pixel; vis_crop is
+    accepted and the full grid evaluated).  The shadow casters are planned
+    once here, as in bench.py.
 
     Float32 products on the card run in full precision: TF32 is switched
     off here for matmuls (the vertex transform) and cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    casters = plan_shadow_casters(lights) if with_local else ((), ())
 
     def frame(cam, ctx_t):
         st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width,
                              height, use_resolve=use_resolve,
                              shadow_size=shadow_size,
                              shadow_filter=shadow_filter,
-                             sun_vis_scale=sun_vis_scale)
+                             sun_vis_scale=sun_vis_scale, with_cull=with_cull,
+                             with_local=with_local, local_map=local_map,
+                             local_point=local_point, vis_scale=vis_scale,
+                             vis_crop=vis_crop, atlas_packed=atlas_packed,
+                             casters=casters)
         ldr = fxaa_pass(tonemap_pass(st["hdr"]))
         return (ldr, st["setup"].valid.sum(), st["max_sup"],
                 st["stats"]["max_lights_per_bin"],

@@ -1,12 +1,66 @@
-"""Axis-aligned bounding volumes (port of lsr_tpu/geometry/volumes.py:
-transform_aabb and merge_aabbs, :50-82).
+"""Axis-aligned bounding volumes and frustum tests (port of
+lsr_tpu/geometry/volumes.py: extract_frustum_planes, sphere_outside_planes,
+aabb_outside_planes, transform_aabb, frustum_cull_objects and merge_aabbs,
+:14-82).
 
-Frustum and occlusion culling are not ported yet (ROADMAP A9).
+Culling produces visibility masks, not compacted lists.  Every small sum is
+written out in the order lsr_tpu's op-by-op form takes on XLA:CPU (left to
+right; the plane norm with its fused multiply-adds, core/math3d.norm3), so
+the masks are the same booleans.  The frustum functions take a batch of
+view-projections (..., 4, 4): the shadow atlas culls every slot at once.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lsr_tpu_torch.core import math3d as m3
+
+
+def extract_frustum_planes(viewproj):
+    """Six frustum planes (nx, ny, nz, d), inward-positive, normalised:
+    plane . [p, 1] >= 0 inside (Gribb-Hartmann for row-major clip =
+    M @ [p, 1], NDC in [-1, 1]^3).  Order: left, right, bottom, top, near,
+    far.  viewproj (..., 4, 4) -> (..., 6, 4)."""
+    m = viewproj
+    r3 = m[..., 3, :]
+    planes = torch.stack([r3 + m[..., 0, :], r3 - m[..., 0, :],
+                          r3 + m[..., 1, :], r3 - m[..., 1, :],
+                          r3 + m[..., 2, :], r3 - m[..., 2, :]], dim=-2)
+    n = m3.norm3(planes[..., :3])[..., None]
+    return planes / torch.clamp(n, min=1e-12)
+
+
+def _plane_dot(p, planes):
+    """p . n + d for points p (..., B, 1, 3) against planes (..., 1, 6, 4),
+    summed left to right."""
+    q = p * planes[..., :3]
+    return ((q[..., 0] + q[..., 1]) + q[..., 2]) + planes[..., 3]
+
+
+def sphere_outside_planes(planes, centers, radii):
+    """(..., B) True where the sphere lies fully outside any plane
+    (frustum_culling.hpp sphere test)."""
+    d = _plane_dot(centers[..., :, None, :], planes[..., None, :, :])
+    return (d < -radii[..., :, None]).any(dim=-1)
+
+
+def aabb_outside_planes(planes, mins, maxs):
+    """(..., B) conservative AABB-vs-frustum: outside where the positive
+    vertex of some plane lies behind it (frustum_culling.hpp AABB test)."""
+    pl = planes[..., None, :, :]                           # (..., 1, 6, 4)
+    pos = torch.where(pl[..., :3] >= 0.0, maxs[..., :, None, :],
+                      mins[..., :, None, :])               # (..., B, 6, 3)
+    q = pos * pl[..., :3]
+    d = ((q[..., 0] + q[..., 1]) + q[..., 2]) + pl[..., 3]
+    return (d < 0.0).any(dim=-1)
+
+
+def frustum_cull_objects(viewproj, world_mins, world_maxs):
+    """Visibility mask (True = visible) of object world AABBs (O, 3) against
+    one view-projection (4, 4) -> (O,), or a batch (S, 4, 4) -> (S, O)."""
+    return ~aabb_outside_planes(extract_frustum_planes(viewproj), world_mins,
+                                world_maxs)
 
 
 def transform_aabb(model, mins, maxs):

@@ -118,3 +118,26 @@ def tile_depth_ranges_from_buffer(depth01, zn, zf, width, height, tile_size,
     zmin = view_z.amin(dim=(1, 3)).reshape(-1)
     zmax = view_z.amax(dim=(1, 3)).reshape(-1)
     return torch.stack([zmin, zmax], dim=-1)
+
+
+def cull_lights_camera(lights, viewproj, occ_depth=None, zn=None, zf=None):
+    """Per-frame camera cull of the LOCAL lights (port of lsr_tpu's
+    cull_lights_camera, light_culling.py:253-278): (L,) bool, True = keep.
+    The range sphere against the camera frustum, then, with an occluder
+    depth proxy, HiZ occlusion of the sphere's AABB.  Directional and
+    env-probe lights always pass."""
+    from lsr_tpu_torch.geometry.occlusion import occlusion_cull_aabbs
+    from lsr_tpu_torch.geometry.volumes import extract_frustum_planes
+
+    planes = extract_frustum_planes(viewproj)              # (6, 4)
+    pos = lights.position
+    r = torch.clamp(lights.range, min=0.0)
+    q = planes[:, None, :3] * pos[None, :, :]
+    d = ((q[..., 0] + q[..., 1]) + q[..., 2]) + planes[:, None, 3]
+    keep = (d >= -r[None, :]).all(dim=0)
+    if occ_depth is not None:
+        keep = keep & occlusion_cull_aabbs(occ_depth, viewproj,
+                                           pos - r[:, None], pos + r[:, None],
+                                           zn, zf)
+    local = (lights.type != 0) & (lights.type != 5)
+    return torch.where(local, keep, torch.ones_like(keep))

@@ -34,11 +34,14 @@ from lsr_tpu_torch.lighting.shade_kernel import (
     _sun_term,
     _unit3,
     bin_light_records,
+    check_shadow_planes,
     light_live,
     light_terms,
     pad_planes,
+    plane_select,
     tile_planes,
     untile_planes,
+    vis_tile_planes,
     walk_chunks,
 )
 from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
@@ -66,11 +69,10 @@ def _env(up, g, h, z):
     return g + ((h + (z - h) * up) - g) * up
 
 
-def _check(rec_table, tile_h, tile_w, cap, chunk, sun_model, rec_layout,
-           local_vis_planes, light_shadow_index):
-    if local_vis_planes is not None or light_shadow_index is not None:
-        raise NotImplementedError("resolve_fused: local shadow planes are "
-                                  "not ported yet (ROADMAP A10)")
+def _check(rec_table, tid, lights, tile_h, tile_w, cap, chunk, sun_model,
+           rec_layout, local_vis_planes, light_shadow_index):
+    check_shadow_planes("resolve_fused", local_vis_planes,
+                        light_shadow_index, lights, *tid.shape)
     if sun_model not in SUN_MODELS:
         raise ValueError(f"resolve_fused: sun_model must be one of "
                          f"{SUN_MODELS}")
@@ -218,11 +220,14 @@ def walk_counts(rec_table, tid, tex_albedo, tile_rec, counts, width: int,
 
 def _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,
                    uni, width, height, th, tw, tiles_y, tiles_x, chunk,
-                   sun_model, kinds):
+                   sun_model, kinds, vis_planes=None):
     """Plain PyTorch version of kernel B5, in its operation order.
-    Returns (H, W, 3) HDR."""
+    vis_planes: (K + 1, H, W) local-shadow planes, selected per light by
+    record lane 28.  Returns (H, W, 3) HDR."""
     g = _pixel_planes(rec_table, tid, sun_vis, tex_albedo, width, height, th,
                       tw, tiles_y, tiles_x)
+    vis_t = None if vis_planes is None else vis_tile_planes(
+        vis_planes, tiles_y * th, tiles_x * tw, th, tw, tiles_y, tiles_x)
     px, py, pz, nx, ny, nz = g[0], g[1], g[2], g[3], g[4], g[5]
     cov = g[6] > 0.0
     metal, rough, ao = g[10], g[11], g[13]
@@ -231,8 +236,9 @@ def _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,
     vx, vy, vz = _unit3(uni[0] - px, uni[1] - py, uni[2] - pz)
     acc = [torch.zeros_like(px) for _ in range(6)]
     for blk in walk_chunks(tile_rec, counts, chunk):
-        cols, wd, ws = light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz,
-                                   cov, False, kinds)
+        cols, wd, ws = light_terms(
+            blk, px, py, pz, nx, ny, nz, vx, vy, vz, cov, False, kinds,
+            lvis=None if vis_t is None else plane_select(vis_t, blk))
         for i, c in enumerate(cols):
             acc[i] = acc[i] + _pairwise_sum(c * wd)
             acc[3 + i] = acc[3 + i] + _pairwise_sum(c * ws)
@@ -270,29 +276,43 @@ def resolve_fused_plain(rec_table, tid, sun_vis, tex_albedo, camera_pos,
     """The plain PyTorch version of resolve_fused on any device (what
     resolve_fused runs for CPU tensors).  Returns ((H, W, 3) hdr,
     bin_stats)."""
-    _check(rec_table, tile_h, tile_w, cap, chunk, sun_model, rec_layout,
-           local_vis_planes, light_shadow_index)
-    tile_rec, counts, bin_stats = bin_light_records(
-        lights, view, proj, width, height, tile_h, tile_w, cap,
-        tile_depth_range)
+    _check(rec_table, tid, lights, tile_h, tile_w, cap, chunk, sun_model,
+           rec_layout, local_vis_planes, light_shadow_index)
+    tile_rec, counts, bin_stats = _bin(lights, view, proj, width, height,
+                                       tile_h, tile_w, cap, tile_depth_range,
+                                       local_vis_planes, light_shadow_index)
     uni = _uniforms(camera_pos, sun_dir_ws, sun_radiance, background,
                     rec_table.device)
     hdr = _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec,
                          counts, uni, width, height, tile_h, tile_w,
                          cdiv(height, tile_h), cdiv(width, tile_w), chunk,
-                         sun_model, lights.kinds)
+                         sun_model, lights.kinds, local_vis_planes)
     return hdr, bin_stats
+
+
+def _bin(lights, view, proj, width, height, tile_h, tile_w, cap,
+         tile_depth_range, local_vis_planes, light_shadow_index):
+    """bin_light_records with the lights' planes in record lane 28."""
+    return bin_light_records(
+        lights, view, proj, width, height, tile_h, tile_w, cap,
+        tile_depth_range, light_shadow_index,
+        0 if local_vis_planes is None else local_vis_planes.shape[0])
 
 
 def _resolve_launch(lib, rec_table, tid, sun_vis, tex_albedo, tile_rec,
                     counts, uni, width, height, tile_h, tile_w, chunk,
-                    sun_model, stream):
-    """Launch kernel B5 through the C interface; returns (H, W, 3) HDR."""
+                    sun_model, stream, vis_planes=None):
+    """Launch kernel B5 through the C interface; returns (H, W, 3) HDR.
+    vis_planes: contiguous (K + 1, H, W) f32 local-shadow planes."""
     dev = rec_table.device
     tid32 = tid.to(torch.int32).contiguous()
     counts32 = counts.to(torch.int32)
-    for name, t, shape in (("sun_vis", sun_vis, (height, width)),
-                           ("tex_albedo", tex_albedo, (height, width, 3))):
+    checked = [("sun_vis", sun_vis, (height, width)),
+               ("tex_albedo", tex_albedo, (height, width, 3))]
+    if vis_planes is not None:
+        checked.append(("local-shadow planes", vis_planes,
+                        (vis_planes.shape[0], height, width)))
+    for name, t, shape in checked:
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"resolve_fused: {name} must be a contiguous "
@@ -303,7 +323,10 @@ def _resolve_launch(lib, rec_table, tid, sun_vis, tex_albedo, tile_rec,
     err = lib.lsr_resolve_fused(
         rec_table.data_ptr(), tid32.data_ptr(), sun_vis.data_ptr(),
         tex_albedo.data_ptr(), tile_rec.data_ptr(), counts32.data_ptr(),
-        uni.data_ptr(), out.data_ptr(), width, height, tile_h, tile_w,
+        uni.data_ptr(),
+        None if vis_planes is None else vis_planes.data_ptr(),
+        0 if vis_planes is None else vis_planes.shape[0] - 1,
+        out.data_ptr(), width, height, tile_h, tile_w,
         cdiv(width, tile_w), cdiv(height, tile_h), tile_rec.shape[1], chunk,
         SUN_MODELS.index(sun_model), stream)
     check_launch("lsr_resolve_fused", err)
@@ -322,8 +345,11 @@ def resolve_fused(rec_table, tid, sun_vis, tex_albedo, camera_pos,
     rec_table: pack_interp_records(setup, materials) (rows, 56); tid: (H, W)
     winning rows (-1 = background); sun_vis (H, W); tex_albedo (H, W, 3)
     (ones where untextured).  rec_layout is lsr_tpu's VMEM layout choice and
-    both values give the same result here.  CPU tensors run the plain
-    version; CUDA tensors launch kernel B5 or raise."""
+    both values give the same result here.  local_vis_planes (K + 1, H, W)
+    with light_shadow_index (L,): the local-shadow planes, plane K the
+    constant 1.0; each light's gain is multiplied by its plane at the pixel
+    (kernel variant B5a).  CPU tensors run the plain version; CUDA tensors
+    launch kernel B5 or raise."""
     args = (rec_table, tid, sun_vis, tex_albedo, camera_pos, sun_dir_ws,
             sun_radiance, background, lights, view, proj, width, height,
             tile_h, tile_w, cap, chunk, tile_depth_range, sun_model,
@@ -333,21 +359,23 @@ def resolve_fused(rec_table, tid, sun_vis, tex_albedo, camera_pos,
         return resolve_fused_plain(*args)
     if dev.type != "cuda":
         raise ValueError(f"resolve_fused: unsupported device {dev}")
-    _check(rec_table, tile_h, tile_w, cap, chunk, sun_model, rec_layout,
-           local_vis_planes, light_shadow_index)
+    _check(rec_table, tid, lights, tile_h, tile_w, cap, chunk, sun_model,
+           rec_layout, local_vis_planes, light_shadow_index)
     if (rec_table.dtype != torch.float32 or not rec_table.is_contiguous()
             or rec_table.data_ptr() % 16):
         raise ValueError("resolve_fused: the record table must be "
                          "contiguous f32, 16-byte aligned (the kernel reads "
                          "its rows with 16-byte loads)")
-    tile_rec, counts, bin_stats = bin_light_records(
-        lights, view, proj, width, height, tile_h, tile_w, cap,
-        tile_depth_range)
+    tile_rec, counts, bin_stats = _bin(lights, view, proj, width, height,
+                                       tile_h, tile_w, cap, tile_depth_range,
+                                       local_vis_planes, light_shadow_index)
     uni = _uniforms(camera_pos, sun_dir_ws, sun_radiance, background, dev)
-    out = _resolve_launch(load_kernels(), rec_table, tid, sun_vis,
-                          tex_albedo, tile_rec, counts, uni, width, height,
-                          tile_h, tile_w, chunk, sun_model,
-                          torch.cuda.current_stream(dev).cuda_stream)
+    out = _resolve_launch(
+        load_kernels(), rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,
+        uni, width, height, tile_h, tile_w, chunk, sun_model,
+        torch.cuda.current_stream(dev).cuda_stream,
+        None if local_vis_planes is None
+        else local_vis_planes.to(torch.float32).contiguous())
     resolve_fused.launches += 1
     return out, bin_stats
 

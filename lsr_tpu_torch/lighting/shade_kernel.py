@@ -10,6 +10,9 @@ lists per pixel with torch ops (_shade_plain) for CPU tensors.
 G-buffer planes (16, ph, pw), the channel layout of lsr_tpu:
   0:3 world_pos | 3:6 normal | 6 covered | 7:10 albedo | 10 metallic |
   11 roughness | 12 sun shadow visibility | 13:16 pad
+Local-shadow planes, when given, stay a separate (K + 1, H, W) stack: lsr_tpu
+appends them to its G-buffer planes; the kernel reads one texel of a plane
+per live shadowed light (record lane 28 = the plane).
 Uniforms (9,) f32: 0:3 camera_pos | 3:6 sun dir (toward scene, unit) |
   6:9 sun radiance (color * intensity)
 """
@@ -121,7 +124,7 @@ def untile_planes(t, th, tw, tiles_y, tiles_x):
 
 
 def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
-                kinds, want_reach=False):
+                kinds, want_reach=False, lvis=None):
     """One chunk of every tile's list against the tile's pixels, in the
     kernels' operation order (csrc/light_loop.cuh: light_prepare,
     light_reach, light_shade).
@@ -129,7 +132,8 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
     clamped light colors ((T, chunk, 1) x 3), wd and ws (T, chunk, P).
     kinds: the light types to evaluate (math for absent types is skipped,
     bit-exact).  want_reach also returns light_reach's verdict (see
-    light_live)."""
+    light_live).  lvis (T, chunk, P): each light's local-shadow visibility
+    at the pixel, which multiplies its gain (plane_select)."""
     def f(j):
         return blk[:, :, j:j + 1]                           # (T, chunk, 1)
 
@@ -244,6 +248,8 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
     lndl = torch.clamp(nx * llx + ny * lly + nz * llz, min=0.0)
     live = (dist > 1e-4) & (lndl > 0.0) & (atten > 0.0) & covered
     gain = torch.where(live, intensity * atten, torch.zeros_like(atten))
+    if lvis is not None:
+        gain = gain * lvis
     hxl, hyl, hzl = llx + vx, lly + vy, llz + vz
     hll = _rsqrt(torch.clamp(hxl * hxl + hyl * hyl + hzl * hzl, min=1e-16))
     lndh = torch.clamp(nx * (hxl * hll) + ny * (hyl * hll) + nz * (hzl * hll),
@@ -270,6 +276,45 @@ def light_live(blk, px, py, pz, nx, ny, nz, covered, kinds):
                        covered, True, kinds, want_reach=True)[3]
 
 
+def plane_select(vis_tiles, blk):
+    """(T, chunk, P) local-shadow visibility of each light of a chunk at
+    each pixel: plane blk[..., 28] of vis_tiles (T, K + 1, P), the tile
+    planes of the (K + 1, H, W) stack.  lsr_tpu sums the one-hot select
+    sum_k where(idx == k, plane_k, 0) (shade_kernel.py:270-294), which is
+    the indexed plane exactly for planes in [0, 1]."""
+    idx = blk[..., 28].to(torch.int64)                       # (T, chunk)
+    return torch.gather(vis_tiles, 1, idx[..., None].expand(
+        -1, -1, vis_tiles.shape[-1]))
+
+
+def vis_tile_planes(planes, ph, pw, th, tw, tiles_y, tiles_x):
+    """(K + 1, H, W) visibility planes -> (T, K + 1, P) tile planes, padded
+    with 1.0 (no pixel there is kept)."""
+    h, w = planes.shape[1:]
+    padded = torch.nn.functional.pad(planes.to(torch.float32),
+                                     (0, pw - w, 0, ph - h), value=1.0)
+    return tile_planes(padded, th, tw, tiles_y, tiles_x)[:, :, 0].transpose(
+        0, 1)
+
+
+def check_shadow_planes(name, planes, light_shadow_index, lights, height,
+                        width):
+    """Local-shadow planes and the light -> plane index come together: (K
+    + 1, H, W) planes, plane K the constant 1.0 of unshadowed lights, and
+    one index in [0, K] per light."""
+    if (planes is None) != (light_shadow_index is None):
+        raise ValueError(f"{name}: local-shadow planes and "
+                         f"light_shadow_index come together")
+    if planes is None:
+        return
+    if planes.ndim != 3 or tuple(planes.shape[1:]) != (height, width):
+        raise ValueError(f"{name}: local-shadow planes must be (K + 1, "
+                         f"{height}, {width}), got {tuple(planes.shape)}")
+    if tuple(light_shadow_index.shape) != (lights.count,):
+        raise ValueError(f"{name}: light_shadow_index must hold one plane "
+                         f"per light")
+
+
 def walk_chunks(tile_rec, counts, chunk):
     """The chunks of every tile's list that the kernels walk: the largest
     tile's min(ceil(count / chunk), cap / chunk) (one host sync); smaller
@@ -282,11 +327,14 @@ def walk_chunks(tile_rec, counts, chunk):
 
 
 def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
-                 chunk, sun_model, apow1, kinds):
+                 chunk, sun_model, apow1, kinds, vis_planes=None):
     """Plain PyTorch version of kernel B2: every tile's list evaluated per
     pixel in the kernel's operation order, in (tiles, chunk, pixels) layout.
-    Returns (3, ph, pw) lit planes."""
+    vis_planes: (K + 1, H, W) local-shadow planes, selected per light by
+    record lane 28.  Returns (3, ph, pw) lit planes."""
     g = tile_planes(gbuf, th, tw, tiles_y, tiles_x)
+    vis_t = None if vis_planes is None else vis_tile_planes(
+        vis_planes, gbuf.shape[1], gbuf.shape[2], th, tw, tiles_y, tiles_x)
     px, py, pz = g[0], g[1], g[2]
     nx, ny, nz = g[3], g[4], g[5]
     covered = g[6] > 0.0
@@ -295,8 +343,9 @@ def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
 
     acc = [torch.zeros_like(px) for _ in range(6)]
     for blk in walk_chunks(tile_rec, counts, chunk):
-        cols, wd, ws = light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz,
-                                   covered, apow1, kinds)
+        cols, wd, ws = light_terms(
+            blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1, kinds,
+            lvis=None if vis_t is None else plane_select(vis_t, blk))
         for i, c in enumerate(cols):
             acc[i] = acc[i] + (c * wd).sum(dim=1, keepdim=True)
             acc[3 + i] = acc[3 + i] + (c * ws).sum(dim=1, keepdim=True)
@@ -309,18 +358,27 @@ def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
 
 
 def bin_light_records(lights, view, proj, width, height, tile_h, tile_w, cap,
-                      tile_depth_range):
+                      tile_depth_range, light_shadow_index=None, n_planes=0):
     """Bin the lights per screen tile and gather each tile's 32-lane
-    records; empty list slots hold zero records.
+    records; empty list slots hold zero records.  With local-shadow planes
+    (n_planes = K + 1), lane 28 holds each light's plane index as f32
+    (lsr_tpu's shade_kernel.py:434-447) and an empty slot's is K, the
+    constant plane, so no kernel reads a plane for it.
     Returns (tile_rec (tiles, cap, 32), counts (tiles,), bin_stats)."""
     lists, counts, bin_stats = cull_lights_tiled(
         lights, view, proj, width, height, tile_size=tile_w, tile_h=tile_h,
         cap=cap, tile_depth_range=tile_depth_range)
     packed = pack_light_records(lights)
+    if light_shadow_index is not None:
+        packed[:, 28] = light_shadow_index.to(torch.float32)
     tile_rec = torch.where((lists >= 0)[..., None],
                            packed[torch.clamp(lists, min=0)],
                            torch.zeros((), dtype=torch.float32,
                                        device=packed.device))
+    if light_shadow_index is not None:
+        tile_rec[..., 28] = torch.where(
+            lists >= 0, tile_rec[..., 28],
+            torch.full_like(tile_rec[..., 28], float(n_planes - 1)))
     return tile_rec, counts, bin_stats
 
 
@@ -338,9 +396,6 @@ def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
              cluster_slice_plane, slices):
     """Light binning, tile records, G-buffer planes and uniforms shared by
     the kernel and its plain version (shade_kernel.py:415-488 of lsr_tpu)."""
-    if local_vis_stack is not None or light_shadow_index is not None:
-        raise NotImplementedError("shade_fused: local shadow planes are not "
-                                  "ported yet")
     if slices or cluster_slice_plane is not None:
         raise NotImplementedError("shade_fused: clustered slices are not "
                                   "ported yet")
@@ -349,12 +404,17 @@ def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
     if (tile_h, tile_w, chunk) != (64, 128, 8) or cap % chunk:
         raise ValueError("shade_fused: the kernel is built for 64x128 tiles, "
                          "8-light chunks and a cap that is a multiple of 8")
+    vis_planes = None if local_vis_stack is None \
+        else local_vis_stack.permute(2, 0, 1)
+    check_shadow_planes("shade_fused", vis_planes, light_shadow_index, lights,
+                        height, width)
     tiles_x = cdiv(width, tile_w)
     tiles_y = cdiv(height, tile_h)
     ph, pw = tiles_y * tile_h, tiles_x * tile_w
     tile_rec, counts, bin_stats = bin_light_records(
         lights, view, proj, width, height, tile_h, tile_w, cap,
-        tile_depth_range)
+        tile_depth_range, light_shadow_index,
+        0 if vis_planes is None else vis_planes.shape[0])
     zeros = torch.zeros_like(metallic)
     gbuf = pad_planes([
         gb_world_pos[..., 0], gb_world_pos[..., 1], gb_world_pos[..., 2],
@@ -365,7 +425,8 @@ def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
                                   min=1e-8)
     uni = torch.cat([camera_pos.reshape(3), sd.reshape(3),
                      sun_radiance.reshape(3)]).to(torch.float32)
-    return gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x)
+    return (gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x),
+            vis_planes)
 
 
 def shade_fused_plain(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
@@ -378,20 +439,23 @@ def shade_fused_plain(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
                       slices: int = 0):
     """The plain PyTorch version of shade_fused on any device (what
     shade_fused runs for CPU tensors).  Returns ((H, W, 3) lit, bin_stats)."""
-    gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x) = _prepare(
+    (gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x),
+     vis_planes) = _prepare(
         gb_world_pos, gb_normal, gb_covered, albedo, metallic, roughness,
         sun_shadow_vis, camera_pos, sun_dir_ws, sun_radiance, lights, view,
         proj, width, height, tile_h, tile_w, cap, chunk, tile_depth_range,
         sun_model, local_vis_stack, light_shadow_index, cluster_slice_plane,
         slices)
     lit = _shade_plain(gbuf, tile_rec, counts, uni, tile_h, tile_w, tiles_y,
-                       tiles_x, chunk, sun_model, lights.apow1, lights.kinds)
+                       tiles_x, chunk, sun_model, lights.apow1, lights.kinds,
+                       vis_planes)
     return lit[:, :height, :width].permute(1, 2, 0), bin_stats
 
 
 def _shade_launch(lib, gbuf, tile_rec, counts, uni, width, height, sun_model,
-                  apow1, stream):
-    """Launch kernel B2 through the C interface; returns (H, W, 3) lit."""
+                  apow1, stream, vis_planes=None):
+    """Launch kernel B2 through the C interface; returns (H, W, 3) lit.
+    vis_planes: contiguous (K + 1, H, W) f32 local-shadow planes."""
     ph, pw = gbuf.shape[1], gbuf.shape[2]
     cap = tile_rec.shape[1]
     counts32 = counts.to(torch.int32)
@@ -399,7 +463,10 @@ def _shade_launch(lib, gbuf, tile_rec, counts, uni, width, height, sun_model,
                       device=gbuf.device)
     err = lib.lsr_shade_fused(
         gbuf.data_ptr(), tile_rec.data_ptr(), counts32.data_ptr(),
-        uni.data_ptr(), out.data_ptr(), width, height, ph, pw,
+        uni.data_ptr(),
+        None if vis_planes is None else vis_planes.data_ptr(),
+        0 if vis_planes is None else vis_planes.shape[0] - 1,
+        out.data_ptr(), width, height, ph, pw,
         pw // 128, cap, SUN_MODELS.index(sun_model), int(bool(apow1)),
         stream)
     check_launch("lsr_shade_fused", err)
@@ -419,7 +486,10 @@ def shade_fused(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
     local specular, zeroed outside coverage; ambient, emissive and the
     background are added by the caller.
 
-    The light set's host constants decide two things without a sync:
+    local_vis_stack (H, W, K + 1) with light_shadow_index (L,): the local
+    shadow planes (lighting/local_shadows), plane K the constant 1.0; each
+    light's gain is multiplied by its plane at the pixel (kernel variant
+    B2a).  The light set's host constants decide two things without a sync:
     lights.apow1 skips the attenuation pow (exact when every power is 1),
     lights.kinds lets the plain version skip math for absent light types
     (bit-exact; the CUDA kernel branches per light instead).
@@ -435,17 +505,22 @@ def shade_fused(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
         return shade_fused_plain(*args)
     if dev.type != "cuda":
         raise ValueError(f"shade_fused: unsupported device {dev}")
-    gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x) = \
-        _prepare(*args)
-    for name, t in (("gbuf", gbuf), ("tile_rec", tile_rec), ("uniforms", uni)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+    (gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x),
+     vis_planes) = _prepare(*args)
+    if vis_planes is not None:
+        vis_planes = vis_planes.to(torch.float32).contiguous()
+    for name, t in (("gbuf", gbuf), ("tile_rec", tile_rec), ("uniforms", uni),
+                    ("local-shadow planes", vis_planes)):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or not t.is_contiguous()):
             raise ValueError(f"shade_fused: {name} must be contiguous f32 "
                              f"on {dev}")
     if tuple(tile_rec.shape) != (tiles_y * tiles_x, cap, 32):
         raise ValueError(f"shade_fused: tile records {tuple(tile_rec.shape)}")
     out = _shade_launch(load_kernels(), gbuf, tile_rec, counts, uni, width,
                         height, sun_model, lights.apow1,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        torch.cuda.current_stream(dev).cuda_stream,
+                        vis_planes)
     shade_fused.launches += 1
     return out, bin_stats
 

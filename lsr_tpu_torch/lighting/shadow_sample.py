@@ -61,15 +61,18 @@ def prefilter_esm(depth, radius: int, c: float = 80.0):
     """ESM soft occluder map: ln(mean of exp(c * z) over the clamped
     (2r+1)^2 window) / c, computed as exp((z - 1) * c) so every operand stays
     in [e^-c, 1].  Two separable passes of (2r+1) shifted adds over the
-    edge-padded map, in lsr_tpu's order.  Returns (S, S) f32 in [0, 1]."""
+    edge-padded map, in lsr_tpu's order.  Returns (S, S) f32 in [0, 1]; a
+    stack of maps (..., S, S) is filtered map by map."""
     if radius <= 0:
         return depth
     k = 2 * radius + 1
+    h, w = depth.shape[-2:]
     e = torch.exp((depth - 1.0) * c)
-    p = torch.nn.functional.pad(e[None, None], (radius,) * 4,
-                                mode="replicate")[0, 0]
-    rows = sum(p[i:i + depth.shape[0], :] for i in range(k))
-    both = sum(rows[:, i:i + depth.shape[1]] for i in range(k))
+    p = torch.nn.functional.pad(e.reshape(-1, 1, h, w), (radius,) * 4,
+                                mode="replicate").reshape(
+        depth.shape[:-2] + (h + 2 * radius, w + 2 * radius))
+    rows = sum(p[..., i:i + h, :] for i in range(k))
+    both = sum(rows[..., :, i:i + w] for i in range(k))
     mean = both * _f32(1.0 / (k * k))
     return torch.log(mean) * _f32(1.0 / c) + 1.0
 

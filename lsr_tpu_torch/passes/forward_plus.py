@@ -3,18 +3,24 @@ fused branch of shade_forward_plus, :68-176, and resolve_forward_plus,
 :290-409).
 
 shade_forward_plus shades a G-buffer: sun BRDF x sun shadow visibility +
-binned local lights in kernel B2 (lighting/shade_kernel.py); ambient (fake
-IBL), emissive and the background stay torch ops.  resolve_forward_plus
-goes from the visibility buffer to HDR in kernel B5
-(lighting/resolve_kernel.py), with no G-buffer.
+binned local lights x their local-shadow planes in kernel B2
+(lighting/shade_kernel.py); ambient (fake IBL), emissive and the background
+stay torch ops.  resolve_forward_plus goes from the visibility buffer to
+HDR in kernel B5 (lighting/resolve_kernel.py), with no G-buffer.  Both take
+local_shadows, a lighting.local_shadows.LocalShadowMaps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from lsr_tpu_torch.core.image import resize_bilinear
 from lsr_tpu_torch.core.util import device_const
 from lsr_tpu_torch.lighting.light_culling import tile_depth_ranges_from_buffer
+from lsr_tpu_torch.lighting.local_shadows import (
+    local_shadow_vis_planes,
+    local_shadow_vis_stack,
+)
 from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
 from lsr_tpu_torch.lighting.shade_kernel import SUN_MODELS, shade_fused
 from lsr_tpu_torch.lighting.shadow_sample import shadow_visibility_dir
@@ -28,16 +34,19 @@ from lsr_tpu_torch.shading.models import _ambient, _norm, composite_over_backgro
 
 def _sun_visibility(ctx, world_pos, n, like, sun_vis_scale):
     """Sun visibility per pixel: the shadow map sampled where N.L > 0, 1
-    elsewhere and without a shadow context."""
+    elsewhere and without a shadow context.  sun_vis_scale > 1 samples
+    every sc-th pixel of every sc-th row and upsamples bilinearly
+    (lsr_tpu/passes/forward_plus.py:99-107, :349-355)."""
     if ctx.shadow is None:
         return torch.ones_like(like)
-    if sun_vis_scale > 1:
-        raise NotImplementedError("sun_vis_scale > 1 (strided sun visibility "
-                                  "with bilinear upsampling) is not ported "
-                                  "yet (ROADMAP A8)")
     l_dir = _norm(-ctx.light_dir_ws)
     ndl = torch.clamp((n * l_dir[None, None]).sum(-1), min=0.0)
-    vis = shadow_visibility_dir(ctx.shadow, world_pos, ndl)
+    sc = int(sun_vis_scale)
+    if sc > 1:
+        vis = resize_bilinear(shadow_visibility_dir(
+            ctx.shadow, world_pos[::sc, ::sc], ndl[::sc, ::sc]), ndl.shape)
+    else:
+        vis = shadow_visibility_dir(ctx.shadow, world_pos, ndl)
     return torch.where(ndl > 0.0, vis, torch.ones_like(vis))
 
 
@@ -72,9 +81,6 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     if env_probes:
         raise NotImplementedError("shade_forward_plus: env_probes are not "
                                   "ported yet")
-    if local_shadows is not None:
-        raise NotImplementedError("shade_forward_plus: local_shadows are not "
-                                  "ported yet")
 
     mat_base, metal, rough, ao, emissive, tex_id = gather_materials(
         ctx.materials, gb.obj_id, mat_rec=gb.mat)
@@ -90,11 +96,16 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     if mode == "tiled_depth_range":
         tdr = tile_depth_ranges_from_buffer(gb.depth01, zn, zf, width, height,
                                             128, tile_h=64)
+    local_vis = shadow_idx = None
+    if local_shadows is not None:
+        local_vis = local_shadow_vis_stack(local_shadows, gb.world_pos, n)
+        shadow_idx = local_shadows.light_shadow_index
     lit, bin_stats = shade_fused(
         gb.world_pos, n, gb.covered, albedo, metal[..., 0], rough[..., 0], vis,
         ctx.camera_pos, ctx.light_dir_ws, ctx.light_color * ctx.light_intensity,
         lights, view, proj, width, height, tile_h=64, tile_w=128,
-        cap=cap * 2, chunk=8, tile_depth_range=tdr, sun_model=sun_model)
+        cap=cap * 2, chunk=8, tile_depth_range=tdr, sun_model=sun_model,
+        local_vis_stack=local_vis, light_shadow_index=shadow_idx)
     v = _norm(ctx.camera_pos[None, None, :] - gb.world_pos)
     amb = _ambient(ctx, n, v, albedo, metal, rough, ao) + emissive
     hdr = lit + torch.where(gb.covered[..., None], amb, torch.zeros_like(amb))
@@ -102,33 +113,37 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     hdr = composite_over_background(hdr, gb, bg)
     return hdr, {"max_lights_per_bin": bin_stats["max_count"],
                  "overflow_bins": bin_stats["overflow_bins"],
-                 "total_bins": 0, "sun_vis": vis}
+                 "total_bins": 0, "sun_vis": vis, "local_vis": local_vis}
 
 
 def resolve_inputs(setup, depth01, tid, ctx, view, proj, zn, zf, width: int,
-                   height: int, sun_vis_scale: int = 1):
+                   height: int, sun_vis_scale: int = 1, local_shadows=None):
     """What lsr_tpu's resolve route computes in XLA before its kernel: the
     record table (pack_interp_records with materials), the sun visibility
-    (sampled at positions reconstructed from depth, with the slope bias from
-    each triangle's corner-0 normal; lsr_tpu's approximation) and the
-    texture albedo (uv interpolated from the record).  Only the record lanes
-    these need are gathered per pixel.  Returns (table (rows, 56), sun_vis
-    (H, W), tex_albedo (H, W, 3))."""
+    and the local-shadow planes (sampled at positions reconstructed from
+    depth, with the slope bias from each triangle's corner-0 normal;
+    lsr_tpu's approximation, forward_plus.py:345-368) and the texture albedo
+    (uv interpolated from the record).  Only the record lanes these need
+    are gathered per pixel.  Returns (table (rows, 56), sun_vis (H, W),
+    tex_albedo (H, W, 3), local_vis_planes (K + 1, H, W) or None)."""
     dev = tid.device
     safe = torch.where(tid >= 0, tid, torch.zeros_like(tid)).to(torch.int64)
     table = pack_interp_records(setup, ctx.materials)
 
-    if ctx.shadow is not None:
+    vis = torch.ones_like(depth01)
+    planes = None
+    if ctx.shadow is not None or local_shadows is not None:
         wp_r = reconstruct_world_pos(depth01, view, proj, zn, zf, width,
                                      height)
         n0 = _norm(table[:, 21:24][safe])
-        vis = _sun_visibility(ctx, wp_r, n0, depth01, sun_vis_scale)
-    else:
-        vis = torch.ones_like(depth01)
+        if ctx.shadow is not None:
+            vis = _sun_visibility(ctx, wp_r, n0, depth01, sun_vis_scale)
+        if local_shadows is not None and local_shadows.n_shadowed:
+            planes = local_shadow_vis_planes(local_shadows, wp_r, n0)
 
     if ctx.textures is None:
         return table, vis, torch.ones(depth01.shape + (3,),
-                                      dtype=torch.float32, device=dev)
+                                      dtype=torch.float32, device=dev), planes
     # coef | iw | uv | tex_id lanes of each pixel's record: (H, W, 19)
     rec = torch.cat([table[:, 0:12], table[:, 30:36], table[:, 49:50]],
                     dim=1)[safe]
@@ -144,7 +159,7 @@ def resolve_inputs(setup, depth01, tid, ctx, view, proj, zn, zf, width: int,
     tex_albedo = sample_texture_bilinear(
         ctx.textures, rec[..., 18].to(torch.int64), torch.stack([u, v], -1),
         quads=ctx.texture_quads)
-    return table, vis, tex_albedo
+    return table, vis, tex_albedo, planes
 
 
 def resolve_forward_plus(setup, depth01, tid, ctx, lights, view, proj, zn, zf,
@@ -158,17 +173,16 @@ def resolve_forward_plus(setup, depth01, tid, ctx, lights, view, proj, zn, zf,
     each pixel's record through tid.  Fake-IBL ambient only (ctx.ibl is
     ignored, as in lsr_tpu).  Returns (hdr, stats) like
     shade_forward_plus."""
-    if local_shadows is not None:
-        raise NotImplementedError("resolve_forward_plus: local_shadows are "
-                                  "not ported yet (ROADMAP A10)")
-    table, vis, tex_albedo = resolve_inputs(setup, depth01, tid, ctx, view,
-                                            proj, zn, zf, width, height,
-                                            sun_vis_scale)
+    table, vis, tex_albedo, planes = resolve_inputs(
+        setup, depth01, tid, ctx, view, proj, zn, zf, width, height,
+        sun_vis_scale, local_shadows)
     hdr, bin_stats = resolve_fused(
         table, tid, vis, tex_albedo, ctx.camera_pos, ctx.light_dir_ws,
         ctx.light_color * ctx.light_intensity, background, lights, view,
         proj, width, height, tile_h=64, tile_w=128, cap=cap * 2, chunk=8,
-        sun_model=sun_model, rec_layout=rec_layout)
+        sun_model=sun_model, rec_layout=rec_layout, local_vis_planes=planes,
+        light_shadow_index=None if planes is None
+        else local_shadows.light_shadow_index)
     return hdr, {"max_lights_per_bin": bin_stats["max_count"],
                  "overflow_bins": bin_stats["overflow_bins"],
-                 "total_bins": 0, "sun_vis": vis}
+                 "total_bins": 0, "sun_vis": vis, "local_vis": planes}

@@ -41,12 +41,17 @@ def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
     tid = torch.full((height, width), -1, dtype=torch.int32, device=dev) \
         if tid_init is None else tid_init.clone()
     ids = torch.arange(n, dtype=torch.int32, device=dev)
+    # An invalid row never wins: only the valid ones are walked, in order
+    # (one host read).  (min depth, first submitted) does not depend on how
+    # the rows are grouped, so the result is the same.
+    keep = torch.nonzero(setup.valid)[:, 0]
+    coef, iw, ziw, ids = (setup.coef[keep], setup.iw[keep], setup.ziw[keep],
+                          ids[keep])
 
-    for s in range(0, n, chunk):
-        c = setup.coef[s:s + chunk]
-        w_ = setup.iw[s:s + chunk]
-        z_ = setup.ziw[s:s + chunk]
-        v_ = setup.valid[s:s + chunk]
+    for s in range(0, keep.numel(), chunk):
+        c = coef[s:s + chunk]
+        w_ = iw[s:s + chunk]
+        z_ = ziw[s:s + chunk]
 
         def col(a, j):
             return a[:, j][:, None, None]
@@ -57,7 +62,7 @@ def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
 
         bc0, bc1, bc2 = bc(0), bc(1), bc(2)
         inside = ((bc0 >= 0.0) & (bc1 >= 0.0) & (bc2 >= 0.0)
-                  & v_[:, None, None] & ndc_mask[None])
+                  & ndc_mask[None])
         denom = bc0 * col(w_, 0) + bc1 * col(w_, 1) + bc2 * col(w_, 2)
         inside &= denom > 1e-10
         if depth_mode == DEPTH_VIEWZ:

@@ -211,6 +211,41 @@ def scene_setup_depth(positions, indices, vtx_obj, tri_obj, models, viewproj,
                        height, cull_mode, front_face_ccw)
 
 
+def scene_setup_slots_depth(positions, indices, vtx_obj, tri_obj, models,
+                            viewprojs, size: int, cull_mode: int = CULL_NONE,
+                            front_face_ccw: bool = True,
+                            obj_visible_slots=None) -> TriSetup:
+    """Depth-only setup of every slot of a shadow-atlas stack at once
+    (lsr_tpu/raster/setup.py:275-335): viewprojs (S, 4, 4), square size^2
+    targets, obj_visible_slots (S, O).  The world transform and the corner
+    gather run once; each slot's clip corners are scene_setup_depth's
+    multiply-adds in the same order, so slot s equals scene_setup_depth
+    with viewprojs[s] bit for bit.  Returns a TriSetup whose fields carry a
+    leading (S,) slot axis (2T rows a slot)."""
+    s, t = viewprojs.shape[0], indices.shape[0]
+    wc = vertex_stage_world(positions, vtx_obj, models)[indices]  # (T, 3, 4)
+    wx, wy, wz, ww = (wc[None, ..., i] for i in range(4))
+
+    def crow(r):
+        v = viewprojs[:, None, None, r, :]
+        return (v[..., 0] * wx + v[..., 1] * wy + v[..., 2] * wz
+                + v[..., 3] * ww)
+
+    tri_clip = torch.stack([crow(0), crow(1), crow(2), crow(3)], dim=-1)
+    clip2, _, valid2 = clip_triangles_near({}, tri_clip.reshape(s * t, 3, 4))
+    obj2 = tri_obj[None, :, None].expand(s, t, 2).reshape(-1)
+    valid = valid2.reshape(-1)
+    if obj_visible_slots is not None:
+        slot_of = torch.arange(s, device=indices.device).repeat_interleave(
+            2 * t)
+        valid = valid & obj_visible_slots[slot_of, obj2]
+    st = build_setup(clip2.reshape(2 * s * t, 3, 4), {}, valid, obj2, size,
+                     size, cull_mode, front_face_ccw)
+    return TriSetup(**{f.name: getattr(st, f.name).reshape(
+        (s, 2 * t) + getattr(st, f.name).shape[1:])
+        for f in dataclasses.fields(TriSetup)})
+
+
 @dataclasses.dataclass(frozen=True)
 class CompactStats:
     """Occupancy / overflow counters of scene_setup_compact.  An overflow

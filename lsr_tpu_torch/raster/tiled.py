@@ -38,6 +38,8 @@ the same lists the kernel gets; CUDA tensors launch the kernel or raise.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from lsr_tpu_torch.core.util import cdiv
@@ -219,12 +221,13 @@ def pack_direct_records(setup: TriSetup, spatial_sort: bool,
 
 def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
                    width, height, zn, zf, depth_mode, track_ids, tie_tid,
-                   stream):
+                   stream, band_h=0):
     """Launch kernel B1 through the C interface; returns (depth, tid).
     depth_init / tid_init None: the kernel starts from a cleared target
     (depth 1, id -1) without reading one.  track_ids False: depth only,
     tid comes back as it went in.  tie_tid: exact depth ties go to the
-    smaller id instead of the earlier row."""
+    smaller id instead of the earlier row.  band_h: the stacked atlas's
+    band-local rows (rasterize_direct)."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -237,7 +240,8 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
         None if tid_init is None else tid_init.data_ptr(),
         depth.data_ptr(), tid.data_ptr(), width, height,
         cdiv(width, 128), slists.shape[1], zn_f, inv_range,
-        float(height - 1), depth_mode, int(track_ids), int(tie_tid), stream)
+        float(height - 1), depth_mode, int(track_ids), int(tie_tid),
+        int(band_h), stream)
     check_launch("lsr_direct_raster", err)
     return depth, tid
 
@@ -260,10 +264,25 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     unsorted first-submitted rule; emitted tids index the caller's rows.
     CPU tensors run the plain version (rasterize_brute); CUDA tensors launch
     kernel B1 or raise.  Without depth_init / tid_init the kernel starts
-    from the cleared constants and no target is allocated for it to read."""
-    if band_h:
-        raise NotImplementedError("rasterize_direct: band_h (stacked atlas "
-                                  "bands) is not ported yet")
+    from the cleared constants and no target is allocated for it to read.
+
+    band_h > 0 is the stacked atlas (kernel variant B1a,
+    lsr_tpu/raster/tiled.py:309-318): the target is height / band_h slots
+    of band_h rows, each setup row slot-local (coefficients for rows [0,
+    band_h)) but binned by a bbox in global rows.  A pixel's coverage row is
+    its row inside its band and the bound max_py is band_h - 1, so every
+    slot rasterizes bit for bit as it would alone.  The plain version
+    rasterizes each band with the rows whose bbox meets it; the kernel's
+    16x16 pixel blocks must not straddle two bands (band_h a multiple of
+    16), since only its chunk-bbox test keeps one slot's triangles out of
+    the next slot's pixels.  spatial_sort is refused with it, as in
+    lsr_tpu (a sorted chunk would mix slots)."""
+    if band_h and spatial_sort:
+        raise ValueError("rasterize_direct: spatial_sort mixes the slots of "
+                         "a band_h stack")
+    if band_h and height % band_h:
+        raise ValueError(f"rasterize_direct: height {height} is not a whole "
+                         f"number of bands of {band_h} rows")
     if y_offset != 0:
         raise NotImplementedError("rasterize_direct: y_offset != 0 (screen "
                                   "bands) is not ported yet")
@@ -288,23 +307,51 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     if dev.type == "cpu":
         depth_init, tid_init = _targets(depth_init, tid_init, height, width,
                                         dev)
-        depth, tid = rasterize_brute(setup, width, height, zn, zf,
-                                     depth_init=depth_init, tid_init=tid_init,
-                                     depth_mode=depth_mode)
+        if band_h:
+            depth, tid = _banded_brute(setup, width, height, band_h, zn, zf,
+                                       depth_init, tid_init, depth_mode)
+        else:
+            depth, tid = rasterize_brute(setup, width, height, zn, zf,
+                                         depth_init=depth_init,
+                                         tid_init=tid_init,
+                                         depth_mode=depth_mode)
         return depth, (tid if track_ids else tid_init.clone()), max_sup
 
     _check_cuda_targets("rasterize_direct", dev, height, width, depth_init,
                         tid_init)
+    if band_h % _KERNEL_BLOCK:
+        raise ValueError(f"rasterize_direct: the CUDA kernel needs band_h to "
+                         f"be a multiple of {_KERNEL_BLOCK}, got {band_h}")
     # Depth only: the tid the kernel writes is tid_init (or -1 everywhere).
     depth, tid = _direct_launch(
         load_kernels(), rec, chunk_bb, slists, counts, depth_init, tid_init,
         width, height, zn, zf, depth_mode, track_ids, spatial_sort,
-        _stream(dev))
+        _stream(dev), band_h)
     rasterize_direct.launches += 1
     return depth, tid, max_sup
 
 
 rasterize_direct.launches = 0
+
+
+def _banded_brute(setup: TriSetup, width: int, height: int, band_h: int,
+                  zn: float, zf: float, depth_init, tid_init, depth_mode):
+    """rasterize_brute per band of a band_h stack: band b's rows [b * band_h,
+    (b + 1) * band_h) take the setup rows whose bbox meets them, evaluated
+    at band-local rows."""
+    depth, tid = [], []
+    y0, y1 = setup.bbox[:, 1], setup.bbox[:, 3]
+    for b in range(height // band_h):
+        lo, hi = b * band_h, (b + 1) * band_h
+        st = dataclasses.replace(setup,
+                                 valid=setup.valid & (y0 < hi) & (y1 >= lo))
+        d, t = rasterize_brute(st, width, band_h, zn, zf,
+                               depth_init=depth_init[lo:hi],
+                               tid_init=tid_init[lo:hi],
+                               depth_mode=depth_mode)
+        depth.append(d)
+        tid.append(t)
+    return torch.cat(depth), torch.cat(tid)
 
 
 # ---------------------------------------------------------------------------
@@ -538,13 +585,19 @@ class _TileFrame:
     tiles, with each tile's pixel centers (px, py) and coverage bound."""
 
     def __init__(self, width, height, tile_w, tile_h, y_offset, full_height,
-                 dev):
+                 dev, band_h=0):
         self.w, self.h, self.tw, self.th = width, height, tile_w, tile_h
         self.tx, self.ty = cdiv(width, tile_w), cdiv(height, tile_h)
         t = torch.arange(self.tx * self.ty, device=dev)
         xs = (t % self.tx)[:, None] * tile_w + torch.arange(tile_w, device=dev)
         ys = (t // self.tx)[:, None] * tile_h \
             + torch.arange(tile_h, device=dev) + y_offset
+        # gy: the rows the lists and chunk bboxes are in; py: the rows the
+        # coverage is evaluated at (band-local in a band_h stack).
+        self.gy = ys.to(torch.float32)[:, None, :, None]
+        if band_h:
+            ys = ys % band_h
+            full_height = band_h
         self.px = xs.to(torch.float32)[:, None, None, :] + 0.5
         self.py = ys.to(torch.float32)[:, None, :, None] + 0.5
         self.ndc_ok = ((self.px <= float(width - 1))
@@ -599,7 +652,7 @@ def _super_chunks(sup, chunk_bb, fr):
     bb = chunk_bb[chunks]                                    # (T, g*16, 4)
     b = _KERNEL_BLOCK
     x0 = (fr.px[:, 0, 0, ::b] - 0.5)[:, None, None, :]       # (T, 1, 1, bx)
-    y0 = (fr.py[:, 0, ::b, 0] - 0.5)[:, None, :, None]       # (T, 1, by, 1)
+    y0 = fr.gy[:, 0, ::b, 0][:, None, :, None]               # (T, 1, by, 1)
     lane = lambda j: bb[..., j][..., None, None]  # noqa: E731
     hit = ((lane(0) <= x0 + (b - 1)) & (lane(2) >= x0)
            & (lane(1) <= y0 + (b - 1)) & (lane(3) >= y0))
@@ -610,7 +663,7 @@ def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
                            tid_init, width: int, height: int, zn: float,
                            zf: float, depth_mode: int = DEPTH_VIEWZ,
                            track_ids: bool = True, tie_tid: bool = False,
-                           block_cull: bool = False):
+                           block_cull: bool = False, band_h: int = 0):
     """Plain model of kernel B1's walk on the kernel's own inputs: every
     128x128 tile walks its first counts[t] listed supers in list order and
     evaluates a triangle at a pixel only where its chunk's bbox meets the
@@ -619,10 +672,12 @@ def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
     only where a sliver's edge functions cover a pixel outside its chunk's
     bbox).  block_cull=True also masks out the pairs that the kernel's cull
     against the block and against the warp's 8x4 rectangle rejects; the
-    cull is exact, so the result is the same.  tie_tid as in _resolve."""
+    cull is exact, so the result is the same.  tie_tid as in _resolve.
+    band_h: B1a, coverage at band-local rows, the chunk-bbox test at global
+    rows (band_h a multiple of 16, as the kernel needs)."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
-    fr = _TileFrame(width, height, 128, 128, 0, height, dev)
+    fr = _TileFrame(width, height, 128, 128, 0, height, dev, band_h)
     d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
     b, per_step = _KERNEL_BLOCK, _PLAIN_GROUP // _CHUNK
     for i in range(int(counts.max()) if counts.numel() else 0):

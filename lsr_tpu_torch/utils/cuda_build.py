@@ -39,13 +39,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # rec, chunk_bb, slists, counts, depth_in, tid_in, depth_out, tid_out,
     # width, height, tiles_x, scap, zn, inv_range, max_py, depth_mode,
-    # track_ids, tie_tid, stream
+    # track_ids, tie_tid, band_h, stream
     "lsr_direct_raster": (_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P),
-    # gbuf, tile_rec, counts, uniforms, out, width, height, ph, pw,
-    # tiles_x, cap, sun_model, apow1, stream
-    "lsr_shade_fused": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P),
+                          _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _P),
+    # gbuf, tile_rec, counts, uniforms, vis, n_shadowed, out, width, height,
+    # ph, pw, tiles_x, cap, sun_model, apow1, stream
+    "lsr_shade_fused": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
     # rec, lists, counts, order, depth_in, tid_in, depth_out, tid_out, width,
     # height, tile_w, tile_h, tiles_x, tiles_y, cap, zn, inv_range, y_offset,
     # max_py, depth_mode, stream
@@ -56,10 +56,11 @@ SIGNATURES = {
     # inv_range, y_offset, max_py, depth_mode, track_ids, stream
     "lsr_chunklist_raster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _P),
-    # table, tid, sun_vis, tex, tile_rec, counts, uniforms, out, width,
-    # height, tile_h, tile_w, tiles_x, tiles_y, cap, chunk, sun_model, stream
-    "lsr_resolve_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P),
+    # table, tid, sun_vis, tex, tile_rec, counts, uniforms, vis, n_shadowed,
+    # out, width, height, tile_h, tile_w, tiles_x, tiles_y, cap, chunk,
+    # sun_model, stream
+    "lsr_resolve_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P),
     # gbuf, tile_rec, counts, uniforms, diffuse, specular, width, height, ph,
     # pw, tile_h, tile_w, tiles_x, cap, chunk, stream
     "lsr_fplus_accumulate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,5 +1,7 @@
-"""The whole flagship frame on its B2 route, lsr_tpu_torch vs lsr_tpu
-(CPU), and the rule that the port's entry points run on the card.
+"""The flagship frame, lsr_tpu_torch vs lsr_tpu (CPU): the cut frame (B2
+route, sun map, no cull or local atlas) and bench.py's whole frame
+(cull, local atlas, planes; both routes, both filters, all atlas
+strategies), and the rule that the port's entry points run on the card.
 
 lsr_tpu_torch.frame.make_flagship_frame (plain versions on CPU tensors)
 against lsr_tpu's own stages composed the same way (bench.py:179-288 with
@@ -34,6 +36,7 @@ from torch_scenes import (
 
 W, H = 128, 96
 S = 128
+CUT = dict(with_cull=False, with_local=False)   # no cull, no local atlas
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +59,10 @@ def rendered(request, jax_scene):
                                shadow_size=S)
     ref["ldr"] = np.asarray(jfx(jtm(ref["hdr"])))
     tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam, ctx_t)
-    out = make_flagship_frame(tg, to, tl, tc, W, H, shadow_size=S)(tcam, tct)
-    st = flagship_stages(tg, to, tl, tc, tcam, tct, W, H, shadow_size=S)
+    out = make_flagship_frame(tg, to, tl, tc, W, H, shadow_size=S,
+                              **CUT)(tcam, tct)
+    st = flagship_stages(tg, to, tl, tc, tcam, tct, W, H, shadow_size=S,
+                         **CUT)
     return ref, st, out
 
 
@@ -102,10 +107,159 @@ def test_frame_is_deterministic(jax_scene):
     geom, objects, lights, ctx = jax_scene
     cam, ctx_t = jax_camera(3, ctx, W, H)
     tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam, ctx_t)
-    frame = make_flagship_frame(tg, to, tl, tc, W, H, shadow_size=S)
+    frame = make_flagship_frame(tg, to, tl, tc, W, H, shadow_size=S, **CUT)
     a = frame(tcam, tct)[0]
     b = frame(tcam, tct)[0]
     assert (a == b).all()
+
+
+# ---------------------------------------------------------------------------
+# The whole frame: per-frame cull, local shadow atlas, planes (bench.py's
+# with_cull=True, with_local=True)
+# ---------------------------------------------------------------------------
+
+LOCAL_SPOT, LOCAL_POINT = 64, 32
+
+
+def _whole_config(shadow_filter):
+    """bench.py main()'s configuration (frame.bench_config) with the maps
+    cut to the test's size: sun 128^2, spot slots 64^2, cube faces 32^2."""
+    from lsr_tpu_torch.frame import bench_config
+
+    cfg = bench_config(shadow_filter, W, H)
+    cfg.update(shadow_size=S, local_map=LOCAL_SPOT, local_point=LOCAL_POINT)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def whole_view(jax_scene):
+    """Orbit frame 3: lsr_tpu's per-frame cull and its camera raster of the
+    culled objects (op by op), shared by both filters and routes."""
+    from lsr_tpu.raster.setup import scene_setup
+    from lsr_tpu.raster.tiled import rasterize_direct
+
+    from torch_scenes import jax_reference_cull
+
+    geom, objects, lights, ctx = jax_scene
+    cam, ctx_t = jax_camera(3, ctx, W, H)
+    cull = jax_reference_cull(geom, objects, lights, cam)
+    setup = scene_setup(
+        geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
+        geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj, W, H,
+        obj_visible=cull[0].visible)
+    raster = (setup,) + tuple(rasterize_direct(setup, W, H, cam.zn, cam.zf,
+                                               spatial_sort=True))
+    return cam, ctx_t, cull, raster
+
+
+@pytest.fixture(scope="module", params=["esm", "pcf"])
+def whole(request, jax_scene, whole_view):
+    """lsr_tpu's whole frame on both routes (its sun map and atlas shared)
+    and the port's stages, frames on the "map" atlas."""
+    from lsr_tpu.lighting.local_shadows import plan_shadow_casters
+    from lsr_tpu.passes.post import fxaa_pass as jfx
+    from lsr_tpu.passes.tonemap import tonemap_pass as jtm
+
+    from lsr_tpu_torch.frame import flagship_stages
+    from torch_scenes import jax_local_atlas, jax_sun_shadow
+
+    cfg = _whole_config(request.param)
+    geom, objects, lights, ctx = jax_scene
+    cam, ctx_t, cull, raster = whole_view
+    ids = plan_shadow_casters(lights)
+    en = np.asarray(cull[1].enabled)[list(ids[0]) + list(ids[1])]
+    local = jax_local_atlas(geom, objects, cull[1], *ids, LOCAL_SPOT,
+                            LOCAL_POINT, request.param,
+                            vis_scale=cfg["vis_scale"], caster_enabled=en)
+    sun = jax_sun_shadow(geom, objects, ctx_t, S, request.param)
+    tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam,
+                                         ctx_t)
+    out = {}
+    for route in (False, True):
+        ref = jax_reference_stages(
+            geom, objects, lights, ctx, cam, ctx_t, W, H, shadow_size=S,
+            use_resolve=route, shadow_filter=request.param,
+            sun_vis_scale=cfg["sun_vis_scale"], cull=cull, local=local,
+            sun=sun, raster=raster)
+        ref["ldr"] = np.asarray(jfx(jtm(ref["hdr"])))
+        st = flagship_stages(tg, to, tl, tc, tcam, tct, W, H,
+                             use_resolve=route, **cfg)
+        out[route] = (ref, st)
+    return request.param, cull, en, out, (tg, to, tl, tc, tcam, tct, cfg)
+
+
+def test_whole_frame_cull_matches_jax(whole):
+    """The culled object and light masks and the casters' enable mask are
+    lsr_tpu's; the occluder depth follows C1 (as test_torch_cull)."""
+    _, cull, en, out, _ = whole
+    st = out[False][1]
+    np.testing.assert_array_equal(st["obj_visible"].numpy(),
+                                  np.asarray(cull[0].visible))
+    np.testing.assert_array_equal(st["light_enabled"].numpy(),
+                                  np.asarray(cull[1].enabled))
+    np.testing.assert_array_equal(st["local"].caster_enabled.numpy(), en)
+    occ_w, occ_g = np.asarray(cull[2]), st["occ_depth"].numpy()
+    cov = occ_w < 1.0
+    assert ((occ_g < 1.0) != cov).sum() <= 0.005 * cov.sum()
+
+
+@pytest.mark.parametrize("route", ["b2", "resolve"])
+def test_whole_frame_matches_jax(whole, route):
+    """bench.py's whole frame (cull, sun map, 8 + 2 local atlas, planes,
+    B2 or B5, post) against lsr_tpu's, under C1's frame contract: tids on
+    >= 99.5% of covered pixels, depth within 2e-3 where they agree, HDR
+    within 1e-4 on >= 99.5% of agreeing pixels and within 3e-3 on >= 99.9%
+    (ESM visibility, sun and local, may differ by one soft-map quantum,
+    1.3e-3, times a light term; a PCF plane by one tap of 25, 0.72 / 25,
+    where a projection rounded with a fused multiply-add picks the
+    neighbouring texel), LDR within 1 LSB on >= 99.9% of pixels after the
+    tonemap and on >= 99.5% after FXAA, whose luma decisions can amplify a
+    1-LSB difference (chip_smoke.py's small reference holds the same).
+    The local planes shadow some pixels."""
+    from lsr_tpu.passes.tonemap import tonemap_pass as jtm
+
+    from lsr_tpu_torch.passes.post import fxaa_pass
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+
+    mode, _, _, out, _ = whole
+    ref, st = out[route == "resolve"]
+    tm = tonemap_pass(st["hdr"])
+    ldr = fxaa_pass(tm).numpy()
+    planes = st["local_vis"]
+    if route == "b2":
+        planes = planes.permute(2, 0, 1)
+    assert planes.shape == (11, H, W)
+    assert float(planes[:-1].min()) < 0.5 and (planes[-1] == 1.0).all()
+    tid_j, tid_t = np.asarray(ref["tid"]), st["tid"].numpy()
+    same = tid_j == tid_t
+    covered = max(int((tid_j >= 0).sum()), 1)
+    assert covered > 0.3 * W * H
+    assert (~same).sum() <= 0.005 * covered, ((~same).sum(), covered)
+    d_depth = np.abs(np.asarray(ref["depth"]) - st["depth"].numpy())[same]
+    assert d_depth.max() <= 2e-3, d_depth.max()
+    d_hdr = np.abs(np.asarray(ref["hdr"]) - st["hdr"].numpy()).max(-1)[same]
+    assert (d_hdr <= 1e-4).mean() >= 0.995, (mode, (d_hdr <= 1e-4).mean())
+    assert (d_hdr <= 3e-3).mean() >= 0.999, (mode, (d_hdr <= 3e-3).mean())
+    assert ldr.shape == (H, W, 3) and ldr.dtype == np.uint8
+    d_tm = np.abs(np.asarray(jtm(ref["hdr"])).astype(int)
+                  - tm.numpy().astype(int)).max(-1)
+    assert (d_tm <= 1).mean() >= 0.999, (mode, (d_tm <= 1).mean())
+    d_ldr = np.abs(ref["ldr"].astype(int) - ldr.astype(int)).max(-1)
+    assert (d_ldr <= 1).mean() >= 0.995, (mode, (d_ldr <= 1).mean())
+
+
+def test_whole_frame_atlas_strategies_agree(whole):
+    """make_flagship_frame with the "packed" atlas (one banded B1 launch a
+    stack) gives the bytes of the "map" stages, tonemapped and FXAA'd."""
+    from lsr_tpu_torch.frame import make_flagship_frame
+    from lsr_tpu_torch.passes.post import fxaa_pass
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+
+    _, _, _, out, (tg, to, tl, tc, tcam, tct, cfg) = whole
+    ldr = make_flagship_frame(tg, to, tl, tc, W, H, atlas_packed=True,
+                              **cfg)(tcam, tct)[0]
+    np.testing.assert_array_equal(
+        ldr.numpy(), fxaa_pass(tonemap_pass(out[False][1]["hdr"])).numpy())
 
 
 def _entry_points():

@@ -327,6 +327,7 @@ def test_port_imports_no_jax():
         "import lsr_tpu_torch.highpoly, lsr_tpu_torch.render\n"
         "import lsr_tpu_torch.passes.standard_passes\n"
         "import lsr_tpu_torch.raster.tiled, lsr_tpu_torch.core.frame\n"
+        "import lsr_tpu_torch.utils.b2_variants\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'lsr_tpu' or m.startswith('lsr_tpu.')]\n"
         "assert not bad, bad\n"
@@ -347,8 +348,6 @@ def test_kernel_wrappers_do_not_fall_back(setups):
                        for f in __import__("dataclasses").fields(TriSetup)})
     with pytest.raises(ValueError, match="unsupported device"):
         rasterize_direct(meta, W, H, 0.1, 100.0)
-    with pytest.raises(NotImplementedError, match="band_h"):
-        rasterize_direct(tsu, W, H, 0.1, 100.0, band_h=128)
     with pytest.raises(NotImplementedError, match="y_offset"):
         rasterize_direct(tsu, W, H, 0.1, 100.0, y_offset=64)
 

@@ -198,26 +198,99 @@ def test_resolve_route_matches_b2_route(scene):
 
 
 def test_resolve_rejects_unported_options(scene):
-    """Local shadow maps (ROADMAP A10) and strided sun visibility (A8)
-    raise NotImplementedError, never fall through."""
+    """What the resolve route still refuses, never falling through: planes
+    without their light -> plane index (or an index without planes), an
+    unknown record layout or sun model."""
     from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
-    from lsr_tpu_torch.passes.forward_plus import resolve_forward_plus
 
     _, _, tl, _, tcam, tct = scene["t"]
-    tctx = dataclasses.replace(tct, shadow=scene["tshadow"])
-    base = (torch_setup(scene["setup"]), _t(scene["depth"]),
-            _t(scene["tid"]).to(torch.int32), tctx, tl, tcam.view, tcam.proj,
-            tcam.zn, tcam.zf, W, H)
-    with pytest.raises(NotImplementedError, match="A10"):
-        resolve_forward_plus(*base, local_shadows=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        resolve_forward_plus(*base, sun_vis_scale=2)
+    tid = _t(scene["tid"]).to(torch.int32)
     ones = torch.ones((H, W))
-    with pytest.raises(NotImplementedError, match="A10"):
-        resolve_fused(torch.zeros((1, 56)), base[2], ones,
-                      torch.ones((H, W, 3)), tct.camera_pos,
-                      tct.light_dir_ws, tct.light_color, (0.0, 0.0, 0.0), tl,
-                      tcam.view, tcam.proj, W, H, local_vis_planes=ones[None])
+    base = (torch.zeros((1, 56)), tid, ones, torch.ones((H, W, 3)),
+            tct.camera_pos, tct.light_dir_ws, tct.light_color,
+            (0.0, 0.0, 0.0), tl, tcam.view, tcam.proj, W, H)
+    with pytest.raises(ValueError, match="light_shadow_index"):
+        resolve_fused(*base, local_vis_planes=ones[None])
+    with pytest.raises(ValueError, match="light_shadow_index"):
+        resolve_fused(*base, light_shadow_index=torch.zeros(
+            tl.count, dtype=torch.int64))
+    with pytest.raises(ValueError, match="rec_layout"):
+        resolve_fused(*base, rec_layout="rows")
+    with pytest.raises(ValueError, match="sun_model"):
+        resolve_fused(*base, sun_model="toon")
+
+
+@pytest.mark.parametrize("lights_kind", ["flagship", "mixed"])
+def test_resolve_fused_local_planes_match_pallas(scene, lights_kind):
+    """Kernel variant B5a's plain version: test_resolve_fused_matches_pallas
+    with seeded local-shadow planes (K = 3, plane 3 = 1.0) and a plane per
+    light, into resolve_fused_pallas(local_vis_planes=...,
+    light_shadow_index=..., interpret=True): HDR within 1e-4.  The planes
+    change the result."""
+    from lsr_tpu.lighting.resolve_kernel import resolve_fused_pallas
+    from lsr_tpu.raster.interp import pack_interp_records
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
+
+    _, _, lights, ctx, cam, ctx_t = scene["j"]
+    _, _, tl, _, tcam, tct = scene["t"]
+    if lights_kind == "mixed":
+        lights = _mixed_lights()
+        tl = convert.lights_soa(lights, "cpu")
+    rng = np.random.default_rng(4)
+    vis = rng.uniform(0.0, 1.0, (H, W)).astype(np.float32)
+    tex = rng.uniform(0.3, 1.0, (H, W, 3)).astype(np.float32)
+    planes = rng.uniform(0.0, 1.0, (4, H, W)).astype(np.float32)
+    planes[3] = 1.0
+    idx = rng.integers(0, 4, tl.count).astype(np.int32)
+    table = pack_interp_records(scene["setup"], ctx.materials)
+    tid = np.asarray(scene["tid"])
+    rec = np.asarray(table)[np.where(tid >= 0, tid, 0)]
+    radiance = ctx_t.light_color * ctx_t.light_intensity
+    bg = (0.04, 0.06, 0.1)
+    jh, _ = resolve_fused_pallas(
+        jnp.asarray(rec), jnp.asarray(vis), jnp.asarray(tid >= 0),
+        jnp.asarray(tex), ctx_t.camera_pos, ctx_t.light_dir_ws, radiance,
+        jnp.asarray(bg, jnp.float32), lights, cam.view, cam.proj, W, H,
+        cap=256, chunk=8, sun_model="pbr_mr", interpret=True,
+        local_vis_planes=jnp.asarray(planes),
+        light_shadow_index=jnp.asarray(idx))
+    args = (_t(table), _t(tid), _t(vis), _t(tex), tct.camera_pos,
+            tct.light_dir_ws, tct.light_color * tct.light_intensity, bg, tl,
+            tcam.view, tcam.proj, W, H)
+    th, _ = resolve_fused(*args, cap=256, chunk=8, local_vis_planes=_t(planes),
+                          light_shadow_index=_t(idx))
+    jh = np.asarray(jh)
+    np.testing.assert_allclose(th.numpy(), jh, rtol=0, atol=1e-4)
+    plain, _ = resolve_fused(*args, cap=256, chunk=8)
+    assert float((plain - th).abs().max()) > 0.05
+
+
+def test_resolve_forward_plus_sun_vis_scale_matches_jax(scene):
+    """resolve_forward_plus with sun_vis_scale=2 (strided sun visibility,
+    bilinear upsampling; bench.py's ESM default): the tolerances of
+    test_resolve_forward_plus_matches_jax."""
+    from lsr_tpu.passes.forward_plus import resolve_forward_plus as jres
+
+    from lsr_tpu_torch.passes.forward_plus import resolve_forward_plus
+
+    _, _, lights, _, cam, ctx_t = scene["j"]
+    _, _, tl, _, tcam, tct = scene["t"]
+    jctx = dataclasses.replace(ctx_t, shadow=scene["shadow"])
+    tctx = dataclasses.replace(tct, shadow=scene["tshadow"])
+    jh, _ = jres(scene["setup"], scene["depth"], scene["tid"], jctx, lights,
+                 cam.view, cam.proj, cam.zn, cam.zf, W, H, cap=128,
+                 sun_vis_scale=2)
+    th, tst = resolve_forward_plus(
+        torch_setup(scene["setup"]), _t(scene["depth"]),
+        _t(scene["tid"]).to(torch.int32), tctx, tl, tcam.view, tcam.proj,
+        tcam.zn, tcam.zf, W, H, cap=128, sun_vis_scale=2)
+    sv = tst["sun_vis"].numpy()
+    assert sv.min() < 0.5 and ((sv > 0.01) & (sv < 0.99)).mean() > 0.01
+    d = np.abs(th.numpy() - np.asarray(jh)).max(-1)
+    assert (d <= 1e-4).mean() >= 0.999, (d <= 1e-4).mean()
+    assert d.max() <= 3e-3, d.max()
 
 
 def test_resolve_frame_matches_jax():
@@ -240,10 +313,11 @@ def test_resolve_frame_matches_jax():
     tg, to, tl, tc, tcam, tct = to_torch(geom, objects, lights, ctx, cam,
                                          ctx_t)
     frame = make_flagship_frame(tg, to, tl, tc, w, h, use_resolve=True,
-                                shadow_size=S)
+                                shadow_size=S, with_cull=False,
+                                with_local=False)
     ldr = frame(tcam, tct)[0].numpy()
     st = flagship_stages(tg, to, tl, tc, tcam, tct, w, h, use_resolve=True,
-                         shadow_size=S)
+                         shadow_size=S, with_cull=False, with_local=False)
     np.testing.assert_array_equal(st["light_viewproj"].numpy(),
                                   np.asarray(ref["light_viewproj"]))
     assert st["gb"] is None and float(st["sun_vis"].min()) < 0.5

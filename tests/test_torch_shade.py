@@ -210,7 +210,9 @@ def test_shade_plain_light_kinds_bit_exact(scene):
 
 
 def test_shade_fused_rejects_unported_options(scene):
-    """Local-shadow planes and clustered slices raise, never fall through."""
+    """Clustered slices (kernel variant B2b) raise, never fall through;
+    local-shadow planes without their light -> plane index, or of the wrong
+    size, are refused."""
     from lsr_tpu_torch.lighting.shade_kernel import shade_fused
 
     tl = scene["t"][2]
@@ -218,10 +220,61 @@ def test_shade_fused_rejects_unported_options(scene):
     args = [_t(a) for a in _fused_inputs(scene)] + [
         torch.zeros(3), torch.tensor([0.0, -1.0, 0.0]), torch.ones(3), tl,
         tcam.view, tcam.proj, W, H]
-    with pytest.raises(NotImplementedError, match="local shadow"):
-        shade_fused(*args, local_vis_stack=torch.ones(H, W, 2))
     with pytest.raises(NotImplementedError, match="clustered"):
         shade_fused(*args, slices=4)
+    with pytest.raises(ValueError, match="light_shadow_index"):
+        shade_fused(*args, local_vis_stack=torch.ones(H, W, 2))
+    with pytest.raises(ValueError, match="planes must be"):
+        shade_fused(*args, local_vis_stack=torch.ones(H, W - 1, 2),
+                    light_shadow_index=torch.zeros(tl.count,
+                                                   dtype=torch.int64))
+
+
+def _seeded_planes(n_lights, k=3, seed=5):
+    """(K + 1, H, W) local-shadow planes in [0, 1] with plane K = 1.0, and
+    a plane index in [0, K] per light (numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    planes = rng.uniform(0.0, 1.0, (k + 1, H, W)).astype(np.float32)
+    planes[k] = 1.0
+    return planes, rng.integers(0, k + 1, n_lights).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["spot_point", "mixed"])
+def test_shade_fused_local_planes_match_jax(scene, kind):
+    """Kernel variant B2a's plain version: the same inputs with seeded
+    local-shadow planes into shade_fused_pallas(local_vis_stack=...,
+    light_shadow_index=..., interpret=True) and the port's shade_fused;
+    the tolerances of test_shade_fused_matches_jax with the sun term.  The
+    planes change the result."""
+    from lsr_tpu.lighting.shade_kernel import shade_fused_pallas
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+
+    jl = _light_set(kind)
+    tl = convert.lights_soa(jl, "cpu")
+    cam, tcam = scene["j"][4], scene["t"][4]
+    eye = np.asarray(scene["j"][5].camera_pos, np.float32)
+    sun_dir = np.asarray([0.35, -0.75, 0.45], np.float32)
+    rad = np.asarray([2.0, 1.92, 1.8], np.float32)
+    ins = _fused_inputs(scene)
+    planes, idx = _seeded_planes(tl.count)
+    kinds = tuple(sorted(int(t) for t in np.unique(np.asarray(jl.type))))
+    jlit, _ = shade_fused_pallas(
+        *[jnp.asarray(a) for a in ins], jnp.asarray(eye),
+        jnp.asarray(sun_dir), jnp.asarray(rad), jl, cam.view, cam.proj, W, H,
+        tile_h=64, tile_w=128, cap=256, chunk=8, sun_model="pbr_mr",
+        fastmath=("apow1",) if tl.apow1 else (), light_kinds=kinds,
+        local_vis_stack=jnp.asarray(planes.transpose(1, 2, 0)),
+        light_shadow_index=jnp.asarray(idx), interpret=True)
+    targs = [_t(a) for a in ins] + [_t(eye), _t(sun_dir), _t(rad), tl,
+                                    tcam.view, tcam.proj, W, H]
+    tlit, _ = shade_fused(*targs, local_vis_stack=_t(planes).permute(1, 2, 0),
+                          light_shadow_index=_t(idx))
+    jlit = np.asarray(jlit)
+    np.testing.assert_allclose(tlit.numpy(), jlit, rtol=5e-5, atol=1e-5)
+    plain, _ = shade_fused(*targs)
+    assert float((plain - tlit).abs().max()) > 0.05
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +400,6 @@ def test_forward_plus_rejects_unported_options(scene):
     for kw, msg in ((dict(use_kernel=False), "use_kernel"),
                     (dict(mode="clustered"), "clustered"),
                     (dict(env_probes=True), "env_probes"),
-                    (dict(local_shadows=object()), "local_shadows"),
                     (dict(sun_model="toon"), "sun_model")):
         with pytest.raises(NotImplementedError, match=msg):
             shade_forward_plus(*base, **kw)

@@ -3,8 +3,9 @@
 Builds the procedural flagship stand-in (a grid of UV spheres + ground
 plane, bench-style lights, materials and checkerboard texture) with the JAX
 package, renders lsr_tpu's reference for the flagship frame (sun shadow
-map, no scene culling or local atlas; the B2 or the resolve route), and
-hands the same scene state to lsr_tpu_torch through lsr_tpu_torch.convert.
+map, optionally the per-frame cull and the local shadow atlas; the B2 or
+the resolve route), and hands the same scene state to lsr_tpu_torch
+through lsr_tpu_torch.convert.
 Inputs come from numpy seeds only.
 """
 
@@ -154,12 +155,41 @@ def jax_sun_shadow(geom, objects, ctx, size, filter_mode="esm"):
     return depth, light_vp, sc
 
 
+def jax_reference_cull(geom, objects, lights, cam):
+    """lsr_tpu's per-frame cull of bench.py:188-210, op by op (its occluder
+    raster through the brute kernel).  Returns (objects with the culled
+    visibility, lights with the culled enable mask, occluder depth)."""
+    import dataclasses
+
+    from lsr_tpu.geometry.occlusion import (
+        occlusion_cull_aabbs, render_occluder_depth)
+    from lsr_tpu.geometry.volumes import frustum_cull_objects
+    from lsr_tpu.lighting.light_culling import cull_lights_camera
+    from lsr_tpu.scene.scene import object_world_aabbs
+
+    wmin, wmax = object_world_aabbs(objects)
+    vis = objects.visible & frustum_cull_objects(cam.viewproj, wmin, wmax)
+    occ = render_occluder_depth(geom, objects, cam.viewproj, cam.zn, cam.zf,
+                                320, 180, occluder_mask=vis, kernel="brute")
+    vis = vis & occlusion_cull_aabbs.__wrapped__(occ, cam.viewproj, wmin,
+                                                 wmax, cam.zn, cam.zf)
+    lmask = cull_lights_camera(lights, cam.viewproj, occ_depth=occ,
+                               zn=cam.zn, zf=cam.zf)
+    return (dataclasses.replace(objects, visible=vis),
+            dataclasses.replace(lights, enabled=lights.enabled & lmask), occ)
+
+
 def jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, width, height,
-                         shadow_size=None, use_resolve=False):
-    """lsr_tpu's flagship frame (bench.py:179-288 without culling or the
-    local atlas): the ESM sun map (shadow_size^2; none when None) -> setup
-    -> rasterize_direct(spatial_sort) -> interp + fused shade, or the fused
-    resolve."""
+                         shadow_size=None, use_resolve=False,
+                         shadow_filter="esm", sun_vis_scale=1, cull=None,
+                         local=None, sun=None, raster=None):
+    """lsr_tpu's flagship frame (bench.py:179-288): the sun map
+    (shadow_size^2; none when None) -> setup -> rasterize_direct
+    (spatial_sort) -> interp + fused shade, or the fused resolve.  cull:
+    jax_reference_cull's (objects, lights) to render with; local: the
+    local shadow atlas (jax_local_atlas).  sun (jax_sun_shadow's result) and
+    raster ((setup, depth, tid, max_sup)) reuse stages another call
+    rendered."""
     import dataclasses
 
     from lsr_tpu.passes.forward_plus import (
@@ -170,28 +200,35 @@ def jax_reference_stages(geom, objects, lights, ctx, cam, ctx_t, width, height,
 
     out = {}
     if shadow_size is not None:
-        out["sun_depth"], out["light_viewproj"], sc = jax_sun_shadow(
-            geom, objects, ctx_t, shadow_size)
+        if sun is None:
+            sun = jax_sun_shadow(geom, objects, ctx_t, shadow_size,
+                                 shadow_filter)
+        out["sun_depth"], out["light_viewproj"], sc = sun
         ctx_t = dataclasses.replace(ctx_t, shadow=sc)
-    setup = scene_setup(
-        geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
-        geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj,
-        width, height, obj_visible=objects.visible)
-    depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
-                                           cam.zf, spatial_sort=True)
+    objs, lights_f = (objects, lights) if cull is None else cull[:2]
+    if raster is None:
+        setup = scene_setup(
+            geom.positions, geom.normals, geom.uvs, geom.indices,
+            geom.vtx_obj, geom.tri_obj, objs.model, objs.normal_mat,
+            cam.viewproj, width, height, obj_visible=objs.visible)
+        raster = (setup,) + tuple(rasterize_direct(
+            setup, width, height, cam.zn, cam.zf, spatial_sort=True))
+    setup, depth, tid, max_sup = raster
     gb = None
     if use_resolve:
         hdr, stats = resolve_forward_plus(
-            setup, depth, tid, ctx_t, lights, cam.view, cam.proj, cam.zn,
+            setup, depth, tid, ctx_t, lights_f, cam.view, cam.proj, cam.zn,
             cam.zf, width, height, cap=128, sun_model="pbr_mr",
-            rec_layout="lanes")
+            rec_layout="lanes", local_shadows=local,
+            sun_vis_scale=sun_vis_scale)
     else:
         gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
                                  want_face_normal=False)
         hdr, stats = shade_forward_plus(
-            gb, ctx_t, lights, cam.view, cam.proj, cam.zn, cam.zf, width,
+            gb, ctx_t, lights_f, cam.view, cam.proj, cam.zn, cam.zf, width,
             height, tile_size=16, cap=128, mode="tiled_depth_range",
-            sun_model="pbr_mr")
+            sun_model="pbr_mr", local_shadows=local,
+            sun_vis_scale=sun_vis_scale)
     out.update(setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
                hdr=hdr, stats=stats)
     return out
@@ -208,3 +245,69 @@ def torch_setup(s):
 
     return TriSetup(**{f: t(f) for f in ("coef", "iw", "ziw", "bbox", "valid",
                                          "obj_id", "wp", "nw", "uv")})
+
+
+def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
+                    point_size, filter_mode, vis_scale=1, caster_enabled=None):
+    """lsr_tpu's local shadow atlas (render_local_shadow_maps), its slots
+    rendered op by op: per slot lsr_tpu's frustum_cull_objects,
+    scene_setup_depth and rasterize_brute, one call at a time, then its own
+    table packing.  Its jitted form and its lax.map over slots (which
+    __wrapped__ still compiles) move a triangle of a grid-2 point face on
+    the edge of a texel centre (68 texels of face 1 at 32^2), as jit moves
+    the sun map's snap (ROADMAP C11).  A culled light's slots stay all far,
+    as its lax.cond makes them.  Returns lsr_tpu's LocalShadowMaps."""
+    from lsr_tpu.geometry.volumes import frustum_cull_objects
+    from lsr_tpu.lighting import local_shadows as jls
+    from lsr_tpu.lighting import shadow_sample as jss
+    from lsr_tpu.raster.brute import rasterize_brute
+    from lsr_tpu.raster.setup import CULL_NONE, DEPTH_NDC01, scene_setup_depth
+    from lsr_tpu.scene.scene import object_world_aabbs
+
+    (kinds, base_slots, caster_pos, caster_range, strengths, spot_vp,
+     point_vp) = jls.plan_slot_stacks(lights, spot_ids, point_ids)
+    wmin, wmax = object_world_aabbs(objects)
+    caster_mask = objects.casts_shadow & objects.visible
+    en = (np.ones(len(kinds), bool) if caster_enabled is None
+          else np.asarray(caster_enabled, bool))
+    n_spot = len(spot_ids)
+    slot_en = list(en[:n_spot]) + list(np.repeat(en[n_spot:], 6))
+    fars = np.maximum(np.asarray(caster_range), np.float32(0.25))
+    slot_far = list(fars[:n_spot]) + list(np.repeat(fars[n_spot:], 6))
+
+    def table(vps, size, first):
+        tabs = []
+        for s in range(vps.shape[0]):
+            d = jnp.ones((size, size), jnp.float32)
+            if slot_en[first + s]:
+                sm = caster_mask & frustum_cull_objects(vps[s], wmin, wmax)
+                st = scene_setup_depth(
+                    geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
+                    objects.model, vps[s], size, size, cull_mode=CULL_NONE,
+                    obj_visible=sm)
+                d, _ = rasterize_brute(st, size, size, jnp.float32(0.0),
+                                       jnp.float32(1.0),
+                                       depth_mode=DEPTH_NDC01)
+            if filter_mode == "esm":
+                lin = jls._linearize01(d, jnp.float32(0.05),
+                                       jnp.float32(slot_far[first + s]))
+                tabs.append(jss.pack_soft_u16(jss.prefilter_esm(lin, 2, 80.0)))
+            else:
+                tabs.append(jss.pack_shadow_taps_u16(d, 2, jls._TAP_STRIDE))
+        return jnp.concatenate(tabs, 0) if tabs else None
+
+    return jls.LocalShadowMaps(
+        spot_taps=table(spot_vp, map_size, 0),
+        point_taps=table(point_vp, point_size, n_spot),
+        spot_viewproj=spot_vp.reshape(-1, 16),
+        point_viewproj=point_vp.reshape(-1, 16),
+        caster_pos=jnp.stack(caster_pos), caster_range=jnp.stack(caster_range),
+        light_shadow_index=jls.shadow_index_for_lights(lights, spot_ids,
+                                                       point_ids),
+        strength=jnp.asarray(strengths, jnp.float32),
+        bias_const=jnp.float32(2e-3), bias_slope=jnp.float32(6e-3),
+        caster_enabled=(None if caster_enabled is None
+                        else jnp.asarray(en)),
+        spot_size=map_size, point_size=point_size, pcf_radius=2,
+        kinds=tuple(kinds), base_slots=tuple(base_slots), vis_scale=vis_scale,
+        vis_crop=(), filter_mode=filter_mode, esm_c=80.0)
