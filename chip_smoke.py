@@ -14,7 +14,8 @@ first use, into build/kernels/), then:
    Counts what its walk tests before and after the per-triangle cull.
 2. B2 (shade_fused) at the flagship shapes: the kernel against its plain
    version on the card, pbr_mr and blinn_phong, on the flagship light set and
-   on a mixed set with rect and tube lights.  Lit rgb within 1e-4.
+   on a mixed set with rect and tube lights.  Lit rgb within 1e-4.  Counts
+   what its light walk meets and what the box test and the vote leave.
 3. A small-input reference: the same scene with a 256^2 ESM sun map,
    rendered by the plain versions on the CPU and by the kernels on the card,
    at 192x108 (the cut frame: no cull, no local atlas).
@@ -71,12 +72,14 @@ Then the slice of the sun shadow, B5 and B6, on the flagship scene:
     receivers.
 11. B5 (resolve_fused) at 1920x1080: the kernel against resolve_fused_plain
     on the card, pbr_mr and blinn_phong, flagship and mixed lights, 8- and
-    16-light chunks; HDR within 1e-4.  Counts the (pixel, light) pairs its
-    walk meets, the binned and the live ones, and the lights a vote per
-    warp rectangle, pixel row or block would keep.
+    16-light chunks; HDR within 1e-4, and how many values differ at all.
+    Counts the (pixel, light) pairs its walk meets, the binned and the live
+    ones, the lights a vote per warp rectangle, pixel row or block would
+    keep, and the pairs left after the box test and the vote.
 12. B6 (accumulate_lights) at 1920x1080 on the flagship G-buffer, 64x128
     and 16x128 tiles: the kernel against its plain version; diffuse and
-    specular within 1e-4.  Then its entry point once, counts reset.
+    specular within 1e-4.  Then its entry point once, counts reset; each
+    configuration's kernel time and the counts of its light walk.
 13. The cut resolve frame (no cull, no atlas, 2048^2 ESM sun map) at
     1920x1080, counts reset: two direct_raster launches and one
     resolve_fused launch per frame, median and pipelined ms per frame, and
@@ -92,7 +95,8 @@ Then the whole frame's kernel branches:
     atlas, whole-table equal, for both filters at their sizes.
 16. B2a and B5a (local-shadow planes) against their plain versions at
     1920x1080 with the ESM default frame's real planes, within 1e-4, and
-    each kernel's time with and without the planes, in one call.
+    each kernel's time with and without the planes, in one call, with the
+    counts of B2's light walk on that frame.
 17. The card against the CPU on the whole frame: the grid-2 scene, 32
     lights, 192x108, ESM default with a 256^2 sun map and 128^2 slots and
     faces, cull and atlas, both routes, under phase 3's contract.
@@ -113,8 +117,11 @@ Every kernel's bound is the larger of the bytes it must move over 3.35
 TB/s and the f32 operations this run's data needs over 67 TFLOP/s (the
 H100 SXM's published peaks), counted from the inputs of this run: a raster
 does RASTER_OPS per (triangle, pixel) pair inside a valid triangle's bbox,
-a light loop LIGHT_OPS per (covered pixel, binned light) pair, plus the
+a light loop LIGHT_OPS per live (covered pixel, binned light) pair (in
+range, inside the cone, facing the light: light_walk.walk_counts'
+pairs_live; any other pair's term is +0 and needs no operation), plus the
 per-pixel work of the sun term and, for B5, interpolation and ambient.
+A local-shadow plane is read once for each live pair of a shadowed light.
 The bytes count each input the work needs once and each output once.  A
 raster's outputs, depth and tid, count once as written; the cleared
 targets a walk starts from are constants the work does not need, so they
@@ -162,7 +169,7 @@ SMALL_LOCAL = 128                  # its spot slots and cube faces
 # Work counts for the bounds (f32 operations, sqrt / division / powf / cosf
 # counted as one each).
 RASTER_OPS = 25     # 3 edge functions, coverage test, 1/w sum, depth
-LIGHT_OPS = 60      # one local light at one pixel (light_loop.cuh)
+LIGHT_OPS = 60      # one live local light at one pixel (light_loop.cuh)
 SUN_OPS = 60        # sun BRDF, view vector, combine, per pixel
 RESOLVE_OPS = 100   # B5's interpolation, normal and fake-IBL ambient
 PEAK_BYTES = 3.35e12
@@ -194,6 +201,14 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def resources_of(src):
+    """The build's `ptxas -v` lines of one source: registers, spilled bytes
+    and shared memory of each kernel in it."""
+    from lsr_tpu_torch.utils.cuda_build import build_info, kernel_resources
+
+    return kernel_resources(build_info["log"]).get(src, [])
+
+
 def bound(n_bytes, n_ops):
     """{bound_ms, bound_by, bytes, ops}: the least time the card could take
     (bytes over peak bandwidth or operations over the f32 peak)."""
@@ -207,28 +222,6 @@ def raster_pairs(setup):
     """(triangle, pixel) pairs inside the bboxes of the valid triangles."""
     b = setup.bbox[setup.valid].to(torch.int64)
     return int(((b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)).sum())
-
-
-def light_pairs(counts, covered, tile_h, tile_w, cap):
-    """(covered pixel, binned light) pairs: each tile's walked light count
-    times its covered pixels."""
-    h, w = covered.shape
-    ty, tx = -(-h // tile_h), -(-w // tile_w)
-    cov = torch.nn.functional.pad(covered.to(torch.int64),
-                                  (0, tx * tile_w - w, 0, ty * tile_h - h))
-    per_tile = cov.reshape(ty, tile_h, tx, tile_w).sum(dim=(1, 3)).reshape(-1)
-    return int((torch.clamp(counts.to(torch.int64), max=cap)
-                * per_tile).sum())
-
-
-def shadowed_pairs(tile_rec, counts, covered, n_shadowed, tile_h, tile_w):
-    """(covered pixel, binned light with a shadow plane) pairs: the plane
-    texels B2a / B5a must read, one for each walked record whose lane 28
-    (its plane) is below n_shadowed."""
-    live = torch.arange(tile_rec.shape[1], device=counts.device)[None] \
-        < counts[:, None].to(torch.int64)
-    n = ((tile_rec[..., 28] < n_shadowed) & live).sum(1)
-    return light_pairs(n, covered, tile_h, tile_w, tile_rec.shape[1])
 
 
 def direct_read_bytes(rec, chunk_bb, lists, counts):
@@ -420,6 +413,7 @@ def b2_phase(gb, ctx_t, lights, cam, dev):
     from lsr_tpu_torch.lighting import shade_kernel as sk
     from lsr_tpu_torch.lighting.light_culling import (
         tile_depth_ranges_from_buffer)
+    from lsr_tpu_torch.lighting.light_walk import gbuf_walk_counts
     from lsr_tpu_torch.shading.common import (
         gather_materials, sample_texture_bilinear)
     from lsr_tpu_torch.shading.models import _norm
@@ -468,13 +462,15 @@ def b2_phase(gb, ctx_t, lights, cam, dev):
     plain_ms = cuda_ms(lambda: sk.shade_fused_plain(*args(lights, "pbr_mr")),
                        2)
     n_cov = int(gb.covered.sum())
+    walk = gbuf_walk_counts(gbuf, trec, cnts, 64, 128, 8, lights.kinds)
     b = bound(nbytes(gbuf[:13], trec, cnts, uni) + 12 * WIDTH * HEIGHT,
-              light_pairs(cnts, gb.covered, 64, 128, trec.shape[1])
-              * LIGHT_OPS + n_cov * SUN_OPS)
+              walk["pairs_live"] * LIGHT_OPS + n_cov * SUN_OPS)
     log(f"B2 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms; bound {b}")
+        f"plain {plain_ms:.3f} ms; bound {b}; registers / spilled bytes "
+        f"{resources_of('shade_fused.cu')}")
+    log(f"B2 light walk at {WIDTH}x{HEIGHT} (64x128 tiles, chunk 8): {walk}")
     return {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, **b}
+            "plain_ms": plain_ms, **b, **walk}
 
 
 def small_reference(dev):
@@ -1012,7 +1008,7 @@ def b5_phase(st, ctx_t, lights, cam, dev):
 
     # Chunk 8 is the resolve route's; 16 (the public default) is a kernel
     # variant of its own (a 16-light staging and tree sum).
-    worst = 0.0
+    worst, values_differing = 0.0, 0
     for lname, light_set in (("flagship", lights), ("mixed", mixed_lights(dev))):
         for model in SUN_MODELS:
             for chunk in (8, 16):
@@ -1020,14 +1016,17 @@ def b5_phase(st, ctx_t, lights, cam, dev):
                 h_p, _ = rk.resolve_fused_plain(*args(light_set, model, chunk))
                 torch.cuda.synchronize()
                 err = float((h_k - h_p).abs().max())
+                n_diff = int((h_k.view(torch.int32)
+                              != h_p.view(torch.int32)).sum())
                 finite = bool(torch.isfinite(h_k).all())
                 log(f"B5 [{lname}, {model}, chunk {chunk}]: max abs {err:.3g} "
-                    f"(tol {B2_TOL}), max |hdr| {float(h_p.abs().max()):.4g}, "
-                    f"max lights/bin {int(stats['max_count'])}, finite "
-                    f"{finite}")
+                    f"(tol {B2_TOL}), {n_diff} values not bit for bit, max "
+                    f"|hdr| {float(h_p.abs().max()):.4g}, max lights/bin "
+                    f"{int(stats['max_count'])}, finite {finite}")
                 check(finite and err <= B2_TOL,
                       f"B5 {lname} {model} chunk {chunk} differs")
                 worst = max(worst, err)
+                values_differing += n_diff
 
     ms = cuda_ms(lambda: rk.resolve_fused(*args(lights, "pbr_mr")), 20)
     trec, cnts, _ = bin_light_records(lights, cam.view, cam.proj, WIDTH,
@@ -1045,27 +1044,31 @@ def b5_phase(st, ctx_t, lights, cam, dev):
     covered = st["tid"] >= 0
     n_cov = int(covered.sum())
     n_rows = int(torch.unique(st["tid"][covered]).numel())
+    walk = rk.walk_counts(table, st["tid"], tex, trec, cnts, WIDTH, HEIGHT,
+                          64, 128, 8, lights.kinds)
     # The kernel reads 31 lanes of each visible triangle's record; per
     # pixel its tid, visibility and albedo; it writes 12 bytes a pixel.
     b = bound(n_rows * 31 * 4 + WIDTH * HEIGHT * (4 + 4 + 12 + 12)
               + nbytes(trec, cnts, uni),
-              light_pairs(cnts, covered, 64, 128, 256) * LIGHT_OPS
+              walk["pairs_live"] * LIGHT_OPS
               + n_cov * (SUN_OPS + RESOLVE_OPS))
     log(f"B5 time: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms; bound {b}")
-    walk = rk.walk_counts(table, st["tid"], tex, trec, cnts, WIDTH, HEIGHT,
-                          64, 128, 8, lights.kinds)
+        f"plain {plain_ms:.3f} ms; bound {b}; registers / spilled bytes "
+        f"{resources_of('resolve_fused.cu')}")
     log(f"B5 light walk at {WIDTH}x{HEIGHT} (64x128 tiles, chunk 8): {walk}")
-    return {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, **b, **walk}
+    return {"max_abs_err": worst, "values_not_bit_equal": values_differing,
+            "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, **b,
+            **walk}
 
 
 def b6_phase(gb, ctx_t, lights, cam, dev):
     """Phase 12.  B6 against accumulate_lights_plain on the card at 1080p
     on the flagship G-buffer, at 64x128 (cap 256, chunk 16) and 16x128
-    (cap 64, chunk 8); then its entry point once with counts reset.
+    (cap 64, chunk 8); then its entry point once with counts reset; the
+    kernel's time and the counts of its light walk in both configurations.
     Returns (result entry, launches)."""
     from lsr_tpu_torch.lighting import fplus_kernel as fk
+    from lsr_tpu_torch.lighting.light_walk import gbuf_walk_counts
     from lsr_tpu_torch.utils.cuda_build import load_kernels
 
     def args(tile_h, cap, chunk, light_set=lights):
@@ -1098,22 +1101,35 @@ def b6_phase(gb, ctx_t, lights, cam, dev):
     launches = read_counts()
     check(launches["fplus_accumulate"] == 1,
           f"accumulate_lights did not launch B6: {launches}")
-    ms = cuda_ms(lambda: fk.accumulate_lights(*args(64, 256, 16)), 20)
-    gbuf, trec, cnts, uni, _, _ = fk._prepare(*args(64, 256, 16), None)
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kern = lambda: fk._accumulate_launch(  # noqa: E731
-        lib, gbuf, trec, cnts, uni, WIDTH, HEIGHT, 64, 128, 16, stream)
-    kern()
-    kernel_ms = cuda_ms(kern, 20)
-    plain_ms = cuda_ms(lambda: fk.accumulate_lights_plain(
-        *args(64, 256, 16)), 2)
-    b = bound(nbytes(gbuf[:7], trec, cnts, uni) + 24 * WIDTH * HEIGHT,
-              light_pairs(cnts, gb.covered, 64, 128, 256) * LIGHT_OPS)
-    log(f"B6 time (64x128, chunk 16): wrapper {ms:.3f} ms, kernel alone "
-        f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; bound {b}")
-    return ({"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
-             "plain_ms": plain_ms, **b}, launches)
+    res = {}
+    for tile_h, cap, chunk in ((64, 256, 16), (16, 64, 8)):
+        a = args(tile_h, cap, chunk)
+        ms = cuda_ms(lambda: fk.accumulate_lights(*a), 20)
+        gbuf, trec, cnts, uni, _, _ = fk._prepare(*a, None)
+
+        def kern():
+            return fk._accumulate_launch(lib, gbuf, trec, cnts, uni, WIDTH,
+                                         HEIGHT, tile_h, 128, chunk, stream)
+
+        kern()
+        kernel_ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(lambda: fk.accumulate_lights_plain(*a), 2)
+        walk = gbuf_walk_counts(gbuf, trec, cnts, tile_h, 128, chunk,
+                                lights.kinds)
+        b = bound(nbytes(gbuf[:7], trec, cnts, uni) + 24 * WIDTH * HEIGHT,
+                  walk["pairs_live"] * LIGHT_OPS)
+        log(f"B6 time ({tile_h}x128, chunk {chunk}): wrapper {ms:.3f} ms, "
+            f"kernel alone {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+            f"{b}; registers / spilled bytes "
+            f"{resources_of('fplus_accumulate.cu')}")
+        log(f"B6 light walk at {WIDTH}x{HEIGHT} ({tile_h}x128 tiles, chunk "
+            f"{chunk}): {walk}")
+        res[f"{tile_h}x128"] = {"ms": ms, "kernel_ms": kernel_ms,
+                                "plain_ms": plain_ms, **b, **walk}
+    return {"max_abs_err": worst, **res["64x128"],
+            "tile_16x128": res["16x128"]}, launches
 
 
 def resolve_frame_phase(geom, objects, lights, ctx, cams, dev):
@@ -1339,6 +1355,7 @@ def planes_phase(geom, objects, lights, ctx, cam, ctx_t, casters, dev):
     from lsr_tpu_torch.lighting import shade_kernel as sk
     from lsr_tpu_torch.lighting.light_culling import (
         tile_depth_ranges_from_buffer)
+    from lsr_tpu_torch.lighting.light_walk import gbuf_walk_counts
     from lsr_tpu_torch.passes.forward_plus import resolve_inputs
     from lsr_tpu_torch.shading.common import (
         gather_materials, sample_texture_bilinear)
@@ -1386,18 +1403,20 @@ def planes_phase(geom, objects, lights, ctx, cam, ctx_t, casters, dev):
     plain_ms = cuda_ms(lambda: sk.shade_fused_plain(*a), 2)
     n_cov = int(gb.covered.sum())
     k = planes.shape[0] - 1
-    # Planes: one texel for each (covered pixel, binned shadowed light).
+    walk = gbuf_walk_counts(gbuf, trec, cnts, 64, 128, 8, lf.kinds,
+                            n_shadowed=k)
+    # Planes: one texel for each live pair of a shadowed light.
     b = bound(nbytes(gbuf[:13], trec, cnts, uni) + 12 * WIDTH * HEIGHT
-              + 4 * shadowed_pairs(trec, cnts, gb.covered, k, 64, 128),
-              light_pairs(cnts, gb.covered, 64, 128, trec.shape[1])
-              * LIGHT_OPS + n_cov * SUN_OPS)
+              + 4 * walk["pairs_live_shadowed"],
+              walk["pairs_live"] * LIGHT_OPS + n_cov * SUN_OPS)
     out["b2"] = {"max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
                  "kernel_ms_planeless": k0_ms, "plain_ms": plain_ms,
-                 "planes_change": moved, "planes": k + 1, **b}
+                 "planes_change": moved, "planes": k + 1, **b, **walk}
     log(f"B2a (planes, ESM default frame, {k} shadowed planes): max abs "
         f"{err:.3g} (tol {B2_TOL}), the planes move lit by up to {moved:.3g}; "
         f"kernel {k_ms:.3f} ms with planes, {k0_ms:.3f} ms planeless, "
-        f"wrapper {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}")
+        f"wrapper {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}; light "
+        f"walk {walk}")
 
     st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH, HEIGHT,
                          use_resolve=True, casters=casters, **cfg)
@@ -1436,18 +1455,22 @@ def planes_phase(geom, objects, lights, ctx, cam, ctx_t, casters, dev):
     n_cov = int(covered.sum())
     n_rows = int(torch.unique(st["tid"][covered]).numel())
     k = planes.shape[0] - 1
+    walk = rk.walk_counts(table, st["tid"], tex, trec, cnts, WIDTH, HEIGHT,
+                          64, 128, 8, lf.kinds, n_shadowed=k)
     b = bound(n_rows * 31 * 4 + WIDTH * HEIGHT * (4 + 4 + 12 + 12)
-              + nbytes(trec, cnts, uni)
-              + 4 * shadowed_pairs(trec, cnts, covered, k, 64, 128),
-              light_pairs(cnts, covered, 64, 128, 256) * LIGHT_OPS
+              + nbytes(trec, cnts, uni) + 4 * walk["pairs_live_shadowed"],
+              walk["pairs_live"] * LIGHT_OPS
               + n_cov * (SUN_OPS + RESOLVE_OPS))
     out["b5"] = {"max_abs_err": err, "ms": ms, "kernel_ms": k_ms,
                  "kernel_ms_planeless": k0_ms, "plain_ms": plain_ms,
-                 "planes_change": moved, "planes": k + 1, **b}
+                 "planes_change": moved, "planes": k + 1, **b,
+                 "pairs_live": walk["pairs_live"],
+                 "pairs_live_shadowed": walk["pairs_live_shadowed"]}
     log(f"B5a (planes, ESM default frame, {k} shadowed planes): max abs "
         f"{err:.3g} (tol {B2_TOL}), the planes move HDR by up to {moved:.3g}; "
         f"kernel {k_ms:.3f} ms with planes, {k0_ms:.3f} ms planeless, "
-        f"wrapper {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}")
+        f"wrapper {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}; light "
+        f"walk {walk}")
     return out
 
 
@@ -2012,7 +2035,7 @@ def main():
         "chunk_hits_per_block_max")
     sun_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms",
                 "max_abs_err") + b1_keys
-    b5_keys = tuple(k for k in b5 if k.startswith(("pairs_", "lights_")))
+    walk_keys = tuple(k for k in b5 if k.startswith(("pairs_", "lights_")))
     frames = {k: {f: v[f] for f in ("ms", "wall_ms", "pipelined_ms",
                                     "frames", "b1_per_frame")}
               for k, v in whole.items()}
@@ -2033,8 +2056,8 @@ def main():
         entry("shade_fused", "shade_fused.cu",
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
               b2, planes=sub(planes["b2"], "kernel_ms_planeless",
-                             "planes_change", "planes"),
-              frames=frames),
+                             "planes_change", "planes", *walk_keys),
+              frames=frames, **{k: b2[k] for k in walk_keys}),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
               hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,
               **{k: r1080["tiled_raster"][k] for k in pair_keys}),
@@ -2046,12 +2069,16 @@ def main():
               "lsr_tpu/lighting/resolve_kernel.py:65",
               whole["esm_resolve"]["launches"]["resolve_fused"], b5,
               planes=sub(planes["b5"], "kernel_ms_planeless",
-                         "planes_change", "planes"),
+                         "planes_change", "planes", "pairs_live",
+                         "pairs_live_shadowed"),
               cut_frame_launches=res_launches["resolve_fused"],
-              **{k: b5[k] for k in b5_keys}),
+              values_not_bit_equal=b5["values_not_bit_equal"],
+              **{k: b5[k] for k in walk_keys}),
         entry("fplus_accumulate", "fplus_accumulate.cu",
               "lsr_tpu/lighting/fplus_kernel.py:46",
-              b6_launches["fplus_accumulate"], b6),
+              b6_launches["fplus_accumulate"], b6,
+              tile_16x128=sub(b6["tile_16x128"], *walk_keys),
+              **{k: b6[k] for k in walk_keys}),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

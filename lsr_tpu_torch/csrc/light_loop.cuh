@@ -15,22 +15,18 @@
 //   light_reach    Light x pixel -> distance, direction, N.L, cone cosine,
 //                  and whether the light can add anything at the pixel;
 //   light_shade    the attenuation, the half vector and the specular pow.
-// B5 runs light_prepare once per light (one thread a light, into shared
-// memory) and lets a warp skip light_shade when light_reach says no for
-// all of its pixels; measured on an NVIDIA H100 80GB HBM3 at 700 W, the
-// hoist alone is worth 10% of B5's old time and the skips 65% (the table
-// is in resolve_fused.cu).  B2 and B6 still run the three steps back to
-// back for every pixel (local_light), with the same floats as before.
+// B2, B5 and B6 run light_prepare once per light (one thread a light,
+// into shared memory) and let a warp skip light_shade when light_reach says
+// no for all of its pixels: the light walk of light_walk.cuh.
 //
 // The three steps take the light's kind as a template parameter: 0 reads it
-// from the record at run time (B5, whose staged lights are of any kind), 2,
-// 3, 4 and 1 (spot, rect, tube, point) fix it when the code is compiled.
-// local_light branches once on the kind, uniform in a block since all its
-// pixels walk one list, into four specialised copies, so no copy carries
-// another kind's fields or branches.  On the same card, same frame, one
-// call, parent / one generic copy / four copies: B2 0.547 / 0.570 / 0.482
-// ms, B6 1.114 / 1.149 / 1.012 ms, bit for bit the same output; the same
-// dispatch in B5 gave 0.370 against 0.378 ms and was not kept.
+// from the record at run time (what the kernels ship: a staged group holds
+// lights of any kind), 2, 3, 4 and 1 (spot, rect, tube, point) fix it when
+// the code is compiled, so that a copy carries no other kind's fields or
+// branches.  Before the walk, when every pixel prepared every light, four
+// copies made B2 0.547 -> 0.482 ms and B6 1.114 -> 1.012 ms on an NVIDIA
+// H100 80GB HBM3 at 700 W; on the walk B5 gave 0.370 against 0.378 ms and
+// B2's measurement is in shade_fused.cu's header.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -331,49 +327,6 @@ __device__ __forceinline__ void light_shade(const Light& L, const Reach& r,
   const float spec = L.spec_sc * powf(fmaxf(lndh, 1e-9f), L.spec_pw);
   wd = gain * r.lndl;
   ws = gain * spec;
-}
-
-// One local light of a known kind at a pixel, start to end.
-template <int KIND>
-__device__ __forceinline__ void light_of_kind(
-    const float* f, float px, float py, float pz, float nx, float ny,
-    float nz, float vx, float vy, float vz, bool covered, int apow1,
-    float& wd, float& ws, float vis) {
-  const Light L = light_prepare<KIND>(f);
-  Reach r;
-  light_reach<KIND>(L, px, py, pz, nx, ny, nz, covered, r);
-  light_shade<KIND>(L, r, nx, ny, nz, vx, vy, vz, covered, apow1, wd, ws,
-                    vis);
-}
-
-// One local light at a pixel (B2 and B6, whose every pixel still prepares
-// every light itself): the copy of its kind.  vis as in light_shade.
-__device__ __forceinline__ void local_light(
-    const float* f, float px, float py, float pz, float nx, float ny,
-    float nz, float vx, float vy, float vz, bool covered, int apow1,
-    float& wd, float& ws, float vis = 1.0f) {
-#define LSR_LIGHT_OF_KIND(K) \
-  light_of_kind<K>(f, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1, \
-                   wd, ws, vis)
-  const float ltype = f[0];
-  if (ltype == 2.0f) {
-    LSR_LIGHT_OF_KIND(2);
-  } else if (ltype == 3.0f) {
-    LSR_LIGHT_OF_KIND(3);
-  } else if (ltype == 4.0f) {
-    LSR_LIGHT_OF_KIND(4);
-  } else {
-    LSR_LIGHT_OF_KIND(1);
-  }
-#undef LSR_LIGHT_OF_KIND
-}
-
-// Stage rows [0, n) of a light chunk (n * kRec floats) into shared memory,
-// every thread of the block copying a strided share.
-__device__ __forceinline__ void stage_chunk(float* dst, const float* src,
-                                            int n_floats, int lane,
-                                            int n_threads) {
-  for (int i = lane; i < n_floats; i += n_threads) dst[i] = src[i];
 }
 
 }  // namespace lsr

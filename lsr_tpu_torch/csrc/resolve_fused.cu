@@ -20,7 +20,8 @@
 // version).
 //
 // What the design does about it: one thread per pixel, 32x8 blocks inside
-// one light tile, a warp on an 8x4 rectangle.
+// one light tile, a warp on an 8x4 rectangle, and the light walk it shares
+// with B2 and B6 (light_walk.cuh).
 //  - A light's own work once per light: the block takes the list 32 lights
 //    at a time; one thread per light runs lsr::light_prepare (unit axis,
 //    cone cosines, rect frame, tube segment) into shared memory, and every
@@ -32,7 +33,7 @@
 //    prepared.  Then, for a light that passed, the warp votes after the
 //    distance, cone and N.L tests (lsr::light_reach) and skips the
 //    attenuation, half vector and both powf when no lane can be lit.  A
-//    warp without a covered pixel has an empty box and walks nothing.
+//    warp without a covered pixel walks only lights of infinite color.
 //  - Sums unchanged: a skipped light enters lsr_tpu's pairwise chunk tree
 //    (_sum0, resolve_kernel.py:50-62) as the +0 it would have added, at
 //    its own position, so grouping and result are those of the plain
@@ -68,7 +69,7 @@
 //   barrier (32 KB of shared memory)                       0.412 / 0.466
 //   the sun term after the light loop / no `top` copy      0.408, 0.434
 //   one copy of light_reach and light_shade per light
-//   kind, as B2 and B6 have (light_loop.cuh)               0.370 / -
+//   kind, as B2 and B6 had then (light_loop.cuh)           0.370 / -
 // With every light rejected the kernel takes 0.170 ms and with an empty
 // list 0.064 ms: the box tests (dependent loads of eight record fields a
 // lane per group) are about 0.1 ms and the evaluation of the 4.6 lights a
@@ -84,18 +85,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "light_loop.cuh"
+#include "light_walk.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
-constexpr int kThreads = kBlockX * kBlockY;
-constexpr int kWarpW = 8, kWarpH = 4;  // a warp's pixel footprint
-constexpr int kGroup = 32;             // lights prepared per barrier pair
 constexpr int kRecLanes = 56;
-constexpr unsigned kFullMask = 0xffffffffu;
+using lsr::kFullMask;
+using lsr::kGroup;
 using lsr::kRec;
+using lsr::kWalkH;
+using lsr::kWalkThreads;
+using lsr::kWalkW;
 
 // Fake-IBL environment: ground + ((horizon + (zenith - horizon) * up) -
 // ground) * up, with lsr_tpu's constants (zenith - horizon is folded in
@@ -104,71 +104,8 @@ __device__ __forceinline__ float env(float up, float g, float h, float zh) {
   return g + ((h + zh * up) - g) * up;
 }
 
-// The box of the world positions of a warp's covered pixels (empty: lo =
-// +inf, hi = -inf; fminf / fmaxf drop a NaN position, whose pixel no light
-// reaches anyway).
-struct Box {
-  float x0, x1, y0, y1, z0, z1;
-};
-
-__device__ __forceinline__ Box warp_box(bool covered, float px, float py,
-                                        float pz) {
-  Box b = {covered ? px : CUDART_INF_F, covered ? px : -CUDART_INF_F,
-           covered ? py : CUDART_INF_F, covered ? py : -CUDART_INF_F,
-           covered ? pz : CUDART_INF_F, covered ? pz : -CUDART_INF_F};
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    b.x0 = fminf(b.x0, __shfl_xor_sync(kFullMask, b.x0, d));
-    b.x1 = fmaxf(b.x1, __shfl_xor_sync(kFullMask, b.x1, d));
-    b.y0 = fminf(b.y0, __shfl_xor_sync(kFullMask, b.y0, d));
-    b.y1 = fmaxf(b.y1, __shfl_xor_sync(kFullMask, b.y1, d));
-    b.z0 = fminf(b.z0, __shfl_xor_sync(kFullMask, b.z0, d));
-    b.z1 = fmaxf(b.z1, __shfl_xor_sync(kFullMask, b.z1, d));
-  }
-  return b;
-}
-
-// The offset from the nearest point of [lo, hi] to e along one axis, as the
-// per-pixel code subtracts (emitter - pixel).
-__device__ __forceinline__ float axis_gap(float e, float lo, float hi) {
-  return e < lo ? e - lo : (e > hi ? e - hi : 0.0f);
-}
-
-// The eight fields of a packed light record that the box test reads.
-struct BoxRec {
-  float ltype, x, y, z, colr, colg, colb, rng;
-};
-
-__device__ __forceinline__ BoxRec load_box_rec(const float* f) {
-  return {f[0], f[1], f[2], f[3], f[13], f[14], f[15], f[17]};
-}
-
-// False only when the light cannot be in range of any pixel of the box.
-// For a point or a spot the emitter is the light's position, and
-// light_reach computes dist = sqrt(max(tx*tx + ty*ty + tz*tz, 1e-16)) with
-// t = emitter - pixel and asks dist < rng.  Every step rounds to nearest,
-// and rounding is monotone: along each axis |emitter - pixel| is at least
-// |axis_gap| for every pixel of the box, so each square, each sum, the
-// square root and therefore dist are at least the values computed here in
-// the same order, and dist < rng fails at every pixel when it fails here.
-// Rect and tube emitters move with the pixel and a light with an infinite
-// color channel must reach the sum as 0 * inf: both are always kept.
-__device__ __forceinline__ bool light_near_box(const BoxRec& f,
-                                               const Box& b) {
-  if (f.ltype == 3.0f || f.ltype == 4.0f) return true;
-  if (!(fmaxf(f.colr, 0.0f) < CUDART_INF_F
-        && fmaxf(f.colg, 0.0f) < CUDART_INF_F
-        && fmaxf(f.colb, 0.0f) < CUDART_INF_F))
-    return true;
-  const float tx = axis_gap(f.x, b.x0, b.x1);
-  const float ty = axis_gap(f.y, b.y0, b.y1);
-  const float tz = axis_gap(f.z, b.z0, b.z1);
-  const float dist = sqrtf(fmaxf(tx * tx + ty * ty + tz * tz, 1e-16f));
-  return dist < fmaxf(f.rng, 0.001f);
-}
-
 template <int CHUNK>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kWalkThreads, 3)
 resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
                      const int* __restrict__ tid,         // (H, W)
                      const float* __restrict__ sun_vis,   // (H, W)
@@ -183,10 +120,8 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
                      int tiles_x, int cap, int sun_model) {
   constexpr int kLevels = CHUNK == 16 ? 4 : 3;  // log2(CHUNK)
   __shared__ lsr::Light lights[kGroup];
-  // Warp w of the block owns the 8x4 pixels at (8 * (w % 4), 4 * (w / 4)).
-  const int lane = threadIdx.x, w = lane >> 5, wl = lane & 31;
-  const int x = blockIdx.x * kBlockX + (w & 3) * kWarpW + (wl & (kWarpW - 1));
-  const int y = blockIdx.y * kBlockY + (w >> 2) * kWarpH + wl / kWarpW;
+  int x, y;
+  lsr::walk_pixel(x, y);
   const bool inb = x < width && y < height;
   const size_t o = (size_t)y * width + x;
 
@@ -253,21 +188,14 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
       min((counts[tile] + CHUNK - 1) / CHUNK, cap / CHUNK) * CHUNK;
   const float* trec = tile_rec + (size_t)tile * cap * kRec;
   const bool warp_covered = __any_sync(kFullMask, covered);
-  const Box box = warp_box(covered, px, py, pz);
+  const lsr::Box box = lsr::warp_box(covered, px, py, pz);
+  const lsr::Pixel pix = {px, py, pz, nx, ny, nz, vx, vy, vz, covered};
+  const lsr::Planes pl = {vis, inb ? n_shadowed : 0, o, width, height};
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int g0 = 0; g0 < n_listed; g0 += kGroup) {
-    // Lane wl asks whether light g0 + wl can reach the warp's pixels at all.
-    bool near = false;
-    if (warp_covered && g0 + wl < n_listed)
-      near = light_near_box(load_box_rec(trec + (size_t)(g0 + wl) * kRec),
-                            box);
-    const unsigned wm = __ballot_sync(kFullMask, near);
-    // The barrier also keeps the last group's records until every warp is
-    // done with them.  No warp wants a light of this group: nothing staged.
-    if (!__syncthreads_or(wm != 0u)) continue;
-    if (lane < kGroup && g0 + lane < n_listed)
-      lights[lane] = lsr::light_prepare(trec + (size_t)(g0 + lane) * kRec);
-    __syncthreads();
+    unsigned wm;
+    if (!lsr::stage_group(trec, n_listed, g0, warp_covered, box, lights, wm))
+      continue;
 #pragma unroll 1
     for (int c0 = 0; c0 < kGroup; c0 += CHUNK) {
       const unsigned cm = (wm >> c0) & ((1u << CHUNK) - 1u);
@@ -281,29 +209,8 @@ resolve_fused_kernel(const float* __restrict__ table,     // (rows, 56)
 #pragma unroll 1
       for (int li = 0; li < CHUNK; ++li) {
         float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if ((cm >> li) & 1u) {
-          const lsr::Light& L = lights[c0 + li];
-          lsr::Reach r;
-          const bool may = lsr::light_reach(L, px, py, pz, nx, ny, nz,
-                                            covered, r);
-          // Uniform in the warp.  Where no pixel may be lit every gain is 0
-          // and the six terms are color * (0 * finite) = +0.
-          if (__any_sync(kFullMask, may) || L.zero_ok == 0.0f) {
-            const float lvis =
-                inb && L.sidx < (float)n_shadowed
-                    ? vis[(size_t)L.sidx * width * height + o]
-                    : 1.0f;
-            float wd, ws;
-            lsr::light_shade(L, r, nx, ny, nz, vx, vy, vz, covered, 0, wd,
-                             ws, lvis);
-            v[0] = L.colr * wd;
-            v[1] = L.colg * wd;
-            v[2] = L.colb * wd;
-            v[3] = L.colr * ws;
-            v[4] = L.colg * ws;
-            v[5] = L.colb * ws;
-          }
-        }
+        if ((cm >> li) & 1u)
+          lsr::light_terms<true>(lights[c0 + li], pix, 0, pl, v);
         bool placed = false;
 #pragma unroll
         for (int b = 0; b < kLevels; ++b) {
@@ -372,14 +279,14 @@ extern "C" int lsr_resolve_fused(const void* table, const void* tid,
                                  int height, int tile_h, int tile_w,
                                  int tiles_x, int tiles_y, int cap, int chunk,
                                  int sun_model, void* stream) {
-  if (tile_h % kBlockY || tile_w % kBlockX || (chunk != 8 && chunk != 16)
+  if (tile_h % kWalkH || tile_w % kWalkW || (chunk != 8 && chunk != 16)
       || (n_shadowed && !vis))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(table) % 16)
     return (int)cudaErrorInvalidValue;  // rows are read with 16-byte loads
-  dim3 grid(tiles_x * tile_w / kBlockX, tiles_y * tile_h / kBlockY);
+  dim3 grid(tiles_x * tile_w / kWalkW, tiles_y * tile_h / kWalkH);
   auto kern = chunk == 16 ? resolve_fused_kernel<16> : resolve_fused_kernel<8>;
-  kern<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  kern<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int*)tid, (const float*)sun_vis,
       (const float*)tex, (const float*)tile_rec, (const int*)counts,
       (const float*)uni, (const float*)vis, n_shadowed, (float*)out, width,

@@ -3,55 +3,82 @@
 // Replaces lsr_tpu/lighting/shade_kernel.py:_shade_kernel (wrapper
 // shade_fused_pallas, pallas_call at shade_kernel.py:510).
 //
-// What bounds it on this card: arithmetic.  Per (pixel, light) it runs ~60
-// f32 operations with two square roots, one or two powf and, for spots, two
-// cosf; at 1080p with up to 256 binned lights per 64x128 tile that is far
-// above the 13 G-buffer planes (2 MB each) it reads and the 25 MB it writes.
+// What bounds it on this card: operations executed for (pixel, light) pairs
+// that add nothing, not memory (13 G-buffer planes read, 12 bytes written a
+// pixel).  A tile's list is binned for 64x128 pixels, and on the 1080p
+// flagship frame only 6.0 M of its 56.3 M (covered pixel, binned light)
+// pairs are live; an 8x4 pixel rectangle has a live pixel for 3.2 of the
+// 39.3 lights its tile lists (resolve_fused.cu's header has the counts).  A
+// pair costs some 60 f32 operations with two square roots, a division, one
+// or two powf and, for a spot, two cosf, without fast math or FMA
+// contraction, so that it rounds like the plain version.
 //
-// What the design does about it: one thread per pixel; a 32x8 block lies
-// inside one 64x128 light tile, so every thread of a block walks the same
-// list.  The block stages each chunk of 8 light records (8 x 32 f32 = 1 KB)
-// in shared memory, one float per thread, then all threads read each field
-// as a shared-memory broadcast.  Light-type branches are uniform across the
-// block (same light for every thread), so they cost no divergence, and
-// absent types cost nothing.  The walk is min(ceil(count/8), cap/8) chunks,
-// as in lsr_tpu (shade_kernel.py:342-346); list slots past the count hold
-// zero records and add exactly zero.  The sun term and the per-light math
-// live in light_loop.cuh, shared with B5 and B6.
+// What the design does about it: B5's light walk (light_walk.cuh).  One
+// thread per pixel, 32x8 blocks inside one 64x128 tile, a warp on an 8x4
+// rectangle; the block takes its tile's list 32 lights at a time.  Each
+// warp boxes the world positions of its covered pixels (G-buffer planes
+// 0-2) and lane k tests light k of the group against the box; a group no
+// warp wants is neither staged nor prepared; otherwise one thread a light
+// runs light_prepare into shared memory once.  For each light of its mask
+// a warp runs light_reach and skips light_shade where no lane can be lit.
+// A warp without a covered pixel walks only lights of infinite color.  The
+// walk is min(ceil(count/8), cap/8) chunks of 8, as in lsr_tpu
+// (shade_kernel.py:342-346); each chunk is summed in light order, then
+// added to the running sums, and a skipped light enters its chunk's sum as
+// the +0 it would have added.  The sun term, coverage and the output write
+// are per pixel, as before; an uncovered pixel writes (...) * 0.
 //
 // Local-shadow planes (variant B2a; lsr_tpu shade_kernel.py:270-294): record
 // lane 28 holds the light's plane, plane K the constant 1.0 of unshadowed
 // lights.  lsr_tpu sums a one-hot select over all K + 1 planes for every
 // light of a chunk that holds a shadowed one; here a shadowed light (plane
-// < K) reads its own plane's texel, once per pixel, and the gain of every
-// other light is multiplied by 1.0, which leaves it as it is.
+// < K) that a warp shades reads its own plane's texel, and the gain of
+// every other light is multiplied by 1.0, which leaves it as it is.
+//
+// The choices, each a patch of the source in b2_variants (kernel ms from
+// `python -m lsr_tpu_torch.utils.b2_variants --parent ...` on an NVIDIA
+// H100 80GB HBM3 at 700 W, one call, 1920x1080, medians of 4, every
+// variant's output equal to the shipped kernel's and to the kernel's
+// before this design bit for bit; registers / spilled bytes planeless and
+// with planes as the script prints them from -Xptxas -v):
+//   variant                          ESM, planes  ESM, none  cut   high-poly
+//   as built: box test, vote, a copy
+//   per light kind, a planeless copy,
+//   (256, 4): 64 / 84 B, 64 / 116 B      0.198       0.190   0.190   0.105
+//   no box test (votes only)             0.256       0.249   0.248   0.141
+//   no vote (box test only)              0.216       0.208   0.207   0.113
+//   neither                              0.488       0.455   0.455   0.243
+//   one kernel for both launches         0.198       0.197   0.197   0.108
+//   one generic copy of the light math   0.201       0.195   0.195   0.107
+//   (256, 3): 76 / 0 B, 75 / 0 B         0.214       0.206   0.206   0.105
+//   no register bound: 64 / 96, 64 / 108 0.197       0.190   0.189   0.104
+//   before this design (every pixel
+//   prepares and shades every light):
+//   64 / 100 B, 64 / 196 B               0.506       0.477   0.475   0.241
+// The bound is explicit, as the compiler picks 64 registers itself.  With
+// the box test and the vote off the walk still skips uncovered warps and
+// prepares each light once.
 
 #include <cuda_runtime.h>
 
-#include "light_loop.cuh"
+#include "light_walk.cuh"
 
 namespace {
 
 constexpr int kTileH = 64;
 constexpr int kTileW = 128;
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
 constexpr int kChunk = 8;
+using lsr::kFullMask;
+using lsr::kGroup;
 using lsr::kRec;
+using lsr::kWalkH;
+using lsr::kWalkThreads;
+using lsr::kWalkW;
 
-// kPlanes: the launch has local-shadow planes; planeless launches take a
-// copy without the plane code.  Four blocks an SM (64 registers).  Kernel
-// ms from `python -m lsr_tpu_torch.utils.b2_variants` on an NVIDIA H100
-// 80GB HBM3 at 700 W, one call, 1920x1080, medians of 4:
-//   variant                   ESM, planes  ESM, none  cut frame  high-poly
-//   two copies, (256, 4)            0.507      0.477      0.477      0.243
-//   one kernel, (256, 4)            0.507      0.506      0.507      0.258
-//   two copies, no bound            0.525      0.475      0.476      0.245
-//   one kernel, no bound (79 reg)   0.526      0.525      0.527      0.238
-// One kernel costs planeless launches 6%, so the copy stays; the bound
-// saves the planes launch 3.5% and the copy nothing.
+// kPlanes: the launch has local-shadow planes (a planeless launch runs a
+// copy without the plane code).
 template <bool kPlanes>
-__global__ void __launch_bounds__(kBlockX * kBlockY, 4)
+__global__ void __launch_bounds__(kWalkThreads, 4)
 shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
                    const float* __restrict__ tile_rec,  // (tiles, cap, 32)
                    const int* __restrict__ counts,      // (tiles,)
@@ -61,10 +88,9 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
                    float* __restrict__ out,             // (H, W, 3)
                    int width, int height, int ph, int pw, int tiles_x,
                    int cap, int sun_model, int apow1) {
-  __shared__ float lrec[kChunk * kRec];
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int lane = threadIdx.y * kBlockX + threadIdx.x;
+  __shared__ lsr::Light lights[kGroup];
+  int x, y;
+  lsr::walk_pixel(x, y);
   const size_t plane = (size_t)ph * pw;
   const size_t o = (size_t)y * pw + x;
 
@@ -79,7 +105,6 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
   const float rough = gbuf[11 * plane + o];
   const float sun_vis = gbuf[12 * plane + o];
   const bool inb = x < width && y < height;
-  const size_t ovis = (size_t)y * width + x, vis_plane = (size_t)width * height;
 
   float vx = uni[0] - px, vy = uni[1] - py, vz = uni[2] - pz;
   lsr::unit3(vx, vy, vz);
@@ -94,51 +119,35 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
 
   // --- local lights of this block's tile -----------------------------------
   const int tile = (y / kTileH) * tiles_x + x / kTileW;  // uniform per block
-  const int count = counts[tile];
-  const int n_chunks = min((count + kChunk - 1) / kChunk, cap / kChunk);
+  const int n_listed =
+      min((counts[tile] + kChunk - 1) / kChunk, cap / kChunk) * kChunk;
   const float* trec = tile_rec + (size_t)tile * cap * kRec;
+  const bool warp_covered = __any_sync(kFullMask, covered);
+  const lsr::Box box = lsr::warp_box(covered, px, py, pz);
+  const lsr::Pixel pix = {px, py, pz, nx, ny, nz, vx, vy, vz, covered};
+  const lsr::Planes pl = {vis, inb ? n_shadowed : 0, (size_t)y * width + x,
+                          width, height};
+  auto term = [&](const lsr::Light& L, float v[6]) {
+    return lsr::light_terms_of_kind<kPlanes>(L, pix, apow1, pl, v);
+  };
 
-  float ldr = 0.0f, ldg = 0.0f, ldb = 0.0f;
-  float lsr_ = 0.0f, lsg = 0.0f, lsb = 0.0f;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    __syncthreads();
-    lrec[lane] = trec[ci * kChunk * kRec + lane];  // 256 threads, 256 floats
-    __syncthreads();
-    float cdr = 0.0f, cdg = 0.0f, cdb = 0.0f;
-    float csr = 0.0f, csg = 0.0f, csb = 0.0f;
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int g0 = 0; g0 < n_listed; g0 += kGroup) {
+    unsigned wm;
+    if (!lsr::stage_group(trec, n_listed, g0, warp_covered, box, lights, wm))
+      continue;
 #pragma unroll 1
-    for (int li = 0; li < kChunk; ++li) {
-      const float* f = lrec + li * kRec;
-      const float sidx = f[28];
-      const float lvis = kPlanes && inb && sidx < (float)n_shadowed
-                             ? vis[(size_t)sidx * vis_plane + ovis]
-                             : 1.0f;
-      float wd, ws;
-      lsr::local_light(f, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
-                       wd, ws, lvis);
-      const float colr = fmaxf(f[13], 0.0f), colg = fmaxf(f[14], 0.0f),
-                  colb = fmaxf(f[15], 0.0f);
-      cdr += colr * wd;
-      cdg += colg * wd;
-      cdb += colb * wd;
-      csr += colr * ws;
-      csg += colg * ws;
-      csb += colb * ws;
-    }
-    ldr += cdr;
-    ldg += cdg;
-    ldb += cdb;
-    lsr_ += csr;
-    lsg += csg;
-    lsb += csb;
+    for (int c0 = 0; c0 < kGroup; c0 += kChunk)
+      lsr::add_chunk_in_order<kChunk>((wm >> c0) & 0xffu, lights + c0, acc,
+                                      term);
   }
 
   if (inb) {
     const float covf = covered ? 1.0f : 0.0f;
-    float* po = out + ((size_t)y * width + x) * 3;
-    po[0] = (dr + ar * ldr + lsr_) * covf;
-    po[1] = (dg + ag * ldg + lsg) * covf;
-    po[2] = (db + ab * ldb + lsb) * covf;
+    float* po = out + pl.at * 3;
+    po[0] = (dr + ar * acc[0] + acc[3]) * covf;
+    po[1] = (dg + ag * acc[1] + acc[4]) * covf;
+    po[2] = (db + ab * acc[2] + acc[5]) * covf;
   }
 }
 
@@ -151,12 +160,12 @@ extern "C" int lsr_shade_fused(const void* gbuf, const void* tile_rec,
                                int width, int height, int ph, int pw,
                                int tiles_x, int cap, int sun_model, int apow1,
                                void* stream) {
-  if (n_shadowed && !vis) return (int)cudaErrorInvalidValue;
-  dim3 block(kBlockX, kBlockY);
-  dim3 grid(pw / kBlockX, ph / kBlockY);
+  if ((n_shadowed && !vis) || ph % kTileH || pw % kTileW || cap % kChunk)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(pw / kWalkW, ph / kWalkH);
   auto kern =
       n_shadowed ? shade_fused_kernel<true> : shade_fused_kernel<false>;
-  kern<<<grid, block, 0, (cudaStream_t)stream>>>(
+  kern<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
       (const float*)gbuf, (const float*)tile_rec, (const int*)counts,
       (const float*)uni, (const float*)vis, n_shadowed, (float*)out, width,
       height, ph, pw, tiles_x, cap, sun_model, apow1);

@@ -9,7 +9,9 @@ lsr_tpu's kernel.  Tiles are the caller's (64x128 by default, 16x128 in
 lsr_tpu's own tests and goldens); cap and chunk (8 or 16) are arguments and
 each tile walks min(ceil(count / chunk), cap / chunk) chunks.  A chunk's
 terms are summed in light order, then added to the running sums, in the
-kernel (csrc/fplus_accumulate.cu) and the plain version alike.
+kernel (csrc/fplus_accumulate.cu) and the plain version alike; the kernel
+leaves out the terms of lights that cannot reach a warp's pixels, which the
+plain version adds as +0 (lighting/light_walk.py).
 
 G-buffer planes (8, ph, pw): 0:3 world_pos | 3:6 normal | 6 covered | 7 pad.
 """

@@ -15,9 +15,8 @@ as lsr_tpu's pairwise tree (_sum0), in the kernel and the plain version
 alike.  No attenuation-pow skip: B5 always applies it.
 
 The kernel prepares each light once per block and never evaluates a light
-for a warp (8x4 pixels) that it cannot reach: lights_near_box is the plain
-model of its first test, shade_kernel.light_live of the second, and
-walk_counts counts what the walk meets and what the tests leave of it.
+for a warp (8x4 pixels) that it cannot reach: the light walk it shares with
+B2 and B6, modelled in lighting/light_walk.py.
 
 Uniforms (12,) f32: 0:3 camera_pos | 3:6 sun dir (unit) | 6:9 sun radiance
 | 9:12 background.
@@ -28,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from lsr_tpu_torch.core.util import cdiv
+from lsr_tpu_torch.lighting import light_walk
 from lsr_tpu_torch.lighting.shade_kernel import (
     SUN_MODELS,
     _rsqrt,
@@ -35,7 +35,6 @@ from lsr_tpu_torch.lighting.shade_kernel import (
     _unit3,
     bin_light_records,
     check_shadow_planes,
-    light_live,
     light_terms,
     pad_planes,
     plane_select,
@@ -48,8 +47,6 @@ from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
 REC_LANES = 56
 REC_LAYOUTS = ("planes", "lanes")
-_KERNEL_WARP = (8, 4)    # a warp of kernel B5 owns 8x4 (w x h) pixels
-_KERNEL_BLOCK = (32, 8)  # of its 32x8 block, which lies inside one tile
 
 
 def _pairwise_sum(x):
@@ -131,91 +128,17 @@ def _pixel_planes(rec_table, tid, sun_vis, tex_albedo, width, height, th, tw,
         tiles_y * th, tiles_x * tw), th, tw, tiles_y, tiles_x)
 
 
-def _rect_any(mask, th, tw, rw, rh):
-    """(T, C, th * tw) bool -> (T, C, th / rh, tw / rw): any pixel of each
-    rw x rh pixel rectangle of the tile."""
-    t, c, _ = mask.shape
-    return mask.view(t, c, th // rh, rh, tw // rw, rw).any(5).any(3)
-
-
-def lights_near_box(blk, px, py, pz, covered, th, tw):
-    """(T, chunk, th / 4, tw / 8) bool: plain model of the first cull of
-    kernel B5 (warp_box and light_near_box in csrc/resolve_fused.cu).  Each
-    warp boxes the world positions of its covered 8x4 pixels and keeps a
-    point or spot light only if the box's nearest point is in range, in the
-    operation order of the per-pixel distance, so that it never drops a
-    light that is in range of a pixel; rect and tube lights and lights with
-    an infinite color channel are always kept."""
-    (rw, rh), inf = _KERNEL_WARP, float("inf")
-    t = px.shape[0]
-    ok = covered & ~(torch.isnan(px) | torch.isnan(py) | torch.isnan(pz))
-
-    def bounds(p):
-        v = p.view(t, 1, th // rh, rh, tw // rw, rw)
-        m = ok.view_as(v)
-        return (torch.where(m, v, inf).amin((3, 5)),
-                torch.where(m, v, -inf).amax((3, 5)))
-
-    def gap(e, lo, hi):
-        e = e[..., None]                                    # (T, chunk, 1, 1)
-        return torch.where(e < lo, e - lo,
-                           torch.where(e > hi, e - hi, torch.zeros_like(lo)))
-
-    tx, ty, tz = (gap(blk[..., 1 + i:2 + i], *bounds(p))
-                  for i, p in enumerate((px, py, pz)))
-    dist = torch.sqrt(torch.clamp(tx * tx + ty * ty + tz * tz, min=1e-16))
-    near = dist < torch.clamp(blk[..., 17], min=0.001)[..., None, None]
-    ltype = blk[..., 0]
-    always = ((ltype == 3.0) | (ltype == 4.0)
-              | ~(torch.clamp(blk[..., 13:16], min=0.0) < inf).all(-1))
-    return near | always[..., None, None]
-
-
 def walk_counts(rec_table, tid, tex_albedo, tile_rec, counts, width: int,
-                height: int, th: int, tw: int, chunk: int, kinds):
-    """What kernel B5's light loop walks, counted with the plain models on
-    the kernel's own inputs: the (pixel, listed light) pairs of the padded
-    frame (every chunk of each tile's walk, zero records included), the
-    (covered pixel, binned light) pairs, the live pairs (light_live), and
-    per 8x4 warp rectangle, 32x1 pixel row and 32x8 block the lights with at
-    least one live pixel (what a vote over that footprint keeps); also the
-    lights the warp's box test keeps (lights_near_box)."""
-    tiles_y, tiles_x = cdiv(height, th), cdiv(width, tw)
+                height: int, th: int, tw: int, chunk: int, kinds,
+                n_shadowed: int = 0):
+    """light_walk.walk_counts of a B5 launch: what its light walk meets and
+    what its box test and vote leave of it, on the kernel's own inputs."""
     no_vis = torch.zeros_like(tid, dtype=torch.float32)   # not read here
     g = _pixel_planes(rec_table, tid, no_vis, tex_albedo, width, height, th,
-                      tw, tiles_y, tiles_x)
-    px, py, pz, nx, ny, nz = (g[i] for i in range(6))
-    cov = g[6] > 0.0
-    cap = tile_rec.shape[1]
-    n64 = counts.to(torch.int64)
-    n_listed = torch.clamp((n64 + chunk - 1) // chunk, max=cap // chunk) * chunk
-    rects = {"warp": _KERNEL_WARP, "row": (32, 1), "block": _KERNEL_BLOCK}
-    kept = {k: 0 for k in rects}
-    near = 0
-    live_pairs = 0
-    for ci, blk in enumerate(walk_chunks(tile_rec, counts, chunk)):
-        live = light_live(blk, px, py, pz, nx, ny, nz, cov, kinds)
-        live_pairs += int(live.sum())
-        for k, (rw, rh) in rects.items():
-            kept[k] = kept[k] + _rect_any(live, th, tw, rw, rh).sum(1)
-        listed = (ci * chunk + torch.arange(chunk, device=blk.device))[None] \
-            < n_listed[:, None]
-        near = near + (lights_near_box(blk, px, py, pz, cov, th, tw)
-                       & listed[..., None, None]).sum(1)
-    out = {"pairs_walked": int((n_listed * th * tw).sum()),
-           "pairs_binned": int((torch.clamp(n64, max=cap)
-                                * cov.sum((1, 2))).sum()),
-           "pairs_live": live_pairs,
-           "lights_listed_per_block_mean": float(
-               n_listed.to(torch.float64).mean())}
-    for k, (rw, rh) in rects.items():
-        c = kept[k].to(torch.float64)
-        out[f"lights_live_per_{k}_mean"] = float(c.mean())
-        out[f"lights_live_per_{k}_max"] = int(c.max())
-        out[f"pairs_after_{k}_vote"] = int(c.sum()) * rw * rh
-    out["lights_near_per_warp_mean"] = float(near.to(torch.float64).mean())
-    out["pairs_after_warp_box"] = int(near.sum()) * 32
-    return out
+                      tw, cdiv(height, th), cdiv(width, tw))
+    return light_walk.walk_counts(g[0], g[1], g[2], g[3], g[4], g[5],
+                                  g[6] > 0.0, tile_rec, counts, th, tw, chunk,
+                                  kinds, n_shadowed)
 
 
 def _resolve_plain(rec_table, tid, sun_vis, tex_albedo, tile_rec, counts,

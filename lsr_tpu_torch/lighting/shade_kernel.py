@@ -5,7 +5,9 @@ shade_fused bins the lights per 64x128 screen tile (cull_lights_tiled),
 gathers each tile's 32-lane light records (empty list slots hold zero
 records), lays the G-buffer out as planes and then either launches the CUDA
 kernel (csrc/shade_fused.cu) for CUDA tensors or evaluates the same tile
-lists per pixel with torch ops (_shade_plain) for CPU tensors.
+lists per pixel with torch ops (_shade_plain) for CPU tensors.  The kernel
+leaves out the terms of lights that cannot reach a warp's pixels, which the
+plain version adds as +0 (lighting/light_walk.py).
 
 G-buffer planes (16, ph, pw), the channel layout of lsr_tpu:
   0:3 world_pos | 3:6 normal | 6 covered | 7:10 albedo | 10 metallic |
@@ -266,8 +268,8 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
 def light_live(blk, px, py, pz, nx, ny, nz, covered, kinds):
     """(T, chunk, P) bool: the (light, pixel) pairs that can add anything,
     the plain model of light_reach's verdict in csrc/light_loop.cuh, on
-    which kernel B5's warps vote before they pay for a light's attenuation
-    and specular terms.  A pair is live when the pixel is covered, off the
+    which the warps of kernels B2, B5 and B6 vote before they pay for a
+    light's attenuation and specular terms.  A pair is live when the pixel is covered, off the
     emitter (dist > 1e-4), in range (dist < rng), faces the light (N.L > 0)
     and lies inside a spot's cone or in front of a rect; anywhere else
     light_terms' gain is 0 and its wd and ws are +0."""

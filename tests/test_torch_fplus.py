@@ -129,3 +129,55 @@ def test_accumulate_lights_checks_its_arguments(scene):
     meta = (args[0].to("meta"),) + args[1:]
     with pytest.raises(ValueError, match="unsupported device"):
         accumulate_lights(*meta)
+
+
+def _fplus_walk(scene, monkeypatch, tile_h, cap, chunk, eager=False):
+    """accumulate_lights on the CPU (kernel B6's plain version): (diffuse
+    and specular as they are, the same with the terms of every pair that
+    B6's light walk skips set to +0 (light_walk.walked_terms), its (listed,
+    walked) covered pairs).  eager: the box test's range 20% short."""
+    from lsr_tpu_torch.lighting import fplus_kernel as fk
+    from lsr_tpu_torch.lighting import light_walk
+
+    gb = scene["gb"]
+    args = (_t(gb.world_pos), _t(gb.normal_ws), _t(gb.covered), scene["teye"],
+            scene["tl"], scene["tcam"].view, scene["tcam"].proj, W, H,
+            tile_h, 128, cap, chunk)
+    d, s, _ = fk.accumulate_lights(*args)
+    counts = fk._prepare(*args, None)[2]
+    if eager:
+        near = light_walk.lights_near_box
+
+        def tight(blk, *a):
+            blk = blk.clone()
+            blk[..., 17] *= 0.8
+            return near(blk, *a)
+
+        monkeypatch.setattr(light_walk, "lights_near_box", tight)
+    terms = light_walk.walked_terms(fk.light_terms, counts, cap, chunk,
+                                    tile_h, 128)
+    monkeypatch.setattr(fk, "light_terms", terms)
+    dw, sw, _ = fk.accumulate_lights(*args)
+    return torch.cat([d, s]), torch.cat([dw, sw]), terms.pairs
+
+
+@pytest.mark.parametrize("tile_h,cap,chunk", [(64, 256, 16), (16, 64, 8)])
+def test_accumulate_plain_unchanged_by_what_the_walk_skips(
+        scene, monkeypatch, tile_h, cap, chunk):
+    """Kernel B6's light walk (csrc/light_walk.cuh) leaves out list slots
+    past its walk, lights its 8x4 warp's box test drops and lights its
+    warp's vote finds no pixel for.  The plain version with the terms of
+    every such pair set to +0 before the chunk sums equals the plain
+    version bit for bit, at 64x128 tiles with 16-light chunks and at 16x128
+    with 8; and the walk does leave out pairs the lists hold."""
+    out, walked, (listed, kept) = _fplus_walk(scene, monkeypatch, tile_h, cap,
+                                              chunk)
+    assert torch.equal(walked.view(torch.int32), out.view(torch.int32))
+    assert 0 < kept < 0.5 * listed, (kept, listed)
+
+
+def test_accumulate_walk_sweep_catches_an_eager_skip(scene, monkeypatch):
+    """The test of the test: with the box test's range 20% short the same
+    comparison finds a changed pixel."""
+    out, walked, _ = _fplus_walk(scene, monkeypatch, 64, 256, 16, eager=True)
+    assert not torch.equal(walked.view(torch.int32), out.view(torch.int32))

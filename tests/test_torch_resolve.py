@@ -330,8 +330,9 @@ def test_resolve_frame_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# What kernel B5 skips: light_live (its warps' vote) and lights_near_box
-# (its warps' box test) against light_terms, on seeded records and pixels
+# What the light walk of kernels B2, B5 and B6 skips: light_live (its warps'
+# vote) and lights_near_box (its warps' box test) against light_terms, on
+# seeded records and pixels
 # ---------------------------------------------------------------------------
 
 TH, TW = 8, 32       # two warp rows of four 8x4 rectangles per tile
@@ -365,37 +366,38 @@ def _seeded_lights(seed, tiles=3, chunk=16):
     return torch.from_numpy(f)
 
 
-def _seeded_pixels(seed, tiles=3):
-    """Pixel planes (tiles, 1, TH * TW): positions in coherent patches per
+def _seeded_pixels(seed, tiles=3, th=TH, tw=TW):
+    """Pixel planes (tiles, 1, th * tw): positions in coherent patches per
     8x4 rectangle (as a surface gives them), unit normals and view vectors,
     a quarter of the pixels uncovered and one rectangle wholly so."""
     rng = np.random.default_rng(seed)
-    centre = rng.uniform(-2.0, 2.0, (tiles, TH // 4, 1, TW // 8, 1, 3))
-    p = (centre + rng.uniform(-0.15, 0.15, (tiles, TH // 4, 4, TW // 8, 8, 3))
-         ).reshape(tiles, 1, TH * TW, 3).astype(np.float32)
+    centre = rng.uniform(-2.0, 2.0, (tiles, th // 4, 1, tw // 8, 1, 3))
+    p = (centre + rng.uniform(-0.15, 0.15, (tiles, th // 4, 4, tw // 8, 8, 3))
+         ).reshape(tiles, 1, th * tw, 3).astype(np.float32)
 
     def unit():
-        v = rng.normal(0.0, 1.0, (tiles, 1, TH * TW, 3))
+        v = rng.normal(0.0, 1.0, (tiles, 1, th * tw, 3))
         return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(
             np.float32)
 
-    cov = rng.random((tiles, TH // 4, 4, TW // 8, 8)) < 0.75
+    cov = rng.random((tiles, th // 4, 4, tw // 8, 8)) < 0.75
     cov[0, 0, :, 1, :] = False
     planes = [torch.from_numpy(np.ascontiguousarray(a[..., i]))
               for a in (p, unit(), unit()) for i in range(3)]
-    return planes, torch.from_numpy(cov.reshape(tiles, 1, TH * TW))
+    return planes, torch.from_numpy(cov.reshape(tiles, 1, th * tw))
 
 
 def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
-def _live_case(seed, apow1):
+def _live_case(seed, apow1, th=TH, tw=TW):
     from lsr_tpu_torch.lighting.fplus_kernel import ALL_KINDS
     from lsr_tpu_torch.lighting.shade_kernel import light_live, light_terms
 
     blk = _seeded_lights(seed)
-    (px, py, pz, nx, ny, nz, vx, vy, vz), cov = _seeded_pixels(seed + 100)
+    (px, py, pz, nx, ny, nz, vx, vy, vz), cov = _seeded_pixels(seed + 100,
+                                                               th=th, tw=tw)
     _, wd, ws = light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, cov,
                             apow1, ALL_KINDS)
     live = light_live(blk, px, py, pz, nx, ny, nz, cov, ALL_KINDS)
@@ -434,23 +436,28 @@ def test_light_live_sweep_catches_an_eager_skip():
                            _bits(wd))
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_lights_near_box_keeps_every_live_pair(seed):
-    """Kernel B5's first cull (each warp boxes the positions of its covered
+# The tile shapes of the kernels: this tiny one, then B6's 16x128, 32x128
+# and 64x128 (B2 and B5 bin to 64x128 only).
+@pytest.mark.parametrize("seed,th,tw", [
+    pytest.param(0, TH, TW, id="0"), pytest.param(1, TH, TW, id="1"),
+    pytest.param(2, TH, TW, id="2"), pytest.param(3, 16, 128, id="16x128"),
+    pytest.param(4, 32, 128, id="32x128"),
+    pytest.param(5, 64, 128, id="64x128")])
+def test_lights_near_box_keeps_every_live_pair(seed, th, tw):
+    """The walk's box test (each warp boxes the positions of its covered
     8x4 pixels and drops the point and spot lights whose range the box's
     nearest point misses) never drops a light with a live pixel in the
     rectangle, also with NaN positions and infinite colors in play; it
     keeps every rect and tube light; it does drop most of the rest."""
-    from lsr_tpu_torch.lighting.resolve_kernel import (
-        _rect_any, lights_near_box)
+    from lsr_tpu_torch.lighting.light_walk import lights_near_box, rect_any
 
-    blk, (px, py, pz, *_), cov, _, _, live = _live_case(seed, False)
+    blk, (px, py, pz, *_), cov, _, _, live = _live_case(seed, False, th, tw)
     px = px.clone()
     px[1, 0, 5] = float("nan")
     blk[2, 0, 13] = float("inf")
     blk[2, 0, 0] = 1.0
-    near = lights_near_box(blk, px, py, pz, cov, TH, TW)
-    wanted = _rect_any(live, TH, TW, 8, 4)
+    near = lights_near_box(blk, px, py, pz, cov, th, tw)
+    wanted = rect_any(live, th, tw, 8, 4)
     assert not bool((wanted & ~near).any())
     area = (blk[..., 0] == 3.0) | (blk[..., 0] == 4.0)
     assert bool(near[area].all()) and bool(near[2, 0].all())
@@ -459,16 +466,45 @@ def test_lights_near_box_keeps_every_live_pair(seed):
     assert int((wanted & ~area[..., None, None]).sum()) > 5
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_walked_pairs_hold_every_term_that_is_not_zero(seed):
+    """Every term color * wd and color * ws outside light_walk.walked_pairs
+    (the pairs the light walk of B2, B5 and B6 evaluates: slots within the
+    walk, kept by the warp's box test and its vote) is +0, bit for bit, on
+    the seeded sweep with a light of infinite color, which every warp
+    walks, covered or not (its 0 * inf terms are NaN).  The three zero
+    records at the end of each tile lie past the walk."""
+    from lsr_tpu_torch.lighting.fplus_kernel import ALL_KINDS
+    from lsr_tpu_torch.lighting.light_walk import walked_pairs
+    from lsr_tpu_torch.lighting.shade_kernel import light_terms
+
+    blk = _seeded_lights(seed)
+    (px, py, pz, nx, ny, nz, vx, vy, vz), cov = _seeded_pixels(seed + 100)
+    blk[2, 0, 13] = float("inf")
+    cols, wd, ws, reach = light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz,
+                                      cov, False, ALL_KINDS, want_reach=True)
+    listed = torch.ones(blk.shape[:2], dtype=torch.bool)
+    listed[:, -3:] = False
+    keep = walked_pairs(blk, px, py, pz, cov, reach, listed, TH, TW)
+    for c in cols:
+        for t in (c * wd, c * ws):
+            assert torch.equal(_bits(torch.where(keep, t, 0.0)), _bits(t))
+    assert bool(keep[2, 0].all())                    # the infinite light
+    uncovered = [r * TW + x for r in range(4) for x in range(8, 16)]
+    assert not bool(keep[0][:, uncovered].any())
+    assert float(keep.float().mean()) < 0.3
+
+
 def test_lights_near_box_sweep_catches_a_tight_box():
     """The test of the test: with the box's range test 20% too tight the
     same sweep finds a dropped light that has a live pixel."""
-    from lsr_tpu_torch.lighting import resolve_kernel as rk
+    from lsr_tpu_torch.lighting.light_walk import lights_near_box, rect_any
 
     blk, (px, py, pz, *_), cov, _, _, live = _live_case(0, False)
     tight = blk.clone()
     tight[..., 17] *= 0.8
-    near = rk.lights_near_box(tight, px, py, pz, cov, TH, TW)
-    assert bool((rk._rect_any(live, TH, TW, 8, 4) & ~near).any())
+    near = lights_near_box(tight, px, py, pz, cov, TH, TW)
+    assert bool((rect_any(live, TH, TW, 8, 4) & ~near).any())
 
 
 def test_walk_counts_are_consistent(scene):
@@ -498,3 +534,38 @@ def test_walk_counts_are_consistent(scene):
     per_tile = [int(cov[y:y + 64, :128].sum()) for y in (0, 64)]
     assert c["pairs_binned"] == sum(int(n) * p for n, p in zip(cnts, per_tile))
     assert c["lights_live_per_warp_max"] <= c["lights_live_per_block_max"]
+
+
+def test_walk_counts_split_the_live_pairs_by_plane(scene):
+    """walk_counts' pairs_live_shadowed (the plane texels chip_smoke.py
+    charges B2a / B5a) counts the live pairs whose record lane 28 is below
+    n_shadowed: none for n_shadowed 0, all of them when every light has
+    plane 0, and two complementary halves of the lights add up to all."""
+    from lsr_tpu.raster.interp import pack_interp_records
+
+    from lsr_tpu_torch.lighting import resolve_kernel as rk
+    from lsr_tpu_torch.lighting.shade_kernel import bin_light_records
+
+    _, _, _, ctx, _, _ = scene["j"]
+    _, _, tl, _, tcam, _ = scene["t"]
+    table = _t(pack_interp_records(scene["setup"], ctx.materials))
+    tid = _t(scene["tid"])
+    trec, cnts, _ = bin_light_records(tl, tcam.view, tcam.proj, W, H, 64, 128,
+                                      256, None)
+
+    def shadowed(rec, n):
+        c = rk.walk_counts(table, tid, torch.ones((H, W, 3)), rec, cnts, W,
+                           H, 64, 128, 8, tl.kinds, n_shadowed=n)
+        return c["pairs_live"], c["pairs_live_shadowed"]
+
+    rec = trec.clone()
+    rec[..., 28] = 0.0
+    live, all_ = shadowed(rec, 1)
+    assert live > 0 and all_ == live and shadowed(rec, 0)[1] == 0
+    odd = (torch.arange(rec.shape[1]) % 2).to(torch.float32)
+    rec[..., 28] = odd
+    _, even_half = shadowed(rec, 1)
+    rec[..., 28] = 1.0 - odd
+    _, odd_half = shadowed(rec, 1)
+    assert 0 < even_half < live and 0 < odd_half < live
+    assert even_half + odd_half == live

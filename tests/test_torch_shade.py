@@ -277,6 +277,72 @@ def test_shade_fused_local_planes_match_jax(scene, kind):
     assert float((plain - tlit).abs().max()) > 0.05
 
 
+def _shade_walk(scene, monkeypatch, kind, model, planes, eager=False):
+    """The port's shade_fused on the CPU (kernel B2's plain version) on the
+    scene, with seeded local-shadow planes or without: (lit as it is, lit
+    with the terms of every pair that B2's light walk skips set to +0
+    (light_walk.walked_terms), its (listed, walked) covered pairs).  eager:
+    the box test's range 20% short, a walk that skips too much."""
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting import light_walk
+    from lsr_tpu_torch.lighting import shade_kernel as sk
+
+    tl = convert.lights_soa(_light_set(kind), "cpu")
+    tcam = scene["t"][4]
+    kw = {}
+    if planes:
+        vis, idx = _seeded_planes(tl.count)
+        kw = dict(local_vis_stack=_t(vis).permute(1, 2, 0),
+                  light_shadow_index=_t(idx))
+    args = [_t(a) for a in _fused_inputs(scene)] + [
+        _t(np.asarray([0.5, 2.5, -4.0], np.float32)),
+        _t(np.asarray([0.3, -0.7, 0.5], np.float32)),
+        _t(np.asarray([2.0, 1.92, 1.8], np.float32)), tl, tcam.view,
+        tcam.proj, W, H]
+    lit, _ = sk.shade_fused(*args, sun_model=model, **kw)
+    counts = sk._prepare(*args, 64, 128, 256, 8, None, model,
+                         kw.get("local_vis_stack"),
+                         kw.get("light_shadow_index"), None, 0)[2]
+    if eager:
+        near = light_walk.lights_near_box
+
+        def tight(blk, *a):
+            blk = blk.clone()
+            blk[..., 17] *= 0.8
+            return near(blk, *a)
+
+        monkeypatch.setattr(light_walk, "lights_near_box", tight)
+    terms = light_walk.walked_terms(sk.light_terms, counts, 256, 8, 64, 128)
+    monkeypatch.setattr(sk, "light_terms", terms)
+    walked, _ = sk.shade_fused(*args, sun_model=model, **kw)
+    return lit, walked, terms.pairs
+
+
+@pytest.mark.parametrize("model", ["pbr_mr", "blinn_phong"])
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("kind", ["spot_point", "mixed"])
+def test_shade_plain_unchanged_by_what_the_walk_skips(scene, monkeypatch,
+                                                      kind, model, planes):
+    """Kernel B2's light walk (csrc/light_walk.cuh) leaves out list slots
+    past its walk, lights its 8x4 warp's box test drops and lights its
+    warp's vote finds no pixel for.  The plain version with the terms of
+    every such pair set to +0 before the chunk sums equals the plain
+    version bit for bit, with and without local-shadow planes, for both
+    sun models; and the walk does leave out pairs the lists hold."""
+    lit, walked, (listed, kept) = _shade_walk(scene, monkeypatch, kind,
+                                              model, planes)
+    assert torch.equal(walked.view(torch.int32), lit.view(torch.int32))
+    assert 0 < kept < 0.5 * listed, (kept, listed)
+
+
+def test_shade_walk_sweep_catches_an_eager_skip(scene, monkeypatch):
+    """The test of the test: with the box test's range 20% short the same
+    comparison finds a changed pixel."""
+    lit, walked, _ = _shade_walk(scene, monkeypatch, "mixed", "pbr_mr", True,
+                                 eager=True)
+    assert not torch.equal(walked.view(torch.int32), lit.view(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # G-buffer, materials, texture, ambient, post
 # ---------------------------------------------------------------------------
