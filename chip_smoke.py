@@ -101,6 +101,31 @@ Then the whole frame's kernel branches:
     lights, 192x108, ESM default with a 256^2 sun map and 128^2 slots and
     faces, cull and atlas, both routes, under phase 3's contract.
 
+Then kernel B2's clustered branch and the render-path presets:
+
+18. B2b (shade_fused with clustered slices) against its plain version at
+    1920x1080 on the flagship ESM default frame (cull, atlas, its planes):
+    16 log-Z slices, cap 256, planeless and with the planes, pbr_mr and
+    blinn_phong, within 1e-4; the kernel's time with and without planes
+    beside the tiled planeless B2 launch on the same G-buffer, and the
+    counts of its slice walk (listed pairs, pairs after the box test and
+    the vote, live pairs).
+19. The render-path presets (forward_classic, forward_plus, deferred,
+    tiled_deferred, clustered_forward) through
+    render_paths.build_preset_pipelines at 1280x720, PCF (sun 2048^2, spot
+    slots 1024^2, cube faces 512^2), each a main path of its own, counts
+    reset before it: median ms per frame by CUDA events with [min, max],
+    pipelined ms, exactly 3 + 20 B1 launches and one B2 a frame, and
+    execute_segmented's per-pass device ms; the contact sheet
+    out/torch_render_paths.png.
+20. B2b against its plain version on clustered_forward's own launch at
+    1280x720 (with its local-shadow planes), timed and counted as in 18.
+21. Phase I's backend parity: each preset at 320x180 (slots 256^2, faces
+    128^2), B1 against rasterize_brute for the camera, three frames: depth
+    and tid equal off stray pixels (C8), LDR within 1 LSB on >= 99.9%.
+22. The card against the CPU through the pipeline: each preset at 192x108
+    (sun 256^2, slots and faces 128^2, 8 slices) under phase 3's contract.
+
 14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
     previous stage's outputs (host enqueue ms, device ms by CUDA events),
@@ -1600,6 +1625,360 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Kernel B2's clustered branch and the render-path presets (phases 18-22)
+# ---------------------------------------------------------------------------
+
+RP_W, RP_H = 1280, 720             # Phase F's resolution
+RP_WARMUP, RP_FRAMES = 2, 5        # frames per preset (Phase F)
+PHASE_I_W, PHASE_I_H = 320, 180    # Phase I's backend parity
+CLUSTER_SLICES = 16
+PRESETS = ("forward_classic", "forward_plus", "deferred", "tiled_deferred",
+           "clustered_forward")
+
+
+class shade_calls:
+    """Context manager recording the arguments of every shade_fused call of
+    the fused forward+ lighting (passes.forward_plus) while it is open, in
+    shade_fused's parameter order: .calls [list of 27 arguments]."""
+
+    def __enter__(self):
+        import inspect
+
+        from lsr_tpu_torch.passes import forward_plus as fpm
+
+        self._mod, self._orig, self.calls = fpm, fpm.shade_fused, []
+        sig = inspect.signature(self._orig)
+
+        def record(*a, **k):
+            bound = sig.bind(*a, **k)
+            bound.apply_defaults()
+            self.calls.append(list(bound.arguments.values()))
+            return self._orig(*a, **k)
+
+        fpm.shade_fused = record
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.shade_fused = self._orig
+
+
+def listed_record_bytes(counts, cap):
+    """The records a binned light walk must read: its listed entries (32
+    f32 each) and its counts (i32); the zero slots past a count are not
+    read."""
+    return int(torch.clamp(counts.to(torch.int64), max=cap).sum()) * 128 \
+        + 4 * counts.numel()
+
+
+def b2b_check(tag, full, depth01, dev, models=("pbr_mr", "blinn_phong"),
+              timed=True):
+    """Kernel B2b (shade_fused with clustered slices) against
+    shade_fused_plain on the card for one call's arguments (full: the 27
+    arguments of shade_fused), each sun model, within B2_TOL.  With timed,
+    also the kernel alone on its prepared inputs (with the call's planes
+    and without), the tiled planeless B2 launch on the same G-buffer
+    (lsr_tpu's tiled_depth_range binning from depth01), the wrapper, the
+    plain version, the slice walk's counts and the bound.  Returns the
+    entry."""
+    from lsr_tpu_torch.lighting import shade_kernel as sk
+    from lsr_tpu_torch.lighting.light_culling import (
+        tile_depth_ranges_from_buffer)
+    from lsr_tpu_torch.lighting.light_walk import gbuf_walk_counts
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    a = list(full)
+    worst = 0.0
+    for model in models:
+        a[20] = model
+        lit_k, stats = sk.shade_fused(*a)
+        lit_p, _ = sk.shade_fused_plain(*a)
+        torch.cuda.synchronize()
+        err = float((lit_k - lit_p).abs().max())
+        finite = bool(torch.isfinite(lit_k).all())
+        log(f"B2b [{tag}, {model}]: max abs {err:.3g} (tol {B2_TOL}), max "
+            f"|lit| {float(lit_p.abs().max()):.4g}, max lights/cluster "
+            f"{int(stats['max_count'])}, finite {finite}")
+        check(finite and err <= B2_TOL, f"B2b {tag} {model} differs")
+        worst = max(worst, err)
+    if not timed:
+        return {"max_abs_err": worst}
+    a[20] = "pbr_mr"
+    width, height, lights, slices = a[13], a[14], a[10], a[24]
+    gbuf, trec, cnts, uni, _, _, planes = sk._prepare(*a)
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(rec, p, sl, g=gbuf, c=cnts):
+        return lambda: sk._shade_launch(lib, g, rec, c, uni, width, height,
+                                        "pbr_mr", lights.apow1, stream, p,
+                                        sl)
+
+    planes = None if planes is None else planes.contiguous()
+    launch(trec, planes, slices)()
+    kernel_ms = cuda_ms(launch(trec, planes, slices), 20)
+    kernel_ms_planeless = kernel_ms
+    if planes is not None:
+        _, trec0, _, _, _, _, _ = sk._prepare(*(a[:21] + [None, None]
+                                                + a[23:]))
+        kernel_ms_planeless = cuda_ms(launch(trec0, None, slices), 20)
+    tdr = tile_depth_ranges_from_buffer(depth01, a[25], a[26], width, height,
+                                        128, tile_h=64)
+    gbuf_t, trec_t, cnts_t = sk._prepare(*(a[:19] + [tdr, "pbr_mr", None,
+                                                     None, None, 0]))[:3]
+    tiled_ms = cuda_ms(launch(trec_t, None, 0, gbuf_t, cnts_t), 20)
+    ms = cuda_ms(lambda: sk.shade_fused(*a), 10)
+    plain_ms = cuda_ms(lambda: sk.shade_fused_plain(*a), 2)
+    n_shadowed = 0 if planes is None else planes.shape[0] - 1
+    walk = gbuf_walk_counts(gbuf, trec, cnts, 64, 128, 8, lights.kinds,
+                            n_shadowed=n_shadowed, slices=slices)
+    n_cov = int((gbuf[6] > 0).sum())
+    cap = trec.shape[1] // slices
+    # Bytes: 13 G-buffer planes and the slice plane, the listed records and
+    # the counts, the uniforms, the output, one plane texel per live pair
+    # of a shadowed light.
+    b = bound(nbytes(gbuf[:14], uni) + listed_record_bytes(cnts, cap)
+              + 12 * width * height + 4 * walk["pairs_live_shadowed"],
+              walk["pairs_live"] * LIGHT_OPS + n_cov * SUN_OPS)
+    res = {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms,
+           "kernel_ms_planeless": kernel_ms_planeless,
+           "tiled_kernel_ms_planeless": tiled_ms, "plain_ms": plain_ms,
+           "slices": slices, "cap": cap, "planes": n_shadowed + 1
+           if planes is not None else 0,
+           "slices_in_use": int(torch.unique(gbuf[13][gbuf[6] > 0]).numel()),
+           "clusters_listed": int((cnts > 0).sum()),
+           "records_listed": int(torch.clamp(cnts, max=cap).sum()),
+           "record_table_bytes": nbytes(trec), **b,
+           **{k: walk[k] for k in ("pairs_walked", "pairs_binned",
+                                   "pairs_live", "pairs_live_shadowed",
+                                   "pairs_after_warp_box",
+                                   "pairs_after_box_and_vote")}}
+    log(f"B2b [{tag}] {width}x{height}, {slices} slices, cap {cap}: kernel "
+        f"{kernel_ms:.3f} ms ({kernel_ms_planeless:.3f} planeless), tiled "
+        f"B2 planeless on the same G-buffer {tiled_ms:.3f} ms, wrapper "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms; bound {b}; slice walk "
+        f"{walk}; registers / spilled bytes "
+        f"{resources_of('shade_fused.cu')}")
+    return res
+
+
+def b2b_phase(geom, objects, lights, ctx, cam, ctx_t, casters, dev):
+    """Phase 18.  Kernel B2b (clustered slices) against its plain version on
+    the card at 1920x1080 on the flagship scene's ESM default frame (cull,
+    atlas, its real planes): 16 slices, cap 256, planeless and with the
+    planes, pbr_mr and blinn_phong; its times beside the tiled planeless B2
+    launch on the same G-buffer, and the counts of the slice walk."""
+    from lsr_tpu_torch.frame import bench_config, flagship_stages
+    from lsr_tpu_torch.lighting.light_culling import (
+        view_depth_to_cluster_slice)
+    from lsr_tpu_torch.shading.common import (
+        gather_materials, sample_texture_bilinear)
+    from lsr_tpu_torch.shading.models import _norm
+
+    st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH,
+                         HEIGHT, casters=casters,
+                         **bench_config("esm", WIDTH, HEIGHT))
+    gb = st["gb"]
+    base, metal, rough, _, _, tex_id = gather_materials(
+        ctx_t.materials, gb.obj_id, mat_rec=gb.mat)
+    albedo = torch.clamp(base * sample_texture_bilinear(
+        ctx_t.textures, tex_id, gb.uv, quads=ctx_t.texture_quads), min=0.0)
+    zn_t = torch.tensor(cam.zn, device=dev)
+    zf_t = torch.tensor(cam.zf, device=dev)
+    sp = view_depth_to_cluster_slice(zn_t + gb.depth01 * (zf_t - zn_t),
+                                     cam.zn, cam.zf, CLUSTER_SLICES)
+    full = [gb.world_pos, _norm(gb.normal_ws), gb.covered, albedo,
+            metal[..., 0], rough[..., 0], st["sun_vis"], ctx_t.camera_pos,
+            ctx_t.light_dir_ws, ctx_t.light_color * ctx_t.light_intensity,
+            dataclasses.replace(lights, enabled=st["light_enabled"]),
+            cam.view, cam.proj, WIDTH, HEIGHT, 64, 128, 256, 8, None,
+            "pbr_mr", None, None, sp, CLUSTER_SLICES, cam.zn, cam.zf]
+    b2b_check("flagship ESM frame, planeless", full, gb.depth01, dev,
+              timed=False)
+    full[21:23] = [st["local_vis"], st["local"].light_shadow_index]
+    return b2b_check("flagship ESM frame, planes", full, gb.depth01, dev)
+
+
+def _contact_sheet(frames, cols=3):
+    """(H, W, 3) uint8 frames at half size in a grid of `cols` columns, the
+    empty cells black; row 0 of the result is the top row."""
+    small = [f[::2, ::2].cpu() for f in frames]
+    h, w = small[0].shape[:2]
+    rows = -(-len(small) // cols)
+    sheet = torch.zeros((rows * h, cols * w, 3), dtype=torch.uint8)
+    for k, f in enumerate(small):
+        r, c = divmod(k, cols)
+        # The frames' row 0 is the bottom row (as out/torch_flagship.png).
+        sheet[r * h:(r + 1) * h, c * w:(c + 1) * w] = f.flip(0)
+    return sheet.numpy()
+
+
+def render_paths_phase(dev):
+    """Phases 19-20, the render-path main paths (Phase F of
+    scripts/run_phases.py): lsr_tpu's five presets through
+    render_paths.build_preset_pipelines at 1280x720 with the exact PCF
+    filter (sun 2048^2, spot slots 1024^2, cube faces 512^2), on the card.
+    Per preset, counts reset just before and read just after it: RP_WARMUP
+    + RP_FRAMES frames along the orbit (CUDA events per frame), the same
+    frames again without a sync between them (pipelined); exactly 3 + 20
+    B1 launches a frame (the occluders, the sun map, the camera and every
+    atlas slot: a slot of a light the cull disabled is launched with its
+    setup masked) and one B2 launch, nothing else.  Then
+    execute_segmented's per-pass device ms for frame 0, kernel B2b against
+    its plain version on clustered_forward's own launch (phase 20), and the
+    contact sheet out/torch_render_paths.png.  Returns {preset: result,
+    "b2b": B2b's entry}."""
+    from lsr_tpu_torch.io.png import write_png
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.render_paths import build_preset_pipelines
+
+    fns, pipes = build_preset_pipelines(RP_W, RP_H, set(PRESETS), device=dev,
+                                        with_pipes=True)
+    n = RP_WARMUP + RP_FRAMES
+    out, frames = {}, []
+    for name in PRESETS:
+        pipe, fp, state_fn = pipes[name]
+        lp = fp.pass_params.local_shadow
+        b1_per_frame = 3 + len(lp.spot_ids) + 6 * len(lp.point_ids)
+        for i in range(n):
+            state_fn(i)               # the orbit's cameras, built once
+        pipe.reset_history()
+        reset_counts()
+        ms = []
+        for i in range(n):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ldr = fns[name](i)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        for i in range(RP_WARMUP, n):
+            ldr = fns[name](i)
+        torch.cuda.synchronize()
+        pipelined = (time.perf_counter() - t0) * 1e3 / RP_FRAMES
+        launches = read_counts()
+        nf = n + RP_FRAMES
+        want = {k: 0 for k in launches}
+        want.update(direct_raster=b1_per_frame * nf, shade_fused=nf)
+        check(launches == want, f"preset {name}: launches {launches} for "
+              f"{nf} frames, expected {want}")
+        check(ldr.shape == (RP_H, RP_W, 3) and ldr.dtype == torch.uint8
+              and float((ldr.int().sum(-1) > 0).float().mean()) > 0.5,
+              f"preset {name}: the frame is empty")
+        frames.append(fns[name](0))
+        ctx = RenderContext()
+        pipe.execute_segmented(ctx, state_fn(0), fp)
+        res = {"ms": statistics.median(ms[RP_WARMUP:]),
+               "ms_min": min(ms[RP_WARMUP:]), "ms_max": max(ms[RP_WARMUP:]),
+               "pipelined_ms": pipelined, "frames": nf,
+               "b1_per_frame": b1_per_frame, "launches": launches,
+               "pass_ms": {k: round(v, 3)
+                           for k, v in ctx.debug.pass_ms.items()},
+               "frame_ms_all": [round(m, 3) for m in ms]}
+        log(f"preset {name} {RP_W}x{RP_H} (PCF, sun "
+            f"{fp.pass_params.shadow.map_size}^2, slots {lp.map_size}^2, "
+            f"faces {lp.point_size}^2): {RP_FRAMES} frames after "
+            f"{RP_WARMUP} warm-up, median {res['ms']:.3f} ms/frame [min "
+            f"{res['ms_min']:.3f}, max {res['ms_max']:.3f}] device events, "
+            f"pipelined {pipelined:.3f} ms/frame; launches {launches} over "
+            f"{nf} frames; execute_segmented pass ms {res['pass_ms']}")
+        out[name] = res
+    os.makedirs("out", exist_ok=True)
+    write_png(os.path.join("out", "torch_render_paths.png"),
+              _contact_sheet(frames))
+    pipe, fp, state_fn = pipes["clustered_forward"]
+    with shade_calls() as sc:
+        st = pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+    check(len(sc.calls) == 1 and sc.calls[0][24] == CLUSTER_SLICES,
+          "clustered_forward did not light through B2b")
+    out["b2b"] = b2b_check("render-path scene, clustered_forward",
+                           sc.calls[0], st["gbuffer"].depth01, dev)
+    return out
+
+
+def phase_i_phase(dev):
+    """Phase 21, Phase I's backend parity on the card: each preset at
+    320x180 (spot slots 256^2, cube faces 128^2), the camera through B1
+    (use_tiled_raster=True) against rasterize_brute (False), three frames
+    each.  Depth and tid equal on every pixel but stray sliver ones (C8),
+    LDR within 1 LSB on >= 99.9% of pixels."""
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.render_paths import build_preset_pipelines
+
+    sides = [build_preset_pipelines(
+        PHASE_I_W, PHASE_I_H, set(PRESETS), use_tiled=tiled, local_map=256,
+        local_point=128, device=dev, with_pipes=True)[1]
+        for tiled in (True, False)]
+    for name in PRESETS:
+        for i in range(3):
+            a, b = (pipe.execute_jitted(RenderContext(), state_fn(i), fp)
+                    for pipe, fp, state_fn in (s[name] for s in sides))
+            same_but_strays(f"phase I {name} frame {i} (B1 vs brute)",
+                            a["depth"], a["tid"], a["setup"].bbox,
+                            b["depth"], b["tid"], b["setup"].bbox, True)
+            lsb = float(((a["ldr"].int() - b["ldr"].int()).abs().amax(-1)
+                         <= 1).float().mean())
+            check(lsb >= 0.999, f"phase I {name} frame {i}: LDR within 1 "
+                  f"LSB on {lsb:.4%}")
+        log(f"phase I {name} {PHASE_I_W}x{PHASE_I_H}: 3 frames, LDR within "
+            f"1 LSB on {lsb:.4%} (last frame)")
+
+
+def render_paths_cpu_phase(dev):
+    """Phase 22.  The card against the CPU through the pipeline: each preset
+    at 192x108 (sun 256^2, spot slots and cube faces 128^2, 8 slices),
+    plain versions on the CPU, kernels on the card, under phase 3's
+    contract (tids on >= 99.5% of covered pixels, HDR within 1e-4 on >=
+    99.9% of agreeing pixels, tonemapped LDR within 1 LSB on >= 99.9%,
+    after FXAA on >= 99.5%); the cull masks equal."""
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.render_paths import build_preset_pipelines
+
+    sides = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        pipes = build_preset_pipelines(SMALL_W, SMALL_H, set(PRESETS),
+                                       local_map=SMALL_LOCAL,
+                                       local_point=SMALL_LOCAL, device=d,
+                                       with_pipes=True)[1]
+        for name in PRESETS:
+            pipe, fp, state_fn = pipes[name]
+            fp.pass_params.shadow.map_size = SMALL_S
+            fp.technique.cluster_slices = 8
+            st = pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+            sides[(str(d), name)] = tuple(t.cpu() for t in (
+                st["tid"], st["hdr"], tonemap_pass(st["hdr"]), st["ldr"],
+                st["view_mask"], st["lights"].enabled))
+        log(f"render paths on {d} at {SMALL_W}x{SMALL_H}: "
+            f"{time.perf_counter() - t0:.1f} s (five presets)")
+
+    def within_1(a, b):
+        return float(((a.int() - b.int()).abs().amax(-1) <= 1)
+                     .float().mean())
+
+    for name in PRESETS:
+        t_c, h_c, m_c, l_c, o_c, e_c = sides[("cpu", name)]
+        t_g, h_g, m_g, l_g, o_g, e_g = sides[(str(dev), name)]
+        same = t_c == t_g
+        tid_mis = float((~same).float().mean())
+        hdr_err = (h_c - h_g).abs().amax(-1)
+        hdr_ok = float((hdr_err[same] <= 1e-4).float().mean())
+        tm_ok, ldr_ok = within_1(m_c, m_g), within_1(l_c, l_g)
+        masks = bool(torch.equal(o_c, o_g) and torch.equal(e_c, e_g))
+        log(f"render path [{name}] {SMALL_W}x{SMALL_H} (CPU plain vs card "
+            f"kernels): tid mismatch {tid_mis:.4%}, HDR within 1e-4 on "
+            f"{hdr_ok:.4%} of agreeing pixels (max "
+            f"{float(hdr_err[same].max()):.3g}), within 1 LSB: tonemapped "
+            f"{tm_ok:.4%}, after FXAA {ldr_ok:.4%}; cull masks equal "
+            f"{masks}")
+        check(masks, f"render path [{name}]: the cull differs")
+        check(tid_mis <= 0.005 and hdr_ok >= 0.999 and tm_ok >= 0.999
+              and ldr_ok >= 0.995, f"render path [{name}] differs")
+
+
 def _stage_ms(fn, iters=5):
     """(host enqueue ms, device ms per call) of fn on warm inputs: the median
     wall time of one call, returning before the card is done, and CUDA
@@ -1990,6 +2369,15 @@ def main():
     entry_log("resolve_fused (planes)", planes["b5"])
     small_whole_phase(dev)
 
+    # Kernel B2's clustered branch (B2b) and the render-path presets, each
+    # preset a main path of its own with its counts.
+    b2b = b2b_phase(geom, objects, lights, ctx, cam0, ctx0, casters, dev)
+    entry_log("shade_fused (clustered, B2b)", b2b)
+    rp = render_paths_phase(dev)
+    entry_log("shade_fused (clustered, B2b, render-path scene)", rp["b2b"])
+    phase_i_phase(dev)
+    render_paths_cpu_phase(dev)
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
     prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
                                   casters))
@@ -2012,6 +2400,8 @@ def main():
         f"frame), {hp_prof['e2e']['device_busy_ms']:.3f} ms in "
         f"{hp_prof['e2e']['kernels_per_frame']:.0f} kernels (end-to-end "
         f"step) ({card})")
+    log("summary: render-path presets at {}x{}, median ms/frame {}".format(
+        RP_W, RP_H, {k: f"{rp[k]['ms']:.3f}" for k in PRESETS}))
 
     at_1080p = f"{WIDTH}x{HEIGHT} high-poly compact setup"
     keys = ("max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
@@ -2039,6 +2429,14 @@ def main():
     frames = {k: {f: v[f] for f in ("ms", "wall_ms", "pipelined_ms",
                                     "frames", "b1_per_frame")}
               for k, v in whole.items()}
+    b2b_keys = ("kernel_ms_planeless", "tiled_kernel_ms_planeless",
+                "bytes", "ops", "slices", "cap", "planes", "slices_in_use",
+                "clusters_listed", "records_listed", "record_table_bytes",
+                "pairs_walked", "pairs_binned", "pairs_live",
+                "pairs_live_shadowed", "pairs_after_warp_box",
+                "pairs_after_box_and_vote")
+    preset_keys = ("ms", "ms_min", "ms_max", "pipelined_ms", "frames",
+                   "b1_per_frame", "launches", "pass_ms")
     kernels = [
         entry("direct_raster", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
@@ -2057,6 +2455,14 @@ def main():
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
               b2, planes=sub(planes["b2"], "kernel_ms_planeless",
                              "planes_change", "planes", *walk_keys),
+              clustered={
+                  "replaces": "lsr_tpu/lighting/shade_kernel.py:295-341",
+                  "launches_on_clustered_forward":
+                      rp["clustered_forward"]["launches"]["shade_fused"],
+                  "flagship_1080p": sub(b2b, *b2b_keys),
+                  "render_path_720p": sub(rp["b2b"], *b2b_keys)},
+              presets={k: {f: rp[k][f] for f in preset_keys}
+                       for k in PRESETS},
               frames=frames, **{k: b2[k] for k in walk_keys}),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
               hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,

@@ -3,8 +3,8 @@ lsr_tpu/core/frame.py).
 
 Only the blocks that the ported passes read are here: the raster route
 (raster_*, use_tiled_raster, compact_*), the fused forward+ lighting
-(technique, shading_model, shadow.sun_vis_scale), tonemap, FXAA and the
-background.  The feature toggles of passes not ported yet are kept so that
+(technique, shading_model, shadow.sun_vis_scale), the sun and local shadow
+maps, the per-frame cull, tonemap, FXAA and the background.  The feature toggles of passes not ported yet are kept so that
 configurations carry over; a pass that would need one raises
 NotImplementedError naming its ROADMAP item.
 """
@@ -60,10 +60,45 @@ class ShadowPassParams:
 
 
 @dataclasses.dataclass
+class LocalShadowParams:
+    """The local shadow atlas (lsr_tpu/core/frame.py:105-147).  spot_ids /
+    point_ids are the budgeted casters (lighting.local_shadows.
+    plan_shadow_casters); vis_crop is accepted and the planes are evaluated
+    on the full grid, the same function."""
+    enabled: bool = True
+    spot_ids: tuple = ()
+    point_ids: tuple = ()
+    map_size: int = 1024
+    point_size: int = 512
+    pcf_radius: int = 2
+    bias_const: float = 2e-3
+    bias_slope: float = 6e-3
+    filter_mode: str = "pcf"
+    vis_scale: int = 1
+    vis_crop: tuple = ()
+
+
+@dataclasses.dataclass
+class CullingPassParams:
+    """Per-frame scene and light culling (lsr_tpu/core/frame.py:150-162):
+    frustum, the occluder depth proxy, the visibility hysteresis."""
+    frustum: bool = True
+    occlusion: bool = True
+    occ_width: int = 320
+    occ_height: int = 180
+    hold_frames: int = 4
+    cull_lights: bool = True
+
+
+@dataclasses.dataclass
 class PassParamBlocks:
     tonemap: TonemapParams = dataclasses.field(default_factory=TonemapParams)
     shadow: ShadowPassParams = dataclasses.field(
         default_factory=ShadowPassParams)
+    local_shadow: LocalShadowParams = dataclasses.field(
+        default_factory=LocalShadowParams)
+    culling: CullingPassParams = dataclasses.field(
+        default_factory=CullingPassParams)
 
 
 @dataclasses.dataclass

@@ -29,6 +29,15 @@
 // The list is a base pointer and a count, so a walk over several lists (a
 // slice's own list and trip count, as lsr_tpu's clustered B2 has) can call
 // the same steps once per list.
+//
+// Sliced walks (B2b, SLICED = true): a list belongs to one log-Z slice and
+// a pixel takes its lights only when the pixel lies in that slice; the
+// gain of every other pixel is multiplied by 0, as lsr_tpu does.  The box,
+// the uncovered-warp rule and the vote then count only the lanes of the
+// slice, with one more exception besides an infinite color: a light whose
+// gain may be infinite or NaN (|intensity| above 1e38 or NaN: the gain is
+// at most 1.21 * |intensity|) gives NaN at a reached pixel of another
+// slice, so it is walked by every warp and voted on by every reached lane.
 
 #pragma once
 
@@ -98,6 +107,13 @@ __device__ __forceinline__ bool finite_color(float r, float g, float b) {
          && fmaxf(b, 0.0f) < CUDART_INF_F;
 }
 
+// Whether gain * 0 is a zero for this light's intensity: the gain is
+// intensity * atten * vis with atten <= 1.21 and vis in [0, 1], so it is
+// finite when |intensity| <= 1e38 (false for NaN).
+__device__ __forceinline__ bool finite_gain(float intensity) {
+  return fabsf(intensity) <= 1e38f;
+}
+
 // False only when the light cannot be in range of any pixel of the box.
 // For a point or a spot the emitter is the light's position, and
 // light_reach computes dist = sqrt(max(tx*tx + ty*ty + tz*tz, 1e-16)) with
@@ -125,6 +141,9 @@ __device__ __forceinline__ bool light_near_box(const BoxRec& f,
 // of the group (nothing is staged); else lights[0:32] holds the group's
 // prepared lights and wm this warp's mask of them.  The first barrier also
 // keeps the previous group's lights until every warp is done with them.
+// SLICED: warp_covered and box are those of the warp's covered pixels in
+// the list's slice, and a light of non-finite gain is kept by every warp.
+template <bool SLICED = false>
 __device__ __forceinline__ bool stage_group(const float* list, int n_listed,
                                             int g0, bool warp_covered,
                                             const Box& box, Light* lights,
@@ -133,7 +152,9 @@ __device__ __forceinline__ bool stage_group(const float* list, int n_listed,
   bool near = false;
   if (g0 + lane < n_listed) {
     const float* f = list + (size_t)(g0 + lane) * kRec;
-    if (warp_covered)
+    if (SLICED && !finite_gain(f[16]))
+      near = true;
+    else if (warp_covered)
       near = light_near_box(load_box_rec(f), box);
     else
       near = !finite_color(f[13], f[14], f[15]);
@@ -178,19 +199,25 @@ struct Planes {
 // PLANES: a light with a local-shadow plane (L.sidx < pl.n_shadowed) reads
 // its texel there (B2a, B5a).  A plane multiplies the gain of a live light
 // and never makes a dead light live, so the box test and the vote stay
-// exact.  apow1 as in light_shade; KIND as in light_prepare.
-template <bool PLANES, int KIND = 0>
+// exact.  SLICED: in_slice says whether the pixel lies in the list's slice;
+// a pixel of another slice votes only for a light of non-finite gain, and
+// its gain is multiplied by 0 through the visibility factor: lsr_tpu's
+// (gain * plane) * 0 and gain * (plane * 0) are both a zero for a finite
+// gain (a plane is in [0, 1]) and both NaN for an infinite one.  apow1 as
+// in light_shade; KIND as in light_prepare.
+template <bool PLANES, int KIND = 0, bool SLICED = false>
 __device__ __forceinline__ bool light_terms(const Light& L, const Pixel& p,
                                             int apow1, const Planes& pl,
-                                            float v[6]) {
+                                            float v[6], bool in_slice = true) {
   Reach r;
-  const bool may = light_reach<KIND>(L, p.px, p.py, p.pz, p.nx, p.ny, p.nz,
-                                     p.covered, r);
+  bool may = light_reach<KIND>(L, p.px, p.py, p.pz, p.nx, p.ny, p.nz,
+                               p.covered, r);
+  if (SLICED && !in_slice) may = may && !finite_gain(L.intensity);
   if (!warp_shades(L, may)) return false;
-  const float lvis = PLANES && L.sidx < (float)pl.n_shadowed
-                         ? pl.vis[(size_t)L.sidx * pl.width * pl.height
-                                  + pl.at]
-                         : 1.0f;
+  float lvis = PLANES && L.sidx < (float)pl.n_shadowed
+                   ? pl.vis[(size_t)L.sidx * pl.width * pl.height + pl.at]
+                   : 1.0f;
+  if (SLICED) lvis = lvis * (in_slice ? 1.0f : 0.0f);
   float wd, ws;
   light_shade<KIND>(L, r, p.nx, p.ny, p.nz, p.vx, p.vy, p.vz, p.covered,
                     apow1, wd, ws, lvis);
@@ -206,16 +233,20 @@ __device__ __forceinline__ bool light_terms(const Light& L, const Pixel& p,
 // light_terms in the copy of L's kind (2 spot, 3 rect, 4 tube, else a
 // point light): a branch uniform in the warp, after which no copy carries
 // another kind's fields or branches.
-template <bool PLANES>
+template <bool PLANES, bool SLICED = false>
 __device__ __forceinline__ bool light_terms_of_kind(const Light& L,
                                                     const Pixel& p,
                                                     int apow1,
                                                     const Planes& pl,
-                                                    float v[6]) {
-  if (L.ltype == 2.0f) return light_terms<PLANES, 2>(L, p, apow1, pl, v);
-  if (L.ltype == 3.0f) return light_terms<PLANES, 3>(L, p, apow1, pl, v);
-  if (L.ltype == 4.0f) return light_terms<PLANES, 4>(L, p, apow1, pl, v);
-  return light_terms<PLANES, 1>(L, p, apow1, pl, v);
+                                                    float v[6],
+                                                    bool in_slice = true) {
+  if (L.ltype == 2.0f)
+    return light_terms<PLANES, 2, SLICED>(L, p, apow1, pl, v, in_slice);
+  if (L.ltype == 3.0f)
+    return light_terms<PLANES, 3, SLICED>(L, p, apow1, pl, v, in_slice);
+  if (L.ltype == 4.0f)
+    return light_terms<PLANES, 4, SLICED>(L, p, apow1, pl, v, in_slice);
+  return light_terms<PLANES, 1, SLICED>(L, p, apow1, pl, v, in_slice);
 }
 
 // One chunk of a group summed in light order, as B2 and B6 (and lsr_tpu's

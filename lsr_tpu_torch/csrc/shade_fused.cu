@@ -58,6 +58,22 @@
 // The bound is explicit, as the compiler picks 64 registers itself.  With
 // the box test and the vote off the walk still skips uncovered warps and
 // prepares each light once.
+//
+// Clustered slices (variant B2b; lsr_tpu shade_kernel.py:295-300, :325-341,
+// :420-447, :477-478): the lights are binned per (tile, log-Z slice), the
+// records are (tiles, slices * cap, 32) and the counts (tiles * slices,),
+// and G-buffer plane 13 holds each pixel's slice.  The block walks slice
+// sl's list (base tile * slices * cap + sl * cap, count counts[tile *
+// slices + sl]) for sl = 0 .. slices - 1, each as the tiled walk above,
+// with min(ceil(count/8), cap/8) chunks, the sums carried from slice to
+// slice.  A pixel keeps a light's term only in its own slice; lsr_tpu
+// multiplies the other pixels' gain by 0.  So a lane is live for slice sl
+// when it is covered and its plane equals sl, and the warp's box, its
+// uncovered-warp rule and its vote take only the live lanes
+// (light_walk.cuh's SLICED walk): a warp stages and shades a slice's light
+// only where a pixel of that slice can take it.  A lane of another slice
+// that runs the light anyway multiplies its gain by 0 as lsr_tpu does.
+// slices is a run-time argument; kSliced picks the walk.
 
 #include <cuda_runtime.h>
 
@@ -76,18 +92,20 @@ using lsr::kWalkThreads;
 using lsr::kWalkW;
 
 // kPlanes: the launch has local-shadow planes (a planeless launch runs a
-// copy without the plane code).
-template <bool kPlanes>
+// copy without the plane code).  kSliced: clustered records and slices > 0
+// slices per tile (a tiled launch runs a copy without the slice walk).
+template <bool kPlanes, bool kSliced>
 __global__ void __launch_bounds__(kWalkThreads, 4)
 shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
-                   const float* __restrict__ tile_rec,  // (tiles, cap, 32)
-                   const int* __restrict__ counts,      // (tiles,)
+                   const float* __restrict__ tile_rec,  // (tiles, [slices *]
+                                                        //  cap, 32)
+                   const int* __restrict__ counts,      // (tiles [* slices],)
                    const float* __restrict__ uni,       // (9,)
                    const float* __restrict__ vis,       // (K + 1, H, W)
                    int n_shadowed,                      // K
                    float* __restrict__ out,             // (H, W, 3)
                    int width, int height, int ph, int pw, int tiles_x,
-                   int cap, int sun_model, int apow1) {
+                   int cap, int slices, int sun_model, int apow1) {
   __shared__ lsr::Light lights[kGroup];
   int x, y;
   lsr::walk_pixel(x, y);
@@ -119,27 +137,57 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
 
   // --- local lights of this block's tile -----------------------------------
   const int tile = (y / kTileH) * tiles_x + x / kTileW;  // uniform per block
-  const int n_listed =
-      min((counts[tile] + kChunk - 1) / kChunk, cap / kChunk) * kChunk;
-  const float* trec = tile_rec + (size_t)tile * cap * kRec;
-  const bool warp_covered = __any_sync(kFullMask, covered);
-  const lsr::Box box = lsr::warp_box(covered, px, py, pz);
   const lsr::Pixel pix = {px, py, pz, nx, ny, nz, vx, vy, vz, covered};
   const lsr::Planes pl = {vis, inb ? n_shadowed : 0, (size_t)y * width + x,
                           width, height};
-  auto term = [&](const lsr::Light& L, float v[6]) {
-    return lsr::light_terms_of_kind<kPlanes>(L, pix, apow1, pl, v);
-  };
-
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int g0 = 0; g0 < n_listed; g0 += kGroup) {
-    unsigned wm;
-    if (!lsr::stage_group(trec, n_listed, g0, warp_covered, box, lights, wm))
-      continue;
+  if (!kSliced) {
+    const int n_listed =
+        min((counts[tile] + kChunk - 1) / kChunk, cap / kChunk) * kChunk;
+    const float* trec = tile_rec + (size_t)tile * cap * kRec;
+    const bool warp_covered = __any_sync(kFullMask, covered);
+    const lsr::Box box = lsr::warp_box(covered, px, py, pz);
+    auto term = [&](const lsr::Light& L, float v[6]) {
+      return lsr::light_terms_of_kind<kPlanes>(L, pix, apow1, pl, v);
+    };
+    for (int g0 = 0; g0 < n_listed; g0 += kGroup) {
+      unsigned wm;
+      if (!lsr::stage_group(trec, n_listed, g0, warp_covered, box, lights,
+                            wm))
+        continue;
 #pragma unroll 1
-    for (int c0 = 0; c0 < kGroup; c0 += kChunk)
-      lsr::add_chunk_in_order<kChunk>((wm >> c0) & 0xffu, lights + c0, acc,
-                                      term);
+      for (int c0 = 0; c0 < kGroup; c0 += kChunk)
+        lsr::add_chunk_in_order<kChunk>((wm >> c0) & 0xffu, lights + c0, acc,
+                                        term);
+    }
+  } else {
+    const float my_slice = gbuf[13 * plane + o];
+#pragma unroll 1
+    for (int sl = 0; sl < slices; ++sl) {
+      const int cl = tile * slices + sl;  // uniform per block
+      const int n_listed =
+          min((counts[cl] + kChunk - 1) / kChunk, cap / kChunk) * kChunk;
+      if (n_listed == 0) continue;
+      const float* srec = tile_rec + (size_t)cl * cap * kRec;
+      const bool in_slice = my_slice == (float)sl;
+      const bool live = covered && in_slice;
+      const bool warp_live = __any_sync(kFullMask, live);
+      const lsr::Box box = lsr::warp_box(live, px, py, pz);
+      auto term = [&](const lsr::Light& L, float v[6]) {
+        return lsr::light_terms_of_kind<kPlanes, true>(L, pix, apow1, pl, v,
+                                                       in_slice);
+      };
+      for (int g0 = 0; g0 < n_listed; g0 += kGroup) {
+        unsigned wm;
+        if (!lsr::stage_group<true>(srec, n_listed, g0, warp_live, box,
+                                    lights, wm))
+          continue;
+#pragma unroll 1
+        for (int c0 = 0; c0 < kGroup; c0 += kChunk)
+          lsr::add_chunk_in_order<kChunk>((wm >> c0) & 0xffu, lights + c0,
+                                          acc, term);
+      }
+    }
   }
 
   if (inb) {
@@ -153,6 +201,29 @@ shade_fused_kernel(const float* __restrict__ gbuf,      // (16, ph, pw)
 
 }  // namespace
 
+namespace {
+
+int launch(const void* gbuf, const void* tile_rec, const void* counts,
+           const void* uni, const void* vis, int n_shadowed, void* out,
+           int width, int height, int ph, int pw, int tiles_x, int cap,
+           int slices, int sun_model, int apow1, void* stream) {
+  if ((n_shadowed && !vis) || ph % kTileH || pw % kTileW || cap % kChunk
+      || slices < 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(pw / kWalkW, ph / kWalkH);
+  auto kern = slices ? (n_shadowed ? shade_fused_kernel<true, true>
+                                   : shade_fused_kernel<false, true>)
+                     : (n_shadowed ? shade_fused_kernel<true, false>
+                                   : shade_fused_kernel<false, false>);
+  kern<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)gbuf, (const float*)tile_rec, (const int*)counts,
+      (const float*)uni, (const float*)vis, n_shadowed, (float*)out, width,
+      height, ph, pw, tiles_x, cap, slices, sun_model, apow1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // vis may be null (n_shadowed 0): no local-shadow planes.
 extern "C" int lsr_shade_fused(const void* gbuf, const void* tile_rec,
                                const void* counts, const void* uni,
@@ -160,14 +231,19 @@ extern "C" int lsr_shade_fused(const void* gbuf, const void* tile_rec,
                                int width, int height, int ph, int pw,
                                int tiles_x, int cap, int sun_model, int apow1,
                                void* stream) {
-  if ((n_shadowed && !vis) || ph % kTileH || pw % kTileW || cap % kChunk)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(pw / kWalkW, ph / kWalkH);
-  auto kern =
-      n_shadowed ? shade_fused_kernel<true> : shade_fused_kernel<false>;
-  kern<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)gbuf, (const float*)tile_rec, (const int*)counts,
-      (const float*)uni, (const float*)vis, n_shadowed, (float*)out, width,
-      height, ph, pw, tiles_x, cap, sun_model, apow1);
-  return (int)cudaGetLastError();
+  return launch(gbuf, tile_rec, counts, uni, vis, n_shadowed, out, width,
+                height, ph, pw, tiles_x, cap, 0, sun_model, apow1, stream);
+}
+
+// Clustered mode (B2b): slices > 0 lists per tile of cap records each, the
+// pixels' slices in G-buffer plane 13.
+extern "C" int lsr_shade_fused_clustered(
+    const void* gbuf, const void* tile_rec, const void* counts,
+    const void* uni, const void* vis, int n_shadowed, void* out, int width,
+    int height, int ph, int pw, int tiles_x, int cap, int slices,
+    int sun_model, int apow1, void* stream) {
+  if (slices <= 0) return (int)cudaErrorInvalidValue;
+  return launch(gbuf, tile_rec, counts, uni, vis, n_shadowed, out, width,
+                height, ph, pw, tiles_x, cap, slices, sun_model, apow1,
+                stream);
 }

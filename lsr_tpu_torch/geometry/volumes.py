@@ -1,7 +1,7 @@
 """Axis-aligned bounding volumes and frustum tests (port of
 lsr_tpu/geometry/volumes.py: extract_frustum_planes, sphere_outside_planes,
 aabb_outside_planes, transform_aabb, frustum_cull_objects and merge_aabbs,
-:14-82).
+:14-82, and update_visibility_history, :92-100).
 
 Culling produces visibility masks, not compacted lists.  Every small sum is
 written out in the order lsr_tpu's op-by-op form takes on XLA:CPU (left to
@@ -86,3 +86,13 @@ def merge_aabbs(mins, maxs, mask=None):
         mins = torch.where(mask[:, None], mins, torch.full_like(mins, big))
         maxs = torch.where(mask[:, None], maxs, torch.full_like(maxs, -big))
     return mins.min(dim=0).values, maxs.max(dim=0).values
+
+
+def update_visibility_history(history, visible_now, hold_frames: int = 4):
+    """Visibility hysteresis: an object that becomes invisible stays
+    renderable for hold_frames frames.  history (B,) frames since last seen
+    (start at hold_frames: never seen is not recently visible).  Returns
+    (new_history, effective_visible)."""
+    new_hist = torch.where(visible_now, torch.zeros_like(history),
+                           history + 1)
+    return new_hist, new_hist <= hold_frames

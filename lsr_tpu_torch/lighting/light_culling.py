@@ -1,9 +1,11 @@
-"""Tiled light binning (port of the tiled parts of
+"""Tiled and clustered light binning (port of
 lsr_tpu/lighting/light_culling.py: tile_side_planes, _mask_to_lists,
-cull_lights_tiled, tile_depth_ranges_from_buffer).
+cull_lights_tiled, tile_depth_ranges_from_buffer, cluster_slice_bounds,
+view_depth_to_cluster_slice, cull_lights_clustered, cull_lights_camera).
 
-Per-tile light index lists with a hard cap, built from masks + cumsum +
-scatter, submission order preserved.  No host sync: the stats stay tensors.
+Per-tile (or per (tile, log-Z slice)) light index lists with a hard cap,
+built from masks + cumsum + scatter, submission order preserved.  No host
+sync: the stats stay tensors.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from lsr_tpu_torch.geometry.support_shapes import (
     support_max_dot,
     transform_shapes,
 )
+from lsr_tpu_torch.lighting.light_types import light_bounding_spheres
 
 
 def _tile_grid(width, height, tile_w, tile_h=None):
@@ -78,6 +81,35 @@ def _mask_to_lists(mask, cap):
         stats
 
 
+def _light_bounds(lights, view, planes, use_shapes):
+    """Which lights can touch each tile: (inside (tiles, L) bool, zmin_l,
+    zmax_l (L,) view-z extent).  use_shapes: each light's analytic support
+    shape (point sphere, spot cone, rect box, tube capsule) against the tile
+    planes; else its bounding sphere (light_types.light_bounding_spheres)."""
+    num_tiles = planes.shape[0]
+    if use_shapes:
+        rec_v = transform_shapes(light_culling_shapes(lights), view[:3, :3],
+                                 view[:3, 3])
+        sup = support_max_dot(rec_v, planes.reshape(num_tiles * 4, 3))
+        inside = torch.all(sup.reshape(-1, num_tiles, 4) >= 0.0, dim=2).T
+        zdirs = device_const([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]],
+                             view.device)
+        zsup = support_max_dot(rec_v, zdirs)
+        return inside, -zsup[:, 1], zsup[:, 0]
+    centers, r = light_bounding_spheres(lights)
+    hom = torch.cat([centers, torch.ones_like(centers[:, :1])], dim=-1)
+    c_view = (hom @ view.T)[:, :3]
+    d = torch.einsum("tpc,lc->tpl", planes, c_view)
+    inside = torch.all(d >= -r[None, None, :], dim=1)
+    return inside, c_view[:, 2] - r, c_view[:, 2] + r
+
+
+def _local_enabled(lights):
+    """(L,) bool: enabled lights that tile lists take (directional and
+    env-probe lights are applied globally)."""
+    return (lights.type != 0) & (lights.type != 5) & lights.enabled
+
+
 def cull_lights_tiled(lights, view, proj, width: int, height: int,
                       tile_size: int = 16, cap: int = 128,
                       tile_depth_range=None, tile_h: int | None = None):
@@ -86,17 +118,8 @@ def cull_lights_tiled(lights, view, proj, width: int, height: int,
     range).  Directional / env-probe lights never enter tile lists.
     Returns (lists (tiles, cap), counts (tiles,), stats)."""
     planes = tile_side_planes(width, height, tile_size, proj, tile_h)
-    num_tiles = planes.shape[0]
-    rec_v = transform_shapes(light_culling_shapes(lights), view[:3, :3],
-                             view[:3, 3])
-    sup = support_max_dot(rec_v, planes.reshape(num_tiles * 4, 3))
-    inside = torch.all(sup.reshape(-1, num_tiles, 4) >= 0.0, dim=2).T
-    zdirs = device_const([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]], view.device)
-    zsup = support_max_dot(rec_v, zdirs)
-    zmax_l, zmin_l = zsup[:, 0], -zsup[:, 1]
-
-    local = (lights.type != 0) & (lights.type != 5) & lights.enabled
-    mask = inside & local[None, :]
+    inside, zmin_l, zmax_l = _light_bounds(lights, view, planes, True)
+    mask = inside & _local_enabled(lights)[None, :]
     if tile_depth_range is not None:
         zmin = tile_depth_range[:, 0][:, None]
         zmax = tile_depth_range[:, 1][:, None]
@@ -118,6 +141,46 @@ def tile_depth_ranges_from_buffer(depth01, zn, zf, width, height, tile_size,
     zmin = view_z.amin(dim=(1, 3)).reshape(-1)
     zmax = view_z.amax(dim=(1, 3)).reshape(-1)
     return torch.stack([zmin, zmax], dim=-1)
+
+
+def cluster_slice_bounds(zn, zf, slices: int, device="cpu"):
+    """(slices + 1,) logarithmic view-z slice boundaries zn * (zf / zn) **
+    (k / slices), the inverse of view_depth_to_cluster_slice.  zn and zf
+    (host floats) become f32 tensors, so that zf / zn rounds in f32 as
+    lsr_tpu's does."""
+    zn_t, zf_t = device_const(zn, device), device_const(zf, device)
+    k = torch.arange(slices + 1, dtype=torch.float32, device=device) / slices
+    return zn_t * torch.pow(zf_t / zn_t, k)
+
+
+def view_depth_to_cluster_slice(view_z, zn, zf, slices: int):
+    """Logarithmic cluster slice of each view depth, floor(log(z / zn) /
+    log(zf / zn) * slices) clamped to [0, slices - 1]; int64."""
+    zn_t, zf_t = device_const(zn, view_z.device), device_const(zf,
+                                                               view_z.device)
+    t = torch.log(torch.clamp(view_z, min=1e-6) / zn_t) \
+        / torch.log(zf_t / zn_t)
+    return torch.clamp(torch.floor(t * slices).to(torch.int64), 0,
+                       slices - 1)
+
+
+def cull_lights_clustered(lights, view, proj, zn, zf, width: int, height: int,
+                          tile_size: int = 16, cap: int = 128,
+                          slices: int = 16, use_shapes: bool = True,
+                          tile_h: int | None = None):
+    """Clustered binning: lists (tiles * slices, cap), cluster index = tile
+    * slices + slice.  A light enters a cluster when it touches the tile
+    (as in cull_lights_tiled) and its view-z extent overlaps the slice's
+    [bounds[s], bounds[s + 1]].  The mask is (tiles, slices, L) booleans.
+    Returns (lists, counts (tiles * slices,), stats)."""
+    planes = tile_side_planes(width, height, tile_size, proj, tile_h)
+    inside, zmin_l, zmax_l = _light_bounds(lights, view, planes, use_shapes)
+    bounds = cluster_slice_bounds(zn, zf, slices, view.device)
+    overlap = ((zmax_l[None, :] >= bounds[:-1, None])
+               & (zmin_l[None, :] <= bounds[1:, None]))    # (slices, L)
+    mask = (inside[:, None, :] & overlap[None, :, :]
+            & _local_enabled(lights)[None, None, :])
+    return _mask_to_lists(mask.reshape(planes.shape[0] * slices, -1), cap)
 
 
 def cull_lights_camera(lights, viewproj, occ_depth=None, zn=None, zf=None):

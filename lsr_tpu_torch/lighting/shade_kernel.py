@@ -1,17 +1,22 @@
 """Fused shading: sun BRDF + binned local lights, kernel B2 (port of
 lsr_tpu/lighting/shade_kernel.py: shade_fused_pallas / _shade_kernel).
 
-shade_fused bins the lights per 64x128 screen tile (cull_lights_tiled),
-gathers each tile's 32-lane light records (empty list slots hold zero
-records), lays the G-buffer out as planes and then either launches the CUDA
-kernel (csrc/shade_fused.cu) for CUDA tensors or evaluates the same tile
-lists per pixel with torch ops (_shade_plain) for CPU tensors.  The kernel
-leaves out the terms of lights that cannot reach a warp's pixels, which the
-plain version adds as +0 (lighting/light_walk.py).
+shade_fused bins the lights per 64x128 screen tile (cull_lights_tiled) or,
+in clustered mode (variant B2b), per (tile, log-Z slice)
+(cull_lights_clustered), gathers each list's 32-lane light records (empty
+list slots hold zero records), lays the G-buffer out as planes and then
+either launches the CUDA kernel (csrc/shade_fused.cu) for CUDA tensors or
+evaluates the same lists per pixel with torch ops (_shade_plain) for CPU
+tensors.  The kernel leaves out the terms of lights that cannot reach a
+warp's pixels, which the plain version adds as +0 (lighting/light_walk.py).
 
 G-buffer planes (16, ph, pw), the channel layout of lsr_tpu:
   0:3 world_pos | 3:6 normal | 6 covered | 7:10 albedo | 10 metallic |
-  11 roughness | 12 sun shadow visibility | 13:16 pad
+  11 roughness | 12 sun shadow visibility | 13 cluster slice of the pixel
+  (clustered mode; lsr_tpu appends it after its local-shadow planes) |
+  14:16 pad
+Clustered records are (tiles, slices * cap, 32): slice s of a tile's lists
+starts at s * cap, and counts are (tiles * slices,).
 Local-shadow planes, when given, stay a separate (K + 1, H, W) stack: lsr_tpu
 appends them to its G-buffer planes; the kernel reads one texel of a plane
 per live shadowed light (record lane 28 = the plane).
@@ -24,7 +29,10 @@ from __future__ import annotations
 import torch
 
 from lsr_tpu_torch.core.util import cdiv
-from lsr_tpu_torch.lighting.light_culling import cull_lights_tiled
+from lsr_tpu_torch.lighting.light_culling import (
+    cull_lights_clustered,
+    cull_lights_tiled,
+)
 from lsr_tpu_torch.lighting.light_runtime import pack_light_records
 from lsr_tpu_torch.lighting.light_types import (
     LIGHT_RECT_AREA,
@@ -126,7 +134,7 @@ def untile_planes(t, th, tw, tiles_y, tiles_x):
 
 
 def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
-                kinds, want_reach=False, lvis=None):
+                kinds, want_reach=False, lvis=None, in_slice=None):
     """One chunk of every tile's list against the tile's pixels, in the
     kernels' operation order (csrc/light_loop.cuh: light_prepare,
     light_reach, light_shade).
@@ -135,7 +143,10 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
     kinds: the light types to evaluate (math for absent types is skipped,
     bit-exact).  want_reach also returns light_reach's verdict (see
     light_live).  lvis (T, chunk, P): each light's local-shadow visibility
-    at the pixel, which multiplies its gain (plane_select)."""
+    at the pixel, which multiplies its gain (plane_select).  in_slice (T,
+    1, P) bool: clustered mode, the pixels of the slice whose list blk is;
+    the gain of every other pixel is multiplied by 0 (lsr_tpu
+    shade_kernel.py:295-300), which is +0 or -0 for a finite gain."""
     def f(j):
         return blk[:, :, j:j + 1]                           # (T, chunk, 1)
 
@@ -252,6 +263,8 @@ def light_terms(blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
     gain = torch.where(live, intensity * atten, torch.zeros_like(atten))
     if lvis is not None:
         gain = gain * lvis
+    if in_slice is not None:
+        gain = gain * in_slice.to(torch.float32)
     hxl, hyl, hzl = llx + vx, lly + vy, llz + vz
     hll = _rsqrt(torch.clamp(hxl * hxl + hyl * hyl + hzl * hzl, min=1e-16))
     lndh = torch.clamp(nx * (hxl * hll) + ny * (hyl * hll) + nz * (hzl * hll),
@@ -317,6 +330,19 @@ def check_shadow_planes(name, planes, light_shadow_index, lights, height,
                          f"per light")
 
 
+def slice_lists(tile_rec, counts, slices):
+    """The lists of a launch, walked in order: (slice, records (T, cap, 32),
+    counts (T,)) for each slice of clustered records, or one (None,
+    tile_rec, counts) for tiled ones."""
+    if not slices:
+        yield None, tile_rec, counts
+        return
+    cap = tile_rec.shape[1] // slices
+    per_tile = counts.reshape(-1, slices)
+    for sl in range(slices):
+        yield sl, tile_rec[:, sl * cap:(sl + 1) * cap], per_tile[:, sl]
+
+
 def walk_chunks(tile_rec, counts, chunk):
     """The chunks of every tile's list that the kernels walk: the largest
     tile's min(ceil(count / chunk), cap / chunk) (one host sync); smaller
@@ -329,11 +355,13 @@ def walk_chunks(tile_rec, counts, chunk):
 
 
 def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
-                 chunk, sun_model, apow1, kinds, vis_planes=None):
+                 chunk, sun_model, apow1, kinds, vis_planes=None, slices=0):
     """Plain PyTorch version of kernel B2: every tile's list evaluated per
     pixel in the kernel's operation order, in (tiles, chunk, pixels) layout.
     vis_planes: (K + 1, H, W) local-shadow planes, selected per light by
-    record lane 28.  Returns (3, ph, pw) lit planes."""
+    record lane 28.  slices > 0 (B2b): the lists of each slice in turn,
+    each light's gain kept only at the pixels of that slice (G-buffer plane
+    13).  Returns (3, ph, pw) lit planes."""
     g = tile_planes(gbuf, th, tw, tiles_y, tiles_x)
     vis_t = None if vis_planes is None else vis_tile_planes(
         vis_planes, gbuf.shape[1], gbuf.shape[2], th, tw, tiles_y, tiles_x)
@@ -344,13 +372,16 @@ def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
     vx, vy, vz = _unit3(uni[0] - px, uni[1] - py, uni[2] - pz)
 
     acc = [torch.zeros_like(px) for _ in range(6)]
-    for blk in walk_chunks(tile_rec, counts, chunk):
-        cols, wd, ws = light_terms(
-            blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1, kinds,
-            lvis=None if vis_t is None else plane_select(vis_t, blk))
-        for i, c in enumerate(cols):
-            acc[i] = acc[i] + (c * wd).sum(dim=1, keepdim=True)
-            acc[3 + i] = acc[3 + i] + (c * ws).sum(dim=1, keepdim=True)
+    for sl, rec, cnt in slice_lists(tile_rec, counts, slices):
+        in_slice = None if sl is None else g[13] == float(sl)
+        for blk in walk_chunks(rec, cnt, chunk):
+            cols, wd, ws = light_terms(
+                blk, px, py, pz, nx, ny, nz, vx, vy, vz, covered, apow1,
+                kinds, in_slice=in_slice,
+                lvis=None if vis_t is None else plane_select(vis_t, blk))
+            for i, c in enumerate(cols):
+                acc[i] = acc[i] + (c * wd).sum(dim=1, keepdim=True)
+                acc[3 + i] = acc[3 + i] + (c * ws).sum(dim=1, keepdim=True)
 
     covf = covered.to(torch.float32)
     sun = (dr, dg, db)
@@ -360,16 +391,24 @@ def _shade_plain(gbuf, tile_rec, counts, uni, th, tw, tiles_y, tiles_x,
 
 
 def bin_light_records(lights, view, proj, width, height, tile_h, tile_w, cap,
-                      tile_depth_range, light_shadow_index=None, n_planes=0):
-    """Bin the lights per screen tile and gather each tile's 32-lane
-    records; empty list slots hold zero records.  With local-shadow planes
-    (n_planes = K + 1), lane 28 holds each light's plane index as f32
-    (lsr_tpu's shade_kernel.py:434-447) and an empty slot's is K, the
-    constant plane, so no kernel reads a plane for it.
-    Returns (tile_rec (tiles, cap, 32), counts (tiles,), bin_stats)."""
-    lists, counts, bin_stats = cull_lights_tiled(
-        lights, view, proj, width, height, tile_size=tile_w, tile_h=tile_h,
-        cap=cap, tile_depth_range=tile_depth_range)
+                      tile_depth_range, light_shadow_index=None, n_planes=0,
+                      slices=0, zn=None, zf=None):
+    """Bin the lights per screen tile (or, slices > 0, per (tile, log-Z
+    slice) between zn and zf) and gather each list's 32-lane records; empty
+    list slots hold zero records.  With local-shadow planes (n_planes = K +
+    1), lane 28 holds each light's plane index as f32 (lsr_tpu's
+    shade_kernel.py:434-447) and an empty slot's is K, the constant plane,
+    so no kernel reads a plane for it.
+    Returns (tile_rec (tiles, [slices *] cap, 32), counts (tiles [*
+    slices],), bin_stats)."""
+    if slices:
+        lists, counts, bin_stats = cull_lights_clustered(
+            lights, view, proj, zn, zf, width, height, tile_size=tile_w,
+            tile_h=tile_h, cap=cap, slices=slices)
+    else:
+        lists, counts, bin_stats = cull_lights_tiled(
+            lights, view, proj, width, height, tile_size=tile_w,
+            tile_h=tile_h, cap=cap, tile_depth_range=tile_depth_range)
     packed = pack_light_records(lights)
     if light_shadow_index is not None:
         packed[:, 28] = light_shadow_index.to(torch.float32)
@@ -381,6 +420,8 @@ def bin_light_records(lights, view, proj, width, height, tile_h, tile_w, cap,
         tile_rec[..., 28] = torch.where(
             lists >= 0, tile_rec[..., 28],
             torch.full_like(tile_rec[..., 28], float(n_planes - 1)))
+    if slices:
+        tile_rec = tile_rec.reshape(-1, slices * cap, 32)
     return tile_rec, counts, bin_stats
 
 
@@ -395,12 +436,17 @@ def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
              roughness, sun_shadow_vis, camera_pos, sun_dir_ws, sun_radiance,
              lights, view, proj, width, height, tile_h, tile_w, cap, chunk,
              tile_depth_range, sun_model, local_vis_stack, light_shadow_index,
-             cluster_slice_plane, slices):
+             cluster_slice_plane, slices, zn=None, zf=None):
     """Light binning, tile records, G-buffer planes and uniforms shared by
     the kernel and its plain version (shade_kernel.py:415-488 of lsr_tpu)."""
-    if slices or cluster_slice_plane is not None:
-        raise NotImplementedError("shade_fused: clustered slices are not "
-                                  "ported yet")
+    if (cluster_slice_plane is None) != (slices == 0) or slices < 0:
+        raise ValueError("shade_fused: cluster_slice_plane and slices > 0 "
+                         "come together")
+    if slices and (zn is None or zf is None):
+        raise ValueError("shade_fused: clustered slices need zn and zf")
+    if slices and tuple(cluster_slice_plane.shape) != (height, width):
+        raise ValueError(f"shade_fused: cluster_slice_plane must be "
+                         f"({height}, {width})")
     if sun_model not in SUN_MODELS:
         raise ValueError(f"shade_fused: sun_model must be one of {SUN_MODELS}")
     if (tile_h, tile_w, chunk) != (64, 128, 8) or cap % chunk:
@@ -416,13 +462,14 @@ def _prepare(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
     tile_rec, counts, bin_stats = bin_light_records(
         lights, view, proj, width, height, tile_h, tile_w, cap,
         tile_depth_range, light_shadow_index,
-        0 if vis_planes is None else vis_planes.shape[0])
+        0 if vis_planes is None else vis_planes.shape[0], slices, zn, zf)
     zeros = torch.zeros_like(metallic)
     gbuf = pad_planes([
         gb_world_pos[..., 0], gb_world_pos[..., 1], gb_world_pos[..., 2],
         gb_normal[..., 0], gb_normal[..., 1], gb_normal[..., 2], gb_covered,
         albedo[..., 0], albedo[..., 1], albedo[..., 2], metallic, roughness,
-        sun_shadow_vis, zeros, zeros, zeros], ph, pw)
+        sun_shadow_vis, zeros if cluster_slice_plane is None
+        else cluster_slice_plane, zeros, zeros], ph, pw)
     sd = sun_dir_ws / torch.clamp(torch.sqrt((sun_dir_ws * sun_dir_ws).sum()),
                                   min=1e-8)
     uni = torch.cat([camera_pos.reshape(3), sd.reshape(3),
@@ -438,7 +485,7 @@ def shade_fused_plain(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
                       cap: int = 256, chunk: int = 8, tile_depth_range=None,
                       sun_model: str = "pbr_mr", local_vis_stack=None,
                       light_shadow_index=None, cluster_slice_plane=None,
-                      slices: int = 0):
+                      slices: int = 0, zn=None, zf=None):
     """The plain PyTorch version of shade_fused on any device (what
     shade_fused runs for CPU tensors).  Returns ((H, W, 3) lit, bin_stats)."""
     (gbuf, tile_rec, counts, uni, bin_stats, (tiles_y, tiles_x),
@@ -447,31 +494,35 @@ def shade_fused_plain(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
         sun_shadow_vis, camera_pos, sun_dir_ws, sun_radiance, lights, view,
         proj, width, height, tile_h, tile_w, cap, chunk, tile_depth_range,
         sun_model, local_vis_stack, light_shadow_index, cluster_slice_plane,
-        slices)
+        slices, zn, zf)
     lit = _shade_plain(gbuf, tile_rec, counts, uni, tile_h, tile_w, tiles_y,
                        tiles_x, chunk, sun_model, lights.apow1, lights.kinds,
-                       vis_planes)
+                       vis_planes, slices)
     return lit[:, :height, :width].permute(1, 2, 0), bin_stats
 
 
 def _shade_launch(lib, gbuf, tile_rec, counts, uni, width, height, sun_model,
-                  apow1, stream, vis_planes=None):
+                  apow1, stream, vis_planes=None, slices=0):
     """Launch kernel B2 through the C interface; returns (H, W, 3) lit.
-    vis_planes: contiguous (K + 1, H, W) f32 local-shadow planes."""
+    vis_planes: contiguous (K + 1, H, W) f32 local-shadow planes.  slices >
+    0: clustered records (tiles, slices * cap, 32), the slice plane in
+    G-buffer plane 13 (B2b)."""
     ph, pw = gbuf.shape[1], gbuf.shape[2]
-    cap = tile_rec.shape[1]
+    cap = tile_rec.shape[1] // max(slices, 1)
     counts32 = counts.to(torch.int32)
     out = torch.empty((height, width, 3), dtype=torch.float32,
                       device=gbuf.device)
-    err = lib.lsr_shade_fused(
-        gbuf.data_ptr(), tile_rec.data_ptr(), counts32.data_ptr(),
-        uni.data_ptr(),
-        None if vis_planes is None else vis_planes.data_ptr(),
-        0 if vis_planes is None else vis_planes.shape[0] - 1,
-        out.data_ptr(), width, height, ph, pw,
-        pw // 128, cap, SUN_MODELS.index(sun_model), int(bool(apow1)),
-        stream)
-    check_launch("lsr_shade_fused", err)
+    args = [gbuf.data_ptr(), tile_rec.data_ptr(), counts32.data_ptr(),
+            uni.data_ptr(),
+            None if vis_planes is None else vis_planes.data_ptr(),
+            0 if vis_planes is None else vis_planes.shape[0] - 1,
+            out.data_ptr(), width, height, ph, pw, pw // 128, cap]
+    if slices:
+        fn, args = lib.lsr_shade_fused_clustered, args + [slices]
+    else:
+        fn = lib.lsr_shade_fused
+    check_launch(fn.__name__, fn(*args, SUN_MODELS.index(sun_model),
+                                 int(bool(apow1)), stream))
     return out
 
 
@@ -482,7 +533,7 @@ def shade_fused(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
                 chunk: int = 8, tile_depth_range=None,
                 sun_model: str = "pbr_mr", local_vis_stack=None,
                 light_shadow_index=None, cluster_slice_plane=None,
-                slices: int = 0):
+                slices: int = 0, zn=None, zf=None):
     """Sun + binned local lighting, fused.  Returns ((H, W, 3) lit,
     bin_stats).  The result is direct sun + albedo-modulated local diffuse +
     local specular, zeroed outside coverage; ambient, emissive and the
@@ -491,17 +542,21 @@ def shade_fused(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
     local_vis_stack (H, W, K + 1) with light_shadow_index (L,): the local
     shadow planes (lighting/local_shadows), plane K the constant 1.0; each
     light's gain is multiplied by its plane at the pixel (kernel variant
-    B2a).  The light set's host constants decide two things without a sync:
-    lights.apow1 skips the attenuation pow (exact when every power is 1),
-    lights.kinds lets the plain version skip math for absent light types
-    (bit-exact; the CUDA kernel branches per light instead).
+    B2a).  cluster_slice_plane (H, W) int with slices > 0, zn and zf:
+    clustered mode (variant B2b), lists per (tile, log-Z slice) from
+    cull_lights_clustered, and a pixel takes only the lights of its own
+    slice (light_culling.view_depth_to_cluster_slice).  The light set's
+    host constants decide two things without a sync: lights.apow1 skips
+    the attenuation pow (exact when every power is 1), lights.kinds lets
+    the plain version skip math for absent light types (bit-exact; the
+    CUDA kernel branches per light instead).
     CPU tensors run the plain version; CUDA tensors launch kernel B2 or
     raise."""
     args = (gb_world_pos, gb_normal, gb_covered, albedo, metallic, roughness,
             sun_shadow_vis, camera_pos, sun_dir_ws, sun_radiance, lights,
             view, proj, width, height, tile_h, tile_w, cap, chunk,
             tile_depth_range, sun_model, local_vis_stack, light_shadow_index,
-            cluster_slice_plane, slices)
+            cluster_slice_plane, slices, zn, zf)
     dev = gb_world_pos.device
     if dev.type == "cpu":
         return shade_fused_plain(*args)
@@ -517,12 +572,12 @@ def shade_fused(gb_world_pos, gb_normal, gb_covered, albedo, metallic,
                               or not t.is_contiguous()):
             raise ValueError(f"shade_fused: {name} must be contiguous f32 "
                              f"on {dev}")
-    if tuple(tile_rec.shape) != (tiles_y * tiles_x, cap, 32):
+    if tuple(tile_rec.shape) != (tiles_y * tiles_x, max(slices, 1) * cap, 32):
         raise ValueError(f"shade_fused: tile records {tuple(tile_rec.shape)}")
     out = _shade_launch(load_kernels(), gbuf, tile_rec, counts, uni, width,
                         height, sun_model, lights.apow1,
                         torch.cuda.current_stream(dev).cuda_stream,
-                        vis_planes)
+                        vis_planes, slices)
     shade_fused.launches += 1
     return out, bin_stats
 

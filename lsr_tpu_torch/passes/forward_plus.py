@@ -1,6 +1,6 @@
 """Forward+ lighting passes (port of lsr_tpu/passes/forward_plus.py: the
-fused branch of shade_forward_plus, :68-176, and resolve_forward_plus,
-:290-409).
+fused branch of shade_forward_plus, :68-176, in the modes "tiled",
+"tiled_depth_range" and "clustered", and resolve_forward_plus, :290-409).
 
 shade_forward_plus shades a G-buffer: sun BRDF x sun shadow visibility +
 binned local lights x their local-shadow planes in kernel B2
@@ -16,7 +16,10 @@ import torch
 
 from lsr_tpu_torch.core.image import resize_bilinear
 from lsr_tpu_torch.core.util import device_const
-from lsr_tpu_torch.lighting.light_culling import tile_depth_ranges_from_buffer
+from lsr_tpu_torch.lighting.light_culling import (
+    tile_depth_ranges_from_buffer,
+    view_depth_to_cluster_slice,
+)
 from lsr_tpu_torch.lighting.local_shadows import (
     local_shadow_vis_planes,
     local_shadow_vis_stack,
@@ -62,15 +65,14 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     (H, W) sun visibility).
 
     The fused kernel bins lights per 64x128 tile with twice the per-16px-tile
-    cap (cap * 2), as lsr_tpu does; tile_size / chunk / slices belong to the
-    paths not ported yet."""
+    cap (cap * 2), as lsr_tpu does; mode "clustered" bins them per (64x128
+    tile, log-Z slice) of `slices` slices and shades each pixel with its
+    own slice's lights (kernel B2's variant B2b).  tile_size and chunk
+    belong to the path not ported yet."""
     if not use_kernel:
         raise NotImplementedError("shade_forward_plus: the XLA accumulation "
                                   "path (use_kernel=False) is not ported")
-    if mode == "clustered":
-        raise NotImplementedError("shade_forward_plus: mode='clustered' is "
-                                  "not ported yet")
-    if mode not in ("tiled", "tiled_depth_range"):
+    if mode not in ("tiled", "tiled_depth_range", "clustered"):
         raise ValueError(f"shade_forward_plus: unknown mode {mode!r}")
     if sun_model not in SUN_MODELS:
         raise NotImplementedError(f"shade_forward_plus: sun_model "
@@ -92,10 +94,15 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
     n = _norm(gb.normal_ws)
     vis = _sun_visibility(ctx, gb.world_pos, n, gb.depth01, sun_vis_scale)
 
-    tdr = None
+    tdr = slice_plane = None
     if mode == "tiled_depth_range":
         tdr = tile_depth_ranges_from_buffer(gb.depth01, zn, zf, width, height,
                                             128, tile_h=64)
+    if mode == "clustered":
+        zn_t = device_const(zn, gb.depth01.device)
+        zf_t = device_const(zf, gb.depth01.device)
+        slice_plane = view_depth_to_cluster_slice(
+            zn_t + gb.depth01 * (zf_t - zn_t), zn, zf, slices)
     local_vis = shadow_idx = None
     if local_shadows is not None:
         local_vis = local_shadow_vis_stack(local_shadows, gb.world_pos, n)
@@ -105,7 +112,9 @@ def shade_forward_plus(gb, ctx, lights, view, proj, zn, zf, width: int,
         ctx.camera_pos, ctx.light_dir_ws, ctx.light_color * ctx.light_intensity,
         lights, view, proj, width, height, tile_h=64, tile_w=128,
         cap=cap * 2, chunk=8, tile_depth_range=tdr, sun_model=sun_model,
-        local_vis_stack=local_vis, light_shadow_index=shadow_idx)
+        local_vis_stack=local_vis, light_shadow_index=shadow_idx,
+        cluster_slice_plane=slice_plane,
+        slices=slices if mode == "clustered" else 0, zn=zn, zf=zf)
     v = _norm(ctx.camera_pos[None, None, :] - gb.world_pos)
     amb = _ambient(ctx, n, v, albedo, metal, rough, ao) + emissive
     hdr = lit + torch.where(gb.covered[..., None], amb, torch.zeros_like(amb))

@@ -1,10 +1,19 @@
-"""The camera raster and the fused forward+ lighting of the standard passes
-(port of lsr_tpu/passes/standard_passes.py: _raster, _background and the
-fused branch of _LightingBase.execute_resolved, :24-132 and :484-515).
+"""The standard render passes (port of lsr_tpu/passes/standard_passes.py):
+the camera raster, the fused forward+ lighting, and the RenderPass classes
+and registry of the render-path pipeline (lsr_tpu_torch/pipeline).
 
 Frame state is a dict of named tensors; scene inputs come under "geom",
-"objects", "lights", "shade_ctx" and "camera".  The RenderPass / registry
-framework around these functions is not ported yet (ROADMAP A13).
+"objects", "lights", "shade_ctx" and "camera".  make_standard_registry
+registers every pass id of lsr_tpu's with the same descriptors, so a recipe
+compiles to the same chain.  The passes of the five render-path presets run
+(scene_cull, shadow_map, local_shadows, depth_prepass, gbuffer,
+light_culling, cluster_build, cluster_light_assign, the lighting passes on
+kernel B2's fused branch, tonemap, fxaa); the others raise
+NotImplementedError naming their ROADMAP item when executed: sky (A15),
+ssao and the non-fused lighting branch (A14, A6), motion_blur,
+light_shafts, depth_of_field, bloom and taa (A14).  lsr_tpu's post passes
+are pass-throughs while their enable flag is off; the port's raise all the
+same, since the pass as a whole is not ported.
 
 Two repairs against lsr_tpu, both following lsr_tpu's own contracts:
 - a compact setup that overflowed its caps falls back to scene_setup (the
@@ -29,11 +38,34 @@ from lsr_tpu_torch.core.frame import (
     TechniqueMode,
 )
 from lsr_tpu_torch.core.util import device_const
+from lsr_tpu_torch.geometry.occlusion import (
+    occlusion_cull_aabbs,
+    render_occluder_depth,
+)
+from lsr_tpu_torch.geometry.volumes import (
+    frustum_cull_objects,
+    update_visibility_history,
+)
+from lsr_tpu_torch.lighting.light_culling import (
+    cluster_slice_bounds,
+    cull_lights_camera,
+    cull_lights_clustered,
+    cull_lights_tiled,
+    tile_depth_ranges_from_buffer,
+)
+from lsr_tpu_torch.lighting.local_shadows import render_local_shadow_maps
 from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
+from lsr_tpu_torch.passes.post import fxaa_pass
+from lsr_tpu_torch.passes.shadow import make_sun_shadow
+from lsr_tpu_torch.passes.tonemap import tonemap_pass
+from lsr_tpu_torch.pipeline.contracts import STANDARD_CONTRACTS
+from lsr_tpu_torch.pipeline.registry import PassDescriptor, PassFactoryRegistry
+from lsr_tpu_torch.pipeline.render_pass import RenderPass
 from lsr_tpu_torch.raster import tiled
 from lsr_tpu_torch.raster.brute import rasterize_brute
 from lsr_tpu_torch.raster.interp import interpolate_gbuffer
 from lsr_tpu_torch.raster.setup import scene_setup, scene_setup_compact
+from lsr_tpu_torch.scene.scene import object_world_aabbs
 
 
 def _with_gbuffer(out, setup, depth, tid, fp: FrameParams):
@@ -110,17 +142,25 @@ def _background(state, fp: FrameParams):
     return device_const(fp.background, dev).expand(fp.height, fp.width, 3)
 
 
+def fused_ok(state, fp: FrameParams) -> bool:
+    """Whether lsr_tpu's lighting passes take their fused branch
+    (_LightingBase._fused_kernel_ok, standard_passes.py:473-483, for the
+    passes with local lights): the pbr_mr / blinn_phong sun model, no debug
+    view, no SSAO mask."""
+    return (fp.debug_view == DebugViewMode.NONE
+            and fp.shading_model in ("pbr_mr", "blinn_phong")
+            and state.get("ssao_mask") is None)
+
+
 def fused_lighting(state, fp: FrameParams):
     """The fused branch of lsr_tpu's lighting passes (sun + binned local
     lights through kernel B2, ambient, emissive, the frame's background).
     Returns a new state dict with "hdr"."""
     t = fp.technique
-    if (fp.debug_view != DebugViewMode.NONE
-            or fp.shading_model not in ("pbr_mr", "blinn_phong")
-            or state.get("ssao_mask") is not None):
+    if not fused_ok(state, fp):
         raise NotImplementedError(
             "lighting: only the fused forward+ branch (pbr_mr / blinn_phong, "
-            "no debug view, no SSAO) is ported (ROADMAP A13, A14)")
+            "no debug view, no SSAO) is ported (ROADMAP A14, A6)")
     gb = state["gbuffer"]
     sctx = state["shade_ctx"]
     if state.get("shadow_ctx") is not None and fp.enable_shadows:
@@ -144,3 +184,373 @@ def fused_lighting(state, fp: FrameParams):
     out["hdr"] = torch.where(gb.covered[..., None], hdr,
                              _background(state, fp))
     return out
+
+
+def _unported(pass_id: str, item: str):
+    raise NotImplementedError(f"render pass {pass_id!r} is not ported yet "
+                              f"(ROADMAP {item})")
+
+
+class SceneCullPass(RenderPass):
+    """Per-frame scene and light culling (lsr_tpu's SceneCullPass): object
+    world AABBs against the camera frustum, then against the occluder depth
+    proxy (occ_width x occ_height through kernel B1) by HiZ, the visibility
+    hysteresis (persistent 'vis_history') and the camera cull of the local
+    lights (lights.enabled).  Writes 'view_mask', which only the camera
+    raster reads: shadow passes keep objects.visible."""
+
+    def __init__(self):
+        super().__init__("scene_cull",
+                         reads=("geom", "objects", "camera"),
+                         writes=("view_mask", "lights", "vis_history"),
+                         contract=STANDARD_CONTRACTS["scene_cull"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        p = fp.pass_params.culling
+        out = dict(state)
+        objects, cam = state["objects"], state["camera"]
+        vis = objects.visible
+        wmin, wmax = object_world_aabbs(objects)
+        if p.frustum:
+            vis = vis & frustum_cull_objects(cam.viewproj, wmin, wmax)
+        occ_depth = None
+        if p.occlusion:
+            occ_depth = render_occluder_depth(
+                state["geom"], objects, cam.viewproj, cam.zn, cam.zf,
+                p.occ_width, p.occ_height, occluder_mask=vis)
+            vis = vis & occlusion_cull_aabbs(occ_depth, cam.viewproj, wmin,
+                                             wmax, cam.zn, cam.zf)
+        hist = state.get("vis_history")
+        if hist is None:
+            # Start at hold_frames: an object never seen is not "recently
+            # visible".
+            hist = torch.full(vis.shape, p.hold_frames, dtype=torch.int64,
+                              device=vis.device)
+        new_hist, effective = update_visibility_history(
+            hist, vis, hold_frames=p.hold_frames)
+        out["vis_history"] = new_hist
+        out["view_mask"] = effective & objects.visible
+        if p.cull_lights and "lights" in state:
+            lights = state["lights"]
+            lmask = cull_lights_camera(lights, cam.viewproj,
+                                       occ_depth=occ_depth, zn=cam.zn,
+                                       zf=cam.zf)
+            out["lights"] = dataclasses.replace(
+                lights, enabled=lights.enabled & lmask)
+        return out
+
+
+class LocalShadowsPass(RenderPass):
+    """The local shadow atlas: the budgeted spot slots and point cube faces
+    (one kernel B1 launch a slot), their tables and the per-light planes'
+    sampling data.  A light the camera cull disabled keeps all-far slots."""
+
+    def __init__(self):
+        super().__init__("local_shadows",
+                         reads=("geom", "objects", "lights"),
+                         writes=("local_shadow_maps",),
+                         contract=STANDARD_CONTRACTS["local_shadows"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        p = fp.pass_params.local_shadow
+        out = dict(state)
+        if not (fp.enable_shadows and p.enabled
+                and (p.spot_ids or p.point_ids)):
+            out["local_shadow_maps"] = None
+            return out
+        lights = state["lights"]
+        ids = list(p.spot_ids) + list(p.point_ids)
+        caster_en = lights.enabled[device_const(
+            ids, lights.enabled.device, torch.int64)]
+        out["local_shadow_maps"] = render_local_shadow_maps(
+            state["geom"], state["objects"], lights,
+            spot_ids=tuple(p.spot_ids), point_ids=tuple(p.point_ids),
+            map_size=p.map_size, point_size=p.point_size,
+            pcf_radius=p.pcf_radius, bias_const=p.bias_const,
+            bias_slope=p.bias_slope, vis_scale=p.vis_scale,
+            vis_crop=tuple(p.vis_crop), caster_enabled=caster_en,
+            filter_mode=p.filter_mode)
+        return out
+
+
+class SkyPass(RenderPass):
+    def __init__(self):
+        super().__init__("sky", reads=("camera",), writes=("sky",),
+                         contract=STANDARD_CONTRACTS["sky"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        _unported("sky", "A15")
+
+
+class ShadowMapPass(RenderPass):
+    def __init__(self):
+        super().__init__("shadow_map", reads=("geom", "objects"),
+                         writes=("shadow_ctx",),
+                         contract=STANDARD_CONTRACTS["shadow_map"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        out["shadow_ctx"] = None
+        if fp.enable_shadows:
+            out["shadow_ctx"] = make_sun_shadow(
+                state["geom"], state["objects"],
+                state["shade_ctx"].light_dir_ws, fp.pass_params.shadow)
+        return out
+
+
+class DepthPrepass(RenderPass):
+    def __init__(self):
+        super().__init__("depth_prepass", reads=("geom", "objects", "camera"),
+                         writes=("depth", "tid", "setup"),
+                         contract=STANDARD_CONTRACTS["depth_prepass"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        return _raster(state, fp, depth_only=True)
+
+
+class GBufferPass(RenderPass):
+    def __init__(self):
+        super().__init__("gbuffer", reads=("geom", "objects", "camera"),
+                         writes=("gbuffer", "depth", "tid", "velocity",
+                                 "setup"),
+                         contract=STANDARD_CONTRACTS["gbuffer"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        return _raster(state, fp)
+
+
+class LightCullingPass(RenderPass):
+    """Tiled light lists at technique.tile_size (with the tile depth range
+    of the frame's depth buffer in TILED_DEPTH_RANGE mode).  The fused
+    lighting bins its own 64x128 lists; the grid is the pass's product, as
+    in lsr_tpu."""
+
+    def __init__(self):
+        super().__init__("light_culling",
+                         reads=("lights", "camera"),
+                         writes=("light_grid",),
+                         contract=STANDARD_CONTRACTS["light_culling"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        cam = state["camera"]
+        t = fp.technique
+        tdr = None
+        if (t.light_culling == LightCullingMode.TILED_DEPTH_RANGE
+                and state.get("depth") is not None):
+            tdr = tile_depth_ranges_from_buffer(
+                state["depth"], cam.zn, cam.zf, fp.width, fp.height,
+                t.tile_size)
+        lists, counts, bin_stats = cull_lights_tiled(
+            state["lights"], cam.view, cam.proj, fp.width, fp.height,
+            tile_size=t.tile_size, cap=t.max_lights_per_tile,
+            tile_depth_range=tdr)
+        out = dict(state)
+        out["light_grid"] = {"lists": lists, "counts": counts,
+                             "max_count": bin_stats["max_count"],
+                             "overflow_bins": bin_stats["overflow_bins"],
+                             "slices": 1}
+        return out
+
+
+class ClusterBuildPass(RenderPass):
+    """The cluster geometry (log-Z slice bounds); assignment comes next."""
+
+    def __init__(self):
+        super().__init__("cluster_build", reads=("camera",),
+                         writes=("cluster_geom",),
+                         contract=STANDARD_CONTRACTS["cluster_build"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        cam = state["camera"]
+        out = dict(state)
+        out["cluster_geom"] = {
+            "bounds": cluster_slice_bounds(cam.zn, cam.zf,
+                                           fp.technique.cluster_slices,
+                                           cam.view.device),
+            "slices": fp.technique.cluster_slices,
+        }
+        return out
+
+
+class ClusterLightAssignPass(RenderPass):
+    def __init__(self):
+        super().__init__("cluster_light_assign",
+                         reads=("lights", "camera", "cluster_geom"),
+                         writes=("light_grid",),
+                         contract=STANDARD_CONTRACTS["cluster_light_assign"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        cam = state["camera"]
+        t = fp.technique
+        lists, counts, bin_stats = cull_lights_clustered(
+            state["lights"], cam.view, cam.proj, cam.zn, cam.zf, fp.width,
+            fp.height, tile_size=t.tile_size, cap=t.max_lights_per_tile,
+            slices=t.cluster_slices)
+        out = dict(state)
+        out["light_grid"] = {"lists": lists, "counts": counts,
+                             "max_count": bin_stats["max_count"],
+                             "overflow_bins": bin_stats["overflow_bins"],
+                             "slices": t.cluster_slices}
+        return out
+
+
+class SsaoPass(RenderPass):
+    """Depth-only AO after the depth prepass; reads "tid" so that it runs
+    after the prepass raster (lsr_tpu's SsaoPass)."""
+
+    def __init__(self):
+        super().__init__("ssao", reads=("tid",), writes=("ssao_mask",),
+                         contract=STANDARD_CONTRACTS["ssao"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        _unported("ssao", "A14")
+
+
+class _LightingBase(RenderPass):
+    """Sun + ambient + binned local lights.  The fused branch (kernel B2 in
+    the technique's mode: tiled, tiled depth range or clustered) is the
+    one every preset takes; the general branch (other sun models, debug
+    views, SSAO modulation) is not ported and raises."""
+
+    def execute_resolved(self, ctx, state, fp, request):
+        if not fused_ok(state, fp):
+            raise NotImplementedError(
+                f"render pass {self.pass_id!r}: the non-fused lighting "
+                f"branch (sun model {fp.shading_model!r}, debug view "
+                f"{fp.debug_view.value!r}, SSAO mask "
+                f"{state.get('ssao_mask') is not None}) is not ported yet "
+                f"(ROADMAP A14, A6)")
+        return fused_lighting(state, fp)
+
+
+class ForwardPass(_LightingBase):
+    def __init__(self):
+        # optional ssao_mask: orders an ssao pass before the lighting when
+        # the chain has one, without gating the chains that have none.
+        super().__init__("pbr_forward",
+                         reads=("geom", "objects", "camera", "shade_ctx"),
+                         writes=("hdr", "gbuffer", "depth", "velocity"),
+                         contract=STANDARD_CONTRACTS["pbr_forward"],
+                         optional_reads=("ssao_mask",))
+
+    def execute_resolved(self, ctx, state, fp, request):
+        return super().execute_resolved(ctx, _raster(state, fp), fp, request)
+
+
+class ForwardPlusPass(_LightingBase):
+    def __init__(self, pass_id="pbr_forward_plus"):
+        super().__init__(pass_id,
+                         reads=("geom", "objects", "camera", "shade_ctx",
+                                "light_grid"),
+                         writes=("hdr", "gbuffer", "depth", "velocity"),
+                         contract=STANDARD_CONTRACTS[pass_id])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        return super().execute_resolved(ctx, _raster(state, fp), fp, request)
+
+
+class ForwardClusteredPass(ForwardPlusPass):
+    def __init__(self):
+        super().__init__("pbr_forward_clustered")
+
+
+class DeferredLightingPass(_LightingBase):
+    def __init__(self, pass_id="deferred_lighting"):
+        super().__init__(pass_id,
+                         reads=("gbuffer", "shade_ctx", "camera"),
+                         writes=("hdr",),
+                         contract=STANDARD_CONTRACTS[pass_id])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        if state.get("light_grid") is None:
+            # Plain deferred bins internally, as lsr_tpu does.
+            state = LightCullingPass().execute_resolved(ctx, state, fp,
+                                                        request)
+        return super().execute_resolved(ctx, state, fp, request)
+
+
+class DeferredLightingTiledPass(DeferredLightingPass):
+    def __init__(self):
+        super().__init__("deferred_lighting_tiled")
+        self._io = dataclasses.replace(
+            self._io, reads=self._io.reads + ("light_grid",))
+
+
+class TonemapPass(RenderPass):
+    def __init__(self):
+        super().__init__("tonemap", reads=("hdr",), writes=("ldr",),
+                         contract=STANDARD_CONTRACTS["tonemap"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        out["ldr"] = tonemap_pass(state["hdr"],
+                                  exposure=fp.pass_params.tonemap.exposure,
+                                  gamma=fp.pass_params.tonemap.gamma)
+        return out
+
+
+class FxaaPass(RenderPass):
+    def __init__(self):
+        super().__init__("fxaa", reads=("ldr",), writes=("ldr",),
+                         contract=STANDARD_CONTRACTS["fxaa"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        if fp.enable_fxaa:
+            out["ldr"] = fxaa_pass(state["ldr"])
+        return out
+
+
+class _UnportedPost(RenderPass):
+    """A post pass of lsr_tpu's that the port does not have yet (ROADMAP
+    A14): registered with its IO and contract so that recipes compile and
+    plan as in lsr_tpu, and raising when executed."""
+
+    def __init__(self, pass_id, reads, writes=("hdr",)):
+        super().__init__(pass_id, reads=reads, writes=writes,
+                         contract=STANDARD_CONTRACTS[pass_id])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        _unported(self.pass_id, "A14")
+
+
+def make_standard_registry() -> PassFactoryRegistry:
+    """Every pass id of lsr_tpu's make_standard_registry
+    (standard_passes.py:747-782), with the same descriptors."""
+    reg = PassFactoryRegistry()
+    fp_modes = TechniqueMode.FORWARD_PLUS | TechniqueMode.TILED_DEFERRED
+    reg.register("sky", SkyPass)
+    reg.register("scene_cull", SceneCullPass)
+    reg.register("shadow_map", ShadowMapPass)
+    reg.register("local_shadows", LocalShadowsPass)
+    reg.register("depth_prepass", DepthPrepass)
+    reg.register("gbuffer", GBufferPass,
+                 PassDescriptor(modes=TechniqueMode.DEFERRED
+                                | TechniqueMode.TILED_DEFERRED))
+    reg.register("light_culling", LightCullingPass,
+                 PassDescriptor(modes=fp_modes))
+    reg.register("cluster_build", ClusterBuildPass,
+                 PassDescriptor(modes=TechniqueMode.CLUSTERED_FORWARD))
+    reg.register("cluster_light_assign", ClusterLightAssignPass,
+                 PassDescriptor(modes=TechniqueMode.CLUSTERED_FORWARD))
+    reg.register("ssao", SsaoPass)
+    reg.register("pbr_forward", ForwardPass,
+                 PassDescriptor(modes=TechniqueMode.FORWARD))
+    reg.register("pbr_forward_plus", ForwardPlusPass,
+                 PassDescriptor(modes=TechniqueMode.FORWARD_PLUS))
+    reg.register("pbr_forward_clustered", ForwardClusteredPass,
+                 PassDescriptor(modes=TechniqueMode.CLUSTERED_FORWARD))
+    reg.register("deferred_lighting", DeferredLightingPass,
+                 PassDescriptor(modes=TechniqueMode.DEFERRED))
+    reg.register("deferred_lighting_tiled", DeferredLightingTiledPass,
+                 PassDescriptor(modes=TechniqueMode.TILED_DEFERRED))
+    reg.register("tonemap", TonemapPass)
+    reg.register("fxaa", FxaaPass)
+    for pid, reads in (("motion_blur", ("hdr", "velocity", "depth")),
+                       ("light_shafts", ("hdr", "depth")),
+                       ("depth_of_field", ("hdr", "depth")),
+                       ("bloom", ("hdr",)),
+                       ("taa", ("hdr", "velocity"))):
+        reg.register(pid, lambda pid=pid, reads=reads: _UnportedPost(
+            pid, reads))
+    return reg

@@ -46,6 +46,9 @@ SIGNATURES = {
     # ph, pw, tiles_x, cap, sun_model, apow1, stream
     "lsr_shade_fused": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
+    # the same with slices before sun_model (clustered records)
+    "lsr_shade_fused_clustered": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P),
     # rec, lists, counts, order, depth_in, tid_in, depth_out, tid_out, width,
     # height, tile_w, tile_h, tiles_x, tiles_y, cap, zn, inv_range, y_offset,
     # max_py, depth_mode, stream

@@ -287,8 +287,31 @@ def _entry_points():
         return make_shade_context(make_materials(device=device),
                                   device=device)
 
+    def preset_frame(device, how=None):
+        """forward_plus's frame 0 at 32x24 with tiny maps, through
+        build_preset_pipelines' frame function or PluggablePipeline.<how>
+        on scene_state(device=device)."""
+        from lsr_tpu_torch.pipeline.executor import RenderContext
+        from lsr_tpu_torch.render_paths import (
+            build_preset_pipelines, scene_state)
+
+        fns, pipes = build_preset_pipelines(
+            32, 24, {"forward_plus"}, local_map=16, local_point=16,
+            device=device, with_pipes=True)
+        pipe, fp, state_fn = pipes["forward_plus"]
+        fp.pass_params.shadow.map_size = 32
+        fp.pass_params.culling.occ_width = 32
+        fp.pass_params.culling.occ_height = 18
+        if how is None:
+            return fns["forward_plus"](0)
+        state = scene_state(32, 24, device=device)
+        state["camera"] = state_fn(0)["camera"]
+        return getattr(pipe, how)(RenderContext(), state, fp)["ldr"]
+
     cpu_ctx = build_flagship_scene(n_lights=16, grid=1, device="cpu")[3]
     return {
+        "build_preset_pipelines": preset_frame,
+        "PluggablePipeline.execute": lambda d: preset_frame(d, "execute"),
         "build_flagship_scene": lambda d: build_flagship_scene(
             n_lights=16, grid=1, device=d),
         "flagship_camera": lambda d: flagship_camera(0, cpu_ctx, W, H,
@@ -327,7 +350,8 @@ ENTRY_POINTS = ["build_flagship_scene", "flagship_camera",
                 "build_highpoly_scene", "highpoly_camera", "make_camera",
                 "SceneBuilder.build", "LightSetBuilder.build",
                 "make_materials", "make_shade_context", "upload_mesh",
-                "simple_camera"]
+                "simple_camera", "build_preset_pipelines",
+                "PluggablePipeline.execute"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

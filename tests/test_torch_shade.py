@@ -210,9 +210,11 @@ def test_shade_plain_light_kinds_bit_exact(scene):
 
 
 def test_shade_fused_rejects_unported_options(scene):
-    """Clustered slices (kernel variant B2b) raise, never fall through;
-    local-shadow planes without their light -> plane index, or of the wrong
-    size, are refused."""
+    """Options that do not fit together are refused, never fall through:
+    clustered slices (kernel variant B2b) without their slice plane, a
+    slice plane without slices, slices without zn / zf, a slice plane of
+    the wrong size; local-shadow planes without their light -> plane
+    index, or of the wrong size."""
     from lsr_tpu_torch.lighting.shade_kernel import shade_fused
 
     tl = scene["t"][2]
@@ -220,8 +222,16 @@ def test_shade_fused_rejects_unported_options(scene):
     args = [_t(a) for a in _fused_inputs(scene)] + [
         torch.zeros(3), torch.tensor([0.0, -1.0, 0.0]), torch.ones(3), tl,
         tcam.view, tcam.proj, W, H]
-    with pytest.raises(NotImplementedError, match="clustered"):
+    plane = torch.zeros(H, W, dtype=torch.int64)
+    with pytest.raises(ValueError, match="come together"):
         shade_fused(*args, slices=4)
+    with pytest.raises(ValueError, match="come together"):
+        shade_fused(*args, cluster_slice_plane=plane)
+    with pytest.raises(ValueError, match="zn and zf"):
+        shade_fused(*args, cluster_slice_plane=plane, slices=4)
+    with pytest.raises(ValueError, match="cluster_slice_plane must be"):
+        shade_fused(*args, cluster_slice_plane=plane[:, 1:], slices=4,
+                    zn=tcam.zn, zf=tcam.zf)
     with pytest.raises(ValueError, match="light_shadow_index"):
         shade_fused(*args, local_vis_stack=torch.ones(H, W, 2))
     with pytest.raises(ValueError, match="planes must be"):
@@ -344,6 +354,177 @@ def test_shade_walk_sweep_catches_an_eager_skip(scene, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Clustered slices (kernel variant B2b's plain path)
+# ---------------------------------------------------------------------------
+
+SLICES = 16
+
+
+def _slice_plane(scene):
+    """lsr_tpu's cluster slice of each pixel of the scene's G-buffer (numpy
+    int32), which both packages then take as the same input."""
+    from lsr_tpu.lighting.light_culling import view_depth_to_cluster_slice
+
+    cam = scene["j"][4]
+    view_z = cam.zn + scene["gb"].depth01 * (cam.zf - cam.zn)
+    return np.asarray(view_depth_to_cluster_slice(view_z, cam.zn, cam.zf,
+                                                  SLICES))
+
+
+@pytest.mark.parametrize("model,planes,kind", [
+    ("pbr_mr", False, "spot_point"), ("blinn_phong", False, "mixed"),
+    ("pbr_mr", True, "mixed")])
+def test_shade_fused_clustered_matches_jax(scene, model, planes, kind):
+    """Kernel variant B2b's plain version: the same G-buffer, slice plane
+    (lsr_tpu's), lights and camera into lsr_tpu's shade_fused_pallas(...,
+    cluster_slice_plane, slices=16) in interpret mode and the port's
+    shade_fused; lit rgb within 1e-4 (the sun term's GGX / Blinn-Phong
+    rounding, as test_shade_fused_matches_jax), with and without seeded
+    local-shadow planes.  The pixels span several slices, and the lists
+    differ from slice to slice."""
+    from lsr_tpu.lighting.shade_kernel import shade_fused_pallas
+
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
+
+    jl = _light_set(kind)
+    tl = convert.lights_soa(jl, "cpu")
+    cam, tcam = scene["j"][4], scene["t"][4]
+    eye = np.asarray(scene["j"][5].camera_pos, np.float32)
+    sun_dir = np.asarray([0.35, -0.75, 0.45], np.float32)
+    rad = np.asarray([2.0, 1.92, 1.8], np.float32)
+    ins = _fused_inputs(scene)
+    sp = _slice_plane(scene)
+    covered = np.asarray(scene["gb"].covered)
+    assert len(np.unique(sp[covered])) >= 3
+    jkw, tkw = {}, {}
+    if planes:
+        vis, idx = _seeded_planes(tl.count)
+        jkw = dict(local_vis_stack=jnp.asarray(vis.transpose(1, 2, 0)),
+                   light_shadow_index=jnp.asarray(idx))
+        tkw = dict(local_vis_stack=_t(vis).permute(1, 2, 0),
+                   light_shadow_index=_t(idx))
+    kinds = tuple(sorted(int(t) for t in np.unique(np.asarray(jl.type))))
+    jlit, jst = shade_fused_pallas(
+        *[jnp.asarray(a) for a in ins], jnp.asarray(eye),
+        jnp.asarray(sun_dir), jnp.asarray(rad), jl, cam.view, cam.proj, W, H,
+        tile_h=64, tile_w=128, cap=256, chunk=8, sun_model=model,
+        fastmath=("apow1",) if tl.apow1 else (), light_kinds=kinds,
+        cluster_slice_plane=jnp.asarray(sp), slices=SLICES, zn=cam.zn,
+        zf=cam.zf, interpret=True, **jkw)
+    tlit, tst = shade_fused(
+        *[_t(a) for a in ins], _t(eye), _t(sun_dir), _t(rad), tl, tcam.view,
+        tcam.proj, W, H, sun_model=model, cluster_slice_plane=_t(sp),
+        slices=SLICES, zn=tcam.zn, zf=tcam.zf, **tkw)
+    jlit = np.asarray(jlit)
+    np.testing.assert_allclose(tlit.numpy(), jlit, rtol=0, atol=1e-4)
+    assert int(tst["max_count"]) == int(jst["max_count"])
+    assert np.abs(jlit).max() > 0.2
+
+
+def test_forward_plus_clustered_matches_jax(scene):
+    """shade_forward_plus(mode="clustered") of both packages on the same
+    G-buffer (its slice plane computed on each side): the slice planes are
+    equal on every pixel, and HDR within 1e-4."""
+    from lsr_tpu.passes.forward_plus import shade_forward_plus as jfp
+
+    from lsr_tpu_torch.lighting.light_culling import (
+        view_depth_to_cluster_slice)
+    from lsr_tpu_torch.passes.forward_plus import shade_forward_plus as tfp
+    from lsr_tpu_torch.raster.interp import interpolate_gbuffer
+
+    _, _, jl, _, cam, jctx = scene["j"]
+    _, _, tl, _, tcam, tctx = scene["t"]
+    tgb = interpolate_gbuffer(torch_setup(scene["setup"]),
+                              _t(scene["depth"]), _t(scene["tid"]),
+                              materials=tctx.materials,
+                              want_face_normal=False)
+    tz = tcam.zn + tgb.depth01 * (tcam.zf - tcam.zn)
+    tsp = view_depth_to_cluster_slice(tz, tcam.zn, tcam.zf, SLICES)
+    np.testing.assert_array_equal(tsp.numpy(), _slice_plane(scene))
+    jhdr, _ = jfp(scene["gb"], jctx, jl, cam.view, cam.proj, cam.zn, cam.zf,
+                  W, H, tile_size=16, cap=128, mode="clustered",
+                  slices=SLICES, sun_model="pbr_mr")
+    thdr, _ = tfp(tgb, tctx, tl, tcam.view, tcam.proj, tcam.zn, tcam.zf, W,
+                  H, tile_size=16, cap=128, mode="clustered", slices=SLICES,
+                  sun_model="pbr_mr")
+    np.testing.assert_allclose(thdr.numpy(), np.asarray(jhdr), rtol=0,
+                               atol=1e-4)
+
+
+def _clustered_walk(scene, monkeypatch, planes, wild=False, drop_wild=False):
+    """_shade_walk for clustered lists (16 slices, lsr_tpu's slice plane):
+    (lit as it is, lit with the terms of every pair B2b's sliced walk skips
+    set to +0, its (listed, walked) covered pairs of the lists' slices).
+    wild: the first light's intensity is infinite, so a reached pixel of
+    another slice adds NaN; drop_wild: a walk model that forgets such
+    lights (the test of the test)."""
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.lighting import light_walk
+    from lsr_tpu_torch.lighting import shade_kernel as sk
+
+    tl = convert.lights_soa(_light_set("mixed"), "cpu")
+    if wild:
+        tl.intensity[0] = float("inf")
+    tcam = scene["t"][4]
+    kw = dict(cluster_slice_plane=_t(_slice_plane(scene)), slices=SLICES,
+              zn=tcam.zn, zf=tcam.zf)
+    if planes:
+        vis, idx = _seeded_planes(tl.count)
+        kw.update(local_vis_stack=_t(vis).permute(1, 2, 0),
+                  light_shadow_index=_t(idx))
+    args = [_t(a) for a in _fused_inputs(scene)] + [
+        _t(np.asarray([0.5, 2.5, -4.0], np.float32)),
+        _t(np.asarray([0.3, -0.7, 0.5], np.float32)),
+        _t(np.asarray([2.0, 1.92, 1.8], np.float32)), tl, tcam.view,
+        tcam.proj, W, H]
+    lit, _ = sk.shade_fused(*args, **kw)
+    counts = sk._prepare(*args, 64, 128, 256, 8, None, "pbr_mr",
+                         kw.get("local_vis_stack"),
+                         kw.get("light_shadow_index"),
+                         kw["cluster_slice_plane"], SLICES, tcam.zn,
+                         tcam.zf)[2]
+    if drop_wild:
+        monkeypatch.setattr(light_walk, "finite_gain",
+                            lambda blk: torch.ones_like(blk[..., 16],
+                                                        dtype=torch.bool))
+    terms = light_walk.walked_terms(sk.light_terms, counts, 256, 8, 64, 128,
+                                    SLICES)
+    monkeypatch.setattr(sk, "light_terms", terms)
+    walked, _ = sk.shade_fused(*args, **kw)
+    return lit, walked, terms.pairs
+
+
+@pytest.mark.parametrize("planes", [False, True])
+def test_shade_plain_clustered_unchanged_by_what_the_walk_skips(
+        scene, monkeypatch, planes):
+    """B2b's sliced walk (csrc/shade_fused.cu, light_walk.cuh's SLICED
+    steps): the box, the uncovered-warp rule and the vote count only the
+    pixels of a list's slice.  The plain clustered version with the terms
+    of every pair it skips set to +0 equals itself bit for bit; the walk
+    keeps under a fifth of the (covered pixel, listed light) pairs of the
+    slices."""
+    lit, walked, (listed, kept) = _clustered_walk(scene, monkeypatch, planes)
+    assert torch.equal(walked.view(torch.int32), lit.view(torch.int32))
+    assert 0 < kept < 0.2 * listed, (kept, listed)
+
+
+def test_shade_clustered_walk_keeps_non_finite_gain_lights(scene,
+                                                           monkeypatch):
+    """A light of infinite intensity gives NaN at the pixels of other
+    slices that it reaches (lsr_tpu's gain * 0): the sliced walk keeps it,
+    bit for bit with the plain version, NaN included; a walk model that
+    treats it as any light changes the result."""
+    lit, walked, _ = _clustered_walk(scene, monkeypatch, False, wild=True)
+    assert bool(torch.isnan(lit).any())
+    assert torch.equal(walked.view(torch.int32), lit.view(torch.int32))
+    monkeypatch.undo()
+    lit, walked, _ = _clustered_walk(scene, monkeypatch, False, wild=True,
+                                     drop_wild=True)
+    assert not torch.equal(walked.view(torch.int32), lit.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # G-buffer, materials, texture, ambient, post
 # ---------------------------------------------------------------------------
 
@@ -454,7 +635,8 @@ def test_tonemap_and_fxaa_match_jax():
 
 
 def test_forward_plus_rejects_unported_options(scene):
-    """Branches the slice does not port raise NotImplementedError."""
+    """Branches the port does not have raise NotImplementedError (the
+    clustered mode is ported: test_forward_plus_clustered_matches_jax)."""
     import dataclasses
 
     from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
@@ -464,7 +646,6 @@ def test_forward_plus_rejects_unported_options(scene):
     gb = GBuffer(**{f.name: None for f in dataclasses.fields(GBuffer)})
     base = (gb, tctx, tl, tcam.view, tcam.proj, tcam.zn, tcam.zf, W, H)
     for kw, msg in ((dict(use_kernel=False), "use_kernel"),
-                    (dict(mode="clustered"), "clustered"),
                     (dict(env_probes=True), "env_probes"),
                     (dict(sun_model="toon"), "sun_model")):
         with pytest.raises(NotImplementedError, match=msg):

@@ -155,10 +155,11 @@ def jax_sun_shadow(geom, objects, ctx, size, filter_mode="esm"):
     return depth, light_vp, sc
 
 
-def jax_reference_cull(geom, objects, lights, cam):
+def jax_reference_cull(geom, objects, lights, cam, occ_w=320, occ_h=180):
     """lsr_tpu's per-frame cull of bench.py:188-210, op by op (its occluder
-    raster through the brute kernel).  Returns (objects with the culled
-    visibility, lights with the culled enable mask, occluder depth)."""
+    raster, occ_w x occ_h, through the brute kernel).  Returns (objects with
+    the culled visibility, lights with the culled enable mask, occluder
+    depth)."""
     import dataclasses
 
     from lsr_tpu.geometry.occlusion import (
@@ -170,7 +171,8 @@ def jax_reference_cull(geom, objects, lights, cam):
     wmin, wmax = object_world_aabbs(objects)
     vis = objects.visible & frustum_cull_objects(cam.viewproj, wmin, wmax)
     occ = render_occluder_depth(geom, objects, cam.viewproj, cam.zn, cam.zf,
-                                320, 180, occluder_mask=vis, kernel="brute")
+                                occ_w, occ_h, occluder_mask=vis,
+                                kernel="brute")
     vis = vis & occlusion_cull_aabbs.__wrapped__(occ, cam.viewproj, wmin,
                                                  wmax, cam.zn, cam.zf)
     lmask = cull_lights_camera(lights, cam.viewproj, occ_depth=occ,
