@@ -126,6 +126,34 @@ Then kernel B2's clustered branch and the render-path presets:
 22. The card against the CPU through the pipeline: each preset at 192x108
     (sun 256^2, slots and faces 128^2, 8 slices) under phase 3's contract.
 
+Then lsr_tpu's compositions (each a main path of its own, counts reset):
+
+23. Phase F's compositions at 1280x720 on the presets' workload (PCF, sun
+    2048^2, slots 1024^2, faces 512^2): forward_plus under the "full" post
+    stack (light shafts, motion blur, bloom, depth of field, TAA, FXAA) and
+    forward_classic+ssao (lit by the general branch: the shading model and
+    accumulate_local_lights), median ms per frame with [min, max],
+    pipelined ms and execute_segmented's pass ms; launches exactly 3 + 20
+    B1 a frame, one B2 a frame in forward_plus+full and none with SSAO;
+    the SSAO composition's LDR differs from forward_classic's; B2 against
+    its plain version on forward_plus+full's own launch.
+24. Config #5 (lsr_tpu_torch.full_pipeline) at 800x600 with TAA on: the
+    IBL baked on the card, then frames of the still camera with TAA's
+    history carried: 2 B1 and one B2 a frame exactly, the moving object's
+    velocity alone non-zero (a still object's is the float32 inverse's
+    rounding, under 1e-3 px), pass ms; out/torch_full_pipeline.png; then
+    the path's own launches against their plain versions: B2 (tile depth
+    range), the 800x600 camera raster (B1 against rasterize_brute off
+    stray sliver pixels) and the sun map (likewise).
+25. Phase I-posts at 320x180: every preset and the SSAO composition under
+    the minimal, default, temporal and full post stacks, the stacks'
+    images distinct per path; then the card against the CPU at 192x108
+    for forward_plus+full, forward_classic+ssao and Config #5 (phase 3's
+    contract on the lighting pass's HDR; the final frame's HDR on >= 99.5%
+    of agreeing pixels and its LDR within 1 LSB on >= 99.5%; an SSAO tap
+    may flip only where the two sides' depths differ, and the card's SSAO
+    on the CPU's depth gives the CPU's mask).
+
 14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
     previous stage's outputs (host enqueue ms, device ms by CUDA events),
@@ -1673,7 +1701,7 @@ def listed_record_bytes(counts, cap):
 
 def b2b_check(tag, full, depth01, dev, models=("pbr_mr", "blinn_phong"),
               timed=True):
-    """Kernel B2b (shade_fused with clustered slices) against
+    """Kernel B2 (B2b when the call has clustered slices) against
     shade_fused_plain on the card for one call's arguments (full: the 27
     arguments of shade_fused), each sun model, within B2_TOL.  With timed,
     also the kernel alone on its prepared inputs (with the call's planes
@@ -1688,6 +1716,7 @@ def b2b_check(tag, full, depth01, dev, models=("pbr_mr", "blinn_phong"),
     from lsr_tpu_torch.utils.cuda_build import load_kernels
 
     a = list(full)
+    kind = "B2b" if a[24] else "B2"
     worst = 0.0
     for model in models:
         a[20] = model
@@ -1696,10 +1725,10 @@ def b2b_check(tag, full, depth01, dev, models=("pbr_mr", "blinn_phong"),
         torch.cuda.synchronize()
         err = float((lit_k - lit_p).abs().max())
         finite = bool(torch.isfinite(lit_k).all())
-        log(f"B2b [{tag}, {model}]: max abs {err:.3g} (tol {B2_TOL}), max "
-            f"|lit| {float(lit_p.abs().max()):.4g}, max lights/cluster "
+        log(f"{kind} [{tag}, {model}]: max abs {err:.3g} (tol {B2_TOL}), "
+            f"max |lit| {float(lit_p.abs().max()):.4g}, max lights/list "
             f"{int(stats['max_count'])}, finite {finite}")
-        check(finite and err <= B2_TOL, f"B2b {tag} {model} differs")
+        check(finite and err <= B2_TOL, f"{kind} {tag} {model} differs")
         worst = max(worst, err)
     if not timed:
         return {"max_abs_err": worst}
@@ -1813,6 +1842,79 @@ def _contact_sheet(frames, cols=3):
     return sheet.numpy()
 
 
+def _frames(fn, n, warmup):
+    """fn(i) for i < n, each bracketed by CUDA events, then frames warmup..n
+    again with one sync at the end.  Returns (device ms per frame,
+    pipelined ms per frame, the outputs of the first pass)."""
+    ms, outs = [], []
+    for i in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs.append(fn(i))
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    t0 = time.perf_counter()
+    for i in range(warmup, n):
+        fn(i)
+    torch.cuda.synchronize()
+    return ms, (time.perf_counter() - t0) * 1e3 / (n - warmup), outs
+
+
+def _timing(ms, pipelined, warmup, nf, b1_per_frame, launches, pass_ms):
+    return {"ms": statistics.median(ms[warmup:]), "ms_min": min(ms[warmup:]),
+            "ms_max": max(ms[warmup:]), "pipelined_ms": pipelined,
+            "frames": nf, "b1_per_frame": b1_per_frame, "launches": launches,
+            "pass_ms": {k: round(v, 3) for k, v in pass_ms.items()},
+            "frame_ms_all": [round(m, 3) for m in ms]}
+
+
+def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame):
+    """One render path at Phase F's resolution, a main path of its own:
+    counts reset just before and read just after RP_WARMUP + RP_FRAMES
+    frames by CUDA events and the same frames pipelined; exactly 3 + one
+    per atlas slot B1 launches a frame (the occluders, the sun map, the
+    camera and every slot: a slot of a light the cull disabled is launched
+    with its setup masked) and b2_per_frame B2 launches, nothing else;
+    then execute_segmented's per-pass device ms of frame 0.  Returns the
+    result."""
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+
+    lp = fp.pass_params.local_shadow
+    b1_per_frame = 3 + len(lp.spot_ids) + 6 * len(lp.point_ids)
+    n = RP_WARMUP + RP_FRAMES
+    nf = n + RP_FRAMES
+    for i in range(n):
+        state_fn(i)                   # the orbit's cameras, built once
+    pipe.reset_history()
+    reset_counts()
+    ms, pipelined, outs = _frames(fn, n, RP_WARMUP)
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want.update(direct_raster=b1_per_frame * nf,
+                shade_fused=b2_per_frame * nf)
+    check(launches == want, f"{kind} {name}: launches {launches} for {nf} "
+          f"frames, expected {want}")
+    ldr = outs[-1]
+    check(ldr.shape == (RP_H, RP_W, 3) and ldr.dtype == torch.uint8
+          and float((ldr.int().sum(-1) > 0).float().mean()) > 0.5,
+          f"{kind} {name}: the frame is empty")
+    ctx = RenderContext()
+    pipe.reset_history()
+    pipe.execute_segmented(ctx, state_fn(0), fp)
+    res = _timing(ms, pipelined, RP_WARMUP, nf, b1_per_frame, launches,
+                  ctx.debug.pass_ms)
+    log(f"{kind} {name} {RP_W}x{RP_H} (PCF, sun "
+        f"{fp.pass_params.shadow.map_size}^2, slots {lp.map_size}^2, "
+        f"faces {lp.point_size}^2): {RP_FRAMES} frames after {RP_WARMUP} "
+        f"warm-up, median {res['ms']:.3f} ms/frame [min {res['ms_min']:.3f}, "
+        f"max {res['ms_max']:.3f}] device events, pipelined {pipelined:.3f} "
+        f"ms/frame; launches {launches} over {nf} frames; execute_segmented "
+        f"pass ms {res['pass_ms']}")
+    return res
+
+
 def render_paths_phase(dev):
     """Phases 19-20, the render-path main paths (Phase F of
     scripts/run_phases.py): lsr_tpu's five presets through
@@ -1834,57 +1936,12 @@ def render_paths_phase(dev):
 
     fns, pipes = build_preset_pipelines(RP_W, RP_H, set(PRESETS), device=dev,
                                         with_pipes=True)
-    n = RP_WARMUP + RP_FRAMES
     out, frames = {}, []
     for name in PRESETS:
         pipe, fp, state_fn = pipes[name]
-        lp = fp.pass_params.local_shadow
-        b1_per_frame = 3 + len(lp.spot_ids) + 6 * len(lp.point_ids)
-        for i in range(n):
-            state_fn(i)               # the orbit's cameras, built once
-        pipe.reset_history()
-        reset_counts()
-        ms = []
-        for i in range(n):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            ldr = fns[name](i)
-            e1.record()
-            torch.cuda.synchronize()
-            ms.append(e0.elapsed_time(e1))
-        t0 = time.perf_counter()
-        for i in range(RP_WARMUP, n):
-            ldr = fns[name](i)
-        torch.cuda.synchronize()
-        pipelined = (time.perf_counter() - t0) * 1e3 / RP_FRAMES
-        launches = read_counts()
-        nf = n + RP_FRAMES
-        want = {k: 0 for k in launches}
-        want.update(direct_raster=b1_per_frame * nf, shade_fused=nf)
-        check(launches == want, f"preset {name}: launches {launches} for "
-              f"{nf} frames, expected {want}")
-        check(ldr.shape == (RP_H, RP_W, 3) and ldr.dtype == torch.uint8
-              and float((ldr.int().sum(-1) > 0).float().mean()) > 0.5,
-              f"preset {name}: the frame is empty")
+        out[name] = _path_run("preset", name, fns[name], pipe, fp, state_fn,
+                              1)
         frames.append(fns[name](0))
-        ctx = RenderContext()
-        pipe.execute_segmented(ctx, state_fn(0), fp)
-        res = {"ms": statistics.median(ms[RP_WARMUP:]),
-               "ms_min": min(ms[RP_WARMUP:]), "ms_max": max(ms[RP_WARMUP:]),
-               "pipelined_ms": pipelined, "frames": nf,
-               "b1_per_frame": b1_per_frame, "launches": launches,
-               "pass_ms": {k: round(v, 3)
-                           for k, v in ctx.debug.pass_ms.items()},
-               "frame_ms_all": [round(m, 3) for m in ms]}
-        log(f"preset {name} {RP_W}x{RP_H} (PCF, sun "
-            f"{fp.pass_params.shadow.map_size}^2, slots {lp.map_size}^2, "
-            f"faces {lp.point_size}^2): {RP_FRAMES} frames after "
-            f"{RP_WARMUP} warm-up, median {res['ms']:.3f} ms/frame [min "
-            f"{res['ms_min']:.3f}, max {res['ms_max']:.3f}] device events, "
-            f"pipelined {pipelined:.3f} ms/frame; launches {launches} over "
-            f"{nf} frames; execute_segmented pass ms {res['pass_ms']}")
-        out[name] = res
     os.makedirs("out", exist_ok=True)
     write_png(os.path.join("out", "torch_render_paths.png"),
               _contact_sheet(frames))
@@ -1977,6 +2034,367 @@ def render_paths_cpu_phase(dev):
         check(masks, f"render path [{name}]: the cull differs")
         check(tid_mis <= 0.005 and hdr_ok >= 0.999 and tm_ok >= 0.999
               and ldr_ok >= 0.995, f"render path [{name}] differs")
+
+
+# ---------------------------------------------------------------------------
+# lsr_tpu's compositions: forward_plus+full, forward_classic+ssao, Config #5
+# and the post-stack sweep (phases 23-25)
+# ---------------------------------------------------------------------------
+
+FULL_W, FULL_H = 800, 600          # Config #5 (demos/hello_full_pipeline.py)
+FULL_FRAMES = 5                    # Config #5 frames after warm-up
+SWEEP_STACKS = ("minimal", "default", "temporal", "full")
+SWEEP_FRAMES = 3                   # frames per path and stack (Phase I-posts)
+LIGHTING_PASSES = ("pbr_forward", "pbr_forward_plus", "pbr_forward_clustered",
+                   "deferred_lighting", "deferred_lighting_tiled")
+
+
+def compositions_phase(dev):
+    """Phase 23, Phase F's compositions at 1280x720 on the presets' workload
+    (PCF, sun 2048^2, spot slots 1024^2, cube faces 512^2, the cull at
+    320x180): forward_plus under the "full" post stack (light shafts,
+    motion blur, bloom, depth of field, TAA, FXAA; run_phases.py:383-393)
+    and the forward_classic+ssao composition, each a main path of its own,
+    counts reset just before and read just after it: RP_WARMUP + RP_FRAMES
+    frames by CUDA events and the same frames pipelined; exactly 3 + 20 B1
+    launches a frame (the post passes and SSAO add none), one B2 a frame in
+    forward_plus+full and none in the SSAO composition (its SSAO mask sends
+    the lighting down the general branch, as in lsr_tpu); execute_segmented's
+    per-pass device ms; the SSAO composition's LDR differs from
+    forward_classic's (run_phases.py:292-300); kernel B2 against its plain
+    version on forward_plus+full's own launch (one more frame, after the
+    counts are read), within B2_TOL.  Returns {name: result}."""
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.render_paths import (
+        build_forward_plus_full, build_preset_pipelines)
+
+    fns, pipes = build_preset_pipelines(
+        RP_W, RP_H, {"forward_classic", "forward_classic+ssao"}, device=dev,
+        with_pipes=True)
+    more = build_forward_plus_full(RP_W, RP_H, device=dev, with_pipes=True)
+    fns.update(more[0])
+    pipes.update(more[1])
+    out = {}
+    for name, b2_per_frame in (("forward_plus+full", 1),
+                               ("forward_classic+ssao", 0)):
+        pipe, fp, state_fn = pipes[name]
+        out[name] = _path_run("composition", name, fns[name], pipe, fp,
+                              state_fn, b2_per_frame)
+    pipe, fp, state_fn = pipes["forward_plus+full"]
+    with shade_calls() as sc:
+        st = pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+    check(len(sc.calls) == 1, "forward_plus+full did not light through B2")
+    out["forward_plus+full"]["b2_max_abs_err"] = b2b_check(
+        "forward_plus+full", sc.calls[0], st["gbuffer"].depth01, dev,
+        timed=False)["max_abs_err"]
+    pipes["forward_classic+ssao"][0].reset_history()
+    ssao = fns["forward_classic+ssao"](0)
+    classic = fns["forward_classic"](0)
+    differ = float((ssao != classic).any(-1).float().mean())
+    log(f"composition forward_classic+ssao: LDR differs from "
+        f"forward_classic's on {differ:.4%} of pixels (frame 0)")
+    check(differ > 0.0, "SSAO does not change the image")
+    out["forward_classic+ssao"]["ldr_differs_from_classic"] = differ
+    return out
+
+
+def full_pipeline_phase(dev):
+    """Phase 24, Config #5 (demos/hello_full_pipeline.py through
+    lsr_tpu_torch.full_pipeline) at 800x600 with TAA on: the IBL baked on
+    the card from the procedural sky (timed), then RP_WARMUP + FULL_FRAMES
+    frames of the still camera, TAA's history carried by the pipeline,
+    counts reset just before: exactly 2 B1 launches a frame (sun map,
+    camera) and one B2 (tiled deferred with the tile depth range); the
+    moving object's velocity over 0.1 px and every other pixel's under
+    1e-3 px (zero but for the float32 inverse of each model); frame
+    1 differs from frame 0 (the history); execute_segmented's pass ms; the
+    last frame written to out/torch_full_pipeline.png.  Then, after the
+    counts are read, the path's own kernel launches against their plain
+    versions (config5_kernel_checks)."""
+    from lsr_tpu_torch.full_pipeline import (
+        MOVING, bake_ibl, build_full_pipeline, full_scene, write_frame_png)
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    ibl = bake_ibl(dev)
+    e1.record()
+    torch.cuda.synchronize()
+    bake = {"ms": e0.elapsed_time(e1),
+            "wall_ms": (time.perf_counter() - t0) * 1e3}
+    state = full_scene(FULL_W, FULL_H, ibl=ibl, device=dev)
+    frame_fn, pipe, fp = build_full_pipeline(FULL_W, FULL_H, taa=True,
+                                             state=state, device=dev)
+    n = RP_WARMUP + FULL_FRAMES
+    nf = n + FULL_FRAMES
+    reset_counts()
+    ms, pipelined, outs = _frames(frame_fn, n, RP_WARMUP)
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want.update(direct_raster=2 * nf, shade_fused=nf)
+    check(launches == want, f"Config #5: launches {launches} for {nf} "
+          f"frames, expected {want}")
+    st0, st1 = outs[0], outs[1]
+    vel, obj = st0["velocity"], st0["gbuffer"].obj_id
+    speed = vel.abs().sum(-1)
+    moving = obj == MOVING
+    # A still object's prev_model @ inverse(model) is the identity up to
+    # the float32 inverse's rounding: its velocity is zero to ~1e-5 px.
+    still_max = float(speed[~moving].max())
+    check(bool(moving.any()) and float(speed[moving].min()) > 0.1
+          and still_max < 1e-3,
+          f"Config #5: velocity is not the moving object's alone (moving "
+          f"min {float(speed[moving].min()):.3g} px, still max "
+          f"{still_max:.3g} px)")
+    check(not torch.equal(st0["hdr"], st1["hdr"]),
+          "Config #5: TAA's history is not carried")
+    ldr = outs[-1]["ldr"]
+    check(ldr.shape == (FULL_H, FULL_W, 3) and ldr.dtype == torch.uint8
+          and bool(torch.isfinite(outs[-1]["hdr"]).all()),
+          "Config #5: bad frame")
+    os.makedirs("out", exist_ok=True)
+    write_frame_png(os.path.join("out", "torch_full_pipeline.png"), ldr)
+    ctx = RenderContext()
+    pipe.execute_segmented(ctx, state, fp)
+    res = _timing(ms, pipelined, RP_WARMUP, nf, 2, launches,
+                  ctx.debug.pass_ms)
+    res.update(ibl_bake=bake, moving_px=int(moving.sum()),
+               max_speed_px=float(speed.max()), still_max_speed_px=still_max,
+               **config5_kernel_checks(pipe, fp, state, dev))
+    log(f"Config #5 {FULL_W}x{FULL_H} (TAA on): IBL bake {bake['ms']:.3f} ms "
+        f"device ({bake['wall_ms']:.1f} ms wall); {FULL_FRAMES} frames after "
+        f"{RP_WARMUP} warm-up, median {res['ms']:.3f} ms/frame [min "
+        f"{res['ms_min']:.3f}, max {res['ms_max']:.3f}], pipelined "
+        f"{pipelined:.3f} ms/frame; launches {launches} over {nf} frames; "
+        f"moving object {res['moving_px']} px, max speed "
+        f"{res['max_speed_px']:.3f} px (still pixels at most "
+        f"{still_max:.3g} px); execute_segmented pass ms "
+        f"{res['pass_ms']}")
+    return res
+
+
+def config5_kernel_checks(pipe, fp, state, dev):
+    """Config #5's own kernel launches against their plain versions at
+    800x600: one frame's B2 call (the tile depth range) within B2_TOL; its
+    camera raster (B1) against the same pipeline's frame with
+    use_tiled_raster off (rasterize_brute), as phase 21; its sun map (B1,
+    NDC01, spatial sort, fp's map size) against rasterize_brute on the
+    same setup, launched once more with ids tracked so that a stray sliver
+    winner can be told apart (C8), and the depth-only map the shadow pass
+    renders equal to that launch's depth bit for bit.  Returns the
+    figures."""
+    from lsr_tpu_torch.full_pipeline import build_full_pipeline
+    from lsr_tpu_torch.passes.shadow import render_shadow_map, shadow_map_setup
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.brute import rasterize_brute
+    from lsr_tpu_torch.raster.setup import DEPTH_NDC01
+
+    with shade_calls() as sc:
+        a = pipe.execute_jitted(RenderContext(), state, fp)
+    check(len(sc.calls) == 1, "Config #5 did not light through B2")
+    b2_err = b2b_check("Config #5, tiled depth range", sc.calls[0],
+                       a["gbuffer"].depth01, dev, timed=False)["max_abs_err"]
+    _, pipe_b, fp_b = build_full_pipeline(FULL_W, FULL_H, taa=True,
+                                          state=state, device=dev)
+    fp_b.use_tiled_raster = False
+    b = pipe_b.execute_jitted(RenderContext(), state, fp_b)
+    cam_px = same_but_strays(
+        f"Config #5 camera {FULL_W}x{FULL_H} (B1 vs brute)", a["depth"],
+        a["tid"], a["setup"].bbox, b["depth"], b["tid"], b["setup"].bbox,
+        True)
+    size, geom, objects = (fp.pass_params.shadow.map_size, state["geom"],
+                           state["objects"])
+    sun = state["shade_ctx"].light_dir_ws
+    setup, _ = shadow_map_setup(geom, objects, sun, size)
+    d_k, t_k, _ = tiled.rasterize_direct(
+        setup, size, size, 0.0, 1.0, depth_mode=DEPTH_NDC01, tile_h=128,
+        tile_w=128, spatial_sort=True)
+    d_m, _ = render_shadow_map(geom, objects, sun, size)
+    d_p, t_p = rasterize_brute(setup, size, size, 0.0, 1.0,
+                               depth_mode=DEPTH_NDC01)
+    check(torch.equal(d_m, d_k) and bool((t_p >= 0).any()),
+          "Config #5: the sun map differs from its launch with ids")
+    sun_px = same_but_strays(f"Config #5 sun map {size}^2 (B1 vs brute)",
+                             d_k, t_k, setup.bbox, d_p, t_p, setup.bbox, True)
+    return {"b2_max_abs_err": b2_err, "b1_camera_px_differ": cam_px,
+            "b1_sun_map_px_differ": sun_px}
+
+
+def post_sweep_phase(dev):
+    """Phase 25, Phase I-posts (run_phases.py:334-370) at 320x180 (spot
+    slots 256^2, cube faces 128^2): every preset and the SSAO composition
+    under each post stack of SWEEP_STACKS, SWEEP_FRAMES frames each; per
+    path the stacks' last LDR frames must be distinct images (4 of 4)."""
+    import hashlib
+
+    from lsr_tpu_torch.render_paths import (
+        POST_STACK_PRESETS, build_preset_pipelines)
+
+    names = PRESETS + ("forward_classic+ssao",)
+    hashes = {}
+    t0 = time.perf_counter()
+    for sname in SWEEP_STACKS:
+        fns = build_preset_pipelines(
+            PHASE_I_W, PHASE_I_H, set(names), post=POST_STACK_PRESETS[sname],
+            local_map=256, local_point=128, device=dev)
+        for name in names:
+            for i in range(SWEEP_FRAMES):
+                ldr = fns[name](i)
+            hashes[(name, sname)] = hashlib.sha1(
+                ldr.cpu().numpy().tobytes()).hexdigest()
+    distinct = {}
+    for name in names:
+        distinct[name] = len({hashes[(name, s)] for s in SWEEP_STACKS})
+        log(f"phase I-posts {name} {PHASE_I_W}x{PHASE_I_H}: "
+            f"{distinct[name]}/{len(SWEEP_STACKS)} distinct stack images")
+    log(f"phase I-posts: {len(hashes)} paths x stacks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(all(v == len(SWEEP_STACKS) for v in distinct.values()),
+          f"post stacks give the same image: {distinct}")
+    return distinct
+
+
+class pass_outputs:
+    """Context manager keeping, while it is open, the state that each pass
+    of `pipe` whose id is in `pids` returns on the pipeline's own executor:
+    .states {pass id: state}."""
+
+    def __init__(self, pipe, pids):
+        self._passes = [p for p in pipe.passes if p.pass_id in pids]
+
+    def __enter__(self):
+        self.states = {}
+        for p in self._passes:
+            def record(ctx, state, fp, req, run=p.execute_resolved,
+                       pid=p.pass_id):
+                self.states[pid] = run(ctx, state, fp, req)
+                return self.states[pid]
+
+            p.execute_resolved = record       # the instance's, for now
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._passes:
+            del p.execute_resolved
+
+
+def ssao_reach(mask, samples=12, radius_px=8.0):
+    """(H, W) bool: the pixels whose SSAO (ssao_depth_pass: its taps, each
+    an edge-clamped shift, then the 3x3 box that wraps around) reads a
+    depth at a pixel of `mask`."""
+    from lsr_tpu_torch.passes.post import _shift_clamped
+    from lsr_tpu_torch.passes.ssao import tap_offsets
+
+    m = mask.to(torch.float32)
+    read = m
+    for ox, oy in tap_offsets(samples, radius_px):
+        read = torch.maximum(read, _shift_clamped(_shift_clamped(m, oy, 0),
+                                                  ox, 1))
+    out = torch.zeros_like(read)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            out = torch.maximum(out, torch.roll(torch.roll(read, dy, dims=0),
+                                                dx, dims=1))
+    return out > 0
+
+
+def compositions_cpu_phase(dev):
+    """Phase 25 (end).  The card against the CPU at 192x108 (sun 256^2,
+    spot slots and cube faces 128^2) for forward_plus+full,
+    forward_classic+ssao and Config #5 (TAA on, frame 0), plain versions on
+    the CPU, kernels on the card, each frame run by the pipeline's own
+    executor (execute_jitted) with the lighting pass's HDR kept: phase 3's
+    contract on that HDR (tids on >= 99.5% of covered pixels, HDR within
+    1e-4 on >= 99.9% of agreeing pixels, tonemapped LDR within 1 LSB on >=
+    99.9%), where a pixel agrees when its tid and its SSAO mask agree; on
+    the final frame HDR within 1e-4 on >= 99.5% of agreeing pixels (the
+    depth of field and bloom spread a pixel's difference over their
+    windows) and the LDR within 1 LSB on >= 99.5% (after FXAA, as phase
+    22).  The SSAO mask, whose taps compare depths, may move by a tap
+    (over 1e-5) on <= 0.5% of covered pixels, and only where the two
+    sides' depth buffers differ: every such pixel must read a differing
+    depth (ssao_reach), and the card's SSAO on the CPU's depth must give
+    the CPU's mask within 1e-5."""
+    from lsr_tpu_torch.full_pipeline import build_full_pipeline, full_scene
+    from lsr_tpu_torch.passes.ssao import ssao_depth_pass
+    from lsr_tpu_torch.passes.tonemap import tonemap_pass
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.render_paths import (
+        build_forward_plus_full, build_preset_pipelines)
+
+    sides = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        runs = {}
+        kw = dict(local_map=SMALL_LOCAL, local_point=SMALL_LOCAL, device=d,
+                  with_pipes=True)
+        runs.update(build_forward_plus_full(SMALL_W, SMALL_H, **kw)[1])
+        runs.update(build_preset_pipelines(
+            SMALL_W, SMALL_H, {"forward_classic+ssao"}, **kw)[1])
+        runs = {k: (pipe, fp, state_fn(0))
+                for k, (pipe, fp, state_fn) in runs.items()}
+        state = full_scene(SMALL_W, SMALL_H, device=d)
+        _, pipe, fp = build_full_pipeline(SMALL_W, SMALL_H, taa=True,
+                                          state=state, device=d)
+        runs["config5"] = (pipe, fp, state)
+        for name, (pipe, fp, st0) in runs.items():
+            fp.pass_params.shadow.map_size = SMALL_S
+            pipe.reset_history()
+            with pass_outputs(pipe, LIGHTING_PASSES) as po:
+                st = pipe.execute_jitted(RenderContext(), st0, fp)
+            check(len(po.states) == 1, f"{name}: not one lighting pass")
+            lit = next(iter(po.states.values()))["hdr"]
+            ao = st.get("ssao_mask")
+            sides[(str(d), name)] = tuple(t.cpu() for t in (
+                st["tid"], lit, tonemap_pass(lit), st["hdr"], st["ldr"],
+                torch.ones_like(lit[..., 0]) if ao is None else ao,
+                st["depth"])) + ((st["camera"].zn, st["camera"].zf),)
+        log(f"compositions on {d} at {SMALL_W}x{SMALL_H}: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def within_1(a, b):
+        return float(((a.int() - b.int()).abs().amax(-1) <= 1)
+                     .float().mean())
+
+    for name in ("forward_plus+full", "forward_classic+ssao", "config5"):
+        t_c, lit_c, m_c, h_c, l_c, ao_c, d_c, (zn, zf) = sides[("cpu", name)]
+        t_g, lit_g, m_g, h_g, l_g, ao_g, d_g, _ = sides[(str(dev), name)]
+        tid_mis = float((t_c != t_g).float().mean())
+        ao_flip = (ao_c - ao_g).abs() > 1e-5
+        ao_mis = float(ao_flip[t_c >= 0].float().mean())
+        d_diff = d_c != d_g
+        unread = int((ao_flip & ~ssao_reach(d_diff)).sum())
+        ao_x = 0.0                    # the other two paths run no SSAO
+        if name == "forward_classic+ssao":
+            ao_x = float((ssao_depth_pass(d_c.to(dev), (t_c >= 0).to(dev),
+                                          zn, zf).cpu() - ao_c).abs().max())
+        same = (t_c == t_g) & ~ao_flip
+        lit_err = (lit_c - lit_g).abs().amax(-1)
+        lit_ok = float((lit_err[same] <= 1e-4).float().mean())
+        hdr_err = (h_c - h_g).abs().amax(-1)
+        hdr_ok = float((hdr_err[same] <= 1e-4).float().mean())
+        tm_ok, ldr_ok = within_1(m_c, m_g), within_1(l_c, l_g)
+        log(f"composition [{name}] {SMALL_W}x{SMALL_H} (CPU plain vs card "
+            f"kernels): tid mismatch {tid_mis:.4%}; depth differs on "
+            f"{int(d_diff.sum())} px (max {float((d_c - d_g).abs().max()):.3g}"
+            f"), an SSAO tap flips on {int(ao_flip.sum())} px "
+            f"({ao_mis:.4%} of covered), {unread} of them reading no "
+            f"differing depth; the card's SSAO on the CPU's depth within "
+            f"{ao_x:.3g} of the CPU's mask; lighting HDR within 1e-4 "
+            f"on {lit_ok:.4%} of agreeing pixels (max "
+            f"{float(lit_err[same].max()):.3g}), tonemapped within 1 LSB "
+            f"{tm_ok:.4%}; final HDR within 1e-4 on {hdr_ok:.4%} (max "
+            f"{float(hdr_err[same].max()):.3g}), final LDR within 1 LSB "
+            f"{ldr_ok:.4%}")
+        check(unread == 0 and ao_x <= 1e-5,
+              f"composition [{name}]: the SSAO mask moves where the depth "
+              f"does not")
+        check(tid_mis <= 0.005 and ao_mis <= 0.005 and lit_ok >= 0.999
+              and tm_ok >= 0.999 and hdr_ok >= 0.995 and ldr_ok >= 0.995,
+              f"composition [{name}] differs")
 
 
 def _stage_ms(fn, iters=5):
@@ -2378,6 +2796,14 @@ def main():
     phase_i_phase(dev)
     render_paths_cpu_phase(dev)
 
+    # lsr_tpu's compositions, each a main path of its own with its counts.
+    t_comp = time.perf_counter()
+    comps = compositions_phase(dev)
+    comps["config5"] = full_pipeline_phase(dev)
+    sweep = post_sweep_phase(dev)
+    compositions_cpu_phase(dev)
+    log(f"# phases 23-25 took {time.perf_counter() - t_comp:.1f} s")
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
     prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
                                   casters))
@@ -2402,6 +2828,11 @@ def main():
         f"step) ({card})")
     log("summary: render-path presets at {}x{}, median ms/frame {}".format(
         RP_W, RP_H, {k: f"{rp[k]['ms']:.3f}" for k in PRESETS}))
+    log("summary: compositions, median ms/frame {} (forward_plus+full and "
+        "forward_classic+ssao at {}x{}, Config #5 at {}x{}); post-stack "
+        "sweep distinct images {}".format(
+            {k: f"{v['ms']:.3f}" for k, v in comps.items()}, RP_W, RP_H,
+            FULL_W, FULL_H, sweep))
 
     at_1080p = f"{WIDTH}x{HEIGHT} high-poly compact setup"
     keys = ("max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
@@ -2437,6 +2868,8 @@ def main():
                 "pairs_after_box_and_vote")
     preset_keys = ("ms", "ms_min", "ms_max", "pipelined_ms", "frames",
                    "b1_per_frame", "launches", "pass_ms")
+    compositions = {k: {f: v[f] for f in preset_keys}
+                    for k, v in comps.items()}
     kernels = [
         entry("direct_raster", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
@@ -2449,6 +2882,9 @@ def main():
               atlas_cube_face=sub(atlas["slot"]["cube_face"], "covered"),
               band_h={t: sub(v, "map_ms", "packed_ms", "slots", "size")
                       for t, v in atlas["band_h"].items()},
+              launches_on_compositions={
+                  k: v["launches"]["direct_raster"]
+                  for k, v in comps.items()},
               highpoly_unsorted_kernel_ms=r1080["direct_raster"]["kernel_ms"],
               **{k: b1[k] for k in b1_keys}),
         entry("shade_fused", "shade_fused.cu",
@@ -2463,6 +2899,7 @@ def main():
                   "render_path_720p": sub(rp["b2b"], *b2b_keys)},
               presets={k: {f: rp[k][f] for f in preset_keys}
                        for k in PRESETS},
+              compositions=compositions,
               frames=frames, **{k: b2[k] for k in walk_keys}),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
               hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,

@@ -4,9 +4,9 @@ from_numpy_state reads every field through np.asarray(getattr(x, name)), so
 it takes lsr_tpu's registered dataclasses (or anything with the same field
 names) without importing jax.  The parity tests use it so both packages
 render exactly the same geometry, lights, materials, texture and camera;
-frame_params, compact_stats, batch, shadow_context and local_shadow_maps
-carry a FrameParams, a CompactStats, a concat_scene batch, a sun
-ShadowContext and a local shadow atlas the same way.
+frame_params, compact_stats, batch, shadow_context, local_shadow_maps and
+ibl carry a FrameParams, a CompactStats, a concat_scene batch, a sun
+ShadowContext, a local shadow atlas and the IBL maps the same way.
 """
 
 from __future__ import annotations
@@ -142,10 +142,8 @@ def local_shadow_maps(sh, device) -> LocalShadowMaps:
 
 
 def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:
-    """lsr_tpu's ShadeContext (with its sun ShadowContext, if any) as this
-    package's."""
-    if getattr(ctx, "ibl", None) is not None:
-        raise NotImplementedError("image-based lighting is not ported yet")
+    """lsr_tpu's ShadeContext (with its sun ShadowContext and its IBL maps,
+    if any) as this package's."""
     tex = getattr(ctx, "textures", None)
     shadow = getattr(ctx, "shadow", None)
     sc = make_shade_context(
@@ -155,11 +153,21 @@ def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:
         light_intensity=_np(ctx, "light_intensity"),
         camera_pos=_np(ctx, "camera_pos"),
         textures=None if tex is None else _tensor(np.asarray(tex), device),
+        ibl=ibl(ctx.ibl, device) if getattr(ctx, "ibl", None) is not None
+        else None,
         device=device,
     )
     if shadow is None:
         return sc
     return dataclasses.replace(sc, shadow=shadow_context(shadow, device))
+
+
+def ibl(maps, device) -> tuple:
+    """lsr_tpu's IBL maps, (irradiance faces, (prefiltered mips...)), as
+    tensors on `device` in the same structure."""
+    irr, pref = maps
+    return (_tensor(np.asarray(irr), device),
+            tuple(_tensor(np.asarray(m), device) for m in pref))
 
 
 def camera_state(camera, device) -> CameraState:
@@ -204,8 +212,8 @@ def _dataclass_like(cls, src):
 
 
 def frame_params(fp) -> FrameParams:
-    """lsr_tpu's FrameParams as this package's: the fields the port has,
-    read by name (the blocks of unported passes are left behind)."""
+    """lsr_tpu's FrameParams as this package's, every field and parameter
+    block read by name."""
     return _dataclass_like(FrameParams, fp)
 
 

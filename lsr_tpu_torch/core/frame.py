@@ -1,12 +1,11 @@
 """FrameParams: the per-frame configuration plane (port of
 lsr_tpu/core/frame.py).
 
-Only the blocks that the ported passes read are here: the raster route
-(raster_*, use_tiled_raster, compact_*), the fused forward+ lighting
-(technique, shading_model, shadow.sun_vis_scale), the sun and local shadow
-maps, the per-frame cull, tonemap, FXAA and the background.  The feature toggles of passes not ported yet are kept so that
-configurations carry over; a pass that would need one raises
-NotImplementedError naming its ROADMAP item.
+Every block of lsr_tpu's is here with its defaults: the raster route
+(raster_*, use_tiled_raster, compact_*), the lighting (technique,
+shading_model, debug_view, shadow.sun_vis_scale), the sun and local shadow
+maps, the per-frame cull, the post passes (motion blur, light shafts, depth
+of field, TAA, bloom), tonemap, FXAA and the background.
 """
 
 from __future__ import annotations
@@ -60,6 +59,44 @@ class ShadowPassParams:
 
 
 @dataclasses.dataclass
+class MotionBlurParams:
+    samples: int = 8
+    strength: float = 1.0
+    depth_reject: float = 0.02
+    target_dt: float = 1.0 / 60.0
+
+
+@dataclasses.dataclass
+class LightShaftsParams:
+    steps: int = 48
+    density: float = 0.9
+    decay: float = 0.94
+    weight: float = 0.35
+    exposure: float = 0.25
+    luma_threshold: float = 0.55
+
+
+@dataclasses.dataclass
+class DepthOfFieldParams:
+    focus_depth: float = -1.0  # < 0: autofocus on the median center depth
+    focus_range: float = 0.08
+    blur_radius: int = 4
+
+
+@dataclasses.dataclass
+class TaaParams:
+    blend: float = 0.1
+    clamp_neighborhood: bool = True
+
+
+@dataclasses.dataclass
+class BloomParams:
+    threshold: float = 1.0
+    intensity: float = 0.5
+    blur_passes: int = 3
+
+
+@dataclasses.dataclass
 class LocalShadowParams:
     """The local shadow atlas (lsr_tpu/core/frame.py:105-147).  spot_ids /
     point_ids are the budgeted casters (lighting.local_shadows.
@@ -95,6 +132,14 @@ class PassParamBlocks:
     tonemap: TonemapParams = dataclasses.field(default_factory=TonemapParams)
     shadow: ShadowPassParams = dataclasses.field(
         default_factory=ShadowPassParams)
+    motion_blur: MotionBlurParams = dataclasses.field(
+        default_factory=MotionBlurParams)
+    light_shafts: LightShaftsParams = dataclasses.field(
+        default_factory=LightShaftsParams)
+    dof: DepthOfFieldParams = dataclasses.field(
+        default_factory=DepthOfFieldParams)
+    taa: TaaParams = dataclasses.field(default_factory=TaaParams)
+    bloom: BloomParams = dataclasses.field(default_factory=BloomParams)
     local_shadow: LocalShadowParams = dataclasses.field(
         default_factory=LocalShadowParams)
     culling: CullingPassParams = dataclasses.field(

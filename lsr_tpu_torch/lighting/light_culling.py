@@ -112,13 +112,15 @@ def _local_enabled(lights):
 
 def cull_lights_tiled(lights, view, proj, width: int, height: int,
                       tile_size: int = 16, cap: int = 128,
-                      tile_depth_range=None, tile_h: int | None = None):
-    """Tiled light binning with each light's analytic support shape against
-    the tile planes (and, with tile_depth_range (tiles, 2), the tile's view-z
-    range).  Directional / env-probe lights never enter tile lists.
+                      tile_depth_range=None, tile_h: int | None = None,
+                      use_shapes: bool = True):
+    """Tiled light binning with each light's analytic support shape
+    (use_shapes) or its bounding sphere against the tile planes (and, with
+    tile_depth_range (tiles, 2), the tile's view-z range).  Directional /
+    env-probe lights never enter tile lists.
     Returns (lists (tiles, cap), counts (tiles,), stats)."""
     planes = tile_side_planes(width, height, tile_size, proj, tile_h)
-    inside, zmin_l, zmax_l = _light_bounds(lights, view, planes, True)
+    inside, zmin_l, zmax_l = _light_bounds(lights, view, planes, use_shapes)
     mask = inside & _local_enabled(lights)[None, :]
     if tile_depth_range is not None:
         zmin = tile_depth_range[:, 0][:, None]

@@ -1,5 +1,12 @@
-"""Local-light evaluation (port of lsr_tpu/lighting/light_runtime.py:
-pack_light_records, eval_distance_attenuation, eval_local_lights).
+"""Local-light evaluation and the binned accumulation over the framebuffer
+(port of lsr_tpu/lighting/light_runtime.py: pack_light_records,
+unpack_light_records, eval_distance_attenuation, eval_local_lights,
+accumulate_local_lights, combine_local_light, eval_env_probes).
+
+accumulate_local_lights is lsr_tpu's XLA anchor of the binned light loop:
+per screen tile, chunk by chunk of its padded list, in list order, with the
+local-shadow plane of each light.  It stays torch ops, as lsr_tpu keeps it
+in XLA (kernel B6, lighting/fplus_kernel.py, bins its own lists).
 
 - Point:   shaping 1,                     spec (36.0, 0.30)
 - Spot:    smoothstep cone shaping,       spec (34.0, 0.32)
@@ -12,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from lsr_tpu_torch.lighting.light_types import (
+    LIGHT_ENV_PROBE,
     LIGHT_RECT_AREA,
     LIGHT_SPOT,
     LIGHT_TUBE_AREA,
@@ -147,3 +155,175 @@ def pack_light_records(lights: LightsSoA):
         f(lights.atten_cutoff),
         torch.zeros((n, 4), dtype=torch.float32, device=lights.type.device),
     ], dim=-1)
+
+
+def unpack_light_records(rec, live_mask=None):
+    """(..., 32) packed records -> the column dict eval_local_lights takes;
+    live_mask zeroes the intensity of the slots it leaves out."""
+    intensity = rec[..., 16]
+    if live_mask is not None:
+        intensity = torch.where(live_mask, intensity,
+                                torch.zeros_like(intensity))
+    return {
+        "type": rec[..., 0].to(torch.int64),
+        "position": rec[..., 1:4],
+        "direction": rec[..., 4:7],
+        "up": rec[..., 7:10],
+        "axis": rec[..., 10:13],
+        "color": rec[..., 13:16],
+        "intensity": intensity,
+        "range": rec[..., 17],
+        "inner_angle": rec[..., 18],
+        "outer_angle": rec[..., 19],
+        "rect_half_extents": rec[..., 20:22],
+        "tube_half_length": rec[..., 22],
+        "tube_radius": rec[..., 23],
+        "atten_model": rec[..., 24].to(torch.int64),
+        "atten_power": rec[..., 25],
+        "atten_bias": rec[..., 26],
+        "atten_cutoff": rec[..., 27],
+    }
+
+
+_COLUMNS = ("type", "position", "direction", "up", "axis", "color",
+            "intensity", "range", "inner_angle", "outer_angle",
+            "rect_half_extents", "tube_half_length", "tube_radius",
+            "atten_model", "atten_power", "atten_bias", "atten_cutoff")
+
+
+def _gather_light_columns(lights: LightsSoA, idx):
+    """The light columns at the -1-padded indices idx (...) -> (..., C);
+    a padded slot gets intensity 0."""
+    safe = torch.clamp(idx, 0, lights.type.shape[0] - 1)
+    cols = {name: getattr(lights, name)[safe] for name in _COLUMNS}
+    cols["intensity"] = torch.where(idx >= 0, cols["intensity"],
+                                    torch.zeros_like(cols["intensity"]))
+    return cols
+
+
+def _to_tiles(x, tile_size: int, tiles_y: int, tiles_x: int):
+    """(H, W, C...) -> (tiles, ts * ts, C...), zero-padded to whole
+    tiles."""
+    h, w = x.shape[0], x.shape[1]
+    ph, pw = tiles_y * tile_size, tiles_x * tile_size
+    xp = torch.zeros((ph, pw) + tuple(x.shape[2:]), dtype=x.dtype,
+                     device=x.device)
+    xp[:h, :w] = x
+    xp = xp.reshape((tiles_y, tile_size, tiles_x, tile_size)
+                    + tuple(x.shape[2:])).transpose(1, 2)
+    return xp.reshape((tiles_y * tiles_x, tile_size * tile_size)
+                      + tuple(x.shape[2:]))
+
+
+def _from_tiles(x, tile_size: int, tiles_y: int, tiles_x: int, h: int,
+                w: int):
+    c = tuple(x.shape[2:])
+    xp = x.reshape((tiles_y, tiles_x, tile_size, tile_size) + c)
+    xp = xp.transpose(1, 2).reshape((tiles_y * tile_size,
+                                     tiles_x * tile_size) + c)
+    return xp[:h, :w]
+
+
+def _shadowed(d, s, vis_t, sidx):
+    """d, s (T, px, chunk, 3) times each light's visibility plane: vis_t
+    (T, px, K+1), sidx (T, chunk) or (T, px, chunk) the plane of each
+    slot.  lsr_tpu selects the plane with a one-hot (K+1)-wide product;
+    for the finite planes local_shadow_vis_stack makes and sidx in [0, K],
+    a gather of the same plane is the same value."""
+    t, px = vis_t.shape[:2]
+    if sidx.ndim == 2:
+        sidx = sidx[:, None, :].expand(t, px, sidx.shape[1])
+    vis = torch.gather(vis_t, 2, sidx)
+    return d * vis[..., None], s * vis[..., None]
+
+
+def accumulate_local_lights(gb_world_pos, gb_normal, camera_pos,
+                            lights: LightsSoA, tile_lists, width: int,
+                            height: int, tile_size: int = 16, chunk: int = 8,
+                            cluster_of_pixel=None, slices: int = 1,
+                            shadow_vis_stack=None, light_shadow_index=None):
+    """Sum the binned local lights over the framebuffer.
+
+    tile_lists: (tiles [* slices], cap) -1-padded light indices, tiles of
+    tile_size over (height, width) row-major.  cluster_of_pixel: optional
+    (H, W) slice of each pixel (clustered lists); None: tiled lists.
+    shadow_vis_stack: optional (H, W, K+1) local-shadow visibility planes
+    (plane K is 1.0), light_shadow_index: (L,) the plane of each light.
+    The lists are walked `chunk` slots at a time, in order.
+    Returns (diffuse (H, W, 3), specular (H, W, 3))."""
+    dev = gb_world_pos.device
+    tiles_x = -(-width // tile_size)
+    tiles_y = -(-height // tile_size)
+    n_tiles = tiles_y * tiles_x
+    wp_t = _to_tiles(gb_world_pos, tile_size, tiles_y, tiles_x)  # (T, px, 3)
+    n_t = _to_tiles(gb_normal, tile_size, tiles_y, tiles_x)
+    v_t = _norm(camera_pos[None, None, :] - wp_t)
+    vis_t = None
+    if shadow_vis_stack is not None:
+        # Padded pixels tile to all-zero planes; they are cropped at the end.
+        vis_t = _to_tiles(shadow_vis_stack, tile_size, tiles_y, tiles_x)
+    list_idx = None
+    if cluster_of_pixel is not None:
+        cl_t = _to_tiles(cluster_of_pixel[..., None], tile_size, tiles_y,
+                         tiles_x)[..., 0].to(torch.int64)
+        list_idx = torch.arange(n_tiles, device=dev)[:, None] * slices + cl_t
+
+    cap = tile_lists.shape[1]
+    n_chunks = -(-cap // chunk)
+    lists_p = torch.full((tile_lists.shape[0], n_chunks * chunk), -1,
+                         dtype=torch.int64, device=dev)
+    lists_p[:, :cap] = tile_lists
+    packed = pack_light_records(lights)
+    safe_rows = torch.clamp(lists_p, 0, packed.shape[0] - 1)
+    if list_idx is None:
+        tile_rec = torch.where((lists_p >= 0)[..., None], packed[safe_rows],
+                               torch.zeros((), device=dev))  # (T, capP, 32)
+
+    diff = torch.zeros((n_tiles, tile_size * tile_size, 3),
+                       dtype=torch.float32, device=dev)
+    spec = torch.zeros_like(diff)
+    for ck in range(n_chunks):
+        sl = slice(ck * chunk, (ck + 1) * chunk)
+        if list_idx is None:
+            rec = tile_rec[:, sl]
+            # Padded slots have zero range.
+            cols = unpack_light_records(rec, rec[..., 17] > 0.0)
+            cols = {k: v[:, None] for k, v in cols.items()}
+            ids = safe_rows[:, sl]                              # (T, chunk)
+        else:
+            idx = lists_p[:, sl][list_idx]                      # (T, px, chunk)
+            ids = torch.clamp(idx, 0, packed.shape[0] - 1)
+            cols = unpack_light_records(packed[ids], idx >= 0)
+        d, s = eval_local_lights(cols, wp_t, n_t, v_t)
+        if vis_t is not None:
+            d, s = _shadowed(d, s, vis_t, light_shadow_index[ids])
+        diff = diff + d.sum(-2)
+        spec = spec + s.sum(-2)
+    return (_from_tiles(diff, tile_size, tiles_y, tiles_x, height, width),
+            _from_tiles(spec, tile_size, tiles_y, tiles_x, height, width))
+
+
+def combine_local_light(albedo, diffuse, specular):
+    """Albedo-modulated diffuse plus white specular."""
+    return albedo * diffuse + specular
+
+
+def eval_env_probes(lights: LightsSoA, world_pos, ambient,
+                    max_probes: int = 8):
+    """Localized IBL: each enabled LIGHT_ENV_PROBE row (position, range)
+    re-emits the ambient term scaled by its color * intensity with a
+    smoothstep falloff.  ambient (H, W, 3); returns the additive
+    contribution (H, W, 3) of the first max_probes probe rows."""
+    is_probe = (lights.type == LIGHT_ENV_PROBE) & lights.enabled
+    order = torch.argsort(torch.where(is_probe, 0, 1), stable=True)[
+        :max_probes]
+    pos = lights.position[order]                           # (K, 3)
+    rng = torch.clamp(lights.range[order], min=1e-3)
+    gain = (torch.clamp(lights.color[order], min=0.0)
+            * torch.clamp(lights.intensity[order], min=0.0)[:, None])
+    valid = is_probe[order].to(torch.float32)
+    dv = world_pos[..., None, :] - pos[None, None, :, :]
+    d = torch.sqrt((dv * dv).sum(-1))                      # (H, W, K)
+    t = torch.clamp(1.0 - d / rng[None, None, :], 0.0, 1.0)
+    w = t * t * (3.0 - 2.0 * t) * valid[None, None, :]
+    return ambient * torch.einsum("hwk,kc->hwc", w, gain)

@@ -127,6 +127,12 @@ class LightSetBuilder:
                          tube_half_length=half_length, tube_radius=radius,
                          color=color, intensity=intensity, range=range, **kw)
 
+    def env_probe(self, position, color=(1, 1, 1), intensity=1.0, range=5.0,
+                  **kw):
+        """Localized-IBL probe, evaluated by light_runtime.eval_env_probes."""
+        return self._add(type=LIGHT_ENV_PROBE, position=position, color=color,
+                         intensity=intensity, range=range, **kw)
+
     def build(self, device=None) -> LightsSoA:
         device = resolve_device(device)
         if not self._rows:

@@ -1,19 +1,19 @@
 """The standard render passes (port of lsr_tpu/passes/standard_passes.py):
-the camera raster, the fused forward+ lighting, and the RenderPass classes
-and registry of the render-path pipeline (lsr_tpu_torch/pipeline).
+the camera raster (with motion vectors), the lighting passes, and the
+RenderPass classes and registry of the render-path pipeline
+(lsr_tpu_torch/pipeline).
 
 Frame state is a dict of named tensors; scene inputs come under "geom",
 "objects", "lights", "shade_ctx" and "camera".  make_standard_registry
 registers every pass id of lsr_tpu's with the same descriptors, so a recipe
-compiles to the same chain.  The passes of the five render-path presets run
-(scene_cull, shadow_map, local_shadows, depth_prepass, gbuffer,
-light_culling, cluster_build, cluster_light_assign, the lighting passes on
-kernel B2's fused branch, tonemap, fxaa); the others raise
-NotImplementedError naming their ROADMAP item when executed: sky (A15),
-ssao and the non-fused lighting branch (A14, A6), motion_blur,
-light_shafts, depth_of_field, bloom and taa (A14).  lsr_tpu's post passes
-are pass-throughs while their enable flag is off; the port's raise all the
-same, since the pass as a whole is not ported.
+compiles to the same chain, and every one of them runs.  The lighting
+passes take lsr_tpu's fused branch (kernel B2 in the technique's mode) for
+the pbr_mr / blinn_phong sun models with no debug view and no SSAO mask,
+and its general branch otherwise: the shading model for the sun, the local
+lights binned per tile (internally when the chain has no culling pass) and
+summed by accumulate_local_lights, the SSAO mask over covered pixels.  The
+post passes (motion blur, light shafts, depth of field, bloom, TAA) are
+pass-throughs while their enable flag is off, as in lsr_tpu.
 
 Two repairs against lsr_tpu, both following lsr_tpu's own contracts:
 - a compact setup that overflowed its caps falls back to scene_setup (the
@@ -53,10 +53,29 @@ from lsr_tpu_torch.lighting.light_culling import (
     cull_lights_tiled,
     tile_depth_ranges_from_buffer,
 )
-from lsr_tpu_torch.lighting.local_shadows import render_local_shadow_maps
-from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
-from lsr_tpu_torch.passes.post import fxaa_pass
+from lsr_tpu_torch.lighting.light_runtime import (
+    accumulate_local_lights,
+    combine_local_light,
+)
+from lsr_tpu_torch.lighting.local_shadows import (
+    local_shadow_vis_stack,
+    render_local_shadow_maps,
+)
+from lsr_tpu_torch.passes.forward_plus import (
+    _cluster_of_pixel,
+    shade_forward_plus,
+)
+from lsr_tpu_torch.passes.post import (
+    bloom_pass,
+    depth_of_field_pass,
+    fxaa_pass,
+    light_shafts_pass,
+    motion_blur_pass,
+    motion_vectors_pass,
+    taa_pass,
+)
 from lsr_tpu_torch.passes.shadow import make_sun_shadow
+from lsr_tpu_torch.passes.ssao import ssao_depth_pass
 from lsr_tpu_torch.passes.tonemap import tonemap_pass
 from lsr_tpu_torch.pipeline.contracts import STANDARD_CONTRACTS
 from lsr_tpu_torch.pipeline.registry import PassDescriptor, PassFactoryRegistry
@@ -66,17 +85,33 @@ from lsr_tpu_torch.raster.brute import rasterize_brute
 from lsr_tpu_torch.raster.interp import interpolate_gbuffer
 from lsr_tpu_torch.raster.setup import scene_setup, scene_setup_compact
 from lsr_tpu_torch.scene.scene import object_world_aabbs
+from lsr_tpu_torch.shading.common import (
+    gather_materials,
+    sample_texture_bilinear,
+)
+from lsr_tpu_torch.shading.models import (
+    SHADING_MODELS,
+    _norm,
+    composite_over_background,
+)
+from lsr_tpu_torch.sky.sky_models import render_sky
 
 
 def _with_gbuffer(out, setup, depth, tid, fp: FrameParams):
-    """Adds the G-buffer and a zero velocity plane to the state dict."""
+    """Adds the G-buffer and the velocity plane (motion vectors with
+    fp.enable_motion_vectors, zero otherwise) to the state dict."""
+    gb = interpolate_gbuffer(setup, depth, tid,
+                             materials=out["shade_ctx"].materials)
+    out["gbuffer"] = gb
     if fp.enable_motion_vectors:
-        raise NotImplementedError("motion vectors are not ported yet "
-                                  "(ROADMAP A14)")
-    out["gbuffer"] = interpolate_gbuffer(
-        setup, depth, tid, materials=out["shade_ctx"].materials)
-    out["velocity"] = torch.zeros((fp.height, fp.width, 2),
-                                  dtype=torch.float32, device=depth.device)
+        cam = out["camera"]
+        out["velocity"] = motion_vectors_pass(
+            gb, out["objects"], cam.viewproj, cam.prev_viewproj, fp.width,
+            fp.height)
+    else:
+        out["velocity"] = torch.zeros((fp.height, fp.width, 2),
+                                      dtype=torch.float32,
+                                      device=depth.device)
     return out
 
 
@@ -158,9 +193,8 @@ def fused_lighting(state, fp: FrameParams):
     Returns a new state dict with "hdr"."""
     t = fp.technique
     if not fused_ok(state, fp):
-        raise NotImplementedError(
-            "lighting: only the fused forward+ branch (pbr_mr / blinn_phong, "
-            "no debug view, no SSAO) is ported (ROADMAP A14, A6)")
+        raise ValueError("fused_lighting: the frame takes the general "
+                         "branch (general_lighting)")
     gb = state["gbuffer"]
     sctx = state["shade_ctx"]
     if state.get("shadow_ctx") is not None and fp.enable_shadows:
@@ -186,9 +220,68 @@ def fused_lighting(state, fp: FrameParams):
     return out
 
 
-def _unported(pass_id: str, item: str):
-    raise NotImplementedError(f"render pass {pass_id!r} is not ported yet "
-                              f"(ROADMAP {item})")
+def _sun_shade(state, fp: FrameParams):
+    """The sun (and ambient) by the frame's shading model (its debug view's
+    model when one is set) over the frame's background."""
+    gb = state["gbuffer"]
+    ctx = state["shade_ctx"]
+    model = (f"debug_{fp.debug_view.value}"
+             if fp.debug_view != DebugViewMode.NONE else fp.shading_model)
+    if state.get("shadow_ctx") is not None and fp.enable_shadows:
+        ctx = dataclasses.replace(ctx, shadow=state["shadow_ctx"])
+    return composite_over_background(SHADING_MODELS[model](gb, ctx), gb,
+                                     _background(state, fp))
+
+
+def _local_lights(state, fp: FrameParams):
+    """The binned local lights of state["light_grid"] (tiled, or clustered
+    when it has slices), with the local-shadow planes, combined with the
+    albedo over covered pixels."""
+    gb = state["gbuffer"]
+    cam = state["camera"]
+    sctx = state["shade_ctx"]
+    grid = state["light_grid"]
+    cluster = None
+    if grid["slices"] > 1:
+        cluster = _cluster_of_pixel(gb.depth01, cam.zn, cam.zf,
+                                    grid["slices"])
+    vis_stack = shadow_index = None
+    sh = state.get("local_shadow_maps")
+    if sh is not None:
+        vis_stack = local_shadow_vis_stack(sh, gb.world_pos,
+                                           _norm(gb.normal_ws))
+        shadow_index = sh.light_shadow_index
+    diff, spec = accumulate_local_lights(
+        gb.world_pos, gb.normal_ws, sctx.camera_pos, state["lights"],
+        grid["lists"], fp.width, fp.height, tile_size=fp.technique.tile_size,
+        cluster_of_pixel=cluster, slices=grid["slices"],
+        shadow_vis_stack=vis_stack, light_shadow_index=shadow_index)
+    base, _, _, _, _, tex_id = gather_materials(sctx.materials, gb.obj_id,
+                                                mat_rec=gb.mat)
+    if sctx.textures is not None:
+        base = base * sample_texture_bilinear(sctx.textures, tex_id, gb.uv,
+                                              quads=sctx.texture_quads)
+    local = combine_local_light(torch.clamp(base, min=0.0), diff, spec)
+    return torch.where(gb.covered[..., None], local, torch.zeros_like(local))
+
+
+def general_lighting(ctx, state, fp: FrameParams, request):
+    """The general branch of lsr_tpu's lighting passes
+    (standard_passes.py:520-533): the sun by the shading model, the binned
+    local lights (binned here by LightCullingPass when the chain has no
+    culling pass), the SSAO mask over covered pixels.  Returns a new state
+    dict with "hdr"."""
+    hdr = _sun_shade(state, fp)
+    if state.get("light_grid") is None:
+        state = LightCullingPass().execute_resolved(ctx, state, fp, request)
+    hdr = hdr + _local_lights(state, fp)
+    if state.get("ssao_mask") is not None:
+        gb = state["gbuffer"]
+        hdr = torch.where(gb.covered[..., None],
+                          hdr * state["ssao_mask"][..., None], hdr)
+    out = dict(state)
+    out["hdr"] = hdr
+    return out
 
 
 class SceneCullPass(RenderPass):
@@ -274,12 +367,20 @@ class LocalShadowsPass(RenderPass):
 
 
 class SkyPass(RenderPass):
+    """The procedural sky behind the scene: the frame's background plane
+    ("sky"), which the lighting passes composite the covered pixels
+    over."""
+
     def __init__(self):
         super().__init__("sky", reads=("camera",), writes=("sky",),
                          contract=STANDARD_CONTRACTS["sky"])
 
     def execute_resolved(self, ctx, state, fp, request):
-        _unported("sky", "A15")
+        out = dict(state)
+        out["sky"] = render_sky(state["camera"].viewproj, fp.width,
+                                fp.height, kind="procedural",
+                                sun_dir_ws=state["shade_ctx"].light_dir_ws)
+        return out
 
 
 class ShadowMapPass(RenderPass):
@@ -403,24 +504,22 @@ class SsaoPass(RenderPass):
                          contract=STANDARD_CONTRACTS["ssao"])
 
     def execute_resolved(self, ctx, state, fp, request):
-        _unported("ssao", "A14")
+        cam = state["camera"]
+        out = dict(state)
+        out["ssao_mask"] = ssao_depth_pass(state["depth"], state["tid"] >= 0,
+                                           cam.zn, cam.zf)
+        return out
 
 
 class _LightingBase(RenderPass):
-    """Sun + ambient + binned local lights.  The fused branch (kernel B2 in
-    the technique's mode: tiled, tiled depth range or clustered) is the
-    one every preset takes; the general branch (other sun models, debug
-    views, SSAO modulation) is not ported and raises."""
+    """Sun + ambient + binned local lights: the fused branch (kernel B2 in
+    the technique's mode: tiled, tiled depth range or clustered) or the
+    general one (other sun models, debug views, SSAO modulation)."""
 
     def execute_resolved(self, ctx, state, fp, request):
-        if not fused_ok(state, fp):
-            raise NotImplementedError(
-                f"render pass {self.pass_id!r}: the non-fused lighting "
-                f"branch (sun model {fp.shading_model!r}, debug view "
-                f"{fp.debug_view.value!r}, SSAO mask "
-                f"{state.get('ssao_mask') is not None}) is not ported yet "
-                f"(ROADMAP A14, A6)")
-        return fused_lighting(state, fp)
+        if fused_ok(state, fp):
+            return fused_lighting(state, fp)
+        return general_lighting(ctx, state, fp, request)
 
 
 class ForwardPass(_LightingBase):
@@ -501,17 +600,105 @@ class FxaaPass(RenderPass):
         return out
 
 
-class _UnportedPost(RenderPass):
-    """A post pass of lsr_tpu's that the port does not have yet (ROADMAP
-    A14): registered with its IO and contract so that recipes compile and
-    plan as in lsr_tpu, and raising when executed."""
+class MotionBlurPass(RenderPass):
+    """Velocity blur of the HDR frame (with fp.enable_motion_blur)."""
 
-    def __init__(self, pass_id, reads, writes=("hdr",)):
-        super().__init__(pass_id, reads=reads, writes=writes,
-                         contract=STANDARD_CONTRACTS[pass_id])
+    def __init__(self):
+        super().__init__("motion_blur", reads=("hdr", "velocity", "depth"),
+                         writes=("hdr",),
+                         contract=STANDARD_CONTRACTS["motion_blur"])
 
     def execute_resolved(self, ctx, state, fp, request):
-        _unported(self.pass_id, "A14")
+        out = dict(state)
+        if not fp.enable_motion_blur:
+            return out
+        p = fp.pass_params.motion_blur
+        out["hdr"] = motion_blur_pass(
+            state["hdr"], state["depth"], state["velocity"], fp.dt,
+            samples=p.samples, strength=p.strength,
+            depth_reject=p.depth_reject)
+        return out
+
+
+class LightShaftsPass(RenderPass):
+    """God rays toward the sun on the HDR frame (with
+    fp.enable_light_shafts), lsr_tpu's default zoom-compose march."""
+
+    def __init__(self):
+        super().__init__("light_shafts", reads=("hdr", "depth"),
+                         writes=("hdr",),
+                         contract=STANDARD_CONTRACTS["light_shafts"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        if not fp.enable_light_shafts:
+            return out
+        sctx = state["shade_ctx"]
+        p = fp.pass_params.light_shafts
+        out["hdr"] = light_shafts_pass(
+            state["hdr"], state["depth"], sctx.camera_pos, sctx.light_dir_ws,
+            state["camera"].viewproj, steps=p.steps, density=p.density,
+            weight=p.weight, decay=p.decay)
+        return out
+
+
+class DepthOfFieldPass(RenderPass):
+    """Autofocus depth of field on the HDR frame (with fp.enable_dof)."""
+
+    def __init__(self):
+        super().__init__("depth_of_field", reads=("hdr", "depth"),
+                         writes=("hdr",),
+                         contract=STANDARD_CONTRACTS["depth_of_field"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        if not fp.enable_dof:
+            return out
+        p = fp.pass_params.dof
+        out["hdr"] = depth_of_field_pass(
+            state["hdr"], state["depth"], focus_depth=p.focus_depth,
+            focus_range=p.focus_range, blur_radius=p.blur_radius)
+        return out
+
+
+class BloomPass(RenderPass):
+    """Bright-pass bloom on the HDR frame (with fp.enable_bloom)."""
+
+    def __init__(self):
+        super().__init__("bloom", reads=("hdr",), writes=("hdr",),
+                         contract=STANDARD_CONTRACTS["bloom"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        if not fp.enable_bloom:
+            return out
+        p = fp.pass_params.bloom
+        out["hdr"] = bloom_pass(state["hdr"], threshold=p.threshold,
+                                intensity=p.intensity,
+                                blur_radius=p.blur_passes + 1)
+        return out
+
+
+class TaaPass(RenderPass):
+    """Temporal AA (with fp.enable_taa).  The history is frame state under
+    "history_color", a persistent key the pipeline carries to the next
+    frame; the first frame's history is its own HDR."""
+
+    def __init__(self):
+        super().__init__("taa", reads=("hdr", "velocity"), writes=("hdr",),
+                         contract=STANDARD_CONTRACTS["taa"])
+
+    def execute_resolved(self, ctx, state, fp, request):
+        out = dict(state)
+        if not fp.enable_taa:
+            return out
+        hist = state.get("history_color")
+        if hist is None:
+            hist = state["hdr"]
+        out["hdr"], out["history_color"] = taa_pass(
+            state["hdr"], hist, state["velocity"],
+            blend=fp.pass_params.taa.blend)
+        return out
 
 
 def make_standard_registry() -> PassFactoryRegistry:
@@ -546,11 +733,9 @@ def make_standard_registry() -> PassFactoryRegistry:
                  PassDescriptor(modes=TechniqueMode.TILED_DEFERRED))
     reg.register("tonemap", TonemapPass)
     reg.register("fxaa", FxaaPass)
-    for pid, reads in (("motion_blur", ("hdr", "velocity", "depth")),
-                       ("light_shafts", ("hdr", "depth")),
-                       ("depth_of_field", ("hdr", "depth")),
-                       ("bloom", ("hdr",)),
-                       ("taa", ("hdr", "velocity"))):
-        reg.register(pid, lambda pid=pid, reads=reads: _UnportedPost(
-            pid, reads))
+    reg.register("motion_blur", MotionBlurPass)
+    reg.register("light_shafts", LightShaftsPass)
+    reg.register("depth_of_field", DepthOfFieldPass)
+    reg.register("bloom", BloomPass)
+    reg.register("taa", TaaPass)
     return reg

@@ -23,6 +23,7 @@ from lsr_tpu_torch.scene.scene import concat_scene, morton_order  # noqa: F401
 from lsr_tpu_torch.shading.models import (
     SHADING_MODELS,
     composite_over_background,
+    shade_gouraud,
 )
 
 
@@ -47,11 +48,8 @@ def render_forward(batch, models, normal_mats, viewproj, zn: float, zf: float,
     """One full forward frame.  Returns (ldr_u8 (H, W, 3), gbuffer).
 
     batch: dict of tensors positions / normals / uvs / indices / vtx_obj /
-    tri_obj (concat_scene's columns on the device)."""
-    if model_name == "gouraud":
-        raise NotImplementedError("render_forward: gouraud shading is not "
-                                  "ported yet (ROADMAP A14)")
-    shade = SHADING_MODELS[model_name]
+    tri_obj (concat_scene's columns on the device).  model_name: a key of
+    SHADING_MODELS, or "gouraud" (vertex lighting from the setup)."""
     setup = scene_setup(
         batch["positions"], batch["normals"], batch["uvs"], batch["indices"],
         batch["vtx_obj"], batch["tri_obj"], models, normal_mats, viewproj,
@@ -66,7 +64,10 @@ def render_forward(batch, models, normal_mats, viewproj, zn: float, zf: float,
                                               tile_h=32, tile_w=128, cap=cap,
                                               fit_cap=True)
     gb = interpolate_gbuffer(setup, depth, tid, materials=shade_ctx.materials)
-    shaded = shade(gb, shade_ctx)
+    if model_name == "gouraud":
+        shaded = shade_gouraud(setup, gb, shade_ctx)
+    else:
+        shaded = SHADING_MODELS[model_name](gb, shade_ctx)
     bg = device_const(background, shaded.device).expand(shaded.shape)
     hdr = composite_over_background(shaded, gb, bg)
     return tonemap_pass(hdr, exposure=exposure, gamma=gamma), gb

@@ -9,8 +9,11 @@ composition, each with the flagship workload: scene_cull (frustum, the
 320x180 occluder proxy, hysteresis), the sun shadow map, the budgeted local
 shadow atlas (8 spots + 2 points, one kernel B1 launch a slot) and a depth
 prepass, lit by kernel B2 in the technique's mode (clustered_forward takes
-its clustered-slice branch, B2b).  The SSAO composition compiles and plans,
-and its frame raises: SSAO is not ported (ROADMAP A14).
+its clustered-slice branch, B2b).  The SSAO composition lights through the
+general branch (the SSAO mask sends it there, as in lsr_tpu): the sun by
+the shading model and the binned local lights by accumulate_local_lights,
+no B2.  build_forward_plus_full gives forward_plus under the "full" post
+stack (POST_STACK_PRESETS, run_phases.py:383-393).
 
 The scene is scene_state's: two objects, the ground plane, 48 lights (8
 spots and 2 points first, seed 4), three materials and the camera.  The
@@ -38,7 +41,8 @@ from lsr_tpu_torch.lighting.local_shadows import (
 from lsr_tpu_torch.passes.standard_passes import make_standard_registry
 from lsr_tpu_torch.pipeline.executor import RenderContext
 from lsr_tpu_torch.pipeline.pipeline import PluggablePipeline
-from lsr_tpu_torch.pipeline.recipe import (
+from lsr_tpu_torch.pipeline.recipe import (  # noqa: F401 (re-exported)
+    POST_STACK_PRESETS,
     builtin_render_path_presets,
     ssao_composition_recipe,
 )
@@ -193,4 +197,22 @@ def build_preset_pipelines(width: int, height: int, presets=None,
         pipes[preset.name] = (pipe, fp, state_fn)
     if with_pipes:
         return out, pipes
+    return out
+
+
+def build_forward_plus_full(width: int, height: int, with_pipes: bool = False,
+                            **kw):
+    """The "forward_plus+full" composition of Phase F
+    (run_phases.py:383-393): the forward_plus preset under
+    POST_STACK_PRESETS["full"] (light shafts, motion blur, bloom, depth of
+    field, TAA, FXAA), with motion vectors.  kw: build_preset_pipelines'
+    other arguments.  Returns {"forward_plus+full": frame_fn} (and the
+    pipes, as build_preset_pipelines)."""
+    fns, pipes = build_preset_pipelines(
+        width, height, {"forward_plus"}, post=POST_STACK_PRESETS["full"],
+        with_pipes=True, **kw)
+    name = "forward_plus+full"
+    out = {name: fns["forward_plus"]}
+    if with_pipes:
+        return out, {name: pipes["forward_plus"]}
     return out

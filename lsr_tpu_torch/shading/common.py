@@ -1,5 +1,5 @@
-"""Shading common: materials SoA, texture sampling, fake IBL (port of
-lsr_tpu/shading/common.py).
+"""Shading common: materials SoA, texture sampling, surface maps (normal,
+ORM, emissive), fake IBL (port of lsr_tpu/shading/common.py).
 
 lsr_tpu packs per-row records to make TPU gathers cheap (core/gather.py);
 here the same packed layouts are kept so the two packages compare field by
@@ -95,6 +95,36 @@ def gather_materials(m: MaterialsSoA, obj_id, mat_rec=None):
             rec[..., 6:9], rec[..., 9].to(torch.int64))
 
 
+def gather_material_texture_slots(m: MaterialsSoA, obj_id, mat_rec=None):
+    """(normal_tex, orm_tex, emissive_tex) per pixel, from the packed
+    record's lanes 10-12."""
+    if mat_rec is None:
+        table = pack_material_records(m)
+        mat_rec = table[torch.clamp(obj_id, 0, table.shape[0] - 1)]
+    return tuple(mat_rec[..., k].to(torch.int64) for k in (10, 11, 12))
+
+
+def apply_surface_maps(textures, quads, uv, tangent, n, normal_tex, orm_tex,
+                       emissive_tex, metallic, roughness, ao, emissive):
+    """The normal, ORM and emissive texture slots per pixel.
+
+    The tangent is made orthogonal to n, the bitangent completes the frame,
+    and the tangent-space normal sample (x, y, z in [0, 1] -> [-1, 1])
+    rotates into world space where the slot is used.  ORM (R occlusion, G
+    roughness, B metallic) and emissive samples multiply their factors; an
+    unused slot samples 1.0.  Returns (n', metallic', roughness', ao',
+    emissive')."""
+    t = _norm(tangent - n * (n * tangent).sum(-1, keepdim=True))
+    b = torch.linalg.cross(n, t)
+    ts = sample_texture_bilinear(textures, normal_tex, uv, quads) * 2.0 - 1.0
+    n_mapped = _norm(t * ts[..., 0:1] + b * ts[..., 1:2] + n * ts[..., 2:3])
+    n_out = torch.where((normal_tex >= 0)[..., None], n_mapped, n)
+    orm = sample_texture_bilinear(textures, orm_tex, uv, quads)
+    em = sample_texture_bilinear(textures, emissive_tex, uv, quads)
+    return (n_out, metallic * orm[..., 2:3], roughness * orm[..., 1:2],
+            ao * orm[..., 0:1], emissive * em)
+
+
 def pack_texture_quads(textures):
     """(NT, TH, TW, 3) -> (NT*TH*TW, 12): each texel row holds its 2x2
     clamped neighborhood [c00 c10 c01 c11]."""
@@ -170,3 +200,17 @@ def checkerboard_texture(size: int = 64, squares: int = 8,
     cell = ((xx * squares // size) + (yy * squares // size)) % 2
     tex = np.where(cell[..., None] == 0, np.float32(c0), np.float32(c1))
     return tex.astype(np.float32)
+
+
+def bump_normal_texture(size: int = 128, bumps: int = 6,
+                        amplitude: float = 0.8) -> np.ndarray:
+    """Host-side tangent-space normal map of a grid of cosine bumps:
+    (size, size, 3) in the [0, 1] encoding apply_surface_maps decodes
+    (linear data)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    phase = 2.0 * np.pi * bumps
+    dhdx = amplitude * np.sin(phase * xx) * phase / size * 8.0
+    dhdy = amplitude * np.sin(phase * yy) * phase / size * 8.0
+    n = np.stack([-dhdx, -dhdy, np.ones_like(dhdx)], -1)
+    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    return (n * 0.5 + 0.5).astype(np.float32)

@@ -308,8 +308,37 @@ def _entry_points():
         state["camera"] = state_fn(0)["camera"]
         return getattr(pipe, how)(RenderContext(), state, fp)["ldr"]
 
+    def full_frame(device):
+        """Config #5's frame 0 at 32x24 (sun map 32^2), IBL baked on
+        `device`."""
+        from lsr_tpu_torch.full_pipeline import build_full_pipeline
+
+        frame_fn, _, fp = build_full_pipeline(32, 24, device=device)
+        fp.pass_params.shadow.map_size = 32
+        return frame_fn(0)["ldr"]
+
+    def full_stack_frame(device):
+        from lsr_tpu_torch.render_paths import build_forward_plus_full
+
+        fns, pipes = build_forward_plus_full(
+            32, 24, local_map=16, local_point=16, device=device,
+            with_pipes=True)
+        fp = pipes["forward_plus+full"][1]
+        fp.pass_params.shadow.map_size = 32
+        fp.pass_params.culling.occ_width = 32
+        fp.pass_params.culling.occ_height = 18
+        return fns["forward_plus+full"](0)
+
+    from lsr_tpu_torch.full_pipeline import full_scene
+    from lsr_tpu_torch.sky.sky_models import procedural_sky_cubemap
+
     cpu_ctx = build_flagship_scene(n_lights=16, grid=1, device="cpu")[3]
     return {
+        "build_full_pipeline": full_frame,
+        "full_scene": lambda d: full_scene(32, 24, device=d),
+        "build_forward_plus_full": full_stack_frame,
+        "procedural_sky_cubemap": lambda d: procedural_sky_cubemap(
+            8, device=d),
         "build_preset_pipelines": preset_frame,
         "PluggablePipeline.execute": lambda d: preset_frame(d, "execute"),
         "build_flagship_scene": lambda d: build_flagship_scene(
@@ -351,7 +380,9 @@ ENTRY_POINTS = ["build_flagship_scene", "flagship_camera",
                 "SceneBuilder.build", "LightSetBuilder.build",
                 "make_materials", "make_shade_context", "upload_mesh",
                 "simple_camera", "build_preset_pipelines",
-                "PluggablePipeline.execute"]
+                "PluggablePipeline.execute", "build_forward_plus_full",
+                "full_scene", "build_full_pipeline",
+                "procedural_sky_cubemap"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

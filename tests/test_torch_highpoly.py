@@ -151,18 +151,34 @@ def test_frame_params_convert():
     assert fp.pass_params.shadow.sun_vis_scale == 2
 
 
-def test_unported_paths_raise():
-    """Models and passes outside the slice raise NotImplementedError naming
-    their ROADMAP item; they never fall back to another path."""
-    from lsr_tpu_torch.render import render_forward
-    from lsr_tpu_torch.shading.models import SHADING_MODELS
+def test_unported_paths_raise(flag):
+    """The models render_forward could not take until ROADMAP A14 was done
+    (the test keeps its name from when they raised): toon, flat,
+    debug_depth and Gouraud (vertex lighting from the setup) through
+    render_forward on the grid-2 scene, against lsr_tpu's render_forward op
+    by op (as test_render_forward_matches_jax): tids and depth under the
+    frame contract, LDR within 1 LSB on >= 99.9% of pixels."""
+    import jax.numpy as jnp
+    from lsr_tpu.render import render_forward as jrf
 
-    for name in ("toon", "flat", "debug_depth"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            SHADING_MODELS[name](None, None)
-    with pytest.raises(NotImplementedError, match="A14"):
-        render_forward(None, None, None, None, 0.1, 100.0, None, W, H,
-                       model_name="gouraud")
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.render import render_forward
+
+    geom, objects, _, _, cam, ctx_t = flag["j"]
+    _, to, _, _, tcam, tct = flag["t"]
+    cols = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
+    b = convert.batch({k: np.asarray(getattr(geom, k)) for k in cols}, "cpu")
+    for model in ("toon", "flat", "debug_depth", "gouraud"):
+        j_ldr, j_gb = jrf.__wrapped__(
+            {k: jnp.asarray(getattr(geom, k)) for k in cols}, objects.model,
+            objects.normal_mat, cam.viewproj, cam.zn, cam.zf, ctx_t, W, H,
+            model_name=model)
+        t_ldr, t_gb = render_forward(b, to.model, to.normal_mat,
+                                     tcam.viewproj, tcam.zn, tcam.zf, tct, W,
+                                     H, model_name=model)
+        assert t_ldr.shape == (H, W, 3) and t_ldr.dtype == torch.uint8
+        _frame_compare(j_gb.tri_id, t_gb.tri_id, j_gb.depth01, t_gb.depth01)
+        _ldr_close(j_ldr, t_ldr.numpy())
 
 
 # ---------------------------------------------------------------------------

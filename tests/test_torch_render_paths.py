@@ -31,12 +31,13 @@ import numpy as np
 import pytest
 import torch
 
-from lsr_tpu_torch import convert
 from lsr_tpu_torch.pipeline.executor import RenderContext
 from torch_scenes import (
     jax_local_atlas,
     jax_reference_cull,
+    jax_render_path_scene as jax_scene_state,
     jax_sun_shadow,
+    state_to_torch,
 )
 
 W, H = 128, 96
@@ -49,56 +50,6 @@ PRESETS = ["forward_classic", "forward_plus", "deferred", "tiled_deferred",
 MODE = {"forward_classic": "tiled", "forward_plus": "tiled",
         "deferred": "tiled", "tiled_deferred": "tiled_depth_range",
         "clustered_forward": "clustered"}
-
-
-def jax_scene_state(width, height, n_lights=48, seed=4):
-    """lsr_tpu twin of render_paths.scene_state (run_phases.py:51-92 with
-    the UV sphere for the monkey), same rng draws in the same order."""
-    from lsr_tpu.core import math3d as m3
-    from lsr_tpu.io.obj import make_plane, make_uv_sphere
-    from lsr_tpu.lighting.light_types import LightSetBuilder
-    from lsr_tpu.scene.scene import SceneBuilder, make_camera
-    from lsr_tpu.shading.common import make_materials
-    from lsr_tpu.shading.models import make_shade_context
-
-    sphere = make_uv_sphere(rings=16, sectors=32)
-    sb = SceneBuilder()
-    sb.add(sphere, np.asarray(m3.translate([0, 0.2, 0]) @ m3.rotate_y(0.5)))
-    sb.add(sphere, np.asarray(
-        m3.translate([-2.0, 0.2, 1.5]) @ m3.rotate_y(2.0)), material=1)
-    sb.add(make_plane(6.0, y=-1.0), material=2, casts_shadow=False)
-    geom, objects = sb.build()
-    cam = make_camera(width, height, (0.6, 1.6, -4.5), (0, 0, 0))
-    lb = LightSetBuilder()
-    rng = np.random.default_rng(seed)
-    for _ in range(8):
-        p = rng.uniform([-3, 2.0, -3], [3, 3.2, 3])
-        lb.spot(tuple(p.tolist()), (0, -1, 0),
-                color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
-                intensity=2.0, range=4.5, inner_angle=0.4, outer_angle=0.7)
-    for _ in range(2):
-        lb.point(tuple(rng.uniform([-2, 0.8, -2], [2, 1.6, 2]).tolist()),
-                 color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
-                 intensity=1.6, range=3.5)
-    for _ in range(max(0, n_lights - 10)):
-        lb.point(tuple(rng.uniform([-3, 0.2, -3], [3, 2, 3]).tolist()),
-                 color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
-                 intensity=1.4, range=2.4)
-    mats = make_materials(
-        base_color=[(0.85, 0.5, 0.3), (0.4, 0.65, 0.85), (0.55, 0.56, 0.6)],
-        roughness=[0.4, 0.3, 0.8], metallic=[0.05, 0.4, 0.0])
-    ctx = make_shade_context(mats, light_dir_ws=(0.35, -0.7, 0.5),
-                             camera_pos=(0.6, 1.6, -4.5), light_intensity=2.2)
-    return {"geom": geom, "objects": objects, "camera": cam,
-            "lights": lb.build(), "shade_ctx": ctx}
-
-
-def _to_torch(js):
-    g, o, lt, _, c, cam = convert.from_numpy_state(
-        js["geom"], js["objects"], js["lights"], js["shade_ctx"].materials,
-        js["shade_ctx"], js["camera"], "cpu")
-    return {"geom": g, "objects": o, "camera": cam, "lights": lt,
-            "shade_ctx": c}
 
 
 def _shrink(fp):
@@ -125,7 +76,7 @@ def pipes(jstate):
     _, pipes = build_preset_pipelines(
         W, H, set(PRESETS), local_map=SLOT, local_point=FACE, device="cpu",
         with_pipes=True)
-    state = _to_torch(jstate)
+    state = state_to_torch(jstate)
     return {k: (pipe, _shrink(fp), state)
             for k, (pipe, fp, _) in pipes.items()}
 
@@ -195,7 +146,7 @@ def test_scene_state_matches_jax(jstate):
     from lsr_tpu_torch.render_paths import orbit_camera, scene_state
 
     got = scene_state(W, H, N_LIGHTS, device="cpu")
-    want = _to_torch(jstate)
+    want = state_to_torch(jstate)
     for key in ("geom", "objects", "lights"):
         for f in dataclasses.fields(got[key]):
             a, b = getattr(got[key], f.name), getattr(want[key], f.name)
@@ -269,18 +220,33 @@ def test_presets_share_the_scene(port_frames):
 @pytest.mark.parametrize("preset,post,item", [
     ("forward_classic+ssao", ("fxaa",), "A14"),
     ("forward_plus", ("bloom",), "A14")])
-def test_unported_passes_raise_in_a_frame(preset, post, item):
-    """A frame whose chain holds an unported pass raises
-    NotImplementedError naming its ROADMAP item, never skips it: the SSAO
-    composition, and a post stack with bloom (32x24, tiny maps)."""
+def test_unported_passes_raise_in_a_frame(preset, post, item, jstate,
+                                          port_frames):
+    """A frame whose chain holds a pass the port lacked until ROADMAP
+    `item` was done (the case ids keep their names from when it raised):
+    the SSAO composition, lit by the general branch (the SSAO mask sends it
+    there), and forward_plus with bloom render lsr_tpu's frame for the same
+    chain (tests/torch_scenes.jax_chain_frame) under C1; the SSAO
+    composition's LDR differs from forward_classic's (run_phases.py:292-300)
+    and its SSAO darkens covered pixels."""
     from lsr_tpu_torch.render_paths import build_preset_pipelines
+    from torch_scenes import frame_contract, jax_chain_frame
 
-    fns, pipes = build_preset_pipelines(
-        32, 24, {preset}, post=post, local_map=16, local_point=16,
+    _, pipes = build_preset_pipelines(
+        W, H, {preset}, post=post, local_map=SLOT, local_point=FACE,
         device="cpu", with_pipes=True)
-    fp = pipes[preset][1]
-    fp.pass_params.shadow.map_size = 32
-    fp.pass_params.culling.occ_width, fp.pass_params.culling.occ_height = \
-        (32, 18)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        fns[preset](0)
+    pipe, fp, _ = pipes[preset]
+    _shrink(fp)
+    chain = [pipe.passes[i].pass_id for i in pipe.build_plan(fp).order]
+    assert ("ssao" in chain) == (preset == "forward_classic+ssao")
+    assert ("bloom" in chain) == ("bloom" in post)
+    st = pipe.execute_jitted(RenderContext(), state_to_torch(jstate), fp)
+    ref = jax_chain_frame(jstate, fp, chain, W, H, OCC, SUN, SLOT, FACE)
+    frame_contract(st["tid"], ref["tid"], st["hdr"], ref["hdr"], st["ldr"],
+                   ref["ldr"])
+    if preset == "forward_classic+ssao":
+        ao = st["ssao_mask"]
+        np.testing.assert_allclose(ao.numpy(), np.asarray(ref["ssao_mask"]),
+                                   rtol=0, atol=1e-6)
+        assert float(ao[st["tid"] >= 0].min()) < 0.9
+        assert not torch.equal(st["ldr"], port_frames["forward_classic"]["ldr"])

@@ -635,21 +635,74 @@ def test_tonemap_and_fxaa_match_jax():
 
 
 def test_forward_plus_rejects_unported_options(scene):
-    """Branches the port does not have raise NotImplementedError (the
-    clustered mode is ported: test_forward_plus_clustered_matches_jax)."""
-    import dataclasses
+    """The branches of shade_forward_plus that raised until this slice
+    (the test keeps its name): use_kernel=False, another sun model (toon:
+    the general branch either way), environment probes on the fused branch
+    (the scene's lights plus one probe) and the context's surface maps
+    (a bump normal map on the ground), each from lsr_tpu's G-buffer,
+    against lsr_tpu's shade_forward_plus: HDR within 1e-4 on >= 99.9% of
+    pixels, and each option changes the frame."""
+    from lsr_tpu.lighting.light_types import LightSetBuilder
+    from lsr_tpu.passes.forward_plus import shade_forward_plus as jsh
+    from lsr_tpu.raster.interp import interpolate_gbuffer
+    from lsr_tpu.shading.common import bump_normal_texture, make_materials
+    from lsr_tpu.shading.models import make_shade_context
 
-    from lsr_tpu_torch.passes.forward_plus import shade_forward_plus
-    from lsr_tpu_torch.raster.interp import GBuffer
+    from lsr_tpu_torch import convert
+    from lsr_tpu_torch.passes.forward_plus import shade_forward_plus as tsh
+    from torch_scenes import torch_gbuffer
 
-    _, _, tl, tctx, tcam, _ = scene["t"]
-    gb = GBuffer(**{f.name: None for f in dataclasses.fields(GBuffer)})
-    base = (gb, tctx, tl, tcam.view, tcam.proj, tcam.zn, tcam.zf, W, H)
-    for kw, msg in ((dict(use_kernel=False), "use_kernel"),
-                    (dict(env_probes=True), "env_probes"),
-                    (dict(sun_model="toon"), "sun_model")):
-        with pytest.raises(NotImplementedError, match=msg):
-            shade_forward_plus(*base, **kw)
-    with pytest.raises(NotImplementedError, match="surface maps"):
-        shade_forward_plus(gb, dataclasses.replace(tctx, surface_maps=True),
-                           *base[2:])
+    _, _, jl, jctx, cam, ctx_t = scene["j"]
+    gb = interpolate_gbuffer(scene["setup"], scene["depth"], scene["tid"],
+                             materials=jctx.materials)
+    tgb = torch_gbuffer(gb)
+    m = jctx.materials
+    tex = np.stack([np.asarray(jctx.textures[0]), bump_normal_texture(128)])
+    maps_ctx = make_shade_context(
+        make_materials(base_color=np.asarray(m.base_color),
+                       metallic=np.asarray(m.metallic),
+                       roughness=np.asarray(m.roughness),
+                       tex_id=np.asarray(m.tex_id),
+                       normal_tex=[-1, -1, -1, -1, 1]),
+        light_dir_ws=jctx.light_dir_ws, light_color=jctx.light_color,
+        light_intensity=jctx.light_intensity, camera_pos=ctx_t.camera_pos,
+        textures=jnp.asarray(tex))
+    lb = LightSetBuilder()
+    for i in range(int(jl.type.shape[0])):
+        kw = {k: np.asarray(getattr(jl, k))[i] for k in (
+            "direction", "inner_angle", "outer_angle")}
+        lb._add(type=int(jl.type[i]),
+                position=tuple(np.asarray(jl.position[i]).tolist()),
+                color=tuple(np.asarray(jl.color[i]).tolist()),
+                intensity=float(jl.intensity[i]), range=float(jl.range[i]),
+                direction=tuple(kw["direction"].tolist()),
+                inner_angle=float(kw["inner_angle"]),
+                outer_angle=float(kw["outer_angle"]))
+    lb.env_probe((0.0, 0.0, 0.0), color=(2.0, 1.5, 1.0), intensity=1.5,
+                 range=3.0)
+    probe_lights = lb.build()
+    # The G-buffer's material record carries the texture slots.
+    gb_maps = interpolate_gbuffer(scene["setup"], scene["depth"],
+                                  scene["tid"], materials=maps_ctx.materials)
+    cases = {"use_kernel": (ctx_t, jl, dict(use_kernel=False), gb),
+             "sun_model": (ctx_t, jl, dict(sun_model="toon"), gb),
+             "env_probes": (ctx_t, probe_lights, dict(env_probes=True), gb),
+             "surface maps": (maps_ctx, jl, {}, gb_maps)}
+    base_t, _ = tsh(tgb, convert.shade_context(
+        ctx_t, convert.materials_soa(ctx_t.materials, "cpu"), "cpu"),
+        convert.lights_soa(jl, "cpu"), _t(cam.view), _t(cam.proj),
+        float(cam.zn), float(cam.zf), W, H, cap=32)
+    for name, (jc, lights, kw, jgb) in cases.items():
+        want, _ = jsh(jgb, jc, lights, cam.view, cam.proj, cam.zn, cam.zf, W,
+                      H, cap=32, **kw)
+        tc = convert.shade_context(jc, convert.materials_soa(
+            jc.materials, "cpu"), "cpu")
+        got, _ = tsh(torch_gbuffer(jgb), tc, convert.lights_soa(lights, "cpu"),
+                     _t(cam.view), _t(cam.proj), float(cam.zn),
+                     float(cam.zf), W, H, cap=32, **kw)
+        err = np.abs(got.numpy() - np.asarray(want)).max(-1)
+        assert np.isfinite(got.numpy()).all(), name
+        assert (err <= 1e-4).mean() >= 0.999, (name, float(err.max()))
+        if name != "use_kernel":
+            assert float((got - base_t).abs().max()) > 1e-3, name
+

@@ -313,3 +313,213 @@ def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
         spot_size=map_size, point_size=point_size, pcf_radius=2,
         kinds=tuple(kinds), base_slots=tuple(base_slots), vis_scale=vis_scale,
         vis_crop=(), filter_mode=filter_mode, esm_c=80.0)
+
+
+def torch_gbuffer(gb):
+    """lsr_tpu's GBuffer as an lsr_tpu_torch GBuffer on the CPU, field for
+    field (absent fields stay None; integer planes as int64)."""
+    import dataclasses
+
+    from lsr_tpu_torch.raster.interp import GBuffer
+
+    def t(name):
+        a = getattr(gb, name, None)
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return torch.as_tensor(a.astype(np.int64) if a.dtype == np.int32
+                               else np.array(a))
+
+    return GBuffer(**{f.name: t(f.name) for f in dataclasses.fields(GBuffer)})
+
+
+def jax_full_scene(width, height, ibl=True):
+    """lsr_tpu twin of lsr_tpu_torch.full_pipeline.full_scene (Config #5,
+    demos/hello_full_pipeline.py:40-102 with a UV sphere for each monkey),
+    same rng draws in the same order; the IBL baked from the procedural sky
+    when ibl.  Returns the frame state dict."""
+    from lsr_tpu.resources.ibl import (
+        compute_irradiance_map, compute_prefiltered_specular)
+    from lsr_tpu.sky.sky_models import procedural_sky_cubemap
+
+    sun = (0.35, -0.7, 0.5)
+    eye = (0.8, 1.6, -4.5)
+    monkey = make_uv_sphere(rings=16, sectors=32)
+    b = SceneBuilder()
+    cur = np.asarray(m3.translate([0.3, 0.3, 0.0]) @ m3.rotate_y(0.6))
+    prev = np.asarray(m3.translate([-0.3, 0.3, 0.0]) @ m3.rotate_y(0.45))
+    b.add(monkey, cur, material=0, prev_model=prev)
+    b.add(monkey, np.asarray(m3.translate([-2.2, 0.3, 2.0])
+                             @ m3.rotate_y(2.2)), material=2)
+    b.add(make_uv_sphere(0.7), np.asarray(m3.translate([2.0, 0.0, 1.5])),
+          material=3)
+    b.add(make_plane(8.0, y=-0.9), material=1, casts_shadow=False)
+    geom, objects = b.build()
+    cam = make_camera(width, height, eye, (0, 0, 0.5))
+    lb = LightSetBuilder()
+    rng = np.random.default_rng(9)
+    for _ in range(48):
+        lb.point(tuple(rng.uniform([-4, 0.0, -3], [4, 2.2, 4]).tolist()),
+                 color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
+                 intensity=1.2, range=2.2)
+    maps = None
+    if ibl:
+        cube = procedural_sky_cubemap(32, sun_dir_ws=jnp.asarray(sun,
+                                                                 jnp.float32))
+        maps = (compute_irradiance_map(cube, out_size=8, samples=128),
+                tuple(compute_prefiltered_specular(cube, out_size=16,
+                                                   samples=64, mips=4)))
+    mats = make_materials(
+        base_color=[(0.85, 0.55, 0.35), (0.55, 0.56, 0.6), (0.4, 0.6, 0.85),
+                    (0.95, 0.9, 0.6)],
+        metallic=[0.1, 0.0, 0.3, 0.9], roughness=[0.4, 0.7, 0.35, 0.2],
+        tex_id=[-1, 0, -1, -1])
+    ctx = make_shade_context(
+        mats, light_dir_ws=sun, light_color=(1.0, 0.96, 0.9),
+        light_intensity=2.6, camera_pos=eye,
+        textures=jnp.asarray(checkerboard_texture(128))[None], ibl=maps)
+    return {"geom": geom, "objects": objects, "camera": cam,
+            "lights": lb.build(), "shade_ctx": ctx}
+
+
+def state_to_torch(js, device="cpu"):
+    """A frame state dict of lsr_tpu's ({"geom", "objects", "camera",
+    "lights", "shade_ctx"}) as lsr_tpu_torch's."""
+    g, o, lt, _, c, cam = convert.from_numpy_state(
+        js["geom"], js["objects"], js["lights"], js["shade_ctx"].materials,
+        js["shade_ctx"], js["camera"], device)
+    return {"geom": g, "objects": o, "camera": cam, "lights": lt,
+            "shade_ctx": c}
+
+
+def jax_gbuffer(js, width, height, obj_visible=None):
+    """lsr_tpu's camera raster of a frame state (scene_setup ->
+    rasterize_brute -> interpolate_gbuffer).  Returns (setup, depth, tid,
+    gbuffer)."""
+    from lsr_tpu.raster.brute import rasterize_brute
+    from lsr_tpu.raster.interp import interpolate_gbuffer
+    from lsr_tpu.raster.setup import scene_setup
+
+    geom, objects, cam = js["geom"], js["objects"], js["camera"]
+    setup = scene_setup(geom.positions, geom.normals, geom.uvs, geom.indices,
+                        geom.vtx_obj, geom.tri_obj, objects.model,
+                        objects.normal_mat, cam.viewproj, width, height,
+                        obj_visible=objects.visible if obj_visible is None
+                        else obj_visible)
+    depth, tid = rasterize_brute(setup, width, height, cam.zn, cam.zf)
+    gb = interpolate_gbuffer(setup, depth, tid,
+                             materials=js["shade_ctx"].materials)
+    return setup, depth, tid, gb
+
+
+def jax_render_path_scene(width, height, n_lights=48, seed=4):
+    """lsr_tpu twin of render_paths.scene_state (run_phases.py:51-92 with
+    the UV sphere for the monkey), same rng draws in the same order."""
+    sphere = make_uv_sphere(rings=16, sectors=32)
+    sb = SceneBuilder()
+    sb.add(sphere, np.asarray(m3.translate([0, 0.2, 0]) @ m3.rotate_y(0.5)))
+    sb.add(sphere, np.asarray(
+        m3.translate([-2.0, 0.2, 1.5]) @ m3.rotate_y(2.0)), material=1)
+    sb.add(make_plane(6.0, y=-1.0), material=2, casts_shadow=False)
+    geom, objects = sb.build()
+    cam = make_camera(width, height, (0.6, 1.6, -4.5), (0, 0, 0))
+    lb = LightSetBuilder()
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        p = rng.uniform([-3, 2.0, -3], [3, 3.2, 3])
+        lb.spot(tuple(p.tolist()), (0, -1, 0),
+                color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
+                intensity=2.0, range=4.5, inner_angle=0.4, outer_angle=0.7)
+    for _ in range(2):
+        lb.point(tuple(rng.uniform([-2, 0.8, -2], [2, 1.6, 2]).tolist()),
+                 color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
+                 intensity=1.6, range=3.5)
+    for _ in range(max(0, n_lights - 10)):
+        lb.point(tuple(rng.uniform([-3, 0.2, -3], [3, 2, 3]).tolist()),
+                 color=tuple(rng.uniform(0.3, 1.0, 3).tolist()),
+                 intensity=1.4, range=2.4)
+    mats = make_materials(
+        base_color=[(0.85, 0.5, 0.3), (0.4, 0.65, 0.85), (0.55, 0.56, 0.6)],
+        roughness=[0.4, 0.3, 0.8], metallic=[0.05, 0.4, 0.0])
+    ctx = make_shade_context(mats, light_dir_ws=(0.35, -0.7, 0.5),
+                             camera_pos=(0.6, 1.6, -4.5), light_intensity=2.2)
+    return {"geom": geom, "objects": objects, "camera": cam,
+            "lights": lb.build(), "shade_ctx": ctx}
+
+
+_BAKED = ("scene_cull", "shadow_map", "local_shadows", "depth_prepass")
+
+
+def jax_chain_frame(js, fp, chain, width, height, occ=(160, 90), sun=128,
+                    slot=64, face=32, history=None, keep=()):
+    """lsr_tpu's frame for a pass chain (the pass ids of a port pipeline's
+    plan, in order) composed op by op: the cull (jax_reference_cull), the
+    sun map (jax_sun_shadow, PCF), the local atlas slot by slot
+    (jax_local_atlas) and the camera raster (scene_setup on the view mask
+    -> rasterize_brute) as those passes' products, then every other pass
+    of the chain by lsr_tpu's own RenderPass classes, on fp (a port
+    FrameParams, carried into lsr_tpu's field by field).  history: TAA's
+    history_color of the previous frame.  Returns the final state, with
+    state["hdr@" + pid] the HDR after each pass id in keep."""
+    from lsr_tpu.core.frame import FrameParams as JFrameParams
+    from lsr_tpu.passes.standard_passes import make_standard_registry
+    from lsr_tpu.pipeline.executor import RenderContext
+    from lsr_tpu.raster.brute import rasterize_brute
+    from lsr_tpu.raster.setup import scene_setup
+
+    jfp = convert._dataclass_like(JFrameParams, fp)
+    geom, objects, cam = js["geom"], js["objects"], js["camera"]
+    state = dict(js)
+    vis = objects.visible
+    if "scene_cull" in chain:
+        objs, state["lights"], _ = jax_reference_cull(
+            geom, objects, js["lights"], cam, *occ)
+        vis = objs.visible
+        state["view_mask"] = vis
+    if "shadow_map" in chain:
+        state["shadow_ctx"] = jax_sun_shadow(geom, objects, js["shade_ctx"],
+                                             sun, "pcf")[2]
+    if "local_shadows" in chain:
+        p = fp.pass_params.local_shadow
+        ids = list(p.spot_ids) + list(p.point_ids)
+        state["local_shadow_maps"] = jax_local_atlas(
+            geom, objects, state["lights"], p.spot_ids, p.point_ids, slot,
+            face, "pcf",
+            caster_enabled=np.asarray(state["lights"].enabled)[ids])
+    setup = scene_setup(geom.positions, geom.normals, geom.uvs, geom.indices,
+                        geom.vtx_obj, geom.tri_obj, objects.model,
+                        objects.normal_mat, cam.viewproj, width, height,
+                        obj_visible=vis)
+    state["depth"], state["tid"] = rasterize_brute(setup, width, height,
+                                                   cam.zn, cam.zf)
+    state["setup"] = setup
+    if history is not None:
+        state["history_color"] = history
+    reg = make_standard_registry()
+    for pid in chain:
+        if pid not in _BAKED:
+            state = reg.create(pid).execute_resolved(RenderContext(), state,
+                                                     jfp, None)
+        if pid in keep:
+            state["hdr@" + pid] = state["hdr"]
+    return state
+
+
+def frame_contract(t_tid, j_tid, t_hdr, j_hdr, t_ldr, j_ldr,
+                   hdr_share=0.999):
+    """ROADMAP C1's whole-frame contract: tids equal on >= 99.5% of covered
+    pixels, HDR within 1e-4 on >= hdr_share (99.9%) of agreeing pixels, LDR
+    within 1 LSB on >= 99.9%.  Returns (tid match, HDR share, LDR
+    share)."""
+    j_tid = np.asarray(j_tid)
+    same = np.asarray(t_tid) == j_tid
+    tid_ok = float((same | (j_tid < 0)).mean())
+    err = np.abs(np.asarray(t_hdr) - np.asarray(j_hdr)).max(-1)
+    hdr_ok = float((err[same] <= 1e-4).mean())
+    d = np.abs(np.asarray(t_ldr).astype(int)
+               - np.asarray(j_ldr).astype(int)).max(-1)
+    ldr_ok = float((d <= 1).mean())
+    assert np.isfinite(np.asarray(t_hdr)).all()
+    assert tid_ok >= 0.995 and hdr_ok >= hdr_share and ldr_ok >= 0.999, (
+        tid_ok, hdr_ok, float(err[same].max()), ldr_ok)
+    return tid_ok, hdr_ok, ldr_ok
