@@ -154,6 +154,29 @@ Then lsr_tpu's compositions (each a main path of its own, counts reset):
     may flip only where the two sides' depths differ, and the card's SSAO
     on the CPU's depth gives the CPU's mask).
 
+Then kernel B1's screen bands and the multi-device paths
+(lsr_tpu_torch.parallel, every rank on this one card):
+
+26. B1b (rasterize_direct with y_offset, full_height) on the flagship
+    scene: the 1920x1080 camera view in four bands of 270 rows (y_offset
+    0, 270, 540, 810; unsorted as the sharded paths call it, and sorted)
+    and the bench's 2048^2 sun map in four bands of 512 rows (NDC01, depth
+    only, spatial sort): each band against its plain version
+    (rasterize_brute at the band's global rows) and the concatenated bands
+    against B1's full-frame launch, depth and tid bit for bit; each band's
+    kernel ms (on its own super lists), wrapper and plain ms and bound.
+27. The sharded paths at 1920x1088 (four bands of whole 16-row light
+    tiles), counts reset before each: make_sharded_flagship (2048^2 sun
+    map, its other defaults, two cameras of the orbit) on meshes (1, 1),
+    (1, 4), (2, 2), the frames of (1, 4) and (2, 2) equal (1, 1)'s bit for
+    bit, B1 launches a step exactly 25 / 40 / 52 (of them B1b 0 / 12 / 8);
+    make_sharded_render on (2, 2), each camera equal to render_band of the
+    whole frame bit for bit; make_light_sharded_forward on (sp 2, lp 2)
+    and (sp 1, lp 4) within 1 LSB of (1, 1) on under 2% of values;
+    make_pipelined_render over 4 cameras, output i bit for bit camera
+    i - 1's render_band.  Median ms a step of each mesh by CUDA events
+    (its ranks run one after another on the card).  About 20-25 s for 26-27.
+
 14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
     previous stage's outputs (host enqueue ms, device ms by CUDA events),
@@ -271,10 +294,15 @@ def bound(n_bytes, n_ops):
             "bytes": int(n_bytes), "ops": int(n_ops)}
 
 
-def raster_pairs(setup):
-    """(triangle, pixel) pairs inside the bboxes of the valid triangles."""
+def raster_pairs(setup, y0=0, rows=None):
+    """(triangle, pixel) pairs inside the bboxes of the valid triangles;
+    given rows, only those in rows [y0, y0 + rows)."""
     b = setup.bbox[setup.valid].to(torch.int64)
-    return int(((b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)).sum())
+    lo, hi = b[:, 1], b[:, 3]
+    if rows is not None:
+        lo, hi = torch.clamp(lo, min=y0), torch.clamp(hi, max=y0 + rows - 1)
+    return int(((b[:, 2] - b[:, 0] + 1) * torch.clamp(hi - lo + 1, min=0))
+               .sum())
 
 
 def direct_read_bytes(rec, chunk_bb, lists, counts):
@@ -586,8 +614,11 @@ def _wrappers():
 
 
 def reset_counts():
+    from lsr_tpu_torch.raster import tiled
+
     for fn in _wrappers().values():
         fn.launches = 0
+    tiled.rasterize_direct.band_launches = 0
 
 
 def read_counts():
@@ -600,26 +631,28 @@ def targets(w, h, dev):
     return _targets(None, None, h, w, dev)
 
 
-def stray(tid, bbox):
+def stray(tid, bbox, y0=0):
     """(H, W) bool: the pixel's winner is a triangle whose bbox does not
-    hold the pixel.  The f32 edge functions of a sliver triangle can cover
+    hold the pixel (tid's row 0 the frame's row y0).  The f32 edge functions of a sliver triangle can cover
     such pixels; lsr_tpu's kernels, like the port's, evaluate a triangle
     only where their own culling grain lets them, so different raster
     routes keep different ones of these pixels (ROADMAP C8)."""
     h, w = tid.shape
     b = bbox[torch.clamp(tid, min=0).to(torch.int64)]
     x = torch.arange(w, device=tid.device)[None, :]
-    y = torch.arange(h, device=tid.device)[:, None]
+    y = torch.arange(y0, y0 + h, device=tid.device)[:, None]
     inside = ((b[..., 0] <= x) & (x <= b[..., 2]) & (b[..., 1] <= y)
               & (y <= b[..., 3]))
     return (tid >= 0) & ~inside
 
 
-def same_but_strays(name, d_a, t_a, bbox_a, d_b, t_b, bbox_b, same_ids):
-    """Two rasters of the same triangles: every pixel where they differ
-    must have a stray winner on one side (see stray); on all other pixels
-    coverage (tids when same_ids) and depth must be equal bit for bit."""
-    s = stray(t_a, bbox_a) | stray(t_b, bbox_b)
+def same_but_strays(name, d_a, t_a, bbox_a, d_b, t_b, bbox_b, same_ids,
+                    y0=0):
+    """Two rasters of the same triangles (rows from the frame's row y0):
+    every pixel where they differ must have a stray winner on one side
+    (see stray); on all other pixels coverage (tids when same_ids) and
+    depth must be equal bit for bit."""
+    s = stray(t_a, bbox_a, y0) | stray(t_b, bbox_b, y0)
     diff = (t_a != t_b) if same_ids else ((t_a >= 0) != (t_b >= 0))
     diff |= d_a != d_b
     n_diff, n_other = int(diff.sum()), int((diff & ~s).sum())
@@ -1842,10 +1875,11 @@ def _contact_sheet(frames, cols=3):
     return sheet.numpy()
 
 
-def _frames(fn, n, warmup):
-    """fn(i) for i < n, each bracketed by CUDA events, then frames warmup..n
-    again with one sync at the end.  Returns (device ms per frame,
-    pipelined ms per frame, the outputs of the first pass)."""
+def _frames(fn, n, warmup, pipelined=True):
+    """fn(i) for i < n, each bracketed by CUDA events, then (pipelined)
+    frames warmup..n again with one sync at the end.  Returns (device ms
+    per frame, pipelined ms per frame or None, the outputs of the first
+    pass)."""
     ms, outs = [], []
     for i in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1855,6 +1889,8 @@ def _frames(fn, n, warmup):
         e1.record()
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
+    if not pipelined:
+        return ms, None, outs
     t0 = time.perf_counter()
     for i in range(warmup, n):
         fn(i)
@@ -2397,6 +2433,387 @@ def compositions_cpu_phase(dev):
               f"composition [{name}] differs")
 
 
+# ---------------------------------------------------------------------------
+# Kernel B1's screen bands (B1b) and the sharded paths (phases 26-27)
+# ---------------------------------------------------------------------------
+
+B1B_BANDS = 4                      # the camera and the sun map in 4 bands
+SHARD_W, SHARD_H = 1920, 1088      # 1080 rounded up to 4 bands of whole
+                                   # 16-row light tiles (272 = 17 x 16)
+SHARD_WARMUP, SHARD_FRAMES = 1, 2  # sharded steps per mesh
+
+
+def _b1b_band(name, setup, w, rows, zn, zf, y0, full_h, kw, timed,
+              out=None, strays=False):
+    """One screen band of B1 (rasterize_direct with y_offset, full_height;
+    kw: depth_mode, track_ids, spatial_sort): the kernel's depth and tid
+    (out: those of a launch already made, else the wrapper's run here)
+    against its plain version (rasterize_brute at the band's global rows)
+    bit for bit; strays: bit for bit but on the pixels that a stray sliver
+    wins on one side (same_but_strays, ROADMAP C8: the plain version has
+    no bbox bound, the kernel evaluates a triangle only where its chunk
+    boxes let it), the kernel's ids from a launch that tracks them when
+    out's did not.  timed: the wrapper's, the kernel's alone (on the band's
+    own super lists) and the plain version's ms, and the bound.  Returns
+    (row, depth, tid)."""
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.brute import rasterize_brute
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    mode, track, sort = kw["depth_mode"], kw["track_ids"], kw["spatial_sort"]
+    run = lambda: tiled.rasterize_direct(  # noqa: E731
+        setup, w, rows, zn, zf, y_offset=y0, full_height=full_h, **kw)
+    d_k, t_k = out if out is not None else run()[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_p, t_p = rasterize_brute(setup, w, rows, zn, zf, depth_mode=mode,
+                               y_offset=y0, full_height=full_h)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    where = f"{name} (y_offset {y0}, {rows} rows of {full_h})"
+    n_diff = 0
+    if strays:
+        t_id = t_k
+        if not track:
+            d_t, t_id, _ = tiled.rasterize_direct(
+                setup, w, rows, zn, zf, y_offset=y0, full_height=full_h,
+                **dict(kw, track_ids=True))
+            check(torch.equal(d_t, d_k), f"{where}: the depth changes "
+                  "when ids are tracked")
+        n_diff = same_but_strays(f"{where} against the plain version", d_k,
+                                 t_id, setup.bbox, d_p, t_p, setup.bbox,
+                                 True, y0)
+    else:
+        d_mis = int((d_k != d_p).sum())
+        t_mis = int((t_k != t_p).sum()) if track else 0
+        check(d_mis == 0 and t_mis == 0,
+              f"{where}: {d_mis} depth and {t_mis} tid mismatches against "
+              f"the plain version")
+    row = {"y_offset": y0, "rows": rows, "covered": int((d_p < 1.0).sum()),
+           "plain_ms": plain_ms, "stray_px": n_diff,
+           "max_abs_err": float((d_k - d_p).abs().max())}
+    if timed:
+        rec, ss, n_pad = tiled.pack_direct_records(setup, sort)
+        cbb = tiled._chunk_bboxes(ss, n_pad, 16)
+        sl, cnt, _ = tiled._super_lists(cbb, 16, -(-w // 128),
+                                        -(-rows // 128), 128, 128, y0)
+        stream = torch.cuda.current_stream().cuda_stream
+        kern = lambda: tiled._direct_launch(  # noqa: E731
+            load_kernels(), rec, cbb, sl, cnt, None, None, w, rows, zn, zf,
+            mode, track, sort, stream, 0, y0, full_h)
+        kern()
+        b = bound(direct_read_bytes(rec, cbb, sl, cnt)
+                  + (8 if track else 4) * w * rows,
+                  raster_pairs(setup, y0, rows) * RASTER_OPS)
+        row.update(ms=cuda_ms(run, 10), kernel_ms=cuda_ms(kern, 10), **b)
+    return row, d_k, t_k
+
+
+def _b1b_bands(name, setup, w, h, zn, zf, mode, track, sort, timed=True):
+    """One target of B1 in B1B_BANDS screen bands, each against its plain
+    version (_b1b_band), the concatenated bands against B1's full-frame
+    launch bit for bit (depth, and tid when tracked).  Returns the summed
+    result and the per-band rows."""
+    from lsr_tpu_torch.raster import tiled
+
+    band = h // B1B_BANDS
+    kw = dict(depth_mode=mode, track_ids=track, spatial_sort=sort)
+    d_full, t_full, _ = tiled.rasterize_direct(setup, w, h, zn, zf, **kw)
+    rows, ds, ts = [], [], []
+    for i in range(B1B_BANDS):
+        row, d_k, t_k = _b1b_band(f"{name} band {i}", setup, w, band, zn, zf,
+                                  i * band, h, kw, timed)
+        rows.append(row)
+        ds.append(d_k)
+        ts.append(t_k)
+    d_cat, t_cat = torch.cat(ds), torch.cat(ts)
+    d_mis = int((d_cat != d_full).sum())
+    t_mis = int((t_cat != t_full).sum())
+    log(f"{name} {w}x{h} in {B1B_BANDS} bands of {band} rows: each band "
+        f"equal to its plain version; the bands against the full-frame "
+        f"launch: {d_mis} depth, {t_mis} tid mismatches; per band "
+        + "; ".join(
+            f"y_offset {r['y_offset']}: " + (
+                f"kernel {r['kernel_ms']:.4f} ms, wrapper {r['ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                if timed else "") + f"plain {r['plain_ms']:.1f} ms"
+            for r in rows))
+    check(d_mis == 0 and t_mis == 0 and sum(r["covered"] for r in rows),
+          f"{name}: the bands differ from the full-frame launch")
+    res = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] for r in rows)}
+    if timed:
+        res.update(ms=sum(r["ms"] for r in rows),
+                   kernel_ms=sum(r["kernel_ms"] for r in rows),
+                   **bound(sum(r["bytes"] for r in rows),
+                           sum(r["ops"] for r in rows)))
+    return res, rows
+
+
+def b1b_phase(geom, objects, ctx, setup, cam):
+    """Phase 26.  Kernel B1's screen-band branch (B1b) on the flagship
+    scene: the 1920x1080 camera view (view-z, ids; unsorted as the sharded
+    paths call it, and spatially sorted) and the bench's 2048^2 sun map
+    (NDC01, depth only, passes/shadow.py's spatial sort), each in four
+    bands (camera y_offset 0 / 270 / 540 / 810, none a multiple of the
+    16-row block but 0; sun map 0 / 512 / 1024 / 1536).  Phase 27 holds
+    the bands that the sharded paths launch (unsorted sun map, culled
+    1920x1088 camera) against their plain versions.  Returns the B1b
+    result entry (the camera's bands summed) with the per-band rows."""
+    from lsr_tpu_torch.passes.shadow import shadow_map_setup
+    from lsr_tpu_torch.raster.setup import DEPTH_NDC01, DEPTH_VIEWZ
+
+    t_start = time.perf_counter()
+    cam_res, cam_rows = _b1b_bands("B1b camera [unsorted,viewz,ids]", setup,
+                                   WIDTH, HEIGHT, cam.zn, cam.zf,
+                                   DEPTH_VIEWZ, True, False)
+    _b1b_bands("B1b camera [sort,viewz,ids]", setup, WIDTH, HEIGHT, cam.zn,
+               cam.zf, DEPTH_VIEWZ, True, True, timed=False)
+    sm_setup, _ = shadow_map_setup(geom, objects, ctx.light_dir_ws, SHADOW)
+    sun_res, sun_rows = _b1b_bands(
+        "B1b sun map [sort,ndc01,depth only]", sm_setup, SHADOW, SHADOW, 0.0,
+        1.0, DEPTH_NDC01, False, True)
+    log(f"# phase 26 took {time.perf_counter() - t_start:.1f} s")
+    return dict(cam_res, bands=cam_rows,
+                sun_map=dict(sun_res, bands=sun_rows))
+
+
+class band_calls:
+    """Context manager recording every rasterize_direct call of the
+    sharded paths (parallel.sharding) while it is open: .calls [(its
+    arguments by name, defaults filled in; its outputs)]."""
+
+    def __enter__(self):
+        import inspect
+
+        from lsr_tpu_torch.parallel import sharding as shd
+
+        self._mod, self._orig, self.calls = shd, shd.rasterize_direct, []
+        sig = inspect.signature(self._orig)
+
+        def record(*a, **k):
+            out = self._orig(*a, **k)
+            args = sig.bind(*a, **k)
+            args.apply_defaults()
+            self.calls.append((dict(args.arguments), out))
+            return out
+
+        shd.rasterize_direct = record
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.rasterize_direct = self._orig
+
+
+def _same_raster_inputs(a, b):
+    keys = ("width", "height", "zn", "zf", "y_offset", "full_height",
+            "depth_mode", "track_ids", "spatial_sort")
+    return all(a[k] == b[k] for k in keys) and all(
+        torch.equal(getattr(a["setup"], f), getattr(b["setup"], f))
+        for f in ("coef", "iw", "ziw", "bbox", "valid"))
+
+
+def check_band_calls(tag, calls):
+    """The B1b launches of one sharded step (band_calls), each against B1's
+    full-frame launch on its inputs, its rows, bit for bit, and against
+    its plain version at its global rows, bit for bit but on stray sliver
+    pixels (_b1b_band with strays; the flagship's sun map has one), each
+    timed alone.  A launch whose inputs equal an earlier one's (each dp
+    slice renders the same sun map, each lp rank the same band) must give
+    that one's outputs bit for bit and is checked no further.  Returns the
+    step's B1b kernel ms and the launches and stray pixels checked."""
+    from lsr_tpu_torch.raster import tiled
+
+    calls = [(a, out) for a, out in calls       # B1b's; a whole frame is B1's
+             if a["y_offset"] or a["full_height"] not in (None, a["height"])]
+    done, kernel_ms = [], 0.0
+    for a, (d, t, _) in calls:
+        track, y0, rows = a["track_ids"], a["y_offset"], a["height"]
+        twin = next((x for x in done if _same_raster_inputs(x[0], a)), None)
+        if twin is not None:
+            check(torch.equal(d, twin[1])
+                  and (not track or torch.equal(t, twin[2])),
+                  f"{tag}: two B1b launches on equal inputs differ")
+            kernel_ms += twin[3]["kernel_ms"]
+            continue
+        kw = {k: a[k] for k in ("depth_mode", "track_ids", "spatial_sort")}
+        d_f, t_f, _ = tiled.rasterize_direct(a["setup"], a["width"],
+                                             a["full_height"], a["zn"],
+                                             a["zf"], **kw)
+        check(torch.equal(d, d_f[y0:y0 + rows])
+              and (not track or torch.equal(t, t_f[y0:y0 + rows])),
+              f"{tag}: the B1b launch at y_offset {y0} differs from B1's "
+              f"full-frame launch")
+        row, _, _ = _b1b_band(f"{tag} B1b", a["setup"], a["width"], rows,
+                              a["zn"], a["zf"], y0, a["full_height"], kw,
+                              True, out=(d, t), strays=True)
+        done.append((a, d, t, row))
+        kernel_ms += row["kernel_ms"]
+    rows = [x[3] for x in done]
+    log(f"{tag}: the {len(calls)} B1b launches of one step equal B1's "
+        f"full-frame launch bit for bit, and the plain version but on "
+        f"{sum(r['stray_px'] for r in rows)} stray px; {len(rows)} distinct: "
+        + "; ".join(f"{r['rows']} rows at y_offset {r['y_offset']}, "
+                    f"{r['covered']} px covered, kernel {r['kernel_ms']:.4f} "
+                    f"ms" for r in rows))
+    return {"b1b_kernel_ms": kernel_ms, "b1b_checked": len(calls),
+            "b1b_distinct": len(rows),
+            "b1b_stray_px": sum(r["stray_px"] for r in rows)}
+
+
+def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
+                 n=SHARD_FRAMES):
+    """One sharded path, a main path of its own: counts reset, its steps,
+    exactly b1_per_step B1 launches a step (band_per_step of them B1b) and
+    no other kernel; the first step's B1b launches against their plain
+    versions (check_band_calls); then torch.profiler over one more step:
+    device busy ms and B1's (B1b's with it) kernel ms.  Returns (output,
+    result)."""
+    from lsr_tpu_torch.raster import tiled
+
+    reset_counts()
+    with band_calls() as rec:
+        ms, _, outs = _frames(lambda i: step(*args), SHARD_WARMUP + n,
+                              SHARD_WARMUP, pipelined=False)
+    launches = read_counts()
+    band = tiled.rasterize_direct.band_launches
+    steps = SHARD_WARMUP + n
+    ms = ms[SHARD_WARMUP:]
+    others = {k: v for k, v in launches.items() if k != "direct_raster"}
+    check(launches["direct_raster"] == b1_per_step * steps
+          and band == band_per_step * steps and not any(others.values()),
+          f"{tag}: launches {launches}, B1b {band} over {steps} steps "
+          f"(expected {b1_per_step} B1, {band_per_step} of them B1b, a "
+          f"step)")
+    res = {"ms": statistics.median(ms), "ms_all": ms, "ranks": ranks,
+           "steps": steps, "b1_per_step": b1_per_step,
+           "b1b_per_step": band_per_step, "launches": launches["direct_raster"],
+           "b1b_launches": band}
+    if band_per_step:
+        res.update(check_band_calls(
+            tag, rec.calls[:len(rec.calls) // steps]))
+    prof = _profile_frames(lambda: step(*args), n=1, kernel="direct_raster")
+    check(prof["kernel_launches"] == b1_per_step,
+          f"{tag}: the profiler saw {prof['kernel_launches']} B1 launches "
+          f"in a step, not {b1_per_step}")
+    res.update(busy_ms=prof["device_busy_ms"], b1_kernel_ms=prof["kernel_ms"],
+               kernels_per_step=prof["kernels_per_frame"])
+    log(f"{tag}: {ranks} ranks sharing one card (run one after another), "
+        f"median {res['ms']:.3f} ms a step by CUDA events over {n} steps "
+        f"after {SHARD_WARMUP} warm-up {[round(m, 3) for m in ms]}; B1 "
+        f"{b1_per_step} a step ({band_per_step} B1b), checked exactly; "
+        f"torch.profiler over one step: device busy {res['busy_ms']:.3f} ms "
+        f"in {res['kernels_per_step']:.0f} kernels, B1 (B1b included) "
+        f"{res['b1_kernel_ms']:.3f} ms"
+        + (f", B1b alone {res['b1b_kernel_ms']:.3f} ms (its launches "
+           f"replayed alone on their inputs, CUDA events)"
+           if band_per_step else ""))
+    return outs[-1], res
+
+
+def sharded_phase(geom, objects, lights, ctx, dev):
+    """Phase 27.  The sharded paths (lsr_tpu_torch.parallel.sharding) with
+    every rank on this card (devices=[cuda:0] * n), counts reset before
+    each: make_sharded_flagship at 1920x1088, 2048^2 sun map, its other
+    defaults (slots 128^2, faces 64^2, cull, pbr_mr), two cameras of the
+    orbit, on meshes (1, 1), (1, 4) and (2, 2), the frames of (1, 4) and
+    (2, 2) equal to (1, 1)'s bit for bit; make_sharded_render on (2, 2),
+    each camera equal to render_band of the whole frame bit for bit;
+    make_light_sharded_forward on (sp 2, lp 2) and (sp 1, lp 4) against (1,
+    1): at most 1 LSB, on under 2% of pixels; make_pipelined_render over 4
+    cameras, output i equal to camera i - 1's render_band bit for bit.
+    B1 launches a step are checked exactly (those of B1b too), the B1b
+    launches of each path's first step held against B1's full-frame
+    launch and the plain version (check_band_calls), and one more step
+    profiled (_sharded_run).  Returns the results by path and mesh."""
+    from lsr_tpu_torch.core.util import cdiv
+    from lsr_tpu_torch.frame import flagship_camera
+    from lsr_tpu_torch.lighting.local_shadows import plan_shadow_casters
+    from lsr_tpu_torch.parallel import sharding as shd
+
+    t_start = time.perf_counter()
+    w, h = SHARD_W, SHARD_H
+    cams = [flagship_camera(i, ctx, w, h, device=dev) for i in range(4)]
+    ctx0 = cams[0][1]
+    two = [cams[0][0], cams[2][0]]
+    vps = torch.stack([c.viewproj for c in two])
+    views = torch.stack([c.view for c in two])
+    proj, zn, zf = two[0].proj, two[0].zn, two[0].zf
+    sun = ctx.light_dir_ws
+    spots, points = plan_shadow_casters(lights)
+    n_spot, n_face = len(spots), 6 * len(points)
+    ranks = lambda n: [dev] * n  # noqa: E731
+    out = {}
+
+    frames = {}
+    for dp, sp in ((1, 1), (1, 4), (2, 2)):
+        mesh = shd.make_mesh(dp * sp, dp=dp, devices=ranks(dp * sp))
+        step = shd.make_sharded_flagship(mesh, geom, objects, ctx0, lights,
+                                         w, h, shadow_size=SHADOW)
+        # A rank: its slot slices and sun band; a camera's rank: occluders
+        # and its band.  B1b: every band of a split frame (sp > 1).
+        b1 = (dp * sp * (cdiv(n_spot, sp) + cdiv(n_face, sp) + 1)
+              + len(two) * sp * 2)
+        b1b = (dp * sp + len(two) * sp) if sp > 1 else 0
+        frames[(dp, sp)], out[f"flagship_{dp}x{sp}"] = _sharded_run(
+            f"sharded flagship (dp {dp}, sp {sp}) {w}x{h}, sun {SHADOW}^2",
+            dp * sp, step, (vps, views, proj, zn, zf, sun), b1, b1b)
+    ref = frames[(1, 1)]
+    check(ref.shape == (2, h, w, 3) and float(
+        (ref.int().sum(-1) > 0).float().mean()) > 0.5,
+        "sharded flagship: the (1, 1) frame is empty")
+    for key in ((1, 4), (2, 2)):
+        mis = int((frames[key] != ref).any(-1).sum())
+        log(f"sharded flagship {key} against (1, 1): {mis} px differ")
+        check(mis == 0, f"sharded flagship {key} differs from (1, 1)")
+
+    mesh22 = shd.make_mesh(4, dp=2, devices=ranks(4))
+    step = shd.make_sharded_render(mesh22, geom, objects, ctx0, w, h)
+    got, out["render_2x2"] = _sharded_run(
+        f"sharded render (dp 2, sp 2) {w}x{h}", 4, step, (vps, zn, zf), 4, 4)
+    for b, cam in enumerate(two):
+        ref_b = shd.render_band(geom, objects, cam.viewproj, zn, zf, ctx0, w,
+                                h, h, 0)
+        check(bool((got[b] == ref_b).all()) and bool(ref_b.any()),
+              f"sharded render camera {b} differs from render_band")
+
+    lp_frames = {}
+    for sp, lp in ((1, 1), (2, 2), (1, 4)):
+        mesh = shd.make_mesh_lp(sp * lp, sp=sp, lp=lp,
+                                devices=ranks(sp * lp))
+        step, _ = shd.make_light_sharded_forward(mesh, geom, objects, ctx0,
+                                                 lights, w, h)
+        lp_frames[(sp, lp)], out[f"light_sharded_{sp}x{lp}"] = _sharded_run(
+            f"light-sharded forward (sp {sp}, lp {lp}) {w}x{h}", sp * lp,
+            step, (two[0].viewproj, two[0].view, proj, zn, zf), sp * lp,
+            sp * lp if sp > 1 else 0)
+    for key in ((2, 2), (1, 4)):
+        d = (lp_frames[key].int() - lp_frames[(1, 1)].int()).abs()
+        share = float((d != 0).float().mean())
+        log(f"light-sharded {key} against (1, 1): max {int(d.max())} LSB "
+            f"on {share:.4%} of values")
+        check(int(d.max()) <= 1 and share < 0.02,
+              f"light-sharded {key} beyond 1 LSB / 2%")
+        out[f"light_sharded_{key[0]}x{key[1]}"].update(
+            max_lsb=int(d.max()), share_off=share)
+
+    mesh_pp = shd.make_mesh_pp(2, devices=ranks(2))
+    stream = shd.make_pipelined_render(mesh_pp, geom, objects, ctx0, w, h)
+    pvps = torch.stack([c.viewproj for c, _ in cams])
+    got, out["pipelined_pp2"] = _sharded_run(
+        f"pipelined render (pp 2) {w}x{h}, stream of {len(cams)}", 2,
+        stream, (pvps, zn, zf), len(cams), 0)
+    out["pipelined_pp2"]["ms_per_frame"] = \
+        out["pipelined_pp2"]["ms"] / (len(cams) - 1)
+    for i in range(1, len(cams)):
+        ref_i = shd.render_band(geom, objects, cams[i - 1][0].viewproj, zn,
+                                zf, ctx0, w, h, h, 0)
+        check(bool((got[i] == ref_i).all()),
+              f"pipelined output {i} differs from camera {i - 1}'s frame")
+    log(f"# phase 27 took {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
 def _stage_ms(fn, iters=5):
     """(host enqueue ms, device ms per call) of fn on warm inputs: the median
     wall time of one call, returning before the card is done, and CUDA
@@ -2412,16 +2829,16 @@ def _stage_ms(fn, iters=5):
     return statistics.median(host), cuda_ms(fn, iters)
 
 
-def _profile_frames(run, n=3):
-    """torch.profiler over n frames: device busy ms per frame (the sum of
-    its kernels' times), kernel launches per frame and the eight largest
-    device consumers."""
+def _profile_frames(run, n=3, kernel=None):
+    """torch.profiler over n frames, the device's activity alone: device
+    busy ms per frame (the sum of its kernels' times), kernel launches per
+    frame and the eight largest device consumers; given a kernel name, its
+    ms and launches per frame."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
@@ -2430,9 +2847,14 @@ def _profile_frames(run, n=3):
     t = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                           getattr(e, "self_cuda_time_total", 0.0))
     top = sorted(cuda, key=t, reverse=True)[:8]
-    return {"device_busy_ms": sum(t(e) for e in cuda) / 1e3 / n,
-            "kernels_per_frame": sum(e.count for e in cuda) / n,
-            "top": [(e.key[:60], round(t(e) / 1e3 / n, 3)) for e in top]}
+    out = {"device_busy_ms": sum(t(e) for e in cuda) / 1e3 / n,
+           "kernels_per_frame": sum(e.count for e in cuda) / n,
+           "top": [(e.key[:60], round(t(e) / 1e3 / n, 3)) for e in top]}
+    if kernel:
+        mine = [e for e in cuda if kernel in e.key]
+        out.update(kernel_ms=sum(t(e) for e in mine) / 1e3 / n,
+                   kernel_launches=sum(e.count for e in mine) / n)
+    return out
 
 
 def _stage_table(title, stages):
@@ -2804,6 +3226,12 @@ def main():
     compositions_cpu_phase(dev)
     log(f"# phases 23-25 took {time.perf_counter() - t_comp:.1f} s")
 
+    # Kernel B1's screen bands (B1b) and the sharded paths, each sharded
+    # path a main path of its own with its counts.
+    b1b = b1b_phase(geom, objects, ctx, st["setup"], cam0)
+    entry_log("direct_raster (y_offset, B1b)", b1b)
+    shard = sharded_phase(geom, objects, lights, ctx, dev)
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
     prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
                                   casters))
@@ -2828,6 +3256,9 @@ def main():
         f"step) ({card})")
     log("summary: render-path presets at {}x{}, median ms/frame {}".format(
         RP_W, RP_H, {k: f"{rp[k]['ms']:.3f}" for k in PRESETS}))
+    log("summary: sharded paths at {}x{}, all ranks on this card one after "
+        "another, median ms a step {}".format(
+            SHARD_W, SHARD_H, {k: f"{v['ms']:.3f}" for k, v in shard.items()}))
     log("summary: compositions, median ms/frame {} (forward_plus+full and "
         "forward_classic+ssao at {}x{}, Config #5 at {}x{}); post-stack "
         "sweep distinct images {}".format(
@@ -2887,6 +3318,16 @@ def main():
                   for k, v in comps.items()},
               highpoly_unsorted_kernel_ms=r1080["direct_raster"]["kernel_ms"],
               **{k: b1[k] for k in b1_keys}),
+        entry("direct_raster (y_offset, B1b)", "direct_raster.cu",
+              "lsr_tpu/raster/tiled.py:289 (y_offset: :60-79, :259-270, "
+              ":573, :589)", shard["flagship_1x4"]["b1b_launches"], b1b,
+              at=f"{WIDTH}x{HEIGHT} camera in {B1B_BANDS} bands, summed",
+              bands=b1b["bands"], sun_map=b1b["sun_map"],
+              sharded={k: {f: v[f] for f in (
+                  "ms", "ranks", "steps", "b1_per_step", "b1b_per_step",
+                  "launches", "b1b_launches", "busy_ms", "b1_kernel_ms",
+                  "b1b_kernel_ms", "b1b_stray_px") if f in v}
+                       for k, v in shard.items()}),
         entry("shade_fused", "shade_fused.cu",
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
               b2, planes=sub(planes["b2"], "kernel_ms_planeless",

@@ -130,6 +130,10 @@ def rotate_axis_angle(axis, angle, device=None):
     return m
 
 
+def rotate_x(a, device=None):
+    return rotate_axis_angle([1.0, 0.0, 0.0], a, device)
+
+
 def rotate_y(a, device=None):
     return rotate_axis_angle([0.0, 1.0, 0.0], a, device)
 

@@ -53,6 +53,22 @@
 // slot is bit for bit its own launch.  A 128-row list tile may span two
 // bands of 64 rows: it then lists both slots' supers, which the chunk test
 // skips.
+//
+// A screen band (variant B1b, y_offset; lsr_tpu tiled.py:60-79, :259-270)
+// renders global rows [y_offset, y_offset + height) of a frame of
+// full_height rows.  The grid, the 16x16 blocks and the 128-row list tiles
+// are the band's own (a block never leaves the band, whatever the offset,
+// so 1080 / 4 = 270-row bands need no alignment); the super lists were
+// built on those tiles from the global chunk boxes less y_offset; a pixel
+// evaluates coverage at its global row, bounded by full_height - 1, and a
+// block tests the chunk boxes at its global rows.  Every pixel thus sees
+// the candidates and arithmetic of the whole frame's launch, so the bands
+// concatenate to it bit for bit (off the stray sliver pixels a chunk box
+// misses, which the two launches' blocks may cover differently).  Measured
+// on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 26, kernel ms
+// by CUDA events): 0.022-0.055 ms a 270-row band of the 1080p camera,
+// 0.026-0.058 a 512-row band of the 2048^2 sun map; four bands take 1.5-2.8x
+// one whole-frame launch, each paying the walk's latency again.
 
 #include <cuda_runtime.h>
 
@@ -93,12 +109,16 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
                      int* __restrict__ tid_out,
                      int width, int height, int tiles_x, int scap,
                      float zn, float inv_range, float max_py,
-                     int depth_mode, int track_ids, int band_h) {
+                     int depth_mode, int track_ids, int band_h,
+                     int y_offset) {
   const int bx = blockIdx.x * lsr::kBlock, by = blockIdx.y * lsr::kBlock;
   // A band_h stack (B1a): the block's coverage rows are its rows inside its
   // band (band_h is a multiple of the block), bounded by band_h - 1; its
-  // lists and chunk bboxes stay in global rows.
-  const int band_off = band_h ? -(by / band_h) * band_h : 0;
+  // lists and chunk bboxes stay in global rows.  A screen band (B1b): the
+  // coverage rows are the global rows by + y_offset + ..., bounded by
+  // max_py = full_height - 1.  The two never combine (the launcher refuses
+  // it), so one of band_off and y_offset is 0.
+  const int band_off = band_h ? -(by / band_h) * band_h : y_offset;
   const lsr::WalkPixel p = lsr::walk_pixel(
       bx, by, width, band_off, band_h ? (float)(band_h - 1) : max_py);
   const bool in_img = p.x < width && p.y < height;
@@ -110,10 +130,13 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
   }
   const int t_init = t;
 
+  // The list tile is the band's own (lists built less y_offset); the
+  // chunk boxes are global, so the block tests them at its global rows.
   const int tile = (by / kTile) * tiles_x + bx / kTile;
+  const int gy = by + y_offset;
   const SuperSource src{slists + (size_t)tile * scap, chunk_bb, (float)bx,
-                        (float)(bx + lsr::kBlock - 1), (float)by,
-                        (float)(by + lsr::kBlock - 1)};
+                        (float)(bx + lsr::kBlock - 1), (float)gy,
+                        (float)(gy + lsr::kBlock - 1)};
   lsr::block_walk<false, kTieTid>(src, counts[tile] * kSuper, rec, p, 0, 0, 0,
                                   depth_mode, zn, inv_range, d, t);
   if (in_img) {
@@ -129,7 +152,10 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
 // started from.  tie_tid: an exact depth tie goes to the smaller id
 // (spatially sorted rows); else to the earlier row.  band_h > 0: a stack of
 // height / band_h slots (a multiple of 16, unsorted rows), each evaluated at
-// its band-local rows.
+// its band-local rows.  y_offset: the target is global rows [y_offset,
+// y_offset + height) of a frame whose last row center max_py bounds
+// (full_height - 1); slists are the band's.  band_h and y_offset together
+// are refused.
 extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  const void* slists, const void* counts,
                                  const void* depth_in, const void* tid_in,
@@ -137,8 +163,9 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  int width, int height, int tiles_x, int scap,
                                  float zn, float inv_range, float max_py,
                                  int depth_mode, int track_ids, int tie_tid,
-                                 int band_h, void* stream) {
-  if (band_h % lsr::kBlock || (band_h && tie_tid))
+                                 int band_h, int y_offset, void* stream) {
+  if (band_h % lsr::kBlock || (band_h && tie_tid) || (band_h && y_offset)
+      || y_offset < 0)
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = lsr::walk_smem_bytes(false);
   dim3 grid((width + lsr::kBlock - 1) / lsr::kBlock,
@@ -149,6 +176,6 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
       (const float4*)rec, (const float4*)chunk_bb, (const int*)slists,
       (const int*)counts, (const float*)depth_in, (const int*)tid_in,
       (float*)depth_out, (int*)tid_out, width, height, tiles_x, scap, zn,
-      inv_range, max_py, depth_mode, track_ids, band_h);
+      inv_range, max_py, depth_mode, track_ids, band_h, y_offset);
   return (int)cudaGetLastError();
 }

@@ -25,17 +25,23 @@ def depth_params(zn: float, zf: float):
 
 def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
                     zf: float, depth_init=None, tid_init=None,
-                    depth_mode: int = DEPTH_VIEWZ, chunk: int = 64):
+                    depth_mode: int = DEPTH_VIEWZ, chunk: int = 64,
+                    y_offset: int = 0, full_height: int | None = None):
     """Rasterize all triangles in `setup`; returns (depth01 (H, W) f32,
-    tid (H, W) i32)."""
+    tid (H, W) i32).  y_offset / full_height: the target is global rows
+    [y_offset, y_offset + height) of a full_height frame (a screen band);
+    each pixel is evaluated at its global row, so bands of one frame
+    concatenate to the whole frame bit for bit."""
     dev = setup.coef.device
     n = setup.coef.shape[0]
+    full_height = height if full_height is None else full_height
     zn_f, inv_range = depth_params(zn, zf)
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    py = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    py = (torch.arange(int(y_offset), int(y_offset) + height,
+                       dtype=torch.float32, device=dev) + 0.5)[:, None]
     # Pixel centers in the last row/column ((W-1)+0.5) are never covered:
     # the reference clips to screen coords [0, W-1] x [0, H-1].
-    ndc_mask = (px <= (width - 1)) & (py <= (height - 1))
+    ndc_mask = (px <= (width - 1)) & (py <= (full_height - 1))
     depth = torch.ones((height, width), dtype=torch.float32, device=dev) \
         if depth_init is None else depth_init.clone()
     tid = torch.full((height, width), -1, dtype=torch.int32, device=dev) \

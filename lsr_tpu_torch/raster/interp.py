@@ -83,11 +83,10 @@ def reconstruct_world_pos(depth01, view, proj, zn, zf, width: int,
 def interpolate_gbuffer(setup: TriSetup, depth01, tid, y_offset=0,
                         materials=None, want_face_normal: bool = True) -> GBuffer:
     """Gather per-pixel triangle data and interpolate attributes
-    perspective-correctly.  materials bakes per-pixel material records into
-    the same gather (GBuffer.mat)."""
-    if y_offset != 0:
-        raise NotImplementedError("interpolate_gbuffer: y_offset != 0 is "
-                                  "not ported yet")
+    perspective-correctly.  y_offset: the global row of this band's first
+    row (screen bands: a pixel's row center is its band row + 0.5 +
+    y_offset, lsr_tpu/raster/interp.py:123-145).  materials bakes
+    per-pixel material records into the same gather (GBuffer.mat)."""
     h, w = tid.shape
     dev = tid.device
     covered = tid >= 0
@@ -96,7 +95,8 @@ def interpolate_gbuffer(setup: TriSetup, depth01, tid, y_offset=0,
     coef = rec[..., 0:9]
     iw = rec[..., 9:12]
     px = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    py = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    py = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None] \
+        + float(y_offset)
     bc = torch.stack([coef[..., 3 * i] * px + coef[..., 3 * i + 1] * py
                       + coef[..., 3 * i + 2] for i in range(3)], dim=-1)
     bciw = bc * iw

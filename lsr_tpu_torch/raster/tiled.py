@@ -5,7 +5,8 @@
   16.  Per 128x128 screen tile, torch ops build the list of supers whose
   bbox overlaps the tile; the CUDA kernel (csrc/direct_raster.cu) walks its
   tile's list, one super a step, and skips chunks whose bbox misses its
-  16x16 pixel block.
+  16x16 pixel block.  It also renders a stack of slots (band_h, B1a) and
+  a screen band of a taller frame (y_offset, full_height, B1b).
 - B3 rasterize_tiled (_raster_kernel): per-tile triangle lists (bin
   triangles, capped at `cap`), walked in list order by
   csrc/tiled_raster.cu, which reads each listed row from the resident
@@ -142,16 +143,18 @@ def _chunk_bboxes(setup: TriSetup, n_pad: int, chunk: int):
 
 
 def _super_mask(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
-                tile_w: int, tile_h: int):
-    """(tiles, S) bool: super s overlaps tile t (super bbox from chunks)."""
+                tile_w: int, tile_h: int, y_offset: int = 0):
+    """(tiles, S) bool: super s overlaps tile t (super bbox from chunks).
+    The tiles are the target's: tile row ty holds global rows from
+    y_offset + ty * tile_h (lsr_tpu's _super_lists, tiled.py:259-270)."""
     dev = chunk_bb.device
     cps = _SUPER // chunk
     s = chunk_bb.shape[0] // cps
     sb = chunk_bb.reshape(s, cps, 4)
     sx0 = sb[..., 0].min(dim=1).values
-    sy0 = sb[..., 1].min(dim=1).values
+    sy0 = sb[..., 1].min(dim=1).values - float(y_offset)
     sx1 = sb[..., 2].max(dim=1).values
-    sy1 = sb[..., 3].max(dim=1).values
+    sy1 = sb[..., 3].max(dim=1).values - float(y_offset)
     tx = torch.arange(tiles_x, dtype=torch.float32, device=dev) * tile_w
     ty = torch.arange(tiles_y, dtype=torch.float32, device=dev) * tile_h
     ox = (sx0[None, :] <= tx[:, None] + (tile_w - 1)) & (sx1[None, :] >= tx[:, None])
@@ -160,15 +163,16 @@ def _super_mask(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
 
 
 def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
-                 tile_w: int, tile_h: int):
-    """Per-tile overlapping-super lists from chunk bboxes.
+                 tile_w: int, tile_h: int, y_offset: int = 0):
+    """Per-tile overlapping-super lists from chunk bboxes; y_offset as in
+    _super_mask.
 
     Lists are sized by the number of supers, the bound of every count, so
     no list is ever clamped (the TPU clamped them to fit its SMEM).
     Returns (lists (tiles, S) i32 -1 padded, counts (tiles,) i32,
     max_count () i32)."""
     return _mask_to_lists(_super_mask(chunk_bb, chunk, tiles_x, tiles_y,
-                                      tile_w, tile_h))
+                                      tile_w, tile_h, y_offset))
 
 
 def _mask_to_lists(mask):
@@ -221,13 +225,16 @@ def pack_direct_records(setup: TriSetup, spatial_sort: bool,
 
 def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
                    width, height, zn, zf, depth_mode, track_ids, tie_tid,
-                   stream, band_h=0):
+                   stream, band_h=0, y_offset=0, full_height=None):
     """Launch kernel B1 through the C interface; returns (depth, tid).
     depth_init / tid_init None: the kernel starts from a cleared target
     (depth 1, id -1) without reading one.  track_ids False: depth only,
     tid comes back as it went in.  tie_tid: exact depth ties go to the
     smaller id instead of the earlier row.  band_h: the stacked atlas's
-    band-local rows (rasterize_direct)."""
+    band-local rows; y_offset / full_height: a screen band (B1b) of a
+    full_height frame, slists built with the same y_offset
+    (rasterize_direct)."""
+    full_height = height if full_height is None else full_height
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -240,8 +247,8 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
         None if tid_init is None else tid_init.data_ptr(),
         depth.data_ptr(), tid.data_ptr(), width, height,
         cdiv(width, 128), slists.shape[1], zn_f, inv_range,
-        float(height - 1), depth_mode, int(track_ids), int(tie_tid),
-        int(band_h), stream)
+        float(full_height - 1), depth_mode, int(track_ids), int(tie_tid),
+        int(band_h), int(y_offset), stream)
     check_launch("lsr_direct_raster", err)
     return depth, tid
 
@@ -249,9 +256,9 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
 def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
                      zf: float, depth_init=None, tid_init=None,
                      depth_mode: int = DEPTH_VIEWZ, tile_h: int = 128,
-                     tile_w: int = 128, chunk: int = 16, y_offset=0,
-                     track_ids: bool = True, band_h: int = 0,
-                     spatial_sort: bool = False):
+                     tile_w: int = 128, chunk: int = 16, y_offset: int = 0,
+                     full_height: int | None = None, track_ids: bool = True,
+                     band_h: int = 0, spatial_sort: bool = False):
     """Listless tiled rasterization.  Returns (depth01 (H, W) f32,
     tid (H, W) i32, max_supers_per_tile () i32).
 
@@ -276,16 +283,34 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     16x16 pixel blocks must not straddle two bands (band_h a multiple of
     16), since only its chunk-bbox test keeps one slot's triangles out of
     the next slot's pixels.  spatial_sort is refused with it, as in
-    lsr_tpu (a sorted chunk would mix slots)."""
+    lsr_tpu (a sorted chunk would mix slots).
+
+    y_offset / full_height (kernel variant B1b, lsr_tpu/raster/tiled.py:
+    60-79, :259-270): the target is global rows [y_offset, y_offset +
+    height) of a full_height frame (default height), a screen band.
+    Coverage is evaluated at global rows and bounded by full_height - 1;
+    the super lists are built on the band's own 128-row tiles (global rows
+    less y_offset), the chunk boxes stay global.  The plain version is
+    rasterize_brute at the band's global rows, whose bands of any offset
+    concatenate to its whole frame bit for bit; the kernel's do too, but
+    on the stray pixels of sliver triangles (ROADMAP C8), which a block
+    grid off the frame's may keep or skip.  band_h with y_offset is
+    refused: no caller of lsr_tpu passes both."""
+    y_offset = int(y_offset)
+    full_height = height if full_height is None else int(full_height)
     if band_h and spatial_sort:
         raise ValueError("rasterize_direct: spatial_sort mixes the slots of "
                          "a band_h stack")
     if band_h and height % band_h:
         raise ValueError(f"rasterize_direct: height {height} is not a whole "
                          f"number of bands of {band_h} rows")
-    if y_offset != 0:
-        raise NotImplementedError("rasterize_direct: y_offset != 0 (screen "
-                                  "bands) is not ported yet")
+    if band_h and (y_offset or full_height != height):
+        raise ValueError("rasterize_direct: band_h (a slot stack) and a "
+                         "screen band (y_offset, full_height) do not combine")
+    if y_offset < 0 or y_offset + height > full_height:
+        raise ValueError(f"rasterize_direct: rows [{y_offset}, "
+                         f"{y_offset + height}) lie outside a frame of "
+                         f"{full_height} rows")
     if _SUPER % chunk:
         raise ValueError(f"rasterize_direct: chunk {chunk} must divide "
                          f"{_SUPER}")
@@ -296,12 +321,13 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
                                                    tile_w, tile_h)
     chunk_bb = _chunk_bboxes(sorted_setup, n_pad, _CHUNK)
     slists, counts, max_sup = _super_lists(
-        chunk_bb, _CHUNK, cdiv(width, 128), cdiv(height, 128), 128, 128)
+        chunk_bb, _CHUNK, cdiv(width, 128), cdiv(height, 128), 128, 128,
+        y_offset)
     if (tile_h, tile_w) != (128, 128):
         # A super's bbox spans all its 256 rows whatever the chunk size, so
         # the kernel's chunk bboxes give the caller's count too.
         max_sup = _super_mask(chunk_bb, _CHUNK, cdiv(width, tile_w),
-                              cdiv(height, tile_h), tile_w, tile_h
+                              cdiv(height, tile_h), tile_w, tile_h, y_offset
                               ).sum(dim=1, dtype=torch.int32).max()
 
     if dev.type == "cpu":
@@ -314,7 +340,9 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
             depth, tid = rasterize_brute(setup, width, height, zn, zf,
                                          depth_init=depth_init,
                                          tid_init=tid_init,
-                                         depth_mode=depth_mode)
+                                         depth_mode=depth_mode,
+                                         y_offset=y_offset,
+                                         full_height=full_height)
         return depth, (tid if track_ids else tid_init.clone()), max_sup
 
     _check_cuda_targets("rasterize_direct", dev, height, width, depth_init,
@@ -326,12 +354,15 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
     depth, tid = _direct_launch(
         load_kernels(), rec, chunk_bb, slists, counts, depth_init, tid_init,
         width, height, zn, zf, depth_mode, track_ids, spatial_sort,
-        _stream(dev), band_h)
+        _stream(dev), band_h, y_offset, full_height)
     rasterize_direct.launches += 1
+    if y_offset or full_height != height:
+        rasterize_direct.band_launches += 1      # of them, B1b's
     return depth, tid, max_sup
 
 
 rasterize_direct.launches = 0
+rasterize_direct.band_launches = 0
 
 
 def _banded_brute(setup: TriSetup, width: int, height: int, band_h: int,
@@ -663,7 +694,8 @@ def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
                            tid_init, width: int, height: int, zn: float,
                            zf: float, depth_mode: int = DEPTH_VIEWZ,
                            track_ids: bool = True, tie_tid: bool = False,
-                           block_cull: bool = False, band_h: int = 0):
+                           block_cull: bool = False, band_h: int = 0,
+                           y_offset: int = 0, full_height: int | None = None):
     """Plain model of kernel B1's walk on the kernel's own inputs: every
     128x128 tile walks its first counts[t] listed supers in list order and
     evaluates a triangle at a pixel only where its chunk's bbox meets the
@@ -674,10 +706,15 @@ def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
     against the block and against the warp's 8x4 rectangle rejects; the
     cull is exact, so the result is the same.  tie_tid as in _resolve.
     band_h: B1a, coverage at band-local rows, the chunk-bbox test at global
-    rows (band_h a multiple of 16, as the kernel needs)."""
+    rows (band_h a multiple of 16, as the kernel needs).  y_offset /
+    full_height: B1b, a screen band (slists built with the same y_offset):
+    the blocks and list tiles are the band's own, coverage and the
+    chunk-bbox test at global rows."""
     dev = rec.device
     zn_f, inv_range = depth_params(zn, zf)
-    fr = _TileFrame(width, height, 128, 128, 0, height, dev, band_h)
+    fr = _TileFrame(width, height, 128, 128, y_offset,
+                    height if full_height is None else full_height, dev,
+                    band_h)
     d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
     b, per_step = _KERNEL_BLOCK, _PLAIN_GROUP // _CHUNK
     for i in range(int(counts.max()) if counts.numel() else 0):

@@ -39,9 +39,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # rec, chunk_bb, slists, counts, depth_in, tid_in, depth_out, tid_out,
     # width, height, tiles_x, scap, zn, inv_range, max_py, depth_mode,
-    # track_ids, tie_tid, band_h, stream
+    # track_ids, tie_tid, band_h, y_offset, stream
     "lsr_direct_raster": (_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
+                          _P),
     # gbuf, tile_rec, counts, uniforms, vis, n_shadowed, out, width, height,
     # ph, pw, tiles_x, cap, sun_model, apow1, stream
     "lsr_shade_fused": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -328,6 +328,8 @@ def test_port_imports_no_jax():
         "import lsr_tpu_torch.passes.standard_passes\n"
         "import lsr_tpu_torch.raster.tiled, lsr_tpu_torch.core.frame\n"
         "import lsr_tpu_torch.utils.b2_variants\n"
+        "import lsr_tpu_torch.parallel.sharding\n"
+        "import lsr_tpu_torch.parallel.dryrun\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'lsr_tpu' or m.startswith('lsr_tpu.')]\n"
         "assert not bad, bad\n"
@@ -339,7 +341,8 @@ def test_port_imports_no_jax():
 
 def test_kernel_wrappers_do_not_fall_back(setups):
     """A wrapper runs its plain version only for CPU tensors: any other
-    device launches the kernel or raises (here a meta tensor raises)."""
+    device launches the kernel or raises (here a meta tensor raises), the
+    screen-band branch (B1b) too."""
     from lsr_tpu_torch.raster.setup import TriSetup
     from lsr_tpu_torch.raster.tiled import rasterize_direct
 
@@ -348,8 +351,9 @@ def test_kernel_wrappers_do_not_fall_back(setups):
                        for f in __import__("dataclasses").fields(TriSetup)})
     with pytest.raises(ValueError, match="unsupported device"):
         rasterize_direct(meta, W, H, 0.1, 100.0)
-    with pytest.raises(NotImplementedError, match="y_offset"):
-        rasterize_direct(tsu, W, H, 0.1, 100.0, y_offset=64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rasterize_direct(meta, W, H // 2, 0.1, 100.0, y_offset=H // 2,
+                         full_height=H)
 
 
 def test_kernel_resources_reads_the_ptxas_log():
