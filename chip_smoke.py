@@ -177,6 +177,21 @@ Then kernel B1's screen bands and the multi-device paths
     i - 1's render_band.  Median ms a step of each mesh by CUDA events
     (its ranks run one after another on the card).  About 20-25 s for 26-27.
 
+28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
+    stand-in for the monkey), each at its own size, counts reset before
+    each: hello_blinn_phong, hello_shading_models, hello_water,
+    hello_shadows, hello_ibl_skybox, hello_light_types, hello_local_shadows
+    ("map" and "packed" atlas), hello_normal_mapping, hello_shaders.  The
+    launches of B1 / B1a / B2 / B3 checked exactly against the count read
+    from the demos' code; out/torch_hello_*.png and the covered pixels; ms
+    per frame (CUDA events, median of 3 after 1 warm-up, [min, max]); B1
+    on hello_water's mirrored CULL_FRONT view against rasterize_brute
+    (equal off stray sliver pixels, C8, counted), B3 on hello_shadows'
+    800x600 camera setup against its plain version bit for bit, B2 on each
+    demo's own lighting call (IBL and env probes; surface maps; area
+    lights; the local-shadow planes) within 1e-4; then each demo at
+    160x120 on the CPU and on the card under phase 3's contract.
+
 14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
     previous stage's outputs (host enqueue ms, device ms by CUDA events),
@@ -1724,6 +1739,37 @@ class shade_calls:
         self._mod.shade_fused = self._orig
 
 
+class module_calls:
+    """Context manager recording every call of module.<name> while it is
+    open: .calls [(its arguments by name, defaults filled in; its
+    result)].  A module without the name records nothing."""
+
+    def __init__(self, module, name):
+        self._mod, self._name, self.calls = module, name, []
+
+    def __enter__(self):
+        import inspect
+
+        self._orig = getattr(self._mod, self._name, None)
+        if self._orig is None:
+            return self
+        sig = inspect.signature(self._orig)
+
+        def record(*a, **k):
+            out = self._orig(*a, **k)
+            args = sig.bind(*a, **k)
+            args.apply_defaults()
+            self.calls.append((dict(args.arguments), out))
+            return out
+
+        setattr(self._mod, self._name, record)
+        return self
+
+    def __exit__(self, *exc):
+        if self._orig is not None:
+            setattr(self._mod, self._name, self._orig)
+
+
 def listed_record_bytes(counts, cap):
     """The records a binned light walk must read: its listed entries (32
     f32 each) and its counts (i32); the zero slots past a count are not
@@ -2578,33 +2624,6 @@ def b1b_phase(geom, objects, ctx, setup, cam):
                 sun_map=dict(sun_res, bands=sun_rows))
 
 
-class band_calls:
-    """Context manager recording every rasterize_direct call of the
-    sharded paths (parallel.sharding) while it is open: .calls [(its
-    arguments by name, defaults filled in; its outputs)]."""
-
-    def __enter__(self):
-        import inspect
-
-        from lsr_tpu_torch.parallel import sharding as shd
-
-        self._mod, self._orig, self.calls = shd, shd.rasterize_direct, []
-        sig = inspect.signature(self._orig)
-
-        def record(*a, **k):
-            out = self._orig(*a, **k)
-            args = sig.bind(*a, **k)
-            args.apply_defaults()
-            self.calls.append((dict(args.arguments), out))
-            return out
-
-        shd.rasterize_direct = record
-        return self
-
-    def __exit__(self, *exc):
-        self._mod.rasterize_direct = self._orig
-
-
 def _same_raster_inputs(a, b):
     keys = ("width", "height", "zn", "zf", "y_offset", "full_height",
             "depth_mode", "track_ids", "spatial_sort")
@@ -2614,7 +2633,8 @@ def _same_raster_inputs(a, b):
 
 
 def check_band_calls(tag, calls):
-    """The B1b launches of one sharded step (band_calls), each against B1's
+    """The B1b launches of one sharded step (module_calls of
+    parallel.sharding.rasterize_direct), each against B1's
     full-frame launch on its inputs, its rows, bit for bit, and against
     its plain version at its global rows, bit for bit but on stray sliver
     pixels (_b1b_band with strays; the flagship's sun map has one), each
@@ -2672,7 +2692,9 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
     from lsr_tpu_torch.raster import tiled
 
     reset_counts()
-    with band_calls() as rec:
+    from lsr_tpu_torch.parallel import sharding
+
+    with module_calls(sharding, "rasterize_direct") as rec:
         ms, _, outs = _frames(lambda i: step(*args), SHARD_WARMUP + n,
                               SHARD_WARMUP, pipelined=False)
     launches = read_counts()
@@ -3095,6 +3117,195 @@ def highpoly_profile_phase(geom, objects, lights, ctx, dev):
                     geom, objects, cam, w, h))}
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: lsr_tpu's demo entry points (lsr_tpu_torch.demos)
+# ---------------------------------------------------------------------------
+
+# Each demo at its own size (lsr_tpu's demos/hello_*.py), the variant's
+# render() keywords, and the cut of the card-against-CPU check at
+# DEMO_SMALL (map sizes cut alike on both sides; build_scene keywords).
+DEMO_RUNS = (
+    ("hello_blinn_phong", (800, 600), {}),
+    ("hello_shading_models", (256, 256), {}),
+    ("hello_water", (800, 600), {}),
+    ("hello_shadows", (800, 600), {}),
+    ("hello_ibl_skybox", (800, 600), {}),
+    ("hello_light_types", (640, 360), {}),
+    ("hello_local_shadows", (640, 480), {}),
+    ("hello_local_shadows", (640, 480), {"atlas": "packed"}),
+    ("hello_normal_mapping", (800, 600), {}),
+    ("hello_shaders", (320, 320), {}),
+)
+DEMO_SMALL = (160, 120)
+DEMO_SMALL_RENDER = {"hello_shadows": {"shadow_size": 256},
+                     "hello_local_shadows": {"map_size": 64}}
+DEMO_SMALL_SCENE = {"hello_ibl_skybox": {"sky_size": 64}}
+DEMO_WARMUP, DEMO_FRAMES = 1, 3
+
+
+def demo_expected(name, scene, kw):
+    """The kernel launches of one render() of a demo, read from its code:
+    B1 for each camera, occluder, sun-map and atlas-slot raster ("map":
+    one a slot; "packed": one B1a a stack), B3 for hello_shadows' camera,
+    B2 for each forward+ lighting."""
+    b1 = {"hello_blinn_phong": 1, "hello_shading_models": 9,
+          "hello_water": 2, "hello_shadows": 2, "hello_ibl_skybox": 1,
+          "hello_light_types": 1, "hello_normal_mapping": 1,
+          "hello_shaders": 0}.get(name)
+    b1a = 0
+    if name == "hello_local_shadows":
+        spots, points = scene["casters"]
+        if kw.get("atlas") == "packed":
+            b1a = int(bool(spots)) + int(bool(points))
+            b1 = 1 + b1a
+        else:
+            b1 = 1 + len(spots) + 6 * len(points)
+    b2 = int(name in ("hello_ibl_skybox", "hello_light_types",
+                      "hello_local_shadows", "hello_normal_mapping"))
+    return {"direct_raster": b1, "direct_raster_band_h": b1a,
+            "tiled_raster": int(name == "hello_shadows"),
+            "shade_fused": b2, "chunklist_raster": 0, "resolve_fused": 0,
+            "fplus_accumulate": 0}
+
+
+def _demo_contract(tag, cpu, card, need):
+    """Phase 3's contract, card against CPU on one demo's small frame:
+    tids equal on >= 99.5% of covered pixels, HDR within 1e-4 on >= 99.9%
+    of agreeing pixels, LDR within 1 LSB on >= 99.9% (the parts `need`
+    names: "tid", "hdr", "ldr")."""
+    res = {}
+    if "tid" in need:
+        t_c, t_g = cpu["gb"].tri_id, card["gb"].tri_id.cpu()
+        same = t_c == t_g
+        res["tid_match"] = float((same | (t_c < 0)).float().mean())
+    if "hdr" in need:
+        err = (cpu["hdr"] - card["hdr"].cpu()).abs().amax(-1)
+        res["hdr_share"] = float((err[same] <= 1e-4).float().mean())
+        res["hdr_max_abs"] = float(err[same].max())
+    d = (cpu["ldr"].int() - card["ldr"].cpu().int()).abs()
+    res["ldr_share"] = float((d.amax(-1) <= 1).float().mean())
+    log(f"demo {tag} card vs CPU at {DEMO_SMALL[0]}x{DEMO_SMALL[1]}: {res}")
+    check(res.get("tid_match", 1.0) >= 0.995
+          and res.get("hdr_share", 1.0) >= 0.999
+          and res["ldr_share"] >= 0.999, f"demo {tag}: card differs from CPU")
+    return res
+
+
+def _demo_holds(name, dev, out, rd, rt, sc):
+    """The kernel launches of a demo's render on input combinations no
+    earlier phase gives them, each against its plain version on the same
+    inputs: B1 on hello_water's mirrored CULL_FRONT reflection view
+    (rasterize_brute; depth and tid equal but on stray sliver pixels, C8,
+    counted), B3 on hello_shadows' camera setup (rasterize_tiled_plain on
+    the same lists, bit for bit) and B2 on each forward+ call (within
+    B2_TOL, pbr_mr and blinn_phong)."""
+    from lsr_tpu_torch.raster.brute import rasterize_brute
+
+    res = {}
+    if name == "hello_water":
+        a, (d_k, t_k, _) = rd.calls[0]
+        d_p, t_p = rasterize_brute(a["setup"], a["width"], a["height"],
+                                   a["zn"], a["zf"])
+        bb = a["setup"].bbox
+        res["b1_mirrored_px_differ"] = same_but_strays(
+            "demo hello_water reflection view (B1 vs brute, CULL_FRONT)",
+            d_k, t_k, bb, d_p, t_p, bb, True)
+        res["b1_mirrored_covered"] = int((t_p >= 0).sum())
+    if name == "hello_shadows":
+        a, (d_k, t_k, max_bin) = rt.calls[0]
+        w, h = a["width"], a["height"]
+        d0, t0 = targets(w, h, dev)
+        _b3_vs_plain(f"demo hello_shadows {w}x{h} camera", a["setup"], w, h,
+                     a["zn"], a["zf"], a["tile_h"], a["chunk"], a["cap"],
+                     a["fit_cap"], d0, t0)
+        res["b3_max_bin"], res["b3_cap"] = int(max_bin), a["cap"]
+    if sc.calls:
+        res["b2_max_abs_err"] = b2b_check(
+            f"demo {name}", sc.calls[0], out["gb"].depth01, dev,
+            timed=False)["max_abs_err"]
+    return res
+
+
+def demos_phase(dev):
+    """Phase 28.  Each of lsr_tpu's demos through its port
+    (lsr_tpu_torch.demos.hello_*, the UV-sphere stand-in) at its own size
+    on the card, counts reset before each: the exact launches of B1 / B1a
+    / B2 / B3 (demo_expected), out/torch_hello_*.png and its covered
+    pixels, ms per frame (CUDA events, median of DEMO_FRAMES after
+    DEMO_WARMUP, [min, max]); the launches on new input combinations
+    against their plain versions (_demo_holds); then the same demo at
+    DEMO_SMALL on the CPU and on the card under phase 3's contract."""
+    import importlib
+
+    from lsr_tpu_torch.demos.common import stand_in_mesh, write_frame
+    from lsr_tpu_torch.lighting import local_shadows as lsm
+
+    t_start = time.perf_counter()
+    mesh = stand_in_mesh()
+    results = {}
+    for name, (w, h), kw in DEMO_RUNS:
+        tag = name + "".join(f" {k}={v}" for k, v in kw.items())
+        demo = importlib.import_module(f"lsr_tpu_torch.demos.{name}")
+        t0 = time.perf_counter()
+        scene = demo.build_scene(mesh, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_counts()
+        with shade_calls() as sc, \
+                module_calls(demo, "rasterize_direct") as rd, \
+                module_calls(demo, "rasterize_tiled") as rt, \
+                module_calls(lsm, "rasterize_direct") as atlas:
+            out = demo.render(scene, w, h, **kw)
+            torch.cuda.synchronize()
+        launches = read_counts()
+        launches["direct_raster_band_h"] = sum(
+            1 for a, _ in atlas.calls if a["band_h"] > 0)
+        want = demo_expected(name, scene, kw)
+        log(f"demo {tag} {w}x{h}: launches {launches} (expected {want})")
+        check(launches == want, f"demo {tag}: launches {launches}, "
+              f"expected {want}")
+        png = f"torch_{name}{'_' + kw['atlas'] if 'atlas' in kw else ''}.png"
+        write_frame("out", png, out["ldr"])
+        gb = out.get("gb")
+        n_cov = int(gb.covered.sum()) if gb is not None else None
+        check(bool(torch.isfinite(out["hdr"]).all()) if "hdr" in out
+              else True, f"demo {tag}: HDR not finite")
+
+        ms = []
+        for i in range(DEMO_WARMUP + DEMO_FRAMES):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            demo.render(scene, w, h, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= DEMO_WARMUP:
+                ms.append(e0.elapsed_time(e1))
+        res = {"size": f"{w}x{h}", "launches": launches,
+               "covered": n_cov, "png": f"out/{png}",
+               "ms": statistics.median(ms), "ms_min": min(ms),
+               "ms_max": max(ms), "build_scene_s": build_s}
+        res.update(_demo_holds(name, dev, out, rd, rt, sc))
+
+        sw, sh = DEMO_SMALL
+        small = {}
+        for d in ("cpu", dev):
+            sc_d = demo.build_scene(mesh, d, **DEMO_SMALL_SCENE.get(name,
+                                                                    {}))
+            small[str(d)] = demo.render(sc_d, sw, sh, **kw,
+                                        **DEMO_SMALL_RENDER.get(name, {}))
+        need = ("ldr",) if name == "hello_shaders" else (
+            ("tid", "ldr") if name in ("hello_blinn_phong",
+                                       "hello_shading_models")
+            else ("tid", "hdr", "ldr"))
+        res["card_vs_cpu"] = _demo_contract(tag, small["cpu"],
+                                            small[str(dev)], need)
+        log(f"demo {tag}: {res}")
+        results[tag] = res
+    log(f"# phase 28 took {time.perf_counter() - t_start:.1f} s")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3232,6 +3443,10 @@ def main():
     entry_log("direct_raster (y_offset, B1b)", b1b)
     shard = sharded_phase(geom, objects, lights, ctx, dev)
 
+    # lsr_tpu's demo entry points, each a main path of its own with its
+    # counts.
+    demos = demos_phase(dev)
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
     prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
                                   casters))
@@ -3259,6 +3474,9 @@ def main():
     log("summary: sharded paths at {}x{}, all ranks on this card one after "
         "another, median ms a step {}".format(
             SHARD_W, SHARD_H, {k: f"{v['ms']:.3f}" for k, v in shard.items()}))
+    log("summary: demos, median ms/frame {}".format(
+        {k: f"{v['ms']:.3f} [{v['ms_min']:.3f}, {v['ms_max']:.3f}]"
+         for k, v in demos.items()}))
     log("summary: compositions, median ms/frame {} (forward_plus+full and "
         "forward_classic+ssao at {}x{}, Config #5 at {}x{}); post-stack "
         "sweep distinct images {}".format(
@@ -3301,6 +3519,12 @@ def main():
                    "b1_per_frame", "launches", "pass_ms")
     compositions = {k: {f: v[f] for f in preset_keys}
                     for k, v in comps.items()}
+
+    def on_demos(kernel, *more):
+        return {k: {"launches": v["launches"][kernel], "size": v["size"],
+                    "ms": v["ms"],
+                    **{m: v[m] for m in more if m in v}}
+                for k, v in demos.items() if v["launches"][kernel]}
     kernels = [
         entry("direct_raster", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
@@ -3317,6 +3541,9 @@ def main():
                   k: v["launches"]["direct_raster"]
                   for k, v in comps.items()},
               highpoly_unsorted_kernel_ms=r1080["direct_raster"]["kernel_ms"],
+              launches_on_demos=on_demos("direct_raster",
+                                         "b1_mirrored_px_differ"),
+              band_h_launches_on_demos=on_demos("direct_raster_band_h"),
               **{k: b1[k] for k in b1_keys}),
         entry("direct_raster (y_offset, B1b)", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289 (y_offset: :60-79, :259-270, "
@@ -3341,9 +3568,12 @@ def main():
               presets={k: {f: rp[k][f] for f in preset_keys}
                        for k in PRESETS},
               compositions=compositions,
+              launches_on_demos=on_demos("shade_fused", "b2_max_abs_err"),
               frames=frames, **{k: b2[k] for k in walk_keys}),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
               hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,
+              launches_on_demos=on_demos("tiled_raster", "b3_max_bin",
+                                         "b3_cap"),
               **{k: r1080["tiled_raster"][k] for k in pair_keys}),
         entry("chunklist_raster", "chunklist_raster.cu",
               "lsr_tpu/raster/tiled.py:697", e2e_launches["chunklist_raster"],

@@ -1,5 +1,6 @@
-"""Directional-light camera fitting for the sun shadow map (port of
-lsr_tpu/camera/light_camera.py:build_dir_light_camera, :16-58).
+"""Directional-light camera fitting for the sun shadow map and a follow
+camera rig (port of lsr_tpu/camera/light_camera.py: build_dir_light_camera
+and follow_camera_eye, :16-74).
 
 An orthographic LH frustum fitted around the shadow casters' AABB as seen
 along the light, with its xy window snapped to whole shadow texels.
@@ -58,3 +59,22 @@ def build_dir_light_camera(scene_min, scene_max, light_dir_ws,
     proj = m3.ortho_lh_no(vmin_xy[0], vmax_xy[0], vmin_xy[1], vmax_xy[1], zn,
                           zf, device=dev)
     return view, proj, m3.matmul4(proj, view)
+
+
+def follow_camera_eye(target_pos, target_yaw, distance: float = 5.0,
+                      height: float = 2.0, lag: float = 1.0, prev_eye=None,
+                      device=None):
+    """Third-person follow rig: the eye sits `distance` behind the target's
+    facing direction at `height`, optionally lagged toward the previous eye
+    (lag in [0, 1], 1 = no lag)."""
+    target_pos = torch.as_tensor(target_pos, dtype=torch.float32,
+                                 device=device)
+    dev = target_pos.device
+    yaw = torch.as_tensor(target_yaw, dtype=torch.float32, device=dev)
+    fwd = torch.stack([torch.sin(yaw), torch.zeros_like(yaw), torch.cos(yaw)])
+    desired = target_pos - fwd * distance + torch.tensor(
+        [0.0, height, 0.0], dtype=torch.float32, device=dev)
+    if prev_eye is None:
+        return desired
+    prev_eye = torch.as_tensor(prev_eye, dtype=torch.float32, device=dev)
+    return prev_eye + (desired - prev_eye) * min(max(lag, 0.0), 1.0)

@@ -6,7 +6,9 @@ names) without importing jax.  The parity tests use it so both packages
 render exactly the same geometry, lights, materials, texture and camera;
 frame_params, compact_stats, batch, shadow_context, local_shadow_maps and
 ibl carry a FrameParams, a CompactStats, a concat_scene batch, a sun
-ShadowContext, a local shadow atlas and the IBL maps the same way.
+ShadowContext, a local shadow atlas and the IBL maps the same way; cubemap
+and texture_array a loaded cubemap and a ResourceRegistry's texture
+stack (or any texture array).
 """
 
 from __future__ import annotations
@@ -168,6 +170,22 @@ def ibl(maps, device) -> tuple:
     irr, pref = maps
     return (_tensor(np.asarray(irr), device),
             tuple(_tensor(np.asarray(m), device) for m in pref))
+
+
+def cubemap(faces, device) -> torch.Tensor:
+    """A (6, S, S, 3) cubemap (lsr_tpu's load_cubemap result or a baked
+    sky) as an f32 tensor on `device`."""
+    return _tensor(np.asarray(faces), device)
+
+
+def texture_array(textures, device):
+    """A texture stack (NT, S, S, 3) as an f32 tensor on `device`:
+    lsr_tpu's ResourceRegistry (its texture_array(); None when it holds no
+    texture) or the array itself."""
+    if hasattr(textures, "texture_array"):
+        textures = textures.texture_array()
+    return None if textures is None else _tensor(np.asarray(textures),
+                                                 device)
 
 
 def camera_state(camera, device) -> CameraState:

@@ -71,8 +71,10 @@ def normalize(v, eps: float = 1e-12):
 
 
 def perspective_lh_no(fovy, aspect, znear, zfar, device=None):
-    """Left-handed perspective, NDC z in [-1, 1] (glm::perspectiveLH_NO)."""
-    t = torch.tan(_f32(fovy, device) * 0.5)
+    """Left-handed perspective, NDC z in [-1, 1] (glm::perspectiveLH_NO).
+    tan(fovy / 2) is taken in float64 and rounded once to float32, so the
+    CPU and the card give the same, correctly rounded value."""
+    t = torch.tan((_f32(fovy, device) * 0.5).double()).float()
     m = torch.zeros((4, 4), dtype=torch.float32, device=device)
     m[0, 0] = 1.0 / (aspect * t)
     m[1, 1] = 1.0 / t
@@ -138,6 +140,36 @@ def rotate_y(a, device=None):
     return rotate_axis_angle([0.0, 1.0, 0.0], a, device)
 
 
+def rotate_z(a, device=None):
+    return rotate_axis_angle([0.0, 0.0, 1.0], a, device)
+
+
+def scale(s, device=None):
+    """Scale matrix; s is a scalar or a 3-vector."""
+    s = torch.broadcast_to(_f32(s, device), (3,))
+    m = torch.eye(4, dtype=torch.float32, device=s.device)
+    m[[0, 1, 2], [0, 1, 2]] = s
+    return m
+
+
+def compose_trs(translation, rotation, scale_v, device=None):
+    """Model matrix T @ R @ S (rotation: a 4x4 or 3x3 rotation matrix)."""
+    rotation = _f32(rotation, device)
+    dev = rotation.device
+    r4 = rotation
+    if rotation.shape == (3, 3):
+        r4 = torch.eye(4, dtype=torch.float32, device=dev)
+        r4[:3, :3] = rotation
+    return matmul4(matmul4(translate(translation, dev), r4),
+                   scale(scale_v, dev))
+
+
+def euler_xyz(rx, ry, rz, device=None):
+    """R = Rz @ Ry @ Rx (glm::rotate applied about Z, then Y, then X)."""
+    return matmul4(matmul4(rotate_z(rz, device), rotate_y(ry, device)),
+                   rotate_x(rx, device))
+
+
 def normal_matrix(model):
     """Inverse-transpose of the upper-left 3x3, with degenerate-det guard
     (|det| <= 1e-8 keeps the raw 3x3, as lsr_tpu's normal_matrix)."""
@@ -161,6 +193,34 @@ def transform_points_h(m, pts):
 def transform_points(m, pts):
     """Affine transform of (..., N, 3) points; drops w (assumes affine m)."""
     return transform_points_h(m, pts)[..., :3]
+
+
+def transform_dirs(m, dirs):
+    """Direction vectors (..., 3) through the upper-left 3x3 of m, each
+    component summed left to right."""
+    p = _f32(dirs, m.device)[..., None, :] * m[:3, :3]
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def project_to_ndc(clip, eps: float = 1e-12):
+    """Perspective divide: (..., 4) clip -> (..., 3) NDC, |w| kept >= eps
+    with w's sign."""
+    w = clip[..., 3:4]
+    guard = torch.where(w < 0, torch.full_like(w, -eps), torch.full_like(w, eps))
+    return clip[..., :3] / torch.where(torch.abs(w) < eps, guard, w)
+
+
+def ndc_to_screen(ndc_xy, width, height):
+    """NDC [-1, 1] -> canvas pixel coordinates, bottom-left origin:
+    (ndc * 0.5 + 0.5) * (W - 1, H - 1) (rasterizer.hpp:267-269)."""
+    wh = torch.tensor([width - 1, height - 1], dtype=torch.float32,
+                      device=ndc_xy.device)
+    return (ndc_xy * 0.5 + 0.5) * wh
+
+
+def reflect(i, n):
+    """GLM reflect: i - 2 dot(n, i) n (i points toward the surface)."""
+    return i - 2.0 * dot3(n, i)[..., None] * n
 
 
 def matmul4(a, b):

@@ -1,6 +1,7 @@
 """Occlusion culling: a low-resolution occluder depth raster and HiZ tests of
 AABB screen rectangles (port of lsr_tpu/geometry/occlusion.py:
-render_occluder_depth, build_hiz_pyramid, occlusion_cull_aabbs, :29-145).
+render_occluder_depth, build_hiz_pyramid, occlusion_cull_aabbs and
+run_occlusion_pass, :29-161).
 
 The occluders go through the depth-only setup with back-face culling and
 kernel B1 at the proxy resolution (320x180 in the flagship frame), view-z
@@ -100,3 +101,21 @@ def occlusion_cull_aabbs(depth, viewproj, wmins, wmaxs, zn, zf,
 
     occluded = occ_max < obj_z01 - 1e-4
     return ~occluded | near_cross | degenerate
+
+
+def run_occlusion_pass(geom, objects, viewproj, zn, zf, frustum_mask,
+                       width: int = 320, height: int = 180,
+                       occluder_mask=None, levels: int = 8):
+    """The whole software occlusion pass (run_software_occlusion_pass,
+    culling_software.hpp:253): render the occluders (frustum_mask, or
+    occluder_mask) at width x height, test every object's world AABB, and
+    return frustum_mask AND the test's mask."""
+    from lsr_tpu_torch.scene.scene import object_world_aabbs
+
+    occ_mask = frustum_mask if occluder_mask is None else occluder_mask
+    depth = render_occluder_depth(geom, objects, viewproj, zn, zf, width,
+                                  height, occluder_mask=occ_mask)
+    wmin, wmax = object_world_aabbs(objects)
+    vis = occlusion_cull_aabbs(depth, viewproj, wmin, wmax, zn, zf,
+                               levels=levels)
+    return frustum_mask & vis

@@ -1,7 +1,12 @@
-"""Analytic culling volumes as batched support functions (port of the parts
-of lsr_tpu/geometry/support_shapes.py that light binning uses:
-light_culling_shapes, transform_shapes, support_max_dot and the record
-constructors they call).
+"""Analytic culling volumes as batched support functions (port of
+lsr_tpu/geometry/support_shapes.py: the record constructors,
+transform_shapes, support_max_dot, classify_support_shapes,
+classify_convex_vertices and light_culling_shapes).
+
+Every shape kind packs into one fixed-width record and all kinds are
+evaluated branchlessly, so a batch of shapes classifies against a convex
+cell (planes with inside = dot(n, x) + d >= 0) in a few tensor ops
+(culling_query.hpp:35-173).
 
 Record layout (B, 24) f32:
   [0] kind | [1:4] p0 | [4:7] p1 | [7:10] ax | [10:13] ay | [13:16] az |
@@ -26,6 +31,11 @@ KIND_CONE_FRUSTUM = 6.0
 
 REC_WIDTH = 24
 
+# CullClass (culling_query.hpp:22)
+CULL_OUTSIDE = 0
+CULL_INTERSECTING = 1
+CULL_INSIDE = 2
+
 
 def _record(b, kind, device, **cols):
     """(B, 24) record of one kind; cols map a start lane to (B,) or (B, k)."""
@@ -46,6 +56,16 @@ def make_spheres(centers, radii):
                    c1=centers, c19=radii)
 
 
+def _as_f32(x):
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def make_aabbs(mins, maxs):
+    mins = _as_f32(mins)
+    return _record(mins.shape[0], KIND_AABB, mins.device, c1=mins,
+                   c4=_as_f32(maxs).to(mins.device))
+
+
 def make_obbs(centers, axis_x, axis_y, axis_z, half_extents):
     return _record(centers.shape[0], KIND_OBB, centers.device, c1=centers,
                    c7=axis_x, c10=axis_y, c13=axis_z, c16=half_extents)
@@ -59,6 +79,23 @@ def make_cones(apexes, axes, heights, radii):
     """axis: normalized apex -> base."""
     return _record(apexes.shape[0], KIND_CONE, apexes.device, c1=apexes,
                    c7=axes, c19=radii, c20=heights)
+
+
+def make_cylinders(centers, axes, half_heights, radii):
+    centers = _as_f32(centers)
+    d = centers.device
+    return _record(centers.shape[0], KIND_CYLINDER, d, c1=centers,
+                   c7=_as_f32(axes).to(d), c19=_as_f32(radii).to(d),
+                   c21=_as_f32(half_heights).to(d))
+
+
+def make_cone_frustums(apexes, axes, near_d, far_d, near_r, far_r):
+    apexes = _as_f32(apexes)
+    d = apexes.device
+    return _record(apexes.shape[0], KIND_CONE_FRUSTUM, d, c1=apexes,
+                   c7=_as_f32(axes).to(d), c20=_as_f32(near_d).to(d),
+                   c21=_as_f32(far_d).to(d), c22=_as_f32(near_r).to(d),
+                   c23=_as_f32(far_r).to(d))
 
 
 def transform_shapes(rec, rot, trans):
@@ -121,6 +158,36 @@ def support_max_dot(rec, dirs):
                                                         torch.where(kind == KIND_CYLINDER,
                                                                     cylinder,
                                                                     cone_frustum))))))
+
+
+def _cull_class(outside, inside):
+    return torch.where(outside, CULL_OUTSIDE,
+                       torch.where(inside, CULL_INSIDE,
+                                   CULL_INTERSECTING)).to(torch.int32)
+
+
+def classify_support_shapes(rec, planes, outside_eps=1e-5, inside_eps=1e-5):
+    """CullClass (B,) int32 of each shape against ONE convex cell
+    (classify_support_shape, culling_query.hpp:152-173); planes (P, 4)."""
+    n = planes[:, :3]
+    dd = planes[:, 3][None, :]
+    max_d = support_max_dot(rec, n) + dd                   # (B, P)
+    min_d = -support_max_dot(rec, -n) + dd
+    return _cull_class((max_d < -outside_eps).any(dim=1),
+                       (min_d >= inside_eps).all(dim=1))
+
+
+def classify_convex_vertices(verts, planes, outside_eps=1e-5,
+                             inside_eps=1e-5):
+    """CullClass (B,) int32 of convex vertex clouds verts (B, V, 3) (pad
+    with repeats) against planes (P, 4) (classify_convex_vertices,
+    culling_query.hpp:35-59)."""
+    verts = _as_f32(verts).to(planes.device)
+    q = verts[:, :, None, :] * planes[None, None, :, :3]    # (B, V, P, 3)
+    d = ((q[..., 0] + q[..., 1]) + q[..., 2]) + planes[:, 3]
+    any_inside = (d >= -outside_eps).any(dim=1)             # (B, P)
+    all_inside = (d >= inside_eps).all(dim=1)
+    return _cull_class((~any_inside).any(dim=1), all_inside.all(dim=1))
 
 
 def _normalize(v):

@@ -1,7 +1,8 @@
 """Axis-aligned bounding volumes and frustum tests (port of
 lsr_tpu/geometry/volumes.py: extract_frustum_planes, sphere_outside_planes,
-aabb_outside_planes, transform_aabb, frustum_cull_objects and merge_aabbs,
-:14-82, and update_visibility_history, :92-100).
+aabb_outside_planes, transform_aabb, frustum_cull_objects, mesh_local_aabb,
+merge_aabbs, point_aabb_distance_sq and update_visibility_history,
+:14-100).
 
 Culling produces visibility masks, not compacted lists.  Every small sum is
 written out in the order lsr_tpu's op-by-op form takes on XLA:CPU (left to
@@ -79,6 +80,13 @@ def transform_aabb(model, mins, maxs):
     return c_w - e_w, c_w + e_w
 
 
+def mesh_local_aabb(positions):
+    """Local-space AABB (mins, maxs) of a vertex array (numpy or tensor)."""
+    if isinstance(positions, torch.Tensor):
+        return positions.amin(dim=0), positions.amax(dim=0)
+    return positions.min(axis=0), positions.max(axis=0)
+
+
 def merge_aabbs(mins, maxs, mask=None):
     """Scene AABB from per-object AABBs, with optional inclusion mask."""
     if mask is not None:
@@ -86,6 +94,13 @@ def merge_aabbs(mins, maxs, mask=None):
         mins = torch.where(mask[:, None], mins, torch.full_like(mins, big))
         maxs = torch.where(mask[:, None], maxs, torch.full_like(maxs, -big))
     return mins.min(dim=0).values, maxs.max(dim=0).values
+
+
+def point_aabb_distance_sq(points, mins, maxs):
+    """Squared distance from points (B, 3) to AABBs (B, 3) / (B, 3),
+    broadcastable; summed left to right."""
+    d = points - torch.minimum(torch.maximum(points, mins), maxs)
+    return m3.dot3(d, d)
 
 
 def update_visibility_history(history, visible_now, hold_frames: int = 4):

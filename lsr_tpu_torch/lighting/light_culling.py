@@ -1,5 +1,6 @@
 """Tiled and clustered light binning (port of
-lsr_tpu/lighting/light_culling.py: tile_side_planes, _mask_to_lists,
+lsr_tpu/lighting/light_culling.py: view_space_spheres, tile_side_planes,
+_mask_to_lists,
 cull_lights_tiled, tile_depth_ranges_from_buffer, cluster_slice_bounds,
 view_depth_to_cluster_slice, cull_lights_clustered, cull_lights_camera).
 
@@ -24,6 +25,14 @@ from lsr_tpu_torch.lighting.light_types import light_bounding_spheres
 def _tile_grid(width, height, tile_w, tile_h=None):
     th = tile_w if tile_h is None else tile_h
     return cdiv(width, tile_w), cdiv(height, th)
+
+
+def view_space_spheres(view, centers, radii):
+    """Sphere centers (..., 3) into view space through view (4, 4), with
+    each row summed as core.math3d.transform_points_h; radii unchanged."""
+    from lsr_tpu_torch.core.math3d import transform_points_h
+
+    return transform_points_h(view, centers)[..., :3], radii
 
 
 def tile_side_planes(width, height, tile_size, proj, tile_h=None):

@@ -1,7 +1,8 @@
 """Local-light evaluation and the binned accumulation over the framebuffer
 (port of lsr_tpu/lighting/light_runtime.py: pack_light_records,
 unpack_light_records, eval_distance_attenuation, eval_local_lights,
-accumulate_local_lights, combine_local_light, eval_env_probes).
+accumulate_local_lights, combine_local_light, eval_env_probes,
+collect_object_lights, animate_lights).
 
 accumulate_local_lights is lsr_tpu's XLA anchor of the binned light loop:
 per screen tile, chunk by chunk of its padded list, in list order, with the
@@ -16,14 +17,18 @@ in XLA (kernel B6, lighting/fplus_kernel.py, bins its own lists).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from lsr_tpu_torch.core import math3d as m3
 from lsr_tpu_torch.lighting.light_types import (
     LIGHT_ENV_PROBE,
     LIGHT_RECT_AREA,
     LIGHT_SPOT,
     LIGHT_TUBE_AREA,
     LightsSoA,
+    light_bounding_spheres,
 )
 
 _HALF_PI = 1.5707963267948966
@@ -327,3 +332,57 @@ def eval_env_probes(lights: LightsSoA, world_pos, ambient,
     t = torch.clamp(1.0 - d / rng[None, None, :], 0.0, 1.0)
     w = t * t * (3.0 - 2.0 * t) * valid[None, None, :]
     return ambient * torch.einsum("hwk,kc->hwc", w, gain)
+
+
+# ---------------------------------------------------------------------------
+# Per-object light selection and light motion (light_runtime.hpp:537-632)
+# ---------------------------------------------------------------------------
+
+def collect_object_lights(lights: LightsSoA, obj_centers, obj_radii,
+                          cap: int = 8):
+    """Per-object candidate light lists (collect_object_lights /
+    LightSelection, light_runtime.hpp:258-289, :592): for each object the
+    `cap` nearest enabled local lights whose bounding spheres touch the
+    object's bounding sphere, nearest first, ties in light order.  Returns
+    (indices (O, cap) int32 padded with -1, counts (O,) int32)."""
+    centers, radii = light_bounding_spheres(lights)
+    d = obj_centers[:, None, :] - centers[None, :, :]
+    dist2 = (d * d).sum(-1)                                   # (O, L)
+    reach = radii[None, :] + obj_radii[:, None]
+    touching = dist2 <= reach * reach
+    local = (lights.type != 0) & (lights.type != LIGHT_ENV_PROBE) \
+        & lights.enabled
+    mask = touching & local[None, :]
+    key = torch.where(mask, dist2, torch.full_like(dist2, float("inf")))
+    order = torch.argsort(key, dim=1, stable=True)[:, :cap]
+    picked = torch.gather(mask, 1, order)
+    idx = torch.where(picked, order, torch.full_like(order, -1))
+    return idx.to(torch.int32), picked.sum(dim=1).to(torch.int32)
+
+
+def animate_lights(lights: LightsSoA, time_s, orbit_radius=0.0,
+                   orbit_speed=1.0, orbit_axis=(0.0, 1.0, 0.0),
+                   pulse_amount=0.0, pulse_speed=2.0, phase=None):
+    """Light motion profiles (update_light_motion, light_runtime.hpp:
+    537-590): positions orbit their anchors in the plane orthogonal to
+    orbit_axis and intensities pulse, over the whole set at once.  phase:
+    optional (L,) per-light phase offsets (default 0.618 * index)."""
+    dev = lights.position.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    if phase is None:
+        phase = torch.arange(lights.count, dtype=torch.float32,
+                             device=dev) * 0.618
+    t = f32(time_s)
+    axis = f32(orbit_axis)
+    axis = axis / torch.clamp(m3.norm3(axis), min=1e-8)
+    ref = torch.where(torch.abs(axis[1]) > 0.9, f32([1.0, 0.0, 0.0]),
+                      f32([0.0, 1.0, 0.0]))
+    u = m3.cross3(axis, ref)
+    u = u / torch.clamp(m3.norm3(u), min=1e-8)
+    v = m3.cross3(axis, u)
+    ang = t * orbit_speed + phase
+    offset = (u[None, :] * torch.cos(ang)[:, None]
+              + v[None, :] * torch.sin(ang)[:, None]) * orbit_radius
+    pulse = 1.0 + pulse_amount * torch.sin(t * pulse_speed + phase)
+    return dataclasses.replace(lights, position=lights.position + offset,
+                               intensity=lights.intensity * pulse)

@@ -73,6 +73,7 @@ from lsr_tpu_torch.raster.tiled import _SUPER, rasterize_direct
 from lsr_tpu_torch.scene.scene import object_world_aabbs
 
 # shadow_technique.hpp:18-25
+SHADOW_NONE = 0
 SHADOW_SPOT_2D = 2          # SpotMap2D (also AreaProxySpotMap2D)
 SHADOW_POINT_CUBE = 3
 

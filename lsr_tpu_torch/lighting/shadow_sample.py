@@ -1,6 +1,6 @@
 """Directional shadow-map sampling (port of lsr_tpu/lighting/shadow_sample.py:
-ShadowContext, make_shadow_context, prefilter_esm, esm_visibility,
-shadow_visibility_dir).
+ShadowContext, make_shadow_context, count_lit, prefilter_esm, fetch_soft,
+esm_visibility, shadow_visibility_dir).
 
 Semantics of the reference sampler (shadow_sample.hpp:30-108): project the
 world position by the light's view-projection, NDC [-1, 1] -> uv and z in
@@ -21,6 +21,8 @@ centre with clamped fetches:
 
 lsr_tpu packs two q16 texels per u32 to halve its gather tables; here the
 q16 values stay an (S, S) int32 plane and one texel is fetched per tap.
+count_lit and fetch_soft still read lsr_tpu's packed form (a u32 word of
+two q16 values, low half first), as a uint32 or int64 tensor.
 """
 
 from __future__ import annotations
@@ -55,6 +57,39 @@ def _f32(x) -> float:
 def quantize_q16(z):
     """f32 [0, 1] depth -> int32 [0, 65535], round half to even."""
     return torch.clamp(torch.round(z * Q16), 0.0, Q16).to(torch.int32)
+
+
+def _halves(packed):
+    """The low and high q16 halves of packed u16 pairs, as int64."""
+    w = packed.to(torch.int64)
+    return w & 0xFFFF, w >> 16
+
+
+def count_lit(window, z_test, mask):
+    """Masked count of window taps passing the depth test.
+
+    window: gathered tap rows, (..., L) f32, or (..., L/2) packed q16 pairs
+    (uint32 / int64), compared in q16 quanta; z_test (...) f32 biased test
+    depth; mask (..., L) f32 lane mask (broadcastable).  Returns (...)
+    f32 counts."""
+    if window.dtype != torch.float32:
+        q = quantize_q16(z_test)[..., None].to(torch.int64)
+        lo, hi = _halves(window)
+        return (((q <= lo).to(torch.float32) * mask[..., 0::2]).sum(-1)
+                + ((q <= hi).to(torch.float32) * mask[..., 1::2]).sum(-1))
+    return ((z_test[..., None] <= window).to(torch.float32) * mask).sum(-1)
+
+
+def fetch_soft(packed, idx):
+    """f32 [0, 1] soft depths of flat row-major texel ids idx (any shape,
+    local to packed's map) from a packed soft map (T/2,) of q16 pairs (even
+    texel in the low half)."""
+    from lsr_tpu_torch.core.gather import take_rows
+
+    idx = idx.to(torch.int64)
+    lo, hi = _halves(take_rows(packed.to(torch.int64), idx >> 1))
+    q = torch.where((idx & 1) == 0, lo, hi).to(torch.float32)
+    return q * _f32(1.0 / Q16)
 
 
 def prefilter_esm(depth, radius: int, c: float = 80.0):

@@ -1,14 +1,15 @@
 """Triangle setup: vertex transform -> near clip -> screen-space edge setup
 (port of lsr_tpu/raster/setup.py: TriSetup, vertex_stage, assemble_and_clip,
 build_setup, scene_setup, vertex_stage_world, scene_setup_depth,
-CompactStats, scene_setup_compact).
+scene_setup_slots_depth, scene_setup_slots, CompactStats,
+scene_setup_compact).
 
 Per-triangle setup precomputes the affine barycentric coefficients
 bc_i(x, y) = A_i x + B_i y + C_i, the per-corner 1/w and the screen bbox, so
 the raster kernel does only multiply-adds per (triangle, pixel).  The vertex
-transform's (V, 4) x (4, 4) product stays torch.matmul; on the card it runs
-in full float32 (torch.backends.cuda.matmul.allow_tf32 must be False, which
-lsr_tpu_torch.frame sets).
+transform's (V, 4) x (4, 4) clip product is written out elementwise in
+lsr_tpu's summation order (clip_transform), so it needs no matmul and
+gives the same bits on every device.
 """
 
 from __future__ import annotations
@@ -47,10 +48,9 @@ class TriSetup:
         return int(self.coef.shape[0])
 
 
-def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats,
-                 viewproj):
-    """Batched vertex shader.  Returns (world (V,3), clip (V,4),
-    normal_ws (V,3))."""
+def _world_stage(positions, normals, vtx_obj, models, normal_mats):
+    """The model transform of vertex_stage: (world_h (V, 4), unit normal_ws
+    (V, 3))."""
     o = models.shape[0]
     xf = torch.cat([models.reshape(o, 16), normal_mats.reshape(o, 9)],
                    dim=-1)[vtx_obj]                    # (V, 25)
@@ -60,8 +60,6 @@ def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats,
         return xf[:, c] * x + xf[:, c + 1] * y + xf[:, c + 2] * z + xf[:, c + 3]
 
     world_h = torch.stack([row4(0), row4(4), row4(8), row4(12)], dim=-1)
-    world = world_h[:, :3]
-    clip = world_h @ viewproj.T
     nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
 
     def nrow(c):
@@ -69,7 +67,28 @@ def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats,
 
     n_ws = torch.stack([nrow(0), nrow(3), nrow(6)], dim=-1)
     n_len = torch.sqrt((n_ws * n_ws).sum(-1, keepdim=True))
-    return world, clip, n_ws / torch.clamp(n_len, min=1e-12)
+    return world_h, n_ws / torch.clamp(n_len, min=1e-12)
+
+
+def clip_transform(world_h, viewproj):
+    """Homogeneous world positions (..., 4) -> clip (..., 4) through
+    viewproj (4, 4) or a batch (S, 1, 4, 4), each row summed as (m0 x +
+    m1 y) + (m2 z + m3 w): the order of lsr_tpu's (V, 4) @ (4, 4) product
+    on XLA:CPU, so a setup gets lsr_tpu's clip corners bit for bit, on
+    the CPU and on the card alike.  (A matmul's own order differs by up to
+    tens of ulps where terms cancel, which the edge setup of a small or
+    thin triangle turns into a visible difference.)"""
+    p = world_h[..., None, :] * viewproj
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+
+def vertex_stage(positions, normals, uvs, vtx_obj, models, normal_mats,
+                 viewproj):
+    """Batched vertex shader.  Returns (world (V,3), clip (V,4),
+    normal_ws (V,3))."""
+    world_h, n_ws = _world_stage(positions, normals, vtx_obj, models,
+                                 normal_mats)
+    return world_h[:, :3], clip_transform(world_h, viewproj), n_ws
 
 
 def assemble_and_clip(clip_v, world_v, normal_v, uv_v, indices, tri_obj):
@@ -241,6 +260,42 @@ def scene_setup_slots_depth(positions, indices, vtx_obj, tri_obj, models,
         valid = valid & obj_visible_slots[slot_of, obj2]
     st = build_setup(clip2.reshape(2 * s * t, 3, 4), {}, valid, obj2, size,
                      size, cull_mode, front_face_ccw)
+    return TriSetup(**{f.name: getattr(st, f.name).reshape(
+        (s, 2 * t) + getattr(st, f.name).shape[1:])
+        for f in dataclasses.fields(TriSetup)})
+
+
+def scene_setup_slots(positions, normals, uvs, indices, vtx_obj, tri_obj,
+                      models, normal_mats, viewprojs, size: int,
+                      cull_mode: int = CULL_NONE, front_face_ccw: bool = True,
+                      obj_visible_slots=None) -> TriSetup:
+    """Full geometry front-end of every slot of a stack at once
+    (lsr_tpu/raster/setup.py:339-427): viewprojs (S, 4, 4), square size^2
+    targets, obj_visible_slots optional (S, O).  The model transform and
+    the corner gather run once; each slot's clip corners are scene_setup's
+    clip_transform with viewprojs[s], and the clip and edge setup are
+    elementwise over the slots' rows, so slot s equals scene_setup with
+    viewprojs[s] bit for bit.  Returns a TriSetup whose
+    fields carry a leading (S,) slot axis (2T rows a slot)."""
+    s, t = viewprojs.shape[0], indices.shape[0]
+    world_h, n_ws = _world_stage(positions, normals, vtx_obj, models,
+                                 normal_mats)
+    clip_v = clip_transform(world_h[None], viewprojs[:, None])
+    crec = torch.cat([world_h[:, :3], n_ws, uvs], dim=-1)[indices]
+    crec = crec[None].expand(s, t, 3, 8).reshape(s * t, 3, 8)
+    attrs = {"wp": crec[..., 0:3], "normal": crec[..., 3:6],
+             "uv": crec[..., 6:8]}
+    clip2, attrs2, valid2 = clip_triangles_near(
+        attrs, clip_v[:, indices].reshape(s * t, 3, 4))
+    flat = lambda x: x.reshape((2 * s * t,) + x.shape[2:])  # noqa: E731
+    obj2 = tri_obj[None, :, None].expand(s, t, 2).reshape(-1)
+    valid = valid2.reshape(-1)
+    if obj_visible_slots is not None:
+        slot_of = torch.arange(s, device=indices.device).repeat_interleave(
+            2 * t)
+        valid = valid & obj_visible_slots[slot_of, obj2]
+    st = build_setup(flat(clip2), {k: flat(v) for k, v in attrs2.items()},
+                     valid, obj2, size, size, cull_mode, front_face_ccw)
     return TriSetup(**{f.name: getattr(st, f.name).reshape(
         (s, 2 * t) + getattr(st, f.name).shape[1:])
         for f in dataclasses.fields(TriSetup)})

@@ -80,4 +80,4 @@ def simple_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1,
     device = resolve_device(device)
     view = m3.look_at_lh(eye, target, up, device=device)
     proj = m3.perspective_lh_no(fov, width / height, zn, zf, device=device)
-    return proj @ view, float(np.float32(zn)), float(np.float32(zf))
+    return m3.matmul4(proj, view), float(np.float32(zn)), float(np.float32(zf))

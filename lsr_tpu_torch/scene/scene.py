@@ -1,7 +1,8 @@
 """Retained scene: objects SoA + camera, as frozen dataclasses of tensors.
 
 Port of lsr_tpu/scene/scene.py (GeometryBatch, ObjectsSoA, CameraState,
-make_camera, SceneBuilder, object_world_aabbs, shadow_caster_aabb) plus the
+SunLight, make_camera, update_prev, SceneBuilder, object_world_aabbs,
+cull_scene, shadow_caster_aabb) plus the
 concat_scene / morton_order helpers of lsr_tpu/render.py that
 SceneBuilder.build uses.
 """
@@ -15,7 +16,11 @@ import torch
 
 from lsr_tpu_torch.core import math3d as m3
 from lsr_tpu_torch.core.util import resolve_device
-from lsr_tpu_torch.geometry.volumes import merge_aabbs, transform_aabb
+from lsr_tpu_torch.geometry.volumes import (
+    frustum_cull_objects,
+    merge_aabbs,
+    transform_aabb,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,18 +61,30 @@ class CameraState:
     zf: float
 
 
+@dataclasses.dataclass(frozen=True)
+class SunLight:
+    dir_ws: torch.Tensor     # (3,) from the light toward the scene
+    color: torch.Tensor      # (3,)
+    intensity: torch.Tensor  # ()
+
+
 def make_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1, zf=100.0,
                 up=(0, 1, 0), prev_viewproj=None, device=None) -> CameraState:
     device = resolve_device(device)
     view = m3.look_at_lh(eye, target, up, device=device)
     proj = m3.perspective_lh_no(fov, width / height, zn, zf, device=device)
-    vp = proj @ view
+    vp = m3.matmul4(proj, view)
     return CameraState(
         view=view, proj=proj, viewproj=vp,
         prev_viewproj=vp if prev_viewproj is None else prev_viewproj,
         eye=torch.as_tensor(eye, dtype=torch.float32, device=device),
         zn=float(np.float32(zn)), zf=float(np.float32(zf)),
     )
+
+
+def update_prev(camera: CameraState, prev: CameraState) -> CameraState:
+    """camera with prev's view-projection as its previous one."""
+    return dataclasses.replace(camera, prev_viewproj=prev.viewproj)
 
 
 def morton_order(mesh) -> np.ndarray:
@@ -134,6 +151,13 @@ def geometry_from_numpy(batch: dict, device) -> GeometryBatch:
 def object_world_aabbs(objects: ObjectsSoA):
     """Per-object world AABBs (mins (O, 3), maxs (O, 3))."""
     return transform_aabb(objects.model, objects.local_min, objects.local_max)
+
+
+def cull_scene(objects: ObjectsSoA, viewproj):
+    """Frustum visibility mask per object, ANDed with objects.visible
+    (culling_runtime.hpp:111)."""
+    wmin, wmax = object_world_aabbs(objects)
+    return frustum_cull_objects(viewproj, wmin, wmax) & objects.visible
 
 
 def shadow_caster_aabb(objects: ObjectsSoA):

@@ -319,24 +319,52 @@ def test_super_lists_and_sort_match_jax(setups):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """lsr_tpu_torch imports torch and numpy only: never jax or lsr_tpu."""
+    """lsr_tpu_torch imports torch and numpy only: every module of the
+    package (found by walking it, the demos included) is imported in a
+    fresh interpreter, and then neither jax nor lsr_tpu is loaded."""
     code = (
-        "import sys\n"
-        "import lsr_tpu_torch.frame, lsr_tpu_torch.convert\n"
-        "import lsr_tpu_torch.raster.brute, lsr_tpu_torch.io.png\n"
-        "import lsr_tpu_torch.highpoly, lsr_tpu_torch.render\n"
-        "import lsr_tpu_torch.passes.standard_passes\n"
-        "import lsr_tpu_torch.raster.tiled, lsr_tpu_torch.core.frame\n"
-        "import lsr_tpu_torch.utils.b2_variants\n"
-        "import lsr_tpu_torch.parallel.sharding\n"
-        "import lsr_tpu_torch.parallel.dryrun\n"
+        "import importlib, pkgutil, sys\n"
+        "import lsr_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    lsr_tpu_torch.__path__, 'lsr_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'lsr_tpu_torch.demos.hello_water' in names, names\n"
+        "assert 'lsr_tpu_torch.frame' in names, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'lsr_tpu' or m.startswith('lsr_tpu.')]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print('ok', len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    assert res.returncode == 0 and res.stdout.startswith("ok"), res.stderr
+    assert int(res.stdout.split()[1]) >= 80
+
+
+def test_library_does_not_import_the_demos():
+    """No module of lsr_tpu_torch outside lsr_tpu_torch/demos/ imports
+    lsr_tpu_torch.demos (lsr_tpu's layering rule, tests/test_layering.py:
+    the library never depends on its demos)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "lsr_tpu_torch"
+    offenders, n_files = [], 0
+    for path in root.rglob("*.py"):
+        if "demos" in path.relative_to(root).parts:
+            continue
+        n_files += 1
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}"
+                                         for a in node.names]
+            if any(n == "lsr_tpu_torch.demos"
+                   or n.startswith("lsr_tpu_torch.demos.") for n in names):
+                offenders.append(str(path))
+    assert n_files > 60 and not offenders, offenders
 
 
 def test_kernel_wrappers_do_not_fall_back(setups):

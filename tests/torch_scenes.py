@@ -250,11 +250,13 @@ def torch_setup(s):
 
 
 def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
-                    point_size, filter_mode, vis_scale=1, caster_enabled=None):
+                    point_size, filter_mode, vis_scale=1, caster_enabled=None,
+                    pcf_radius=2):
     """lsr_tpu's local shadow atlas (render_local_shadow_maps), its slots
     rendered op by op: per slot lsr_tpu's frustum_cull_objects,
     scene_setup_depth and rasterize_brute, one call at a time, then its own
-    table packing.  Its jitted form and its lax.map over slots (which
+    table packing, with pcf_radius (the PCF / ESM filter radius, 2 in
+    bench.py's frame).  Its jitted form and its lax.map over slots (which
     __wrapped__ still compiles) move a triangle of a grid-2 point face on
     the edge of a texel centre (68 texels of face 1 at 32^2), as jit moves
     the sun map's snap (ROADMAP C11).  A culled light's slots stay all far,
@@ -293,9 +295,11 @@ def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
             if filter_mode == "esm":
                 lin = jls._linearize01(d, jnp.float32(0.05),
                                        jnp.float32(slot_far[first + s]))
-                tabs.append(jss.pack_soft_u16(jss.prefilter_esm(lin, 2, 80.0)))
+                tabs.append(jss.pack_soft_u16(jss.prefilter_esm(
+                    lin, pcf_radius, 80.0)))
             else:
-                tabs.append(jss.pack_shadow_taps_u16(d, 2, jls._TAP_STRIDE))
+                tabs.append(jss.pack_shadow_taps_u16(d, pcf_radius,
+                                                     jls._TAP_STRIDE))
         return jnp.concatenate(tabs, 0) if tabs else None
 
     return jls.LocalShadowMaps(
@@ -310,7 +314,7 @@ def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
         bias_const=jnp.float32(2e-3), bias_slope=jnp.float32(6e-3),
         caster_enabled=(None if caster_enabled is None
                         else jnp.asarray(en)),
-        spot_size=map_size, point_size=point_size, pcf_radius=2,
+        spot_size=map_size, point_size=point_size, pcf_radius=pcf_radius,
         kinds=tuple(kinds), base_slots=tuple(base_slots), vis_scale=vis_scale,
         vis_crop=(), filter_mode=filter_mode, esm_c=80.0)
 
