@@ -191,6 +191,21 @@ Then kernel B1's screen bands and the multi-device paths
     demo's own lighting call (IBL and env probes; surface maps; area
     lights; the local-shadow planes) within 1e-4; then each demo at
     160x120 on the CPU and on the card under phase 3's contract.
+29. lsr_tpu's remaining entry points: the 2D and debug rasters
+    (lsr_tpu_torch.raster.lines / wireframe / primitives2d / debug_draw,
+    hello_wireframe at 600x600, hello_pixel_primitives' sheet, 4,096
+    overlapping lines and 512 world segments over a 1080p canvas) on the
+    card against the CPU bit for bit, each run twice on the card;
+    hello_full_pipeline at 800x600, hello_rendering_paths at 480x270 (six
+    compositions, 72 frames) and hello_parallelization at 256x128 (8
+    ranks on this card), counts reset before each, the launches of B1 /
+    B1b / B2 checked exactly against the count read from their code
+    (rest_expected), ms per frame, each card against CPU at a small size
+    under phase 3's contract; then lsr_tpu_torch.run_phases (Phase I at
+    320x180 on both raster routes, I-posts, Phase F at 1280x720 on
+    forward_plus, deferred and forward_plus+full, a 5 s Phase G), its rows
+    under chiprun_out/run_phases/, read back and checked: no failed soak
+    cycle, four distinct images for each path's four post stacks.
 
 14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
@@ -3168,11 +3183,11 @@ def demo_expected(name, scene, kw):
             "fplus_accumulate": 0}
 
 
-def _demo_contract(tag, cpu, card, need):
-    """Phase 3's contract, card against CPU on one demo's small frame:
-    tids equal on >= 99.5% of covered pixels, HDR within 1e-4 on >= 99.9%
-    of agreeing pixels, LDR within 1 LSB on >= 99.9% (the parts `need`
-    names: "tid", "hdr", "ldr")."""
+def _demo_contract(tag, cpu, card, need, size=DEMO_SMALL, hdr_share=0.999):
+    """Phase 3's contract, card against CPU on one demo's small frame (of
+    `size`): tids equal on >= 99.5% of covered pixels, HDR within 1e-4 on
+    >= hdr_share (99.9%) of agreeing pixels, LDR within 1 LSB on >= 99.9%
+    (the parts `need` names: "tid", "hdr", "ldr")."""
     res = {}
     if "tid" in need:
         t_c, t_g = cpu["gb"].tri_id, card["gb"].tri_id.cpu()
@@ -3184,9 +3199,9 @@ def _demo_contract(tag, cpu, card, need):
         res["hdr_max_abs"] = float(err[same].max())
     d = (cpu["ldr"].int() - card["ldr"].cpu().int()).abs()
     res["ldr_share"] = float((d.amax(-1) <= 1).float().mean())
-    log(f"demo {tag} card vs CPU at {DEMO_SMALL[0]}x{DEMO_SMALL[1]}: {res}")
+    log(f"demo {tag} card vs CPU at {size[0]}x{size[1]}: {res}")
     check(res.get("tid_match", 1.0) >= 0.995
-          and res.get("hdr_share", 1.0) >= 0.999
+          and res.get("hdr_share", 1.0) >= hdr_share
           and res["ldr_share"] >= 0.999, f"demo {tag}: card differs from CPU")
     return res
 
@@ -3304,6 +3319,350 @@ def demos_phase(dev):
         results[tag] = res
     log(f"# phase 28 took {time.perf_counter() - t_start:.1f} s")
     return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: lsr_tpu's remaining entry points (the 2D and debug rasters,
+# hello_full_pipeline, hello_rendering_paths, hello_parallelization and
+# lsr_tpu_torch.run_phases)
+# ---------------------------------------------------------------------------
+
+REST_SMALL = (96, 72)              # the 3D demos card against CPU
+REST_SUN, REST_OCC = 128, (80, 45)  # their sun map and occluders there
+REST_PAR_SMALL = (64, 64)          # hello_parallelization there
+REST_WARMUP, REST_FRAMES = 1, 3    # timed renders of a 3D demo
+RASTER2D_W, RASTER2D_H = 1920, 1080
+PHASES_ENV = {"LSR_PHASE_W": "320", "LSR_PHASE_H": "180",
+              "LSR_PHASE_F_W": "1280", "LSR_PHASE_F_H": "720",
+              "LSR_PHASE_F_WARMUP": "2", "LSR_PHASE_F_SAMPLES": "6",
+              "LSR_PHASE_G_SECONDS": "5",
+              "LSR_PHASE_PRESETS": "forward_plus,deferred"}
+PHASES_OUT = os.path.join("chiprun_out", "run_phases")
+
+
+def rest_expected(name, fp=None):
+    """The kernel launches of one render of a demo of phase 29, read from
+    its code: hello_full_pipeline B1 for the sun map and the camera, B2 for
+    tiled deferred; a composition of hello_rendering_paths B1 for the
+    occluders, the sun map and the depth prepass (the G-buffer reuses it)
+    plus one a caster slot (none: the demo sets no casters), B2 for the
+    lighting (B2b on clustered_forward) but under SSAO (the general
+    branch); hello_parallelization (8 ranks) B1 1 for the (1, 1) mesh, 8
+    B1b for dp 2 x sp 4, 8 B1b for sp 4 x lp 2, 3 for the pp stream of 3
+    cameras."""
+    want = {k: 0 for k in _wrappers()}
+    if name == "hello_full_pipeline":
+        want.update(direct_raster=2, shade_fused=1)
+    elif name == "hello_parallelization":
+        want.update(direct_raster=1 + 8 + 8 + 3)
+    else:
+        lp = fp.pass_params.local_shadow
+        want.update(direct_raster=3 + len(lp.spot_ids)
+                    + 6 * len(lp.point_ids),
+                    shade_fused=0 if name.endswith("+ssao") else 1)
+    return want
+
+
+def _check_launches(tag, want, n=1, band=0):
+    """The counts since reset_counts equal want (a render's) times n, and
+    B1b's band * n; returns the counts."""
+    from lsr_tpu_torch.raster import tiled
+
+    launches = read_counts()
+    want = {k: v * n for k, v in want.items()}
+    b1b = tiled.rasterize_direct.band_launches
+    log(f"{tag}: launches {launches}, B1b {b1b} (expected {want}, B1b "
+        f"{band * n})")
+    check(launches == want and b1b == band * n,
+          f"{tag}: launches {launches}, B1b {b1b}; expected {want}, B1b "
+          f"{band * n}")
+    return launches
+
+
+def _events_ms(fn):
+    """fn() REST_WARMUP times, then REST_FRAMES times, each bracketed by
+    CUDA events (_frames): (median, min, max) ms of the timed calls."""
+    ms = _frames(lambda i: fn(), REST_WARMUP + REST_FRAMES, REST_WARMUP,
+                 pipelined=False)[0][REST_WARMUP:]
+    return statistics.median(ms), min(ms), max(ms)
+
+
+def _small(out):
+    """A phase 29 frame (a demo's render or a pipeline state) in
+    _demo_contract's keys."""
+    return {"gb": out["gbuffer"], "hdr": out["hdr"], "ldr": out["ldr"]}
+
+
+def raster2d_phase(dev):
+    """The 2D and debug rasters on the card against the CPU, bit for bit,
+    each run twice on the card (the line scatter picks its winner per
+    pixel, so two runs must agree): hello_wireframe at 600x600,
+    hello_pixel_primitives' sheet, 4,096 random lines over a noisy 1080p
+    canvas (endpoints off-canvas and negative, one color each: heavy
+    overlap), the float32 overlay, 512 random world segments and 64 boxes
+    over a 1080p frame (near-plane crossings), a 1080p triangle fill, blend
+    and blit.  Each timed on the card (CUDA events, median of 3 after 1)
+    and once on the CPU."""
+    from lsr_tpu_torch.demos import hello_pixel_primitives as hpp
+    from lsr_tpu_torch.demos import hello_wireframe as hw
+    from lsr_tpu_torch.demos.common import stand_in_mesh
+    from lsr_tpu_torch.raster import debug_draw, lines, primitives2d as p2
+    from lsr_tpu_torch.scene.scene import make_camera
+
+    rng = np.random.default_rng(29)
+    w, h = RASTER2D_W, RASTER2D_H
+    canvas = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    buf = rng.standard_normal((h, w, 4)).astype(np.float32)
+    p0 = rng.integers(-400, w + 400, (4096, 2)).astype(np.int32)
+    p1 = rng.integers(-400, w + 400, (4096, 2)).astype(np.int32)
+    cols = rng.integers(0, 256, (4096, 3)).astype(np.uint8)
+    vals = rng.standard_normal((4096, 4)).astype(np.float32)
+    s0 = rng.uniform(-6, 6, (512, 3)).astype(np.float32)
+    s1 = rng.uniform(-6, 6, (512, 3)).astype(np.float32)
+    lo = rng.uniform(-4, 2, (64, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.2, 2, (64, 3)).astype(np.float32)
+    img = rng.integers(0, 256, (300, 400, 3)).astype(np.uint8)
+    tri = rng.uniform(-100, w + 100, (3, 2)).astype(np.float32)
+    alpha = rng.uniform(0, 1, (h, w)).astype(np.float32)
+    mesh = stand_in_mesh()
+
+    def cases(d):
+        c = torch.as_tensor(canvas, device=d)
+        b = torch.as_tensor(buf, device=d)
+        vp = make_camera(w, h, (0.5, 1.0, -3.0), (0, 0, 0),
+                         device=d).viewproj
+        return {
+            "hello_wireframe 600x600": lambda: hw.render(
+                hw.build_scene(mesh, d), 600, 600)["ldr"],
+            "hello_pixel_primitives sheet": lambda: hpp.render(
+                hpp.build_scene(d))["ldr"],
+            "rasterize_lines 4096 lines": lambda: lines.rasterize_lines(
+                c, p0, p1, cols),
+            "rasterize_lines_f32 4096 lines": lambda:
+                lines.rasterize_lines_f32(b, p0, p1, vals),
+            "draw_segments 512": lambda: debug_draw.draw_segments(
+                c, s0, s1, vp),
+            "draw_aabbs 64": lambda: debug_draw.draw_aabbs(c, lo, hi, vp),
+            "fill_triangle_2d": lambda: p2.fill_triangle_2d(c, tri,
+                                                            (250, 120, 90)),
+            "alpha_blend": lambda: p2.alpha_blend(c, c.flip(0), alpha),
+            "image_blit": lambda: p2.image_blit(c, torch.as_tensor(
+                img, device=d), -50, 900),
+        }
+
+    cpu, card = cases("cpu"), cases(dev)
+    out = {}
+    for name, fn in card.items():
+        t0 = time.perf_counter()
+        want = cpu[name]()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        mis = int((a.cpu() != want).sum())
+        runs = int((a != b).sum())
+        ms, ms_min, ms_max = _events_ms(fn)
+        out[name] = {"shape": list(want.shape), "mismatches_vs_cpu": mis,
+                     "run_to_run": runs, "ms": ms, "ms_min": ms_min,
+                     "ms_max": ms_max, "cpu_ms": cpu_ms}
+        log(f"2D raster {name}: {out[name]}")
+        check(mis == 0 and runs == 0, f"2D raster {name}: {mis} values off "
+              f"the CPU's, {runs} between two card runs")
+    return out
+
+
+def full_pipeline_demo_phase(dev, mesh):
+    from lsr_tpu_torch.demos import hello_full_pipeline as demo
+    from lsr_tpu_torch.demos.common import write_frame
+
+    scene = demo.build_scene(mesh, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = demo.render(scene, FULL_W, FULL_H)
+    torch.cuda.synchronize()
+    launches = _check_launches(f"demo hello_full_pipeline {FULL_W}x{FULL_H}",
+                               rest_expected("hello_full_pipeline"))
+    check(bool(torch.isfinite(out["hdr"]).all())
+          and out["ldr"].shape == (FULL_H, FULL_W, 3)
+          and len(out["pass_order"]) == 12,
+          "demo hello_full_pipeline: bad frame")
+    write_frame("out", "torch_hello_full_pipeline.png", out["ldr"])
+    ms = _events_ms(lambda: demo.render(scene, FULL_W, FULL_H))
+    warm = demo.render(scene, FULL_W, FULL_H)       # pass ms once warm
+    sw, sh = REST_SMALL
+    small = {str(d): _small(demo.render(demo.build_scene(mesh, d), sw, sh,
+                                        shadow_size=REST_SUN))
+             for d in ("cpu", dev)}
+    # The final HDR is after the post stack, whose bloom and depth of
+    # field spread a pixel's difference over their windows: 99.5%.
+    res = {"size": f"{FULL_W}x{FULL_H}", "launches": launches,
+           "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
+           "pass_order": out["pass_order"],
+           "pass_ms": {k: round(v, 3) for k, v in warm["pass_ms"].items()},
+           "card_vs_cpu": _demo_contract(
+               "hello_full_pipeline", small["cpu"], small[str(dev)],
+               ("tid", "hdr", "ldr"), REST_SMALL, hdr_share=0.995)}
+    log(f"demo hello_full_pipeline: {res}")
+    return res
+
+
+def rendering_paths_demo_phase(dev):
+    from lsr_tpu_torch.demos import hello_rendering_paths as demo
+    from lsr_tpu_torch.demos.common import write_frame
+
+    w, h = 480, 270
+    scene = demo.build_scene(w, h, dev)
+    pipes, rebuilds = demo.build_pipelines(w, h)
+    check(rebuilds == 6, f"hello_rendering_paths: {rebuilds} rebuilds")
+    want = {k: 0 for k in _wrappers()}
+    for name, (_, fp, _) in pipes.items():
+        for k, v in rest_expected(name, fp).items():
+            want[k] += v
+    n = demo.CYCLES * (1 + demo.FRAMES)
+    torch.cuda.synchronize()
+    reset_counts()
+    shots, times = demo.cycle(scene, pipes, w, h, log=log)
+    torch.cuda.synchronize()
+    launches = _check_launches(
+        f"demo hello_rendering_paths {w}x{h}, {len(pipes)} compositions x "
+        f"{n} frames", want, n)
+    sheet = demo.contact_sheet(shots)
+    check(all(float((s.int().sum(-1) > 0).float().mean()) > 0.5
+              for s in shots.values()), "hello_rendering_paths: empty frame")
+    write_frame("out", "torch_hello_rendering_paths.png", sheet)
+    sw, sh = REST_SMALL
+    small = {}
+    for d in ("cpu", dev):
+        sc_d = demo.build_scene(sw, sh, d)
+        p_d, _ = demo.build_pipelines(sw, sh)
+        for name, (pipe, fp, rt) in p_d.items():
+            fp.pass_params.shadow.map_size = REST_SUN
+            (fp.pass_params.culling.occ_width,
+             fp.pass_params.culling.occ_height) = REST_OCC
+            st = pipe.execute_jitted(rt, demo.frame_state(sc_d, sw, sh, 0),
+                                     fp)
+            small.setdefault(name, {})[str(d)] = _small(st)
+    res = {"size": f"{w}x{h}", "rebuilds": rebuilds, "launches": launches,
+           "frames": n * len(pipes),
+           "ms": {name: ms for c, name, _, ms in times if c == 1},
+           "first_ms": {f"{name} cycle {c}": first
+                        for c, name, first, _ in times},
+           "card_vs_cpu": {name: _demo_contract(
+               f"hello_rendering_paths {name}", v["cpu"], v[str(dev)],
+               ("tid", "hdr", "ldr"), REST_SMALL)
+               for name, v in small.items()}}
+    log(f"demo hello_rendering_paths: {res}")
+    return res
+
+
+def parallelization_demo_phase(dev, mesh):
+    from lsr_tpu_torch.demos import hello_parallelization as demo
+    from lsr_tpu_torch.demos.common import write_frame
+
+    w, h = 256, 128
+    scene = demo.build_scene(mesh, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = demo.render(scene, w, h, log=log)
+    torch.cuda.synchronize()
+    launches = _check_launches(
+        f"demo hello_parallelization {w}x{h}, {demo.RANKS} ranks on one "
+        f"card", rest_expected("hello_parallelization"), band=16)
+    write_frame("out", "torch_hello_parallelization.png", out["ldr"])
+    ms = _events_ms(lambda: demo.render(scene, w, h, log=lambda m: None))
+    sw, sh = REST_PAR_SMALL
+    small = {str(d): demo.render(demo.build_scene(mesh, d), sw, sh,
+                                 log=lambda m: None)["panels"]
+             for d in ("cpu", dev)}
+    cmp = {}
+    for name in demo.PANELS:
+        dd = (small["cpu"][name].int() - small[str(dev)][name].cpu().int()
+              ).abs()
+        cmp[name] = {"max_lsb": int(dd.max()),
+                     "share_within_1": float((dd.amax(-1) <= 1).float()
+                                             .mean()),
+                     "share_off": float((dd != 0).float().mean())}
+        ok = (cmp[name]["max_lsb"] <= 1 and cmp[name]["share_off"] < 0.02
+              if name == "sp4xlp2" else cmp[name]["share_within_1"] >= 0.999)
+        check(ok, f"demo hello_parallelization {name}: card differs from "
+              f"CPU {cmp[name]}")
+    res = {"size": f"{w}x{h}", "launches": launches, "b1b": 16,
+           "pp_diff": out["pp_diff"], "ms": ms[0], "ms_min": ms[1],
+           "ms_max": ms[2], "card_vs_cpu": cmp}
+    log(f"demo hello_parallelization: {res}")
+    return res
+
+
+def run_phases_phase(dev):
+    """lsr_tpu_torch.run_phases on the card with PHASES_ENV: Phase I at
+    320x180 on both raster routes, I-posts, Phase F at 1280x720 (2 warm-up,
+    6 samples) on forward_plus, deferred and forward_plus+full, a 5 s Phase
+    G; its rows written under PHASES_OUT, read back (each row parses, each
+    carries the run's id), each path's four post stacks give four distinct
+    images.  Phase G: no cycle failed, the rebuilds within lsr_tpu's bound,
+    and `accepted` exactly what lsr_tpu's thresholds give for the report's
+    numbers; its frame time is data (the port's 320x180 soak frames run
+    over lsr_tpu's 50 ms, PERF.md), logged with the verdict."""
+    from lsr_tpu_torch import run_phases
+    from lsr_tpu_torch.utils.harness import SoakAcceptance
+
+    res = run_phases.run(dict(PHASES_ENV), device=dev, out_dir=PHASES_OUT,
+                         log=log)
+    rows = {}
+    for f in sorted(os.listdir(PHASES_OUT)):
+        with open(os.path.join(PHASES_OUT, f)) as fh:
+            rows[f] = [r for r in map(json.loads, fh)
+                       if r.get("run_id") == res["run_id"]]
+    check(len(rows) == 4 and all(rows.values()),
+          f"run_phases: rows {[(f, len(r)) for f, r in rows.items()]}")
+    g = res["G"]
+    acc = SoakAcceptance()
+    check(g["cycle_failures"] == 0 and g["frames"] > 0
+          and g["rebuilds"] <= acc.max_rebuilds
+          and g["accepted"] == (g["avg_frame_ms"] <= acc.max_avg_frame_ms),
+          f"run_phases: Phase G {g}")
+    log(f"run_phases: Phase G {'accepted' if g['accepted'] else 'NOT accepted'}"
+        f": {g['avg_frame_ms']} ms a frame against lsr_tpu's "
+        f"{acc.max_avg_frame_ms} ms, {g['cycle_failures']} failed cycles, "
+        f"{g['rebuilds']} rebuilds (bound {acc.max_rebuilds})")
+    distinct = res["I_posts_distinct"]
+    check(all(a == b == 4 for a, b in distinct.values()),
+          f"run_phases: post stacks not distinct {distinct}")
+    out = {"floor_ms": res["floor_ms"],
+           "rows": {f: len(r) for f, r in rows.items()},
+           "I_match": {k: v["match"] for k, v in res["I"].items()},
+           "I_posts_match": {k: v["match"]
+                             for k, v in res["I_posts"].items()},
+           "I_posts_distinct": distinct,
+           "F": {k: {"ms_avg": r.ms_avg, "ms_min": r.ms_min,
+                     "ms_max": r.ms_max} for k, r in res["F"].items()},
+           "F_pass": {k: r["pass_ms"] for k, r in res["F_pass"].items()},
+           "G": g}
+    log(f"run_phases: {out}")
+    return out
+
+
+def rest_phase(dev):
+    """Phase 29.  lsr_tpu's remaining entry points on the card: the 2D and
+    debug rasters (raster2d_phase); hello_full_pipeline at 800x600,
+    hello_rendering_paths at 480x270 (its loop: 6 compositions x 12
+    frames) and hello_parallelization at 256x128 (8 ranks on this card),
+    each a main path of its own, counts reset just before and read just
+    after, launches exactly rest_expected's; out/torch_hello_*.png; ms per
+    frame; each card against the CPU at a small size (REST_SMALL,
+    REST_PAR_SMALL) under phase 3's contract; then run_phases_phase."""
+    from lsr_tpu_torch.demos.common import stand_in_mesh
+
+    t_start = time.perf_counter()
+    mesh = stand_in_mesh()
+    res = {"raster2d": raster2d_phase(dev),
+           "hello_full_pipeline": full_pipeline_demo_phase(dev, mesh),
+           "hello_rendering_paths": rendering_paths_demo_phase(dev),
+           "hello_parallelization": parallelization_demo_phase(dev, mesh)}
+    t_phases = time.perf_counter()
+    res["run_phases"] = run_phases_phase(dev)
+    log(f"# phase 29 took {time.perf_counter() - t_start:.1f} s (run_phases "
+        f"{time.perf_counter() - t_phases:.1f} s)")
+    return res
 
 
 def main():
@@ -3447,6 +3806,10 @@ def main():
     # counts.
     demos = demos_phase(dev)
 
+    # lsr_tpu's remaining entry points, each 3D demo a main path of its own
+    # with its counts.
+    rest = rest_phase(dev)
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
     prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
                                   casters))
@@ -3477,6 +3840,17 @@ def main():
     log("summary: demos, median ms/frame {}".format(
         {k: f"{v['ms']:.3f} [{v['ms_min']:.3f}, {v['ms_max']:.3f}]"
          for k, v in demos.items()}))
+    log("summary: phase 29, ms a frame: hello_full_pipeline {:.3f}, "
+        "hello_rendering_paths {}, hello_parallelization {:.3f} (a render "
+        "of all four strategies); run_phases Phase F {} (avg ms), Phase G "
+        "{} ms a frame".format(
+            rest["hello_full_pipeline"]["ms"],
+            {k: f"{v:.3f}" for k, v in
+             rest["hello_rendering_paths"]["ms"].items()},
+            rest["hello_parallelization"]["ms"],
+            {k: f"{v['ms_avg']:.3f}" for k, v in
+             rest["run_phases"]["F"].items()},
+            rest["run_phases"]["G"]["avg_frame_ms"]))
     log("summary: compositions, median ms/frame {} (forward_plus+full and "
         "forward_classic+ssao at {}x{}, Config #5 at {}x{}); post-stack "
         "sweep distinct images {}".format(
@@ -3520,6 +3894,13 @@ def main():
     compositions = {k: {f: v[f] for f in preset_keys}
                     for k, v in comps.items()}
 
+    rest_launches = {k: rest[k]["launches"] for k in (
+        "hello_full_pipeline", "hello_rendering_paths",
+        "hello_parallelization")}
+
+    def on_rest(kernel):
+        return {k: v[kernel] for k, v in rest_launches.items() if v[kernel]}
+
     def on_demos(kernel, *more):
         return {k: {"launches": v["launches"][kernel], "size": v["size"],
                     "ms": v["ms"],
@@ -3544,6 +3925,7 @@ def main():
               launches_on_demos=on_demos("direct_raster",
                                          "b1_mirrored_px_differ"),
               band_h_launches_on_demos=on_demos("direct_raster_band_h"),
+              launches_on_phase29=on_rest("direct_raster"),
               **{k: b1[k] for k in b1_keys}),
         entry("direct_raster (y_offset, B1b)", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289 (y_offset: :60-79, :259-270, "
@@ -3569,6 +3951,7 @@ def main():
                        for k in PRESETS},
               compositions=compositions,
               launches_on_demos=on_demos("shade_fused", "b2_max_abs_err"),
+              launches_on_phase29=on_rest("shade_fused"),
               frames=frames, **{k: b2[k] for k in walk_keys}),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
               hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,

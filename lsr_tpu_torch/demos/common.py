@@ -23,14 +23,17 @@ def stand_in_mesh(obj_path: str | None = None):
     return make_uv_sphere(rings=16, sectors=32)
 
 
-def parser(doc: str, width: int, height: int, mesh: bool = True):
-    """The demos' common flags: --device, --width, --height, --obj, --out."""
+def parser(doc: str, width: int | None, height: int | None,
+           mesh: bool = True):
+    """The demos' common flags: --device, --width, --height (not when width
+    is None: a fixed-size demo), --obj, --out."""
     p = argparse.ArgumentParser(description=doc)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the kernels' plain versions)")
-    p.add_argument("--width", type=int, default=width)
-    p.add_argument("--height", type=int, default=height)
+    if width is not None:
+        p.add_argument("--width", type=int, default=width)
+        p.add_argument("--height", type=int, default=height)
     if mesh:
         p.add_argument("--obj", default=None,
                        help="OBJ mesh in place of the UV-sphere stand-in")
@@ -54,6 +57,11 @@ def batch_of(geom) -> dict:
 
 def covered(gb) -> int:
     return int(gb.covered.sum())
+
+
+def lit_pixels(ldr) -> int:
+    """Pixels of an LDR canvas with any channel above 0."""
+    return int((ldr > 0).any(-1).sum())
 
 
 def write_frame(out_dir: str, name: str, ldr) -> str:

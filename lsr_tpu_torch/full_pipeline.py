@@ -67,12 +67,12 @@ def bake_ibl(device=None):
 
 
 def full_scene(width: int = WIDTH, height: int = HEIGHT, ibl=None,
-               device=None) -> dict:
+               device=None, mesh=None) -> dict:
     """The demo's frame state {"geom", "objects", "camera", "lights",
     "shade_ctx"} on `device`; ibl: the maps of bake_ibl (baked here when
-    None)."""
+    None); mesh: the monkey's mesh (default: the UV-sphere stand-in)."""
     device = resolve_device(device)
-    monkey = make_uv_sphere(rings=16, sectors=32)
+    monkey = make_uv_sphere(rings=16, sectors=32) if mesh is None else mesh
     sb = SceneBuilder()
     cur = (m3.translate([0.3, 0.3, 0.0]) @ m3.rotate_y(0.6)).numpy()
     prev = (m3.translate([-0.3, 0.3, 0.0]) @ m3.rotate_y(0.45)).numpy()

@@ -483,9 +483,11 @@ def jax_chain_frame(js, fp, chain, width, height, occ=(160, 90), sun=128,
     if "shadow_map" in chain:
         state["shadow_ctx"] = jax_sun_shadow(geom, objects, js["shade_ctx"],
                                              sun, "pcf")[2]
-    if "local_shadows" in chain:
-        p = fp.pass_params.local_shadow
-        ids = list(p.spot_ids) + list(p.point_ids)
+    p = fp.pass_params.local_shadow
+    ids = list(p.spot_ids) + list(p.point_ids)
+    if "local_shadows" in chain and not ids:
+        state["local_shadow_maps"] = None      # no casters: lsr_tpu's pass
+    elif "local_shadows" in chain:
         state["local_shadow_maps"] = jax_local_atlas(
             geom, objects, state["lights"], p.spot_ids, p.point_ids, slot,
             face, "pcf",
