@@ -206,6 +206,27 @@ Then kernel B1's screen bands and the multi-device paths
     forward_plus, deferred and forward_plus+full, a 5 s Phase G), its rows
     under chiprun_out/run_phases/, read back and checked: no failed soak
     cycle, four distinct images for each path's four post stacks.
+30. lsr_tpu's last modules: kernel S1 (the engine synth's sample scan,
+    audio/engine_synth.synthesize) on hello_engine_synth's whole voice (6 s
+    at 48 kHz, 288,000 samples) against its plain version on the host CPU,
+    which a process of its own runs from the start of the script beside
+    the card's phases (one thread), within 5e-7 (the two sides' sine and
+    tanh); S1 against its plain version on the card bit for bit on two
+    short clips of the drive cycle: the starter (4,800 samples at 48 kHz)
+    and its first 3.2 s at 2 kHz (6,400 samples, past the catch at 1 s and
+    the first upshift's burst at 2.6 s); hello_engine_synth's main()
+    (counts reset: exactly one S1 launch; out/torch_hello_engine_synth.wav
+    and _spectrum.png), S1 timed by CUDA events (median of 3 after 1), the
+    voice finite with peak <= 1, lsr_tpu's fundamental check at 1800 and
+    3600 rpm on the card; then a 192 x 192 UV sphere (73,728 triangles)
+    written as OBJ, PLY, STL, glTF and GLB, each loaded by io/mesh_loader
+    (host ms; OBJ through the native loader built with g++) and rendered
+    by render_forward at 1920x1080, counts reset: one B1 launch a frame,
+    tids equal across the formats bit for bit, frames equal where the
+    normals and UVs are; the OBJ's frame
+    card against CPU at 192x108; the orbit bot's reducers (the app layer)
+    for 120 frames on the host, every 30th rig the camera of a render
+    (one B1 launch each), the rig path lsr_tpu's (ORBIT_PATH).
 
 14. Where the time goes (last): for the cut frame on both routes, the
     high-poly frame and the end-to-end step, each stage alone on the
@@ -243,8 +264,10 @@ before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -644,11 +667,13 @@ def _wrappers():
 
 
 def reset_counts():
+    from lsr_tpu_torch.audio.engine_synth import synthesize
     from lsr_tpu_torch.raster import tiled
 
     for fn in _wrappers().values():
         fn.launches = 0
     tiled.rasterize_direct.band_launches = 0
+    synthesize.launches = 0        # S1 (phase 30), read apart
 
 
 def read_counts():
@@ -3665,6 +3690,362 @@ def rest_phase(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: lsr_tpu's last modules (the engine synth and kernel S1, the mesh
+# loaders with the native OBJ loader, the app / input layers)
+# ---------------------------------------------------------------------------
+
+SYNTH_RATE = 48000
+# S1 against its plain version on the card, bit for bit, on the first
+# samples of the demo's drive cycle: (rate, samples).  The starter at
+# SYNTH_RATE; and at a rate low enough for the plain loops, the cycle up to
+# 3.2 s, past the catch and the first upshift's burst (each voice of the
+# step).
+SYNTH_CLIPS = {"starter": (SYNTH_RATE, 4800), "cycle_2khz": (2000, 6400)}
+# The whole voice on the card against the plain version on the host CPU:
+# the carried state rounds alike (+, *, fma, floor, clamp); the CPU's and
+# the card's sine and tanh may differ by an ulp or two, which the mix,
+# the softclip and the output low-pass carry to the voice as a few ulps of
+# its values (below 1): 2 ulps (1.2e-7) on an H100.
+SYNTH_HOST_TOL = 5e-7
+SYNTH_WARMUP, SYNTH_RUNS = 1, 3    # timed calls of the demo's voice
+# S1's work a sample: 24 harmonics of ~25 f32 operations (wrap, sine,
+# weight, butterfly), and 28 bytes (six f32 inputs, one output).
+SYNTH_OPS, SYNTH_BYTES = 24 * 25, 28
+# Its loop-carried chain a sample (a smoother: sub, fma, max, min), four
+# dependent f32 instructions of ~4 cycles each.
+SYNTH_CHAIN_CYCLES = 16
+# The loaders' UV sphere: 73,728 triangles, 147,460 setup rows (two a
+# triangle) with the floor's, inside B1's route (tiled.DIRECT_ROW_LIMIT).
+MESH_RINGS = MESH_SECTORS = 192
+MESH_FORMATS = (".obj", ".ply", ".stl", ".gltf", ".glb")
+MESH_SMALL = (192, 108)            # the loaded mesh card against CPU
+BOT_FRAMES, BOT_EVERY, BOT_DT = 120, 30, 1.0 / 60.0
+# The rig's (pos, target()) every BOT_EVERY-th frame of the orbit bot, as
+# lsr_tpu's reducers give it (tests/test_torch_app_logic.py holds this
+# table against lsr_tpu's path and the port's).
+ORBIT_PATH = (
+    ((0.02584925535318236, 0.0, -4.562830879578419),
+     (0.13961934618815702, 0.0, -3.569323775209557)),
+    ((0.1184090990996883, 0.0, -4.060578756741817),
+     (0.36205738942530064, 0.0, -3.090715101055408)),
+    ((0.2977978943775221, 0.0, -3.5238271931286342),
+     (0.6822745411444955, 0.0, -2.6006924748502973)),
+    ((0.5713300842086138, 0.0, -2.9955439172125535),
+     (1.0998504611169533, 0.0, -2.1466233018469785)),
+)
+
+
+def orbit_bot_rigs(reduce_runtime_state, emit_orbit_bot_actions, state):
+    """The app layer's camera path: emit_orbit_bot_actions drives
+    reduce_runtime_state for BOT_FRAMES frames of BOT_DT seconds; returns
+    every BOT_EVERY-th frame's (rig.pos, rig.target())."""
+    rigs = []
+    for f in range(1, BOT_FRAMES + 1):
+        state = reduce_runtime_state(
+            state, emit_orbit_bot_actions((f - 1) * BOT_DT), BOT_DT)
+        if f % BOT_EVERY == 0:
+            rigs.append((tuple(state.camera.pos), state.camera.target()))
+    return rigs
+
+
+def _max_sm_mhz():
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+def _synth_cols(controls, noise):
+    return tuple(getattr(controls, f.name) for f in
+                 dataclasses.fields(controls)) + (noise,)
+
+
+def _synth_plain_host(cols, rate):
+    """In a process of its own: synthesize_plain over numpy columns on the
+    host CPU, one thread.  Returns (y, seconds)."""
+    from lsr_tpu_torch.audio import engine_synth as es
+
+    torch.set_num_threads(1)
+    t = [torch.from_numpy(c) for c in cols]
+    t0 = time.perf_counter()
+    y = es.synthesize_plain(es.EngineControls(*t[:5]), t[5], rate)
+    return y.numpy(), time.perf_counter() - t0
+
+
+def start_synth_reference(dev):
+    """hello_engine_synth's drive cycle on the card, and synthesize_plain
+    over its whole voice started on the host CPU in a process of its own
+    (a minute or more of one core), which runs beside the card's phases
+    until synth_phase reads it.  The process ends with the script."""
+    from lsr_tpu_torch.audio import engine_synth as es
+    from lsr_tpu_torch.demos import hello_engine_synth as demo
+
+    controls, noise = es.drive_cycle(demo.SECONDS, SYNTH_RATE, 0, device=dev)
+    cols = [c.cpu().numpy() for c in _synth_cols(controls, noise)]
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    job = pool.apply_async(_synth_plain_host, (cols, SYNTH_RATE))
+    return {"controls": controls, "noise": noise, "pool": pool, "job": job}
+
+
+def synth_phase(dev, ref):
+    """S1 on the demo's whole voice against the plain version on the host
+    (ref, from start_synth_reference), within SYNTH_HOST_TOL, with the
+    largest error in each stretch of the cycle; S1 against its plain
+    version on the card bit for bit on SYNTH_CLIPS; the demo
+    hello_engine_synth's main() (counts reset: exactly one S1 launch) and
+    its voice equal to the compared one; S1 timed by CUDA events on that
+    voice (median of SYNTH_RUNS after SYNTH_WARMUP: the kernel alone and
+    the wrapper), finite with peak <= 1, spectrum_image timed; lsr_tpu's
+    fundamental check at 1800 and 3600 rpm on the card."""
+    from lsr_tpu_torch.audio import engine_synth as es
+    from lsr_tpu_torch.demos import hello_engine_synth as demo
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    clips = {}
+    for name, (rate, m) in SYNTH_CLIPS.items():
+        c, z = es.drive_cycle(demo.SECONDS, rate, 0, device=dev)
+        cut = lambda x: x[:m].contiguous()  # noqa: E731
+        c, z = es.EngineControls(*map(cut, _synth_cols(c, z)[:5])), cut(z)
+        y_k = es.synthesize(c, z, rate)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_p = es.synthesize_plain(c, z, rate)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        clips[name] = {"samples": z.shape[0], "rate": rate,
+                       "max_abs_err": float((y_k - y_p).abs().max()),
+                       "values_differ": int((y_k != y_p).sum()),
+                       "burst_max": float(c.shift_burst.max()),
+                       "plain_ms_card": plain_s * 1e3}
+        log(f"S1 vs plain on the card [{name} clip]: {clips[name]}")
+        check(clips[name]["values_differ"] == 0,
+              f"S1 {name} clip: {clips[name]} off its plain version")
+    check(clips["cycle_2khz"]["burst_max"] > 0.9,
+          "the 2 kHz cycle has no shift burst")
+
+    # Main path: the demo's main(), counts from zero.
+    reset_counts()
+    t0 = time.perf_counter()
+    demo.main(["--device", str(dev), "--out", "out"])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches = es.synthesize.launches
+    log(f"hello_engine_synth main(): {demo_s:.2f} s, S1 launches {launches}"
+        f", other kernels {read_counts()}")
+    check(launches == 1 and not any(read_counts().values()),
+          f"hello_engine_synth: S1 launched {launches} times")
+
+    controls, noise = ref["controls"], ref["noise"]
+    n = noise.shape[0]
+    cols = _synth_cols(controls, noise)
+    harm = es.harmonic_table(device=dev)
+    uni = torch.tensor(es.step_constants(SYNTH_RATE, 16), device=dev)
+    lib, stream = load_kernels(), torch.cuda.current_stream(dev).cuda_stream
+    runs = {"kernel": lambda: es._synth_launch(lib, cols, harm, uni, stream),
+            "wrapper": lambda: es.synthesize(controls, noise, SYNTH_RATE)}
+    times = {}
+    for k, fn in runs.items():
+        ms = _frames(lambda i: fn(), SYNTH_WARMUP + SYNTH_RUNS, SYNTH_WARMUP,
+                     pipelined=False)[0][SYNTH_WARMUP:]
+        times[k] = statistics.median(ms)
+    y = runs["wrapper"]()
+    check(torch.equal(demo.render(dev), y),
+          "the demo's voice differs from the compared one")
+    peak = float(y.abs().max())
+    check(bool(torch.isfinite(y).all()) and peak <= 1.0,
+          f"the voice: finite {bool(torch.isfinite(y).all())}, peak {peak}")
+
+    # The whole voice against the plain version on the host.
+    t0 = time.perf_counter()
+    y_plain, plain_s = ref["job"].get(timeout=1200)
+    wait_s = time.perf_counter() - t0
+    ref["pool"].close()
+    ref["pool"].join()
+    diff = np.abs(y.cpu().numpy().astype(np.float64) - y_plain)
+    spans = {"0-1 s (starter, catch)": (0.0, 1.0),
+             "1-2.6 s (full throttle)": (1.0, 2.6),
+             "2.6-3.2 s (first upshift's burst)": (2.6, 3.2),
+             "3.2-6 s (second upshift, lift-off)": (3.2, 6.0)}
+    host = {"samples": n, "max_abs_err": float(diff.max()),
+            "values_differ": int((diff > 0).sum()),
+            "plain_s": plain_s, "waited_s": wait_s,
+            "max_abs_err_by_span": {
+                k: float(diff[int(a * SYNTH_RATE):int(b * SYNTH_RATE)].max())
+                for k, (a, b) in spans.items()}}
+    log(f"S1 vs plain on the host CPU [the whole voice]: {host}")
+    check(host["max_abs_err"] <= SYNTH_HOST_TOL,
+          f"S1's voice {host['max_abs_err']} off the plain version on the "
+          f"host (bound {SYNTH_HOST_TOL})")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = es.spectrum_image(y, SYNTH_RATE)
+    spectrum_ms = (time.perf_counter() - t0) * 1e3
+    check(img.shape == (256, 512, 3), f"spectrum image {img.shape}")
+
+    # lsr_tpu's test_fundamental_tracks_rpm on the card, at its 24 kHz.
+    rate, m = 24000, int(1.8 * 24000)
+    f_peaks = {}
+    for rpm in (1800.0, 3600.0):
+        full = lambda v: torch.full((m,), v, device=dev)  # noqa: E731
+        c = es.EngineControls(full(rpm), full(0.5), full(0.5), full(0.8),
+                              full(0.0))
+        seg = es.synthesize(c, full(0.0), rate).cpu().numpy()[
+            int(1.2 * rate):]
+        mag = np.abs(np.fft.rfft(seg * np.hanning(seg.shape[0])))
+        f_peaks[rpm] = float(np.fft.rfftfreq(seg.shape[0], 1.0 / rate)[
+            np.argmax(mag)])
+        check(abs(f_peaks[rpm] - rpm / 15.0) < 6.0,
+              f"fundamental at {rpm} rpm: {f_peaks[rpm]} Hz")
+
+    b = bound(SYNTH_BYTES * n + nbytes(harm, uni), SYNTH_OPS * n)
+    chain_ms = n * SYNTH_CHAIN_CYCLES / (_max_sm_mhz() * 1e6) * 1e3
+    # The plain version of the whole voice ran on the host CPU (on the card
+    # it is some 60 launches a sample); its card times are the clips'.
+    res = {"max_abs_err": host["max_abs_err"],
+           "ms": times["wrapper"], "kernel_ms": times["kernel"],
+           "plain_ms": plain_s * 1e3,
+           "plain_on": "host CPU, one thread, beside phases 1-29",
+           "plain_samples": n, **b,
+           "serial_chain_floor_ms": chain_ms, "samples": n,
+           "launches": launches, "host": host, "clips": clips,
+           "demo_s": demo_s, "spectrum_ms": spectrum_ms, "peak": peak,
+           "fundamental_hz": f_peaks}
+    log(f"S1 on the demo's voice ({n} samples): kernel {times['kernel']:.3f}"
+        f" ms, wrapper {times['wrapper']:.3f} ms (the plain version: "
+        f"{res['plain_ms']:.1f} ms on the host CPU); bound {b}, serial "
+        f"chain floor {chain_ms:.3f} ms; spectrum_image {spectrum_ms:.1f} ms")
+    return res
+
+
+def _mesh_render(scene, w, h, eye=None, target=None):
+    """hello_blinn_phong's render of `scene`, from its camera or from eye
+    towards target."""
+    from lsr_tpu_torch.demos import hello_blinn_phong as bp
+    from lsr_tpu_torch.render import render_forward, simple_camera
+
+    if eye is None:
+        return bp.render(scene, w, h)
+    vp, zn, zf = simple_camera(w, h, eye, target, device=scene["device"])
+    ldr, gb = render_forward(scene["batch"], scene["models"], scene["nmats"],
+                             vp, zn, zf, scene["ctx"], w, h,
+                             model_name="blinn_phong",
+                             background=(0.04, 0.06, 0.1))
+    return {"ldr": ldr, "gb": gb}
+
+
+def _b1_only(tag, n):
+    want = {k: 0 for k in _wrappers()}
+    want["direct_raster"] = n
+    got = read_counts()
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+    return got["direct_raster"]
+
+
+def loaders_phase(dev):
+    """A UV sphere of MESH_RINGS x MESH_SECTORS written as OBJ, binary PLY,
+    binary STL, glTF and GLB (io/mesh_writer; OBJ floats in 9 digits),
+    each loaded by io/mesh_loader.load_mesh (host ms; the OBJ through the
+    native loader); the same triangles in each (STL welds its corners:
+    compared by corner positions); each rendered by render_forward on
+    hello_blinn_phong's scene at 1920x1080 on the card, counts reset:
+    exactly one B1 launch a frame, tids equal across the five formats bit
+    for bit, frames equal across those that carry the same normals and
+    UVs; the OBJ's frame card against CPU at MESH_SMALL.  Then the app
+    layer: the orbit bot drives the reducers for BOT_FRAMES frames on the
+    host (its path ORBIT_PATH), every BOT_EVERY-th rig the camera of a
+    render of the OBJ's scene, one B1 launch each, frame ms."""
+    from lsr_tpu_torch.app.runtime_state import RuntimeState
+    from lsr_tpu_torch.demos import hello_blinn_phong as bp
+    from lsr_tpu_torch.input import value_actions as va
+    from lsr_tpu_torch.io import fast_obj, mesh_loader, mesh_writer
+    from lsr_tpu_torch.io.obj import make_uv_sphere
+
+    sphere = make_uv_sphere(rings=MESH_RINGS, sectors=MESH_SECTORS)
+    folder = os.path.join("build", "phase30_meshes")
+    os.makedirs(folder, exist_ok=True)
+    check(fast_obj.native_available(), "the native OBJ loader is not built")
+    corner = lambda m, f: getattr(m, f)[m.indices]  # noqa: E731
+    res, frames = {}, {}
+    for ext in MESH_FORMATS:
+        path = os.path.join(folder, "sphere" + ext)
+        mesh_writer.write_mesh(path, sphere)
+        t0 = time.perf_counter()
+        mesh = mesh_loader.load_mesh(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(corner(mesh, "positions"),
+                              corner(sphere, "positions")),
+              f"{ext}: the loaded triangles differ")
+        scene = bp.build_scene(mesh, dev)
+        reset_counts()
+        out = _mesh_render(scene, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        b1 = _b1_only(f"loaded {ext} at {WIDTH}x{HEIGHT}", 1)
+        ms = _frames(lambda i: _mesh_render(scene, WIDTH, HEIGHT),
+                     DEMO_WARMUP + DEMO_FRAMES, DEMO_WARMUP,
+                     pipelined=False)[0][DEMO_WARMUP:]
+        same_attrs = all(np.array_equal(corner(mesh, f), corner(sphere, f))
+                         for f in ("normals", "uvs"))
+        frames[ext] = (out, same_attrs)
+        res[ext] = {"load_ms": load_ms, "vertices": mesh.num_vertices,
+                    "triangles": mesh.num_triangles,
+                    "bytes": os.path.getsize(path), "b1_launches": b1,
+                    "ms": statistics.median(ms), "ms_min": min(ms),
+                    "ms_max": max(ms), "covered": int(out["gb"].covered.sum()),
+                    "same_normals_uvs": same_attrs}
+        log(f"loaded sphere{ext}: {res[ext]}")
+    ref = frames[".obj"][0]
+    check(frames[".gltf"][1] and frames[".glb"][1],
+          "glTF does not carry the written normals and UVs")
+    for ext, (out, same_attrs) in frames.items():
+        check(torch.equal(out["gb"].tri_id, ref["gb"].tri_id),
+              f"{ext}: tids differ from the OBJ's")
+        if same_attrs:
+            check(torch.equal(out["ldr"], ref["ldr"]),
+                  f"{ext}: frame differs from the OBJ's")
+    del frames
+
+    obj = mesh_loader.load_mesh(os.path.join(folder, "sphere.obj"))
+    sw, sh = MESH_SMALL
+    small = {str(d): _mesh_render(bp.build_scene(obj, d), sw, sh)
+             for d in ("cpu", dev)}
+    res["card_vs_cpu"] = _demo_contract("loaded sphere.obj", small["cpu"],
+                                        small[str(dev)], ("tid", "ldr"),
+                                        size=MESH_SMALL)
+
+    rigs = orbit_bot_rigs(va.reduce_runtime_state, va.emit_orbit_bot_actions,
+                          RuntimeState(bot_enabled=True))
+    check(tuple(rigs) == ORBIT_PATH, f"the bot's path {rigs} differs from "
+          "lsr_tpu's (ORBIT_PATH)")
+    scene = bp.build_scene(obj, dev)
+    reset_counts()
+    bot_ms = []
+    for pos, target in rigs:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = _mesh_render(scene, WIDTH, HEIGHT, pos, target)
+        e1.record()
+        torch.cuda.synchronize()
+        bot_ms.append(e0.elapsed_time(e1))
+        check(int(out["gb"].covered.sum()) > 0, f"rig at {pos}: empty frame")
+    res["bot"] = {"renders": len(rigs), "ms": bot_ms,
+                  "b1_launches": _b1_only("orbit bot renders", len(rigs))}
+    log(f"orbit bot: {res['bot']}")
+    return res
+
+
+def phase30(dev, synth_ref):
+    """Phase 30: synth_phase, then loaders_phase."""
+    t_start = time.perf_counter()
+    res = {"synth": synth_phase(dev, synth_ref),
+           "loaders": loaders_phase(dev)}
+    log(f"# phase 30 took {time.perf_counter() - t_start:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3691,6 +4072,8 @@ def main():
     log(f"# kernel library {'built' if build_info['built'] else 'reused'} "
         f"in {build_info['seconds']:.1f} s (one nvcc per source, in "
         f"parallel, then a link): {build_info['path']}")
+    # Phase 30's plain voice, on the host CPU beside phases 1-29.
+    synth_ref = start_synth_reference(dev)
     resources = kernel_resources(build_info["log"])
     for src, fns in resources.items():
         for fn in fns:
@@ -3810,6 +4193,11 @@ def main():
     # with its counts.
     rest = rest_phase(dev)
 
+    # lsr_tpu's last modules: the engine synth (S1), the loaders, the app
+    # layer, each path with its counts.
+    p30 = phase30(dev, synth_ref)
+    entry_log("engine_synth", p30["synth"])
+
     prof = profile_phase(geom, objects, lights, ctx, cam0, ctx0)
     prof.update(esm_profile_phase(geom, objects, lights, ctx, cam0, ctx0,
                                   casters))
@@ -3851,6 +4239,14 @@ def main():
             {k: f"{v['ms_avg']:.3f}" for k, v in
              rest["run_phases"]["F"].items()},
             rest["run_phases"]["G"]["avg_frame_ms"]))
+    log("summary: phase 30: S1 {:.3f} ms ({} samples; wrapper {:.3f}, "
+        "plain {:.1f} ms on the host CPU), loaded-mesh frames at {}x{} {} "
+        "ms, orbit bot {} ms".format(
+            p30["synth"]["kernel_ms"], p30["synth"]["samples"],
+            p30["synth"]["ms"], p30["synth"]["plain_ms"], WIDTH,
+            HEIGHT, {k: f"{v['ms']:.3f}" for k, v in p30["loaders"].items()
+                     if k in MESH_FORMATS},
+            [f"{m:.3f}" for m in p30["loaders"]["bot"]["ms"]]))
     log("summary: compositions, median ms/frame {} (forward_plus+full and "
         "forward_classic+ssao at {}x{}, Config #5 at {}x{}); post-stack "
         "sweep distinct images {}".format(
@@ -3926,6 +4322,11 @@ def main():
                                          "b1_mirrored_px_differ"),
               band_h_launches_on_demos=on_demos("direct_raster_band_h"),
               launches_on_phase29=on_rest("direct_raster"),
+              launches_on_phase30={
+                  **{f"sphere{k}": v["b1_launches"]
+                     for k, v in p30["loaders"].items()
+                     if k in MESH_FORMATS},
+                  "orbit_bot": p30["loaders"]["bot"]["b1_launches"]},
               **{k: b1[k] for k in b1_keys}),
         entry("direct_raster (y_offset, B1b)", "direct_raster.cu",
               "lsr_tpu/raster/tiled.py:289 (y_offset: :60-79, :259-270, "
@@ -3976,6 +4377,15 @@ def main():
               b6_launches["fplus_accumulate"], b6,
               tile_16x128=sub(b6["tile_16x128"], *walk_keys),
               **{k: b6[k] for k in walk_keys}),
+        entry("engine_synth", "engine_synth.cu",
+              "lsr_tpu/audio/engine_synth.py:84 (lax.scan; no pallas_call)",
+              p30["synth"]["launches"], p30["synth"],
+              at=f"hello_engine_synth's voice, {p30['synth']['samples']} "
+                 f"samples at {SYNTH_RATE} Hz",
+              **{k: p30["synth"][k] for k in (
+                  "plain_on", "plain_samples", "serial_chain_floor_ms",
+                  "host", "clips",
+                  "spectrum_ms", "fundamental_hz", "bytes", "ops")}),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")

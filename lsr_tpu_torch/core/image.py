@@ -1,4 +1,4 @@
-"""Bilinear upsampling with jax.image.resize(..., "bilinear") semantics.
+"""Bilinear resizing with jax.image.resize(..., "bilinear") semantics.
 
 jax.image.resize (jax/_src/image/scale.py: compute_weight_mat,
 _scale_and_translate) builds one weight matrix per resized axis: output
@@ -13,7 +13,10 @@ matrices are built here explicitly.
 For upsampling the triangle kernel reaches only floor(s) and floor(s) + 1,
 so each output is the two-tap sum w0 * x[i0] + w1 * x[i1] with both weights
 read from the matrix: the same function as the matrix product, whose other
-terms are exact zeros, without its (m, n) multiply.
+terms are exact zeros, without its (m, n) multiply.  Downsampling widens
+the kernel to 1 / scale input pixels (jax's antialias), so every input in
+reach weighs in: that axis is the matrix product itself (in float32, summed
+in torch's order, not XLA's).
 """
 
 from __future__ import annotations
@@ -65,8 +68,9 @@ def _resize_axis(x, axis: int, n: int):
     if n == m:
         return x
     if n < m:
-        raise ValueError(f"resize_bilinear: only upsampling is ported "
-                         f"({m} -> {n})")
+        w = resize_weights(m, n, x.device)
+        return torch.movedim(
+            torch.tensordot(torch.movedim(x, axis, -1), w, dims=1), -1, axis)
     i0, i1, w0, w1 = _taps(m, n, x.device)
     shape = [1] * x.ndim
     shape[axis] = n
@@ -77,7 +81,7 @@ def _resize_axis(x, axis: int, n: int):
 
 def resize_bilinear(x, shape):
     """x resized to `shape` (same rank), every axis whose size changes
-    upsampled bilinearly as jax.image.resize(x, shape, "bilinear") does;
+    resized bilinearly as jax.image.resize(x, shape, "bilinear") does;
     axes are resized in order.  Float32 in, float32 out."""
     if len(shape) != x.ndim:
         raise ValueError(f"resize_bilinear: shape {tuple(shape)} does not "

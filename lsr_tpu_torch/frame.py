@@ -44,6 +44,7 @@ from lsr_tpu_torch.geometry.occlusion import (
     render_occluder_depth,
 )
 from lsr_tpu_torch.geometry.volumes import frustum_cull_objects
+from lsr_tpu_torch.io.fast_obj import load_obj_fast
 from lsr_tpu_torch.io.obj import make_plane, make_uv_sphere
 from lsr_tpu_torch.lighting.light_culling import cull_lights_camera
 from lsr_tpu_torch.lighting.light_types import LightSetBuilder
@@ -75,12 +76,16 @@ FOV = np.pi / 3.2
 
 
 def build_flagship_scene(n_lights: int = 256, seed: int = 42, grid: int = 5,
-                         device=None):
+                         device=None, mesh_path: str | None = None):
     """Procedural flagship scene on `device` (default: the card,
-    core.util.default_device).  Returns (geom, objects, lights, ctx)."""
+    core.util.default_device).  Returns (geom, objects, lights, ctx).
+    The grid's mesh is the OBJ at mesh_path, loaded with the native loader
+    as bench.py loads the monkey, or by default the UV sphere (16 rings,
+    32 sectors) that stands in for the monkey."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
-    sphere = make_uv_sphere(rings=16, sectors=32)
+    sphere = (load_obj_fast(mesh_path) if mesh_path
+              else make_uv_sphere(rings=16, sectors=32))
     sb = SceneBuilder()
     for i in range(grid * grid):
         x = (i % grid - grid // 2) * 2.4

@@ -3,17 +3,22 @@ write_png, save_canvas_png and read_png).
 
 Canvas arrays use a bottom-left origin; PNG rows run top to bottom, so
 save_canvas_png flips the rows.  read_png decodes 8-bit gray, gray+alpha,
-RGB and RGBA PNGs with scanline filters 0-4 in Python; lsr_tpu's optional
-native unfilter (native/png_filters.cpp) is not bound here, and the Python
-path gives the same bytes.
+RGB and RGBA PNGs with scanline filters 0-4: the scanlines go through the
+native unfilter (lsr_tpu_torch/native/png_filters.cpp, built with g++ at
+first use, as lsr_tpu/io/png.py binds its own).  Where lsr_tpu decodes in
+Python a stream its native call declines, this raises: a failed build, a
+short stream or an unknown filter byte.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
+
+from lsr_tpu_torch.utils.native_build import ensure_native_built
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -42,34 +47,36 @@ def save_canvas_png(path: str, canvas_u8: np.ndarray) -> None:
     write_png(path, np.asarray(canvas_u8)[::-1])
 
 
-def _unfilter_row(ftype: int, row, prev, channels: int):
-    """One scanline's bytes (int32) after undoing PNG filter ftype against
-    the previous unfiltered row."""
-    stride = row.shape[0]
-    if ftype == 0:
-        return row
-    if ftype == 2:                                   # Up
-        return (row + prev) & 0xFF
-    cur = row.copy()
-    if ftype == 1:                                   # Sub
-        for i in range(channels, stride):
-            cur[i] = (cur[i] + cur[i - channels]) & 0xFF
-    elif ftype == 3:                                 # Average
-        for i in range(stride):
-            left = cur[i - channels] if i >= channels else 0
-            cur[i] = (cur[i] + ((left + prev[i]) >> 1)) & 0xFF
-    elif ftype == 4:                                 # Paeth
-        for i in range(stride):
-            a = cur[i - channels] if i >= channels else 0
-            b = prev[i]
-            c = prev[i - channels] if i >= channels else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-            cur[i] = (cur[i] + pred) & 0xFF
-    else:
-        raise ValueError(f"unsupported filter {ftype}")
-    return cur
+_PNG_LIB = None
+
+
+def _png_lib():
+    """ctypes handle of the native scanline unfilter (built at first use;
+    a failed build raises)."""
+    global _PNG_LIB
+    if _PNG_LIB is None:
+        lib = ctypes.CDLL(ensure_native_built("libpngfilters.so"))
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_void_p]
+        _PNG_LIB = lib
+    return _PNG_LIB
+
+
+def unfilter_native(raw: bytes, h: int, stride: int, channels: int):
+    """(h, stride) uint8 scanlines of an inflated stream through the native
+    unfilter.  Raises ValueError on a stream shorter than h rows or on an
+    unknown filter byte."""
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"PNG stream of {len(raw)} bytes is short of {h} "
+                         f"rows of {stride + 1}")
+    out = np.empty(h * stride, np.uint8)
+    rc = _png_lib().png_unfilter(raw, h, stride, channels,
+                                 out.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise ValueError(f"unsupported filter {rc}")
+    return out.reshape(h, stride)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -98,13 +105,4 @@ def read_png(path: str) -> np.ndarray:
     channels = {0: 1, 2: 3, 4: 2, 6: 4}[color_type]
     raw = zlib.decompress(idat)
     stride = w * channels
-    img = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    off = 0
-    for y in range(h):
-        row = np.frombuffer(raw, np.uint8, stride, off + 1).astype(np.int32)
-        cur = _unfilter_row(raw[off], row, prev, channels)
-        off += 1 + stride
-        img[y] = cur.astype(np.uint8)
-        prev = cur
-    return img.reshape(h, w, channels)
+    return unfilter_native(raw, h, stride, channels).reshape(h, w, channels)

@@ -69,6 +69,9 @@ SIGNATURES = {
     # pw, tile_h, tile_w, tiles_x, cap, chunk, stream
     "lsr_fplus_accumulate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P),
+    # rpm, throttle, load, torque_mul, shift_burst, noise, harm, uniforms,
+    # y, n, stream
+    "lsr_engine_synth": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 _lib = None
