@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase30    # phase 30 alone, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -211,10 +212,12 @@ Then kernel B1's screen bands and the multi-device paths
     at 48 kHz, 288,000 samples) against its plain version on the host CPU,
     which a process of its own runs from the start of the script beside
     the card's phases (one thread), within 5e-7 (the two sides' sine and
-    tanh); S1 against its plain version on the card bit for bit on two
-    short clips of the drive cycle: the starter (4,800 samples at 48 kHz)
-    and its first 3.2 s at 2 kHz (6,400 samples, past the catch at 1 s and
-    the first upshift's burst at 2.6 s); hello_engine_synth's main()
+    tanh); S1 against its plain version on the card bit for bit on short
+    clips of the drive cycle: the starter (4,800 samples at 48 kHz), its
+    first 3.2 s at 2 kHz (6,400 samples, past the catch at 1 s and the
+    first upshift's burst at 2.6 s), 1, 255, 257 and 769 samples at 48 kHz
+    (either side of S1's chunks of 256) and 3 s at 1 kHz (S1's later
+    chunks there wrap phases with floorf); hello_engine_synth's main()
     (counts reset: exactly one S1 launch; out/torch_hello_engine_synth.wav
     and _spectrum.png), S1 timed by CUDA events (median of 3 after 1), the
     voice finite with peak <= 1, lsr_tpu's fundamental check at 1800 and
@@ -3700,8 +3703,17 @@ SYNTH_RATE = 48000
 # samples of the demo's drive cycle: (rate, samples).  The starter at
 # SYNTH_RATE; and at a rate low enough for the plain loops, the cycle up to
 # 3.2 s, past the catch and the first upshift's burst (each voice of the
-# step).
-SYNTH_CLIPS = {"starter": (SYNTH_RATE, 4800), "cycle_2khz": (2000, 6400)}
+# step); lengths either side of S1's chunk (csrc/engine_synth.cu kChunk),
+# where its stages hand over and its last chunk is padded; and 3 s at 1
+# kHz, where the starter's increment passes half the rate at 1.56 s, so
+# S1's later chunks wrap their phases with floorf, the earlier ones fast.
+SYNTH_CHUNK = 256
+SYNTH_CLIPS = {"starter": (SYNTH_RATE, 4800), "cycle_2khz": (2000, 6400),
+               "one_sample": (SYNTH_RATE, 1),
+               "chunk-1": (SYNTH_RATE, SYNTH_CHUNK - 1),
+               "chunk+1": (SYNTH_RATE, SYNTH_CHUNK + 1),
+               "3chunks+1": (SYNTH_RATE, 3 * SYNTH_CHUNK + 1),
+               "floor_wrap_1khz": (1000, 3000)}
 # The whole voice on the card against the plain version on the host CPU:
 # the carried state rounds alike (+, *, fma, floor, clamp); the CPU's and
 # the card's sine and tanh may differ by an ulp or two, which the mix,
@@ -3710,11 +3722,17 @@ SYNTH_CLIPS = {"starter": (SYNTH_RATE, 4800), "cycle_2khz": (2000, 6400)}
 SYNTH_HOST_TOL = 5e-7
 SYNTH_WARMUP, SYNTH_RUNS = 1, 3    # timed calls of the demo's voice
 # S1's work a sample: 24 harmonics of ~25 f32 operations (wrap, sine,
-# weight, butterfly), and 28 bytes (six f32 inputs, one output).
+# weight, the pairwise sum), and 28 bytes (six f32 inputs, one output).
 SYNTH_OPS, SYNTH_BYTES = 24 * 25, 28
-# Its loop-carried chain a sample (a smoother: sub, fma, max, min), four
-# dependent f32 instructions of ~4 cycles each.
-SYNTH_CHAIN_CYCLES = 16
+# Its longest loop-carried chain a sample as S1 compiles it: a phase, fma ->
+# compare (u >= 1) -> sub, 5 + 5 + 4 cycles of issue stalls in its SASS.
+# The smoothers (sub, saturating fma), the noise and the output low-pass
+# (sub, fma) take 8.  The plain version's form of a clamped smoother (sub,
+# fma, max, min) would take 18.
+SYNTH_CHAIN_CYCLES = 14
+# S1 on this voice in its earlier design, one warp walking each whole step
+# in order (PERF.md §6): the yardstick its log line repeats.
+SYNTH_ONE_WARP_MS = 137.449
 # The loaders' UV sphere: 73,728 triangles, 147,460 setup rows (two a
 # triangle) with the floor's, inside B1's route (tiled.DIRECT_ROW_LIMIT).
 MESH_RINGS = MESH_SECTORS = 192
@@ -3902,6 +3920,7 @@ def synth_phase(dev, ref):
 
     b = bound(SYNTH_BYTES * n + nbytes(harm, uni), SYNTH_OPS * n)
     chain_ms = n * SYNTH_CHAIN_CYCLES / (_max_sm_mhz() * 1e6) * 1e3
+    smem = lib.lsr_engine_synth_smem_bytes()
     # The plain version of the whole voice ran on the host CPU (on the card
     # it is some 60 launches a sample); its card times are the clips'.
     res = {"max_abs_err": host["max_abs_err"],
@@ -3910,13 +3929,16 @@ def synth_phase(dev, ref):
            "plain_on": "host CPU, one thread, beside phases 1-29",
            "plain_samples": n, **b,
            "serial_chain_floor_ms": chain_ms, "samples": n,
+           "dynamic_smem_bytes": smem,
            "launches": launches, "host": host, "clips": clips,
            "demo_s": demo_s, "spectrum_ms": spectrum_ms, "peak": peak,
            "fundamental_hz": f_peaks}
     log(f"S1 on the demo's voice ({n} samples): kernel {times['kernel']:.3f}"
-        f" ms, wrapper {times['wrapper']:.3f} ms (the plain version: "
+        f" ms, wrapper {times['wrapper']:.3f} ms (one warp walking each "
+        f"step, recorded: {SYNTH_ONE_WARP_MS} ms; the plain version: "
         f"{res['plain_ms']:.1f} ms on the host CPU); bound {b}, serial "
-        f"chain floor {chain_ms:.3f} ms; spectrum_image {spectrum_ms:.1f} ms")
+        f"chain floor {chain_ms:.3f} ms; {smem} bytes of dynamic shared "
+        f"memory; spectrum_image {spectrum_ms:.1f} ms")
     return res
 
 
@@ -4078,6 +4100,11 @@ def main():
     for src, fns in resources.items():
         for fn in fns:
             log(f"#   ptxas {src}: {fn}")
+    if sys.argv[1:] == ["--phase30"]:
+        # Phase 30 alone (S1, the loaders, the app layer), for work on them.
+        entry_log("engine_synth", phase30(dev, synth_ref)["synth"])
+        log(f"phase 30 alone: ok ({card})")
+        return 0
 
     geom, objects, lights, ctx = build_flagship_scene(N_LIGHTS, SEED,
                                                       device=dev)

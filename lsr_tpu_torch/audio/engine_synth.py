@@ -6,9 +6,9 @@ A "W16" engine voice: a firing-order fundamental with load-scaled jitter, a
 and its first difference, gear-shift crack and thump bursts, a starter
 whine crossfaded out in the first second, softclip drive and a one-pole
 output low-pass.  lsr_tpu runs the voice as one jitted lax.scan over the
-samples; here CUDA tensors launch kernel S1 (csrc/engine_synth.cu), one
-warp walking the samples in order, and CPU tensors run its plain version,
-synthesize_plain.
+samples; here CUDA tensors launch kernel S1 (csrc/engine_synth.cu), whose
+warps run the recurrences serially beside sample-parallel output warps,
+and CPU tensors run its plain version, synthesize_plain.
 
 Both compute what lsr_tpu's compiled scan computes, in float32, operation
 for operation.  XLA:CPU rewrites the step before it runs it: a division by
@@ -22,12 +22,13 @@ rounded to odd; __fmaf_rn in the kernel); without them the phases drift
 from lsr_tpu's by float32 ulps after the throttle opens.  Every other
 product and sum rounds on its own.  What still differs from lsr_tpu is
 output-only: XLA's own sine and tanh polynomials and its order of the
-harmonic sum (here the order of the kernel's warp butterfly).
+harmonic sum (here a fixed pairwise tree over 32 slots, the kernel's too).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 H_HARMONICS = 24
 LOAD_BINS = 8
 SMOOTH = 0.02        # parameter smoothers (Smooth a=0.02)
-BUTTERFLY = 32       # the kernel's warp: the harmonic sum's lanes
+BUTTERFLY = 32       # slots of the harmonic sum's pairwise tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +210,14 @@ def synthesize_plain(controls: EngineControls, noise,
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _launch_tables(dev, sample_rate, cylinders):
+    """The harmonic table and the step constants on the card, made once for
+    each (device, rate, cylinders): S1's launches then copy nothing."""
+    return (harmonic_table(device=dev),
+            device_const(step_constants(sample_rate, cylinders), dev))
+
+
 def _synth_launch(lib, cols, harm, uni, stream):
     """Launch kernel S1 through the C interface; returns y (N,)."""
     noise = cols[-1]
@@ -232,8 +241,8 @@ def synthesize(controls: EngineControls, noise, sample_rate: int = 48000,
     if dev.type != "cuda":
         raise ValueError(f"synthesize: unsupported device {dev}")
     cols = tuple(c.contiguous() for c in cols)
-    uni = device_const(step_constants(sample_rate, cylinders), dev)
-    y = _synth_launch(load_kernels(), cols, harmonic_table(device=dev), uni,
+    harm, uni = _launch_tables(dev, sample_rate, cylinders)
+    y = _synth_launch(load_kernels(), cols, harm, uni,
                       torch.cuda.current_stream(dev).cuda_stream)
     synthesize.launches += 1
     return y

@@ -34,8 +34,8 @@ LINK_FLAGS = ("-shared",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# C signatures (argtypes) of every exported launcher; each returns the
-# cudaError_t of its launch.
+# C signatures (argtypes) of every exported function; each returns an int:
+# a launcher the cudaError_t of its launch.
 SIGNATURES = {
     # rec, chunk_bb, slists, counts, depth_in, tid_in, depth_out, tid_out,
     # width, height, tiles_x, scap, zn, inv_range, max_py, depth_mode,
@@ -72,6 +72,8 @@ SIGNATURES = {
     # rpm, throttle, load, torque_mul, shift_burst, noise, harm, uniforms,
     # y, n, stream
     "lsr_engine_synth": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # (no arguments): S1's dynamic shared memory in bytes
+    "lsr_engine_synth_smem_bytes": (),
 }
 
 _lib = None

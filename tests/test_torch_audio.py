@@ -22,6 +22,7 @@ from lsr_tpu.audio import engine_synth as jsynth
 from lsr_tpu.io import wav as jwav
 from lsr_tpu_torch.audio import engine_synth as tsynth
 from lsr_tpu_torch.io import wav as twav
+from lsr_tpu_torch.utils import s1_stages
 
 FIELDS = ("rpm", "throttle", "load", "torque_mul", "shift_burst")
 
@@ -67,6 +68,32 @@ def test_synthesize_matches_jax_past_throttle():
     assert abs(rms_g - rms_r) <= 1e-4 * rms_r
     pcm = lambda x: np.round(x * 32767.0).astype(np.int32)  # noqa: E731
     assert np.abs(pcm(got) - pcm(ref)).max() <= 1
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 769])
+def test_synthesize_matches_jax_chunk_edges(n):
+    """Clips of n samples at 48 kHz, either side of the 256-sample chunks
+    that kernel S1's stages hand over (csrc/engine_synth.cu): the port's
+    voice on the CPU within 2e-7 of lsr_tpu's, lsr_tpu's noise carried in.
+    chip_smoke.py holds S1 bit for bit against this plain version on the
+    same lengths on the card."""
+    rate = 48000
+    controls, noise = jsynth.drive_cycle(seconds=0.02, sample_rate=rate)
+    clip = jsynth.EngineControls(*(getattr(controls, f)[:n] for f in FIELDS))
+    ref, got = _both(clip, noise[:n], rate)
+    assert got.dtype == np.float32 and got.shape == (n,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-7)
+
+
+@pytest.mark.parametrize("variant", list(s1_stages.VARIANTS))
+def test_s1_stages_patches_apply(variant):
+    """Each variant of utils/s1_stages (and its profiled copy) is a set of
+    text patches of csrc/engine_synth.cu; every patch still finds its
+    text, so the tool builds what its name says."""
+    patches = s1_stages.VARIANTS[variant]
+    for p in (patches, patches + s1_stages.PROFILE):
+        src = s1_stages._patched(p)
+        assert "engine_synth_kernel" in src
 
 
 @pytest.mark.parametrize("rpm", [1800.0, 3600.0])
