@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase30    # phase 30 alone, after the build
+    python3 chip_smoke.py --phase31    # phase 31 alone, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -23,7 +24,10 @@ first use, into build/kernels/), then:
 4. The main path: bench.py's whole flagship frame (make_flagship_frame:
    per-frame cull of objects and lights, the 8-spot + 2-point local shadow
    atlas, the sun map, raster, forward+ with local-shadow planes, tonemap,
-   FXAA) at 1920x1080 with 256 lights along the bench orbit, counts reset
+   FXAA) as one program, jit(make_flagship_frame(...)) as bench.py:344
+   jits it (utils.jit: the first frame warms up, the second is captured
+   into a CUDA graph, later frames replay it), at 1920x1080 with 256
+   lights along the bench orbit, counts reset
    before each configuration: (a) bench.py's ESM default (sun 1024^2, spot
    slots 512^2, cube faces 256^2, planes and sun visibility at half
    resolution), B2 route, "map" atlas, writing out/torch_flagship.png; (b)
@@ -33,6 +37,23 @@ first use, into build/kernels/), then:
    wall ms per frame, pipelined ms, the launches checked exactly (B1 3 + 20
    a frame under "map", 3 + 2 under "packed", one B2 or B5), the visible
    objects and lights per frame.
+
+31. One-program frames (right after phase 4): each path through
+    lsr_tpu_torch.utils.jit, the port's jax.jit, captured once into a CUDA
+    graph and replayed, against its eager frame.  bench.py's whole frame in
+    the four configurations of phase 4 (the staged orbit's camera 0 warms
+    up, then captures; four later cameras replay); a camera with another
+    zn / zf (a host leaf: captures anew); execute_jitted on the five
+    presets, forward_plus+full and forward_classic+ssao at 1280x720 and
+    Config #5 at 800x600 (frames 0 and 1 warm up two keys, frame 2
+    captures; TAA's history flows through the graph's inputs) against
+    execute on the same states; a function that reads a tensor on the host
+    must fail to capture.  Per path: each replay's launches equal the eager
+    frame's, its outputs equal the eager frame's bit for bit (or lie within
+    the eager frame's spread against itself), one capture; replay and
+    eager ms by CUDA events [min, max], pipelined ms, capture ms, the
+    graph's memory, torch.profiler's device busy share of one replay and of
+    one eager frame.  `python3 chip_smoke.py --phase31` runs it alone.
 
 Then the high-poly path, on the 33x33 sphere field (1,115,136 triangles,
 lsr_tpu_torch.highpoly):
@@ -1682,7 +1703,8 @@ def small_whole_phase(dev):
 
 def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
                       b1_per_frame, png=None, **cfg):
-    """Phases 4a-4d.  bench.py's whole frame through make_flagship_frame,
+    """Phases 4a-4d.  bench.py's whole frame, jit(make_flagship_frame(...))
+    as bench.py jits it (a captured CUDA graph from the second frame on),
     counts reset: WARMUP + WHOLE_FRAMES frames along the orbit (device
     events and wall clock), the same frames again without a sync between
     them (pipelined), then exactly b1_per_frame B1 launches and one B2 (or
@@ -1690,9 +1712,12 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     again, after the counts are read).  Returns the result."""
     from lsr_tpu_torch.frame import cull_frame, make_flagship_frame
     from lsr_tpu_torch.io.png import write_png
+    from lsr_tpu_torch.utils.jit import jit
 
-    frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH, HEIGHT,
-                                use_resolve=route, **cfg)
+    # jit(frame), as bench.py:344 jits it: the first camera warms up, the
+    # second captures, later ones replay.
+    frame = jit(make_flagship_frame(geom, objects, lights, ctx, WIDTH,
+                                    HEIGHT, use_resolve=route, **cfg))
     cams = cams[:WARMUP + WHOLE_FRAMES]
     reset_counts()
     ms, wall = [], []
@@ -2070,9 +2095,11 @@ def render_paths_phase(dev):
     os.makedirs("out", exist_ok=True)
     write_png(os.path.join("out", "torch_render_paths.png"),
               _contact_sheet(frames))
+    # The launch's arguments are recorded on execute(), the same frame as
+    # execute_jitted's bit for bit (phase 31), whose replays run no Python.
     pipe, fp, state_fn = pipes["clustered_forward"]
     with shade_calls() as sc:
-        st = pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+        st = pipe.execute(RenderContext(), state_fn(0), fp)
     check(len(sc.calls) == 1 and sc.calls[0][24] == CLUSTER_SLICES,
           "clustered_forward did not light through B2b")
     out["b2b"] = b2b_check("render-path scene, clustered_forward",
@@ -2206,8 +2233,8 @@ def compositions_phase(dev):
         out[name] = _path_run("composition", name, fns[name], pipe, fp,
                               state_fn, b2_per_frame)
     pipe, fp, state_fn = pipes["forward_plus+full"]
-    with shade_calls() as sc:
-        st = pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+    with shade_calls() as sc:      # on execute(), as in phase 20
+        st = pipe.execute(RenderContext(), state_fn(0), fp)
     check(len(sc.calls) == 1, "forward_plus+full did not light through B2")
     out["forward_plus+full"]["b2_max_abs_err"] = b2b_check(
         "forward_plus+full", sc.calls[0], st["gbuffer"].depth01, dev,
@@ -2317,8 +2344,8 @@ def config5_kernel_checks(pipe, fp, state, dev):
     from lsr_tpu_torch.raster.brute import rasterize_brute
     from lsr_tpu_torch.raster.setup import DEPTH_NDC01
 
-    with shade_calls() as sc:
-        a = pipe.execute_jitted(RenderContext(), state, fp)
+    with shade_calls() as sc:      # on execute(), as in phase 20
+        a = pipe.execute(RenderContext(), state, fp)
     check(len(sc.calls) == 1, "Config #5 did not light through B2")
     b2_err = b2b_check("Config #5, tiled depth range", sc.calls[0],
                        a["gbuffer"].depth01, dev, timed=False)["max_abs_err"]
@@ -3694,6 +3721,311 @@ def rest_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 31: one-program frames (utils.jit: each frame one captured CUDA
+# graph, replayed)
+# ---------------------------------------------------------------------------
+
+OP_REPLAYS = 3                     # replayed frames after the capture's
+FLAGSHIP_OUTS = ("ldr", "n_valid", "max_sup", "max_lights_per_bin",
+                 "overflow_bins")
+
+
+def _timed(fn):
+    """(fn(), device ms by CUDA events around it, synchronized)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _pipelined(fns):
+    """Host ms a call of fns called back to back, one sync at the end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(fns)
+
+
+def _spread(a, b):
+    """(elements that differ, max abs difference) of two tensors."""
+    if torch.equal(a, b):
+        return 0, 0.0
+    d = (a.double() - b.double()).abs()
+    return int((d > 0).sum()), float(d.max())
+
+
+def _ms_summary(ms):
+    return {"ms": statistics.median(ms), "ms_min": min(ms),
+            "ms_max": max(ms), "frame_ms_all": [round(m, 3) for m in ms]}
+
+
+def _busy(run, ms):
+    """torch.profiler over one more call of run, warm: device busy ms (the
+    sum of its kernels' times), kernels, and the busy share of ms (a
+    call's time by CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    t = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    busy = sum(t(e) for e in cuda)
+    top = sorted(cuda, key=t, reverse=True)[:6]
+    return {"device_busy_ms": busy, "kernels": sum(e.count for e in cuda),
+            "busy_share": busy / ms,
+            "top": [(e.key[:60], e.count, round(t(e), 3)) for e in top]}
+
+
+def _one_program(tag, jitted_of, steps, outs_of, want):
+    """One path through jit against its eager frame.  steps: [(kind,
+    jitted call, eager call, the eager call again from the same state)] in
+    order, kind "warm" (jit's eager warm-up of a key), "capture" (the call
+    that captures, then replays) or "replay".  At every step the jitted
+    call's launches equal the eager call's and want; from the capture on,
+    its outputs (outs_of: {name: tensor}) equal the eager frame's bit for
+    bit, or lie within the spread of the eager frame against itself
+    (measured at the capture's step).  jitted_of() is the path's Jitted.  Then both sides' replay steps again back
+    to back (pipelined ms), torch.profiler over one replay and one eager
+    frame, the graph's numbers.  Returns the result."""
+    replay_ms, eager_ms, spread, self_spread = [], [], {}, None
+    capture_call_ms = None
+    for i, (kind, jitted, eager, again) in enumerate(steps):
+        reset_counts()
+        out_j, ms_j = _timed(jitted)
+        got = read_counts()
+        reset_counts()
+        out_e, ms_e = _timed(eager)
+        ref = read_counts()
+        check(got == ref == want, f"{tag} step {i} ({kind}): launches "
+              f"{got} (eager {ref}, expected {want})")
+        if kind == "warm":
+            continue
+        if kind == "capture":
+            capture_call_ms = ms_j
+            twice = outs_of(again())
+            self_spread = {k: _spread(v, twice[k])
+                           for k, v in outs_of(out_e).items()}
+        else:
+            replay_ms.append(ms_j)
+            eager_ms.append(ms_e)
+        for k, v in outs_of(out_j).items():
+            px, err = _spread(v, outs_of(out_e)[k])
+            spread[k] = max(spread.get(k, (0, 0.0)), (px, err))
+            check(px <= self_spread[k][0] and err <= self_spread[k][1],
+                  f"{tag} step {i} ({kind}): {k} differs from the eager "
+                  f"frame's in {px} elements (max {err}); the eager frame "
+                  f"against itself {self_spread[k]}")
+    jf = jitted_of()
+    check(jf.captures == 1, f"{tag}: {jf.captures} captures, one expected")
+    g = next(iter(jf.graphs.values()))
+    replays = [s[1] for s in steps if s[0] == "replay"]
+    eagers = [s[2] for s in steps if s[0] == "replay"]
+    res = {"replay": _ms_summary(replay_ms), "eager": _ms_summary(eager_ms),
+           "replay_pipelined_ms": _pipelined(replays),
+           "eager_pipelined_ms": _pipelined(eagers),
+           "capture_ms": g.capture_ms, "capture_call_ms": capture_call_ms,
+           "graph_bytes": g.pool_bytes, "captures": jf.captures,
+           "launches_per_frame": want,
+           "replay_vs_eager": spread, "eager_vs_itself": self_spread}
+    check(jf.captures == 1, f"{tag}: the pipelined replays captured again")
+    res["replay_busy"] = _busy(replays[-1], res["replay"]["ms"])
+    res["eager_busy"] = _busy(eagers[-1], res["eager"]["ms"])
+    log(f"{tag}: replay {res['replay']['ms']:.3f} ms/frame [min "
+        f"{res['replay']['ms_min']:.3f}, max {res['replay']['ms_max']:.3f}], "
+        f"pipelined {res['replay_pipelined_ms']:.3f}, busy "
+        f"{res['replay_busy']['device_busy_ms']:.3f} ms in "
+        f"{res['replay_busy']['kernels']:.0f} kernels "
+        f"({res['replay_busy']['busy_share']:.1%}); eager "
+        f"{res['eager']['ms']:.3f} [{res['eager']['ms_min']:.3f}, "
+        f"{res['eager']['ms_max']:.3f}], pipelined "
+        f"{res['eager_pipelined_ms']:.3f}, busy "
+        f"{res['eager_busy']['device_busy_ms']:.3f} ms in "
+        f"{res['eager_busy']['kernels']:.0f} kernels "
+        f"({res['eager_busy']['busy_share']:.1%}); capture "
+        f"{g.capture_ms:.1f} ms host (its call {capture_call_ms:.1f} ms), "
+        f"replay's top kernels {res['replay_busy']['top']}, "
+        f"graph {g.pool_bytes / 2**20:.1f} MiB, 1 capture; launches a "
+        f"frame {want}; replay vs eager {spread} (eager vs itself "
+        f"{self_spread})")
+    return res
+
+
+def _flagship_steps(jf, frame, cams):
+    """Camera 0 twice (jit's warm-up, then its capture), then OP_REPLAYS
+    later cameras of the staged orbit."""
+    sel = [("warm", cams[0]), ("capture", cams[0])] + [
+        ("replay", c) for c in cams[1:1 + OP_REPLAYS]]
+    return [(kind, lambda c=c: jf(*c), lambda c=c: frame(*c),
+             lambda c=c: frame(*c)) for kind, c in sel]
+
+
+def _pipeline_steps(jitted_pipe, fp_j, eager_pipe, fp_e, state_fn):
+    """execute_jitted against execute on the same states: frame 0 (no
+    persistent keys yet) and frame 1 are warm-ups of two keys, frame 2
+    captures, OP_REPLAYS more replay.  The eager call again runs from the
+    persistent state (TAA's history, the visibility history) its first
+    call started from, and leaves the state as that call left it."""
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+
+    kinds = ["warm", "warm", "capture"] + ["replay"] * OP_REPLAYS
+    held = {}
+
+    def eager(i):
+        held["before"] = dict(eager_pipe._persistent_state)
+        out = eager_pipe.execute(RenderContext(), state_fn(i), fp_e)
+        held["after"] = dict(eager_pipe._persistent_state)
+        return out
+
+    def again(i):
+        eager_pipe._persistent_state = dict(held["before"])
+        out = eager_pipe.execute(RenderContext(), state_fn(i), fp_e)
+        eager_pipe._persistent_state = dict(held["after"])
+        return out
+
+    return [(kind,
+             lambda i=i: jitted_pipe.execute_jitted(RenderContext(),
+                                                    state_fn(i), fp_j),
+             lambda i=i: eager(i), lambda i=i: again(i))
+            for i, kind in enumerate(kinds)]
+
+
+def _state_outs(st):
+    return {"ldr": st["ldr"], "hdr": st["hdr"]}
+
+
+def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
+    """Phase 31, one-program frames: each path through utils.jit, captured
+    once into a CUDA graph and replayed, against its eager frame.
+    bench.py's whole frame in phase 4's four configurations (cameras staged
+    on the card, capture at camera 0, OP_REPLAYS later cameras replayed);
+    a camera with another zn / zf (a host leaf: captures anew, renders as
+    its eager frame); execute_jitted on the five presets, forward_plus+full
+    and forward_classic+ssao at 1280x720 and Config #5 at 800x600 (TAA's
+    history through the graph's inputs) against execute on the same states;
+    and a function that reads a tensor on the host, whose capture must
+    raise.  Per path: launches a replay equal to the eager frame's, outputs
+    bit for bit (or within the eager frame's own spread), one capture,
+    replay and eager ms by CUDA events with pipelined ms, capture ms, the
+    graph's memory, device busy share of a replay and of an eager frame.
+    Returns {path: result}."""
+    from lsr_tpu_torch.frame import FOV, bench_config, make_flagship_frame
+    from lsr_tpu_torch.full_pipeline import (
+        bake_ibl, build_full_pipeline, full_scene)
+    from lsr_tpu_torch.render_paths import (
+        build_forward_plus_full, build_preset_pipelines)
+    from lsr_tpu_torch.scene.scene import make_camera
+    from lsr_tpu_torch.utils.jit import CaptureError, jit
+
+    t_phase = time.perf_counter()
+    esm, pcf = bench_config("esm", WIDTH, HEIGHT), bench_config("pcf", WIDTH,
+                                                                 HEIGHT)
+    zero = {k: 0 for k in _wrappers()}
+    out = {}
+    for name, route, b1, cfg in (
+            ("esm_b2", False, 3 + n_slots, esm),
+            ("esm_b2_packed", False, 3 + 2, dict(esm, atlas_packed=True)),
+            ("esm_resolve", True, 3 + n_slots, esm),
+            ("pcf_b2", False, 3 + n_slots, pcf)):
+        frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH,
+                                    HEIGHT, use_resolve=route, **cfg)
+        jf = jit(frame)
+        want = dict(zero, direct_raster=b1,
+                    **{"resolve_fused" if route else "shade_fused": 1})
+        out[name] = _one_program(f"one-program flagship [{name}]",
+                                 lambda jf=jf: jf,
+                                 _flagship_steps(jf, frame, cams),
+                                 lambda o: dict(zip(FLAGSHIP_OUTS, o)), want)
+        if name == "esm_b2":
+            # Another zn / zf: a host leaf, so a new key: warmed up,
+            # captured and replayed on its own, equal to its eager frame.
+            znf = []
+            for i in (2, 3, 4):
+                cam, ctx_i = cams[i]
+                eye = tuple(float(v) for v in cam.eye.cpu())
+                znf.append((make_camera(WIDTH, HEIGHT, eye, (0, 0, 0),
+                                        fov=FOV, zn=0.25, zf=40.0,
+                                        device=dev), ctx_i))
+            steps = [("warm", znf[0]), ("capture", znf[1]),
+                     ("replay", znf[2])]
+            before = jf.captures
+            for kind, c in steps:
+                a, b = jf(*c), frame(*c)
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"one-program flagship [{name}]: the zn 0.25 / zf 40 "
+                      f"frame ({kind}) differs from its eager frame")
+            check(jf.captures == before + 1,
+                  f"one-program flagship [{name}]: another zn / zf made "
+                  f"{jf.captures - before} captures, one expected")
+            out[name]["zn_zf_recapture"] = {"zn": 0.25, "zf": 40.0,
+                                            "captures": jf.captures}
+            log(f"one-program flagship [{name}]: a camera with zn 0.25, zf "
+                f"40 captured anew ({jf.captures} graphs) and equals its "
+                f"eager frame bit for bit")
+        del jf, frame
+
+    # execute_jitted: the presets and compositions at Phase F's size, each
+    # pipeline against an eager twin on the same states.
+    presets = set(PRESETS) | {"forward_classic+ssao"}
+    sides = [build_preset_pipelines(RP_W, RP_H, presets, device=dev,
+                                    with_pipes=True)[1] for _ in range(2)]
+    fulls = [build_forward_plus_full(RP_W, RP_H, device=dev,
+                                     with_pipes=True)[1] for _ in range(2)]
+    for s, f in zip(sides, fulls):
+        s.update(f)
+    for name in sorted(sides[0]):
+        (pipe_j, fp_j, state_fn), (pipe_e, fp_e, _) = (s[name]
+                                                       for s in sides)
+        lp = fp_j.pass_params.local_shadow
+        want = dict(zero,
+                    direct_raster=3 + len(lp.spot_ids) + 6 * len(lp.point_ids),
+                    shade_fused=0 if name == "forward_classic+ssao" else 1)
+        out[name] = _one_program(
+            f"one-program execute_jitted [{name}] {RP_W}x{RP_H}",
+            lambda p=pipe_j: p._jitted,
+            _pipeline_steps(pipe_j, fp_j, pipe_e, fp_e, state_fn),
+            _state_outs, want)
+    del sides, fulls
+    # Config #5, TAA on: the history flows through the graph's inputs.
+    state = full_scene(FULL_W, FULL_H, ibl=bake_ibl(dev), device=dev)
+    (_, pipe_j, fp_j), (_, pipe_e, fp_e) = (
+        build_full_pipeline(FULL_W, FULL_H, taa=True, state=state,
+                            device=dev) for _ in range(2))
+    out["config5"] = _one_program(
+        f"one-program execute_jitted [Config #5] {FULL_W}x{FULL_H}",
+        lambda: pipe_j._jitted,
+        _pipeline_steps(pipe_j, fp_j, pipe_e, fp_e, lambda i: state),
+        _state_outs, dict(zero, direct_raster=2, shade_fused=1))
+
+    # A host read cannot be captured: the capture raises, naming it.
+    bad = jit(lambda x: x * float(x.sum()), name="reads_host")
+    x = torch.ones(8, device=dev)
+    check(torch.equal(bad(x), x * 8.0), "reads_host: warm-up")
+    try:
+        bad(x)
+        raised = None
+    except CaptureError as e:
+        raised = str(e)
+    check(raised is not None and "host read" in raised and bad.captures == 0,
+          f"a host read under capture did not raise: {raised}")
+    check(torch.equal((x * 3.0).cpu(), torch.full((8,), 3.0)),
+          "the card after a refused capture")
+    log(f"one-program: a host read under capture raised: {raised}")
+    out["host_read_refused"] = raised
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 31 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 30: lsr_tpu's last modules (the engine synth and kernel S1, the mesh
 # loaders with the native OBJ loader, the app / input layers)
 # ---------------------------------------------------------------------------
@@ -4117,6 +4449,12 @@ def main():
         f"shadowed spots {casters[0]}, points {casters[1]} ({n_slots} atlas "
         f"slots)")
 
+    if sys.argv[1:] == ["--phase31"]:
+        # Phase 31 alone (the one-program frames), for work on jit.
+        one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots)
+        log(f"phase 31 alone: ok ({card})")
+        return 0
+
     cam0, ctx0 = cams[0]
     st = flagship_stages(geom, objects, lights, ctx, cam0, ctx0, WIDTH, HEIGHT,
                          **CUT)
@@ -4149,6 +4487,8 @@ def main():
             cams, dev, False, 3 + n_slots, **pcf),
     }
     launches = whole["esm_b2"]["launches"]
+    one_program = one_program_phase(geom, objects, lights, ctx, cams, dev,
+                                    n_slots)
 
     # The high-poly path.
     t_scene = time.perf_counter()
@@ -4414,6 +4754,26 @@ def main():
                   "host", "clips",
                   "spectrum_ms", "fundamental_hz", "bytes", "ops")}),
     ]
+    # Phase 31: each path's frame as one captured graph, against eager.
+    op_keys = ("captures", "capture_ms", "graph_bytes", "replay_pipelined_ms",
+               "eager_pipelined_ms", "launches_per_frame")
+    op_paths = {k: {"replay": {f: v["replay"][f] for f in ("ms", "ms_min",
+                                                          "ms_max")},
+                    "eager": {f: v["eager"][f] for f in ("ms", "ms_min",
+                                                        "ms_max")},
+                    "replay_busy_share": v["replay_busy"]["busy_share"],
+                    "eager_busy_share": v["eager_busy"]["busy_share"],
+                    **{f: v[f] for f in op_keys}}
+                for k, v in one_program.items() if isinstance(v, dict)}
+    for k in kernels:
+        if k["name"] in ("direct_raster", "shade_fused", "resolve_fused"):
+            k["one_program_frames"] = {
+                p: v for p, v in op_paths.items()
+                if v["launches_per_frame"][k["name"]]}
+    log("summary: phase 31, one-program frames (replay / eager ms a frame, "
+        "busy share of a replay): {}".format(
+            {k: f"{v['replay']['ms']:.3f} / {v['eager']['ms']:.3f}, "
+                f"{v['replay_busy_share']:.1%}" for k, v in op_paths.items()}))
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched: "
           f"{[(k['name'], k['launches']) for k in kernels]}")
     log(card)

@@ -21,6 +21,8 @@ in torch's order, not XLA's).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -50,9 +52,19 @@ def resize_weights(m: int, n: int, device=None):
     return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
 
 
+@functools.cache
+def _weights_on(m: int, n: int, device):
+    """resize_weights(m, n) on `device`, made once per (m, n, device): a
+    constant of the frame, which a captured frame reads and never
+    uploads."""
+    return resize_weights(m, n, device)
+
+
+@functools.cache
 def _taps(m: int, n: int, device):
     """The two taps of each output of an upsampled axis: (i0, i1) int64 and
-    (w0, w1) f32, each (n,), read from resize_weights."""
+    (w0, w1) f32, each (n,) on `device`, read from resize_weights; made
+    once per (m, n, device), as _weights_on."""
     w = resize_weights(m, n)
     j = torch.arange(n)
     sample, _ = _samples(m, n)
@@ -68,7 +80,7 @@ def _resize_axis(x, axis: int, n: int):
     if n == m:
         return x
     if n < m:
-        w = resize_weights(m, n, x.device)
+        w = _weights_on(m, n, x.device)
         return torch.movedim(
             torch.tensordot(torch.movedim(x, axis, -1), w, dims=1), -1, axis)
     i0, i1, w0, w1 = _taps(m, n, x.device)

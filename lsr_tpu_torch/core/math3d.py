@@ -61,8 +61,9 @@ def norm3(v):
 def cross3(a, b):
     """Cross product over a last axis of 3 (jnp.cross: component k is
     fma(a_i, b_j, -(a_j * b_i)) for (i, j) = (1, 2), (2, 0), (0, 1))."""
-    i, j = [1, 2, 0], [2, 0, 1]
-    return fma(a[..., i], b[..., j], -(a[..., j] * b[..., i]))
+    ai, bi = torch.roll(a, -1, dims=-1), torch.roll(b, -1, dims=-1)
+    aj, bj = torch.roll(a, 1, dims=-1), torch.roll(b, 1, dims=-1)
+    return fma(ai, bj, -(aj * bi))
 
 
 def normalize(v, eps: float = 1e-12):

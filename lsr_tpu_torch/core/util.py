@@ -16,14 +16,31 @@ import torch
 T = TypeVar("T")
 
 
-def device_const(values, device, dtype=torch.float32):
-    """A small constant tensor on `device`, made without a device sync.
+_CONSTS: dict = {}
 
-    torch.tensor(data, device="cuda") copies and then synchronizes the
-    stream; staging host data with non_blocking=True does not, so a frame
-    that builds its constants this way keeps the card's queue full."""
-    return torch.as_tensor(np.asarray(values), dtype=dtype).to(
-        device, non_blocking=True)
+
+def device_const(values, device, dtype=torch.float32):
+    """A small constant tensor on `device`, made once per (values, dtype,
+    device) and shared by every later call.
+
+    A frame's constants are the same every frame, so the first call (a
+    jitted frame's warm-up) uploads them, from host memory staged with
+    non_blocking=True (no device sync), and a captured frame only reads
+    them: a copy from pageable host memory cannot be captured.  A value
+    that changes from frame to frame is a tensor input, not a constant.
+    The tensor is shared: writing to it in place raises at its next use."""
+    a = np.array(values)
+    device = torch.device(device)
+    key = (a.shape, a.dtype.str, a.tobytes(), dtype, device)
+    hit = _CONSTS.get(key)
+    if hit is None:
+        t = torch.as_tensor(a, dtype=dtype).to(device, non_blocking=True)
+        hit = _CONSTS[key] = (t, t._version)
+    t, version = hit
+    if t._version != version:
+        raise RuntimeError(f"device_const: the shared constant {a.tolist()} "
+                           f"was written in place")
+    return t
 
 
 def default_device() -> torch.device:

@@ -272,6 +272,11 @@ def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int,
     accepted and the full grid evaluated).  The shadow casters are planned
     once here, as in bench.py.
 
+    The frame is eager; jit(make_flagship_frame(...)) (utils.jit) runs it
+    as one program, captured once into a CUDA graph on the card and
+    replayed, as bench.py:344 runs it under jax.jit.  Everything that
+    changes from frame to frame reaches it as a tensor of cam / ctx_t.
+
     Float32 products on the card run in full precision: TF32 is switched
     off here for matmuls (the vertex transform) and cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from lsr_tpu_torch.core.util import cdiv, device_const
+from lsr_tpu_torch.core.util import cdiv, device_const, resolve_device
 from lsr_tpu_torch.geometry.support_shapes import (
     light_culling_shapes,
     support_max_dot,
@@ -154,11 +154,13 @@ def tile_depth_ranges_from_buffer(depth01, zn, zf, width, height, tile_size,
     return torch.stack([zmin, zmax], dim=-1)
 
 
-def cluster_slice_bounds(zn, zf, slices: int, device="cpu"):
+def cluster_slice_bounds(zn, zf, slices: int, device=None):
     """(slices + 1,) logarithmic view-z slice boundaries zn * (zf / zn) **
-    (k / slices), the inverse of view_depth_to_cluster_slice.  zn and zf
-    (host floats) become f32 tensors, so that zf / zn rounds in f32 as
-    lsr_tpu's does."""
+    (k / slices), the inverse of view_depth_to_cluster_slice, on `device`
+    (default: the card, core.util.default_device).  zn and zf (host
+    floats) become f32 tensors, so that zf / zn rounds in f32 as lsr_tpu's
+    does."""
+    device = resolve_device(device)
     zn_t, zf_t = device_const(zn, device), device_const(zf, device)
     k = torch.arange(slices + 1, dtype=torch.float32, device=device) / slices
     return zn_t * torch.pow(zf_t / zn_t, k)

@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from lsr_tpu_torch.core import math3d as m3
+from lsr_tpu_torch.core.util import device_const
 from lsr_tpu_torch.lighting.light_types import (
     LIGHT_ENV_PROBE,
     LIGHT_RECT_AREA,
@@ -39,8 +40,8 @@ def _norm(v, eps=1e-8):
 
 
 def _where(c, a, b):
-    a = torch.as_tensor(a, dtype=torch.float32, device=c.device)
-    b = torch.as_tensor(b, dtype=torch.float32, device=c.device)
+    a, b = (x.to(torch.float32) if isinstance(x, torch.Tensor)
+            else device_const(x, c.device) for x in (a, b))
     return torch.where(c, a, b)
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from lsr_tpu_torch.core.util import cdiv
+from lsr_tpu_torch.core.util import cdiv, device_const
 from lsr_tpu_torch.lighting import light_walk
 from lsr_tpu_torch.lighting.shade_kernel import (
     SUN_MODELS,
@@ -87,8 +87,7 @@ def _check(rec_table, tid, lights, tile_h, tile_w, cap, chunk, sun_model,
 def _uniforms(camera_pos, sun_dir_ws, sun_radiance, background, dev):
     sd = sun_dir_ws / torch.clamp(torch.sqrt((sun_dir_ws * sun_dir_ws).sum()),
                                   min=1e-8)
-    bg = torch.as_tensor(background, dtype=torch.float32).to(
-        dev, non_blocking=True)
+    bg = device_const(background, dev)
     return torch.cat([camera_pos.reshape(3), sd.reshape(3),
                       sun_radiance.reshape(3), bg.reshape(3)]
                      ).to(torch.float32)

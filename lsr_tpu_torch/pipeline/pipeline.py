@@ -7,13 +7,12 @@ changes, exposes graph/plan reports, and executes through the runtime
 executor.  Temporal state reset hooks mirror reset_history/on_scene_reset
 (pluggable_pipeline.hpp:960-978).
 
-PyTorch runs eagerly, so the three ways to execute differ only in what they
-measure: execute() times each pass on the host (the device with
-ctx.sync_timing), execute_jitted() runs the whole plan without per-pass
-bookkeeping (lsr_tpu's one compiled program; here the same passes in
-sequence, with no capture and no compile), execute_segmented() times each
-pass on the device by CUDA events.  All three give the same frame bit for
-bit.
+The three ways to execute give the same frame bit for bit and differ in
+how they run it: execute() times each pass on the host (the device with
+ctx.sync_timing), execute_segmented() times each pass on the device by CUDA
+events, both eagerly; execute_jitted() is lsr_tpu's one compiled program:
+the whole plan through utils.jit, captured once into a CUDA graph and
+replayed on the card (run eagerly for a state on the CPU).
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from lsr_tpu_torch.pipeline.executor import (
 from lsr_tpu_torch.pipeline.planner import BackendCaps, build_execution_plan
 from lsr_tpu_torch.pipeline.recipe import compile_recipe
 from lsr_tpu_torch.pipeline.render_pass import RenderPass
+from lsr_tpu_torch.utils.jit import jit
 
 
 class PluggablePipeline:
@@ -48,6 +48,8 @@ class PluggablePipeline:
             default_backend: BackendCaps(default_backend)
         }
         self.backend_impls = {default_backend: TorchBackend()}
+        self._jit_key = None
+        self._jitted = None
 
     # -- pass management ----------------------------------------------------
     def add_pass(self, p: RenderPass):
@@ -137,19 +139,31 @@ class PluggablePipeline:
     PERSISTENT_KEYS = ("history_color", "vis_history")
 
     def execute_jitted(self, ctx: RenderContext, frame_state: dict, fp) -> dict:
-        """The production frame path, by lsr_tpu's name: the whole plan, no
-        per-pass timing, the persistent keys carried to the next frame.
-        lsr_tpu traces it into one compiled program; here the plan's passes
-        run eagerly in sequence (no graph capture, no compile), which is
-        the same frame as execute() without its bookkeeping."""
+        """The production frame path, lsr_tpu's (pipeline.py:104-134): the
+        whole plan as one program, no per-pass timing, the persistent keys
+        carried to the next frame through the program's inputs.  The plan
+        runs through utils.jit: on the card it is captured once into a CUDA
+        graph and replayed (a state's first frame of a key runs eagerly as
+        the warm-up; a failed capture raises), for a state on the CPU it
+        runs eagerly.  As in lsr_tpu, the jitted plan is cached on
+        (tuple(plan.order), id(fp)) and closes over ctx and fp: both are
+        fixed at capture, as lsr_tpu's trace fixes them."""
         plan = self._valid_plan(fp)
-        state = self._start(frame_state)
-        for idx in plan.order:
-            p = self._passes[idx]
-            req = p.build_execution_request(ctx, state, fp)
-            if req.valid:
-                state = p.execute_resolved(ctx, state, fp, req)
-        return self._finish(ctx, state)
+        key = (tuple(plan.order), id(fp))
+        if self._jit_key != key:
+            passes = self._passes
+
+            def run(state):
+                for idx in plan.order:
+                    p = passes[idx]
+                    req = p.build_execution_request(ctx, state, fp)
+                    if req.valid:
+                        state = p.execute_resolved(ctx, state, fp, req)
+                return state
+
+            self._jitted = jit(run, name="execute_jitted")
+            self._jit_key = key
+        return self._finish(ctx, self._jitted(self._start(frame_state)))
 
     def execute_segmented(self, ctx: RenderContext, frame_state: dict,
                           fp) -> dict:

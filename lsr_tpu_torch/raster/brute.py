@@ -47,14 +47,18 @@ def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
     tid = torch.full((height, width), -1, dtype=torch.int32, device=dev) \
         if tid_init is None else tid_init.clone()
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    # An invalid row never wins: only the valid ones are walked, in order
-    # (one host read).  (min depth, first submitted) does not depend on how
-    # the rows are grouped, so the result is the same.
-    keep = torch.nonzero(setup.valid)[:, 0]
-    coef, iw, ziw, ids = (setup.coef[keep], setup.iw[keep], setup.ziw[keep],
-                          ids[keep])
+    # An invalid row never wins, and (min depth, first submitted) does not
+    # depend on how the rows are grouped.  On the CPU only the valid rows
+    # are walked, in order (one host read); on the card every row is
+    # walked with the invalid ones masked, so that a captured frame
+    # (utils.jit) holds no host read.  Both give the same result.
+    coef, iw, ziw, live = setup.coef, setup.iw, setup.ziw, setup.valid
+    if dev.type == "cpu":
+        keep = torch.nonzero(live)[:, 0]
+        coef, iw, ziw, ids = coef[keep], iw[keep], ziw[keep], ids[keep]
+        live = None
 
-    for s in range(0, keep.numel(), chunk):
+    for s in range(0, coef.shape[0], chunk):
         c = coef[s:s + chunk]
         w_ = iw[s:s + chunk]
         z_ = ziw[s:s + chunk]
@@ -71,6 +75,8 @@ def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
                   & ndc_mask[None])
         denom = bc0 * col(w_, 0) + bc1 * col(w_, 1) + bc2 * col(w_, 2)
         inside &= denom > 1e-10
+        if live is not None:
+            inside &= live[s:s + chunk][:, None, None]
         if depth_mode == DEPTH_VIEWZ:
             view_z = 1.0 / torch.clamp(denom, min=1e-10)
             z01 = torch.clamp((view_z - zn_f) * inv_range, 0.0, 1.0)

@@ -71,7 +71,8 @@ def clip_triangles_near(corner_attrs: dict, clip: torch.Tensor):
     counts = device_const(_CASE_COUNT, dev, torch.int64)[case]  # (T,)
     poly = torch.gather(
         gen, 1, slots[..., None].expand(-1, -1, gen.shape[-1]))  # (T, 4, C)
-    emitted = torch.stack([poly[:, [0, 1, 2]], poly[:, [0, 2, 3]]], dim=1)
+    fan2 = torch.cat([poly[:, :1], poly[:, 2:4]], dim=1)    # slots 0, 2, 3
+    emitted = torch.stack([poly[:, 0:3], fan2], dim=1)
 
     clip2 = emitted[..., :4]
     attrs2 = {}

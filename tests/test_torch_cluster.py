@@ -72,7 +72,7 @@ def test_cluster_slice_bounds_and_plane_match_jax(scene, slices):
 
     cam, tcam = scene["j"][4], scene["t"][4]
     want = np.asarray(jb(cam.zn, cam.zf, slices))
-    got = tb(tcam.zn, tcam.zf, slices).numpy()
+    got = tb(tcam.zn, tcam.zf, slices, device="cpu").numpy()
     assert int((got != want).sum()) == 0, (got, want)
     jz = cam.zn + scene["depth"] * (cam.zf - cam.zn)
     tz = tcam.zn + torch.as_tensor(np.array(scene["depth"])) * (

@@ -1,0 +1,99 @@
+"""The capture-safety guard over warm frames (CPU): CaptureCheck, the
+class lsr_tpu_torch.utils.jit captures under on the card, runs over one
+warm frame of bench.py's whole flagship frame at 192x108 in each of the
+four configurations of chip_smoke.py phase 4, and of each render-path
+preset, both compositions and Config #5 at 128x96 (execute_jitted's plan),
+maps cut.  It fails on a host read (aten._local_scalar_dense and the
+Tensor methods that read values), an op whose output shape depends on the
+data (nonzero, masked_select, unique, boolean indexing, repeat_interleave
+without output_size), a constant made from host data after the warm-up,
+or a new device_const.  Exempt, by name, are only the kernels' plain
+versions (PLAIN): on the card their kernels run instead.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import pytest
+
+from lsr_tpu_torch.core import util
+from lsr_tpu_torch.utils import jit as jm
+from torch_scenes import preset_pipeline
+
+PW, PH = 128, 96
+
+
+# The kernels' plain versions (module, name): on the card the kernel runs.
+PLAIN = (("lsr_tpu_torch.raster.tiled", "rasterize_brute"),
+         ("lsr_tpu_torch.raster.tiled", "_banded_brute"),
+         ("lsr_tpu_torch.lighting.shade_kernel", "_shade_plain"),
+         ("lsr_tpu_torch.lighting.resolve_kernel", "_resolve_plain"))
+
+
+def _guarded(monkeypatch, run):
+    """run() once to warm up, then again under CaptureCheck with the plain
+    versions exempt; no device_const may be made by the second run."""
+    check = jm.CaptureCheck()
+    for mod_name, name in PLAIN:
+        mod = importlib.import_module(mod_name)
+        plain = getattr(mod, name)
+
+        def exempt(*a, _plain=plain, **k):
+            with check.pause():
+                return _plain(*a, **k)
+
+        monkeypatch.setattr(mod, name, exempt)
+    run()
+    n_consts = len(util._CONSTS)
+    with check:
+        run()
+    assert len(util._CONSTS) == n_consts, "a constant made after warm-up"
+
+
+@pytest.mark.parametrize("config", ["esm", "packed", "resolve", "pcf"])
+def test_flagship_frame_is_capture_safe(monkeypatch, config):
+    """bench.py's whole frame (cull, 8 + 2 atlas, planes) at 192x108 in the
+    four configurations of chip_smoke.py phase 4, maps cut (sun 128^2,
+    slots 64^2, faces 32^2)."""
+    from lsr_tpu_torch import frame as fr
+
+    w, h = 192, 108
+    geom, objects, lights, ctx = fr.build_flagship_scene(16, grid=2,
+                                                         device="cpu")
+    cam, ctx_t = fr.flagship_camera(2, ctx, w, h, device="cpu")
+    cfg = fr.bench_config("pcf" if config == "pcf" else "esm", w, h)
+    cfg.update(shadow_size=128, local_map=64, local_point=32)
+    frame = fr.make_flagship_frame(geom, objects, lights, ctx, w, h,
+                                   use_resolve=config == "resolve",
+                                   atlas_packed=config == "packed", **cfg)
+    _guarded(monkeypatch, lambda: frame(cam, ctx_t))
+
+
+@pytest.mark.parametrize("name", ["forward_classic", "forward_plus",
+                                  "deferred", "tiled_deferred",
+                                  "clustered_forward", "forward_classic+ssao",
+                                  "forward_plus+full", "config5"])
+def test_pipeline_frame_is_capture_safe(monkeypatch, name):
+    """execute_jitted's plan for each preset, both compositions and Config
+    #5 (TAA history carried) at 128x96, maps cut."""
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+
+    if name == "config5":
+        from lsr_tpu_torch.full_pipeline import build_full_pipeline
+
+        frame_fn, _, fp = build_full_pipeline(PW, PH, taa=True, device="cpu")
+        fp.pass_params.shadow.map_size = 128
+        frame_fn(0)
+        _guarded(monkeypatch, lambda: frame_fn(1))
+        return
+    if name == "forward_plus+full":
+        from lsr_tpu_torch.render_paths import POST_STACK_PRESETS
+
+        pipe, fp, state_fn = preset_pipeline("forward_plus", PW, PH,
+                                             POST_STACK_PRESETS["full"])
+    else:
+        pipe, fp, state_fn = preset_pipeline(name, PW, PH)
+    pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+    _guarded(monkeypatch,
+             lambda: pipe.execute_jitted(RenderContext(), state_fn(1), fp))

@@ -529,3 +529,19 @@ def frame_contract(t_tid, j_tid, t_hdr, j_hdr, t_ldr, j_ldr,
     assert tid_ok >= 0.995 and hdr_ok >= hdr_share and ldr_ok >= 0.999, (
         tid_ok, hdr_ok, float(err[same].max()), ldr_ok)
     return tid_ok, hdr_ok, ldr_ok
+
+
+def preset_pipeline(name, width, height, post=("fxaa",)):
+    """(pipeline, fp, state_fn) of a render-path preset on the CPU with
+    the render-path tests' cut maps (sun 128^2, slots 64^2, faces 32^2,
+    occluders 160x90)."""
+    from lsr_tpu_torch.render_paths import build_preset_pipelines
+
+    _, pipes = build_preset_pipelines(width, height, {name}, post=post,
+                                      local_map=64, local_point=32,
+                                      device="cpu", with_pipes=True)
+    pipe, fp, state_fn = pipes[name]
+    fp.pass_params.shadow.map_size = 128
+    fp.pass_params.culling.occ_width, fp.pass_params.culling.occ_height = \
+        160, 90
+    return pipe, fp, state_fn
