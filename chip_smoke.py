@@ -6,6 +6,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
     python3 chip_smoke.py --phase30    # phase 30 alone, after the build
     python3 chip_smoke.py --phase31    # phase 31 alone, after the build
+    python3 chip_smoke.py --phase32    # phase 32 alone, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -85,6 +86,23 @@ lsr_tpu_torch.highpoly):
    every pixel but stray sliver ones (as in phase 6).
 9. render_forward on the flagship scene (B1 route) and on the high-poly
    scene (B3 route), counts reset before each.
+32. The high-poly route as one program (right after phase 14's high-poly
+    part): render_forward at 1920x1080 on B1 (flagship scene, staged orbit
+    cameras) and on B3 (the high-poly scene), make_highpoly_frame and
+    e2e_compact_chunklist, each through utils.capacity's checked wrapper
+    (capacities known before the frame in place of the eager route's
+    mid-frame host reads; the first call sizes them), captured once into
+    a CUDA graph and replayed at the bench view turned by 0.03-0.09 rad,
+    with phase 31's checks and numbers: launches exact (B3 one a
+    high-poly frame, B4 one a step, B2 one, B1 one), every replay bit for
+    bit its eager frame at the same capacities, one capture a capacity
+    set.  The overflow drill: a camera whose largest bin exceeds the
+    captured list width sets the flag; the frame is redone eagerly, equal
+    to the eager fitted frame bit for bit, the stale graph released and a
+    recapture follows.  The C23 drill: ten distinct zn through
+    render_forward: never more than utils.jit.MAX_GRAPHS graphs, the
+    evictions counted, the memory returned on release.
+    `python3 chip_smoke.py --phase32` runs it alone.
 
 Then the slice of the sun shadow, B5 and B6, on the flagship scene:
 
@@ -955,7 +973,7 @@ def highpoly_frame_phase(geom, objects, lights, ctx, dev):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        ldr, st = frame(cam, ctx_t)
+        (ldr, st), _ = frame.fn(cam, ctx_t, None)     # the eager route
         e1.record()
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
@@ -989,14 +1007,15 @@ def highpoly_frame_phase(geom, objects, lights, ctx, dev):
 
 
 def e2e_phase(geom, objects, ctx, dev):
-    """Compact setup + chunk-list raster (bench_highpoly.py:156-166)."""
-    from lsr_tpu_torch.highpoly import e2e_compact_chunklist, highpoly_camera
+    """Compact setup + chunk-list raster (bench_highpoly.py:156-166), the
+    eager step (phase 32 runs it as one program)."""
+    from lsr_tpu_torch.highpoly import _e2e_step, highpoly_camera
     from lsr_tpu_torch.raster.setup import scene_setup
     from lsr_tpu_torch.raster.tiled import rasterize_chunklist
 
     cam, _ = highpoly_camera(ctx, WIDTH, HEIGHT, HP_GRID, device=dev)
-    run = lambda: e2e_compact_chunklist(  # noqa: E731
-        geom, objects, cam, WIDTH, HEIGHT)
+    run = lambda: _e2e_step(  # noqa: E731
+        geom, objects, cam, WIDTH, HEIGHT, None)[0]
     reset_counts()
     d_e, t_e, max_cnt, setup, cst = run()
     launches = read_counts()
@@ -3131,8 +3150,8 @@ def highpoly_profile_phase(geom, objects, lights, ctx, dev):
     whole frame and step as in the flagship part.  Returns {"highpoly":
     breakdown, "e2e": breakdown}."""
     from lsr_tpu_torch.highpoly import (
-        compact_setup, e2e_compact_chunklist, highpoly_camera,
-        highpoly_frame_params, make_highpoly_frame)
+        _e2e_step, compact_setup, highpoly_camera, highpoly_frame_params,
+        make_highpoly_frame)
     from lsr_tpu_torch.passes.post import fxaa_pass
     from lsr_tpu_torch.passes.standard_passes import fused_lighting
     from lsr_tpu_torch.passes.tonemap import tonemap_pass
@@ -3143,8 +3162,8 @@ def highpoly_profile_phase(geom, objects, lights, ctx, dev):
     w, h = WIDTH, HEIGHT
     cam, ctx_t = highpoly_camera(ctx, w, h, HP_GRID, device=dev)
     fp = highpoly_frame_params(w, h)
-    frame = make_highpoly_frame(geom, objects, lights, ctx, fp)
-    _, st = frame(cam, ctx_t)
+    frame = make_highpoly_frame(geom, objects, lights, ctx, fp).fn
+    (_, st), _ = frame(cam, ctx_t, None)     # eager, as every stage here
     setup, depth, tid = st["setup"], st["depth"], st["tid"]
     ldr = tonemap_pass(st["hdr"])
     zn, zf = cam.zn, cam.zf
@@ -3181,10 +3200,10 @@ def highpoly_profile_phase(geom, objects, lights, ctx, dev):
             True, stream),
     })
     return {"highpoly": _frame_breakdown("high-poly frame",
-                                         lambda: frame(cam, ctx_t)),
+                                         lambda: frame(cam, ctx_t, None)),
             "e2e": _frame_breakdown(
-                "end-to-end step", lambda: e2e_compact_chunklist(
-                    geom, objects, cam, w, h))}
+                "end-to-end step", lambda: _e2e_step(
+                    geom, objects, cam, w, h, None))}
 
 
 # ---------------------------------------------------------------------------
@@ -3870,8 +3889,9 @@ def _flagship_steps(jf, frame, cams):
 
 def _pipeline_steps(jitted_pipe, fp_j, eager_pipe, fp_e, state_fn):
     """execute_jitted against execute on the same states: frame 0 (no
-    persistent keys yet) and frame 1 are warm-ups of two keys, frame 2
-    captures, OP_REPLAYS more replay.  The eager call again runs from the
+    persistent keys yet; the checked program's sizing call) and frame 1
+    (jit's warm-up of the next key) run eagerly, frame 2 captures,
+    OP_REPLAYS more replay.  The eager call again runs from the
     persistent state (TAA's history, the visibility history) its first
     call started from, and leaves the state as that call left it."""
     from lsr_tpu_torch.pipeline.executor import RenderContext
@@ -3990,7 +4010,7 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
                     shade_fused=0 if name == "forward_classic+ssao" else 1)
         out[name] = _one_program(
             f"one-program execute_jitted [{name}] {RP_W}x{RP_H}",
-            lambda p=pipe_j: p._jitted,
+            lambda p=pipe_j: p._jitted.jitted,
             _pipeline_steps(pipe_j, fp_j, pipe_e, fp_e, state_fn),
             _state_outs, want)
     del sides, fulls
@@ -4001,7 +4021,7 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
                             device=dev) for _ in range(2))
     out["config5"] = _one_program(
         f"one-program execute_jitted [Config #5] {FULL_W}x{FULL_H}",
-        lambda: pipe_j._jitted,
+        lambda: pipe_j._jitted.jitted,
         _pipeline_steps(pipe_j, fp_j, pipe_e, fp_e, lambda i: state),
         _state_outs, dict(zero, direct_raster=2, shade_fused=1))
 
@@ -4022,6 +4042,282 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
     out["host_read_refused"] = raised
     out["seconds"] = time.perf_counter() - t_phase
     log(f"# phase 31 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 32: the high-poly route as one program (utils.capacity: checked
+# capacities in place of the eager route's mid-frame host reads)
+# ---------------------------------------------------------------------------
+
+HP_TURNS = (0.0, 0.0, 0.03, 0.06, 0.09)   # warm, capture, replays (radians)
+FAR_SCALES = (1.5, 2.0, 3.0, 4.0)         # the overflow drill's cameras
+C23_EXTRA = 2                             # zn values past jit's bound
+
+
+def _turned(ctx, angle, dev, scale=1.0):
+    """highpoly_camera's view turned about y by angle, its distance to the
+    grid's center scaled: (cam, ctx with its camera_pos)."""
+    from lsr_tpu_torch.highpoly import SPACING
+    from lsr_tpu_torch.scene.scene import make_camera
+
+    ext = HP_GRID * SPACING * 0.72 * scale
+    c, s = float(np.cos(angle)), float(np.sin(angle))
+    eye = (ext * c + ext * s, ext * 0.9, ext * s - ext * c)
+    cam = make_camera(WIDTH, HEIGHT, eye, (0, 0, 0), fov=np.pi / 3.0,
+                      device=dev)
+    return cam, dataclasses.replace(
+        ctx, camera_pos=torch.as_tensor(eye, dtype=torch.float32,
+                                        device=dev))
+
+
+def _caps(prog):
+    return dataclasses.asdict(prog.caps)
+
+
+def _sized(tag, prog, first, calls, want):
+    """A checked program's first call (first(): its public entry point,
+    eager, the lists sized on the host) with its launches checked; then its
+    capacities grown to what the frames of calls need at them (each frame's
+    stats from prog.fn), a bound known before those frames, so that their
+    warm-up, capture and replays stay inside it.  Returns the capacities
+    sized and grown."""
+    reset_counts()
+    first()
+    got = read_counts()
+    check(got == want, f"{tag}: the sizing call launched {got}, expected "
+          f"{want}")
+    sized = _caps(prog)
+    for a in calls:
+        prog.caps = prog.caps.grown(prog.fn(*a, prog.caps)[1])
+    log(f"{tag}: the first call sized {sized}; grown over the frames to "
+        f"{_caps(prog)}")
+    return {"sized": sized, "caps": _caps(prog)}
+
+
+def _checked_steps(prog, calls):
+    """_one_program's steps for a checked program whose capacities cover
+    every call: calls[0] warms up, calls[1] captures, the rest replay; the
+    eager frame is prog.fn at the same capacities."""
+    kinds = ["warm", "capture"] + ["replay"] * (len(calls) - 2)
+    eager = lambda a: prog.fn(*a, prog.caps)[0]  # noqa: E731
+    return [(kind, lambda a=a: prog(*a), lambda a=a: eager(a),
+             lambda a=a: eager(a)) for kind, a in zip(kinds, calls)]
+
+
+def _equal_outs(tag, a, b):
+    for k, v in a.items():
+        px, err = _spread(v, b[k])
+        check(px == 0, f"{tag}: {k} differs in {px} elements (max {err})")
+
+
+def _overflow_drill(tag, prog, ctx, dev, outs_of, want):
+    """A camera whose largest bin exceeds the captured list width (the
+    bench view moved out until it does): its frame through the program
+    replays the graph, sets the flag and is redone eagerly at grown
+    capacities; what comes back equals the eager fitted frame bit for bit,
+    the launches are the replay's and the redone frame's, the stale graph
+    is released, and the next call captures the new key and equals its
+    eager frame."""
+    caps0, captures0, retries0 = prog.caps, prog.captures, prog.retries
+    far = None
+    for scale in FAR_SCALES:
+        c = _turned(ctx, 0.0, dev, scale)
+        stats = prog.fn(*c, caps0)[1]
+        if int(stats["raster_max_bin"]) > caps0.list_width:
+            far, need = c, int(stats["raster_max_bin"])
+            break
+    check(far is not None, f"{tag}: no camera of {FAR_SCALES} exceeds the "
+          f"list width {caps0.list_width}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved()
+    reset_counts()
+    out = prog(*far)
+    got = read_counts()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    twice = {k: 2 * v for k, v in want.items()}
+    check(got == twice, f"{tag}: the redone frame launched {got}, expected "
+          f"{twice} (the replay's and the eager frame's)")
+    check(prog.retries == retries0 + 1 and not prog.jitted.graphs
+          and prog.caps.list_width >= need > caps0.list_width,
+          f"{tag}: retries {prog.retries}, graphs {len(prog.jitted.graphs)}, "
+          f"caps {_caps(prog)} after a bin of {need}")
+    _equal_outs(f"{tag}: the redone frame vs the eager fitted frame",
+                outs_of(out), outs_of(prog.fn(*far, None)[0]))
+    again = prog(*far)
+    check(prog.captures == captures0 + 1,
+          f"{tag}: {prog.captures - captures0} captures after the growth, "
+          f"one expected")
+    _equal_outs(f"{tag}: the recaptured frame vs its eager frame",
+                outs_of(again), outs_of(prog.fn(*far, prog.caps)[0]))
+    res = {"max_bin": need, "caps_before": dataclasses.asdict(caps0),
+           "caps_after": _caps(prog), "launches": got,
+           "reserved_before_mib": held / 2**20,
+           "reserved_after_release_mib": after / 2**20,
+           "captures": prog.captures}
+    log(f"{tag} overflow drill: a bin of {need} past the captured width "
+        f"{caps0.list_width}: the flag set, the frame redone at "
+        f"{_caps(prog)} and equal to the eager fitted frame bit for bit, "
+        f"launches {got}; the stale graph released (reserved "
+        f"{held / 2**20:.1f} -> {after / 2**20:.1f} MiB); recaptured and "
+        f"equal to its eager frame")
+    return res
+
+
+def _c23_drill(prog, call, dev):
+    """Distinct zn values past jit's bound through one program (render_
+    forward on kernel B1): each warmed up and captured; at no time more
+    than MAX_GRAPHS graphs, evictions counted, the reserved memory flat
+    once the bound is reached, and returned when the graphs are
+    released."""
+    from lsr_tpu_torch.utils.jit import MAX_GRAPHS
+
+    zns = [0.10 + 0.01 * i for i in range(MAX_GRAPHS + C23_EXTRA)]
+    reserved = []
+    for zn in zns:
+        for _ in range(2):
+            out = prog(*call(zn))
+            check(len(prog.jitted.graphs) <= MAX_GRAPHS,
+                  f"C23 drill: {len(prog.jitted.graphs)} graphs alive")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved() / 2**20)
+    ldr, gb = prog.fn(*call(zns[-1]), prog.caps)[0]
+    _equal_outs("C23 drill: the last zn's replay vs its eager frame",
+                {"ldr": out[0], "tid": out[1].tri_id},
+                {"ldr": ldr, "tid": gb.tri_id})
+    jf = prog.jitted
+    check(jf.captures == len(zns) and jf.evictions == C23_EXTRA
+          and len(jf.graphs) == MAX_GRAPHS,
+          f"C23 drill: captures {jf.captures}, evictions {jf.evictions}, "
+          f"graphs {len(jf.graphs)}")
+    res = {"zn": zns, "captures": jf.captures, "evictions": jf.evictions,
+           "reserved_mib_after_each_zn": reserved, "bound": MAX_GRAPHS}
+    prog.jitted.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["reserved_mib_released"] = released = \
+        torch.cuda.memory_reserved() / 2**20
+    check(not jf.graphs and released < reserved[-1],
+          f"C23 drill: {released:.1f} MiB reserved after the release")
+    log(f"C23 drill: {len(zns)} distinct zn through render_forward, "
+        f"{res['captures']} captures, {res['evictions']} evictions, never "
+        f"more than {MAX_GRAPHS} graphs; reserved MiB after each zn "
+        f"{[round(r, 1) for r in reserved]}, {released:.1f} after the "
+        f"release of the last {MAX_GRAPHS}")
+    return res
+
+
+def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
+                           hp_lights, hp_ctx, dev):
+    """Phase 32, the high-poly route as one program with checked capacities
+    (utils.capacity): render_forward at 1920x1080 on kernel B1 (the
+    flagship scene, staged orbit cameras) and on kernel B3 (the high-poly
+    scene), make_highpoly_frame (compact setup, B3, B2) and
+    e2e_compact_chunklist (compact setup, B4) on build_highpoly_scene(33,
+    7), the bench view and the view turned by HP_TURNS.  Each path: its
+    first call sizes its capacities (eager); then phase 31's checks
+    (_one_program): launches exact at every step, every replay bit for bit
+    its eager frame at the same capacities, one capture; replay and eager
+    ms, pipelined ms, busy share, capture ms, graph memory.  Then the
+    overflow drill on the high-poly frame and the C23 drill on
+    render_forward.  Returns {path: result}."""
+    from lsr_tpu_torch import highpoly as hp
+    from lsr_tpu_torch import render
+    from lsr_tpu_torch.frame import flagship_camera
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.scene.scene import make_camera
+    from lsr_tpu_torch.utils.capacity import checked
+
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in _wrappers()}
+    cols = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
+    hp_cams = [_turned(hp_ctx, a, dev) for a in HP_TURNS]
+    out = {}
+
+    def forward_args(g, o, cam, ctx_t):
+        return ({k: getattr(g, k) for k in cols}, o.model, o.normal_mat,
+                cam.viewproj, cam.zn, cam.zf, ctx_t, WIDTH, HEIGHT, "pbr_mr",
+                (0.05, 0.07, 0.12), True, 1024, 1.0, 2.2,
+                tiled.DIRECT_ROW_LIMIT)
+
+    def forward_outs(o):
+        return {"ldr": o[0], "depth": o[1].depth01, "tid": o[1].tri_id}
+
+    def frame_outs(o):
+        return {"ldr": o[0], "hdr": o[1]["hdr"], "depth": o[1]["depth"],
+                "tid": o[1]["tid"]}
+
+    # render_forward on both routes, each a fresh program behind the public
+    # entry point.
+    for name, g, o, cams, kernel in (
+            ("render_forward_b1", geom, objects,
+             [flagship_camera(i, ctx, WIDTH, HEIGHT, device=dev)
+              for i in range(2 + OP_REPLAYS)], "direct_raster"),
+            ("render_forward_b3", hp_geom, hp_objects, hp_cams,
+             "tiled_raster")):
+        render.render_forward.program = prog = checked(
+            render._forward_frame, name="render_forward")
+        calls = [forward_args(g, o, c, x) for c, x in cams]
+        tag = f"one-program {name} {WIDTH}x{HEIGHT}"
+        want = dict(zero, **{kernel: 1})
+        sizing = _sized(tag, prog, lambda a=calls[0]: render.render_forward(
+            *a[:9], model_name="pbr_mr"), calls, want)
+        out[name] = _one_program(tag, lambda p=prog: p.jitted,
+                                 _checked_steps(prog, calls), forward_outs,
+                                 want)
+        out[name]["capacities"] = sizing
+        if name == "render_forward_b1":
+            flag_call = calls[0]
+        prog.jitted.clear()
+
+    # The high-poly forward+ frame and the end-to-end step.
+    fp = hp.highpoly_frame_params(WIDTH, HEIGHT)
+    frame = hp.make_highpoly_frame(hp_geom, hp_objects, hp_lights, hp_ctx,
+                                   fp)
+    tag = f"one-program highpoly_frame {WIDTH}x{HEIGHT}"
+    want = dict(zero, tiled_raster=1, shade_fused=1)
+    sizing = _sized(tag, frame, lambda: frame(*hp_cams[0]), hp_cams, want)
+    out["highpoly_frame"] = _one_program(
+        tag, lambda: frame.jitted, _checked_steps(frame, hp_cams),
+        frame_outs, want)
+    out["highpoly_frame"]["capacities"] = sizing
+    out["overflow_drill"] = _overflow_drill(tag, frame, hp_ctx, dev,
+                                            frame_outs, want)
+    frame.jitted.clear()
+    del frame
+
+    hp.e2e_compact_chunklist.program = prog = checked(
+        hp._e2e_step, name="e2e_compact_chunklist")
+    calls = [(hp_geom, hp_objects, c, WIDTH, HEIGHT) for c, _ in hp_cams]
+    tag = f"one-program e2e_compact_chunklist {WIDTH}x{HEIGHT}"
+    want = dict(zero, chunklist_raster=1)
+    sizing = _sized(tag, prog, lambda: hp.e2e_compact_chunklist(*calls[0]),
+                    calls, want)
+    out["e2e_compact_chunklist"] = _one_program(
+        tag, lambda: prog.jitted, _checked_steps(prog, calls),
+        lambda o: {"depth": o[0], "tid": o[1]}, want)
+    out["e2e_compact_chunklist"]["capacities"] = sizing
+    prog.jitted.clear()
+
+    # C23: distinct zn past the bound, through render_forward on B1.
+    render.render_forward.program = prog = checked(render._forward_frame,
+                                                   name="render_forward")
+    eye = tuple(float(v) for v in flagship_camera(
+        0, ctx, WIDTH, HEIGHT, device=dev)[0].eye.cpu())
+
+    def zn_call(zn):
+        cam = make_camera(WIDTH, HEIGHT, eye, (0, 0, 0), zn=zn, zf=100.0,
+                          device=dev)
+        return (flag_call[0], flag_call[1], flag_call[2], cam.viewproj,
+                cam.zn, cam.zf) + flag_call[6:]
+
+    prog(*zn_call(0.1))                     # the sizing call
+    out["c23_drill"] = _c23_drill(prog, zn_call, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 32 took {out['seconds']:.1f} s")
     return out
 
 
@@ -4454,6 +4750,12 @@ def main():
         one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots)
         log(f"phase 31 alone: ok ({card})")
         return 0
+    if sys.argv[1:] == ["--phase32"]:
+        # Phase 32 alone (the high-poly route as one program).
+        highpoly_program_phase(geom, objects, ctx, *build_highpoly_scene(
+            HP_GRID, device=dev), dev)
+        log(f"phase 32 alone: ok ({card})")
+        return 0
 
     cam0, ctx0 = cams[0]
     st = flagship_stages(geom, objects, lights, ctx, cam0, ctx0, WIDTH, HEIGHT,
@@ -4507,6 +4809,8 @@ def main():
     e2e_launches, e2e_ms = e2e_phase(hp_geom, hp_objects, hp_ctx, dev)
     hp_prof = highpoly_profile_phase(hp_geom, hp_objects, hp_lights, hp_ctx,
                                      dev)
+    hp_program = highpoly_program_phase(geom, objects, ctx, hp_geom,
+                                        hp_objects, hp_lights, hp_ctx, dev)
     del hp_geom, hp_objects
     render_forward_phase(dev)
 
@@ -4764,14 +5068,20 @@ def main():
                     "replay_busy_share": v["replay_busy"]["busy_share"],
                     "eager_busy_share": v["eager_busy"]["busy_share"],
                     **{f: v[f] for f in op_keys}}
-                for k, v in one_program.items() if isinstance(v, dict)}
+                for k, v in {**one_program, **hp_program}.items()
+                if isinstance(v, dict) and "replay" in v}
     for k in kernels:
-        if k["name"] in ("direct_raster", "shade_fused", "resolve_fused"):
+        if k["name"] in ("direct_raster", "shade_fused", "resolve_fused",
+                         "tiled_raster", "chunklist_raster"):
             k["one_program_frames"] = {
                 p: v for p, v in op_paths.items()
                 if v["launches_per_frame"][k["name"]]}
-    log("summary: phase 31, one-program frames (replay / eager ms a frame, "
-        "busy share of a replay): {}".format(
+        if k["name"] == "tiled_raster":
+            k["one_program_overflow_drill"] = hp_program["overflow_drill"]
+        if k["name"] == "direct_raster":
+            k["one_program_c23_drill"] = hp_program["c23_drill"]
+    log("summary: phases 31-32, one-program frames (replay / eager ms a "
+        "frame, busy share of a replay): {}".format(
             {k: f"{v['replay']['ms']:.3f} / {v['eager']['ms']:.3f}, "
                 f"{v['replay_busy_share']:.1%}" for k, v in op_paths.items()}))
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched: "

@@ -13,6 +13,11 @@ sphere).  Lights, materials and texture are the flagship's
   fused forward+ (B2, tiled depth range) -> tonemap -> FXAA.
 - e2e_compact_chunklist: the bench's end-to-end step,
   scene_setup_compact -> rasterize_chunklist (B4) (bench_highpoly.py:156-166).
+
+Both run as one program with checked capacities (utils.capacity), as
+lsr_tpu traces them into one jit (execute_jitted's trace;
+bench_highpoly.py:156-160): captured once into a CUDA graph on the card
+and replayed, with no host read in mid-frame.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ from lsr_tpu_torch.io.obj import make_uv_sphere
 from lsr_tpu_torch.passes.post import fxaa_pass
 from lsr_tpu_torch.passes.standard_passes import _raster, fused_lighting
 from lsr_tpu_torch.passes.tonemap import tonemap_pass
-from lsr_tpu_torch.raster.setup import scene_setup_compact
+from lsr_tpu_torch.raster.setup import scene_setup, scene_setup_compact
 from lsr_tpu_torch.raster.tiled import rasterize_chunklist
 from lsr_tpu_torch.scene.scene import SceneBuilder, make_camera
+from lsr_tpu_torch.utils.capacity import checked
 
 SPACING = 1.2
 
@@ -87,24 +93,27 @@ def highpoly_frame_params(width: int, height: int) -> FrameParams:
 
 def make_highpoly_frame(geom, objects, lights, ctx, fp: FrameParams):
     """frame(cam, ctx_t) -> (ldr_u8 (H, W, 3), frame state: setup, depth,
-    tid, gbuffer, hdr and raster_stats).
+    tid, gbuffer, hdr and raster_stats), one program with checked
+    capacities (a utils.capacity.Checked: its first call runs eagerly and
+    sizes the lists; the frame body is frame.fn(cam, ctx_t, caps)).
 
     Float32 products on the card run in full precision (TF32 off)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tm = fp.pass_params.tonemap
 
-    def frame(cam, ctx_t):
+    def frame(cam, ctx_t, caps):
         state = {"geom": geom, "objects": objects, "lights": lights,
-                 "shade_ctx": ctx_t, "camera": cam}
+                 "shade_ctx": ctx_t, "camera": cam, "capacities": caps}
         state = fused_lighting(_raster(state, fp), fp)
+        state.pop("capacities")           # an input, not frame state
         ldr = tonemap_pass(state["hdr"], exposure=tm.exposure,
                            gamma=tm.gamma)
         if fp.enable_fxaa:
             ldr = fxaa_pass(ldr)
-        return ldr, state
+        return (ldr, state), state["raster_stats"]
 
-    return frame
+    return checked(frame, name="highpoly_frame")
 
 
 def compact_setup(geom, objects, cam, width: int, height: int):
@@ -117,9 +126,35 @@ def compact_setup(geom, objects, cam, width: int, height: int):
 
 
 def e2e_compact_chunklist(geom, objects, cam, width: int, height: int):
-    """Compact setup + chunk-worklist raster in one step.  Returns
-    (depth01, tid, max_chunks_per_tile, setup, CompactStats)."""
-    setup, cstats = compact_setup(geom, objects, cam, width, height)
+    """Compact setup + chunk-worklist raster in one step, one program
+    (e2e_compact_chunklist.program).  Returns (depth01, tid,
+    max_chunks_per_tile, setup, CompactStats); after a compact overflow
+    the step rasterizes scene_setup's rows instead and returns None for
+    the CompactStats."""
+    return e2e_compact_chunklist.program(geom, objects, cam, width, height)
+
+
+def _e2e_step(geom, objects, cam, width, height, caps):
+    """e2e_compact_chunklist's step: (its result, raster_stats).  caps=None
+    reads the compact overflow on the host (the eager route)."""
+    cstats = None
+    stats = {}
+    if caps is None or caps.compact:
+        setup, cstats = compact_setup(geom, objects, cam, width, height)
+        stats["compact_overflow"] = cstats.overflow
+        if caps is not None:
+            stats["capacity_exceeded"] = cstats.overflow
+        elif bool(cstats.overflow):
+            stats["compact_fallback"] = True
+    if cstats is None or stats.get("compact_fallback"):
+        setup, cstats = scene_setup(
+            geom.positions, geom.normals, geom.uvs, geom.indices,
+            geom.vtx_obj, geom.tri_obj, objects.model, objects.normal_mat,
+            cam.viewproj, width, height), None
     depth, tid, max_cnt = rasterize_chunklist(setup, width, height, cam.zn,
                                               cam.zf)
-    return depth, tid, max_cnt, setup, cstats
+    return (depth, tid, max_cnt, setup, cstats), stats
+
+
+e2e_compact_chunklist.program = checked(_e2e_step,
+                                        name="e2e_compact_chunklist")

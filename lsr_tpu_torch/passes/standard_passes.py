@@ -22,7 +22,10 @@ Two repairs against lsr_tpu, both following lsr_tpu's own contracts:
   the launch (scripts/bench_highpoly.py:94-103), instead of dropping
   triangles past raster_cap.
 Both are recorded in state["raster_stats"] (compact_fallback,
-raster_cap_used).
+raster_cap_used).  Eagerly both read the data on the host; with
+state["capacities"] (utils.capacity.Capacities, a one-program frame) both
+come from the capacities, nothing is read on the host, and
+raster_stats["capacity_exceeded"] flags a frame that exceeded them.
 """
 
 from __future__ import annotations
@@ -95,6 +98,7 @@ from lsr_tpu_torch.shading.models import (
     composite_over_background,
 )
 from lsr_tpu_torch.sky.sky_models import render_sky
+from lsr_tpu_torch.utils.capacity import binned_raster
 
 
 def _with_gbuffer(out, setup, depth, tid, fp: FrameParams):
@@ -118,7 +122,13 @@ def _with_gbuffer(out, setup, depth, tid, fp: FrameParams):
 def _raster(state, fp: FrameParams, depth_only: bool = False):
     """Camera raster: setup (compact above fp.compact_setup_threshold input
     triangles) -> B1 up to tiled.DIRECT_ROW_LIMIT setup rows, B3 above ->
-    G-buffer.  Returns a new state dict."""
+    G-buffer.  Returns a new state dict.
+
+    Without state["capacities"] the compact overflow and B3's largest bin
+    are read on the host (the eager route).  With them (utils.capacity),
+    the compact-or-full choice, B3's list width and its pair slots come
+    from the capacities, and raster_stats["capacity_exceeded"] (a device
+    flag) is set where the frame exceeded them."""
     # Reuse an earlier raster of the same frame (a depth prepass): the
     # visibility buffer is complete, so only interpolation runs.
     if ("depth" in state and "tid" in state and "setup" in state
@@ -126,21 +136,27 @@ def _raster(state, fp: FrameParams, depth_only: bool = False):
         return _with_gbuffer(dict(state), state["setup"], state["depth"],
                              state["tid"], fp)
     geom, objects, cam = state["geom"], state["objects"], state["camera"]
+    caps = state.get("capacities")
     view_mask = state.get("view_mask", objects.visible)
     args = (geom.positions, geom.normals, geom.uvs, geom.indices,
             geom.vtx_obj, geom.tri_obj, objects.model, objects.normal_mat,
             cam.viewproj, fp.width, fp.height)
     stats = {"tri_input": geom.indices.shape[0]}
-    setup = None
+    setup = over = None
     if geom.indices.shape[0] > fp.compact_setup_threshold:
-        setup, cstats = scene_setup_compact(
-            *args, cull_mode=fp.cull_mode, obj_visible=view_mask,
-            cap_fraction=fp.compact_cap_fraction)
-        fallback = bool(cstats.overflow)
-        stats.update(compact_overflow=cstats.overflow,
-                     compact_n_direct=cstats.n_direct,
-                     compact_n_clip=cstats.n_clip,
-                     compact_fallback=fallback)
+        fallback = caps is not None and not caps.compact
+        if not fallback:
+            setup, cstats = scene_setup_compact(
+                *args, cull_mode=fp.cull_mode, obj_visible=view_mask,
+                cap_fraction=fp.compact_cap_fraction)
+            stats.update(compact_overflow=cstats.overflow,
+                         compact_n_direct=cstats.n_direct,
+                         compact_n_clip=cstats.n_clip)
+            if caps is None:
+                fallback = bool(cstats.overflow)
+            else:
+                over = cstats.overflow
+        stats["compact_fallback"] = fallback
         if fallback:
             setup = None
     if setup is None:
@@ -155,13 +171,15 @@ def _raster(state, fp: FrameParams, depth_only: bool = False):
             tile_h=fp.raster_tile_h, tile_w=fp.raster_tile_w,
             chunk=fp.raster_chunk, spatial_sort=True)
     else:
-        depth, tid, max_bin = tiled.rasterize_tiled(
-            setup, fp.width, fp.height, cam.zn, cam.zf,
-            tile_h=fp.raster_tile_h, tile_w=fp.raster_tile_w,
-            cap=fp.raster_cap, chunk=fp.raster_chunk, fit_cap=True)
-        stats.update(raster_cap_used=tiled.fitted_cap(fp.raster_cap,
-                                                      int(max_bin)),
-                     raster_max_bin=max_bin)
+        depth, tid, b3 = binned_raster(
+            setup, fp.width, fp.height, cam.zn, cam.zf, caps, fp.raster_cap,
+            fp.raster_tile_h, fp.raster_tile_w, fp.raster_chunk)
+        b3_over = b3.pop("capacity_exceeded", None)
+        if b3_over is not None:
+            over = b3_over if over is None else over | b3_over
+        stats.update(b3)
+    if over is not None:
+        stats["capacity_exceeded"] = over
     stats["tri_after_clip"] = setup.valid.sum()
     out = dict(state)
     out.update(setup=setup, depth=depth, tid=tid, raster_stats=stats)

@@ -11,8 +11,9 @@ The three ways to execute give the same frame bit for bit and differ in
 how they run it: execute() times each pass on the host (the device with
 ctx.sync_timing), execute_segmented() times each pass on the device by CUDA
 events, both eagerly; execute_jitted() is lsr_tpu's one compiled program:
-the whole plan through utils.jit, captured once into a CUDA graph and
-replayed on the card (run eagerly for a state on the CPU).
+the whole plan through utils.jit with checked capacities
+(utils.capacity), captured once into a CUDA graph and replayed on the
+card (run eagerly for a state on the CPU).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from lsr_tpu_torch.pipeline.executor import (
 from lsr_tpu_torch.pipeline.planner import BackendCaps, build_execution_plan
 from lsr_tpu_torch.pipeline.recipe import compile_recipe
 from lsr_tpu_torch.pipeline.render_pass import RenderPass
-from lsr_tpu_torch.utils.jit import jit
+from lsr_tpu_torch.utils.capacity import checked
 
 
 class PluggablePipeline:
@@ -142,10 +143,14 @@ class PluggablePipeline:
         """The production frame path, lsr_tpu's (pipeline.py:104-134): the
         whole plan as one program, no per-pass timing, the persistent keys
         carried to the next frame through the program's inputs.  The plan
-        runs through utils.jit: on the card it is captured once into a CUDA
-        graph and replayed (a state's first frame of a key runs eagerly as
-        the warm-up; a failed capture raises), for a state on the CPU it
-        runs eagerly.  As in lsr_tpu, the jitted plan is cached on
+        runs through utils.capacity.checked: its first frame runs eagerly
+        and sizes the raster's capacities (state["capacities"], a host leaf
+        of jit's key), later frames go through utils.jit (on the card
+        captured once into a CUDA graph and replayed, a key's first frame
+        the warm-up, a failed capture raising; on the CPU eagerly), and a
+        frame whose raster exceeded its capacities (a compact setup above
+        fp.compact_setup_threshold, kernel B3's lists) runs again eagerly
+        at grown capacities.  As in lsr_tpu, the jitted plan is cached on
         (tuple(plan.order), id(fp)) and closes over ctx and fp: both are
         fixed at capture, as lsr_tpu's trace fixes them."""
         plan = self._valid_plan(fp)
@@ -153,15 +158,17 @@ class PluggablePipeline:
         if self._jit_key != key:
             passes = self._passes
 
-            def run(state):
+            def run(state, caps):
+                state = dict(state, capacities=caps)
                 for idx in plan.order:
                     p = passes[idx]
                     req = p.build_execution_request(ctx, state, fp)
                     if req.valid:
                         state = p.execute_resolved(ctx, state, fp, req)
-                return state
+                state.pop("capacities")       # an input, not frame state
+                return state, state.get("raster_stats")
 
-            self._jitted = jit(run, name="execute_jitted")
+            self._jitted = checked(run, name="execute_jitted")
             self._jit_key = key
         return self._finish(ctx, self._jitted(self._start(frame_state)))
 

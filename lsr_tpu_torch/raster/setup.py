@@ -327,7 +327,7 @@ def compact_prefilter(tri_clip, width: int, height: int,
     n_in = (d >= 0.0).sum(-1)
     all_in = n_in == 3
     needs_clip = (n_in > 0) & ~all_in
-    rot = tri_clip[:, (1, 2, 0)]
+    rot = torch.roll(tri_clip, -1, 1)          # corners [v1, v2, v0]
     w_clip = rot[..., 3]
     w_ok = torch.all(w_clip > 1e-8, dim=-1)
     iw = torch.where(w_clip > 1e-8, 1.0 / torch.clamp(w_clip, min=1e-8),
@@ -397,7 +397,7 @@ def scene_setup_compact(positions, normals, uvs, indices, vtx_obj, tri_obj,
     # Direct rows: the corners in the near clip's case-111 order, normals
     # re-normalized as the clip path re-normalizes them.
     vrec = torch.cat([clip_v, world, n_ws, uvs], dim=-1)           # (V, 12)
-    crec = vrec[indices[order_d][:, (1, 2, 0)]]                     # (D, 3, 12)
+    crec = vrec[torch.roll(indices[order_d], -1, 1)]               # (D, 3, 12)
     nrm = crec[..., 7:10]
     nrm = nrm / torch.clamp(torch.sqrt((nrm * nrm).sum(-1, keepdim=True)),
                             min=1e-12)

@@ -28,10 +28,14 @@ Setup record layout (_REC = 16 f32 per triangle, lsr_tpu's):
   [0:9] A0,B0,C0,A1,B1,C1,A2,B2,C2 | [9:12] 1/w | [12:15] z_ndc/w |
   [15] triangle id as f32 (-1 = invalid; exact below 2^24 triangles)
 
-Per-tile lists are built without lsr_tpu's dense (tiles, N) mask: each
+B3's per-tile lists are built without lsr_tpu's dense (tiles, N) mask
+(at 1080p on the high-poly scene it would hold 255 x 2.2 M entries): each
 valid row is expanded to its (row, tile) pairs from its tile range, the
-pairs are stably sorted by tile and each tile's segment gives its list.
-The lists, counts and maxima are the same integers as lsr_tpu's.
+pairs are stably sorted by tile and each tile's segment gives its list,
+either from the exact pair count (a host read) or from a capacity of pair
+slots (bin_triangles' pairs=).  B4's worklists (chunks, 16x fewer than
+rows) and B1's super lists come from lsr_tpu's dense masks.  The lists,
+counts and maxima are the same integers as lsr_tpu's.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only, walking
 the same lists the kernel gets; CUDA tensors launch the kernel or raise.
@@ -178,16 +182,27 @@ def _super_lists(chunk_bb, chunk: int, tiles_x: int, tiles_y: int,
 def _mask_to_lists(mask):
     """(tiles, S) bool -> order-preserving (lists (tiles, S) i32 -1 padded,
     counts (tiles,) i32, max_count () i32)."""
-    tiles, s = mask.shape
+    ids = torch.arange(mask.shape[1], dtype=torch.int32, device=mask.device)
+    return _dense_lists(mask, ids.expand(mask.shape), mask.shape[1], -1)
+
+
+def _dense_lists(mask, values, width: int, fill: int):
+    """lsr_tpu's list construction from a dense (tiles, S) mask: each tile's
+    list holds values[t, s] for its set s in ascending s, the first `width`
+    of them (entries past it are dropped), `fill` padded.  Shapes are
+    static: no host read.  Returns (lists (tiles, width) i32, counts
+    (tiles,) i32 capped at width, max_count () i32 before capping)."""
+    tiles = mask.shape[0]
     pos = torch.cumsum(mask.to(torch.int32), dim=1) - 1
     counts = mask.sum(dim=1, dtype=torch.int32)
-    base = (torch.arange(tiles, device=mask.device) * s)[:, None]
-    flat = torch.where(mask, base + pos, torch.full_like(base, tiles * s))
-    ids = torch.arange(s, dtype=torch.int32, device=mask.device)
-    lists = torch.full((tiles * s + 1,), -1, dtype=torch.int32,
+    base = (torch.arange(tiles, device=mask.device) * width)[:, None]
+    flat = torch.where(mask & (pos < width), base + pos,
+                       torch.full_like(base, tiles * width))
+    lists = torch.full((tiles * width + 1,), fill, dtype=torch.int32,
                        device=mask.device)
-    lists[flat.reshape(-1)] = ids.expand(tiles, s).reshape(-1)
-    return lists[:-1].reshape(tiles, s), counts, counts.max()
+    lists[flat.reshape(-1)] = values.reshape(-1).to(torch.int32)
+    return (lists[:-1].reshape(tiles, width), torch.clamp(counts, max=width),
+            counts.max())
 
 
 def pack_direct_records(setup: TriSetup, spatial_sort: bool,
@@ -417,34 +432,62 @@ def _span_counts(spans, tiles_x: int, tiles_y: int):
     return grid[:tiles_y, :tiles_x].reshape(-1)
 
 
-def _spans_to_lists(spans, counts, tiles_x: int, cap: int, value, fill: int):
-    """Per-tile lists (tiles, cap) i32 of value(row, tile_row) for every
+def _spans_to_lists(spans, counts, tiles_x: int, cap: int,
+                    pairs: int | None = None):
+    """Per-tile lists (tiles, cap) i32, -1 padded, of the rows of every
     (box row, tile) pair, ascending row within a tile; entries past `cap`
-    are dropped.  One host sync: the number of pairs."""
+    are dropped.  Returns (lists, the entries each tile's list holds before
+    `cap`, (tiles,) i64).
+
+    pairs=None expands exactly the pairs there are: one host sync, their
+    number.  pairs=P (the capacity route, no host read) expands P pair
+    slots: slot p belongs to the row whose range of the rows' running pair
+    count holds p, and slots at or past the true count take the tile key
+    num_tiles, so they sort last and drop out.  While P holds every pair,
+    the lists are the same as with pairs=None; past it the last rows' pairs
+    are missing (the caller flags it) and the returned counts say what the
+    lists hold, so no walk reads past a list."""
     tx0, tx1, ty0, ty1, ok = spans
     dev = ok.device
     nx = tx1 - tx0 + 1
     per_row = torch.where(ok, nx * (ty1 - ty0 + 1), torch.zeros_like(nx))
-    n_pairs = int(counts.sum())
-    rows = torch.repeat_interleave(
-        torch.arange(per_row.shape[0], device=dev), per_row,
-        output_size=n_pairs)
-    local = torch.arange(n_pairs, device=dev) \
-        - (torch.cumsum(per_row, 0) - per_row)[rows]
-    nxr = nx[rows]
-    ty = ty0[rows] + torch.div(local, nxr, rounding_mode="floor")
-    tile = ty * tiles_x + tx0[rows] + local % nxr
-    tile, perm = torch.sort(tile, stable=True)
-    rows, ty = rows[perm], ty[perm]
+    ends = torch.cumsum(per_row, 0)
     num_tiles = counts.shape[0]
-    pos = torch.arange(n_pairs, device=dev) \
-        - (torch.cumsum(counts, 0) - counts)[tile]
-    slot = torch.where(pos < cap, tile * cap + pos,
+    if pairs is None:
+        n_pairs = int(counts.sum())
+        rows = torch.repeat_interleave(
+            torch.arange(per_row.shape[0], device=dev), per_row,
+            output_size=n_pairs)
+    else:
+        n_pairs = pairs
+        slots = torch.arange(pairs, device=dev)
+        rows = torch.searchsorted(ends, slots, right=True).clamp(
+            max=per_row.shape[0] - 1)
+    local = torch.arange(n_pairs, device=dev) - (ends - per_row)[rows]
+    nxr = nx[rows].clamp(min=1)       # a slot past the count may sit on a
+    ty = ty0[rows] + torch.div(local, nxr, rounding_mode="floor")  # dead row
+    tile = ty * tiles_x + tx0[rows] + local % nxr
+    if pairs is not None:
+        tile = torch.where(slots < ends[-1], tile,
+                           torch.full_like(tile, num_tiles))
+    tile, perm = torch.sort(tile, stable=True)
+    if pairs is None:
+        held = counts
+        starts = torch.cat([torch.cumsum(counts, 0) - counts,
+                            counts.new_zeros(1)])
+    else:
+        # Where each tile's run of the sorted slots starts, and how long
+        # it is (the dead slots' key num_tiles runs last).
+        starts = torch.searchsorted(
+            tile, torch.arange(num_tiles + 1, device=dev))
+        held = starts[1:] - starts[:-1]
+    pos = torch.arange(n_pairs, device=dev) - starts[tile]
+    slot = torch.where((pos < cap) & (tile < num_tiles), tile * cap + pos,
                        torch.full_like(pos, num_tiles * cap))
-    lists = torch.full((num_tiles * cap + 1,), fill, dtype=torch.int32,
+    lists = torch.full((num_tiles * cap + 1,), -1, dtype=torch.int32,
                        device=dev)
-    lists[slot] = value(rows, ty).to(torch.int32)
-    return lists[:-1].view(num_tiles, cap)
+    lists[slot] = rows[perm].to(torch.int32)
+    return lists[:-1].view(num_tiles, cap), held
 
 
 def _bbox_spans(setup: TriSetup, tiles_x, tiles_y, tile_w, tile_h,
@@ -461,9 +504,18 @@ def fitted_cap(cap: int, max_bin: int) -> int:
     return max(cap, cdiv(max_bin, 256) * 256)
 
 
+def pair_count(setup: TriSetup, width: int, height: int, tile_h: int,
+               tile_w: int, y_offset: int = 0):
+    """() i64: the (row, tile) pairs bin_triangles expands for this target,
+    what its capacity route (pairs=) must hold."""
+    tiles_x, tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+    return _span_counts(_bbox_spans(setup, tiles_x, tiles_y, tile_w, tile_h,
+                                    y_offset), tiles_x, tiles_y).sum()
+
+
 def bin_triangles(setup: TriSetup, width: int, height: int, tile_h: int,
                   tile_w: int, cap: int, y_offset: int = 0,
-                  fit_cap: bool = False):
+                  fit_cap: bool = False, pairs: int | None = None):
     """Per-tile triangle lists.  Returns (lists (tiles, cap) i32 -1 padded,
     counts (tiles,) i32 capped, max_count () i32 before capping).
 
@@ -471,23 +523,40 @@ def bin_triangles(setup: TriSetup, width: int, height: int, tile_h: int,
     with more than `cap` triangles keeps its first `cap`.  fit_cap=True
     first raises cap to fitted_cap(cap, max_count), so nothing is dropped;
     lists.shape[1] is the cap used.  y_offset is the global row of this
-    target's first row (screen bands)."""
+    target's first row (screen bands).
+
+    pairs=P is the capacity route of a captured frame: no host read, the
+    lists built from P (row, tile) pair slots at the given cap (fit_cap must
+    be False), and two more values: n_pairs () i64, the pairs there are
+    (pair_count), and over () bool, set where n_pairs exceeds P or max_count
+    exceeds cap, that is where the lists dropped a triangle.  Otherwise the
+    lists and counts are the pairs=None route's, element for element."""
+    if pairs is not None and fit_cap:
+        raise ValueError("bin_triangles: fit_cap reads the largest bin on "
+                         "the host; the capacity route (pairs=) takes cap "
+                         "as given")
     tiles_x, tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
     spans = _bbox_spans(setup, tiles_x, tiles_y, tile_w, tile_h, y_offset)
     counts = _span_counts(spans, tiles_x, tiles_y)
     max_count = counts.max()
     if fit_cap:
         cap = fitted_cap(cap, int(max_count))
-    lists = _spans_to_lists(spans, counts, tiles_x, cap,
-                            lambda rows, ty: rows, -1)
-    return (lists, torch.clamp(counts, max=cap).to(torch.int32),
-            max_count.to(torch.int32))
+    lists, held = _spans_to_lists(spans, counts, tiles_x, cap, pairs)
+    out = (lists, torch.clamp(held, max=cap).to(torch.int32),
+           max_count.to(torch.int32))
+    if pairs is None:
+        return out
+    n_pairs = counts.sum()
+    return out + (n_pairs, (n_pairs > pairs) | (max_count > cap))
 
 
 def _chunk_lists(setup: TriSetup, n_pad: int, chunk: int, tiles_x: int,
                  tiles_y: int, tile_w: int, tile_h: int, ccap: int,
                  y_offset: int, sub_h: int):
-    """Per-tile overlapping-chunk worklists with packed row-band info.
+    """Per-tile overlapping-chunk worklists with packed row-band info, built
+    as lsr_tpu builds them (tiled.py:654-694): from the dense (tiles,
+    chunks) overlap mask and its running count, static shapes and no host
+    read, so a captured frame holds them.
 
     Returns (lists (tiles, ccap) i32 0 padded, counts (tiles,) i32 capped,
     max_count () i32).  Entries are id << 5 | band_start << 2 |
@@ -496,21 +565,23 @@ def _chunk_lists(setup: TriSetup, n_pad: int, chunk: int, tiles_x: int,
     ok = cbb[:, 0] <= cbb[:, 2]               # empty chunks have x0 > x1
     box = torch.where(ok[:, None], cbb, torch.zeros_like(cbb)).to(torch.int64)
     y0, y1 = box[:, 1] - y_offset, box[:, 3] - y_offset
-    spans = _spans(box[:, 0], y0, box[:, 2], y1, ok, tiles_x, tiles_y,
-                   tile_w, tile_h)
-    counts = _span_counts(spans, tiles_x, tiles_y)
+    tx0, tx1, ty0, ty1, ok = _spans(box[:, 0], y0, box[:, 2], y1, ok,
+                                    tiles_x, tiles_y, tile_w, tile_h)
+    dev = ok.device
+    tx = torch.arange(tiles_x, device=dev)[:, None]
+    ty = torch.arange(tiles_y, device=dev)[:, None]
+    ox = (tx0 <= tx) & (tx <= tx1)                           # (tiles_x, C)
+    oy = (ty0 <= ty) & (ty <= ty1) & ok                      # (tiles_y, C)
+    mask = (oy[:, None] & ox[None]).reshape(tiles_y * tiles_x, -1)
     nb_max = tile_h // sub_h
-
-    def entry(cid, ty):
-        band = lambda y: torch.div(  # noqa: E731
-            y[cid] - ty * tile_h, sub_h, rounding_mode="floor").clamp(
-                0, nb_max - 1)
-        bs, be = band(y0), band(y1)
-        return (cid << _BAND_BITS) | (bs << 2) | (be - bs)
-
-    lists = _spans_to_lists(spans, counts, tiles_x, ccap, entry, 0)
-    return (lists, torch.clamp(counts, max=ccap).to(torch.int32),
-            counts.max().to(torch.int32))
+    band = lambda y: torch.div(  # noqa: E731
+        y[None] - ty * tile_h, sub_h, rounding_mode="floor").clamp(
+            0, nb_max - 1)
+    bs, be = band(y0), band(y1)                              # (tiles_y, C)
+    cid = torch.arange(ok.shape[0], device=dev)[None]
+    entry = (cid << _BAND_BITS) | (bs << 2) | (be - bs)
+    return _dense_lists(mask, entry[:, None].expand(-1, tiles_x, -1), ccap,
+                        0)
 
 
 # ---------------------------------------------------------------------------
@@ -915,17 +986,18 @@ def _tiled_launch(lib, rec, lists, counts, depth_init, tid_init, width,
 
 def tiled_inputs(setup: TriSetup, width: int, height: int, tile_h: int,
                  tile_w: int, cap: int, chunk: int, y_offset: int = 0,
-                 fit_cap: bool = False):
+                 fit_cap: bool = False, pairs: int | None = None):
     """What kernel B3 and its plain version take: (records (n_pad, _REC),
     lists (tiles, cap) i32, entries to walk per tile (tiles,) i32, max_bin
-    () i32).  fit_cap as in bin_triangles."""
+    () i32).  fit_cap and pairs as in bin_triangles (pairs=P appends
+    n_pairs and over)."""
     rec, _, _ = pack_direct_records(setup, False)
-    lists, counts, max_bin = bin_triangles(setup, width, height, tile_h,
-                                           tile_w, cap, y_offset, fit_cap)
+    lists, counts, max_bin, *check = bin_triangles(
+        setup, width, height, tile_h, tile_w, cap, y_offset, fit_cap, pairs)
     # lsr_tpu's kernel walks min(ceil(count/chunk), cap//chunk) chunks;
     # counts <= cap already, so no tile walks past its list.
     n_walk = torch.clamp(counts, max=lists.shape[1] // chunk * chunk)
-    return rec, lists, n_walk, max_bin
+    return (rec, lists, n_walk, max_bin, *check)
 
 
 def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
@@ -933,28 +1005,31 @@ def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
                     depth_mode: int = DEPTH_VIEWZ, tile_h: int = 32,
                     tile_w: int = 128, cap: int = 512, chunk: int = 8,
                     y_offset: int = 0, full_height: int | None = None,
-                    fit_cap: bool = False):
+                    fit_cap: bool = False, pairs: int | None = None):
     """Tile-parallel binned rasterization.  Returns (depth01 (H, W),
     tid (H, W), max_bin).
 
     max_bin is the largest per-tile triangle count BEFORE capping: if it
     exceeds `cap`, triangles were dropped.  fit_cap=True raises the cap to
-    fitted_cap(cap, max_bin) first, so none is.  y_offset / full_height
-    render global rows [y_offset, y_offset + height) of a full_height
-    framebuffer.
+    fitted_cap(cap, max_bin) first, so none is.  pairs=P is the capacity
+    route of a captured frame (bin_triangles): no host read, and the
+    result gains (n_pairs, over), over () bool set where a triangle was
+    dropped.  y_offset / full_height render global rows [y_offset, y_offset
+    + height) of a full_height framebuffer.
     CPU tensors run rasterize_tiled_plain; CUDA tensors launch kernel B3
     (csrc/tiled_raster.cu) or raise."""
     _check_depth_mode("rasterize_tiled", depth_mode)
     full_height = height if full_height is None else full_height
     dev = _device("rasterize_tiled", setup)
-    rec, lists, n_walk, max_bin = tiled_inputs(
-        setup, width, height, tile_h, tile_w, cap, chunk, y_offset, fit_cap)
+    rec, lists, n_walk, max_bin, *check = tiled_inputs(
+        setup, width, height, tile_h, tile_w, cap, chunk, y_offset, fit_cap,
+        pairs)
     depth_init, tid_init = _targets(depth_init, tid_init, height, width, dev)
     if dev.type == "cpu":
         depth, tid = rasterize_tiled_plain(
             rec, lists, n_walk, depth_init, tid_init, width, height, zn, zf,
             depth_mode, tile_h, tile_w, chunk, y_offset, full_height)
-        return depth, tid, max_bin
+        return (depth, tid, max_bin, *check)
     _check_kernel_tiles("rasterize_tiled", tile_h, tile_w)
     _check_cuda_targets("rasterize_tiled", dev, height, width, depth_init,
                         tid_init)
@@ -963,7 +1038,7 @@ def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
         height, zn, zf, depth_mode, tile_h, tile_w, y_offset, full_height,
         _stream(dev))
     rasterize_tiled.launches += 1
-    return depth, tid, max_bin
+    return (depth, tid, max_bin, *check)
 
 
 rasterize_tiled.launches = 0
@@ -1026,6 +1101,7 @@ def rasterize_chunklist(setup: TriSetup, width: int, height: int, zn: float,
     not).  An explicit ccap keeps lsr_tpu's semantics: a tile's entries past
     ccap are dropped and max_chunks_per_tile reports it.
     track_ids=False resolves depth only (tid comes back as tid_init).
+    Nothing is read on the host (a captured frame holds it).
     CPU tensors run rasterize_chunklist_plain; CUDA tensors launch kernel B4
     (csrc/chunklist_raster.cu) or raise."""
     if tile_h % sub_h or tile_h // sub_h > 4:

@@ -5,6 +5,12 @@ background composite -> tonemap.  The raster takes kernel B1
 (rasterize_direct) up to tiled.DIRECT_ROW_LIMIT setup rows and kernel B3
 (rasterize_tiled) above it, with the list cap raised to the scene's
 largest bin so that no triangle is dropped.
+
+render_forward is one program, as lsr_tpu's jax.jit is (render.py:95-98):
+on the card each key (lsr_tpu's static arguments, the port's host leaves
+among them) is captured once into a CUDA graph and replayed
+(utils.jit), B3's list width and pair slots checked capacities
+(utils.capacity) kept across calls in render_forward.program.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from lsr_tpu_torch.shading.models import (
     composite_over_background,
     shade_gouraud,
 )
+from lsr_tpu_torch.utils.capacity import binned_raster, checked
 
 
 def upload_mesh(mesh, device=None):
@@ -49,20 +56,33 @@ def render_forward(batch, models, normal_mats, viewproj, zn: float, zf: float,
 
     batch: dict of tensors positions / normals / uvs / indices / vtx_obj /
     tri_obj (concat_scene's columns on the device).  model_name: a key of
-    SHADING_MODELS, or "gouraud" (vertex lighting from the setup)."""
+    SHADING_MODELS, or "gouraud" (vertex lighting from the setup).  Runs as
+    one program (render_forward.program; CPU tensors run eagerly)."""
+    return render_forward.program(
+        batch, models, normal_mats, viewproj, zn, zf, shade_ctx, width,
+        height, model_name, tuple(background), use_tiled, cap, exposure,
+        gamma, tiled.DIRECT_ROW_LIMIT)
+
+
+def _forward_frame(batch, models, normal_mats, viewproj, zn, zf, shade_ctx,
+                   width, height, model_name, background, use_tiled, cap,
+                   exposure, gamma, row_limit, caps):
+    """render_forward's frame: ((ldr, gbuffer), raster_stats).  caps=None
+    fits B3's list cap on the host (the eager route)."""
     setup = scene_setup(
         batch["positions"], batch["normals"], batch["uvs"], batch["indices"],
         batch["vtx_obj"], batch["tri_obj"], models, normal_mats, viewproj,
         width, height)
+    stats = {}
     if not use_tiled:
         depth, tid = rasterize_brute(setup, width, height, zn, zf)
-    elif setup.count <= tiled.DIRECT_ROW_LIMIT:
+    elif setup.count <= row_limit:
         depth, tid, _ = tiled.rasterize_direct(setup, width, height, zn, zf)
     else:
-        # rasterize_tiled's default 32x128 tiles, as lsr_tpu calls it.
-        depth, tid, _ = tiled.rasterize_tiled(setup, width, height, zn, zf,
-                                              tile_h=32, tile_w=128, cap=cap,
-                                              fit_cap=True)
+        # rasterize_tiled's default 32x128 tiles and chunk 8, as lsr_tpu
+        # calls it.
+        depth, tid, stats = binned_raster(setup, width, height, zn, zf, caps,
+                                          cap, 32, 128, 8)
     gb = interpolate_gbuffer(setup, depth, tid, materials=shade_ctx.materials)
     if model_name == "gouraud":
         shaded = shade_gouraud(setup, gb, shade_ctx)
@@ -70,7 +90,10 @@ def render_forward(batch, models, normal_mats, viewproj, zn: float, zf: float,
         shaded = SHADING_MODELS[model_name](gb, shade_ctx)
     bg = device_const(background, shaded.device).expand(shaded.shape)
     hdr = composite_over_background(shaded, gb, bg)
-    return tonemap_pass(hdr, exposure=exposure, gamma=gamma), gb
+    return (tonemap_pass(hdr, exposure=exposure, gamma=gamma), gb), stats
+
+
+render_forward.program = checked(_forward_frame, name="render_forward")
 
 
 def simple_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1,

@@ -35,6 +35,14 @@ output that is an argument returns the caller's own tensor.  Tensors the
 function closes over are read where they lie at every replay, as a jitted
 JAX function holds its constants.
 
+Each Jitted holds at most MAX_GRAPHS (8) captured graphs, and remembers at
+most as many keys warmed up and not yet captured: a ninth key evicts the
+least recently used graph, whose memory is released (its static tensors
+dropped, then CUDAGraph.reset()), and evictions counts it.  A caller that
+cycles through more than MAX_GRAPHS keys (nine zn values, the nine models
+of hello_shading_models) warms up more than it replays, but never holds
+more than MAX_GRAPHS graphs, each as large as the frame's intermediates.
+
 The kernel wrappers count launches where they launch (launch_counters()).
 The capture moves those counters without launching anything, so jit takes
 that move back and adds it on every replay: the counts stay exact per frame.
@@ -46,6 +54,7 @@ operation at fault, and never runs the eager frame instead.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -322,6 +331,10 @@ def _set_counts(counters, values):
         setattr(o, a, v)
 
 
+# Graphs (and keys warmed up, not yet captured) a Jitted holds at most.
+MAX_GRAPHS = 8
+
+
 class _Graph:
     """One captured key: static inputs, the graph, its static outputs, and
     what each launch counter moved during the capture; capture_ms (host
@@ -361,6 +374,12 @@ class _Graph:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
+    def release(self):
+        """Frees the graph: the static tensors first, so that its private
+        pool holds no live block, then the graph itself."""
+        self.static_in = self.static_out = None
+        self.graph.reset()
+
     def __call__(self, leaves):
         for dst, src in zip(self.static_in, leaves):
             dst.copy_(src)
@@ -380,19 +399,17 @@ class _Graph:
 
 class Jitted:
     """jit(fn): see the module docstring.  graphs maps each captured key to
-    its _Graph (captures: how many were made; pool_bytes: the memory each
-    took)."""
+    its _Graph, least recently used first (at most MAX_GRAPHS; pool_bytes:
+    the memory each took); captures counts the graphs made and evictions
+    those released."""
 
     def __init__(self, fn, name=None):
         self.fn = fn
         self.name = name or getattr(fn, "__qualname__", repr(fn))
-        self.graphs: dict = {}
-        self._warm: set = set()
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self._warm: collections.OrderedDict = collections.OrderedDict()
         self._side = None
-
-    @property
-    def captures(self) -> int:
-        return len(self.graphs)
+        self.captures = self.evictions = 0
 
     def __call__(self, *args, **kwargs):
         spec, leaves, hosts = trace_key(args, kwargs)
@@ -404,15 +421,44 @@ class Jitted:
             return self.fn(*args, **kwargs)
         g = self.graphs.get(spec)
         if g is None and spec in self._warm:
-            self._warm.discard(spec)
-            g = self.graphs[spec] = _Graph(self.fn, self.name, spec, leaves,
-                                           hosts, dev)
+            del self._warm[spec]
+            # Make room first: the evicted graph's memory is free for this
+            # capture.
+            while len(self.graphs) >= MAX_GRAPHS:
+                self._evict(self.graphs.popitem(last=False)[1])
+            g = _Graph(self.fn, self.name, spec, leaves, hosts, dev)
+            self.graphs[spec] = g
+            self.captures += 1
         if g is not None:
+            self.graphs.move_to_end(spec)
             return g(leaves)
-        self._warm.add(spec)
-        return self._warm_up(dev, args, kwargs)
+        return self._warm_up(spec, dev, args, kwargs)
 
-    def _warm_up(self, dev, args, kwargs):
+    def warm_up(self, *args, **kwargs):
+        """fn eagerly as the warm-up of this call's key: its next call
+        captures (a CPU call just runs fn)."""
+        spec, leaves, _ = trace_key(args, kwargs)
+        dev = _card_device(leaves)
+        if dev is None:
+            return self.fn(*args, **kwargs)
+        return self._warm_up(spec, dev, args, kwargs)
+
+    def clear(self):
+        """Releases every graph and forgets every key (keys that can never
+        come again: the checked capacities have grown)."""
+        while self.graphs:
+            self._evict(self.graphs.popitem(last=False)[1])
+        self._warm.clear()
+
+    def _evict(self, g):
+        g.release()
+        self.evictions += 1
+
+    def _warm_up(self, spec, dev, args, kwargs):
+        self._warm[spec] = None
+        self._warm.move_to_end(spec)
+        while len(self._warm) > MAX_GRAPHS:
+            self._warm.popitem(last=False)
         cur = torch.cuda.current_stream(dev)
         if self._side is None:
             self._side = torch.cuda.Stream(dev)

@@ -1,7 +1,9 @@
 """lsr_tpu_torch.utils.jit, the one-program frame (CPU): jit's key, its
-graph route (capture, replay, launch accounting, fresh outputs) on a fake
-card, CaptureCheck and device_const, and the flagship frame and
-execute_jitted through jit against the eager frame and lsr_tpu's.
+graph route (capture, replay, launch accounting, fresh outputs, the cache
+bounded at MAX_GRAPHS) on a fake card, utils.capacity's checked wrapper
+there (the sizing call, the redo of an exceeded frame on a replay and on
+the capture call), CaptureCheck and device_const, and the flagship frame
+and execute_jitted through jit against the eager frame and lsr_tpu's.
 
 On the CPU jit runs the function eagerly (the caller asked for the CPU), so
 the graph route is driven here by a fake card (fake_card): torch.cuda's
@@ -90,16 +92,21 @@ def test_flatten_round_trip():
 
 class _FakeGraph:
     """Records the fake kernels launched while capturing; replay runs them
-    again (no Python of the traced function runs)."""
+    again (no Python of the traced function runs); reset() frees it."""
 
     recording = None
 
     def __init__(self):
         self.launches = []
+        self.was_reset = False
 
     def replay(self):
+        assert not self.was_reset, "replay of a released graph"
         for launch in self.launches:
             launch()
+
+    def reset(self):
+        self.launches, self.was_reset = [], True
 
 
 @contextlib.contextmanager
@@ -128,6 +135,20 @@ def fake_scale(x, k):
 
 
 fake_scale.launches = 0
+
+
+def fake_over(x, k: float):
+    """A fake kernel without a counter: out = x > k (a frame's flag)."""
+    out = torch.empty(x.shape, dtype=torch.bool)
+
+    def launch():
+        torch.gt(x, k, out=out)
+
+    if _FakeGraph.recording is not None:
+        _FakeGraph.recording.launches.append(launch)
+    else:
+        launch()
+    return out
 
 
 class _FakeStream:
@@ -216,6 +237,90 @@ def test_failed_capture_raises(fake_card):
     with pytest.raises(jm.CaptureError, match="host read"):
         f(torch.ones(3))
     assert f.captures == 0 and fake_scale.launches == 1
+
+
+def test_graph_cache_is_bounded(fake_card):
+    """C23: over MAX_GRAPHS + 4 distinct host values (a zn cycling), each
+    warmed up and captured, at most MAX_GRAPHS graphs and as many warm keys
+    are alive; the least recently used go first, each evicted graph's
+    reset() has been called and evictions counts them; a graph used again
+    is kept; every frame's values and launches stay exact."""
+    n = jm.MAX_GRAPHS + 4
+    f = jm.jit(_frame)
+    made = []
+    for i in range(n):
+        for _ in range(2):                        # warm-up, then capture
+            out = f(torch.ones(3), {"k": float(i)})
+            assert torch.equal(out["y"], torch.full((3,), 2.0 * i))
+        made.append(f.graphs[next(reversed(f.graphs))].graph)
+        f(torch.ones(3), {"k": 0.0 if i < jm.MAX_GRAPHS else float(i)})
+        assert len(f.graphs) <= jm.MAX_GRAPHS
+        assert len(f._warm) <= jm.MAX_GRAPHS
+    assert f.captures == n and f.evictions == n - jm.MAX_GRAPHS
+    assert sum(g.was_reset for g in made) == f.evictions
+    assert not made[0].was_reset                 # k = 0.0, used throughout
+    assert all(made[i].was_reset for i in range(1, f.evictions + 1))
+    assert fake_scale.launches == 2 * 3 * n
+    f.clear()
+    assert not f.graphs and not f._warm and all(g.was_reset for g in made)
+
+
+def _capped(x, need, caps):
+    """A fake frame with a checked capacity: its output shows the list
+    width it ran at (x * width); the flag is set where need exceeds it.
+    caps=None sizes the width on the host (the eager route)."""
+    from lsr_tpu_torch.raster.tiled import fitted_cap
+
+    if caps is None:
+        width = fitted_cap(256, int(need))
+        return fake_scale(x, float(width)), {"raster_cap_used": width}
+    y = fake_scale(x, float(caps.list_width))
+    return y, {"raster_max_bin": need,
+               "capacity_exceeded": fake_over(need, caps.list_width)}
+
+
+@pytest.mark.parametrize("where", ["replay", "capture"])
+def test_checked_retry(fake_card, where):
+    """An overflow on a replay, and one on the capture call itself, each
+    return the eager frame at the grown capacities (x * 512, the frame the
+    caller would get from fn at those capacities), never the graph's; the
+    stale graph is released, and the new key captures on its next call.
+    The launch counter counts what ran: one a frame, two for a redone
+    frame (the replay's and the eager frame's)."""
+    from lsr_tpu_torch.utils.capacity import Capacities, checked
+
+    c = checked(_capped, caps=Capacities(list_width=256))
+    x, small, big = torch.arange(3.0), torch.tensor(100), torch.tensor(300)
+    needs = [small, small, big] if where == "replay" else [small, big]
+    for need in needs[:-1]:
+        assert torch.equal(c(x, need), x * 256.0)
+    assert c.captures == (1 if where == "replay" else 0)
+    assert fake_scale.launches == len(needs) - 1
+    out = c(x, needs[-1])
+    assert fake_scale.launches == len(needs) + 1
+    assert torch.equal(out, x * 512.0)
+    assert c.caps == Capacities(list_width=512)
+    assert (c.retries, c.growths) == (1, 1)
+    assert c.captures == 1 and not c.jitted.graphs
+    assert c.jitted.evictions == 1
+    # The grown key: the redo was its warm-up, so this call captures.
+    assert torch.equal(c(x, big), x * 512.0)
+    assert c.captures == 2 and fake_scale.launches == len(needs) + 2
+    assert torch.equal(out, c.fn(x, big, c.caps)[0])
+
+
+def test_checked_first_call_sizes(fake_card):
+    """With no capacities, the first call runs fn(..., None) eagerly and
+    keeps the width it read; the next calls warm up and capture that key."""
+    from lsr_tpu_torch.utils.capacity import Capacities, checked
+
+    c = checked(_capped)
+    x = torch.arange(3.0)
+    assert torch.equal(c(x, torch.tensor(300)), x * 512.0)
+    assert c.caps == Capacities(list_width=512) and c.captures == 0
+    for _ in range(3):
+        assert torch.equal(c(x, torch.tensor(400)), x * 512.0)
+    assert c.captures == 1 and c.retries == 0 and fake_scale.launches == 4
 
 
 def test_cpu_route_is_eager():

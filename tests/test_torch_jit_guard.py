@@ -3,7 +3,11 @@ class lsr_tpu_torch.utils.jit captures under on the card, runs over one
 warm frame of bench.py's whole flagship frame at 192x108 in each of the
 four configurations of chip_smoke.py phase 4, and of each render-path
 preset, both compositions and Config #5 at 128x96 (execute_jitted's plan),
-maps cut.  It fails on a host read (aten._local_scalar_dense and the
+maps cut; and of the high-poly route with checked capacities
+(utils.capacity): render_forward on kernel B1 and on kernel B3,
+make_highpoly_frame (compact setup, B3, B2), e2e_compact_chunklist
+(compact setup, B4) and execute_jitted above compact_setup_threshold.
+It fails on a host read (aten._local_scalar_dense and the
 Tensor methods that read values), an op whose output shape depends on the
 data (nonzero, masked_select, unique, boolean indexing, repeat_interleave
 without output_size), a constant made from host data after the warm-up,
@@ -27,6 +31,8 @@ PW, PH = 128, 96
 # The kernels' plain versions (module, name): on the card the kernel runs.
 PLAIN = (("lsr_tpu_torch.raster.tiled", "rasterize_brute"),
          ("lsr_tpu_torch.raster.tiled", "_banded_brute"),
+         ("lsr_tpu_torch.raster.tiled", "rasterize_tiled_plain"),
+         ("lsr_tpu_torch.raster.tiled", "rasterize_chunklist_plain"),
          ("lsr_tpu_torch.lighting.shade_kernel", "_shade_plain"),
          ("lsr_tpu_torch.lighting.resolve_kernel", "_resolve_plain"))
 
@@ -97,3 +103,67 @@ def test_pipeline_frame_is_capture_safe(monkeypatch, name):
     pipe.execute_jitted(RenderContext(), state_fn(0), fp)
     _guarded(monkeypatch,
              lambda: pipe.execute_jitted(RenderContext(), state_fn(1), fp))
+
+
+HW, HH, HGRID = 160, 96, 3
+
+
+@pytest.fixture(scope="module")
+def highpoly():
+    """The high-poly sphere field cut to a 3x3 grid (9,216 triangles) and
+    the bench's camera over it, at 160x96."""
+    from lsr_tpu_torch.highpoly import build_highpoly_scene, highpoly_camera
+
+    geom, objects, lights, ctx = build_highpoly_scene(HGRID, n_lights=16,
+                                                      device="cpu")
+    cam, ctx_t = highpoly_camera(ctx, HW, HH, HGRID, device="cpu")
+    return geom, objects, lights, ctx, cam, ctx_t
+
+
+def _sized(prog, *args):
+    """The frame body of a checked program at the capacities its first
+    (eager, sizing) call keeps: what jit warms up and captures."""
+    prog(*args)
+    return lambda: prog.fn(*args, prog.caps)
+
+
+@pytest.mark.parametrize("path", ["render_forward_b1", "render_forward_b3",
+                                  "highpoly_frame", "e2e_compact_chunklist",
+                                  "execute_jitted"])
+def test_highpoly_route_is_capture_safe(monkeypatch, highpoly, path):
+    """One warm frame of each path of the high-poly route at its sized
+    capacities: render_forward on B1, and on B3 (DIRECT_ROW_LIMIT 0);
+    make_highpoly_frame, and execute_jitted on the forward_plus preset at
+    128x96, with the compact setup (threshold 0) and B3 (DIRECT_ROW_LIMIT
+    0); e2e_compact_chunklist (compact setup, B4)."""
+    from lsr_tpu_torch import highpoly as hp
+    from lsr_tpu_torch import render
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.utils.capacity import checked
+
+    geom, objects, lights, ctx, cam, ctx_t = highpoly
+    if path != "render_forward_b1":
+        monkeypatch.setattr(tiled, "DIRECT_ROW_LIMIT", 0)
+    if path.startswith("render_forward"):
+        batch = {k: getattr(geom, k) for k in (
+            "positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")}
+        run = _sized(checked(render._forward_frame), batch, objects.model,
+                     objects.normal_mat, cam.viewproj, cam.zn, cam.zf,
+                     ctx_t, HW, HH, "pbr_mr", (0.05, 0.07, 0.12), True, 1024,
+                     1.0, 2.2, tiled.DIRECT_ROW_LIMIT)
+    elif path == "highpoly_frame":
+        fp = hp.highpoly_frame_params(HW, HH)
+        fp.compact_setup_threshold = 0
+        run = _sized(hp.make_highpoly_frame(geom, objects, lights, ctx, fp),
+                     cam, ctx_t)
+    elif path == "e2e_compact_chunklist":
+        run = _sized(checked(hp._e2e_step), geom, objects, cam, HW, HH)
+    else:
+        pipe, fp, state_fn = preset_pipeline("forward_plus", PW, PH)
+        fp.compact_setup_threshold = 0
+        pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+        prog = pipe._jitted
+        run = lambda: prog.fn(pipe._start(state_fn(1)),  # noqa: E731
+                              prog.caps)
+    _guarded(monkeypatch, run)
