@@ -787,14 +787,14 @@ def _b3_vs_plain(name, setup, w, h, zn, zf, tile_h, chunk, cap, fit_cap,
     from lsr_tpu_torch.raster import tiled
 
     def kern():
-        d, t, max_bin = tiled.rasterize_tiled(
+        d, t, max_bin, _, _ = tiled.rasterize_tiled(
             setup, w, h, zn, zf, tile_h=tile_h, cap=cap, chunk=chunk,
             fit_cap=fit_cap)
         used = tiled.fitted_cap(cap, int(max_bin)) if fit_cap else cap
         return d, t, f"max_bin {int(max_bin)}, cap {used}"
 
     def plain():
-        rec, lists, n_walk, _ = tiled.tiled_inputs(
+        rec, lists, n_walk, *_ = tiled.tiled_inputs(
             setup, w, h, tile_h, 128, cap, chunk, fit_cap=fit_cap)
         return tiled.rasterize_tiled_plain(rec, lists, n_walk, d0, t0, w, h,
                                            zn, zf, tile_h=tile_h, chunk=chunk)
@@ -871,7 +871,7 @@ def raster_1080p_phase(geom, objects, cam, dev):
                                  setup, WIDTH, HEIGHT, zn, zf, 64, 16, 1024,
                                  True, d0, t0)
     out["tiled_raster"] = {"max_abs_err": err, "plain_ms": plain_ms}
-    _, _, max_bin = tiled.bin_triangles(setup, WIDTH, HEIGHT, 64, 128, 1)
+    max_bin = tiled.bin_triangles(setup, WIDTH, HEIGHT, 64, 128, 1)[2]
     cap = tiled.fitted_cap(1024, int(max_bin))
     _b3_vs_plain("64x128 chunk 16, cap below max_bin", setup, WIDTH, HEIGHT,
                  zn, zf, 64, 16, cap // 2, False, d0, t0)
@@ -913,8 +913,8 @@ def raster_1080p_phase(geom, objects, cam, dev):
     rec, ss, n_pad = tiled.pack_direct_records(setup, False)
     cbb = tiled._chunk_bboxes(ss, n_pad, 16)
     sl, scnt, _ = tiled._super_lists(cbb, 16, 15, 9, 128, 128)
-    _, lists, n_walk, _ = tiled.tiled_inputs(setup, WIDTH, HEIGHT, 64, 128,
-                                             1024, 16, fit_cap=True)
+    _, lists, n_walk, *_ = tiled.tiled_inputs(setup, WIDTH, HEIGHT, 64, 128,
+                                              1024, 16, fit_cap=True)
     _, cl, cc, _ = tiled.chunklist_inputs(setup, WIDTH, HEIGHT, 128, 128, 16,
                                           None, 32)
     # The tile orders are sorted once here, so that kernel_ms is the launch
@@ -1070,8 +1070,9 @@ def render_forward_phase(dev):
         covered = int((gb.tri_id >= 0).sum())
         log(f"render_forward [{name}]: {wall:.1f} ms wall (first call), "
             f"launches {launches}, covered {covered} px")
-        check(launches[kernel] > 0, f"render_forward {name} never launched "
-              f"{kernel}: {launches}")
+        check(launches[kernel] == 1, f"render_forward {name} launched "
+              f"{kernel} other than once (a redone frame launches twice): "
+              f"{launches}")
         check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8
               and covered > 0 and int(ldr.int().sum()) > 0,
               f"render_forward {name}: empty frame")
@@ -3168,8 +3169,8 @@ def highpoly_profile_phase(geom, objects, lights, ctx, dev):
     ldr = tonemap_pass(st["hdr"])
     zn, zf = cam.zn, cam.zf
     d0, t0 = targets(w, h, dev)
-    rec, lists, n_walk, _ = tiled.tiled_inputs(setup, w, h, 64, 128, 1024, 16,
-                                               fit_cap=True)
+    rec, lists, n_walk, *_ = tiled.tiled_inputs(setup, w, h, 64, 128, 1024,
+                                                16, fit_cap=True)
     _, cl, cc, _ = tiled.chunklist_inputs(setup, w, h, 128, 128, 16, None, 32)
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -3301,7 +3302,7 @@ def _demo_holds(name, dev, out, rd, rt, sc):
             d_k, t_k, bb, d_p, t_p, bb, True)
         res["b1_mirrored_covered"] = int((t_p >= 0).sum())
     if name == "hello_shadows":
-        a, (d_k, t_k, max_bin) = rt.calls[0]
+        a, (d_k, t_k, max_bin, *_) = rt.calls[0]
         w, h = a["width"], a["height"]
         d0, t0 = targets(w, h, dev)
         _b3_vs_plain(f"demo hello_shadows {w}x{h} camera", a["setup"], w, h,
@@ -3800,27 +3801,48 @@ def _busy(run, ms):
     busy = sum(t(e) for e in cuda)
     top = sorted(cuda, key=t, reverse=True)[:6]
     return {"device_busy_ms": busy, "kernels": sum(e.count for e in cuda),
+            "copies": sum(e.count for e in cuda if "Memcpy" in e.key),
             "busy_share": busy / ms,
             "top": [(e.key[:60], e.count, round(t(e), 3)) for e in top]}
 
 
+def _captures(jitted_of):
+    """The path's captures so far (0 before its Jitted exists)."""
+    try:
+        return jitted_of().captures
+    except AttributeError:
+        return 0
+
+
 def _one_program(tag, jitted_of, steps, outs_of, want):
-    """One path through jit against its eager frame.  steps: [(kind,
-    jitted call, eager call, the eager call again from the same state)] in
-    order, kind "warm" (jit's eager warm-up of a key), "capture" (the call
-    that captures, then replays) or "replay".  At every step the jitted
-    call's launches equal the eager call's and want; from the capture on,
-    its outputs (outs_of: {name: tensor}) equal the eager frame's bit for
-    bit, or lie within the spread of the eager frame against itself
-    (measured at the capture's step).  jitted_of() is the path's Jitted.  Then both sides' replay steps again back
-    to back (pipelined ms), torch.profiler over one replay and one eager
-    frame, the graph's numbers.  Returns the result."""
-    replay_ms, eager_ms, spread, self_spread = [], [], {}, None
+    """One path through jit against its eager frame.  steps: [(jitted
+    call, eager call, the eager call again from the same state[, fit])] in
+    order.  A step's kind is what the call did, read off the path's
+    captures: "warm" before the capture (jit's eager warm-up of a key, or a
+    checked program's sizing call), "capture" (the call that captured, then
+    replayed), "replay" after it.  At every step the jitted call's launches
+    equal the eager call's and want; from the capture on, its outputs
+    (outs_of: {name: tensor}) equal the eager frame's bit for bit, or lie
+    within the spread of the eager frame against itself (measured at the
+    capture's step).  fit (a checked program's eager route, the lists
+    fitted on the host) must launch want and equal the jitted call bit for
+    bit from the capture on, and is timed beside the replays.
+    jitted_of() is the path's Jitted.  Then both sides' replay steps again
+    back to back (pipelined ms), torch.profiler over one replay and one
+    eager frame, the graph's numbers.  Returns the result."""
+    replay_ms, eager_ms, fit_ms, spread, self_spread = [], [], [], {}, None
     capture_call_ms = None
-    for i, (kind, jitted, eager, again) in enumerate(steps):
+    captures0 = _captures(jitted_of)
+    kinds = []
+    for i, (jitted, eager, again, *fit) in enumerate(steps):
+        before = _captures(jitted_of)
         reset_counts()
         out_j, ms_j = _timed(jitted)
         got = read_counts()
+        after = jitted_of().captures
+        kind = ("capture" if after > before else
+                "replay" if "capture" in kinds else "warm")
+        kinds.append(kind)
         reset_counts()
         out_e, ms_e = _timed(eager)
         ref = read_counts()
@@ -3843,35 +3865,68 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
                   f"{tag} step {i} ({kind}): {k} differs from the eager "
                   f"frame's in {px} elements (max {err}); the eager frame "
                   f"against itself {self_spread[k]}")
+        if fit:
+            reset_counts()
+            out_f, ms_f = _timed(fit[0])
+            got_f = read_counts()
+            check(got_f == want, f"{tag} step {i} ({kind}): the fitted "
+                  f"eager route launched {got_f}, expected {want}")
+            _equal_outs(f"{tag} step {i} ({kind}) vs the fitted eager route",
+                        outs_of(out_j), outs_of(out_f))
+            if kind == "replay":
+                fit_ms.append(ms_f)
     jf = jitted_of()
-    check(jf.captures == 1, f"{tag}: {jf.captures} captures, one expected")
-    g = next(iter(jf.graphs.values()))
-    replays = [s[1] for s in steps if s[0] == "replay"]
-    eagers = [s[2] for s in steps if s[0] == "replay"]
+    check(jf.captures - captures0 == 1 and kinds.count("capture") == 1
+          and "replay" in kinds, f"{tag}: steps {kinds}, "
+          f"{jf.captures - captures0} captures, one expected")
+    g = next(reversed(jf.graphs.values()))
+    replays = [s[0] for s, k in zip(steps, kinds) if k == "replay"]
+    eagers = [s[1] for s, k in zip(steps, kinds) if k == "replay"]
     res = {"replay": _ms_summary(replay_ms), "eager": _ms_summary(eager_ms),
            "replay_pipelined_ms": _pipelined(replays),
            "eager_pipelined_ms": _pipelined(eagers),
            "capture_ms": g.capture_ms, "capture_call_ms": capture_call_ms,
-           "graph_bytes": g.pool_bytes, "captures": jf.captures,
-           "launches_per_frame": want,
+           "graph_bytes": g.pool_bytes, "captures": jf.captures - captures0,
+           "steps": kinds, "launches_per_frame": want,
            "replay_vs_eager": spread, "eager_vs_itself": self_spread}
-    check(jf.captures == 1, f"{tag}: the pipelined replays captured again")
+    check(jf.captures - captures0 == 1,
+          f"{tag}: the pipelined replays captured again")
     res["replay_busy"] = _busy(replays[-1], res["replay"]["ms"])
     res["eager_busy"] = _busy(eagers[-1], res["eager"]["ms"])
-    log(f"{tag}: replay {res['replay']['ms']:.3f} ms/frame [min "
-        f"{res['replay']['ms_min']:.3f}, max {res['replay']['ms_max']:.3f}], "
+    fit_note = ""
+    if fit_ms:
+        fits = [s[3] for s, k in zip(steps, kinds) if k == "replay"]
+        res["fit_eager"] = _ms_summary(fit_ms)
+        res["fit_eager_pipelined_ms"] = _pipelined(fits)
+        res["fit_eager_busy"] = _busy(fits[-1], res["fit_eager"]["ms"])
+        fb = res["fit_eager_busy"]
+        fit_note = (f"; the fitted eager route {res['fit_eager']['ms']:.3f} "
+                    f"[{res['fit_eager']['ms_min']:.3f}, "
+                    f"{res['fit_eager']['ms_max']:.3f}], pipelined "
+                    f"{res['fit_eager_pipelined_ms']:.3f}, busy "
+                    f"{fb['device_busy_ms']:.3f} ms in {fb['kernels']:.0f} "
+                    f"kernels ({fb['copies']} copies, "
+                    f"{fb['busy_share']:.1%}), every frame from the "
+                    f"capture on bit for bit the replay's; its top kernels "
+                    f"{fb['top']}")
+    log(f"{tag}: steps {kinds}; replay {res['replay']['ms']:.3f} ms/frame "
+        f"[min {res['replay']['ms_min']:.3f}, max "
+        f"{res['replay']['ms_max']:.3f}], "
         f"pipelined {res['replay_pipelined_ms']:.3f}, busy "
         f"{res['replay_busy']['device_busy_ms']:.3f} ms in "
         f"{res['replay_busy']['kernels']:.0f} kernels "
-        f"({res['replay_busy']['busy_share']:.1%}); eager "
+        f"({res['replay_busy']['copies']} copies, "
+        f"{res['replay_busy']['busy_share']:.1%}); eager "
         f"{res['eager']['ms']:.3f} [{res['eager']['ms_min']:.3f}, "
         f"{res['eager']['ms_max']:.3f}], pipelined "
         f"{res['eager_pipelined_ms']:.3f}, busy "
         f"{res['eager_busy']['device_busy_ms']:.3f} ms in "
         f"{res['eager_busy']['kernels']:.0f} kernels "
-        f"({res['eager_busy']['busy_share']:.1%}); capture "
+        f"({res['eager_busy']['copies']} copies, "
+        f"{res['eager_busy']['busy_share']:.1%}){fit_note}; capture "
         f"{g.capture_ms:.1f} ms host (its call {capture_call_ms:.1f} ms), "
-        f"replay's top kernels {res['replay_busy']['top']}, "
+        f"replay's top kernels {res['replay_busy']['top']}, eager's top "
+        f"kernels {res['eager_busy']['top']}, "
         f"graph {g.pool_bytes / 2**20:.1f} MiB, 1 capture; launches a "
         f"frame {want}; replay vs eager {spread} (eager vs itself "
         f"{self_spread})")
@@ -3881,22 +3936,23 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
 def _flagship_steps(jf, frame, cams):
     """Camera 0 twice (jit's warm-up, then its capture), then OP_REPLAYS
     later cameras of the staged orbit."""
-    sel = [("warm", cams[0]), ("capture", cams[0])] + [
-        ("replay", c) for c in cams[1:1 + OP_REPLAYS]]
-    return [(kind, lambda c=c: jf(*c), lambda c=c: frame(*c),
-             lambda c=c: frame(*c)) for kind, c in sel]
+    sel = [cams[0], cams[0]] + list(cams[1:1 + OP_REPLAYS])
+    return [(lambda c=c: jf(*c), lambda c=c: frame(*c),
+             lambda c=c: frame(*c)) for c in sel]
 
 
 def _pipeline_steps(jitted_pipe, fp_j, eager_pipe, fp_e, state_fn):
-    """execute_jitted against execute on the same states: frame 0 (no
-    persistent keys yet; the checked program's sizing call) and frame 1
-    (jit's warm-up of the next key) run eagerly, frame 2 captures,
-    OP_REPLAYS more replay.  The eager call again runs from the
+    """execute_jitted against execute on the same states, 3 + OP_REPLAYS
+    frames: frame 0 (no persistent keys yet; the checked program's sizing
+    call) and frame 1 (jit's warm-up of the next key) run eagerly, frame 2
+    captures, the rest replay.  A temporal plan (TAA's history, the
+    visibility history) keys frame 1 anew, which sizes its own capacities
+    first: it captures at frame 3 and replays one frame fewer.  The eager
+    call again runs from the
     persistent state (TAA's history, the visibility history) its first
     call started from, and leaves the state as that call left it."""
     from lsr_tpu_torch.pipeline.executor import RenderContext
 
-    kinds = ["warm", "warm", "capture"] + ["replay"] * OP_REPLAYS
     held = {}
 
     def eager(i):
@@ -3911,11 +3967,10 @@ def _pipeline_steps(jitted_pipe, fp_j, eager_pipe, fp_e, state_fn):
         eager_pipe._persistent_state = dict(held["after"])
         return out
 
-    return [(kind,
-             lambda i=i: jitted_pipe.execute_jitted(RenderContext(),
+    return [(lambda i=i: jitted_pipe.execute_jitted(RenderContext(),
                                                     state_fn(i), fp_j),
              lambda i=i: eager(i), lambda i=i: again(i))
-            for i, kind in enumerate(kinds)]
+            for i in range(3 + OP_REPLAYS)]
 
 
 def _state_outs(st):
@@ -4071,38 +4126,49 @@ def _turned(ctx, angle, dev, scale=1.0):
                                         device=dev))
 
 
-def _caps(prog):
-    return dataclasses.asdict(prog.caps)
+def _caps(prog, a):
+    """The capacities prog keeps for the key of call a."""
+    return prog.caps[prog.key(*a)]
 
 
-def _sized(tag, prog, first, calls, want):
-    """A checked program's first call (first(): its public entry point,
-    eager, the lists sized on the host) with its launches checked; then its
-    capacities grown to what the frames of calls need at them (each frame's
-    stats from prog.fn), a bound known before those frames, so that their
-    warm-up, capture and replays stay inside it.  Returns the capacities
-    sized and grown."""
+def _sized(tag, prog, entry, calls, want):
+    """A checked program's first call of a key (entry(calls[0]), its
+    public entry point: eager, the lists sized on the host) with its
+    launches checked; then that key's capacities grown to what the frames
+    of calls need at them (each frame's stats from prog.fn), a bound known
+    before those frames, so that their warm-up, capture and replays stay
+    inside it.  Returns the capacities sized and grown."""
+    key = prog.key(*calls[0])
+    check(key not in prog.caps and all(prog.key(*a) == key for a in calls),
+          f"{tag}: the calls must share one key that has no capacities yet")
     reset_counts()
-    first()
+    entry(calls[0])
     got = read_counts()
     check(got == want, f"{tag}: the sizing call launched {got}, expected "
           f"{want}")
-    sized = _caps(prog)
+    sized = dataclasses.asdict(prog.caps[key])
     for a in calls:
-        prog.caps = prog.caps.grown(prog.fn(*a, prog.caps)[1])
+        prog.caps[key] = prog.caps[key].grown(prog.fn(*a, prog.caps[key])[1])
     log(f"{tag}: the first call sized {sized}; grown over the frames to "
-        f"{_caps(prog)}")
-    return {"sized": sized, "caps": _caps(prog)}
+        f"{dataclasses.asdict(prog.caps[key])}")
+    return {"sized": sized, "caps": dataclasses.asdict(prog.caps[key])}
 
 
-def _checked_steps(prog, calls):
+def _checked_steps(prog, entry, calls):
     """_one_program's steps for a checked program whose capacities cover
-    every call: calls[0] warms up, calls[1] captures, the rest replay; the
-    eager frame is prog.fn at the same capacities."""
-    kinds = ["warm", "capture"] + ["replay"] * (len(calls) - 2)
-    eager = lambda a: prog.fn(*a, prog.caps)[0]  # noqa: E731
-    return [(kind, lambda a=a: prog(*a), lambda a=a: eager(a),
-             lambda a=a: eager(a)) for kind, a in zip(kinds, calls)]
+    every call (calls[0] warms up, calls[1] captures, the rest replay)
+    through its entry point: the eager frame is prog.fn at the same
+    capacities, the fitted eager route prog.fn(..., None)."""
+    eager = lambda a: prog.fn(*a, _caps(prog, a))[0]  # noqa: E731
+    return [(lambda a=a: entry(a), lambda a=a: eager(a), lambda a=a: eager(a),
+             lambda a=a: prog.fn(*a, None)[0]) for a in calls]
+
+
+def _release(prog, a):
+    """Releases the graph prog holds for call a at its capacities."""
+    prog.jitted.forget(*a, _caps(prog, a))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def _equal_outs(tag, a, b):
@@ -4119,16 +4185,19 @@ def _overflow_drill(tag, prog, ctx, dev, outs_of, want):
     the launches are the replay's and the redone frame's, the stale graph
     is released, and the next call captures the new key and equals its
     eager frame."""
-    caps0, captures0, retries0 = prog.caps, prog.captures, prog.retries
+    caps0 = None
     far = None
     for scale in FAR_SCALES:
         c = _turned(ctx, 0.0, dev, scale)
+        caps0 = _caps(prog, c)
         stats = prog.fn(*c, caps0)[1]
         if int(stats["raster_max_bin"]) > caps0.list_width:
             far, need = c, int(stats["raster_max_bin"])
             break
     check(far is not None, f"{tag}: no camera of {FAR_SCALES} exceeds the "
           f"list width {caps0.list_width}")
+    captures0, retries0 = prog.captures, prog.retries
+    graphs0 = len(prog.jitted.graphs)
     torch.cuda.synchronize()
     held = torch.cuda.memory_reserved()
     reset_counts()
@@ -4137,13 +4206,15 @@ def _overflow_drill(tag, prog, ctx, dev, outs_of, want):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     after = torch.cuda.memory_reserved()
+    caps1 = _caps(prog, far)
     twice = {k: 2 * v for k, v in want.items()}
     check(got == twice, f"{tag}: the redone frame launched {got}, expected "
           f"{twice} (the replay's and the eager frame's)")
-    check(prog.retries == retries0 + 1 and not prog.jitted.graphs
-          and prog.caps.list_width >= need > caps0.list_width,
-          f"{tag}: retries {prog.retries}, graphs {len(prog.jitted.graphs)}, "
-          f"caps {_caps(prog)} after a bin of {need}")
+    check(prog.retries == retries0 + 1
+          and len(prog.jitted.graphs) == graphs0 - 1
+          and caps1.list_width >= need > caps0.list_width,
+          f"{tag}: retries {prog.retries}, graphs {len(prog.jitted.graphs)} "
+          f"(before {graphs0}), caps {caps1} after a bin of {need}")
     _equal_outs(f"{tag}: the redone frame vs the eager fitted frame",
                 outs_of(out), outs_of(prog.fn(*far, None)[0]))
     again = prog(*far)
@@ -4151,60 +4222,63 @@ def _overflow_drill(tag, prog, ctx, dev, outs_of, want):
           f"{tag}: {prog.captures - captures0} captures after the growth, "
           f"one expected")
     _equal_outs(f"{tag}: the recaptured frame vs its eager frame",
-                outs_of(again), outs_of(prog.fn(*far, prog.caps)[0]))
+                outs_of(again), outs_of(prog.fn(*far, caps1)[0]))
     res = {"max_bin": need, "caps_before": dataclasses.asdict(caps0),
-           "caps_after": _caps(prog), "launches": got,
+           "caps_after": dataclasses.asdict(caps1), "launches": got,
            "reserved_before_mib": held / 2**20,
            "reserved_after_release_mib": after / 2**20,
            "captures": prog.captures}
     log(f"{tag} overflow drill: a bin of {need} past the captured width "
         f"{caps0.list_width}: the flag set, the frame redone at "
-        f"{_caps(prog)} and equal to the eager fitted frame bit for bit, "
-        f"launches {got}; the stale graph released (reserved "
+        f"{dataclasses.asdict(caps1)} and equal to the eager fitted frame "
+        f"bit for bit, launches {got}; the stale graph released (reserved "
         f"{held / 2**20:.1f} -> {after / 2**20:.1f} MiB); recaptured and "
         f"equal to its eager frame")
+    _release(prog, far)
     return res
 
 
-def _c23_drill(prog, call, dev):
+def _c23_drill(prog, entry, call):
     """Distinct zn values past jit's bound through one program (render_
-    forward on kernel B1): each warmed up and captured; at no time more
-    than MAX_GRAPHS graphs, evictions counted, the reserved memory flat
-    once the bound is reached, and returned when the graphs are
-    released."""
+    forward on kernel B1, its public entry point): each zn a key of its
+    own, sized, warmed up and captured; at no time more than MAX_GRAPHS
+    graphs, evictions counted, the reserved memory flat once the bound is
+    reached, and returned when the graphs are released."""
     from lsr_tpu_torch.utils.jit import MAX_GRAPHS
 
+    jf = prog.jitted
+    captures0, evictions0 = jf.captures, jf.evictions
+    check(not jf.graphs, f"C23 drill: {len(jf.graphs)} graphs at the start")
     zns = [0.10 + 0.01 * i for i in range(MAX_GRAPHS + C23_EXTRA)]
     reserved = []
     for zn in zns:
-        for _ in range(2):
-            out = prog(*call(zn))
-            check(len(prog.jitted.graphs) <= MAX_GRAPHS,
-                  f"C23 drill: {len(prog.jitted.graphs)} graphs alive")
+        for _ in range(3):                # sizing, warm-up, capture
+            out = entry(call(zn))
+            check(len(jf.graphs) <= MAX_GRAPHS,
+                  f"C23 drill: {len(jf.graphs)} graphs alive")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved.append(torch.cuda.memory_reserved() / 2**20)
-    ldr, gb = prog.fn(*call(zns[-1]), prog.caps)[0]
+    ldr, gb = prog.fn(*call(zns[-1]), _caps(prog, call(zns[-1])))[0]
     _equal_outs("C23 drill: the last zn's replay vs its eager frame",
                 {"ldr": out[0], "tid": out[1].tri_id},
                 {"ldr": ldr, "tid": gb.tri_id})
-    jf = prog.jitted
-    check(jf.captures == len(zns) and jf.evictions == C23_EXTRA
+    captures, evictions = jf.captures - captures0, jf.evictions - evictions0
+    check(captures == len(zns) and evictions == C23_EXTRA
           and len(jf.graphs) == MAX_GRAPHS,
-          f"C23 drill: captures {jf.captures}, evictions {jf.evictions}, "
-          f"graphs {len(jf.graphs)}")
-    res = {"zn": zns, "captures": jf.captures, "evictions": jf.evictions,
+          f"C23 drill: captures {captures}, evictions {evictions}, graphs "
+          f"{len(jf.graphs)}")
+    res = {"zn": zns, "captures": captures, "evictions": evictions,
            "reserved_mib_after_each_zn": reserved, "bound": MAX_GRAPHS}
-    prog.jitted.clear()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    for zn in zns[C23_EXTRA:]:
+        _release(prog, call(zn))
     res["reserved_mib_released"] = released = \
         torch.cuda.memory_reserved() / 2**20
     check(not jf.graphs and released < reserved[-1],
           f"C23 drill: {released:.1f} MiB reserved after the release")
     log(f"C23 drill: {len(zns)} distinct zn through render_forward, "
-        f"{res['captures']} captures, {res['evictions']} evictions, never "
-        f"more than {MAX_GRAPHS} graphs; reserved MiB after each zn "
+        f"{captures} captures, {evictions} evictions, never more than "
+        f"{MAX_GRAPHS} graphs; reserved MiB after each zn "
         f"{[round(r, 1) for r in reserved]}, {released:.1f} after the "
         f"release of the last {MAX_GRAPHS}")
     return res
@@ -4213,23 +4287,23 @@ def _c23_drill(prog, call, dev):
 def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
                            hp_lights, hp_ctx, dev):
     """Phase 32, the high-poly route as one program with checked capacities
-    (utils.capacity): render_forward at 1920x1080 on kernel B1 (the
-    flagship scene, staged orbit cameras) and on kernel B3 (the high-poly
-    scene), make_highpoly_frame (compact setup, B3, B2) and
-    e2e_compact_chunklist (compact setup, B4) on build_highpoly_scene(33,
-    7), the bench view and the view turned by HP_TURNS.  Each path: its
-    first call sizes its capacities (eager); then phase 31's checks
-    (_one_program): launches exact at every step, every replay bit for bit
-    its eager frame at the same capacities, one capture; replay and eager
-    ms, pipelined ms, busy share, capture ms, graph memory.  Then the
-    overflow drill on the high-poly frame and the C23 drill on
-    render_forward.  Returns {path: result}."""
+    (utils.capacity), each path through its public entry point:
+    render_forward at 1920x1080 on kernel B1 (the flagship scene, staged
+    orbit cameras) and on kernel B3 (the high-poly scene), make_highpoly_
+    frame (compact setup, B3, B2) and e2e_compact_chunklist (compact setup,
+    B4) on build_highpoly_scene(33, 7), the bench view and the view turned
+    by HP_TURNS.  Each path: its first call sizes its capacities (eager);
+    then phase 31's checks (_one_program): launches exact at every step,
+    every frame from the capture on bit for bit its eager frame at the
+    same capacities and the fitted eager route's, one capture; replay,
+    eager and fitted eager ms, pipelined ms, busy share, capture ms, graph
+    memory.  Then the overflow drill on the high-poly frame and the C23
+    drill on render_forward.  Returns {path: result}."""
     from lsr_tpu_torch import highpoly as hp
     from lsr_tpu_torch import render
     from lsr_tpu_torch.frame import flagship_camera
     from lsr_tpu_torch.raster import tiled
     from lsr_tpu_torch.scene.scene import make_camera
-    from lsr_tpu_torch.utils.capacity import checked
 
     t_phase = time.perf_counter()
     zero = {k: 0 for k in _wrappers()}
@@ -4238,10 +4312,15 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     out = {}
 
     def forward_args(g, o, cam, ctx_t):
+        """render_forward's program arguments: its own (the entry point
+        takes the first 15) and tiled.DIRECT_ROW_LIMIT."""
         return ({k: getattr(g, k) for k in cols}, o.model, o.normal_mat,
                 cam.viewproj, cam.zn, cam.zf, ctx_t, WIDTH, HEIGHT, "pbr_mr",
                 (0.05, 0.07, 0.12), True, 1024, 1.0, 2.2,
                 tiled.DIRECT_ROW_LIMIT)
+
+    def forward(a):
+        return render.render_forward(*a[:15])
 
     def forward_outs(o):
         return {"ldr": o[0], "depth": o[1].depth01, "tid": o[1].tri_id}
@@ -4250,28 +4329,25 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
         return {"ldr": o[0], "hdr": o[1]["hdr"], "depth": o[1]["depth"],
                 "tid": o[1]["tid"]}
 
-    # render_forward on both routes, each a fresh program behind the public
-    # entry point.
+    # render_forward on both routes, through its program.
+    prog = render.render_forward.program
     for name, g, o, cams, kernel in (
             ("render_forward_b1", geom, objects,
              [flagship_camera(i, ctx, WIDTH, HEIGHT, device=dev)
               for i in range(2 + OP_REPLAYS)], "direct_raster"),
             ("render_forward_b3", hp_geom, hp_objects, hp_cams,
              "tiled_raster")):
-        render.render_forward.program = prog = checked(
-            render._forward_frame, name="render_forward")
         calls = [forward_args(g, o, c, x) for c, x in cams]
         tag = f"one-program {name} {WIDTH}x{HEIGHT}"
         want = dict(zero, **{kernel: 1})
-        sizing = _sized(tag, prog, lambda a=calls[0]: render.render_forward(
-            *a[:9], model_name="pbr_mr"), calls, want)
-        out[name] = _one_program(tag, lambda p=prog: p.jitted,
-                                 _checked_steps(prog, calls), forward_outs,
-                                 want)
+        sizing = _sized(tag, prog, forward, calls, want)
+        out[name] = _one_program(tag, lambda: prog.jitted,
+                                 _checked_steps(prog, forward, calls),
+                                 forward_outs, want)
         out[name]["capacities"] = sizing
         if name == "render_forward_b1":
             flag_call = calls[0]
-        prog.jitted.clear()
+        _release(prog, calls[0])
 
     # The high-poly forward+ frame and the end-to-end step.
     fp = hp.highpoly_frame_params(WIDTH, HEIGHT)
@@ -4279,32 +4355,29 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
                                    fp)
     tag = f"one-program highpoly_frame {WIDTH}x{HEIGHT}"
     want = dict(zero, tiled_raster=1, shade_fused=1)
-    sizing = _sized(tag, frame, lambda: frame(*hp_cams[0]), hp_cams, want)
+    sizing = _sized(tag, frame, lambda a: frame(*a), hp_cams, want)
     out["highpoly_frame"] = _one_program(
-        tag, lambda: frame.jitted, _checked_steps(frame, hp_cams),
-        frame_outs, want)
+        tag, lambda: frame.jitted,
+        _checked_steps(frame, lambda a: frame(*a), hp_cams), frame_outs,
+        want)
     out["highpoly_frame"]["capacities"] = sizing
     out["overflow_drill"] = _overflow_drill(tag, frame, hp_ctx, dev,
                                             frame_outs, want)
-    frame.jitted.clear()
     del frame
 
-    hp.e2e_compact_chunklist.program = prog = checked(
-        hp._e2e_step, name="e2e_compact_chunklist")
+    prog = hp.e2e_compact_chunklist.program
     calls = [(hp_geom, hp_objects, c, WIDTH, HEIGHT) for c, _ in hp_cams]
     tag = f"one-program e2e_compact_chunklist {WIDTH}x{HEIGHT}"
     want = dict(zero, chunklist_raster=1)
-    sizing = _sized(tag, prog, lambda: hp.e2e_compact_chunklist(*calls[0]),
-                    calls, want)
+    step = lambda a: hp.e2e_compact_chunklist(*a)  # noqa: E731
+    sizing = _sized(tag, prog, step, calls, want)
     out["e2e_compact_chunklist"] = _one_program(
-        tag, lambda: prog.jitted, _checked_steps(prog, calls),
+        tag, lambda: prog.jitted, _checked_steps(prog, step, calls),
         lambda o: {"depth": o[0], "tid": o[1]}, want)
     out["e2e_compact_chunklist"]["capacities"] = sizing
-    prog.jitted.clear()
+    _release(prog, calls[0])
 
     # C23: distinct zn past the bound, through render_forward on B1.
-    render.render_forward.program = prog = checked(render._forward_frame,
-                                                   name="render_forward")
     eye = tuple(float(v) for v in flagship_camera(
         0, ctx, WIDTH, HEIGHT, device=dev)[0].eye.cpu())
 
@@ -4314,8 +4387,8 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
         return (flag_call[0], flag_call[1], flag_call[2], cam.viewproj,
                 cam.zn, cam.zf) + flag_call[6:]
 
-    prog(*zn_call(0.1))                     # the sizing call
-    out["c23_drill"] = _c23_drill(prog, zn_call, dev)
+    out["c23_drill"] = _c23_drill(render.render_forward.program, forward,
+                                  zn_call)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"# phase 32 took {out['seconds']:.1f} s")
     return out
@@ -5067,7 +5140,10 @@ def main():
                                                         "ms_max")},
                     "replay_busy_share": v["replay_busy"]["busy_share"],
                     "eager_busy_share": v["eager_busy"]["busy_share"],
-                    **{f: v[f] for f in op_keys}}
+                    **{f: v[f] for f in op_keys},
+                    **({"fit_eager": {f: v["fit_eager"][f] for f in (
+                        "ms", "ms_min", "ms_max")}} if "fit_eager" in v
+                       else {})}
                 for k, v in {**one_program, **hp_program}.items()
                 if isinstance(v, dict) and "replay" in v}
     for k in kernels:

@@ -84,8 +84,8 @@ def render(scene, width: int, height: int, shadow_size: int = 2048):
         geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
         geom.tri_obj, objects.model, objects.normal_mat, cam.viewproj, width,
         height, obj_visible=objects.visible)
-    depth, tid, max_bin = rasterize_tiled(setup, width, height, cam.zn,
-                                          cam.zf, cap=CAP, fit_cap=True)
+    depth, tid, max_bin, _, _ = rasterize_tiled(
+        setup, width, height, cam.zn, cam.zf, cap=CAP, fit_cap=True)
     gb = interpolate_gbuffer(setup, depth, tid)
     shaded = shade_blinn_phong(gb, ctx)
     bg = torch.tensor(BACKGROUND, device=dev).expand(shaded.shape)

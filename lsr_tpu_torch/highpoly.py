@@ -94,8 +94,9 @@ def highpoly_frame_params(width: int, height: int) -> FrameParams:
 def make_highpoly_frame(geom, objects, lights, ctx, fp: FrameParams):
     """frame(cam, ctx_t) -> (ldr_u8 (H, W, 3), frame state: setup, depth,
     tid, gbuffer, hdr and raster_stats), one program with checked
-    capacities (a utils.capacity.Checked: its first call runs eagerly and
-    sizes the lists; the frame body is frame.fn(cam, ctx_t, caps)).
+    capacities (a utils.capacity.Checked: the first call of each key runs
+    eagerly and sizes its lists; the frame body is frame.fn(cam, ctx_t,
+    caps)).
 
     Float32 products on the card run in full precision (TF32 off)."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -143,9 +143,11 @@ class PluggablePipeline:
         """The production frame path, lsr_tpu's (pipeline.py:104-134): the
         whole plan as one program, no per-pass timing, the persistent keys
         carried to the next frame through the program's inputs.  The plan
-        runs through utils.capacity.checked: its first frame runs eagerly
-        and sizes the raster's capacities (state["capacities"], a host leaf
-        of jit's key), later frames go through utils.jit (on the card
+        runs through utils.capacity.checked: the first frame of each key
+        (TAA's first frame, which has no history yet, and the frames after
+        it are two keys) runs eagerly and sizes the raster's capacities
+        (state["capacities"], a host leaf of jit's key), later frames go
+        through utils.jit (on the card
         captured once into a CUDA graph and replayed, a key's first frame
         the warm-up, a failed capture raising; on the CPU eagerly), and a
         frame whose raster exceeded its capacities (a compact setup above

@@ -504,20 +504,13 @@ def fitted_cap(cap: int, max_bin: int) -> int:
     return max(cap, cdiv(max_bin, 256) * 256)
 
 
-def pair_count(setup: TriSetup, width: int, height: int, tile_h: int,
-               tile_w: int, y_offset: int = 0):
-    """() i64: the (row, tile) pairs bin_triangles expands for this target,
-    what its capacity route (pairs=) must hold."""
-    tiles_x, tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    return _span_counts(_bbox_spans(setup, tiles_x, tiles_y, tile_w, tile_h,
-                                    y_offset), tiles_x, tiles_y).sum()
-
-
 def bin_triangles(setup: TriSetup, width: int, height: int, tile_h: int,
                   tile_w: int, cap: int, y_offset: int = 0,
                   fit_cap: bool = False, pairs: int | None = None):
     """Per-tile triangle lists.  Returns (lists (tiles, cap) i32 -1 padded,
-    counts (tiles,) i32 capped, max_count () i32 before capping).
+    counts (tiles,) i32 capped, max_count () i32 before capping, n_pairs
+    () i64 the (row, tile) pairs there are, over () bool set where the
+    lists dropped a triangle).
 
     Lists keep submission order (the first-wins depth tie rule); a tile
     with more than `cap` triangles keeps its first `cap`.  fit_cap=True
@@ -527,9 +520,7 @@ def bin_triangles(setup: TriSetup, width: int, height: int, tile_h: int,
 
     pairs=P is the capacity route of a captured frame: no host read, the
     lists built from P (row, tile) pair slots at the given cap (fit_cap must
-    be False), and two more values: n_pairs () i64, the pairs there are
-    (pair_count), and over () bool, set where n_pairs exceeds P or max_count
-    exceeds cap, that is where the lists dropped a triangle.  Otherwise the
+    be False); over is also set where n_pairs exceeds P.  Otherwise the
     lists and counts are the pairs=None route's, element for element."""
     if pairs is not None and fit_cap:
         raise ValueError("bin_triangles: fit_cap reads the largest bin on "
@@ -542,12 +533,12 @@ def bin_triangles(setup: TriSetup, width: int, height: int, tile_h: int,
     if fit_cap:
         cap = fitted_cap(cap, int(max_count))
     lists, held = _spans_to_lists(spans, counts, tiles_x, cap, pairs)
-    out = (lists, torch.clamp(held, max=cap).to(torch.int32),
-           max_count.to(torch.int32))
-    if pairs is None:
-        return out
     n_pairs = counts.sum()
-    return out + (n_pairs, (n_pairs > pairs) | (max_count > cap))
+    over = max_count > cap
+    if pairs is not None:
+        over = over | (n_pairs > pairs)
+    return (lists, torch.clamp(held, max=cap).to(torch.int32),
+            max_count.to(torch.int32), n_pairs, over)
 
 
 def _chunk_lists(setup: TriSetup, n_pad: int, chunk: int, tiles_x: int,
@@ -989,15 +980,15 @@ def tiled_inputs(setup: TriSetup, width: int, height: int, tile_h: int,
                  fit_cap: bool = False, pairs: int | None = None):
     """What kernel B3 and its plain version take: (records (n_pad, _REC),
     lists (tiles, cap) i32, entries to walk per tile (tiles,) i32, max_bin
-    () i32).  fit_cap and pairs as in bin_triangles (pairs=P appends
-    n_pairs and over)."""
+    () i32, n_pairs, over).  fit_cap, pairs, n_pairs and over as in
+    bin_triangles."""
     rec, _, _ = pack_direct_records(setup, False)
-    lists, counts, max_bin, *check = bin_triangles(
+    lists, counts, max_bin, n_pairs, over = bin_triangles(
         setup, width, height, tile_h, tile_w, cap, y_offset, fit_cap, pairs)
     # lsr_tpu's kernel walks min(ceil(count/chunk), cap//chunk) chunks;
     # counts <= cap already, so no tile walks past its list.
     n_walk = torch.clamp(counts, max=lists.shape[1] // chunk * chunk)
-    return (rec, lists, n_walk, max_bin, *check)
+    return rec, lists, n_walk, max_bin, n_pairs, over
 
 
 def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
@@ -1007,21 +998,21 @@ def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
                     y_offset: int = 0, full_height: int | None = None,
                     fit_cap: bool = False, pairs: int | None = None):
     """Tile-parallel binned rasterization.  Returns (depth01 (H, W),
-    tid (H, W), max_bin).
+    tid (H, W), max_bin, n_pairs, over).
 
     max_bin is the largest per-tile triangle count BEFORE capping: if it
     exceeds `cap`, triangles were dropped.  fit_cap=True raises the cap to
     fitted_cap(cap, max_bin) first, so none is.  pairs=P is the capacity
-    route of a captured frame (bin_triangles): no host read, and the
-    result gains (n_pairs, over), over () bool set where a triangle was
-    dropped.  y_offset / full_height render global rows [y_offset, y_offset
-    + height) of a full_height framebuffer.
+    route of a captured frame (bin_triangles): no host read.  n_pairs ()
+    i64 counts the (row, tile) pairs binned, and over () bool is set where
+    a triangle was dropped.  y_offset / full_height render global rows
+    [y_offset, y_offset + height) of a full_height framebuffer.
     CPU tensors run rasterize_tiled_plain; CUDA tensors launch kernel B3
     (csrc/tiled_raster.cu) or raise."""
     _check_depth_mode("rasterize_tiled", depth_mode)
     full_height = height if full_height is None else full_height
     dev = _device("rasterize_tiled", setup)
-    rec, lists, n_walk, max_bin, *check = tiled_inputs(
+    rec, lists, n_walk, max_bin, n_pairs, over = tiled_inputs(
         setup, width, height, tile_h, tile_w, cap, chunk, y_offset, fit_cap,
         pairs)
     depth_init, tid_init = _targets(depth_init, tid_init, height, width, dev)
@@ -1029,7 +1020,7 @@ def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
         depth, tid = rasterize_tiled_plain(
             rec, lists, n_walk, depth_init, tid_init, width, height, zn, zf,
             depth_mode, tile_h, tile_w, chunk, y_offset, full_height)
-        return (depth, tid, max_bin, *check)
+        return depth, tid, max_bin, n_pairs, over
     _check_kernel_tiles("rasterize_tiled", tile_h, tile_w)
     _check_cuda_targets("rasterize_tiled", dev, height, width, depth_init,
                         tid_init)
@@ -1038,7 +1029,7 @@ def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
         height, zn, zf, depth_mode, tile_h, tile_w, y_offset, full_height,
         _stream(dev))
     rasterize_tiled.launches += 1
-    return (depth, tid, max_bin, *check)
+    return depth, tid, max_bin, n_pairs, over
 
 
 rasterize_tiled.launches = 0

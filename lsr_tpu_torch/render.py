@@ -10,7 +10,8 @@ render_forward is one program, as lsr_tpu's jax.jit is (render.py:95-98):
 on the card each key (lsr_tpu's static arguments, the port's host leaves
 among them) is captured once into a CUDA graph and replayed
 (utils.jit), B3's list width and pair slots checked capacities
-(utils.capacity) kept across calls in render_forward.program.
+(utils.capacity) that render_forward.program keeps for each key, so a
+scene, a target size or a camera's zn / zf never sizes another's lists.
 """
 
 from __future__ import annotations

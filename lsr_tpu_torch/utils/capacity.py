@@ -14,7 +14,8 @@ reads that flag once after the frame; when it is set, the capacities grow
 to what the frame's stats say it needed and the frame runs again eagerly
 (as the warm-up of the new key, which captures on its next call), so a
 frame that dropped a triangle is never returned, the capture call's
-included.  Capacities never shrink.
+included.  Each key of a call (a scene, a target size, a camera's zn / zf)
+has capacities of its own, which never shrink.
 
 The stats a frame returns (device values unless noted):
 - raster_max_bin: B3's largest bin before capping;
@@ -33,11 +34,12 @@ need no capacity.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 from lsr_tpu_torch.raster import tiled
 from lsr_tpu_torch.raster.tiled import fitted_cap
-from lsr_tpu_torch.utils.jit import jit
+from lsr_tpu_torch.utils.jit import MAX_GRAPHS, jit, trace_key
 
 
 def next_pow2(n: int) -> int:
@@ -91,18 +93,16 @@ def binned_raster(setup, width: int, height: int, zn: float, zf: float,
     and with caps the flag capacity_exceeded."""
     kw = dict(tile_h=tile_h, tile_w=tile_w, chunk=chunk)
     if caps is None:
-        depth, tid, max_bin = tiled.rasterize_tiled(
+        depth, tid, max_bin, pairs, _ = tiled.rasterize_tiled(
             setup, width, height, zn, zf, cap=cap, fit_cap=True, **kw)
-        stats = {"raster_cap_used": fitted_cap(cap, int(max_bin)),
-                 "raster_pairs": tiled.pair_count(setup, width, height,
-                                                  tile_h, tile_w)}
+        stats = {"raster_cap_used": fitted_cap(cap, int(max_bin))}
     else:
         used = fitted_cap(cap, caps.list_width)
         depth, tid, max_bin, pairs, over = tiled.rasterize_tiled(
             setup, width, height, zn, zf, cap=used, pairs=caps.pairs, **kw)
-        stats = {"raster_cap_used": used, "raster_pairs": pairs,
-                 "capacity_exceeded": over}
+        stats = {"raster_cap_used": used, "capacity_exceeded": over}
     stats["raster_max_bin"] = max_bin
+    stats["raster_pairs"] = pairs
     return depth, tid, stats
 
 
@@ -117,49 +117,61 @@ class Checked:
     """checked(fn): fn(*args, caps) -> (out, raster_stats) as one program
     with checked capacities; calling it with *args returns out.
 
-    The first call runs fn(*args, None), the eager route that sizes its
+    Capacities are kept per key: caps maps key(*args) (jit's key of the
+    call, without the capacities) to the call's Capacities, for at most
+    MAX_GRAPHS keys, least recently used first, so a scene, a target size
+    or a camera's zn / zf each has its own and one never sizes another.
+    A key's first call runs fn(*args, None), the eager route that sizes its
     lists on the host, and keeps Capacities.sized of its stats.  Every
     later call runs jit(fn)(*args, caps) (warm-up, capture, replays, as
     utils.jit does) and reads the flag once after it.  When it is set the
-    capacities grow (growths), the stale graphs are released and the frame
-    runs again eagerly at the new capacities as the new key's warm-up
-    (retries counts such frames), until no flag is set.  The launch
-    counters count what ran: a redone frame's launches twice.
+    key's capacities grow (growths), its stale graph is released and the
+    frame runs again eagerly at the new capacities as the new key's
+    warm-up (retries counts such frames), until no flag is set.  The
+    launch counters count what ran: a redone frame's launches twice."""
 
-    caps: starting capacities (the first call then goes through jit too)."""
-
-    def __init__(self, fn, name=None, caps: Capacities | None = None):
+    def __init__(self, fn, name=None):
         self.fn = fn
         self.jitted = jit(fn, name)
-        self.caps = caps
+        self.caps: collections.OrderedDict = collections.OrderedDict()
         self.growths = self.retries = 0
 
     @property
     def captures(self) -> int:
         return self.jitted.captures
 
+    @staticmethod
+    def key(*args):
+        """The key a call's capacities are kept under."""
+        return trace_key(args)[0]
+
     def __call__(self, *args):
-        if self.caps is None:
+        key = self.key(*args)
+        caps = self.caps.pop(key, None)
+        if caps is None:
             out, stats = self.fn(*args, None)
-            self.caps = Capacities.sized(stats)
-            return out
-        out, stats = self.jitted(*args, self.caps)
-        if not exceeded(stats):
-            return out
-        self.retries += 1
-        while exceeded(stats):
-            caps = self.caps.grown(stats)
-            if caps == self.caps:
-                raise RuntimeError(f"{self.jitted.name}: a capacity was "
-                                   f"exceeded, but the stats name none")
-            self.caps = caps
-            self.growths += 1
-            self.jitted.clear()
-            out, stats = self.jitted.warm_up(*args, self.caps)
+            caps = Capacities.sized(stats)
+        else:
+            out, stats = self.jitted(*args, caps)
+            over = exceeded(stats)
+            self.retries += over
+            while over:
+                grown = caps.grown(stats)
+                if grown == caps:
+                    raise RuntimeError(f"{self.jitted.name}: a capacity was "
+                                       f"exceeded, but the stats name none")
+                self.jitted.forget(*args, caps)
+                caps = grown
+                self.growths += 1
+                out, stats = self.jitted.warm_up(*args, caps)
+                over = exceeded(stats)
+        self.caps[key] = caps
+        while len(self.caps) > MAX_GRAPHS:
+            self.caps.popitem(last=False)
         return out
 
 
-def checked(fn, name=None, caps: Capacities | None = None) -> Checked:
+def checked(fn, name=None) -> Checked:
     """fn(*args, caps) -> (out, raster_stats) as a checked one-program
     frame (see Checked)."""
-    return Checked(fn, name, caps)
+    return Checked(fn, name)

@@ -443,12 +443,14 @@ class Jitted:
             return self.fn(*args, **kwargs)
         return self._warm_up(spec, dev, args, kwargs)
 
-    def clear(self):
-        """Releases every graph and forgets every key (keys that can never
-        come again: the checked capacities have grown)."""
-        while self.graphs:
-            self._evict(self.graphs.popitem(last=False)[1])
-        self._warm.clear()
+    def forget(self, *args, **kwargs):
+        """Releases the graph of this call's key and forgets its warm-up: a
+        key that cannot come again (its checked capacities have grown)."""
+        spec = trace_key(args, kwargs)[0]
+        g = self.graphs.pop(spec, None)
+        if g is not None:
+            self._evict(g)
+        self._warm.pop(spec, None)
 
     def _evict(self, g):
         g.release()

@@ -67,11 +67,12 @@ def test_b3_capacity_lists_equal_eager(flag, tile_h, chunk):
     from lsr_tpu_torch.utils.capacity import next_pow2
 
     s = flag["setup"]
-    rec, lists, n_walk, max_bin = tiled.tiled_inputs(
+    rec, lists, n_walk, max_bin, n, fit_over = tiled.tiled_inputs(
         s, W, H, tile_h, 128, 1024, chunk, fit_cap=True)
-    n = int(tiled.pair_count(s, W, H, tile_h, 128))
+    n = int(n)
     assert int(max_bin) == MAX_BIN and lists.shape[1] == 2048
-    d_e, t_e, _ = tiled.rasterize_tiled(s, W, H, 0.1, 100.0, tile_h=tile_h,
+    assert not bool(fit_over) and int(n_walk.sum()) == n
+    d_e, t_e, *_ = tiled.rasterize_tiled(s, W, H, 0.1, 100.0, tile_h=tile_h,
                                         cap=1024, chunk=chunk, fit_cap=True)
     for pairs, width in ((n, 2048), (next_pow2(n), 2048), (n, 4096)):
         _, l2, w2, m2, n2, over = tiled.tiled_inputs(
@@ -123,7 +124,7 @@ def test_one_short_sets_the_flag(flag, short):
     from lsr_tpu_torch.raster import tiled
 
     s = flag["setup"]
-    n = int(tiled.pair_count(s, W, H, 32, 128))
+    n = int(tiled.bin_triangles(s, W, H, 32, 128, 1)[3])
     pairs, width = (n - 1, 2048) if short == "pairs" else (n, MAX_BIN - 1)
     lists, counts, max_bin, n_pairs, over = tiled.bin_triangles(
         s, W, H, 32, 128, width, pairs=pairs)
@@ -186,7 +187,8 @@ def test_checked_redoes_an_exceeded_b3_frame(flag, monkeypatch, entry):
         args = (_batch(flag), to.model, to.normal_mat, tcam.viewproj,
                 tcam.zn, tcam.zf, tct, W, H, "blinn_phong",
                 (0.05, 0.07, 0.12), True, 1024, 1.0, 2.2, 0)
-        prog = checked(render._forward_frame, caps=start)
+        prog = checked(render._forward_frame)
+        prog.caps[prog.key(*args)] = start
         (_, cut_gb), cut_stats = prog.fn(*args, start)
         _, gb = prog(*args)
         depth, tid, tile_h = gb.depth01, gb.tri_id, 32
@@ -200,7 +202,9 @@ def test_checked_redoes_an_exceeded_b3_frame(flag, monkeypatch, entry):
             out = _raster(dict(state, capacities=caps), fp)
             return out, out["raster_stats"]
 
-        prog = checked(body, caps=start)
+        prog = checked(body)
+        args = (_state(flag),)
+        prog.caps[prog.key(*args)] = start
         cut, cut_stats = body(_state(flag), start)
         out = prog(_state(flag))
         depth, tid, tile_h = out["depth"], out["tid"], fp.raster_tile_h
@@ -211,7 +215,8 @@ def test_checked_redoes_an_exceeded_b3_frame(flag, monkeypatch, entry):
     assert bool(cut_stats["capacity_exceeded"])
     assert int(cut_stats["raster_max_bin"]) == MAX_BIN
     assert int((cut_tid != fit_tid).sum()) > 1000
-    assert prog.caps.list_width == 2048 and prog.caps.pairs == 1 << 20
+    caps = prog.caps[prog.key(*args)]
+    assert caps.list_width == 2048 and caps.pairs == 1 << 20
     assert (prog.retries, prog.growths) == (1, 1)
     assert torch.equal(depth, fit_depth) and torch.equal(tid, fit_tid)
     js = jss(geom.positions, geom.normals, geom.uvs, geom.indices,
@@ -244,12 +249,14 @@ def test_checked_compact_overflow_falls_back(flag):
     start = Capacities(list_width=2048, pairs=1 << 20, compact=True)
     _, stats = body(_state(flag), start)
     assert bool(stats["capacity_exceeded"]) and bool(stats["compact_overflow"])
-    prog = checked(body, caps=start)
+    prog = checked(body)
+    prog.caps[prog.key(_state(flag))] = start
     out = prog(_state(flag))
     full = _raster(_state(flag), FrameParams(width=W, height=H))
     assert torch.equal(out["depth"], full["depth"])
     assert torch.equal(out["tid"], full["tid"])
-    assert not prog.caps.compact and out["raster_stats"]["compact_fallback"]
+    assert not prog.caps[prog.key(_state(flag))].compact
+    assert out["raster_stats"]["compact_fallback"]
     again = prog(_state(flag))
     # The full setup on kernel B1: no capacity left to exceed, no flag.
     assert "compact_overflow" not in again["raster_stats"]
@@ -277,8 +284,11 @@ def test_first_call_sizes_the_capacities(flag, monkeypatch):
 
     prog = checked(body)
     first = prog(_state(flag))
-    n = int(tiled.pair_count(flag["setup"], W, H, fp.raster_tile_h, 128))
-    assert prog.caps.list_width == 2048 and prog.caps.pairs == next_pow2(n)
+    n = int(first["raster_stats"]["raster_pairs"])
+    assert n == int(tiled.bin_triangles(flag["setup"], W, H,
+                                        fp.raster_tile_h, 128, 1)[3])
+    caps = prog.caps[prog.key(_state(flag))]
+    assert caps.list_width == 2048 and caps.pairs == next_pow2(n)
     assert "capacity_exceeded" not in first["raster_stats"]
     second = prog(_state(flag))
     assert not bool(second["raster_stats"]["capacity_exceeded"])

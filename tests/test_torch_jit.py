@@ -261,8 +261,10 @@ def test_graph_cache_is_bounded(fake_card):
     assert not made[0].was_reset                 # k = 0.0, used throughout
     assert all(made[i].was_reset for i in range(1, f.evictions + 1))
     assert fake_scale.launches == 2 * 3 * n
-    f.clear()
+    for i in range(n):                        # forget every key there was
+        f.forget(torch.ones(3), {"k": float(i)})
     assert not f.graphs and not f._warm and all(g.was_reset for g in made)
+    assert f.evictions == n
 
 
 def _capped(x, need, caps):
@@ -289,8 +291,10 @@ def test_checked_retry(fake_card, where):
     frame (the replay's and the eager frame's)."""
     from lsr_tpu_torch.utils.capacity import Capacities, checked
 
-    c = checked(_capped, caps=Capacities(list_width=256))
+    c = checked(_capped)
     x, small, big = torch.arange(3.0), torch.tensor(100), torch.tensor(300)
+    key = c.key(x, small)
+    c.caps[key] = Capacities(list_width=256)
     needs = [small, small, big] if where == "replay" else [small, big]
     for need in needs[:-1]:
         assert torch.equal(c(x, need), x * 256.0)
@@ -299,14 +303,14 @@ def test_checked_retry(fake_card, where):
     out = c(x, needs[-1])
     assert fake_scale.launches == len(needs) + 1
     assert torch.equal(out, x * 512.0)
-    assert c.caps == Capacities(list_width=512)
+    assert c.caps[key] == Capacities(list_width=512)
     assert (c.retries, c.growths) == (1, 1)
     assert c.captures == 1 and not c.jitted.graphs
     assert c.jitted.evictions == 1
     # The grown key: the redo was its warm-up, so this call captures.
     assert torch.equal(c(x, big), x * 512.0)
     assert c.captures == 2 and fake_scale.launches == len(needs) + 2
-    assert torch.equal(out, c.fn(x, big, c.caps)[0])
+    assert torch.equal(out, c.fn(x, big, c.caps[key])[0])
 
 
 def test_checked_first_call_sizes(fake_card):
@@ -317,10 +321,35 @@ def test_checked_first_call_sizes(fake_card):
     c = checked(_capped)
     x = torch.arange(3.0)
     assert torch.equal(c(x, torch.tensor(300)), x * 512.0)
-    assert c.caps == Capacities(list_width=512) and c.captures == 0
+    assert c.caps[c.key(x, torch.tensor(0))] == Capacities(list_width=512)
+    assert c.captures == 0
     for _ in range(3):
         assert torch.equal(c(x, torch.tensor(400)), x * 512.0)
     assert c.captures == 1 and c.retries == 0 and fake_scale.launches == 4
+
+
+def test_checked_capacities_per_key(fake_card):
+    """Each key of a call (here the tensor's shape, as a target size would
+    be) sizes and grows capacities of its own: a wide key never widens a
+    narrow one, nor a narrow one's growth the wide one; at most MAX_GRAPHS
+    keys are remembered, the least recently used forgotten first."""
+    from lsr_tpu_torch.utils.capacity import Capacities, checked
+
+    c = checked(_capped)
+    wide, narrow = torch.arange(3.0), torch.arange(5.0)
+    assert torch.equal(c(wide, torch.tensor(700)), wide * 768.0)
+    assert torch.equal(c(narrow, torch.tensor(100)), narrow * 256.0)
+    for _ in range(2):                    # warm-up and capture at 256
+        assert torch.equal(c(narrow, torch.tensor(100)), narrow * 256.0)
+    assert c.caps[c.key(narrow, torch.tensor(0))] == Capacities(256)
+    assert torch.equal(c(narrow, torch.tensor(300)), narrow * 512.0)
+    assert c.caps[c.key(narrow, torch.tensor(0))] == Capacities(512)
+    assert c.caps[c.key(wide, torch.tensor(0))] == Capacities(768)
+    assert (c.retries, c.growths, c.captures) == (1, 1, 1)
+    for n in range(6, 6 + jm.MAX_GRAPHS - 1):
+        c(torch.arange(float(n)), torch.tensor(100))
+    assert len(c.caps) == jm.MAX_GRAPHS
+    assert c.key(wide, torch.tensor(0)) not in c.caps
 
 
 def test_cpu_route_is_eager():

@@ -124,7 +124,7 @@ def _sized(prog, *args):
     """The frame body of a checked program at the capacities its first
     (eager, sizing) call keeps: what jit warms up and captures."""
     prog(*args)
-    return lambda: prog.fn(*args, prog.caps)
+    return lambda: prog.fn(*args, prog.caps[prog.key(*args)])
 
 
 @pytest.mark.parametrize("path", ["render_forward_b1", "render_forward_b3",
@@ -140,7 +140,7 @@ def test_highpoly_route_is_capture_safe(monkeypatch, highpoly, path):
     from lsr_tpu_torch import render
     from lsr_tpu_torch.pipeline.executor import RenderContext
     from lsr_tpu_torch.raster import tiled
-    from lsr_tpu_torch.utils.capacity import checked
+    from lsr_tpu_torch.utils.capacity import Checked, checked
 
     geom, objects, lights, ctx, cam, ctx_t = highpoly
     if path != "render_forward_b1":
@@ -162,8 +162,8 @@ def test_highpoly_route_is_capture_safe(monkeypatch, highpoly, path):
     else:
         pipe, fp, state_fn = preset_pipeline("forward_plus", PW, PH)
         fp.compact_setup_threshold = 0
+        key = Checked.key(pipe._start(state_fn(0)))
         pipe.execute_jitted(RenderContext(), state_fn(0), fp)
-        prog = pipe._jitted
-        run = lambda: prog.fn(pipe._start(state_fn(1)),  # noqa: E731
-                              prog.caps)
+        prog, state = pipe._jitted, pipe._start(state_fn(1))
+        run = lambda: prog.fn(state, prog.caps[key])  # noqa: E731
     _guarded(monkeypatch, run)

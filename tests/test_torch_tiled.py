@@ -112,15 +112,16 @@ def test_bin_triangles_matches_jax(scene, tile_h, cap):
     from lsr_tpu_torch.raster.tiled import bin_triangles, fitted_cap
 
     jl, jc, jm = jbin(scene["js"], W, H, tile_h, 128, cap)
-    tl, tc, tm = bin_triangles(scene["ts"], W, H, tile_h, 128, cap)
+    tl, tc, tm, _, _ = bin_triangles(scene["ts"], W, H, tile_h, 128, cap)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     assert int(tm) == int(jm)
     if cap < int(jm):
         assert int(tc.max()) == cap
     # fit_cap raises the cap to the rule of lsr_tpu's bench: nothing dropped.
-    fl, fc, fm = bin_triangles(scene["ts"], W, H, tile_h, 128, cap,
-                               fit_cap=True)
+    fl, fc, fm, _, f_over = bin_triangles(scene["ts"], W, H, tile_h, 128,
+                                          cap, fit_cap=True)
+    assert not bool(f_over)
     assert fl.shape[1] == fitted_cap(cap, int(jm)) >= int(jm)
     assert int(fc.max()) == int(fm) == int(jm)
 
@@ -140,15 +141,15 @@ def test_rasterize_tiled_matches_jax(scene, tile_h, chunk, mode):
         rasterize_tiled,
     )
 
-    _, _, m = bin_triangles(scene["ts"], W, H, tile_h, 128, 256)
+    _, _, m, _, _ = bin_triangles(scene["ts"], W, H, tile_h, 128, 256)
     cap = fitted_cap(256, int(m))
     cam = scene["cam"]
     jd, jt, jm = jrt(scene["js"], W, H, cam.zn, cam.zf,
                      depth_mode=_mode(mode), tile_h=tile_h, cap=cap,
                      chunk=chunk)
-    td, tt, tm = rasterize_tiled(scene["ts"], W, H, scene["zn"], scene["zf"],
-                                 depth_mode=_mode(mode), tile_h=tile_h,
-                                 cap=cap, chunk=chunk)
+    td, tt, tm, _, _ = rasterize_tiled(
+        scene["ts"], W, H, scene["zn"], scene["zf"], depth_mode=_mode(mode),
+        tile_h=tile_h, cap=cap, chunk=chunk)
     assert int(tm) == int(jm) <= cap
     _compare(jd, jt, td, tt)
 
@@ -165,9 +166,9 @@ def test_tiled_truncated_cap_matches_jax(scene, brute):
 
     cam = scene["cam"]
     jd, jt, jm = jrt(scene["js"], W, H, cam.zn, cam.zf, cap=1024)
-    td, tt, tm = rasterize_tiled(scene["ts"], W, H, scene["zn"], scene["zf"],
-                                 cap=1024)
-    assert int(tm) == int(jm) > 1024
+    td, tt, tm, _, over = rasterize_tiled(scene["ts"], W, H, scene["zn"],
+                                          scene["zf"], cap=1024)
+    assert int(tm) == int(jm) > 1024 and bool(over)
     _compare(jd, jt, td, tt)
     bt = brute[DEPTH_VIEWZ][1]
     assert int((tt != bt).sum()) > 1000
@@ -182,14 +183,14 @@ def test_tiled_cap_not_multiple_of_chunk_matches_jax(scene):
 
     from lsr_tpu_torch.raster.tiled import rasterize_tiled, tiled_inputs
 
-    _, lists, n_walk, max_bin = tiled_inputs(scene["ts"], W, H, 32, 128, 100,
-                                             16)
+    _, lists, n_walk, max_bin, _, _ = tiled_inputs(scene["ts"], W, H, 32,
+                                                   128, 100, 16)
     assert int(max_bin) > 100 and lists.shape[1] == 100
     assert int(n_walk.max()) == 96
     cam = scene["cam"]
     jd, jt, _ = jrt(scene["js"], W, H, cam.zn, cam.zf, cap=100, chunk=16)
-    td, tt, _ = rasterize_tiled(scene["ts"], W, H, scene["zn"], scene["zf"],
-                                cap=100, chunk=16)
+    td, tt, *_ = rasterize_tiled(scene["ts"], W, H, scene["zn"], scene["zf"],
+                                 cap=100, chunk=16)
     _compare(jd, jt, td, tt)
 
 
@@ -200,9 +201,9 @@ def test_tiled_plain_equals_brute(scene, brute, tile_h, chunk):
     from lsr_tpu_torch.raster.setup import DEPTH_VIEWZ
     from lsr_tpu_torch.raster.tiled import rasterize_tiled
 
-    td, tt, _ = rasterize_tiled(scene["ts"], W, H, scene["zn"], scene["zf"],
-                                tile_h=tile_h, cap=256, chunk=chunk,
-                                fit_cap=True)
+    td, tt, *_ = rasterize_tiled(scene["ts"], W, H, scene["zn"], scene["zf"],
+                                 tile_h=tile_h, cap=256, chunk=chunk,
+                                 fit_cap=True)
     bd, bt = brute[DEPTH_VIEWZ]
     assert torch.equal(td, bd) and torch.equal(tt, bt)
 
@@ -214,9 +215,9 @@ def test_tiled_depth_chaining():
     from lsr_tpu_torch.raster.tiled import rasterize_tiled
 
     s_a, s_b = _cube_setups(128, 128)
-    d1, t1, _ = rasterize_tiled(s_a, 128, 128, 0.1, 100.0, cap=256)
-    d2, t2, _ = rasterize_tiled(s_b, 128, 128, 0.1, 100.0, depth_init=d1,
-                                tid_init=t1, cap=256)
+    d1, t1, *_ = rasterize_tiled(s_a, 128, 128, 0.1, 100.0, cap=256)
+    d2, t2, *_ = rasterize_tiled(s_b, 128, 128, 0.1, 100.0, depth_init=d1,
+                                 tid_init=t1, cap=256)
     ra, ta = rasterize_brute(s_a, 128, 128, 0.1, 100.0)
     rd, rt = rasterize_brute(s_b, 128, 128, 0.1, 100.0, depth_init=ra,
                              tid_init=ta)
@@ -584,7 +585,7 @@ def test_plain_rasters_unchanged_by_block_cull(scene, kernel, tile_h, chunk,
     hb = H - y_offset
     d0, t0 = tiled._targets(None, None, hb, W, torch.device("cpu"))
     if kernel == "b3":
-        rec, lists, n_walk, _ = tiled.tiled_inputs(
+        rec, lists, n_walk, *_ = tiled.tiled_inputs(
             ts, W, hb, tile_h, 128, 256, chunk, y_offset, fit_cap=True)
 
         def run(cull):
@@ -661,8 +662,8 @@ def test_walk_survivors_counts_the_mask(scene, kernel, tile_h, y_offset):
 
     ts, hb = scene["ts"], H - y_offset
     if kernel == "b3":
-        rec, lists, n, _ = tiled.tiled_inputs(ts, W, hb, tile_h, 128, 256, 16,
-                                              y_offset, fit_cap=True)
+        rec, lists, n, *_ = tiled.tiled_inputs(ts, W, hb, tile_h, 128, 256,
+                                               16, y_offset, fit_cap=True)
         chunk = sub_h = None
     else:
         chunk, sub_h = 16, tile_h // 4
