@@ -7,6 +7,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --phase30    # phase 30 alone, after the build
     python3 chip_smoke.py --phase31    # phase 31 alone, after the build
     python3 chip_smoke.py --phase32    # phase 32 alone, after the build
+    python3 chip_smoke.py --phase33    # phase 33 alone, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -43,8 +44,8 @@ first use, into build/kernels/), then:
     lsr_tpu_torch.utils.jit, the port's jax.jit, captured once into a CUDA
     graph and replayed, against its eager frame.  bench.py's whole frame in
     the four configurations of phase 4 (the staged orbit's camera 0 warms
-    up, then captures; four later cameras replay); a camera with another
-    zn / zf (a host leaf: captures anew); execute_jitted on the five
+    up, then captures; four later cameras replay); cameras with another
+    zn / zf (data: they replay the same graph); execute_jitted on the five
     presets, forward_plus+full and forward_classic+ssao at 1280x720 and
     Config #5 at 800x600 (frames 0 and 1 warm up two keys, frame 2
     captures; TAA's history flows through the graph's inputs) against
@@ -99,10 +100,13 @@ lsr_tpu_torch.highpoly):
     set.  The overflow drill: a camera whose largest bin exceeds the
     captured list width sets the flag; the frame is redone eagerly, equal
     to the eager fitted frame bit for bit, the stale graph released and a
-    recapture follows.  The C23 drill: ten distinct zn through
-    render_forward: never more than utils.jit.MAX_GRAPHS graphs, the
-    evictions counted, the memory returned on release.
-    `python3 chip_smoke.py --phase32` runs it alone.
+    recapture follows.  The C23 drill: ten (zn, zf) pairs through
+    render_forward, data to one graph: one capture, no eviction, every
+    frame bit for bit its eager frame.  The bound drill: ten target widths
+    (still keys) through render_forward: never more than
+    utils.jit.MAX_GRAPHS graphs, the evictions counted, the memory
+    returned on release.  `python3 chip_smoke.py --phase32` runs it
+    alone.
 
 Then the slice of the sun shadow, B5 and B6, on the flagship scene:
 
@@ -206,7 +210,8 @@ Then kernel B1's screen bands and the multi-device paths
     against B1's full-frame launch, depth and tid bit for bit; each band's
     kernel ms (on its own super lists), wrapper and plain ms and bound.
 27. The sharded paths at 1920x1088 (four bands of whole 16-row light
-    tiles), counts reset before each: make_sharded_flagship (2048^2 sun
+    tiles), each the undecorated eager step (Jitted.fn), counts reset
+    before each: make_sharded_flagship (2048^2 sun
     map, its other defaults, two cameras of the orbit) on meshes (1, 1),
     (1, 4), (2, 2), the frames of (1, 4) and (2, 2) equal (1, 1)'s bit for
     bit, B1 launches a step exactly 25 / 40 / 52 (of them B1b 0 / 12 / 8);
@@ -216,6 +221,20 @@ Then kernel B1's screen bands and the multi-device paths
     make_pipelined_render over 4 cameras, output i bit for bit camera
     i - 1's render_band.  Median ms a step of each mesh by CUDA events
     (its ranks run one after another on the card).  About 20-25 s for 26-27.
+33. Right after 27: the same seven sharded configurations as one program
+    each (parallel.sharding returns utils.jit.jit(step) on a one-device
+    mesh, as lsr_tpu returns jax.jit(step)): warmed up and captured at
+    cameras (0, 2), replayed at three later camera sets, every call bit
+    for bit the undecorated eager step, B1 and B1b launches exact, one
+    capture a step; replay and eager ms by CUDA events [min, max],
+    pipelined ms, busy ms and kernels of one profiled replay, capture ms,
+    graph MiB.  Then zn / zf as device data: ten (zn, zf) pairs through
+    render_forward on B1, bench.py's whole ESM frame and the sharded
+    flagship on (1, 4), one capture and no eviction each, every frame bit
+    for bit its eager frame; B1 (four modes, given targets, B1a, B1b
+    bands), B3 and B4 reading their z params from device memory against
+    their plain versions bit for bit at three pairs, zn 0.25 / zf 40
+    among them.  `python3 chip_smoke.py --phase33` runs it alone.
 
 28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
     stand-in for the monkey), each at its own size, counts reset before
@@ -1979,8 +1998,7 @@ def b2b_phase(geom, objects, lights, ctx, cam, ctx_t, casters, dev):
         ctx_t.materials, gb.obj_id, mat_rec=gb.mat)
     albedo = torch.clamp(base * sample_texture_bilinear(
         ctx_t.textures, tex_id, gb.uv, quads=ctx_t.texture_quads), min=0.0)
-    zn_t = torch.tensor(cam.zn, device=dev)
-    zf_t = torch.tensor(cam.zf, device=dev)
+    zn_t, zf_t = cam.zn, cam.zf
     sp = view_depth_to_cluster_slice(zn_t + gb.depth01 * (zf_t - zn_t),
                                      cam.zn, cam.zf, CLUSTER_SLICES)
     full = [gb.world_pos, _norm(gb.normal_ws), gb.covered, albedo,
@@ -2784,6 +2802,9 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
     reset_counts()
     from lsr_tpu_torch.parallel import sharding
 
+    # The eager step: a one-device mesh's step is a Jitted (phase 33 runs
+    # it as one program); its .fn is the undecorated step.
+    step = getattr(step, "fn", step)
     with module_calls(sharding, "rasterize_direct") as rec:
         ms, _, outs = _frames(lambda i: step(*args), SHARD_WARMUP + n,
                               SHARD_WARMUP, pipelined=False)
@@ -2825,8 +2846,9 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
 
 def sharded_phase(geom, objects, lights, ctx, dev):
     """Phase 27.  The sharded paths (lsr_tpu_torch.parallel.sharding) with
-    every rank on this card (devices=[cuda:0] * n), counts reset before
-    each: make_sharded_flagship at 1920x1088, 2048^2 sun map, its other
+    every rank on this card (devices=[cuda:0] * n), each step run eagerly
+    (the undecorated step; phase 33 runs them as one program), counts reset
+    before each: make_sharded_flagship at 1920x1088, 2048^2 sun map, its other
     defaults (slots 128^2, faces 64^2, cull, pbr_mr), two cameras of the
     orbit, on meshes (1, 1), (1, 4) and (2, 2), the frames of (1, 4) and
     (2, 2) equal to (1, 1)'s bit for bit; make_sharded_render on (2, 2),
@@ -3814,7 +3836,8 @@ def _captures(jitted_of):
         return 0
 
 
-def _one_program(tag, jitted_of, steps, outs_of, want):
+def _one_program(tag, jitted_of, steps, outs_of, want, band=None,
+                 eager_busy=True):
     """One path through jit against its eager frame.  steps: [(jitted
     call, eager call, the eager call again from the same state[, fit])] in
     order.  A step's kind is what the call did, read off the path's
@@ -3827,9 +3850,13 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
     capture's step).  fit (a checked program's eager route, the lists
     fitted on the host) must launch want and equal the jitted call bit for
     bit from the capture on, and is timed beside the replays.
-    jitted_of() is the path's Jitted.  Then both sides' replay steps again
-    back to back (pipelined ms), torch.profiler over one replay and one
-    eager frame, the graph's numbers.  Returns the result."""
+    jitted_of() is the path's Jitted.  band: B1b's launches a step
+    (rasterize_direct.band_launches), checked as the others are.  Then
+    both sides' replay steps again back to back (pipelined ms),
+    torch.profiler over one replay and (eager_busy) one eager frame, the
+    graph's numbers.  Returns the result."""
+    from lsr_tpu_torch.raster import tiled
+
     replay_ms, eager_ms, fit_ms, spread, self_spread = [], [], [], {}, None
     capture_call_ms = None
     captures0 = _captures(jitted_of)
@@ -3839,6 +3866,7 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
         reset_counts()
         out_j, ms_j = _timed(jitted)
         got = read_counts()
+        got_band = tiled.rasterize_direct.band_launches
         after = jitted_of().captures
         kind = ("capture" if after > before else
                 "replay" if "capture" in kinds else "warm")
@@ -3846,8 +3874,12 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
         reset_counts()
         out_e, ms_e = _timed(eager)
         ref = read_counts()
+        ref_band = tiled.rasterize_direct.band_launches
         check(got == ref == want, f"{tag} step {i} ({kind}): launches "
               f"{got} (eager {ref}, expected {want})")
+        check(band is None or got_band == ref_band == band,
+              f"{tag} step {i} ({kind}): B1b launches {got_band} (eager "
+              f"{ref_band}, expected {band})")
         if kind == "warm":
             continue
         if kind == "capture":
@@ -3892,7 +3924,8 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
     check(jf.captures - captures0 == 1,
           f"{tag}: the pipelined replays captured again")
     res["replay_busy"] = _busy(replays[-1], res["replay"]["ms"])
-    res["eager_busy"] = _busy(eagers[-1], res["eager"]["ms"])
+    res["eager_busy"] = (_busy(eagers[-1], res["eager"]["ms"]) if eager_busy
+                         else None)
     fit_note = ""
     if fit_ms:
         fits = [s[3] for s, k in zip(steps, kinds) if k == "replay"]
@@ -3919,14 +3952,16 @@ def _one_program(tag, jitted_of, steps, outs_of, want):
         f"{res['replay_busy']['busy_share']:.1%}); eager "
         f"{res['eager']['ms']:.3f} [{res['eager']['ms_min']:.3f}, "
         f"{res['eager']['ms_max']:.3f}], pipelined "
-        f"{res['eager_pipelined_ms']:.3f}, busy "
-        f"{res['eager_busy']['device_busy_ms']:.3f} ms in "
-        f"{res['eager_busy']['kernels']:.0f} kernels "
-        f"({res['eager_busy']['copies']} copies, "
-        f"{res['eager_busy']['busy_share']:.1%}){fit_note}; capture "
+        f"{res['eager_pipelined_ms']:.3f}"
+        + (f", busy {res['eager_busy']['device_busy_ms']:.3f} ms in "
+           f"{res['eager_busy']['kernels']:.0f} kernels "
+           f"({res['eager_busy']['copies']} copies, "
+           f"{res['eager_busy']['busy_share']:.1%})" if eager_busy else "")
+        + f"{fit_note}; capture "
         f"{g.capture_ms:.1f} ms host (its call {capture_call_ms:.1f} ms), "
-        f"replay's top kernels {res['replay_busy']['top']}, eager's top "
-        f"kernels {res['eager_busy']['top']}, "
+        f"replay's top kernels {res['replay_busy']['top']}"
+        + (f", eager's top kernels {res['eager_busy']['top']}"
+           if eager_busy else "") + ", "
         f"graph {g.pool_bytes / 2**20:.1f} MiB, 1 capture; launches a "
         f"frame {want}; replay vs eager {spread} (eager vs itself "
         f"{self_spread})")
@@ -3982,8 +4017,8 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
     once into a CUDA graph and replayed, against its eager frame.
     bench.py's whole frame in phase 4's four configurations (cameras staged
     on the card, capture at camera 0, OP_REPLAYS later cameras replayed);
-    a camera with another zn / zf (a host leaf: captures anew, renders as
-    its eager frame); execute_jitted on the five presets, forward_plus+full
+    cameras with another zn / zf (data: the same graph replays them, each
+    as its eager frame); execute_jitted on the five presets, forward_plus+full
     and forward_classic+ssao at 1280x720 and Config #5 at 800x600 (TAA's
     history through the graph's inputs) against execute on the same states;
     and a function that reads a tensor on the host, whose capture must
@@ -4020,8 +4055,8 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
                                  _flagship_steps(jf, frame, cams),
                                  lambda o: dict(zip(FLAGSHIP_OUTS, o)), want)
         if name == "esm_b2":
-            # Another zn / zf: a host leaf, so a new key: warmed up,
-            # captured and replayed on its own, equal to its eager frame.
+            # Another zn / zf: data (0-d tensors), so the same key: the
+            # graph captured above replays it, equal to its eager frame.
             znf = []
             for i in (2, 3, 4):
                 cam, ctx_i = cams[i]
@@ -4029,22 +4064,20 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
                 znf.append((make_camera(WIDTH, HEIGHT, eye, (0, 0, 0),
                                         fov=FOV, zn=0.25, zf=40.0,
                                         device=dev), ctx_i))
-            steps = [("warm", znf[0]), ("capture", znf[1]),
-                     ("replay", znf[2])]
             before = jf.captures
-            for kind, c in steps:
+            for i, c in enumerate(znf):
                 a, b = jf(*c), frame(*c)
                 check(all(torch.equal(x, y) for x, y in zip(a, b)),
                       f"one-program flagship [{name}]: the zn 0.25 / zf 40 "
-                      f"frame ({kind}) differs from its eager frame")
-            check(jf.captures == before + 1,
+                      f"frame (replay {i}) differs from its eager frame")
+            check(jf.captures == before,
                   f"one-program flagship [{name}]: another zn / zf made "
-                  f"{jf.captures - before} captures, one expected")
-            out[name]["zn_zf_recapture"] = {"zn": 0.25, "zf": 40.0,
-                                            "captures": jf.captures}
-            log(f"one-program flagship [{name}]: a camera with zn 0.25, zf "
-                f"40 captured anew ({jf.captures} graphs) and equals its "
-                f"eager frame bit for bit")
+                  f"{jf.captures - before} captures, none expected")
+            out[name]["zn_zf_replayed"] = {"zn": 0.25, "zf": 40.0,
+                                           "captures": jf.captures}
+            log(f"one-program flagship [{name}]: cameras with zn 0.25, zf "
+                f"40 replay the same graph ({jf.captures} capture) and "
+                f"equal their eager frames bit for bit")
         del jf, frame
 
     # execute_jitted: the presets and compositions at Phase F's size, each
@@ -4107,7 +4140,12 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
 
 HP_TURNS = (0.0, 0.0, 0.03, 0.06, 0.09)   # warm, capture, replays (radians)
 FAR_SCALES = (1.5, 2.0, 3.0, 4.0)         # the overflow drill's cameras
-C23_EXTRA = 2                             # zn values past jit's bound
+C23_EXTRA = 2                             # target widths past jit's bound
+# The (zn, zf) pairs of the C23 drills (phases 32 and 33), data to one
+# graph: near planes 0.05-0.5, far planes 30-250.
+ZN_PAIRS = ((0.1, 100.0), (0.25, 40.0), (0.05, 250.0), (0.5, 60.0),
+            (0.15, 80.0), (0.3, 150.0), (0.08, 30.0), (0.2, 120.0),
+            (0.12, 50.0), (0.4, 90.0))
 
 
 def _turned(ctx, angle, dev, scale=1.0):
@@ -4238,47 +4276,78 @@ def _overflow_drill(tag, prog, ctx, dev, outs_of, want):
     return res
 
 
-def _c23_drill(prog, entry, call):
-    """Distinct zn values past jit's bound through one program (render_
-    forward on kernel B1, its public entry point): each zn a key of its
-    own, sized, warmed up and captured; at no time more than MAX_GRAPHS
-    graphs, evictions counted, the reserved memory flat once the bound is
-    reached, and returned when the graphs are released."""
+def _c23_drill(prog, entry, call, outs_of):
+    """C23: distinct (zn, zf) pairs through one program (render_forward on
+    kernel B1, its public entry point).  zn / zf are data, so every pair
+    has the key of the first: one capture, no eviction, every frame bit
+    for bit its eager frame at its pair (prog.fn at the key's
+    capacities)."""
+    jf = prog.jitted
+    captures0, evictions0 = jf.captures, jf.evictions
+    check(not jf.graphs, f"C23 drill: {len(jf.graphs)} graphs at the start")
+    for i, (zn, zf) in enumerate(ZN_PAIRS):
+        a = call(zn, zf)
+        out = entry(a)
+        _equal_outs(f"C23 drill: zn {zn} / zf {zf} (call {i}) vs its eager "
+                    f"frame", outs_of(out),
+                    outs_of(prog.fn(*a, _caps(prog, a))[0]))
+    captures, evictions = jf.captures - captures0, jf.evictions - evictions0
+    check(captures == 1 and evictions == 0 and len(jf.graphs) == 1,
+          f"C23 drill: captures {captures}, evictions {evictions}, graphs "
+          f"{len(jf.graphs)} over {len(ZN_PAIRS)} (zn, zf) pairs")
+    res = {"pairs": [list(p) for p in ZN_PAIRS], "captures": captures,
+           "evictions": evictions, "graphs": len(jf.graphs)}
+    _release(prog, call(*ZN_PAIRS[0]))
+    log(f"C23 drill: {len(ZN_PAIRS)} (zn, zf) pairs through render_forward, "
+        f"{captures} capture, {evictions} evictions; every frame equal to "
+        f"its eager frame bit for bit")
+    return res
+
+
+def _bound_drill(prog, entry, call, outs_of):
+    """jit's bound on graphs: target widths past it (a leaf that is still a
+    key, as lsr_tpu's static width is) through one program (render_forward
+    on kernel B1): each width a key of its own, sized, warmed up and
+    captured; at no time more than MAX_GRAPHS graphs, evictions counted,
+    the reserved memory flat once the bound is reached, and returned when
+    the graphs are released; the last width's replay equals its eager
+    frame."""
     from lsr_tpu_torch.utils.jit import MAX_GRAPHS
 
     jf = prog.jitted
     captures0, evictions0 = jf.captures, jf.evictions
-    check(not jf.graphs, f"C23 drill: {len(jf.graphs)} graphs at the start")
-    zns = [0.10 + 0.01 * i for i in range(MAX_GRAPHS + C23_EXTRA)]
+    check(not jf.graphs, f"bound drill: {len(jf.graphs)} graphs at the "
+          f"start")
+    widths = [WIDTH - 64 * i for i in range(MAX_GRAPHS + C23_EXTRA)]
     reserved = []
-    for zn in zns:
+    for w in widths:
         for _ in range(3):                # sizing, warm-up, capture
-            out = entry(call(zn))
+            out = entry(call(w))
             check(len(jf.graphs) <= MAX_GRAPHS,
-                  f"C23 drill: {len(jf.graphs)} graphs alive")
+                  f"bound drill: {len(jf.graphs)} graphs alive")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved.append(torch.cuda.memory_reserved() / 2**20)
-    ldr, gb = prog.fn(*call(zns[-1]), _caps(prog, call(zns[-1])))[0]
-    _equal_outs("C23 drill: the last zn's replay vs its eager frame",
-                {"ldr": out[0], "tid": out[1].tri_id},
-                {"ldr": ldr, "tid": gb.tri_id})
+    _equal_outs("bound drill: the last width's replay vs its eager frame",
+                outs_of(out),
+                outs_of(prog.fn(*call(widths[-1]),
+                                _caps(prog, call(widths[-1])))[0]))
     captures, evictions = jf.captures - captures0, jf.evictions - evictions0
-    check(captures == len(zns) and evictions == C23_EXTRA
+    check(captures == len(widths) and evictions == C23_EXTRA
           and len(jf.graphs) == MAX_GRAPHS,
-          f"C23 drill: captures {captures}, evictions {evictions}, graphs "
+          f"bound drill: captures {captures}, evictions {evictions}, graphs "
           f"{len(jf.graphs)}")
-    res = {"zn": zns, "captures": captures, "evictions": evictions,
-           "reserved_mib_after_each_zn": reserved, "bound": MAX_GRAPHS}
-    for zn in zns[C23_EXTRA:]:
-        _release(prog, call(zn))
+    res = {"widths": widths, "captures": captures, "evictions": evictions,
+           "reserved_mib_after_each_width": reserved, "bound": MAX_GRAPHS}
+    for w in widths[C23_EXTRA:]:
+        _release(prog, call(w))
     res["reserved_mib_released"] = released = \
         torch.cuda.memory_reserved() / 2**20
     check(not jf.graphs and released < reserved[-1],
-          f"C23 drill: {released:.1f} MiB reserved after the release")
-    log(f"C23 drill: {len(zns)} distinct zn through render_forward, "
+          f"bound drill: {released:.1f} MiB reserved after the release")
+    log(f"bound drill: {len(widths)} target widths through render_forward, "
         f"{captures} captures, {evictions} evictions, never more than "
-        f"{MAX_GRAPHS} graphs; reserved MiB after each zn "
+        f"{MAX_GRAPHS} graphs; reserved MiB after each width "
         f"{[round(r, 1) for r in reserved]}, {released:.1f} after the "
         f"release of the last {MAX_GRAPHS}")
     return res
@@ -4297,8 +4366,9 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     every frame from the capture on bit for bit its eager frame at the
     same capacities and the fitted eager route's, one capture; replay,
     eager and fitted eager ms, pipelined ms, busy share, capture ms, graph
-    memory.  Then the overflow drill on the high-poly frame and the C23
-    drill on render_forward.  Returns {path: result}."""
+    memory.  Then the overflow drill on the high-poly frame, the C23
+    drill and the bound drill on render_forward.  Returns {path:
+    result}."""
     from lsr_tpu_torch import highpoly as hp
     from lsr_tpu_torch import render
     from lsr_tpu_torch.frame import flagship_camera
@@ -4377,20 +4447,334 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     out["e2e_compact_chunklist"]["capacities"] = sizing
     _release(prog, calls[0])
 
-    # C23: distinct zn past the bound, through render_forward on B1.
+    # C23: distinct (zn, zf) through render_forward on B1, one graph; then
+    # jit's bound, with target widths (still keys) past it.
     eye = tuple(float(v) for v in flagship_camera(
         0, ctx, WIDTH, HEIGHT, device=dev)[0].eye.cpu())
 
-    def zn_call(zn):
-        cam = make_camera(WIDTH, HEIGHT, eye, (0, 0, 0), zn=zn, zf=100.0,
+    def zn_call(zn, zf):
+        cam = make_camera(WIDTH, HEIGHT, eye, (0, 0, 0), zn=zn, zf=zf,
                           device=dev)
         return (flag_call[0], flag_call[1], flag_call[2], cam.viewproj,
                 cam.zn, cam.zf) + flag_call[6:]
 
+    def width_call(w):
+        return flag_call[:7] + (w,) + flag_call[8:]
+
     out["c23_drill"] = _c23_drill(render.render_forward.program, forward,
-                                  zn_call)
+                                  zn_call, forward_outs)
+    out["bound_drill"] = _bound_drill(render.render_forward.program, forward,
+                                      width_call, forward_outs)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"# phase 32 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 33: zn / zf as device data (C23) and the sharded steps as one
+# program each (A18 (4), every rank on this card)
+# ---------------------------------------------------------------------------
+
+ZN_PLAIN_PAIRS = ((0.1, 100.0), (0.25, 40.0), (0.05, 250.0))
+ZN_W, ZN_H = 480, 272   # the kernels against their plain versions there
+
+
+def _drop_graphs(jf):
+    """Releases every graph a Jitted holds and forgets its warm keys."""
+    for g in jf.graphs.values():
+        g.release()
+    jf.graphs.clear()
+    jf._warm.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _sharded_program(tag, step, arg_sets, b1, b1b):
+    """One sharded step through jit against its undecorated eager step
+    (step.fn): arg_sets[0] warms up and captures, the later sets replay.
+    _one_program's checks (launches, B1b's among them, exact at every
+    call; one capture) and numbers, every call from the capture on bit for
+    bit the eager step.  Releases the graph; returns the result."""
+    zero = {k: 0 for k in _wrappers()}
+    sets = [arg_sets[0]] + list(arg_sets)
+    steps = [(lambda a=a: step(*a), lambda a=a: step.fn(*a),
+              lambda a=a: step.fn(*a)) for a in sets]
+    res = _one_program(tag, lambda: step, steps, lambda o: {"ldr": o},
+                       dict(zero, direct_raster=b1), band=b1b,
+                       eager_busy=False)
+    check(all(px == 0 for px, _ in res["replay_vs_eager"].values()),
+          f"{tag}: a replay differs from the eager step "
+          f"{res['replay_vs_eager']}")
+    res["b1b_per_step"] = b1b
+    _drop_graphs(step)
+    return res
+
+
+def sharded_program_phase(geom, objects, lights, ctx, dev):
+    """Phase 33, part 1: phase 27's sharded paths (every rank on this card)
+    as one program each, as lsr_tpu returns jax.jit(step): the flagship at
+    SHARD_WxSHARD_H with the 2048^2 sun map on (1, 1), (1, 4) and (2, 2);
+    the sharded render on (2, 2); the light-sharded forward on (sp 2, lp
+    2) and (sp 1, lp 4); the pipelined render over a stream of 4 cameras.
+    Each through _sharded_program: warm-up and capture at cameras (0, 2)
+    of the orbit, replays at (1, 3), (2, 4), (3, 5) (the pipelined stream:
+    cameras k..k+3).  Returns {path: result}."""
+    from lsr_tpu_torch.core.util import cdiv
+    from lsr_tpu_torch.frame import flagship_camera
+    from lsr_tpu_torch.lighting.local_shadows import plan_shadow_casters
+    from lsr_tpu_torch.parallel import sharding as shd
+
+    t_phase = time.perf_counter()
+    w, h = SHARD_W, SHARD_H
+    cams = [flagship_camera(i, ctx, w, h, device=dev)[0] for i in range(7)]
+    ctx0 = flagship_camera(0, ctx, w, h, device=dev)[1]
+    pairs = [(cams[k], cams[k + 2]) for k in range(4)]
+    sun = ctx.light_dir_ws
+    spots, points = plan_shadow_casters(lights)
+    n_spot, n_face = len(spots), 6 * len(points)
+    ranks = lambda n: [dev] * n  # noqa: E731
+    out = {}
+
+    def flag_args(two):
+        return (torch.stack([c.viewproj for c in two]),
+                torch.stack([c.view for c in two]), two[0].proj, two[0].zn,
+                two[0].zf, sun)
+
+    for dp, sp in ((1, 1), (1, 4), (2, 2)):
+        mesh = shd.make_mesh(dp * sp, dp=dp, devices=ranks(dp * sp))
+        step = shd.make_sharded_flagship(mesh, geom, objects, ctx0, lights,
+                                         w, h, shadow_size=SHADOW)
+        b1 = (dp * sp * (cdiv(n_spot, sp) + cdiv(n_face, sp) + 1)
+              + 2 * sp * 2)
+        b1b = (dp * sp + 2 * sp) if sp > 1 else 0
+        out[f"flagship_{dp}x{sp}"] = _sharded_program(
+            f"one-program sharded flagship (dp {dp}, sp {sp}) {w}x{h}, sun "
+            f"{SHADOW}^2", step, [flag_args(p) for p in pairs], b1, b1b)
+        del step
+
+    mesh22 = shd.make_mesh(4, dp=2, devices=ranks(4))
+    step = shd.make_sharded_render(mesh22, geom, objects, ctx0, w, h)
+    out["render_2x2"] = _sharded_program(
+        f"one-program sharded render (dp 2, sp 2) {w}x{h}", step,
+        [(torch.stack([c.viewproj for c in p]), p[0].zn, p[0].zf)
+         for p in pairs], 4, 4)
+    del step
+
+    for sp, lp in ((2, 2), (1, 4)):
+        mesh = shd.make_mesh_lp(sp * lp, sp=sp, lp=lp,
+                                devices=ranks(sp * lp))
+        step, _ = shd.make_light_sharded_forward(mesh, geom, objects, ctx0,
+                                                 lights, w, h)
+        out[f"light_sharded_{sp}x{lp}"] = _sharded_program(
+            f"one-program light-sharded forward (sp {sp}, lp {lp}) {w}x{h}",
+            step, [(p[0].viewproj, p[0].view, p[0].proj, p[0].zn, p[0].zf)
+                   for p in pairs], sp * lp, sp * lp if sp > 1 else 0)
+        del step
+
+    mesh_pp = shd.make_mesh_pp(2, devices=ranks(2))
+    stream = shd.make_pipelined_render(mesh_pp, geom, objects, ctx0, w, h)
+    out["pipelined_pp2"] = _sharded_program(
+        f"one-program pipelined render (pp 2) {w}x{h}, stream of 4", stream,
+        [(torch.stack([c.viewproj for c in cams[k:k + 4]]), cams[k].zn,
+          cams[k].zf) for k in range(4)], 4, 0)
+    out["pipelined_pp2"]["replay_ms_per_frame"] = \
+        out["pipelined_pp2"]["replay"]["ms"] / 3
+    log(f"# phase 33 part 1 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _zn_path(tag, jf, calls, outs_of, eager):
+    """(zn, zf) pairs through one program: calls in order, each output bit
+    for bit eager(call); one capture and no eviction over all of them."""
+    captures0, evictions0 = jf.captures, jf.evictions
+    for (zn, zf), run, a in calls:
+        _equal_outs(f"{tag}: zn {zn} / zf {zf} vs its eager frame",
+                    outs_of(run()), outs_of(eager(a)))
+    captures, evictions = jf.captures - captures0, jf.evictions - evictions0
+    check(captures == 1 and evictions == 0,
+          f"{tag}: {captures} captures, {evictions} evictions over "
+          f"{len(calls)} (zn, zf) pairs; one capture, none expected")
+    log(f"{tag}: {len(calls)} (zn, zf) pairs, {captures} capture, "
+        f"{evictions} evictions, every frame bit for bit its eager frame")
+    return {"pairs": len(calls), "captures": captures,
+            "evictions": evictions}
+
+
+def zn_data_phase(geom, objects, lights, ctx, dev):
+    """Phase 33, part 2: zn / zf as device data.  The ten ZN_PAIRS through
+    render_forward on kernel B1 (1920x1080, its checked program), through
+    bench.py's whole frame in its ESM default (jit(make_flagship_frame),
+    configuration (a) of phase 4) and through the sharded flagship on (1,
+    4) at SHARD_WxSHARD_H: one capture and no eviction a path, every frame
+    bit for bit its eager frame at its pair.  Then kernels B1 (four modes,
+    given targets, a B1a stack, B1b bands), B3 and B4 with z params from
+    device memory against their plain versions at the three
+    ZN_PLAIN_PAIRS, bit for bit, at ZN_W x ZN_H (the plain B1 takes ~8 s
+    a launch at 1080p).  Returns the results."""
+    from lsr_tpu_torch import render
+    from lsr_tpu_torch.frame import (
+        FOV, bench_config, flagship_camera, make_flagship_frame)
+    from lsr_tpu_torch.lighting.local_shadows import _stack_slot_setups
+    from lsr_tpu_torch.parallel import sharding as shd
+    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster.brute import rasterize_brute
+    from lsr_tpu_torch.raster.setup import (
+        DEPTH_NDC01, DEPTH_VIEWZ, scene_setup, scene_setup_slots_depth)
+    from lsr_tpu_torch.scene.scene import make_camera
+    from lsr_tpu_torch.utils.jit import jit
+
+    t_phase = time.perf_counter()
+    out = {}
+    base = [flagship_camera(i, ctx, WIDTH, HEIGHT, device=dev)
+            for i in range(len(ZN_PAIRS))]
+    eyes = [tuple(float(v) for v in c.eye.cpu()) for c, _ in base]
+
+    def cam_at(i, zn, zf, w=WIDTH, h=HEIGHT):
+        return make_camera(w, h, eyes[i], (0, 0, 0), fov=FOV, zn=zn, zf=zf,
+                           device=dev)
+
+    # render_forward on B1, through its program.
+    prog = render.render_forward.program
+    _drop_graphs(prog.jitted)
+    cols = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
+    batch = {k: getattr(geom, k) for k in cols}
+
+    def fwd(i, zn, zf):
+        cam = cam_at(i, zn, zf)
+        return (batch, objects.model, objects.normal_mat, cam.viewproj,
+                cam.zn, cam.zf, base[i][1], WIDTH, HEIGHT, "pbr_mr",
+                (0.05, 0.07, 0.12), True, 1024, 1.0, 2.2,
+                tiled.DIRECT_ROW_LIMIT)
+
+    calls = [(p, lambda a=a: render.render_forward(*a[:15]), a)
+             for p, a in ((p, fwd(i, *p)) for i, p in enumerate(ZN_PAIRS))]
+    out["render_forward_b1"] = _zn_path(
+        f"zn data: render_forward (B1) {WIDTH}x{HEIGHT}", prog.jitted, calls,
+        lambda o: {"ldr": o[0], "depth": o[1].depth01, "tid": o[1].tri_id},
+        lambda a: prog.fn(*a, _caps(prog, a))[0])
+    _drop_graphs(prog.jitted)
+
+    # bench.py's whole frame, configuration (a).
+    frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH, HEIGHT,
+                                **bench_config("esm", WIDTH, HEIGHT))
+    jf = jit(frame)
+    args = [(cam_at(i, *p), base[i][1]) for i, p in enumerate(ZN_PAIRS)]
+    calls = [(p, lambda a=a: jf(*a), a) for p, a in zip(ZN_PAIRS, args)]
+    out["flagship_esm_b2"] = _zn_path(
+        f"zn data: flagship [esm_b2] {WIDTH}x{HEIGHT}", jf, calls,
+        lambda o: dict(zip(FLAGSHIP_OUTS, o)), lambda a: frame(*a))
+    _drop_graphs(jf)
+    del jf, frame
+
+    # The sharded flagship on (1, 4).
+    w, h = SHARD_W, SHARD_H
+    ctx0 = flagship_camera(0, ctx, w, h, device=dev)[1]
+    mesh = shd.make_mesh(4, dp=1, devices=[dev] * 4)
+    step = shd.make_sharded_flagship(mesh, geom, objects, ctx0, lights, w, h,
+                                     shadow_size=SHADOW)
+    args = []
+    for i, p in enumerate(ZN_PAIRS):
+        two = [cam_at(i, *p, w, h), cam_at((i + 2) % len(eyes), *p, w, h)]
+        args.append((torch.stack([c.viewproj for c in two]),
+                     torch.stack([c.view for c in two]), two[0].proj,
+                     two[0].zn, two[0].zf, ctx.light_dir_ws))
+    calls = [(p, lambda a=a: step(*a), a) for p, a in zip(ZN_PAIRS, args)]
+    out["sharded_flagship_1x4"] = _zn_path(
+        f"zn data: sharded flagship (dp 1, sp 4) {w}x{h}", step, calls,
+        lambda o: {"ldr": o}, lambda a: step.fn(*a))
+    _drop_graphs(step)
+    del step
+
+    # B1, B3 and B4 with z params from device memory against their plain
+    # versions.
+    rows, strays = [], 0
+    for zn, zf in ZN_PLAIN_PAIRS:
+        cam = cam_at(0, zn, zf, ZN_W, ZN_H)
+        setup = scene_setup(
+            geom.positions, geom.normals, geom.uvs, geom.indices,
+            geom.vtx_obj, geom.tri_obj, objects.model, objects.normal_mat,
+            cam.viewproj, ZN_W, ZN_H)
+        tag = f"zn {zn} / zf {zf}"
+        for name, sort, mode, track in (
+                ("sort,viewz,ids", True, DEPTH_VIEWZ, True),
+                ("unsorted,viewz,ids", False, DEPTH_VIEWZ, True),
+                ("sort,viewz,depth-only", True, DEPTH_VIEWZ, False),
+                ("unsorted,ndc01,ids", False, DEPTH_NDC01, True)):
+            _vs_plain(f"B1 {tag} [{name}]", lambda: tiled.rasterize_direct(
+                setup, ZN_W, ZN_H, cam.zn, cam.zf, depth_mode=mode,
+                track_ids=track, spatial_sort=sort), lambda: rasterize_brute(
+                setup, ZN_W, ZN_H, cam.zn, cam.zf, depth_mode=mode), track)
+        d_in = torch.full((ZN_H, ZN_W), 0.25, dtype=torch.float32,
+                          device=dev)
+        t_in = torch.full((ZN_H, ZN_W), 1 << 20, dtype=torch.int32,
+                          device=dev)
+        _vs_plain(f"B1 {tag} [given targets]",
+                  lambda: tiled.rasterize_direct(
+                      setup, ZN_W, ZN_H, cam.zn, cam.zf, depth_init=d_in,
+                      tid_init=t_in, spatial_sort=True),
+                  lambda: rasterize_brute(setup, ZN_W, ZN_H, cam.zn,
+                                          cam.zf, depth_init=d_in,
+                                          tid_init=t_in))
+        # B1a: a stack of two 256^2 slots (this camera and the next), view-z
+        # depth at the pair.
+        vp2 = torch.stack([cam.viewproj,
+                           cam_at(1, zn, zf, ZN_W, ZN_H).viewproj])
+        ts = scene_setup_slots_depth(
+            geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
+            objects.model, vp2, 256,
+            obj_visible_slots=objects.visible[None].expand(2, -1))
+        st = _stack_slot_setups(ts, 256)
+        d0, t0 = targets(256, 512, dev)
+        _vs_plain(f"B1a {tag} [2 slots of 256^2, viewz]",
+                  lambda: tiled.rasterize_direct(st, 256, 512, cam.zn,
+                                                 cam.zf, band_h=256),
+                  lambda: tiled._banded_brute(st, 256, 512, 256, cam.zn,
+                                              cam.zf, d0, t0, DEPTH_VIEWZ))
+        # B1b: each band against the plain raster at its global rows, bit
+        # for bit but on stray sliver pixels (ROADMAP C8, counted), the
+        # bands against B1's full-frame launch bit for bit.
+        kw = dict(depth_mode=DEPTH_VIEWZ, track_ids=True, spatial_sort=True)
+        band = ZN_H // B1B_BANDS
+        full = tiled.rasterize_direct(setup, ZN_W, ZN_H, cam.zn, cam.zf,
+                                      **kw)
+        parts = [_b1b_band(f"B1b {tag} band {i}", setup, ZN_W, band, cam.zn,
+                           cam.zf, i * band, ZN_H, kw, False, strays=True)
+                 for i in range(B1B_BANDS)]
+        strays += sum(r["stray_px"] for r, _, _ in parts)
+        check(torch.equal(torch.cat([d for _, d, _ in parts]), full[0])
+              and torch.equal(torch.cat([t for _, _, t in parts]), full[1]),
+              f"B1b {tag}: the bands differ from the full-frame launch")
+        d0, t0 = targets(ZN_W, ZN_H, dev)
+        _b3_vs_plain(f"{tag} 32x128 chunk 8", setup, ZN_W, ZN_H, cam.zn,
+                     cam.zf, 32, 8, 1024, True, d0, t0)
+        _b4_vs_plain(f"{tag} viewz, ids", setup, ZN_W, ZN_H, cam.zn,
+                     cam.zf, DEPTH_VIEWZ, True, 0, ZN_H)
+        _b4_vs_plain(f"{tag} viewz, ids, y_offset half band", setup, ZN_W,
+                     ZN_H, cam.zn, cam.zf, DEPTH_VIEWZ, True, ZN_H // 2,
+                     ZN_H)
+        rows.append([zn, zf])
+    out["kernels_vs_plain"] = {"pairs": rows, "size": [ZN_W, ZN_H],
+                               "b1_modes": 4,
+                               "b1_given_targets": True, "b1a": True,
+                               "b1b_bands": B1B_BANDS,
+                               "b1b_stray_px": strays, "b3": True, "b4": 2}
+    log(f"zn data: B1 (4 modes, given targets, B1a, {B1B_BANDS} B1b "
+        f"bands), B3 and B4 with z params from device memory equal their "
+        f"plain versions bit for bit at {ZN_W}x{ZN_H}, pairs {rows} (B1b "
+        f"but on {strays} stray sliver px, C8)")
+    log(f"# phase 33 part 2 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase33(geom, objects, lights, ctx, dev):
+    """Phase 33: the sharded steps as one program each (part 1), zn / zf
+    as device data (part 2).  `python3 chip_smoke.py --phase33` runs it
+    alone."""
+    t0 = time.perf_counter()
+    out = {"sharded": sharded_program_phase(geom, objects, lights, ctx, dev),
+           "zn_data": zn_data_phase(geom, objects, lights, ctx, dev)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 33 took {out['seconds']:.1f} s")
     return out
 
 
@@ -4829,6 +5213,12 @@ def main():
             HP_GRID, device=dev), dev)
         log(f"phase 32 alone: ok ({card})")
         return 0
+    if sys.argv[1:] == ["--phase33"]:
+        # Phase 33 alone (the sharded steps as one program, zn / zf as
+        # data).
+        phase33(geom, objects, lights, ctx, dev)
+        log(f"phase 33 alone: ok ({card})")
+        return 0
 
     cam0, ctx0 = cams[0]
     st = flagship_stages(geom, objects, lights, ctx, cam0, ctx0, WIDTH, HEIGHT,
@@ -4928,6 +5318,8 @@ def main():
     b1b = b1b_phase(geom, objects, ctx, st["setup"], cam0)
     entry_log("direct_raster (y_offset, B1b)", b1b)
     shard = sharded_phase(geom, objects, lights, ctx, dev)
+    # The sharded steps as one program each, and zn / zf as device data.
+    p33 = phase33(geom, objects, lights, ctx, dev)
 
     # lsr_tpu's demo entry points, each a main path of its own with its
     # counts.
@@ -4969,6 +5361,16 @@ def main():
     log("summary: sharded paths at {}x{}, all ranks on this card one after "
         "another, median ms a step {}".format(
             SHARD_W, SHARD_H, {k: f"{v['ms']:.3f}" for k, v in shard.items()}))
+    log("summary: phase 33, sharded steps as one program at {}x{} (replay "
+        "/ eager ms a step, busy ms of a replay, graph MiB): {}; zn / zf "
+        "as data: {}".format(
+            SHARD_W, SHARD_H,
+            {k: f"{v['replay']['ms']:.3f} / {v['eager']['ms']:.3f}, "
+                f"{v['replay_busy']['device_busy_ms']:.3f}, "
+                f"{v['graph_bytes'] / 2**20:.1f}"
+             for k, v in p33["sharded"].items()},
+            {k: v["captures"] for k, v in p33["zn_data"].items()
+             if "captures" in v}))
     log("summary: demos, median ms/frame {}".format(
         {k: f"{v['ms']:.3f} [{v['ms_min']:.3f}, {v['ms_max']:.3f}]"
          for k, v in demos.items()}))
@@ -5081,7 +5483,23 @@ def main():
                   "ms", "ranks", "steps", "b1_per_step", "b1b_per_step",
                   "launches", "b1b_launches", "busy_ms", "b1_kernel_ms",
                   "b1b_kernel_ms", "b1b_stray_px") if f in v}
-                       for k, v in shard.items()}),
+                       for k, v in shard.items()},
+              sharded_one_program={k: {
+                  "replay": {f: v["replay"][f] for f in (
+                      "ms", "ms_min", "ms_max")},
+                  "eager": {f: v["eager"][f] for f in (
+                      "ms", "ms_min", "ms_max")},
+                  "replay_pipelined_ms": v["replay_pipelined_ms"],
+                  "eager_pipelined_ms": v["eager_pipelined_ms"],
+                  "replay_busy_ms": v["replay_busy"]["device_busy_ms"],
+                  "replay_kernels": v["replay_busy"]["kernels"],
+                  "capture_ms": v["capture_ms"],
+                  "graph_mib": v["graph_bytes"] / 2**20,
+                  "captures": v["captures"],
+                  "launches_per_step": v["launches_per_frame"][
+                      "direct_raster"],
+                  "b1b_per_step": v["b1b_per_step"]}
+                  for k, v in p33["sharded"].items()}),
         entry("shade_fused", "shade_fused.cu",
               "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
               b2, planes=sub(planes["b2"], "kernel_ms_planeless",
@@ -5156,6 +5574,8 @@ def main():
             k["one_program_overflow_drill"] = hp_program["overflow_drill"]
         if k["name"] == "direct_raster":
             k["one_program_c23_drill"] = hp_program["c23_drill"]
+            k["one_program_bound_drill"] = hp_program["bound_drill"]
+            k["zn_data"] = p33["zn_data"]
     log("summary: phases 31-32, one-program frames (replay / eager ms a "
         "frame, busy share of a replay): {}".format(
             {k: f"{v['replay']['ms']:.3f} / {v['eager']['ms']:.3f}, "

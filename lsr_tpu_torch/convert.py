@@ -28,6 +28,7 @@ from lsr_tpu_torch.scene.scene import (
     CameraState,
     GeometryBatch,
     ObjectsSoA,
+    f32_scalar,
     geometry_from_numpy,
 )
 from lsr_tpu_torch.shading.common import MaterialsSoA
@@ -193,8 +194,8 @@ def camera_state(camera, device) -> CameraState:
     return CameraState(
         view=t("view"), proj=t("proj"), viewproj=t("viewproj"),
         prev_viewproj=t("prev_viewproj"), eye=t("eye"),
-        zn=float(np.float32(_np(camera, "zn"))),
-        zf=float(np.float32(_np(camera, "zf"))),
+        zn=f32_scalar(_np(camera, "zn"), device),
+        zf=f32_scalar(_np(camera, "zf"), device),
     )
 
 

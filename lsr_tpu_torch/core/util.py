@@ -43,6 +43,15 @@ def device_const(values, device, dtype=torch.float32):
     return t
 
 
+def f32_on(x, device):
+    """x as a 0-d f32 tensor on `device`: a tensor (a camera's zn / zf, data
+    as in lsr_tpu) as it lies when it is one already, a host number as a
+    memoised device_const."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return device_const(x, device)
+
+
 def default_device() -> torch.device:
     """The device the port's entry points use when the caller names none:
     the CUDA card.  Raises when there is no card; the CPU (the kernels'

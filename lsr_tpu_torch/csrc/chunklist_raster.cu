@@ -71,8 +71,11 @@ chunklist_raster_kernel(const float4* __restrict__ rec,   // (n_pad, 16)
                         int* __restrict__ tid_out,
                         int width, int height, int tile_w, int tile_h,
                         int tiles_x, int ccap, int chunk_log2, int sub_h,
-                        float zn, float inv_range, int y_offset, float max_py,
-                        int depth_mode, int track_ids) {
+                        const float* __restrict__ zparams,  // zn, inv_range
+                        int y_offset, float max_py, int depth_mode,
+                        int track_ids) {
+  // The z params are data (lsr_tpu's z_ref): one broadcast load a warp.
+  const float zn = __ldg(zparams), inv_range = __ldg(zparams + 1);
   // The block lies inside one tile (tile_w, tile_h are multiples of 16).
   int bx, by;
   const int tile = lsr::walk_block(order, tile_w, tile_h, tiles_x, bx, by);
@@ -111,7 +114,7 @@ extern "C" int lsr_chunklist_raster(const void* rec, const void* clists,
                                     int height,
                                     int tile_w, int tile_h, int tiles_x,
                                     int tiles_y, int ccap, int chunk,
-                                    int sub_h, float zn, float inv_range,
+                                    int sub_h, const void* zparams,
                                     int y_offset, float max_py,
                                     int depth_mode, int track_ids,
                                     void* stream) {
@@ -127,6 +130,6 @@ extern "C" int lsr_chunklist_raster(const void* rec, const void* clists,
       (const long long*)order, (const float*)depth_in, (const int*)tid_in,
       (float*)depth_out,
       (int*)tid_out, width, height, tile_w, tile_h, tiles_x, ccap, chunk_log2,
-      sub_h, zn, inv_range, y_offset, max_py, depth_mode, track_ids);
+      sub_h, (const float*)zparams, y_offset, max_py, depth_mode, track_ids);
   return (int)cudaGetLastError();
 }

@@ -108,9 +108,11 @@ direct_raster_kernel(const float4* __restrict__ rec,      // (n_pad, 16) f32
                      float* __restrict__ depth_out,
                      int* __restrict__ tid_out,
                      int width, int height, int tiles_x, int scap,
-                     float zn, float inv_range, float max_py,
-                     int depth_mode, int track_ids, int band_h,
+                     const float* __restrict__ zparams,  // (2,) zn, inv_range
+                     float max_py, int depth_mode, int track_ids, int band_h,
                      int y_offset) {
+  // The z params are data (lsr_tpu's z_ref): one broadcast load a warp.
+  const float zn = __ldg(zparams), inv_range = __ldg(zparams + 1);
   const int bx = blockIdx.x * lsr::kBlock, by = blockIdx.y * lsr::kBlock;
   // A band_h stack (B1a): the block's coverage rows are its rows inside its
   // band (band_h is a multiple of the block), bounded by band_h - 1; its
@@ -161,7 +163,7 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
                                  const void* depth_in, const void* tid_in,
                                  void* depth_out, void* tid_out,
                                  int width, int height, int tiles_x, int scap,
-                                 float zn, float inv_range, float max_py,
+                                 const void* zparams, float max_py,
                                  int depth_mode, int track_ids, int tie_tid,
                                  int band_h, int y_offset, void* stream) {
   if (band_h % lsr::kBlock || (band_h && tie_tid) || (band_h && y_offset)
@@ -175,7 +177,7 @@ extern "C" int lsr_direct_raster(const void* rec, const void* chunk_bb,
   kern<<<grid, lsr::kThreads, smem, (cudaStream_t)stream>>>(
       (const float4*)rec, (const float4*)chunk_bb, (const int*)slists,
       (const int*)counts, (const float*)depth_in, (const int*)tid_in,
-      (float*)depth_out, (int*)tid_out, width, height, tiles_x, scap, zn,
-      inv_range, max_py, depth_mode, track_ids, band_h, y_offset);
+      (float*)depth_out, (int*)tid_out, width, height, tiles_x, scap,
+      (const float*)zparams, max_py, depth_mode, track_ids, band_h, y_offset);
   return (int)cudaGetLastError();
 }

@@ -86,8 +86,11 @@ tiled_raster_kernel(const float4* __restrict__ rec,   // (n_pad, 16) f32
                     float* __restrict__ depth_out,
                     int* __restrict__ tid_out,
                     int width, int height, int tile_w, int tile_h,
-                    int tiles_x, int cap, float zn, float inv_range,
+                    int tiles_x, int cap,
+                    const float* __restrict__ zparams,  // (2,) zn, inv_range
                     int y_offset, float max_py, int depth_mode) {
+  // The z params are data (lsr_tpu's z_ref): one broadcast load a warp.
+  const float zn = __ldg(zparams), inv_range = __ldg(zparams + 1);
   // The block lies inside one tile (tile_w, tile_h are multiples of 16).
   int bx, by;
   const int tile = lsr::walk_block(order, tile_w, tile_h, tiles_x, bx, by);
@@ -118,8 +121,8 @@ extern "C" int lsr_tiled_raster(const void* rec, const void* lists,
                                 void* depth_out,
                                 void* tid_out, int width, int height,
                                 int tile_w, int tile_h, int tiles_x,
-                                int tiles_y, int cap, float zn,
-                                float inv_range, int y_offset, float max_py,
+                                int tiles_y, int cap, const void* zparams,
+                                int y_offset, float max_py,
                                 int depth_mode, void* stream) {
   constexpr size_t smem = lsr::walk_smem_bytes(false);
   const int grid = tiles_x * tiles_y * (tile_w / lsr::kBlock)
@@ -128,7 +131,7 @@ extern "C" int lsr_tiled_raster(const void* rec, const void* lists,
       (const float4*)rec, (const int*)lists, (const int*)counts,
       (const long long*)order, (const float*)depth_in, (const int*)tid_in,
       (float*)depth_out,
-      (int*)tid_out, width, height, tile_w, tile_h, tiles_x, cap, zn,
-      inv_range, y_offset, max_py, depth_mode);
+      (int*)tid_out, width, height, tile_w, tile_h, tiles_x, cap,
+      (const float*)zparams, y_offset, max_py, depth_mode);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from lsr_tpu_torch.core import math3d as m3
+from lsr_tpu_torch.core.util import f32_on
 from lsr_tpu_torch.raster.setup import CULL_BACK, scene_setup_depth
 from lsr_tpu_torch.raster.tiled import rasterize_direct
 
@@ -53,7 +54,8 @@ def occlusion_cull_aabbs(depth, viewproj, wmins, wmaxs, zn, zf,
     """(B,) bool, True = potentially visible: the AABB's nearest corner
     depth is not behind the HiZ max over its screen rectangle.  AABBs that
     reach behind the near plane or whose rectangle lies off screen are kept
-    (is_rect_occluded, culling_software.hpp:201-250)."""
+    (is_rect_occluded, culling_software.hpp:201-250).  zn / zf: 0-d f32
+    tensors (a camera's) or host numbers."""
     h, w = depth.shape
     dev = depth.device
     pyr = build_hiz_pyramid(depth, levels)
@@ -78,9 +80,12 @@ def occlusion_cull_aabbs(depth, viewproj, wmins, wmaxs, zn, zf,
     degenerate = ((sx_max < 0) | (sx_min > w - 1) | (sy_max < 0)
                   | (sy_min > h - 1))
 
-    # The object's nearest depth, conservatively its smallest corner w.
+    # The object's nearest depth, conservatively its smallest corner w,
+    # mapped by zn / zf in f32 on the device, as lsr_tpu (occlusion.py:119).
     view_z = wc.amin(dim=1)
-    obj_z01 = torch.clamp((view_z - zn) / max(zf - zn, 1e-6), 0.0, 1.0)
+    zn, zf = f32_on(zn, dev), f32_on(zf, dev)
+    obj_z01 = torch.clamp((view_z - zn) / torch.clamp(zf - zn, min=1e-6),
+                          0.0, 1.0)
 
     # The level where the rectangle spans at most two texels, and the max of
     # its 2x2 footprint there.

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from lsr_tpu_torch.core.util import cdiv, device_const, resolve_device
+from lsr_tpu_torch.core.util import cdiv, device_const, f32_on, resolve_device
 from lsr_tpu_torch.geometry.support_shapes import (
     light_culling_shapes,
     support_max_dot,
@@ -157,11 +157,12 @@ def tile_depth_ranges_from_buffer(depth01, zn, zf, width, height, tile_size,
 def cluster_slice_bounds(zn, zf, slices: int, device=None):
     """(slices + 1,) logarithmic view-z slice boundaries zn * (zf / zn) **
     (k / slices), the inverse of view_depth_to_cluster_slice, on `device`
-    (default: the card, core.util.default_device).  zn and zf (host
-    floats) become f32 tensors, so that zf / zn rounds in f32 as lsr_tpu's
+    (default: the card, core.util.default_device).  zn and zf: 0-d f32
+    tensors (a camera's: data, as in lsr_tpu) or host numbers, which become
+    memoised f32 constants; either way zf / zn rounds in f32 as lsr_tpu's
     does."""
     device = resolve_device(device)
-    zn_t, zf_t = device_const(zn, device), device_const(zf, device)
+    zn_t, zf_t = f32_on(zn, device), f32_on(zf, device)
     k = torch.arange(slices + 1, dtype=torch.float32, device=device) / slices
     return zn_t * torch.pow(zf_t / zn_t, k)
 
@@ -169,8 +170,7 @@ def cluster_slice_bounds(zn, zf, slices: int, device=None):
 def view_depth_to_cluster_slice(view_z, zn, zf, slices: int):
     """Logarithmic cluster slice of each view depth, floor(log(z / zn) /
     log(zf / zn) * slices) clamped to [0, slices - 1]; int64."""
-    zn_t, zf_t = device_const(zn, view_z.device), device_const(zf,
-                                                               view_z.device)
+    zn_t, zf_t = f32_on(zn, view_z.device), f32_on(zf, view_z.device)
     t = torch.log(torch.clamp(view_z, min=1e-6) / zn_t) \
         / torch.log(zf_t / zn_t)
     return torch.clamp(torch.floor(t * slices).to(torch.int64), 0,

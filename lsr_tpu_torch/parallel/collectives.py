@@ -8,7 +8,10 @@ mesh axis, in rank order, as a list of tensors (part r on rank r's device)
 and returns the list each rank receives, every entry on its receiver's
 device (devices: the receivers' devices, in rank order).  Nothing here
 uses torch.distributed: a part moves to another device with Tensor.to,
-which is a no-op when the ranks share one device.
+which is a no-op when the ranks share one device.  There every collective
+is device work alone (a concatenation, a fill, a sum), with no host read
+or copy, so a step whose ranks share one card stays capturable as one
+CUDA graph (utils.jit).
 
   all_gather  lax.all_gather(x, axis, axis=0, tiled=True)
   ppermute    lax.ppermute(x, axis, perm)

@@ -8,7 +8,9 @@ XLA host devices instead), checks each mesh's frames against the (1, 1)
 mesh's or the unsharded render, and prints one JSON row per mesh shape:
 {"phase": "multichip", "path", "dp" / "sp" / "lp" / "pp", "ranks", "w",
 "h", "step_ms", "platform", "device", ...}.  All ranks share the device,
-so step_ms is the time of the ranks run one after another on it.
+so each step is one program (parallel.sharding, utils.jit): on the card
+step_ms is the time of a replayed step, the ranks' work one after another
+on the device.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ def _sync(device):
 
 
 def _timed(run, device, iters=3):
-    """(last output, mean host ms of `iters` runs after one warm-up)."""
+    """(last output, mean host ms of `iters` runs after two: the step's
+    warm-up and, on the card, its capture)."""
+    run()
     out = run()
     _sync(device)
     t0 = time.perf_counter()

@@ -15,12 +15,26 @@ model.  A Mesh is an array of torch devices shaped by its axes; a step
 runs each rank's work in rank order, on that rank's device, and splits it
 at each collective (parallel/collectives.py: all_gather, ppermute, psum over
 per-rank lists).  Every tensor a rank reads is a copy on its device, made
-once when the step is built.  With several ranks on one card (devices=
-[torch.device("cuda", 0)] * n) the ranks run one after another on it;
-with one card per rank, a rank's launches are enqueued on its card while
-the host goes on to the next rank, so the cards' work overlaps as far as
-the host's enqueueing lets it, and the host waits only where a collective
-copies between cards.  Nothing here uses torch.distributed.
+once when the step is built, and so is everything a step would otherwise
+read on the host (the shadow slots' plan).  Nothing here uses
+torch.distributed.
+
+One program a step, as lsr_tpu returns jax.jit(step) (sharding.py:320,
+:368, :500, :614): where every rank of the mesh lies on one device (all
+ranks on one card, devices=[torch.device("cuda", 0)] * n, or the CPU),
+each make_* returns utils.jit.jit(step): on the card the whole step, every
+rank's work in rank order with its collectives (and for pp the whole
+camera stream), is captured once into a CUDA graph and replayed; zn / zf
+and the cameras are data, so its key is only shapes (the stream length
+among them).  CPU inputs run the step eagerly, as jit does; a capture
+that fails raises CaptureError, never an eager step in its place.  The
+undecorated step is the Jitted's .fn.  A mesh whose ranks lie on more
+than one CUDA device keeps the eager step, decided from the mesh when the
+step is built: a CUDA graph captures one device's stream, so per-card
+graphs with device-side collectives wait for a multi-GPU cell.  There a
+rank's launches are enqueued on its card while the host goes on to the
+next rank, so the cards' work overlaps as far as the host's enqueueing
+lets it, and the host waits only where a collective copies between cards.
 
 Outputs come back assembled on rank (0, 0)'s device in lsr_tpu's layout:
 (B, H, W, 3) u8 for dp x sp, (H, W, 3) for lp, (N, H, W, 3) for pp.
@@ -71,6 +85,7 @@ from lsr_tpu_torch.shading.models import (
     _norm,
     composite_over_background,
 )
+from lsr_tpu_torch.utils.jit import jit
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -148,6 +163,14 @@ def _replicas(mesh: Mesh, state) -> dict:
     return {d: replicate(state, d) for d in dict.fromkeys(mesh.devices.flat)}
 
 
+def _program(mesh: Mesh, step, name: str):
+    """step as one program (utils.jit) when every rank of the mesh lies on
+    one device; the eager step when they span several CUDA devices."""
+    if len(set(mesh.devices.flat)) == 1:
+        return jit(step, name)
+    return step
+
+
 def _band_lists(lists, tiles_x: int, row0: int, rows: int):
     """Tile rows [row0, row0 + rows) of full-frame tile lists (tiles, cap)."""
     return lists.reshape(-1, tiles_x, lists.shape[-1])[
@@ -193,7 +216,8 @@ def make_sharded_render(mesh: Mesh, geom, objects, shade_ctx, width: int,
                         cap: int = 512):
     """step(viewprojs (B, 4, 4), zn, zf) -> (B, height, width, 3) u8 on rank
     (0, 0)'s device.  Rank (d, s) renders band s of the cameras of dp slice
-    d (B / dp of them) with render_band; no collective."""
+    d (B / dp of them) with render_band; no collective.  One program on a
+    one-device mesh (see the module docstring)."""
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
     assert height % sp == 0, "height must divide by sp bands"
     band_h = height // sp
@@ -208,14 +232,14 @@ def make_sharded_render(mesh: Mesh, geom, objects, shade_ctx, width: int,
                 dev = mesh.devices[d, s]
                 g, o, ctx = reps[dev]
                 vps = viewprojs[d * per:(d + 1) * per].to(dev)
-                bands.append([render_band(g, o, vp, float(zn), float(zf), ctx,
+                bands.append([render_band(g, o, vp, zn, zf, ctx,
                                           width, height, band_h, s * band_h,
                                           model_name=model_name, cap=cap)
                               for vp in vps])
             out += _assemble(bands, mesh.devices[0, 0])
         return torch.stack(out)
 
-    return step
+    return _program(mesh, step, "sharded_render")
 
 
 def _assemble(bands, device):
@@ -266,7 +290,9 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
     multiple of dp.  Kernel B1 launches per step: on each of the dp * sp
     ranks, cdiv(n_spot, sp) + cdiv(n_point_faces, sp) slots and one sun
     band; per camera and rank, one occluder raster (with_cull) and one
-    camera band."""
+    camera band.  The shadow slots are planned once here (lsr_tpu plans
+    them statically); the step is one program on a one-device mesh (see
+    the module docstring)."""
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
     assert height % sp == 0 and (height // sp) % tile_size == 0, (
         "height must split into sp bands of whole light tiles")
@@ -295,6 +321,9 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
             strength=strengths, kinds=tuple(kinds),
             base_slots=tuple(base_slots))
 
+    # The slots' plan per device, once: the lights are the step's state.
+    plans = {dev: stacks(rep[3]) for dev, rep in reps.items()}
+
     def slice_of(vp_stack, s):
         """Rank s's slice of a stack, padded with zero view-projections:
         (view-projections (per, 4, 4), real slots in it)."""
@@ -310,7 +339,7 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
         g, o, _, lt = reps[dev]
         caster_mask = o.casts_shadow & o.visible
         parts = {}
-        plan = stacks(lt)
+        plan = plans[dev]
         if plan is not None:
             for key, vp, size in (("spot", plan["spot_viewproj"], local_map),
                                   ("point", plan["point_viewproj"],
@@ -377,7 +406,6 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
 
     def step(viewprojs, views, proj, zn, zf, sun_dir):
         per = _check_cameras(viewprojs.shape[0], dp)
-        zn, zf = float(zn), float(zf)
         frames = []
         for d in range(dp):
             devs = list(mesh.devices[d])
@@ -434,7 +462,7 @@ def make_sharded_flagship(mesh: Mesh, geom, objects, shade_ctx, lights,
             frames += _assemble(out, mesh.devices[0, 0])
         return torch.stack(frames)
 
-    return step
+    return _program(mesh, step, "sharded_flagship")
 
 
 def _pad_lights(lights, lp: int):
@@ -481,9 +509,10 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
     light sum.
 
     Returns (step, light_shards): step(viewproj, view, proj, zn, zf) ->
-    (height, width, 3) u8 on rank (0, 0)'s device; light_shards[l] is lp
-    rank l's slice of the padded lights (lsr_tpu returns the lights'
-    sharding in its place)."""
+    (height, width, 3) u8 on rank (0, 0)'s device, one program on a
+    one-device mesh (see the module docstring); light_shards[l] is lp rank
+    l's slice of the padded lights (lsr_tpu returns the lights' sharding in
+    its place)."""
     sp, lp = mesh.shape["sp"], mesh.shape["lp"]
     assert height % sp == 0 and (height // sp) % tile_size == 0, (
         "height must split into sp bands of whole light tiles")
@@ -495,7 +524,6 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
     reps = _replicas(mesh, (geom, objects, shade_ctx, shards))
 
     def step(viewproj, view, proj, zn, zf):
-        zn, zf = float(zn), float(zf)
         bands = []
         for s in range(sp):
             devs = list(mesh.devices[s])
@@ -536,7 +564,7 @@ def make_light_sharded_forward(mesh: Mesh, geom, objects, shade_ctx, lights,
                                                                 bg)))
         return torch.cat([b.to(mesh.devices[0, 0]) for b in bands])
 
-    return step, shards
+    return _program(mesh, step, "light_sharded_forward"), shards
 
 
 def _gbuffer_zeros(height: int, width: int, device):
@@ -567,7 +595,8 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx, width: int,
     uncovered carry: background), to be discarded.
 
     stream(viewprojs (N, 4, 4), zn, zf) -> (N, height, width, 3) u8 on rank
-    0's device."""
+    0's device; on a one-device mesh the whole stream is one program, as
+    lsr_tpu's lax.scan is (N is part of its key)."""
     assert mesh.shape["pp"] == 2, "2-stage pipeline: pp axis must be 2"
     devs = list(mesh.devices)
     reps = _replicas(mesh, (geom, objects, shade_ctx))
@@ -594,7 +623,6 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx, width: int,
             if isinstance(x := getattr(gb, f.name), torch.Tensor)})
 
     def stream(viewprojs, zn, zf):
-        zn, zf = float(zn), float(zf)
         carry = _gbuffer_zeros(height, width, devs[1])
         out = []
         for vp in viewprojs:
@@ -602,4 +630,4 @@ def make_pipelined_render(mesh: Mesh, geom, objects, shade_ctx, width: int,
             carry = send(stage0(vp.to(devs[0]), zn, zf))
         return torch.stack(out)
 
-    return stream
+    return _program(mesh, stream, "pipelined_render")

@@ -18,7 +18,7 @@ import dataclasses
 import torch
 
 from lsr_tpu_torch.core.image import resize_bilinear
-from lsr_tpu_torch.core.util import device_const
+from lsr_tpu_torch.core.util import device_const, f32_on
 from lsr_tpu_torch.lighting.light_culling import (
     cull_lights_clustered,
     cull_lights_tiled,
@@ -176,11 +176,11 @@ def _shade_fused_branch(gb, ctx, lights, view, proj, zn, zf, width, height,
 
 
 def _cluster_of_pixel(depth01, zn, zf, slices):
-    """The log-Z slice of each pixel's view depth."""
-    zn_t = device_const(zn, depth01.device)
-    zf_t = device_const(zf, depth01.device)
-    return view_depth_to_cluster_slice(zn_t + depth01 * (zf_t - zn_t), zn,
-                                       zf, slices)
+    """The log-Z slice of each pixel's view depth (zn / zf: 0-d f32
+    tensors, or host numbers as memoised constants)."""
+    zn_t, zf_t = f32_on(zn, depth01.device), f32_on(zf, depth01.device)
+    return view_depth_to_cluster_slice(zn_t + depth01 * (zf_t - zn_t), zn_t,
+                                       zf_t, slices)
 
 
 def _shade_general_branch(gb, ctx, lights, view, proj, zn, zf, width, height,

@@ -12,19 +12,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lsr_tpu_torch.core.util import device_const, f32_on
 from lsr_tpu_torch.raster.setup import DEPTH_VIEWZ, TriSetup
 
 
-def depth_params(zn: float, zf: float):
-    """(zn, inv_range) as the float32 values the raster uses:
+def depth_params(zn, zf):
+    """(zn, inv_range) of host floats as the float32 values the raster uses:
     inv_range = 1 / max(zf - zn, 1e-6), all in f32 like lsr_tpu."""
     zn32 = np.float32(zn)
     rng = np.maximum(np.float32(zf) - zn32, np.float32(1e-6))
     return float(zn32), float(np.float32(1.0) / rng)
 
 
-def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
-                    zf: float, depth_init=None, tid_init=None,
+def zparams(zn, zf, device):
+    """The rasters' z params as data: a (2,) f32 tensor [zn, inv_range] on
+    `device`, the port's z_ref (lsr_tpu/raster/tiled.py:585-589), which
+    kernels B1, B3 and B4 and their plain versions read.  zn / zf are 0-d
+    tensors (a camera's, lsr_tpu's data fields) or host numbers.  Tensors
+    give [zn, 1 / clamp_min(zf - zn, 1e-6)] by device ops, the same IEEE
+    f32 operations as depth_params, so the pair is bit for bit
+    depth_params' and one captured frame serves every zn / zf.  Host
+    numbers give depth_params' pair as a memoised device_const (the sun
+    map's (0.0, 1.0)): a captured frame makes no constant after its
+    warm-up."""
+    if isinstance(zn, torch.Tensor) or isinstance(zf, torch.Tensor):
+        zn, zf = f32_on(zn, device), f32_on(zf, device)
+        inv = torch.reciprocal(torch.clamp(zf - zn, min=1e-6))
+        return torch.stack([zn.reshape(()), inv.reshape(())])
+    return device_const(depth_params(zn, zf), device)
+
+
+def rasterize_brute(setup: TriSetup, width: int, height: int, zn,
+                    zf, depth_init=None, tid_init=None,
                     depth_mode: int = DEPTH_VIEWZ, chunk: int = 64,
                     y_offset: int = 0, full_height: int | None = None):
     """Rasterize all triangles in `setup`; returns (depth01 (H, W) f32,
@@ -35,7 +54,8 @@ def rasterize_brute(setup: TriSetup, width: int, height: int, zn: float,
     dev = setup.coef.device
     n = setup.coef.shape[0]
     full_height = height if full_height is None else full_height
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
+    zn_f, inv_range = zp[0], zp[1]
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
     py = (torch.arange(int(y_offset), int(y_offset) + height,
                        dtype=torch.float32, device=dev) + 0.5)[:, None]

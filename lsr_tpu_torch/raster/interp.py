@@ -64,7 +64,8 @@ def reconstruct_world_pos(depth01, view, proj, zn, zf, width: int,
     record gather), inverting the raster's DEPTH_VIEWZ storage and the
     screen mapping sx = (ndc * 0.5 + 0.5) * (W - 1) at pixel centres.
     lsr_tpu's resolve route samples the sun shadow at these positions.
-    Returns (H, W, 3)."""
+    zn / zf: 0-d f32 tensors (a camera's) or host numbers.  Returns (H, W,
+    3)."""
     dev = depth01.device
     view_z = zn + depth01 * (zf - zn)
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5

@@ -37,8 +37,13 @@ slots (bin_triangles' pairs=).  B4's worklists (chunks, 16x fewer than
 rows) and B1's super lists come from lsr_tpu's dense masks.  The lists,
 counts and maxima are the same integers as lsr_tpu's.
 
-Each wrapper runs its plain PyTorch version for CPU tensors only, walking
-the same lists the kernel gets; CUDA tensors launch the kernel or raise.
+zn / zf are data, as lsr_tpu's z_ref (tiled.py:585-589): 0-d f32 tensors
+(a camera's) or host numbers, made into one (2,) f32 tensor [zn, inv_range]
+by brute.zparams, whose device pointer the kernels take and whose two
+values their plain versions use, so a captured frame replays at any zn /
+zf.  Each wrapper runs its plain PyTorch version for CPU tensors only,
+walking the same lists the kernel gets; CUDA tensors launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import dataclasses
 import torch
 
 from lsr_tpu_torch.core.util import cdiv
-from lsr_tpu_torch.raster.brute import depth_params, rasterize_brute
+from lsr_tpu_torch.raster.brute import rasterize_brute, zparams
 from lsr_tpu_torch.raster.setup import DEPTH_NDC01, DEPTH_VIEWZ, TriSetup
 from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
@@ -251,7 +256,7 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
     (rasterize_direct)."""
     full_height = height if full_height is None else full_height
     dev = rec.device
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     chunk_bb = chunk_bb.contiguous()
@@ -261,15 +266,15 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
         None if depth_init is None else depth_init.data_ptr(),
         None if tid_init is None else tid_init.data_ptr(),
         depth.data_ptr(), tid.data_ptr(), width, height,
-        cdiv(width, 128), slists.shape[1], zn_f, inv_range,
+        cdiv(width, 128), slists.shape[1], zp.data_ptr(),
         float(full_height - 1), depth_mode, int(track_ids), int(tie_tid),
         int(band_h), int(y_offset), stream)
     check_launch("lsr_direct_raster", err)
     return depth, tid
 
 
-def rasterize_direct(setup: TriSetup, width: int, height: int, zn: float,
-                     zf: float, depth_init=None, tid_init=None,
+def rasterize_direct(setup: TriSetup, width: int, height: int, zn,
+                     zf, depth_init=None, tid_init=None,
                      depth_mode: int = DEPTH_VIEWZ, tile_h: int = 128,
                      tile_w: int = 128, chunk: int = 16, y_offset: int = 0,
                      full_height: int | None = None, track_ids: bool = True,
@@ -381,7 +386,7 @@ rasterize_direct.band_launches = 0
 
 
 def _banded_brute(setup: TriSetup, width: int, height: int, band_h: int,
-                  zn: float, zf: float, depth_init, tid_init, depth_mode):
+                  zn, zf, depth_init, tid_init, depth_mode):
     """rasterize_brute per band of a band_h stack: band b's rows [b * band_h,
     (b + 1) * band_h) take the setup rows whose bbox meets them, evaluated
     at band-local rows."""
@@ -579,10 +584,11 @@ def _chunk_lists(setup: TriSetup, n_pad: int, chunk: int, tiles_x: int,
 # Plain versions of B3 and B4: the same lists, vectorised over tiles
 # ---------------------------------------------------------------------------
 
-def _tri_depth(blk, fr, zn: float, inv_range: float, depth_mode: int):
+def _tri_depth(blk, fr, zn, inv_range, depth_mode: int):
     """Coverage and depth of records blk (T, K, _REC) at the pixels of the
     tiles of fr (a _TileFrame), in the operation order of
-    csrc/raster_common.cuh.  Returns (inside, z01), each (T, K, H, W)."""
+    csrc/raster_common.cuh; zn / inv_range: 0-d f32 tensors, the pair of
+    zparams the kernels read.  Returns (inside, z01), each (T, K, H, W)."""
     def f(j):
         return blk[..., j][..., None, None]
 
@@ -753,8 +759,8 @@ def _super_chunks(sup, chunk_bb, fr):
 
 
 def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
-                           tid_init, width: int, height: int, zn: float,
-                           zf: float, depth_mode: int = DEPTH_VIEWZ,
+                           tid_init, width: int, height: int, zn,
+                           zf, depth_mode: int = DEPTH_VIEWZ,
                            track_ids: bool = True, tie_tid: bool = False,
                            block_cull: bool = False, band_h: int = 0,
                            y_offset: int = 0, full_height: int | None = None):
@@ -773,7 +779,8 @@ def rasterize_direct_plain(rec, chunk_bb, slists, counts, depth_init,
     the blocks and list tiles are the band's own, coverage and the
     chunk-bbox test at global rows."""
     dev = rec.device
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
+    zn_f, inv_range = zp[0], zp[1]
     fr = _TileFrame(width, height, 128, 128, y_offset,
                     height if full_height is None else full_height, dev,
                     band_h)
@@ -814,7 +821,7 @@ def direct_chunk_hits(chunk_bb, slists, counts, width: int, height: int):
 
 
 def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
-                          width: int, height: int, zn: float, zf: float,
+                          width: int, height: int, zn, zf,
                           depth_mode: int = DEPTH_VIEWZ, tile_h: int = 32,
                           tile_w: int = 128, chunk: int = 8,
                           y_offset: int = 0, full_height: int | None = None,
@@ -826,7 +833,8 @@ def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
     warp's 8x4 rectangle rejects; the cull is exact, so the result is the
     same."""
     dev = rec.device
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
+    zn_f, inv_range = zp[0], zp[1]
     fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
                     height if full_height is None else full_height, dev)
     d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
@@ -845,7 +853,7 @@ def rasterize_tiled_plain(rec, lists, counts, depth_init, tid_init,
 
 
 def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
-                              width: int, height: int, zn: float, zf: float,
+                              width: int, height: int, zn, zf,
                               depth_mode: int = DEPTH_VIEWZ,
                               tile_h: int = 128, tile_w: int = 128,
                               chunk: int = 16, sub_h: int = 32,
@@ -859,7 +867,8 @@ def rasterize_chunklist_plain(rec, clists, counts, depth_init, tid_init,
     rasterize_tiled_plain; kernel B4 also skips an entry whose bands miss
     the block's or the warp's rows, which the mask models too."""
     dev = rec.device
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
+    zn_f, inv_range = zp[0], zp[1]
     fr = _TileFrame(width, height, tile_w, tile_h, y_offset,
                     height if full_height is None else full_height, dev)
     d, t = fr.split(depth_init, 1.0), fr.split(tid_init, -1)
@@ -960,7 +969,7 @@ def _tiled_launch(lib, rec, lists, counts, depth_init, tid_init, width,
     tiles with the longest walks first (order: tile_order(counts), sorted
     here when not given)."""
     dev = rec.device
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     if order is None:
@@ -969,7 +978,7 @@ def _tiled_launch(lib, rec, lists, counts, depth_init, tid_init, width,
         rec.data_ptr(), lists.data_ptr(), counts.data_ptr(), order.data_ptr(),
         depth_init.data_ptr(), tid_init.data_ptr(), depth.data_ptr(),
         tid.data_ptr(), width, height, tile_w, tile_h, cdiv(width, tile_w),
-        cdiv(height, tile_h), lists.shape[1], zn_f, inv_range, int(y_offset),
+        cdiv(height, tile_h), lists.shape[1], zp.data_ptr(), int(y_offset),
         float(full_height - 1), depth_mode, stream)
     check_launch("lsr_tiled_raster", err)
     return depth, tid
@@ -991,8 +1000,8 @@ def tiled_inputs(setup: TriSetup, width: int, height: int, tile_h: int,
     return rec, lists, n_walk, max_bin, n_pairs, over
 
 
-def rasterize_tiled(setup: TriSetup, width: int, height: int, zn: float,
-                    zf: float, depth_init=None, tid_init=None,
+def rasterize_tiled(setup: TriSetup, width: int, height: int, zn,
+                    zf, depth_init=None, tid_init=None,
                     depth_mode: int = DEPTH_VIEWZ, tile_h: int = 32,
                     tile_w: int = 128, cap: int = 512, chunk: int = 8,
                     y_offset: int = 0, full_height: int | None = None,
@@ -1047,7 +1056,7 @@ def _chunklist_launch(lib, rec, clists, counts, depth_init, tid_init, width,
     The tiles with the longest worklists start first (order:
     tile_order(counts), sorted here when not given)."""
     dev = rec.device
-    zn_f, inv_range = depth_params(zn, zf)
+    zp = zparams(zn, zf, dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     if order is None:
@@ -1057,7 +1066,7 @@ def _chunklist_launch(lib, rec, clists, counts, depth_init, tid_init, width,
         order.data_ptr(), depth_init.data_ptr(), tid_init.data_ptr(),
         depth.data_ptr(),
         tid.data_ptr(), width, height, tile_w, tile_h, cdiv(width, tile_w),
-        cdiv(height, tile_h), clists.shape[1], chunk, sub_h, zn_f, inv_range,
+        cdiv(height, tile_h), clists.shape[1], chunk, sub_h, zp.data_ptr(),
         int(y_offset), float(full_height - 1), depth_mode, int(track_ids),
         stream)
     check_launch("lsr_chunklist_raster", err)
@@ -1077,8 +1086,8 @@ def chunklist_inputs(setup: TriSetup, width: int, height: int, tile_h: int,
                                  y_offset, sub_h)
 
 
-def rasterize_chunklist(setup: TriSetup, width: int, height: int, zn: float,
-                        zf: float, depth_init=None, tid_init=None,
+def rasterize_chunklist(setup: TriSetup, width: int, height: int, zn,
+                        zf, depth_init=None, tid_init=None,
                         depth_mode: int = DEPTH_VIEWZ, tile_h: int = 128,
                         tile_w: int = 128, chunk: int = 16,
                         ccap: int | None = None, sub_h: int = 32,

@@ -11,7 +11,9 @@ on the card each key (lsr_tpu's static arguments, the port's host leaves
 among them) is captured once into a CUDA graph and replayed
 (utils.jit), B3's list width and pair slots checked capacities
 (utils.capacity) that render_forward.program keeps for each key, so a
-scene, a target size or a camera's zn / zf never sizes another's lists.
+scene or a target size never sizes another's lists.  zn / zf are data (0-d
+tensors, as lsr_tpu traces them): one program serves every near / far
+plane.
 """
 
 from __future__ import annotations
@@ -26,7 +28,11 @@ from lsr_tpu_torch.raster import tiled
 from lsr_tpu_torch.raster.brute import rasterize_brute
 from lsr_tpu_torch.raster.interp import interpolate_gbuffer
 from lsr_tpu_torch.raster.setup import scene_setup
-from lsr_tpu_torch.scene.scene import concat_scene, morton_order  # noqa: F401
+from lsr_tpu_torch.scene.scene import (  # noqa: F401
+    concat_scene,
+    f32_scalar,
+    morton_order,
+)
 from lsr_tpu_torch.shading.models import (
     SHADING_MODELS,
     composite_over_background,
@@ -47,7 +53,7 @@ def upload_mesh(mesh, device=None):
     )
 
 
-def render_forward(batch, models, normal_mats, viewproj, zn: float, zf: float,
+def render_forward(batch, models, normal_mats, viewproj, zn, zf,
                    shade_ctx, width: int, height: int,
                    model_name: str = "blinn_phong",
                    background=(0.05, 0.07, 0.12), use_tiled: bool = True,
@@ -56,7 +62,9 @@ def render_forward(batch, models, normal_mats, viewproj, zn: float, zf: float,
     """One full forward frame.  Returns (ldr_u8 (H, W, 3), gbuffer).
 
     batch: dict of tensors positions / normals / uvs / indices / vtx_obj /
-    tri_obj (concat_scene's columns on the device).  model_name: a key of
+    tri_obj (concat_scene's columns on the device).  zn / zf: 0-d f32
+    tensors (simple_camera's, a CameraState's; host floats are keyed by
+    value, one capture each).  model_name: a key of
     SHADING_MODELS, or "gouraud" (vertex lighting from the setup).  Runs as
     one program (render_forward.program; CPU tensors run eagerly)."""
     return render_forward.program(
@@ -100,8 +108,9 @@ render_forward.program = checked(_forward_frame, name="render_forward")
 def simple_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1,
                   zf=100.0, up=(0, 1, 0), device=None):
     """(viewproj (4, 4), zn, zf) of a look-at perspective camera; zn / zf
-    come back as the float32 values the raster uses."""
+    come back as 0-d f32 tensors on the device, data as in lsr_tpu."""
     device = resolve_device(device)
     view = m3.look_at_lh(eye, target, up, device=device)
     proj = m3.perspective_lh_no(fov, width / height, zn, zf, device=device)
-    return m3.matmul4(proj, view), float(np.float32(zn)), float(np.float32(zf))
+    return (m3.matmul4(proj, view), f32_scalar(zn, device),
+            f32_scalar(zf, device))

@@ -49,16 +49,18 @@ class ObjectsSoA:
 
 @dataclasses.dataclass(frozen=True)
 class CameraState:
-    """Camera matrices on the device; zn / zf are host floats (f32 values),
-    so kernels and plain versions read the same constants without a sync."""
+    """Camera matrices on the device; zn / zf are 0-d f32 tensors on the
+    camera's device, data as lsr_tpu's data fields are (scene.py:65, :102):
+    a frame reads them on the device, so one captured frame (utils.jit)
+    serves every near / far plane."""
 
     view: torch.Tensor
     proj: torch.Tensor
     viewproj: torch.Tensor
     prev_viewproj: torch.Tensor
     eye: torch.Tensor
-    zn: float
-    zf: float
+    zn: torch.Tensor
+    zf: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,9 @@ class SunLight:
 
 def make_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1, zf=100.0,
                 up=(0, 1, 0), prev_viewproj=None, device=None) -> CameraState:
+    """A look-at perspective camera.  The projection is built from the
+    caller's floats zn / zf, which the camera then carries as f32
+    tensors."""
     device = resolve_device(device)
     view = m3.look_at_lh(eye, target, up, device=device)
     proj = m3.perspective_lh_no(fov, width / height, zn, zf, device=device)
@@ -78,8 +83,14 @@ def make_camera(width, height, eye, target, fov=np.pi / 3, zn=0.1, zf=100.0,
         view=view, proj=proj, viewproj=vp,
         prev_viewproj=vp if prev_viewproj is None else prev_viewproj,
         eye=torch.as_tensor(eye, dtype=torch.float32, device=device),
-        zn=float(np.float32(zn)), zf=float(np.float32(zf)),
+        zn=f32_scalar(zn, device), zf=f32_scalar(zf, device),
     )
+
+
+def f32_scalar(x, device) -> torch.Tensor:
+    """A host number as a fresh 0-d f32 tensor on `device` (a camera's zn /
+    zf: its own tensor, which a caller may change per frame)."""
+    return torch.as_tensor(np.float32(x), device=device)
 
 
 def update_prev(camera: CameraState, prev: CameraState) -> CameraState:

@@ -14,8 +14,10 @@ reads that flag once after the frame; when it is set, the capacities grow
 to what the frame's stats say it needed and the frame runs again eagerly
 (as the warm-up of the new key, which captures on its next call), so a
 frame that dropped a triangle is never returned, the capture call's
-included.  Each key of a call (a scene, a target size, a camera's zn / zf)
-has capacities of its own, which never shrink.
+included.  Each key of a call (a scene, a target size) has capacities of
+its own, which never shrink.  A camera's zn / zf are data (tensors), not
+part of the key: a zn whose frame overflows its key's capacities sets the
+flag, is redone eagerly and grows them, as any other overflow.
 
 The stats a frame returns (device values unless noted):
 - raster_max_bin: B3's largest bin before capping;
@@ -83,7 +85,7 @@ class Capacities:
         return Capacities(width, pairs, compact)
 
 
-def binned_raster(setup, width: int, height: int, zn: float, zf: float,
+def binned_raster(setup, width: int, height: int, zn, zf,
                   caps: Capacities | None, cap: int, tile_h: int,
                   tile_w: int, chunk: int):
     """Kernel B3 (tiled.rasterize_tiled) with a list width of at least
@@ -119,8 +121,9 @@ class Checked:
 
     Capacities are kept per key: caps maps key(*args) (jit's key of the
     call, without the capacities) to the call's Capacities, for at most
-    MAX_GRAPHS keys, least recently used first, so a scene, a target size
-    or a camera's zn / zf each has its own and one never sizes another.
+    MAX_GRAPHS keys, least recently used first, so a scene or a target
+    size each has its own and one never sizes another (zn / zf, tensors,
+    share their key's).
     A key's first call runs fn(*args, None), the eager route that sizes its
     lists on the host, and keeps Capacities.sized of its stats.  Every
     later call runs jit(fn)(*args, caps) (warm-up, capture, replays, as

@@ -38,10 +38,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # a launcher the cudaError_t of its launch.
 SIGNATURES = {
     # rec, chunk_bb, slists, counts, depth_in, tid_in, depth_out, tid_out,
-    # width, height, tiles_x, scap, zn, inv_range, max_py, depth_mode,
-    # track_ids, tie_tid, band_h, y_offset, stream
+    # width, height, tiles_x, scap, zparams ((2,) f32 on the card: zn,
+    # inv_range), max_py, depth_mode, track_ids, tie_tid, band_h, y_offset,
+    # stream
     "lsr_direct_raster": (_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P, _F, _I, _I, _I, _I, _I,
                           _P),
     # gbuf, tile_rec, counts, uniforms, vis, n_shadowed, out, width, height,
     # ph, pw, tiles_x, cap, sun_model, apow1, stream
@@ -51,15 +52,15 @@ SIGNATURES = {
     "lsr_shade_fused_clustered": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _P),
     # rec, lists, counts, order, depth_in, tid_in, depth_out, tid_out, width,
-    # height, tile_w, tile_h, tiles_x, tiles_y, cap, zn, inv_range, y_offset,
+    # height, tile_w, tile_h, tiles_x, tiles_y, cap, zparams, y_offset,
     # max_py, depth_mode, stream
     "lsr_tiled_raster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _F, _I, _F, _I, _P),
+                         _I, _I, _P, _I, _F, _I, _P),
     # rec, clists, counts, order, depth_in, tid_in, depth_out, tid_out,
-    # width, height, tile_w, tile_h, tiles_x, tiles_y, ccap, chunk, sub_h, zn,
-    # inv_range, y_offset, max_py, depth_mode, track_ids, stream
+    # width, height, tile_w, tile_h, tiles_x, tiles_y, ccap, chunk, sub_h,
+    # zparams, y_offset, max_py, depth_mode, track_ids, stream
     "lsr_chunklist_raster": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _P),
+                             _I, _I, _I, _I, _I, _P, _I, _F, _I, _I, _P),
     # table, tid, sun_vis, tex, tile_rec, counts, uniforms, vis, n_shadowed,
     # out, width, height, tile_h, tile_w, tiles_x, tiles_y, cap, chunk,
     # sun_model, stream

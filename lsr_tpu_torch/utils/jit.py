@@ -12,11 +12,13 @@ mid-frame.
 Calls are keyed as jax.jit keys its traces: the tree structure of the
 arguments (dicts, lists, tuples and dataclasses, the port's frozen ones
 among them), each tensor leaf's shape, stride, dtype and device, and the
-value of every other leaf.  Some values lsr_tpu traces as data are host
-values in the port, so a change to one of them captures anew:
-CameraState.zn / zf (lsr_tpu's are data fields), LightsSoA.kinds / apow1
-and ShadeContext.surface_maps (host facts of the light set and the
-materials, which lsr_tpu reads off its arrays in the trace).  A value that
+value of every other leaf.  CameraState.zn / zf are 0-d f32 tensors (data,
+as lsr_tpu's data fields are), keyed by shape and dtype only: one graph
+serves every near / far plane.  LightsSoA.kinds / apow1 and
+ShadeContext.surface_maps stay host leaves on purpose: lsr_tpu makes them
+static too (light_kinds is a static argname of its shade and resolve
+kernels, shade_kernel.py:363, resolve_kernel.py:69-75), so another light
+set or material layout is another program there as here.  A value that
 changes every frame must reach the frame as a tensor, or every frame
 captures.
 
@@ -39,9 +41,10 @@ Each Jitted holds at most MAX_GRAPHS (8) captured graphs, and remembers at
 most as many keys warmed up and not yet captured: a ninth key evicts the
 least recently used graph, whose memory is released (its static tensors
 dropped, then CUDAGraph.reset()), and evictions counts it.  A caller that
-cycles through more than MAX_GRAPHS keys (nine zn values, the nine models
-of hello_shading_models) warms up more than it replays, but never holds
-more than MAX_GRAPHS graphs, each as large as the frame's intermediates.
+cycles through more than MAX_GRAPHS keys (nine target widths, the nine
+models of hello_shading_models) warms up more than it replays, but never
+holds more than MAX_GRAPHS graphs, each as large as the frame's
+intermediates.
 
 The kernel wrappers count launches where they launch (launch_counters()).
 The capture moves those counters without launching anything, so jit takes

@@ -61,17 +61,22 @@ def test_key_keeps_tensor_values():
 @pytest.mark.parametrize("change", ["shape", "dtype", "zn", "zf", "stride",
                                     "structure"])
 def test_key_changes(change):
-    """A tensor's shape, dtype or strides, a host leaf (CameraState.zn /
-    zf, which lsr_tpu traces) or the tree's structure make a new key."""
+    """A tensor's shape, dtype or strides or the tree's structure make a new
+    key; another CameraState.zn / zf keeps it: they are 0-d f32 tensors,
+    data as lsr_tpu traces them, keyed by shape and dtype only."""
+    from lsr_tpu_torch.scene.scene import f32_scalar
+
     cam = _cam()
     x = torch.zeros(4, 6)
     other = {"shape": (cam, torch.zeros(4, 5)),
              "dtype": (cam, torch.zeros(4, 6, dtype=torch.float64)),
-             "zn": (dataclasses.replace(cam, zn=0.2), x),
-             "zf": (dataclasses.replace(cam, zf=50.0), x),
+             "zn": (dataclasses.replace(cam, zn=f32_scalar(0.2, "cpu")), x),
+             "zf": (dataclasses.replace(cam, zf=f32_scalar(50.0, "cpu")), x),
              "stride": (cam, torch.zeros(6, 4).t()),
              "structure": (cam, [x])}[change]
-    assert jm.trace_key((cam, x))[0] != jm.trace_key(other)[0]
+    same = jm.trace_key((cam, x))[0] == jm.trace_key(other)[0]
+    assert same == (change in ("zn", "zf"))
+    assert cam.zn.shape == () and cam.zn.dtype == torch.float32
 
 
 def test_flatten_round_trip():
@@ -240,11 +245,13 @@ def test_failed_capture_raises(fake_card):
 
 
 def test_graph_cache_is_bounded(fake_card):
-    """C23: over MAX_GRAPHS + 4 distinct host values (a zn cycling), each
-    warmed up and captured, at most MAX_GRAPHS graphs and as many warm keys
-    are alive; the least recently used go first, each evicted graph's
-    reset() has been called and evictions counts them; a graph used again
-    is kept; every frame's values and launches stay exact."""
+    """Over MAX_GRAPHS + 4 distinct values of a host leaf that is still a
+    key (as a target width or a light set's kinds is; zn / zf no longer
+    are), each warmed up and captured, at most MAX_GRAPHS graphs and as
+    many warm keys are alive; the least recently used go first, each
+    evicted graph's reset() has been called and evictions counts them; a
+    graph used again is kept; every frame's values and launches stay
+    exact."""
     n = jm.MAX_GRAPHS + 4
     f = jm.jit(_frame)
     made = []

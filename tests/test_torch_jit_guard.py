@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import importlib
 
+import numpy as np
+
 import pytest
 
 from lsr_tpu_torch.core import util
@@ -166,4 +168,53 @@ def test_highpoly_route_is_capture_safe(monkeypatch, highpoly, path):
         pipe.execute_jitted(RenderContext(), state_fn(0), fp)
         prog, state = pipe._jitted, pipe._start(state_fn(1))
         run = lambda: prog.fn(state, prog.caps[key])  # noqa: E731
+    _guarded(monkeypatch, run)
+
+
+@pytest.mark.parametrize("path", ["render", "flagship", "light_sharded",
+                                  "pipelined"])
+def test_sharded_step_is_capture_safe(monkeypatch, path):
+    """One warm step of each of parallel.sharding's four steps (the
+    undecorated step, Jitted.fn) on a mesh of four CPU ranks (two for pp)
+    at 64x32, the flagship with its 128^2 sun map and local atlas: the
+    all_gathers, ppermute halos, psum and, for pp, the camera stream."""
+    from test_torch_sharding_jit import CARD_MESH, STEP_CAMS, _build
+
+    from lsr_tpu.scene.scene import make_camera
+    from lsr_tpu_torch import convert
+    from test_torch_sharding import _lit_scene, _tiny_scene, _to_torch
+
+    tiny, lit = _tiny_scene(), _lit_scene(2, 8, 1.5, 2.0)
+    scenes = {"tiny": (tiny, _to_torch(*tiny)), "lit": (lit, _to_torch(*lit))}
+    step, args_of = _build(path, scenes, CARD_MESH[path])
+    cams = [convert.camera_state(make_camera(
+        64, 32, (np.sin(a) * -3.5, 1.8, np.cos(a) * -3.5), (0, 0, 0)), "cpu")
+        for a in np.linspace(0.0, 0.4, STEP_CAMS[path])]
+    args = args_of(cams)
+    _guarded(monkeypatch, lambda: step.fn(*args))
+
+
+def test_flagship_frame_with_moving_planes_is_capture_safe(monkeypatch):
+    """bench.py's whole frame at 192x108 (maps cut) whose camera's zn / zf
+    change between the warm-up and the guarded frame: data, so no host
+    read and no constant made for the new pair."""
+    import dataclasses
+
+    from lsr_tpu_torch import frame as fr
+    from lsr_tpu_torch.scene.scene import f32_scalar
+
+    w, h = 192, 108
+    geom, objects, lights, ctx = fr.build_flagship_scene(16, grid=2,
+                                                         device="cpu")
+    cam, ctx_t = fr.flagship_camera(2, ctx, w, h, device="cpu")
+    cfg = fr.bench_config("esm", w, h)
+    cfg.update(shadow_size=128, local_map=64, local_point=32)
+    frame = fr.make_flagship_frame(geom, objects, lights, ctx, w, h, **cfg)
+    cams = iter([dataclasses.replace(cam, zn=f32_scalar(zn, "cpu"),
+                                     zf=f32_scalar(zf, "cpu"))
+                 for zn, zf in ((0.1, 100.0), (0.25, 40.0))])
+
+    def run():
+        frame(next(cams), ctx_t)
+
     _guarded(monkeypatch, run)

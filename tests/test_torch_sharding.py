@@ -287,8 +287,9 @@ def test_direct_bands_match_jax(band_scene):
 
     tcam = band_scene["tcam"]
     for y0 in (0, BH // 2):
-        jd, jt, jm = jrd(band_scene["js"], BW, BH // 2, tcam.zn, tcam.zf,
-                         y_offset=y0, full_height=BH, interpret=True)
+        jd, jt, jm = jrd(band_scene["js"], BW, BH // 2, float(tcam.zn),
+                         float(tcam.zf), y_offset=y0, full_height=BH,
+                         interpret=True)
         td, tt, tm = trd(band_scene["ts"], BW, BH // 2, tcam.zn, tcam.zf,
                          y_offset=y0, full_height=BH)
         jd, jt = np.asarray(jd), np.asarray(jt)
@@ -326,8 +327,9 @@ def test_interpolate_gbuffer_band_matches_jax(band_scene):
 
     tcam = band_scene["tcam"]
     y0 = 24
-    jd, jt, _ = jrd(band_scene["js"], BW, 32, tcam.zn, tcam.zf, y_offset=y0,
-                    full_height=BH, interpret=True)
+    jd, jt, _ = jrd(band_scene["js"], BW, 32, float(tcam.zn),
+                    float(tcam.zf), y_offset=y0, full_height=BH,
+                    interpret=True)
     jgb = jinterp(band_scene["js"], jd, jt, y_offset=y0)
     gb = interpolate_gbuffer(band_scene["ts"], _t(jd), _t(jt), y_offset=y0)
     for f in ("world_pos", "normal_ws", "uv", "bary", "face_normal",

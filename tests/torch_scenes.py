@@ -11,6 +11,8 @@ Inputs come from numpy seeds only.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -545,3 +547,153 @@ def preset_pipeline(name, width, height, post=("fxaa",)):
     fp.pass_params.culling.occ_width, fp.pass_params.culling.occ_height = \
         160, 90
     return pipe, fp, state_fn
+
+
+# ---------------------------------------------------------------------------
+# A recording fake card: utils.jit's graph route on CPU tensors
+# ---------------------------------------------------------------------------
+
+_EMPTY = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_like.default,
+          torch.ops.aten.empty_strided.default,
+          torch.ops.aten.new_empty.default}
+
+
+def _tensor_leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensor_leaves(v)]
+    return []
+
+
+def _refill(outs, news):
+    """Copies each new tensor into the recorded one it stands for, unless
+    the two share their memory already (an alias)."""
+    for o, n in zip(_tensor_leaves(outs), _tensor_leaves(news)):
+        if o is n or (o.untyped_storage().data_ptr()
+                      == n.untyped_storage().data_ptr()
+                      and o.storage_offset() == n.storage_offset()):
+            continue
+        o.copy_(n)
+
+
+class TapeGraph:
+    """A CUDA graph's stand-in that replays what was captured without
+    running the captured function's Python: every aten op dispatched
+    while capturing is recorded with its tensors (the graph's static
+    memory) and run again on replay, its result copied into the tensor it
+    made at the capture; a kernel's plain version (RecordingCard.kernel)
+    is recorded whole, as one launch.  reset() frees it."""
+
+    def __init__(self):
+        self.tape, self.was_reset = [], False
+
+    def replay(self):
+        assert not self.was_reset, "replay of a released graph"
+        for entry in self.tape:
+            if callable(entry):
+                entry()
+                continue
+            func, args, kwargs, out = entry
+            new = func(*args, **kwargs)
+            if (func in _EMPTY or func.is_view
+                    or func._schema.is_mutable):
+                continue       # in place / out=, an alias, or undefined
+            _refill(out, new)
+
+    def reset(self):
+        self.tape, self.was_reset = [], True
+
+
+class RecordingCard:
+    """jit's graph route on the CPU (install(monkeypatch)): CPU leaves count
+    as the card's, torch.cuda's graph, streams and memory are stand-ins,
+    and a capture records into a TapeGraph.  kernel(owner, name) turns a
+    kernel's plain version into a fake kernel: counted in its own launches
+    (band_launches too, for a screen band: y_offset or full_height given),
+    run with the capture's check paused, and recorded whole."""
+
+    def __init__(self):
+        self.graph = self.check = None
+        self.paused = False
+        self.counters = []
+
+    def install(self, monkeypatch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from lsr_tpu_torch.utils import jit as jm
+
+        card = self
+
+        class Tape(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                if not card.paused:
+                    card.graph.tape.append((func, args, kwargs, out))
+                return out
+
+        class Check(jm.CaptureCheck):
+            def __enter__(self):
+                card.check = self
+                return super().__enter__()
+
+        class Stream:
+            def __init__(self, *a):
+                pass
+
+            def wait_stream(self, other):
+                pass
+
+        @contextlib.contextmanager
+        def capture(graph):
+            card.graph = graph
+            try:
+                with Tape():
+                    yield
+            finally:
+                card.graph = card.check = None
+
+        monkeypatch.setattr(jm, "_card_device",
+                            lambda leaves: leaves[0].device)
+        monkeypatch.setattr(jm, "launch_counters", lambda: card.counters)
+        monkeypatch.setattr(jm, "CaptureCheck", Check)
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", TapeGraph)
+        monkeypatch.setattr(torch.cuda, "graph", capture)
+        monkeypatch.setattr(torch.cuda, "Stream", Stream)
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda dev=None: Stream())
+        monkeypatch.setattr(torch.cuda, "stream",
+                            lambda s: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
+        monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+        return self
+
+    def kernel(self, monkeypatch, owner, name):
+        """Makes owner.name a fake kernel; returns it (its launches and
+        band_launches are jit's launch counters)."""
+        plain = getattr(owner, name)
+        card = self
+
+        def fake(*args, **kwargs):
+            fake.launches += 1
+            if (kwargs.get("y_offset")
+                    or kwargs.get("full_height") not in (None, args[2])):
+                fake.band_launches += 1
+            if card.graph is None:
+                return plain(*args, **kwargs)
+            graph = card.graph
+            card.paused = True
+            try:
+                with card.check.pause():
+                    out = plain(*args, **kwargs)
+            finally:
+                card.paused = False
+            graph.tape.append(lambda: _refill(out, plain(*args, **kwargs)))
+            return out
+
+        fake.launches = fake.band_launches = 0
+        monkeypatch.setattr(owner, name, fake)
+        self.counters += [(fake, "launches"), (fake, "band_launches")]
+        return fake
