@@ -8,6 +8,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --phase31    # phase 31 alone, after the build
     python3 chip_smoke.py --phase32    # phase 32 alone, after the build
     python3 chip_smoke.py --phase33    # phase 33 alone, after the build
+    python3 chip_smoke.py --phase34    # phase 34 alone, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -235,6 +236,24 @@ Then kernel B1's screen bands and the multi-device paths
     bands), B3 and B4 reading their z params from device memory against
     their plain versions bit for bit at three pairs, zn 0.25 / zf 40
     among them.  `python3 chip_smoke.py --phase33` runs it alone.
+34. The planes' crop cascade (right after phase 33): kernels V1
+    (lighting/vis_kernel.vis_windows, csrc/vis_footprint.cu: each plane's
+    window and run flag) and V2 (vis_planes, csrc/vis_planes.cu: the
+    planes inside their windows) for flagship (a) (ESM, planes at half
+    resolution) and (d) (PCF, full), default cascade, 1920x1080: at every
+    camera of the staged orbit V1's windows equal its plain version's
+    exactly, the level each plane picks as a histogram; at camera 0 V2
+    against its plain version (bit for bit, or within 1e-6 with the op
+    named and the values that differ counted), kernel / wrapper / plain
+    ms and bounds; the planes alone captured into a graph on the plain
+    route (torch ops, run by this phase only) and on V1 + V2, replay ms
+    and busy ms; the whole frame through jit on both routes, replay and
+    busy ms, V1 / V2's busy ms inside the replay, the replays bit for bit
+    between the routes.  Then the drill on the grid-2 scene at 1920x1080
+    (a tight spot at level 0, a wide spot on the whole grid, an empty
+    footprint, a culled point) under ESM and PCF at vis_scale 1 and 2.
+    The main path (phase 4a-d) launches V1 and V2 once a frame, checked.
+    `python3 chip_smoke.py --phase34` runs it alone.
 
 28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
     stand-in for the monkey), each at its own size, counts reset before
@@ -326,6 +345,7 @@ before printing any result.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -729,12 +749,22 @@ def _wrappers():
 
 def reset_counts():
     from lsr_tpu_torch.audio.engine_synth import synthesize
+    from lsr_tpu_torch.lighting import vis_kernel
     from lsr_tpu_torch.raster import tiled
 
     for fn in _wrappers().values():
         fn.launches = 0
     tiled.rasterize_direct.band_launches = 0
     synthesize.launches = 0        # S1 (phase 30), read apart
+    # V1 / V2 (the planes' windows and planes, phases 4 and 34), read apart
+    vis_kernel.vis_windows.launches = vis_kernel.vis_planes.launches = 0
+
+
+def read_vis_counts():
+    from lsr_tpu_torch.lighting import vis_kernel
+
+    return {"vis_windows": vis_kernel.vis_windows.launches,
+            "vis_planes": vis_kernel.vis_planes.launches}
 
 
 def read_counts():
@@ -1776,6 +1806,7 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     torch.cuda.synchronize()
     pipelined = (time.perf_counter() - t0) * 1e3 / WHOLE_FRAMES
     launches = read_counts()
+    vis = read_vis_counts()
     n = len(cams) + WHOLE_FRAMES
     light_k = "resolve_fused" if route else "shade_fused"
     other_k = "shade_fused" if route else "resolve_fused"
@@ -1783,6 +1814,9 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
           and launches[light_k] == n and launches[other_k] == 0,
           f"{name}: launches {launches} for {n} frames (expected "
           f"{b1_per_frame} B1 and one {light_k} a frame)")
+    check(vis == {"vis_windows": n, "vis_planes": n},
+          f"{name}: V1 / V2 launches {vis} for {n} frames (one each a "
+          f"frame expected)")
     ldr = out[0]
     check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8
           and float((ldr.int().sum(-1) > 0).float().mean()) > 0.5,
@@ -1797,13 +1831,15 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
            "wall_ms": statistics.median(wall[WARMUP:]),
            "pipelined_ms": pipelined, "frames": n,
            "b1_per_frame": b1_per_frame, "launches": launches,
-           "objects_visible": objs, "lights_enabled": lits,
+           "vis_launches": vis, "objects_visible": objs,
+           "lights_enabled": lits,
            "frame_ms_all": [round(m, 3) for m in ms]}
     log(f"{name} {WIDTH}x{HEIGHT}: {WHOLE_FRAMES} frames after {WARMUP} "
         f"warm-up, median {res['ms']:.3f} ms/frame device events (min "
         f"{min(ms[WARMUP:]):.3f}, max {max(ms[WARMUP:]):.3f}), median wall "
         f"{res['wall_ms']:.3f} ms, pipelined {pipelined:.3f} ms/frame; "
-        f"launches {launches} over {n} frames; visible objects per frame "
+        f"launches {launches}, V1 / V2 {vis} over {n} frames; visible "
+        f"objects per frame "
         f"{objs}, lights {lits} of {lights.count}")
     return res
 
@@ -3806,10 +3842,11 @@ def _ms_summary(ms):
             "ms_max": max(ms), "frame_ms_all": [round(m, 3) for m in ms]}
 
 
-def _busy(run, ms):
+def _busy(run, ms, match=None):
     """torch.profiler over one more call of run, warm: device busy ms (the
     sum of its kernels' times), kernels, and the busy share of ms (a
-    call's time by CUDA events)."""
+    call's time by CUDA events); given match (a predicate on kernel
+    names), also the busy ms and kernels of the matching ones."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3822,10 +3859,51 @@ def _busy(run, ms):
                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
     busy = sum(t(e) for e in cuda)
     top = sorted(cuda, key=t, reverse=True)[:6]
-    return {"device_busy_ms": busy, "kernels": sum(e.count for e in cuda),
-            "copies": sum(e.count for e in cuda if "Memcpy" in e.key),
-            "busy_share": busy / ms,
-            "top": [(e.key[:60], e.count, round(t(e), 3)) for e in top]}
+    res = {"device_busy_ms": busy, "kernels": sum(e.count for e in cuda),
+           "copies": sum(e.count for e in cuda if "Memcpy" in e.key),
+           "busy_share": busy / ms,
+           "top": [(e.key[:60], e.count, round(t(e), 3)) for e in top]}
+    if match is not None:
+        hit = [e for e in cuda if match(e.key)]
+        res.update(match_ms=sum(t(e) for e in hit),
+                   match_kernels=sum(e.count for e in hit),
+                   match_by_name={e.key[:60]: t(e) for e in hit})
+    return res
+
+
+def _busy_seen(run, ms, match=None, tries=3):
+    """_busy, profiled again (up to tries times) when the profiler gave
+    back no kernel at all, which happens now and then on a short graph
+    replay."""
+    for _ in range(tries):
+        res = _busy(run, ms, match)
+        if res["kernels"]:
+            return res
+    check(False, f"torch.profiler saw no kernel in {tries} tries")
+    return res
+
+
+def graph_ms(fn, iters=10):
+    """Device ms of one fn() (its kernels and memsets only): iters calls
+    captured into one CUDA graph, its replay timed by CUDA events.  A
+    wrapper's host work (checks, allocation) is left out, which a loop of
+    launches would time instead when the kernels are short."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    g.reset()
+    return ms
 
 
 def _captures(jitted_of):
@@ -5153,6 +5231,399 @@ def phase30(dev, synth_ref):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the planes' crop windows (kernel V1) and windowed planes (V2)
+# ---------------------------------------------------------------------------
+
+VIS_TOL = 1e-6       # C1's kernel contract, for an op that is not bit for bit
+P34_REPLAYS = 3      # replayed frames a plane route
+# Work counts for V1 / V2's bounds (f32 operations a pixel and plane):
+# V1's spot test projects by four rows (28) and divides thrice (u, v, z01)
+# with its compares; its point test is a distance (3 subtractions, the
+# norm's 5) and two compares.  V2's plane: the bias (norm, divide, dot,
+# clamps ~25), the projection and NDC (~40), the texel, the ESM fetch and
+# exp (~10) or the PCF box (3 a tap).
+V1_OPS_SPOT, V1_OPS_POINT = 40, 10
+V2_OPS = 75
+# The drill lights on the grid-2 scene (tests/test_torch_vis_crop.py): a
+# tight spot, a wide spot, a spot looking up (empty footprint), a point, a
+# culled point.
+DRILL_ENABLED = (True, True, True, True, False)
+
+
+def drill_crop(h, w):
+    """The drill's cascade for an h x w frame: a quarter and a half of each
+    side, rounded up to 8 rows and 128 columns; level 0 holds the tight
+    spot, no level the wide one."""
+    def lv(f):
+        return (-(-(h // f) // 8) * 8, -(-(w // f) // 128) * 128)
+
+    return (lv(4), lv(2))
+
+
+@contextlib.contextmanager
+def plain_planes():
+    """The planes' plain route on the card, for phase 34's measurement of
+    what V1 and V2 replace: vis_kernel's wrappers call the plain versions
+    (their counters stay 0).  No entry point runs it."""
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.lighting import vis_kernel as vk
+
+    def v1(sh, wp):
+        return ls.vis_windows_plain(sh, wp)
+
+    def v2(sh, wp, nm, win, run):
+        return ls.vis_planes_plain(sh, wp, nm, win, run)
+
+    v1.launches = v2.launches = 0
+    saved = vk.vis_windows, vk.vis_planes
+    vk.vis_windows, vk.vis_planes = v1, v2
+    try:
+        yield
+    finally:
+        vk.vis_windows, vk.vis_planes = saved
+
+
+def _levels_of(sh, win, run, h, w):
+    """Each plane's level of its cascade: its index, "full" (no level
+    holds the footprint, or no cascade) or "off" (run flag false)."""
+    from lsr_tpu_torch.lighting.local_shadows import vis_levels
+
+    lv = vis_levels(sh, h, w)
+    out = []
+    for (_, _, ch, cw), go in zip(win.tolist(), run.tolist()):
+        out.append("off" if not go else lv.index((ch, cw))
+                   if (ch, cw) in lv else "full")
+    return out
+
+
+def _touched_bytes(sh, wp, nm, win, run):
+    """Bytes of the q16 tables the windows' pixels sample: the distinct
+    texels of every in-map pixel inside a running plane's window (its
+    (2r+1)^2 box under PCF), from the plain version's own samples."""
+    from lsr_tpu_torch.lighting import local_shadows as ls
+
+    calls = []
+    orig = ls._sample
+
+    def spy(sh_, taps, plane, cx, cy, in_map, *rest):
+        calls.append((taps, plane, cx, cy, in_map, rest[-1]))
+        return orig(sh_, taps, plane, cx, cy, in_map, *rest)
+
+    ls._sample = spy
+    try:
+        ls.vis_planes_plain(sh, wp, nm, win, run)
+    finally:
+        ls._sample = orig
+    h, w = calls[0][2].shape[1:] if calls else (0, 0)
+    ys = torch.arange(h, device=wp.device)[None, :, None]
+    xs = torch.arange(w, device=wp.device)[None, None, :]
+    y0, x0, ch, cw = (win[:, i, None, None] for i in range(4))
+    keep = (run[:, None, None] & (ys >= y0) & (ys < y0 + ch) & (xs >= x0)
+            & (xs < x0 + cw))
+    r = 0 if sh.filter_mode == "esm" else int(sh.pcf_radius)
+    total, i0 = 0, 0
+    for taps, plane, cx, cy, in_map, size in calls:
+        n = plane.shape[0]
+        m = in_map & keep[i0:i0 + n]
+        i0 += n
+        seen = torch.zeros(taps.numel(), dtype=torch.bool, device=wp.device)
+        pl, px, py = plane[m], cx[m], cy[m]
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                seen[pl * (size * size)
+                     + torch.clamp(py + dy, 0, size - 1) * size
+                     + torch.clamp(px + dx, 0, size - 1)] = True
+        total += int(seen.sum())
+    return 4 * total
+
+
+def _windows_equal(tag, sh, wp):
+    """V1's windows and run flags on the card, checked equal to its plain
+    version's; returns (win, run, win_plain, run_plain)."""
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.lighting import vis_kernel as vk
+
+    win_k, run_k = vk.vis_windows(sh, wp)
+    win_p, run_p = ls.vis_windows_plain(sh, wp)
+    torch.cuda.synchronize()
+    check(torch.equal(win_k, win_p) and torch.equal(run_k, run_p),
+          f"{tag}: V1's windows {win_k.tolist()} / run {run_k.tolist()} "
+          f"differ from the plain version's {win_p.tolist()} / "
+          f"{run_p.tolist()}")
+    return win_k, run_k, win_p, run_p
+
+
+def _vis_pair(tag, sh, wp, nm, timed=False):
+    """V1 and V2 against their plain versions on the card: the windows and
+    run flags equal, the planes bit for bit (or within VIS_TOL, the
+    differing pixels counted and logged).  timed: kernel, wrapper and plain
+    ms and each kernel's bound.  Returns {"v1", "v2", "levels", ...}."""
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.lighting import vis_kernel as vk
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    win_k, run_k, win_p, run_p = _windows_equal(tag, sh, wp)
+    pl_k = vk.vis_planes(sh, wp, nm, win_k, run_k)
+    pl_p = ls.vis_planes_plain(sh, wp, nm, win_p, run_p)
+    px, err = _spread(pl_k, pl_p)
+    check(bool(torch.isfinite(pl_k).all()) and err <= VIS_TOL,
+          f"{tag}: V2 differs from its plain version in {px} values (max "
+          f"{err}, tolerance {VIS_TOL})")
+    h, w = pl_k.shape[1:]
+    k = sh.n_shadowed
+    levels = _levels_of(sh, win_k, run_k, h, w)
+    v1 = {"max_abs_err": 0.0, "windows": win_k.tolist(),
+          "run": run_k.tolist()}
+    v2 = {"max_abs_err": err, "values_differ": px,
+          "not_bit_equal": (None if px == 0 else
+                            "esm: expf" if sh.filter_mode == "esm"
+                            else "pcf: the box mean")}
+    res = {"v1": v1, "v2": v2, "levels": levels, "grid": [h, w],
+           "planes": k + 1, "filter": sh.filter_mode,
+           "vis_scale": sh.vis_scale}
+    note = ""
+    if timed:
+        lib = load_kernels()
+        v1.update(kernel_ms=graph_ms(
+            lambda: vk._windows_launch(
+                lib, sh, wp, torch.cuda.current_stream().cuda_stream)),
+            ms=cuda_ms(lambda: vk.vis_windows(sh, wp), 20),
+            plain_ms=cuda_ms(lambda: ls.vis_windows_plain(sh, wp), 5))
+        v2.update(kernel_ms=graph_ms(lambda: vk._planes_launch(
+            lib, sh, wp, nm, win_k, run_k,
+            torch.cuda.current_stream().cuda_stream)),
+            ms=cuda_ms(lambda: vk.vis_planes(sh, wp, nm, win_k, run_k), 20),
+            plain_ms=cuda_ms(lambda: ls.vis_planes_plain(
+                sh, wp, nm, win_p, run_p), 3))
+        n_spot = sum(1 for t in sh.kinds if t != ls.SHADOW_POINT_CUBE)
+        tables = nbytes(sh.spot_viewproj, sh.caster_pos, sh.caster_range)
+        v1.update(bound(h * w * 12 + tables + 17 * k,
+                        h * w * (n_spot * V1_OPS_SPOT
+                                 + (k - n_spot) * V1_OPS_POINT)))
+        live = int(sum(c * d for (_, _, c, d), go in zip(win_k.tolist(),
+                                                        run_k.tolist())
+                       if go))
+        touched = _touched_bytes(sh, wp, nm, win_k, run_k)
+        box = (1 if sh.filter_mode == "esm"
+               else 3 * (2 * sh.pcf_radius + 1) ** 2)
+        v2.update(bound(h * w * 24 + (k + 1) * h * w * 4 + touched
+                        + nbytes(sh.spot_viewproj, sh.point_viewproj,
+                                 sh.caster_pos, sh.caster_range,
+                                 sh.strength) + 17 * k,
+                        live * (V2_OPS + box)),
+                  table_bytes_touched=touched, window_pixels=live)
+        note = (f"; V1 kernel {v1['kernel_ms']:.4f} ms (wrapper "
+                f"{v1['ms']:.4f}, plain {v1['plain_ms']:.3f}, bound "
+                f"{v1['bound_ms']:.5f} by {v1['bound_by']}), V2 kernel "
+                f"{v2['kernel_ms']:.4f} ms (wrapper {v2['ms']:.4f}, plain "
+                f"{v2['plain_ms']:.3f}, bound {v2['bound_ms']:.5f} by "
+                f"{v2['bound_by']}; {live} window pixels, {touched} table "
+                f"bytes touched)")
+    log(f"{tag}: {k + 1} planes on {h}x{w}, levels {levels}; V1 equals its "
+        f"plain version, V2 "
+        + ("bit for bit" if px == 0 else
+           f"differs in {px} values (max {err:.3g}; {v2['not_bit_equal']})")
+        + note)
+    return res
+
+
+def _planes_graph(tag, sh, wp, nm, dev, plain):
+    """The planes alone as one captured graph (closing over their inputs;
+    one dummy argument keys it), on the plain route or on V1 + V2: the
+    planes of a replay, its ms by CUDA events and torch.profiler's busy
+    ms, kernels and copies (the output's copy out of the graph)."""
+    from lsr_tpu_torch.lighting.local_shadows import local_shadow_vis_planes
+    from lsr_tpu_torch.utils.jit import jit
+
+    dummy = torch.zeros((), device=dev)
+    with plain_planes() if plain else contextlib.nullcontext():
+        jp = jit(lambda d: local_shadow_vis_planes(sh, wp, nm),
+                 name=f"planes {tag}")
+        jp(dummy)
+        jp(dummy)
+        ms = [_timed(lambda: jp(dummy))[1] for _ in range(P34_REPLAYS)]
+        out = jp(dummy)
+        busy = _busy_seen(lambda: jp(dummy), statistics.median(ms),
+                          match=lambda n: "Memcpy" not in n)
+        check(jp.captures == 1, f"planes {tag}: {jp.captures} captures")
+        _drop_graphs(jp)
+    return out, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"],
+                 "busy_ms_no_copies": busy["match_ms"],
+                 "kernels": busy["kernels"], "copies": busy["copies"]}
+
+
+def _frame_route(cfg, geom, objects, lights, ctx, cams, plain):
+    """bench.py's whole frame through jit on one plane route: camera 0
+    warms up and captures, P34_REPLAYS later cameras replay (CUDA events),
+    torch.profiler over one replay (V1 / V2's kernels by name).  Returns
+    (outputs of the replays, the result)."""
+    from lsr_tpu_torch.frame import make_flagship_frame
+    from lsr_tpu_torch.utils.jit import jit
+
+    with plain_planes() if plain else contextlib.nullcontext():
+        jf = jit(make_flagship_frame(geom, objects, lights, ctx, WIDTH,
+                                     HEIGHT, **cfg))
+        jf(*cams[0])
+        jf(*cams[0])
+        outs, ms = [], []
+        for c in cams[1:1 + P34_REPLAYS]:
+            o, m = _timed(lambda c=c: jf(*c))
+            outs.append(o)
+            ms.append(m)
+        busy = _busy_seen(lambda: jf(*cams[1]), statistics.median(ms),
+                          match=lambda n: "vis_" in n)
+        check(jf.captures == 1, f"frame route: {jf.captures} captures")
+        _drop_graphs(jf)
+    return outs, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"],
+                  "kernels": busy["kernels"],
+                  "vis_kernel_ms": busy["match_ms"],
+                  "vis_kernels": busy["match_kernels"],
+                  "vis_kernel_ms_by_name": busy["match_by_name"]}
+
+
+def _drill(dev):
+    """The four drill cases on the card at 1920x1080 (grid-2 scene, the
+    five drill lights, drill_crop), under ESM and PCF at vis_scale 1 and
+    2: V1 / V2 against their plain versions, and each light where it is
+    meant to be (tight spot level 0, wide spot the whole grid, the empty
+    footprint and the culled point off)."""
+    from lsr_tpu_torch.frame import (
+        bench_config, build_flagship_scene, flagship_camera,
+        flagship_stages)
+    from lsr_tpu_torch.lighting.light_types import LightSetBuilder
+    from lsr_tpu_torch.lighting.local_shadows import render_local_shadow_maps
+    from lsr_tpu_torch.shading.models import _norm
+
+    geom, objects, _, ctx = build_flagship_scene(16, grid=2, device=dev)
+    lb = LightSetBuilder()
+    lb.spot((0.9, 3.0, -0.3), (0.0, -1.0, 0.0), intensity=3.0, range=5.0,
+            inner_angle=0.1, outer_angle=0.15)
+    lb.spot((-3.5, 4.0, 1.5), (0.0, -1.0, 0.0), intensity=3.0, range=9.0,
+            inner_angle=0.6, outer_angle=1.1)
+    lb.spot((0.0, 3.0, 0.0), (0.0, 1.0, 0.0), intensity=3.0, range=5.0,
+            inner_angle=0.4, outer_angle=0.7)
+    lb.point((0.8, 0.2, -1.6), intensity=2.0, range=2.0)
+    lb.point((-2.4, 1.2, -2.4), intensity=2.0, range=3.0)
+    lights = lb.build(dev)
+    cam, ctx_t = flagship_camera(0, ctx, WIDTH, HEIGHT, device=dev)
+    st = flagship_stages(geom, objects, lights, ctx, cam, ctx_t, WIDTH,
+                         HEIGHT, **CUT)
+    wp, nm = st["gb"].world_pos, _norm(st["gb"].normal_ws)
+    en = torch.tensor(DRILL_ENABLED, dtype=torch.bool, device=dev)
+    out = {}
+    for mode in ("esm", "pcf"):
+        cfg = bench_config(mode, WIDTH, HEIGHT)
+        for sc in (1, 2):
+            sh = render_local_shadow_maps(
+                geom, objects, lights, (0, 1, 2), (3, 4),
+                map_size=cfg["local_map"], point_size=cfg["local_point"],
+                pcf_radius=2, vis_scale=sc, vis_crop=drill_crop(HEIGHT, WIDTH),
+                caster_enabled=en, filter_mode=mode)
+            r = _vis_pair(f"phase 34 drill [{mode}, vis_scale {sc}]", sh, wp,
+                          nm)
+            check(r["levels"] == [0, "full", "off", r["levels"][3], "off"]
+                  and r["levels"][3] != "off",
+                  f"drill [{mode}, vis_scale {sc}]: levels {r['levels']}, "
+                  f"expected [0, full, off, a level, off]")
+            out[f"{mode}_sc{sc}"] = {k: r[k] for k in ("levels", "grid")} | {
+                "v2_values_differ": r["v2"]["values_differ"],
+                "v2_max_abs_err": r["v2"]["max_abs_err"]}
+    return out
+
+
+def phase34(geom, objects, lights, ctx, cams, dev):
+    """Phase 34.  Kernels V1 (the planes' crop windows) and V2 (the
+    windowed planes) against their plain versions on the card, and the
+    planes' time under capture before and after.  `python3 chip_smoke.py
+    --phase34` runs it alone.  For flagship (a) (ESM, half resolution) and
+    (d) (PCF, full resolution), default cascade, 1920x1080:
+    - at each of the orbit's cameras the eager frame's stages, and V1's
+      windows and run flags equal its plain version's exactly; the level
+      each plane picks, as a histogram;
+    - at camera 0 V2 against its plain version (bit for bit, or within
+      VIS_TOL with the differing values counted), each kernel's kernel,
+      wrapper and plain ms and its bound;
+    - the planes alone as one captured graph on the plain route (torch
+      ops) and on V1 + V2: replay ms, busy ms and kernels;
+    - the whole frame through jit on both routes: replay ms, busy ms, V1 /
+      V2's busy ms inside the replay, the replays' outputs bit for bit
+      between the routes.
+    Then the four drill cases (_drill).  Returns the result."""
+    from lsr_tpu_torch.frame import bench_config, flagship_stages
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.shading.models import _norm
+
+    t0 = time.perf_counter()
+    casters = ls.plan_shadow_casters(lights)
+    out = {}
+    for key, mode in (("a", "esm"), ("d", "pcf")):
+        tag = f"phase 34 ({key}) [{mode}]"
+        cfg = bench_config(mode, WIDTH, HEIGHT)
+        hist, pair = {}, None
+        for i, (cam, ctx_i) in enumerate(cams):
+            st = flagship_stages(geom, objects, lights, ctx, cam, ctx_i,
+                                 WIDTH, HEIGHT, casters=casters, **cfg)
+            sh, gb = st["local"], st["gb"]
+            wp, nm = gb.world_pos, _norm(gb.normal_ws)
+            if i == 0:
+                pair = _vis_pair(f"{tag} camera 0", sh, wp, nm, timed=True)
+                levels = pair["levels"]
+                p_plain, g_plain = _planes_graph(f"({key}) plain", sh, wp,
+                                                 nm, dev, True)
+                p_k, g_k = _planes_graph(f"({key}) V1 + V2", sh, wp, nm,
+                                         dev, False)
+                g_px, g_err = _spread(p_k, p_plain)
+                check(g_err <= VIS_TOL, f"{tag}: the captured planes differ "
+                      f"between the routes ({g_px} values, max {g_err})")
+            else:
+                win, run, _, _ = _windows_equal(f"{tag} camera {i}", sh, wp)
+                levels = _levels_of(sh, win, run,
+                                    *ls.vis_grid_shape(sh, wp))
+            for p, lv in enumerate(levels):
+                hist.setdefault(p, {}).setdefault(str(lv), 0)
+                hist[p][str(lv)] += 1
+        outs_plain, f_plain = _frame_route(cfg, geom, objects, lights, ctx,
+                                           cams, True)
+        outs_k, f_k = _frame_route(cfg, geom, objects, lights, ctx, cams,
+                                   False)
+        f_spread = {}
+        for a, b in zip(outs_k, outs_plain):
+            for name, x, y in zip(FLAGSHIP_OUTS, a, b):
+                f_spread[name] = max(f_spread.get(name, (0, 0.0)),
+                                     _spread(x, y))
+        exact = pair["v2"]["values_differ"] == 0 and g_px == 0
+        check(not exact or all(v == (0, 0.0) for v in f_spread.values()),
+              f"{tag}: the frames differ between the plane routes "
+              f"{f_spread}")
+        out[key] = {**pair, "histogram": hist, "cameras": len(cams),
+                    "planes_graph": {"plain": g_plain, "v1_v2": g_k,
+                                     "values_differ": g_px},
+                    "frame": {"plain": f_plain, "v1_v2": f_k,
+                              "replay_vs_plain_route": f_spread}}
+        log(f"{tag}: levels over {len(cams)} cameras {hist}; the planes "
+            f"captured alone: plain route {g_plain['ms']:.3f} ms a replay, "
+            f"busy {g_plain['busy_ms']:.4f} ms ({g_plain['kernels']} "
+            f"kernels, {g_plain['copies']} copies, "
+            f"{g_plain['busy_ms_no_copies']:.4f} without), V1 + V2 "
+            f"{g_k['ms']:.3f} ms, busy {g_k['busy_ms']:.4f} ms "
+            f"({g_k['kernels']} kernels, {g_k['copies']} copies, "
+            f"{g_k['busy_ms_no_copies']:.4f} without); the frame replayed: "
+            f"plain route {f_plain['ms']:.3f} ms [{f_plain['ms_min']:.3f}, "
+            f"{f_plain['ms_max']:.3f}], busy {f_plain['busy_ms']:.3f} ms in "
+            f"{f_plain['kernels']} kernels; V1 + V2 {f_k['ms']:.3f} ms "
+            f"[{f_k['ms_min']:.3f}, {f_k['ms_max']:.3f}], busy "
+            f"{f_k['busy_ms']:.3f} ms in {f_k['kernels']} kernels, of them "
+            f"V1 / V2 {f_k['vis_kernel_ms']:.4f} ms in "
+            f"{f_k['vis_kernels']} kernels {f_k['vis_kernel_ms_by_name']}; "
+            f"replays against the plain "
+            f"route {f_spread}")
+    out["drill"] = _drill(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"# phase 34 took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5218,6 +5689,11 @@ def main():
         # data).
         phase33(geom, objects, lights, ctx, dev)
         log(f"phase 33 alone: ok ({card})")
+        return 0
+    if sys.argv[1:] == ["--phase34"]:
+        # Phase 34 alone (the planes' crop windows, V1 and V2).
+        phase34(geom, objects, lights, ctx, cams, dev)
+        log(f"phase 34 alone: ok ({card})")
         return 0
 
     cam0, ctx0 = cams[0]
@@ -5320,6 +5796,11 @@ def main():
     shard = sharded_phase(geom, objects, lights, ctx, dev)
     # The sharded steps as one program each, and zn / zf as device data.
     p33 = phase33(geom, objects, lights, ctx, dev)
+    # The planes' crop windows and windowed planes (V1, V2).
+    p34 = phase34(geom, objects, lights, ctx, cams, dev)
+    for key in ("a", "d"):
+        entry_log(f"vis_windows ({key})", p34[key]["v1"])
+        entry_log(f"vis_planes ({key})", p34[key]["v2"])
 
     # lsr_tpu's demo entry points, each a main path of its own with its
     # counts.
@@ -5539,6 +6020,32 @@ def main():
               b6_launches["fplus_accumulate"], b6,
               tile_16x128=sub(b6["tile_16x128"], *walk_keys),
               **{k: b6[k] for k in walk_keys}),
+        entry("vis_windows", "vis_footprint.cu",
+              "lsr_tpu/lighting/local_shadows.py:674 (lax.cond crop "
+              "cascade; no pallas_call)",
+              whole["esm_b2"]["vis_launches"]["vis_windows"], p34["a"]["v1"],
+              at=f"flagship (a) ESM, {WIDTH}x{HEIGHT} frame, planes at "
+                 f"vis_scale 2, default cascade",
+              launches_per_frame={k: v["vis_launches"]["vis_windows"]
+                                  / v["frames"] for k, v in whole.items()},
+              pcf_control=sub(p34["d"]["v1"]),
+              levels={k: p34[k]["histogram"] for k in ("a", "d")},
+              drill=p34["drill"]),
+        entry("vis_planes", "vis_planes.cu",
+              "lsr_tpu/lighting/local_shadows.py:674 (lax.cond crop "
+              "cascade; no pallas_call)",
+              whole["esm_b2"]["vis_launches"]["vis_planes"], p34["a"]["v2"],
+              at=f"flagship (a) ESM, {WIDTH}x{HEIGHT} frame, planes at "
+                 f"vis_scale 2, default cascade",
+              launches_per_frame={k: v["vis_launches"]["vis_planes"]
+                                  / v["frames"] for k, v in whole.items()},
+              pcf_control=sub(p34["d"]["v2"], "values_differ",
+                              "table_bytes_touched", "window_pixels"),
+              **{f: p34["a"]["v2"][f] for f in (
+                  "values_differ", "not_bit_equal", "table_bytes_touched",
+                  "window_pixels")},
+              planes_captured={k: p34[k]["planes_graph"] for k in ("a", "d")},
+              frames_captured={k: p34[k]["frame"] for k in ("a", "d")}),
         entry("engine_synth", "engine_synth.cu",
               "lsr_tpu/audio/engine_synth.py:84 (lax.scan; no pallas_call)",
               p30["synth"]["launches"], p30["synth"],

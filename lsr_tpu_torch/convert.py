@@ -21,7 +21,7 @@ import torch
 
 from lsr_tpu_torch.core.frame import FrameParams
 from lsr_tpu_torch.lighting.light_types import COLUMNS, LightsSoA, lights_from_numpy
-from lsr_tpu_torch.lighting.local_shadows import LocalShadowMaps
+from lsr_tpu_torch.lighting.local_shadows import LocalShadowMaps, crop_sizes
 from lsr_tpu_torch.lighting.shadow_sample import ShadowContext
 from lsr_tpu_torch.raster.setup import CompactStats
 from lsr_tpu_torch.scene.scene import (
@@ -141,7 +141,8 @@ def local_shadow_maps(sh, device) -> LocalShadowMaps:
         spot_size=int(sh.spot_size), point_size=int(sh.point_size),
         pcf_radius=int(sh.pcf_radius), kinds=tuple(sh.kinds),
         base_slots=tuple(sh.base_slots), vis_scale=int(sh.vis_scale),
-        filter_mode=sh.filter_mode, esm_c=float(sh.esm_c))
+        vis_crop=crop_sizes(sh.vis_crop), filter_mode=sh.filter_mode,
+        esm_c=float(sh.esm_c))
 
 
 def shade_context(ctx, materials: MaterialsSoA, device) -> ShadeContext:

@@ -100,8 +100,9 @@ class BloomParams:
 class LocalShadowParams:
     """The local shadow atlas (lsr_tpu/core/frame.py:105-147).  spot_ids /
     point_ids are the budgeted casters (lighting.local_shadows.
-    plan_shadow_casters); vis_crop is accepted and the planes are evaluated
-    on the full grid, the same function."""
+    plan_shadow_casters); vis_crop is the planes' crop cascade (each plane
+    evaluated in the smallest level that holds its light's footprint,
+    lighting.local_shadows.vis_windows_plain)."""
     enabled: bool = True
     spot_ids: tuple = ()
     point_ids: tuple = ()

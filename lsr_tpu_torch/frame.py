@@ -268,9 +268,10 @@ def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int,
     kernel B5's route over interp + B2; the sun map is shadow_size^2 with
     PCF radius 2; with_cull culls objects and lights per frame; with_local
     renders the local atlas (local_map^2 spot slots, local_point^2 cube
-    faces) and its visibility planes (every vis_scale-th pixel; vis_crop is
-    accepted and the full grid evaluated).  The shadow casters are planned
-    once here, as in bench.py.
+    faces) and its visibility planes (every vis_scale-th pixel, each in the
+    smallest window of the vis_crop cascade that holds its light's
+    footprint this frame, chosen on the device by kernel V1).  The shadow
+    casters are planned once here, as in bench.py.
 
     The frame is eager; jit(make_flagship_frame(...)) (utils.jit) runs it
     as one program, captured once into a CUDA graph on the card and

@@ -23,17 +23,24 @@ these as u32 texel pairs and u16 anchor windows for its gathers
 plane gives the same values and counts.
 
 Sampling gives one visibility plane per shadowed light, plane K the
-constant 1.0 of unshadowed lights (light_shadow_index).  Planes of one
-light kind are evaluated together, batched over the lights.  Three choices
-against lsr_tpu, each the same function without a host sync:
+constant 1.0 of unshadowed lights (light_shadow_index).  The planes are
+evaluated on the vis_scale-strided grid in two steps, each a hand-written
+kernel on the card (lighting/vis_kernel.py) with its plain version here:
+- V1, the windows (vis_windows_plain): each light's footprint on the grid
+  (a spot's frustum, _spot_in_map; a point's range sphere,
+  _point_in_reach), its bounds (_crop_bounds) and the first level of
+  lsr_tpu's crop cascade that holds them (_cropped_plane, :674-730): a
+  (K, 4) window and a (K,) run flag, both device data, so one captured
+  frame serves every camera where lsr_tpu branches with nested lax.cond;
+- V2, the planes (vis_planes_plain): each plane evaluated inside its
+  window and 1.0 outside it, and 1.0 everywhere when its run flag is
+  false (an empty footprint, or a light culled this frame).  The window
+  covers the footprint, outside which a plane is 1.0 by definition, so
+  the planes equal the full grid's bit for bit.
+Against lsr_tpu, each the same function without a host sync:
 - a light culled this frame (caster_enabled False) renders an all-far map
   by masking its slot's setup lanes (lsr_tpu's batched strategies do the
-  same; its "map" strategy skips the raster with lax.cond) and its plane is
-  torch.where(enabled, plane, 1.0);
-- vis_crop is accepted and the planes are evaluated on the full grid:
-  lsr_tpu's crop cascade (_cropped_plane) picks a crop from the data
-  through nested lax.cond and is documented exact against the full grid
-  (:679-683, :805-806); it exists for the TPU's gather-row cost;
+  same; its "map" strategy skips the raster with lax.cond);
 - a point light's per-pixel face view-projection is an indexed gather,
   where lsr_tpu contracts a one-hot face vector with the six matrices
   (:861-864): the sum of 0 * x + 1 * v over finite entries is v exactly.
@@ -119,6 +126,9 @@ class LocalShadowMaps:
     kinds: tuple = ()                # per shadowed light: SPOT_2D | CUBE
     base_slots: tuple = ()
     vis_scale: int = 1
+    vis_crop: tuple = ()             # crop cascade, (ch, cw) or ((ch0,
+                                     # cw0), ...) smallest first, in
+                                     # full-resolution pixels; () = none
     filter_mode: str = "pcf"         # "pcf" | "esm"
     esm_c: float = 80.0
 
@@ -129,8 +139,7 @@ class LocalShadowMaps:
 
 def default_vis_crop(height: int, width: int) -> tuple:
     """lsr_tpu's four-level crop cascade for the plane evaluation (sublane
-    multiple of 8, lane multiple of 128), ascending area; the port takes it
-    and evaluates the full grid, which is the same function."""
+    multiple of 8, lane multiple of 128), ascending area."""
     def rh(f):
         return min(height, -(-int(height * f) // 8) * 8)
 
@@ -142,6 +151,49 @@ def default_vis_crop(height: int, width: int) -> tuple:
                (rh(3 / 4), width), (height, rw(3 / 4))]:
         if lv not in seen and not (lv[0] >= height and lv[1] >= width):
             seen.add(lv)
+            out.append(lv)
+    return tuple(out)
+
+
+def crop_sizes(vis_crop) -> tuple:
+    """A vis_crop spec as a cascade (lsr_tpu's _crop_sizes, :649): () ->
+    (); a flat (ch, cw) -> ((ch, cw),); a tuple of (ch, cw) pairs as it is
+    (smallest first)."""
+    if not vis_crop:
+        return ()
+    if isinstance(vis_crop[0], (tuple, list)):
+        return tuple(tuple(int(v) for v in s) for s in vis_crop)
+    return (tuple(int(v) for v in vis_crop),)
+
+
+def scaled_crop_sizes(vis_crop, sc: int) -> tuple:
+    """The cascade for the vis_scale-strided grid (lsr_tpu's
+    _scaled_crop_sizes, :975): each full-resolution level divided by sc,
+    rounded up, then up to a multiple of 8 rows and 128 columns, deduped."""
+    sizes = crop_sizes(vis_crop)
+    if sc <= 1 or not sizes:
+        return sizes
+
+    def up(v, m):  # ceil(v / sc) rounded up to a multiple of m
+        q = -(-v // sc)
+        return -(-q // m) * m
+
+    out = []
+    for ch, cw in sizes:
+        lv = (up(ch, 8), up(cw, 128))
+        if lv not in out:
+            out.append(lv)
+    return tuple(out)
+
+
+def crop_levels(sizes, h: int, w: int) -> tuple:
+    """The levels _cropped_plane tries on an (h, w) grid (:689-700): each
+    clamped to the grid, duplicates and full-grid levels dropped, in
+    order."""
+    out = []
+    for ch, cw in sizes:
+        lv = (min(ch, h), min(cw, w))
+        if lv not in out and not (lv[0] >= h and lv[1] >= w):
             out.append(lv)
     return tuple(out)
 
@@ -340,8 +392,8 @@ def render_local_shadow_maps(geom, objects, lights, spot_ids: tuple,
     (default map_size).  caster_enabled (K,) bool, spot-then-point order:
     the camera cull of the shadowed lights this frame; a culled light's
     slots stay all far and its plane is 1.0 (it is binned nowhere).
-    vis_crop (lsr_tpu's crop cascade for the planes) is accepted and not
-    used: the planes are evaluated on the full grid, the same function."""
+    vis_crop: the crop cascade of the planes (crop_sizes), each plane
+    evaluated in the smallest window that holds its light's footprint."""
     if filter_mode not in ("pcf", "esm"):
         raise ValueError(f"render_local_shadow_maps: unknown filter "
                          f"{filter_mode!r}")
@@ -382,7 +434,8 @@ def render_local_shadow_maps(geom, objects, lights, spot_ids: tuple,
         bias_slope=_F32(bias_slope), caster_enabled=caster_enabled,
         spot_size=map_size, point_size=point_size, pcf_radius=pcf_radius,
         kinds=kinds, base_slots=base_slots, vis_scale=vis_scale,
-        filter_mode=filter_mode, esm_c=float(esm_c))
+        vis_crop=crop_sizes(vis_crop), filter_mode=filter_mode,
+        esm_c=float(esm_c))
 
 
 # ---------------------------------------------------------------------------
@@ -464,15 +517,21 @@ def _sample(sh: LocalShadowMaps, taps, plane, cx, cy, in_map, z01, far,
     return torch.where(in_map, vis, torch.ones_like(vis))
 
 
+def _spot_clip(sh: LocalShadowMaps, ks, world_pos):
+    """Slots (len(ks),) and the projected (x, y, z, w) of every pixel by
+    each spot's view-projection, (len(ks), H, W) each."""
+    base = device_const([sh.base_slots[k] for k in ks], world_pos.device,
+                        torch.int64)
+    vp = sh.spot_viewproj[base][:, None, None, :]
+    return base, _project_rows(vp, world_pos[None])
+
+
 def _spot_planes(sh: LocalShadowMaps, ks, world_pos, normal):
     """SPOT_2D planes of shadowed lights ks: (len(ks), H, W)
     (_spot_plane_one, :749-797)."""
-    dev = world_pos.device
-    kt = device_const(ks, dev, torch.int64)
-    base = device_const([sh.base_slots[k] for k in ks], dev, torch.int64)
+    kt = device_const(ks, world_pos.device, torch.int64)
     _, _, bias = _bias_ndl(sh, sh.caster_pos[kt], world_pos, normal)
-    vp = sh.spot_viewproj[base][:, None, None, :]
-    px, py, pz, pw = _project_rows(vp, world_pos[None])
+    base, (px, py, pz, pw) = _spot_clip(sh, ks, world_pos)
     u, v, z01, w_ok = _uvz(px, py, pz, pw)
     in_map = _in_map(u, v, z01, pw, w_ok, torch.ones_like(w_ok))
     s = sh.spot_size
@@ -511,38 +570,147 @@ def _point_planes(sh: LocalShadowMaps, ks, world_pos, normal):
                    torch.clamp(rng, min=_FAR_MIN), bias, sh.strength[kt], s)
 
 
-def _vis_planes(sh: LocalShadowMaps, world_pos, normal):
-    """(K + 1, H', W') planes on the vis_scale-strided grid (lsr_tpu's
-    _vis_planes_list, :1002-1027): shadowed lights in order, then the
-    constant 1.0; a light culled this frame gets 1.0."""
+def _kinds(sh: LocalShadowMaps):
+    """(spot planes, point planes): plan_slot_stacks numbers the spots
+    first, so their concatenation is plane order."""
+    spot = [k for k in range(sh.n_shadowed)
+            if sh.kinds[k] != SHADOW_POINT_CUBE]
+    point = [k for k in range(sh.n_shadowed)
+             if sh.kinds[k] == SHADOW_POINT_CUBE]
+    return spot, point
+
+
+def vis_grid(sh: LocalShadowMaps, world_pos, normal=None):
+    """world_pos (and normal) at every vis_scale-th pixel: the (H', W')
+    grid the planes are evaluated on (views, no copy)."""
     sc = max(1, int(sh.vis_scale))
-    wp, nm = world_pos, normal
     if sc > 1:
-        wp, nm = world_pos[::sc, ::sc], normal[::sc, ::sc]
-    spot_ks = [k for k in range(sh.n_shadowed)
-               if sh.kinds[k] != SHADOW_POINT_CUBE]
-    point_ks = [k for k in range(sh.n_shadowed)
-                if sh.kinds[k] == SHADOW_POINT_CUBE]
+        world_pos = world_pos[::sc, ::sc]
+        normal = None if normal is None else normal[::sc, ::sc]
+    return world_pos, normal
+
+
+def vis_grid_shape(sh: LocalShadowMaps, world_pos) -> tuple:
+    """(H', W') of the strided grid of world_pos (H, W, 3)."""
+    sc = max(1, int(sh.vis_scale))
+    return -(-world_pos.shape[0] // sc), -(-world_pos.shape[1] // sc)
+
+
+def vis_levels(sh: LocalShadowMaps, h: int, w: int) -> tuple:
+    """The crop levels of sh's planes on their (h, w) grid: vis_crop
+    scaled to vis_scale, then crop_levels.  Fixed when the frame is
+    built."""
+    sizes = scaled_crop_sizes(sh.vis_crop, max(1, int(sh.vis_scale)))
+    return crop_levels(sizes, h, w)
+
+
+def vis_footprints(sh: LocalShadowMaps, world_pos):
+    """(K, H', W') bool: each shadowed light's footprint on the strided
+    grid, outside which its plane is 1.0: a spot's frustum
+    (_spot_in_map, :733), a point's range sphere (_point_in_reach,
+    :830)."""
+    wp, _ = vis_grid(sh, world_pos)
+    spot_ks, point_ks = _kinds(sh)
+    parts = []
+    if spot_ks:
+        _, (px, py, pz, pw) = _spot_clip(sh, spot_ks, wp)
+        u, v, z01, w_ok = _uvz(px, py, pz, pw)
+        parts.append(_in_map(u, v, z01, pw, w_ok, torch.ones_like(w_ok)))
+    if point_ks:
+        kt = device_const(point_ks, wp.device, torch.int64)
+        rel_len = m3.norm3(wp[None] - sh.caster_pos[kt][:, None, None, :])
+        parts.append((rel_len > 1e-4)
+                     & (rel_len < sh.caster_range[kt][:, None, None]))
+    if not parts:
+        return torch.zeros((0,) + wp.shape[:-1], dtype=torch.bool,
+                           device=wp.device)
+    return torch.cat(parts, 0)
+
+
+def _first(flags, dim):
+    """The index of the first True along dim (0 where there is none), as
+    jnp.argmax of a bool vector."""
+    return torch.argmax(flags.to(torch.uint8), dim=dim)
+
+
+def vis_windows_plain(sh: LocalShadowMaps, world_pos):
+    """Plain version of kernel V1: each plane's window (K, 4) i32 (y0c,
+    x0c, ch, cw) on the strided grid and its run flag (K,) bool, the
+    choice of lsr_tpu's _cropped_plane (:674-730) as data.
+
+    With a crop cascade: the footprint's bounds (_crop_bounds: an empty
+    footprint has bounds (0, h - 1, 0, w - 1)), the first level that holds
+    them, its corner clamped into the grid (y0c = clip(y0, 0, h - ch)), or
+    the whole grid where none does; run = nonempty & enabled.  Without
+    one, lsr_tpu never tests the footprint: the whole grid, run =
+    enabled.  caster_enabled None counts as enabled."""
+    h, w = vis_grid_shape(sh, world_pos)
+    dev = world_pos.device
+    k = sh.n_shadowed
+    run = (torch.ones(k, dtype=torch.bool, device=dev)
+           if sh.caster_enabled is None else sh.caster_enabled.to(torch.bool))
+    full = device_const([0, 0, h, w], dev, torch.int32)
+    if not crop_sizes(sh.vis_crop):
+        return full.expand(k, 4).clone(), run.clone()
+    mask = vis_footprints(sh, world_pos)
+    rows, cols = mask.any(2), mask.any(1)
+    y0, x0 = _first(rows, 1), _first(cols, 1)
+    y1 = (h - 1) - _first(rows.flip(1), 1)
+    x1 = (w - 1) - _first(cols.flip(1), 1)
+    run = run & rows.any(1)
+    levels = vis_levels(sh, h, w)
+    # The levels, then the whole grid: the first that holds the bounds.
+    table = device_const(list(levels) + [(h, w)], dev, torch.int64)
+    fits = (((y1 - y0 + 1)[:, None] <= table[None, :, 0])
+            & ((x1 - x0 + 1)[:, None] <= table[None, :, 1]))
+    ch_cw = table[_first(fits, 1)]
+    ch, cw = ch_cw[:, 0], ch_cw[:, 1]
+    y0c = torch.minimum(y0, h - ch)
+    x0c = torch.minimum(x0, w - cw)
+    return torch.stack([y0c, x0c, ch, cw], 1).to(torch.int32), run
+
+
+def _planes_full(sh: LocalShadowMaps, wp, nm):
+    """(K, H', W') planes of every shadowed light on the whole grid."""
+    spot_ks, point_ks = _kinds(sh)
     parts = []
     if spot_ks:
         parts.append(_spot_planes(sh, spot_ks, wp, nm))
     if point_ks:
         parts.append(_point_planes(sh, point_ks, wp, nm))
-    ones = torch.ones((1,) + wp.shape[:-1], dtype=torch.float32,
-                      device=wp.device)
-    # plan_slot_stacks numbers the spots first, so this is plane order.
-    planes = torch.cat(parts, 0) if parts else ones[:0]
-    if sh.caster_enabled is not None:
-        planes = torch.where(sh.caster_enabled[:, None, None], planes,
-                             torch.ones_like(planes))
+    if not parts:
+        return torch.ones((0,) + wp.shape[:-1], dtype=torch.float32,
+                          device=wp.device)
+    return torch.cat(parts, 0)
+
+
+def vis_planes_plain(sh: LocalShadowMaps, world_pos, normal, win, run):
+    """Plain version of kernel V2: (K + 1, H', W') planes on the strided
+    grid (lsr_tpu's _vis_planes_list, :1002-1027), each plane where its
+    run flag is set and inside its window (vis_windows_plain), 1.0
+    elsewhere; plane K is 1.0."""
+    wp, nm = vis_grid(sh, world_pos, normal)
+    h, w = wp.shape[0], wp.shape[1]
+    planes = _planes_full(sh, wp, nm)
+    ys = torch.arange(h, device=wp.device, dtype=torch.int32)[None, :, None]
+    xs = torch.arange(w, device=wp.device, dtype=torch.int32)[None, None, :]
+    y0, x0, ch, cw = (win[:, i, None, None] for i in range(4))
+    keep = (run[:, None, None] & (ys >= y0) & (ys < y0 + ch) & (xs >= x0)
+            & (xs < x0 + cw))
+    planes = torch.where(keep, planes, torch.ones_like(planes))
+    ones = torch.ones((1, h, w), dtype=torch.float32, device=wp.device)
     return torch.cat([planes, ones], 0)
 
 
 def local_shadow_vis_planes(sh: LocalShadowMaps, world_pos, normal):
     """Plane-major visibility (K + 1, H, W): the form kernel B5 takes.
-    With vis_scale > 1 the planes are evaluated every vis_scale-th pixel
-    and upsampled bilinearly."""
-    planes = _vis_planes(sh, world_pos, normal)
+    The windows by kernel V1, the planes by kernel V2 on a CUDA device
+    (their plain versions on the CPU); with vis_scale > 1 the planes are
+    evaluated every vis_scale-th pixel and upsampled bilinearly."""
+    from lsr_tpu_torch.lighting import vis_kernel
+
+    win, run = vis_kernel.vis_windows(sh, world_pos)
+    planes = vis_kernel.vis_planes(sh, world_pos, normal, win, run)
     if max(1, int(sh.vis_scale)) > 1:
         planes = resize_bilinear(planes, (planes.shape[0],)
                                  + tuple(world_pos.shape[:-1]))

@@ -75,6 +75,18 @@ SIGNATURES = {
     "lsr_engine_synth": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # (no arguments): S1's dynamic shared memory in bytes
     "lsr_engine_synth_smem_bytes": (),
+    # world_pos, its strides (y, x, component), h, w, vis_scale, info,
+    # spot_vp, caster_pos, caster_range, enabled, levels, n_levels,
+    # has_crop, bounds, win, run, n_planes, stream
+    "lsr_vis_windows": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _P, _P, _P, _I, _P),
+    # world_pos, its strides, normal, its strides, h, w, vis_scale, info,
+    # spot_vp, point_vp, caster_pos, caster_range, strength, spot_taps,
+    # point_taps, spot_size, point_size, win, run, uniforms, out, n_planes,
+    # esm, pcf_radius, stream
+    "lsr_vis_planes": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                       _I, _I, _P),
 }
 
 _lib = None

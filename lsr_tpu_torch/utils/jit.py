@@ -72,7 +72,7 @@ def launch_counters():
     """[(owner, attribute)] of every kernel wrapper's launch counter."""
     from lsr_tpu_torch.audio import engine_synth
     from lsr_tpu_torch.lighting import fplus_kernel, resolve_kernel
-    from lsr_tpu_torch.lighting import shade_kernel
+    from lsr_tpu_torch.lighting import shade_kernel, vis_kernel
     from lsr_tpu_torch.raster import tiled
 
     return [(tiled.rasterize_direct, "launches"),
@@ -82,6 +82,8 @@ def launch_counters():
             (shade_kernel.shade_fused, "launches"),
             (resolve_kernel.resolve_fused, "launches"),
             (fplus_kernel.accumulate_lights, "launches"),
+            (vis_kernel.vis_windows, "launches"),
+            (vis_kernel.vis_planes, "launches"),
             (engine_synth.synthesize, "launches")]
 
 

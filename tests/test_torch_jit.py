@@ -504,3 +504,73 @@ def test_execute_jitted_equals_execute():
         assert torch.equal(a["ldr"], b["ldr"])
         assert torch.equal(a["hdr"], b["hdr"])
     assert pipe_a._jitted.captures == 0      # the CPU route: eager
+
+
+# ---------------------------------------------------------------------------
+# The crop windows as data: one capture for cameras that pick other levels
+# ---------------------------------------------------------------------------
+
+# Cameras of the bench orbit whose PCF planes (192x108, default cascade)
+# pick other levels: at 2 every plane takes level 0, at 20 plane 6 and at
+# 80 plane 8 take level 1; the windows move between all three.
+CROP_CAMS = (2, 20, 80)
+
+
+@pytest.mark.parametrize("config", ["esm", "pcf"])
+def test_crop_windows_replay_on_one_capture(monkeypatch, config):
+    """bench.py's whole frame with its crop cascade (flagship (a) ESM at
+    half resolution, (d) PCF at full; 192x108, maps cut) through jit on the
+    recording fake card (torch_scenes.RecordingCard), kernels V1 and V2's
+    plain versions recorded as fake kernels: camera 2 warms up, camera 20
+    captures, camera 80 replays; one capture, the captured and replayed
+    frames bit for bit their eager frames, and V1 and V2 launched once a
+    frame, replays included.  The eager frames' windows differ from
+    camera to camera (under PCF their levels too), with one key."""
+    from lsr_tpu_torch import frame as fr
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.lighting import resolve_kernel, shade_kernel
+    from lsr_tpu_torch.raster import tiled
+    from torch_scenes import RecordingCard
+
+    w, h = 192, 108
+    geom, objects, lights, ctx = fr.build_flagship_scene(16, grid=2,
+                                                         device="cpu")
+    cams = [fr.flagship_camera(i, ctx, w, h, device="cpu")
+            for i in CROP_CAMS]
+    cfg = fr.bench_config(config, w, h)
+    cfg.update(shadow_size=128, local_map=64, local_point=32)
+    assert cfg["vis_crop"]
+    frame = fr.make_flagship_frame(geom, objects, lights, ctx, w, h, **cfg)
+
+    windows = []
+    plain = ls.vis_windows_plain
+
+    def spy(*a, **k):
+        win, run = plain(*a, **k)
+        windows.append(win.clone())
+        return win, run
+
+    monkeypatch.setattr(ls, "vis_windows_plain", spy)
+    eager = [frame(*c) for c in cams]
+    assert len(windows) == 3
+    assert not torch.equal(windows[0], windows[1])
+    assert not torch.equal(windows[1], windows[2])
+    if config == "pcf":
+        sizes = [w_[:, 2:].tolist() for w_ in windows]
+        assert sizes[0] != sizes[1] and sizes[1] != sizes[2]
+
+    card = RecordingCard().install(monkeypatch)
+    for owner, name in ((tiled, "rasterize_brute"),
+                        (tiled, "_banded_brute"),
+                        (shade_kernel, "_shade_plain"),
+                        (resolve_kernel, "_resolve_plain")):
+        card.kernel(monkeypatch, owner, name)
+    v1 = card.kernel(monkeypatch, ls, "vis_windows_plain")
+    v2 = card.kernel(monkeypatch, ls, "vis_planes_plain")
+    jf = jm.jit(frame)
+    for n, i in enumerate(range(3), 1):
+        out = jf(*cams[i])
+        assert v1.launches == v2.launches == n
+        if n > 1:
+            assert all(torch.equal(a, b) for a, b in zip(out, eager[i]))
+    assert jf.captures == 1 and len(jf.graphs) == 1

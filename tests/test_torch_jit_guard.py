@@ -218,3 +218,41 @@ def test_flagship_frame_with_moving_planes_is_capture_safe(monkeypatch):
         frame(next(cams), ctx_t)
 
     _guarded(monkeypatch, run)
+
+
+@pytest.mark.parametrize("config", ["esm", "pcf"])
+def test_crop_windows_are_capture_safe(monkeypatch, config):
+    """Kernels V1 and V2's plain versions on the planes of bench.py's whole
+    frame with its crop cascade (flagship (a) ESM, (d) PCF; 192x108, maps
+    cut), warmed up at camera 2 of the bench orbit and run under
+    CaptureCheck at camera 80, whose windows differ: the windows stay on
+    the device, and no constant is made for the new camera."""
+    import torch
+
+    from lsr_tpu_torch import frame as fr
+    from lsr_tpu_torch.lighting import vis_kernel
+    from lsr_tpu_torch.shading.models import _norm
+
+    w, h = 192, 108
+    geom, objects, lights, ctx = fr.build_flagship_scene(16, grid=2,
+                                                         device="cpu")
+    cfg = fr.bench_config(config, w, h)
+    cfg.update(shadow_size=128, local_map=64, local_point=32)
+    stages = []
+    for i in (2, 80):
+        cam, ctx_t = fr.flagship_camera(i, ctx, w, h, device="cpu")
+        st = fr.flagship_stages(geom, objects, lights, ctx, cam, ctx_t, w, h,
+                                **cfg)
+        stages.append((st["local"], st["gb"].world_pos,
+                       _norm(st["gb"].normal_ws)))
+    assert stages[0][0].vis_crop
+    outs = []
+
+    def run(it=iter(stages)):
+        sh, wp, nm = next(it)
+        win, go = vis_kernel.vis_windows(sh, wp)
+        outs.append((win, vis_kernel.vis_planes(sh, wp, nm, win, go)))
+
+    _guarded(monkeypatch, run)
+    assert not torch.equal(outs[0][0], outs[1][0])
+    assert outs[1][1].shape[0] == stages[1][0].n_shadowed + 1

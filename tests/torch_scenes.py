@@ -679,7 +679,8 @@ class RecordingCard:
         def fake(*args, **kwargs):
             fake.launches += 1
             if (kwargs.get("y_offset")
-                    or kwargs.get("full_height") not in (None, args[2])):
+                    or kwargs.get("full_height") not in (
+                        None, args[2] if len(args) > 2 else None)):
                 fake.band_launches += 1
             if card.graph is None:
                 return plain(*args, **kwargs)
