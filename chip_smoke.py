@@ -9,6 +9,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --phase32    # phase 32 alone, after the build
     python3 chip_smoke.py --phase33    # phase 33 alone, after the build
     python3 chip_smoke.py --phase34    # phase 34 alone, after the build
+    python3 chip_smoke.py --phase35    # phases 34 and 35, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -253,7 +254,22 @@ Then kernel B1's screen bands and the multi-device paths
     (a tight spot at level 0, a wide spot on the whole grid, an empty
     footprint, a culled point) under ESM and PCF at vis_scale 1 and 2.
     The main path (phase 4a-d) launches V1 and V2 once a frame, checked.
-    `python3 chip_smoke.py --phase34` runs it alone.
+    V2 writes the full-resolution planes (upsampled at vis_scale 2), held
+    bit for bit against vis_planes_full_plain (vis_planes_plain, then
+    resize_bilinear).  `python3 chip_smoke.py --phase34` runs it alone.
+35. Right after 34: V1 as one launch over all planes, V2 writing the
+    full-resolution planes, and lsr_tpu's f32 PCF tap tables
+    (shadow_sample.TAPS_U16 False).  One V1 and one V2 launch a frame on
+    phases 4a-d, replays included (alone: the four configurations jitted
+    over four cameras), and no resize_bilinear on the planes path; V1
+    exactly and V2 bit for bit against their plain versions at (d) on f32
+    tables (kernel, wrapper and plain ms, bounds; the frame's HDR finite)
+    and in the drill's PCF cases on f32 tables at vis_scale 1 and 2; V1's
+    A/B on its three suspects (utils/vis_ab.py: its divisions, its f64
+    distance, its atomics, each patched out in a copy, ms at (a) and (d));
+    a summary of phase 34's V1 / V2 ms, the planes captured alone and the
+    (a) / (d) replays.  `python3 chip_smoke.py --phase35` runs phases 34
+    and 35.
 
 28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
     stand-in for the monkey), each at its own size, counts reset before
@@ -5237,6 +5253,7 @@ def phase30(dev, synth_ref):
 
 VIS_TOL = 1e-6       # C1's kernel contract, for an op that is not bit for bit
 P34_REPLAYS = 3      # replayed frames a plane route
+P34_PROFILED = 5     # replays of the planes alone in one profiled window
 # Work counts for V1 / V2's bounds (f32 operations a pixel and plane):
 # V1's spot test projects by four rows (28) and divides thrice (u, v, z01)
 # with its compares; its point test is a distance (3 subtractions, the
@@ -5245,6 +5262,9 @@ P34_REPLAYS = 3      # replayed frames a plane route
 # exp (~10) or the PCF box (3 a tap).
 V1_OPS_SPOT, V1_OPS_POINT = 40, 10
 V2_OPS = 75
+# V2's upsample of an output at vis_scale > 1: three two-tap sums (6
+# products, 3 adds).
+V2_UP_OPS = 9
 # The drill lights on the grid-2 scene (tests/test_torch_vis_crop.py): a
 # tight spot, a wide spot, a spot looking up (empty footprint), a point, a
 # culled point.
@@ -5273,7 +5293,7 @@ def plain_planes():
         return ls.vis_windows_plain(sh, wp)
 
     def v2(sh, wp, nm, win, run):
-        return ls.vis_planes_plain(sh, wp, nm, win, run)
+        return ls.vis_planes_full_plain(sh, wp, nm, win, run)
 
     v1.launches = v2.launches = 0
     saved = vk.vis_windows, vk.vis_planes
@@ -5356,21 +5376,24 @@ def _windows_equal(tag, sh, wp):
 
 def _vis_pair(tag, sh, wp, nm, timed=False):
     """V1 and V2 against their plain versions on the card: the windows and
-    run flags equal, the planes bit for bit (or within VIS_TOL, the
-    differing pixels counted and logged).  timed: kernel, wrapper and plain
-    ms and each kernel's bound.  Returns {"v1", "v2", "levels", ...}."""
+    run flags equal, the full-resolution planes bit for bit (or within
+    VIS_TOL, the differing pixels counted and logged).  timed: kernel,
+    wrapper and plain ms and each kernel's bound.  Returns {"v1", "v2",
+    "levels", ...}."""
     from lsr_tpu_torch.lighting import local_shadows as ls
     from lsr_tpu_torch.lighting import vis_kernel as vk
     from lsr_tpu_torch.utils.cuda_build import load_kernels
 
     win_k, run_k, win_p, run_p = _windows_equal(tag, sh, wp)
     pl_k = vk.vis_planes(sh, wp, nm, win_k, run_k)
-    pl_p = ls.vis_planes_plain(sh, wp, nm, win_p, run_p)
+    pl_p = ls.vis_planes_full_plain(sh, wp, nm, win_p, run_p)
     px, err = _spread(pl_k, pl_p)
-    check(bool(torch.isfinite(pl_k).all()) and err <= VIS_TOL,
+    check(bool(torch.isfinite(pl_k).all()) and err <= VIS_TOL
+          and pl_k.shape == pl_p.shape == (sh.n_shadowed + 1,)
+          + tuple(wp.shape[:2]),
           f"{tag}: V2 differs from its plain version in {px} values (max "
           f"{err}, tolerance {VIS_TOL})")
-    h, w = pl_k.shape[1:]
+    h, w = ls.vis_grid_shape(sh, wp)
     k = sh.n_shadowed
     levels = _levels_of(sh, win_k, run_k, h, w)
     v1 = {"max_abs_err": 0.0, "windows": win_k.tolist(),
@@ -5380,8 +5403,10 @@ def _vis_pair(tag, sh, wp, nm, timed=False):
                             "esm: expf" if sh.filter_mode == "esm"
                             else "pcf: the box mean")}
     res = {"v1": v1, "v2": v2, "levels": levels, "grid": [h, w],
-           "planes": k + 1, "filter": sh.filter_mode,
-           "vis_scale": sh.vis_scale}
+           "out": list(wp.shape[:2]), "planes": k + 1,
+           "filter": sh.filter_mode, "vis_scale": sh.vis_scale,
+           "tables": str(next(t for t in (sh.spot_taps, sh.point_taps)
+                              if t is not None).dtype).replace("torch.", "")}
     note = ""
     if timed:
         lib = load_kernels()
@@ -5394,7 +5419,7 @@ def _vis_pair(tag, sh, wp, nm, timed=False):
             lib, sh, wp, nm, win_k, run_k,
             torch.cuda.current_stream().cuda_stream)),
             ms=cuda_ms(lambda: vk.vis_planes(sh, wp, nm, win_k, run_k), 20),
-            plain_ms=cuda_ms(lambda: ls.vis_planes_plain(
+            plain_ms=cuda_ms(lambda: ls.vis_planes_full_plain(
                 sh, wp, nm, win_p, run_p), 3))
         n_spot = sum(1 for t in sh.kinds if t != ls.SHADOW_POINT_CUBE)
         tables = nbytes(sh.spot_viewproj, sh.caster_pos, sh.caster_range)
@@ -5407,12 +5432,15 @@ def _vis_pair(tag, sh, wp, nm, timed=False):
         touched = _touched_bytes(sh, wp, nm, win_k, run_k)
         box = (1 if sh.filter_mode == "esm"
                else 3 * (2 * sh.pcf_radius + 1) ** 2)
-        v2.update(bound(h * w * 24 + (k + 1) * h * w * 4 + touched
+        out_px = (k + 1) * wp.shape[0] * wp.shape[1]
+        up = 0 if sh.vis_scale <= 1 else out_px * V2_UP_OPS
+        v2.update(bound(h * w * 24 + out_px * 4 + touched
                         + nbytes(sh.spot_viewproj, sh.point_viewproj,
                                  sh.caster_pos, sh.caster_range,
                                  sh.strength) + 17 * k,
-                        live * (V2_OPS + box)),
-                  table_bytes_touched=touched, window_pixels=live)
+                        live * (V2_OPS + box) + up),
+                  table_bytes_touched=touched, window_pixels=live,
+                  outputs=out_px)
         note = (f"; V1 kernel {v1['kernel_ms']:.4f} ms (wrapper "
                 f"{v1['ms']:.4f}, plain {v1['plain_ms']:.3f}, bound "
                 f"{v1['bound_ms']:.5f} by {v1['bound_by']}), V2 kernel "
@@ -5420,8 +5448,9 @@ def _vis_pair(tag, sh, wp, nm, timed=False):
                 f"{v2['plain_ms']:.3f}, bound {v2['bound_ms']:.5f} by "
                 f"{v2['bound_by']}; {live} window pixels, {touched} table "
                 f"bytes touched)")
-    log(f"{tag}: {k + 1} planes on {h}x{w}, levels {levels}; V1 equals its "
-        f"plain version, V2 "
+    log(f"{tag}: {k + 1} planes on {h}x{w} written at "
+        f"{wp.shape[0]}x{wp.shape[1]} ({res['tables']} tables), levels "
+        f"{levels}; V1 equals its plain version, V2 "
         + ("bit for bit" if px == 0 else
            f"differs in {px} values (max {err:.3g}; {v2['not_bit_equal']})")
         + note)
@@ -5432,7 +5461,10 @@ def _planes_graph(tag, sh, wp, nm, dev, plain):
     """The planes alone as one captured graph (closing over their inputs;
     one dummy argument keys it), on the plain route or on V1 + V2: the
     planes of a replay, its ms by CUDA events and torch.profiler's busy
-    ms, kernels and copies (the output's copy out of the graph)."""
+    ms, kernels and copies (the output's copy out of the graph) a replay,
+    from P34_PROFILED replays in one profiled window: the profiler now and
+    then records no kernel of a window that holds one short replay (0.2 ms
+    on V1 + V2)."""
     from lsr_tpu_torch.lighting.local_shadows import local_shadow_vis_planes
     from lsr_tpu_torch.utils.jit import jit
 
@@ -5444,13 +5476,15 @@ def _planes_graph(tag, sh, wp, nm, dev, plain):
         jp(dummy)
         ms = [_timed(lambda: jp(dummy))[1] for _ in range(P34_REPLAYS)]
         out = jp(dummy)
-        busy = _busy_seen(lambda: jp(dummy), statistics.median(ms),
-                          match=lambda n: "Memcpy" not in n)
+        n = P34_PROFILED
+        busy = _busy_seen(lambda: [jp(dummy) for _ in range(n)],
+                          statistics.median(ms) * n,
+                          match=lambda name: "Memcpy" not in name, tries=5)
         check(jp.captures == 1, f"planes {tag}: {jp.captures} captures")
         _drop_graphs(jp)
-    return out, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"],
-                 "busy_ms_no_copies": busy["match_ms"],
-                 "kernels": busy["kernels"], "copies": busy["copies"]}
+    return out, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"] / n,
+                 "busy_ms_no_copies": busy["match_ms"] / n,
+                 "kernels": busy["kernels"] / n, "copies": busy["copies"] / n}
 
 
 def _frame_route(cfg, geom, objects, lights, ctx, cams, plain):
@@ -5459,22 +5493,34 @@ def _frame_route(cfg, geom, objects, lights, ctx, cams, plain):
     torch.profiler over one replay (V1 / V2's kernels by name).  Returns
     (outputs of the replays, the result)."""
     from lsr_tpu_torch.frame import make_flagship_frame
+    from lsr_tpu_torch.lighting import vis_kernel as vk
     from lsr_tpu_torch.utils.jit import jit
 
+    vk.vis_windows.launches = vk.vis_planes.launches = 0
     with plain_planes() if plain else contextlib.nullcontext():
         jf = jit(make_flagship_frame(geom, objects, lights, ctx, WIDTH,
                                      HEIGHT, **cfg))
-        jf(*cams[0])
-        jf(*cams[0])
+        frames = [0]
+
+        def call(c):
+            frames[0] += 1
+            return jf(*c)
+
+        call(cams[0])
+        call(cams[0])
         outs, ms = [], []
         for c in cams[1:1 + P34_REPLAYS]:
-            o, m = _timed(lambda c=c: jf(*c))
+            o, m = _timed(lambda c=c: call(c))
             outs.append(o)
             ms.append(m)
-        busy = _busy_seen(lambda: jf(*cams[1]), statistics.median(ms),
+        busy = _busy_seen(lambda: call(cams[1]), statistics.median(ms),
                           match=lambda n: "vis_" in n)
         check(jf.captures == 1, f"frame route: {jf.captures} captures")
         _drop_graphs(jf)
+    n = 0 if plain else frames[0]
+    check(read_vis_counts() == {"vis_windows": n, "vis_planes": n},
+          f"frame route ({'plain' if plain else 'V1 + V2'}): V1 / V2 "
+          f"launches {read_vis_counts()} in {frames[0]} frames")
     return outs, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"],
                   "kernels": busy["kernels"],
                   "vis_kernel_ms": busy["match_ms"],
@@ -5482,12 +5528,13 @@ def _frame_route(cfg, geom, objects, lights, ctx, cams, plain):
                   "vis_kernel_ms_by_name": busy["match_by_name"]}
 
 
-def _drill(dev):
+def _drill(dev, f32=False):
     """The four drill cases on the card at 1920x1080 (grid-2 scene, the
     five drill lights, drill_crop), under ESM and PCF at vis_scale 1 and
-    2: V1 / V2 against their plain versions, and each light where it is
-    meant to be (tight spot level 0, wide spot the whole grid, the empty
-    footprint and the culled point off)."""
+    2 (f32: PCF on f32 tables, f32_tables): V1 / V2 against their plain
+    versions, and each light where it is meant to be (tight spot level 0,
+    wide spot the whole grid, the empty footprint and the culled point
+    off)."""
     from lsr_tpu_torch.frame import (
         bench_config, build_flagship_scene, flagship_camera,
         flagship_stages)
@@ -5512,21 +5559,25 @@ def _drill(dev):
     wp, nm = st["gb"].world_pos, _norm(st["gb"].normal_ws)
     en = torch.tensor(DRILL_ENABLED, dtype=torch.bool, device=dev)
     out = {}
-    for mode in ("esm", "pcf"):
+    for mode in ("pcf",) if f32 else ("esm", "pcf"):
         cfg = bench_config(mode, WIDTH, HEIGHT)
         for sc in (1, 2):
-            sh = render_local_shadow_maps(
-                geom, objects, lights, (0, 1, 2), (3, 4),
-                map_size=cfg["local_map"], point_size=cfg["local_point"],
-                pcf_radius=2, vis_scale=sc, vis_crop=drill_crop(HEIGHT, WIDTH),
-                caster_enabled=en, filter_mode=mode)
-            r = _vis_pair(f"phase 34 drill [{mode}, vis_scale {sc}]", sh, wp,
-                          nm)
+            with f32_tables() if f32 else contextlib.nullcontext():
+                sh = render_local_shadow_maps(
+                    geom, objects, lights, (0, 1, 2), (3, 4),
+                    map_size=cfg["local_map"], point_size=cfg["local_point"],
+                    pcf_radius=2, vis_scale=sc,
+                    vis_crop=drill_crop(HEIGHT, WIDTH), caster_enabled=en,
+                    filter_mode=mode)
+            tag = f"{mode}{'_f32' if f32 else ''}"
+            r = _vis_pair(f"phase {35 if f32 else 34} drill [{tag}, "
+                          f"vis_scale {sc}]", sh, wp, nm)
             check(r["levels"] == [0, "full", "off", r["levels"][3], "off"]
                   and r["levels"][3] != "off",
                   f"drill [{mode}, vis_scale {sc}]: levels {r['levels']}, "
                   f"expected [0, full, off, a level, off]")
-            out[f"{mode}_sc{sc}"] = {k: r[k] for k in ("levels", "grid")} | {
+            out[f"{tag}_sc{sc}"] = {k: r[k] for k in ("levels", "grid",
+                                                     "tables")} | {
                 "v2_values_differ": r["v2"]["values_differ"],
                 "v2_max_abs_err": r["v2"]["max_abs_err"]}
     return out
@@ -5603,11 +5654,11 @@ def phase34(geom, objects, lights, ctx, cams, dev):
                               "replay_vs_plain_route": f_spread}}
         log(f"{tag}: levels over {len(cams)} cameras {hist}; the planes "
             f"captured alone: plain route {g_plain['ms']:.3f} ms a replay, "
-            f"busy {g_plain['busy_ms']:.4f} ms ({g_plain['kernels']} "
-            f"kernels, {g_plain['copies']} copies, "
+            f"busy {g_plain['busy_ms']:.4f} ms ({g_plain['kernels']:g} "
+            f"kernels, {g_plain['copies']:g} copies, "
             f"{g_plain['busy_ms_no_copies']:.4f} without), V1 + V2 "
             f"{g_k['ms']:.3f} ms, busy {g_k['busy_ms']:.4f} ms "
-            f"({g_k['kernels']} kernels, {g_k['copies']} copies, "
+            f"({g_k['kernels']:g} kernels, {g_k['copies']:g} copies, "
             f"{g_k['busy_ms_no_copies']:.4f} without); the frame replayed: "
             f"plain route {f_plain['ms']:.3f} ms [{f_plain['ms_min']:.3f}, "
             f"{f_plain['ms_max']:.3f}], busy {f_plain['busy_ms']:.3f} ms in "
@@ -5621,6 +5672,152 @@ def phase34(geom, objects, lights, ctx, cams, dev):
     out["drill"] = _drill(dev)
     out["seconds"] = time.perf_counter() - t0
     log(f"# phase 34 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 35: V1 in one launch, V2 at full resolution, lsr_tpu's f32 PCF tables
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def f32_tables():
+    """lsr_tpu's TAPS_U16 False in the port (shadow_sample.TAPS_U16): the
+    tables built inside keep unit-step PCF's depth in f32."""
+    from lsr_tpu_torch.lighting import shadow_sample as ss
+
+    old = ss.TAPS_U16
+    ss.TAPS_U16 = False
+    try:
+        yield
+    finally:
+        ss.TAPS_U16 = old
+
+
+def _resize_calls(fn):
+    """fn()'s calls of resize_bilinear on a plane stack (3-D input), through
+    core/image and the name lighting/local_shadows holds."""
+    from lsr_tpu_torch.core import image
+    from lsr_tpu_torch.lighting import local_shadows as ls
+
+    calls = []
+    orig = image.resize_bilinear
+
+    def spy(x, shape):
+        if x.dim() == 3:
+            calls.append(tuple(x.shape))
+        return orig(x, shape)
+
+    image.resize_bilinear = ls.resize_bilinear = spy
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        image.resize_bilinear = ls.resize_bilinear = orig
+    return calls
+
+
+def _frames_launch_v1_v2(geom, objects, lights, ctx, cams, n=4):
+    """Phase 4a-d's four configurations through jit over n cameras (warm
+    up, capture, replays), counts from zero: one V1 and one V2 a frame.
+    Returns {config: (V1, V2) launches}."""
+    from lsr_tpu_torch.frame import bench_config, make_flagship_frame
+    from lsr_tpu_torch.lighting import vis_kernel as vk
+    from lsr_tpu_torch.utils.jit import jit
+
+    esm, pcf = bench_config("esm", WIDTH, HEIGHT), bench_config("pcf", WIDTH,
+                                                                 HEIGHT)
+    out = {}
+    for name, route, cfg in (("esm_b2", False, esm),
+                             ("esm_b2_packed", False,
+                              dict(esm, atlas_packed=True)),
+                             ("esm_resolve", True, esm),
+                             ("pcf_b2", False, pcf)):
+        jf = jit(make_flagship_frame(geom, objects, lights, ctx, WIDTH,
+                                     HEIGHT, use_resolve=route, **cfg))
+        vk.vis_windows.launches = vk.vis_planes.launches = 0
+        for c in cams[:n]:
+            jf(*c)
+        torch.cuda.synchronize()
+        got = (vk.vis_windows.launches, vk.vis_planes.launches)
+        check(got == (n, n) and jf.captures == 1,
+              f"phase 35 [{name}]: V1 / V2 launches {got} in {n} frames "
+              f"({jf.captures} captures)")
+        _drop_graphs(jf)
+        out[name] = {"frames": n, "vis_windows": got[0],
+                     "vis_planes": got[1]}
+    return out
+
+
+def phase35(geom, objects, lights, ctx, cams, dev, p34, whole=None):
+    """Phase 35 (after phase 34, whose result p34 it summarises).  V1 in
+    one launch over all planes, V2 writing the full-resolution planes,
+    lsr_tpu's f32 PCF tables:
+    - one V1 and one V2 launch a frame on phases 4a-d, replays included
+      (their counts in whole; alone, _frames_launch_v1_v2), and no
+      resize_bilinear on a plane stack while the planes are made;
+    - flagship (d) (PCF control) with f32 tables: the frame's HDR finite,
+      V1 exactly and V2 bit for bit against their plain versions, timed,
+      and the drill's PCF cases on f32 tables at vis_scale 1 and 2;
+    - V1's A/B on its three suspects (utils/vis_ab.ab) at (a) and (d).
+    `python3 chip_smoke.py --phase35` runs phases 34 and 35.  Returns the
+    result."""
+    from lsr_tpu_torch.frame import bench_config, flagship_stages
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.shading.models import _norm
+    from lsr_tpu_torch.utils import vis_ab
+
+    t0 = time.perf_counter()
+    out = {}
+    if whole is not None:
+        out["launches"] = {k: {"frames": v["frames"], **v["vis_launches"]}
+                           for k, v in whole.items()}
+        for k, v in out["launches"].items():
+            check(v["vis_windows"] == v["vis_planes"] == v["frames"],
+                  f"phase 35: V1 / V2 launches {v} on phase 4 [{k}]")
+    else:
+        out["launches"] = _frames_launch_v1_v2(geom, objects, lights, ctx,
+                                               cams)
+    cam, ctx_i = cams[0]
+    cases = {}
+    for key, mode in (("(a)", "esm"), ("(d)", "pcf")):
+        st = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
+                             HEIGHT, **bench_config(mode, WIDTH, HEIGHT))
+        sh, gb = st["local"], st["gb"]
+        cases[key] = (sh, gb.world_pos, _norm(gb.normal_ws))
+        calls = _resize_calls(lambda: ls.local_shadow_vis_planes(
+            sh, gb.world_pos, _norm(gb.normal_ws)))
+        check(not calls, f"phase 35 {key}: resize_bilinear ran on the "
+              f"planes path {calls}")
+    out["resize_on_planes_path"] = 0
+
+    with f32_tables():
+        st = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
+                             HEIGHT, **bench_config("pcf", WIDTH, HEIGHT))
+    sh, gb = st["local"], st["gb"]
+    check(sh.spot_taps.dtype == torch.float32 and st["shadow"].taps_q16 is
+          None and bool(torch.isfinite(st["hdr"]).all()),
+          "phase 35: the (d) frame on f32 tables")
+    out["f32_d"] = _vis_pair("phase 35 (d) [pcf, f32 tables] camera 0", sh,
+                             gb.world_pos, _norm(gb.normal_ws), timed=True)
+    out["f32_drill"] = _drill(dev, f32=True)
+    out["ab"] = vis_ab.ab(cases, log=log)
+    med = {r["input"]: r["median_ms"] for r in out["ab"]["rows"]}
+    summary = {k: {"v1_kernel_ms": p34[k]["v1"]["kernel_ms"],
+                   "v2_kernel_ms": p34[k]["v2"]["kernel_ms"],
+                   "planes_graph_busy_ms": p34[k]["planes_graph"]["v1_v2"][
+                       "busy_ms"],
+                   "replay_ms": p34[k]["frame"]["v1_v2"]["ms"],
+                   "replay_busy_ms": p34[k]["frame"]["v1_v2"]["busy_ms"]}
+               for k in ("a", "d")}
+    out["summary"] = summary
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 35: one V1 and one V2 a frame {out['launches']}; no "
+        f"resize_bilinear on the planes path; f32 tables at (d): V1 kernel "
+        f"{out['f32_d']['v1']['kernel_ms']:.4f} ms, V2 kernel "
+        f"{out['f32_d']['v2']['kernel_ms']:.4f} ms (bound "
+        f"{out['f32_d']['v2']['bound_ms']:.5f}); V1's A/B (median ms) "
+        f"{med}; (a) / (d) from phase 34 {summary}")
+    log(f"# phase 35 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5694,6 +5891,13 @@ def main():
         # Phase 34 alone (the planes' crop windows, V1 and V2).
         phase34(geom, objects, lights, ctx, cams, dev)
         log(f"phase 34 alone: ok ({card})")
+        return 0
+    if sys.argv[1:] == ["--phase35"]:
+        # Phases 34 and 35 (V1 in one launch, V2 at full resolution, f32
+        # PCF tables, V1's A/B).
+        p34 = phase34(geom, objects, lights, ctx, cams, dev)
+        phase35(geom, objects, lights, ctx, cams, dev, p34)
+        log(f"phases 34-35 alone: ok ({card})")
         return 0
 
     cam0, ctx0 = cams[0]
@@ -5801,6 +6005,7 @@ def main():
     for key in ("a", "d"):
         entry_log(f"vis_windows ({key})", p34[key]["v1"])
         entry_log(f"vis_planes ({key})", p34[key]["v2"])
+    p35 = phase35(geom, objects, lights, ctx, cams, dev, p34, whole)
 
     # lsr_tpu's demo entry points, each a main path of its own with its
     # counts.
@@ -6030,7 +6235,10 @@ def main():
                                   / v["frames"] for k, v in whole.items()},
               pcf_control=sub(p34["d"]["v1"]),
               levels={k: p34[k]["histogram"] for k in ("a", "d")},
-              drill=p34["drill"]),
+              drill=p34["drill"],
+              f32_tables_d=sub(p35["f32_d"]["v1"]),
+              launches_phase35=p35["launches"], ab=p35["ab"]["rows"],
+              ab_registers=p35["ab"]["libraries"]),
         entry("vis_planes", "vis_planes.cu",
               "lsr_tpu/lighting/local_shadows.py:674 (lax.cond crop "
               "cascade; no pallas_call)",
@@ -6045,7 +6253,11 @@ def main():
                   "values_differ", "not_bit_equal", "table_bytes_touched",
                   "window_pixels")},
               planes_captured={k: p34[k]["planes_graph"] for k in ("a", "d")},
-              frames_captured={k: p34[k]["frame"] for k in ("a", "d")}),
+              frames_captured={k: p34[k]["frame"] for k in ("a", "d")},
+              f32_tables_d=sub(p35["f32_d"]["v2"], "values_differ",
+                               "table_bytes_touched", "window_pixels"),
+              f32_drill=p35["f32_drill"],
+              resize_on_planes_path=p35["resize_on_planes_path"]),
         entry("engine_synth", "engine_synth.cu",
               "lsr_tpu/audio/engine_synth.py:84 (lax.scan; no pallas_call)",
               p30["synth"]["launches"], p30["synth"],

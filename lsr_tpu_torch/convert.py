@@ -71,37 +71,45 @@ def materials_soa(materials, device) -> MaterialsSoA:
         **{k: _tensor(_np(materials, k), device) for k in _MATERIALS})
 
 
-def _q16_planes(taps, n: int, s: int, filter_mode: str, stride: int,
+def _tap_planes(taps, n: int, s: int, filter_mode: str, stride: int,
                 radius: int) -> np.ndarray:
-    """n (S, S) int32 q16 planes from lsr_tpu's u16 tap table of n maps:
-    ESM's soft maps from their u32 texel pairs (low half = even texel),
-    unit-step PCF's depth from its per-anchor u16 tap windows (anchor
-    (ay, ax) lane (li, lj) holds texel (ay * stride - r + li, ax * stride -
-    r + lj), clamped)."""
+    """n (S, S) planes from lsr_tpu's tap table of n maps.  A u16 table
+    (TAPS_U16, u32 texel pairs, low half = even texel) gives int32 q16
+    planes: ESM's soft maps, or unit-step PCF's depth from its per-anchor
+    windows; an f32 table (PCF with TAPS_U16 False) gives the f32 depth
+    from its windows.  Anchor (ay, ax) lane (li, lj) holds texel (ay *
+    stride - r + li, ax * stride - r + lj), clamped."""
     taps = np.asarray(taps)
-    if taps.dtype != np.uint32:
-        raise NotImplementedError("only lsr_tpu's u16 tap tables (TAPS_U16) "
-                                  "are carried")
-    lo, hi = taps & 0xFFFF, taps >> 16
-    pairs = np.stack([lo, hi], axis=-1).reshape(taps.shape[:-1] + (-1,))
+    if taps.dtype == np.uint32:
+        lo, hi = taps & 0xFFFF, taps >> 16
+        texels = np.stack([lo, hi], axis=-1).reshape(taps.shape[:-1] + (-1,))
+        out = np.int32
+    elif taps.dtype == np.float32 and filter_mode == "pcf":
+        texels, out = taps, np.float32
+    else:
+        raise ValueError(f"a {filter_mode} tap table of {taps.dtype}: "
+                         f"lsr_tpu builds u32 (u16 pairs) or, for PCF, f32")
     if filter_mode == "esm":
-        return pairs.reshape(n, s, s).astype(np.int32)
+        return texels.reshape(n, s, s).astype(out)
     win = stride + 2 * radius
     n_anchor = -(-s // stride)
-    win_tab = pairs.reshape(n, n_anchor * n_anchor, win, win)
+    win_tab = texels.reshape(n, n_anchor * n_anchor, win, win)
     y, x = np.mgrid[0:s, 0:s]
     return win_tab[:, (y // stride) * n_anchor + x // stride,
-                   y % stride + radius, x % stride + radius].astype(np.int32)
+                   y % stride + radius, x % stride + radius].astype(out)
 
 
 def shadow_context(sc, device) -> ShadowContext:
-    """lsr_tpu's ShadowContext as this package's.  Its tap table becomes the
-    (S, S) int32 q16 plane (_q16_planes)."""
+    """lsr_tpu's ShadowContext as this package's.  A u16 tap table becomes
+    the (S, S) int32 q16 plane (_tap_planes); an f32 one (PCF, TAPS_U16
+    False) leaves taps_q16 None, so the sun samples its f32 depth map,
+    which is what lsr_tpu's f32 anchor windows hold."""
     depth = np.array(sc.depth, np.float32)
     s = depth.shape[0]
     taps = None
-    if sc.depth_taps is not None:
-        taps = torch.as_tensor(_q16_planes(
+    if sc.depth_taps is not None and np.asarray(sc.depth_taps).dtype != \
+            np.float32:
+        taps = torch.as_tensor(_tap_planes(
             sc.depth_taps, 1, s, sc.filter_mode, int(sc.tap_stride),
             int(sc.pcf_radius))[0], device=device)
     f = lambda k: float(np.float32(_np(sc, k)))  # noqa: E731
@@ -116,12 +124,13 @@ def shadow_context(sc, device) -> ShadowContext:
 
 def local_shadow_maps(sh, device) -> LocalShadowMaps:
     """lsr_tpu's LocalShadowMaps as this package's: each stack's tap table
-    as (n, S, S) int32 q16 planes (_q16_planes; lsr_tpu's PCF anchor stride
-    is 6), the other fields by name."""
+    as (n, S, S) planes (_tap_planes: int32 q16, or f32 depth from an f32
+    PCF table; lsr_tpu's PCF anchor stride is 6), the other fields by
+    name."""
     def stack(taps, vp, size):
         if taps is None:
             return None
-        return torch.as_tensor(_q16_planes(
+        return torch.as_tensor(_tap_planes(
             taps, np.asarray(vp).shape[0], size, sh.filter_mode,
             _LOCAL_TAP_STRIDE, int(sh.pcf_radius)), device=device)
 

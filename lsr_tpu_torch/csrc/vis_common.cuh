@@ -11,8 +11,8 @@ namespace lsr_vis {
 
 constexpr int kSpot = 2;   // SHADOW_SPOT_2D
 constexpr int kPoint = 3;  // SHADOW_POINT_CUBE
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 // torch.clamp: NaN passes through.
 __device__ __forceinline__ float clamp_min(float v, float lo) {
@@ -36,32 +36,41 @@ __device__ __forceinline__ float norm3(float x, float y, float z) {
 }
 
 // _project_rows: one row of a row-major 4x4, summed left to right.
-__device__ __forceinline__ float project_row(const float* m, float x, float y,
+__device__ __forceinline__ float project_row(const float4 r, float x, float y,
                                              float z) {
-  return ((m[0] * x + m[1] * y) + m[2] * z) + m[3];
+  return ((r.x * x + r.y * y) + r.z * z) + r.w;
 }
 
 struct Uvz {
   float u, v, z;
-  bool in_map;
 };
 
-// _uvz and _in_map of a projected point.
-__device__ __forceinline__ Uvz uvz(const float* m, float x, float y, float z,
-                                   bool in_reach) {
-  const float px = project_row(m, x, y, z);
-  const float py = project_row(m + 4, x, y, z);
-  const float pz = project_row(m + 8, x, y, z);
-  const float pw = project_row(m + 12, x, y, z);
-  const bool w_ok = fabsf(pw) >= 1e-8f;
-  const float ws = w_ok ? pw : 1.0f;
-  Uvz r;
-  r.u = (px / ws) * 0.5f + 0.5f;
-  r.v = (py / ws) * 0.5f + 0.5f;
-  r.z = (pz / ws) * 0.5f + 0.5f;
-  r.in_map = w_ok && in_reach && pw > 0.0f && r.u >= 0.0f && r.u <= 1.0f &&
-             r.v >= 0.0f && r.v <= 1.0f && r.z > 0.0f && r.z < 1.0f;
-  return r;
+// A row of a 16-byte aligned row-major 4x4 in shared memory (V1) or
+// through the read-only path (V2): one 16-byte load.
+template <bool kGlobal>
+__device__ __forceinline__ float4 row4(const float* m, int i) {
+  const float4* p = reinterpret_cast<const float4*>(m) + i;
+  if constexpr (kGlobal) return __ldg(p);
+  return *p;
+}
+
+// _uvz and _in_map of a point projected by m, for a pixel in reach: the
+// conjunction w_ok & (w > 0) & u, v in [0, 1] & z in (0, 1), evaluated
+// term by term and left at the first false one.  Each value it does
+// compute takes _uvz's operations (w_ok makes the safe w the w itself), so
+// the flag and the (u, v, z) of an in-map pixel are those of the plain
+// version; a pixel behind the light costs one projected row.
+template <bool kGlobal>
+__device__ __forceinline__ bool in_map(const float* m, float x, float y,
+                                       float z, Uvz& r) {
+  const float pw = project_row(row4<kGlobal>(m, 3), x, y, z);
+  if (!(fabsf(pw) >= 1e-8f && pw > 0.0f)) return false;
+  r.u = (project_row(row4<kGlobal>(m, 0), x, y, z) / pw) * 0.5f + 0.5f;
+  if (!(r.u >= 0.0f && r.u <= 1.0f)) return false;
+  r.v = (project_row(row4<kGlobal>(m, 1), x, y, z) / pw) * 0.5f + 0.5f;
+  if (!(r.v >= 0.0f && r.v <= 1.0f)) return false;
+  r.z = (project_row(row4<kGlobal>(m, 2), x, y, z) / pw) * 0.5f + 0.5f;
+  return r.z > 0.0f && r.z < 1.0f;
 }
 
 // A pixel of an (H, W, 3) tensor at every scale-th row and column, read in

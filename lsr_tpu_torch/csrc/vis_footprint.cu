@@ -20,15 +20,26 @@
 // point ~10 (a distance), so ten planes of flagship (a) need ~1.4x the
 // bytes' time.
 //
-// What the design does about it: one thread per (pixel, plane), 32x8
-// blocks, world positions read in place at their strides (no strided
-// copy); the bounds fold by warp (__reduce_min_sync), then by block in
-// shared memory, into one atomicMin per block and value (not one per warp:
-// every block of a plane contends for the same four words), the maxima
-// stored negated so that all four are minima of one memset sentinel.  A
-// second launch of one block picks the level.  The memset and both
-// launches sit on the caller's stream, so a captured graph resets its
-// scratch on every replay.
+// What the design does about it: one launch over all planes.  A thread
+// owns a strided pixel and loops over the K planes, so the world position
+// is read once; the planes' view-projections, centres, ranges and kinds
+// sit in shared memory, staged once a block.  The spot test stops at its
+// first false term (vis_common.cuh in_map: a pixel behind the light costs
+// one projected row and no division).  A warp covers 32 neighbouring
+// pixels of one row, so a plane's ballot gives the warp's row and its
+// first and last column at once: lane 0 folds them into the warp's minima
+// in shared memory (maxima stored negated, so that all four are minima of
+// one sentinel), with no reduction and no atomic.  The grid is persistent
+// (the caller's blocks an SM, lighting/vis_kernel.V1_BLOCKS_PER_SM), each
+// block walking a contiguous run of warp rows; at its end a block folds
+// its warps per plane and makes one global atomicMin a (block, plane,
+// value) where the plane was seen.  The last block to finish (a ticket
+// counter behind __threadfence) picks the levels.  A call is one memset
+// of the scratch (bounds and ticket) and one launch, both on the caller's
+// stream, so a captured graph resets its scratch on every replay.  Of the
+// costs suspected in the first V1 (one thread a (pixel, plane), a launch
+// a plane on blockIdx.z), its divisions cost it 8%, its f64 distance and
+// its atomics under 1% (utils/vis_ab.py on an H100).
 
 #include <cuda_runtime.h>
 
@@ -37,74 +48,120 @@
 namespace {
 
 using lsr_vis::kPoint;
-using lsr_vis::kTileH;
-using lsr_vis::kTileW;
+using lsr_vis::kThreads;
+using lsr_vis::kWarps;
 
 // The memset byte 0x7F makes every int 0x7F7F7F7F: above any pixel index.
+// The ticket counter starts there too and counts blocks up from it.
 constexpr int kNone = 0x7F7F7F7F;
+constexpr int kTab = 20;  // a plane's staged floats: view-proj, centre, range
 
-__global__ void __launch_bounds__(kTileW* kTileH)
+__global__ void __launch_bounds__(kThreads)
 vis_footprint_kernel(const float* __restrict__ wp, int sy, int sx, int s3,
                      int h, int w, int scale,
                      const int* __restrict__ info,        // (K, 2) kind, base
                      const float* __restrict__ spot_vp,   // (n_spot, 16)
                      const float* __restrict__ cpos,      // (K, 3)
                      const float* __restrict__ crange,    // (K,)
-                     int* __restrict__ bounds) {          // (K, 4)
-  const int k = blockIdx.z;
-  const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y = blockIdx.y * kTileH + threadIdx.y;
-  bool in = false;
-  if (x < w && y < h) {
-    float px, py, pz;
-    lsr_vis::load3(wp, sy, sx, s3, y, x, scale, px, py, pz);
-    if (info[2 * k] == kPoint) {
-      const float len = lsr_vis::norm3(px - cpos[3 * k], py - cpos[3 * k + 1],
-                                       pz - cpos[3 * k + 2]);
-      in = len > 1e-4f && len < crange[k];
-    } else {
-      in = lsr_vis::uvz(spot_vp + 16 * info[2 * k + 1], px, py, pz, true)
-               .in_map;
+                     const unsigned char* __restrict__ enabled,
+                     const int* __restrict__ levels,      // (L, 2)
+                     int n_levels, int has_crop, int n_planes,
+                     int* __restrict__ bounds,            // (K, 4), ticket
+                     int* __restrict__ win,               // (K, 4)
+                     unsigned char* __restrict__ run) {
+  extern __shared__ float4 smem[];
+  float* tab = reinterpret_cast<float*>(smem);         // (K, kTab)
+  int* kind = reinterpret_cast<int*>(tab + kTab * n_planes);
+  int* part = kind + n_planes;                         // (kWarps, K, 4)
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  if (has_crop) {
+    for (int k = tid; k < n_planes; k += kThreads) {
+      const int kd = info[2 * k];
+      kind[k] = kd;
+      float* t = tab + kTab * k;
+      if (kd != kPoint) {
+        const float* m = spot_vp + 16 * info[2 * k + 1];
+        for (int i = 0; i < 16; ++i) t[i] = m[i];
+      }
+      t[16] = cpos[3 * k];
+      t[17] = cpos[3 * k + 1];
+      t[18] = cpos[3 * k + 2];
+      t[19] = crange[k];
     }
-  }
-  // Each row of 32 threads is a warp: fold the warp, then the block's
-  // eight warps in shared memory, then one atomicMin a value and block.
-  __shared__ int part[4][kTileH];
-  const int v[4] = {in ? y : kNone, in ? x : kNone, in ? -y : kNone,
-                    in ? -x : kNone};
-  for (int i = 0; i < 4; ++i) {
-    const int m = __reduce_min_sync(0xffffffffu, v[i]);
-    if (threadIdx.x == 0) part[i][threadIdx.y] = m;
-  }
-  __syncthreads();
-  if (threadIdx.y == 0 && threadIdx.x < 4) {
-    int m = kNone;
-    for (int j = 0; j < kTileH; ++j) m = min(m, part[threadIdx.x][j]);
-    if (m != kNone) atomicMin(bounds + 4 * k + threadIdx.x, m);
-  }
-}
+    for (int i = tid; i < kWarps * 4 * n_planes; i += kThreads)
+      part[i] = kNone;
+    __syncthreads();
 
-// _cropped_plane's choice: the first level (ascending area) that holds the
-// bounds, its corner clipped into the grid; the whole grid where none
-// does.  An empty footprint has the bounds of _crop_bounds on an empty
-// mask, (0, h - 1, 0, w - 1).
-__global__ void vis_window_kernel(const int* __restrict__ bounds,
-                                  const int* __restrict__ levels,  // (L, 2)
-                                  int n_levels, int has_crop,
-                                  const unsigned char* __restrict__ enabled,
-                                  int h, int w, int n_planes,
-                                  int* __restrict__ win,            // (K, 4)
-                                  unsigned char* __restrict__ run) {
-  for (int k = threadIdx.x; k < n_planes; k += blockDim.x) {
+    const int warp = tid / 32, lane = tid % 32;
+    int* mine = part + warp * 4 * n_planes;
+    const int segs_x = (w + 31) / 32;
+    const long long n_seg = (long long)h * segs_x;
+    const long long per = (n_seg + gridDim.x - 1) / gridDim.x;
+    const long long s0 = blockIdx.x * per;
+    const long long s1 = min(n_seg, s0 + per);
+    for (long long s = s0 + warp; s < s1; s += kWarps) {
+      const int y = (int)(s / segs_x);
+      const int x0 = (int)(s % segs_x) * 32;
+      const int x = x0 + lane;
+      float px = 0.0f, py = 0.0f, pz = 0.0f;
+      if (x < w) lsr_vis::load3(wp, sy, sx, s3, y, x, scale, px, py, pz);
+      for (int k = 0; k < n_planes; ++k) {
+        const float* t = tab + kTab * k;
+        bool in = false;
+        if (x < w) {
+          if (kind[k] == kPoint) {
+            const float len =
+                lsr_vis::norm3(px - t[16], py - t[17], pz - t[18]);
+            in = len > 1e-4f && len < t[19];
+          } else {
+            lsr_vis::Uvz r;
+            in = lsr_vis::in_map<false>(t, px, py, pz, r);
+          }
+        }
+        const unsigned b = __ballot_sync(0xffffffffu, in);
+        if (b != 0u && lane == 0) {
+          int* m = mine + 4 * k;
+          m[0] = min(m[0], y);
+          m[1] = min(m[1], x0 + __ffs(b) - 1);
+          m[2] = min(m[2], -y);
+          m[3] = min(m[3], -(x0 + 31 - __clz(b)));
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 4 * n_planes; i += kThreads) {
+      int m = kNone;
+      for (int j = 0; j < kWarps; ++j) m = min(m, part[j * 4 * n_planes + i]);
+      if (m != kNone) atomicMin(bounds + i, m);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      last = atomicAdd(bounds + 4 * n_planes, 1) ==
+             kNone + (int)gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+  }
+
+  // The last block: _cropped_plane's choice, the first level (ascending
+  // area) that holds the bounds, its corner clipped into the grid; the
+  // whole grid where none does.  An empty footprint has the bounds of
+  // _crop_bounds on an empty mask, (0, h - 1, 0, w - 1).
+  for (int k = tid; k < n_planes; k += kThreads) {
     const bool en = enabled == nullptr || enabled[k] != 0;
     int y0c = 0, x0c = 0, ch = h, cw = w;
     bool go = en;
     if (has_crop) {
-      const bool nonempty = bounds[4 * k] != kNone;
-      const int y0 = nonempty ? bounds[4 * k] : 0;
-      const int x0 = nonempty ? bounds[4 * k + 1] : 0;
-      const int y1 = nonempty ? -bounds[4 * k + 2] : h - 1;
-      const int x1 = nonempty ? -bounds[4 * k + 3] : w - 1;
+      const int b0 = __ldcg(bounds + 4 * k), b1 = __ldcg(bounds + 4 * k + 1);
+      const int b2 = __ldcg(bounds + 4 * k + 2);
+      const int b3 = __ldcg(bounds + 4 * k + 3);
+      const bool nonempty = b0 != kNone;
+      const int y0 = nonempty ? b0 : 0;
+      const int x0 = nonempty ? b1 : 0;
+      const int y1 = nonempty ? -b2 : h - 1;
+      const int x1 = nonempty ? -b3 : w - 1;
       for (int i = 0; i < n_levels; ++i) {
         const int lh = levels[2 * i], lw = levels[2 * i + 1];
         if (y1 - y0 + 1 <= lh && x1 - x0 + 1 <= lw) {
@@ -127,6 +184,9 @@ __global__ void vis_window_kernel(const int* __restrict__ bounds,
 
 }  // namespace
 
+// bounds: (4 K + 1) ints of scratch.  n_blocks: the persistent grid (the
+// caller's few blocks an SM, fewer where the grid has fewer warp rows);
+// without a crop cascade one block writes the whole-grid windows.
 extern "C" int lsr_vis_windows(const float* wp, int sy, int sx, int s3, int h,
                                int w, int scale, const int* info,
                                const float* spot_vp, const float* cpos,
@@ -134,20 +194,25 @@ extern "C" int lsr_vis_windows(const float* wp, int sy, int sx, int s3, int h,
                                const unsigned char* enabled,
                                const int* levels, int n_levels, int has_crop,
                                int* bounds, int* win, unsigned char* run,
-                               int n_planes, void* stream) {
+                               int n_planes, int n_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int grid = 1;
   if (has_crop) {
     cudaError_t e = cudaMemsetAsync(bounds, 0x7F,
-                                    sizeof(int) * 4 * (size_t)n_planes, s);
+                                    sizeof(int) * (4 * (size_t)n_planes + 1),
+                                    s);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH,
-                    n_planes);
-    vis_footprint_kernel<<<grid, dim3(kTileW, kTileH), 0, s>>>(
-        wp, sy, sx, s3, h, w, scale, info, spot_vp, cpos, crange, bounds);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    const long long rows = (long long)h * ((w + 31) / 32);
+    const long long need = (rows + kWarps - 1) / kWarps;
+    grid = (int)(need < n_blocks ? need : n_blocks);
+    grid = grid < 1 ? 1 : grid;
   }
-  vis_window_kernel<<<1, 32, 0, s>>>(bounds, levels, n_levels, has_crop,
-                                     enabled, h, w, n_planes, win, run);
+  const size_t smem =
+      has_crop ? sizeof(float) * (size_t)n_planes * (kTab + 1 + 4 * kWarps)
+               : 0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  vis_footprint_kernel<<<grid, kThreads, smem, s>>>(
+      wp, sy, sx, s3, h, w, scale, info, spot_vp, cpos, crange, enabled,
+      levels, n_levels, has_crop, n_planes, bounds, win, run);
   return (int)cudaGetLastError();
 }

@@ -20,23 +20,28 @@ A slot's table is its (S, S) int32 q16 plane: ESM's prefiltered soft map of
 the LINEARISED slot depth (_linearize01), or PCF's depth.  lsr_tpu packs
 these as u32 texel pairs and u16 anchor windows for its gathers
 (convert.local_shadow_maps unpacks them); fetching the clamped texel of the
-plane gives the same values and counts.
+plane gives the same values and counts.  With shadow_sample.TAPS_U16 False
+(lsr_tpu's flag of the same name) a PCF table is the slot's f32 depth and
+the box compares in f32, as lsr_tpu's f32 anchor windows do.
 
 Sampling gives one visibility plane per shadowed light, plane K the
 constant 1.0 of unshadowed lights (light_shadow_index).  The planes are
-evaluated on the vis_scale-strided grid in two steps, each a hand-written
-kernel on the card (lighting/vis_kernel.py) with its plain version here:
+evaluated on the vis_scale-strided grid and upsampled to the frame in two
+steps, each a hand-written kernel on the card (lighting/vis_kernel.py)
+with its plain version here:
 - V1, the windows (vis_windows_plain): each light's footprint on the grid
   (a spot's frustum, _spot_in_map; a point's range sphere,
   _point_in_reach), its bounds (_crop_bounds) and the first level of
   lsr_tpu's crop cascade that holds them (_cropped_plane, :674-730): a
   (K, 4) window and a (K,) run flag, both device data, so one captured
   frame serves every camera where lsr_tpu branches with nested lax.cond;
-- V2, the planes (vis_planes_plain): each plane evaluated inside its
+- V2, the planes (vis_planes_full_plain): each plane evaluated inside its
   window and 1.0 outside it, and 1.0 everywhere when its run flag is
-  false (an empty footprint, or a light culled this frame).  The window
-  covers the footprint, outside which a plane is 1.0 by definition, so
-  the planes equal the full grid's bit for bit.
+  false (an empty footprint, or a light culled this frame)
+  (vis_planes_plain); at vis_scale > 1 then upsampled bilinearly to the
+  frame (core/image.resize_bilinear, jax.image.resize's semantics).  The
+  window covers the footprint, outside which a plane is 1.0 by
+  definition, so the planes equal the full grid's bit for bit.
 Against lsr_tpu, each the same function without a host sync:
 - a light culled this frame (caster_enabled False) renders an all-far map
   by masking its slot's setup lanes (lsr_tpu's batched strategies do the
@@ -63,6 +68,7 @@ from lsr_tpu_torch.lighting.light_types import (
     LIGHT_SPOT,
     LIGHT_TUBE_AREA,
 )
+from lsr_tpu_torch.lighting import shadow_sample
 from lsr_tpu_torch.lighting.shadow_sample import (
     Q16,
     esm_visibility,
@@ -108,8 +114,9 @@ class LocalShadowMaps:
     K is the constant 1.0 every unshadowed light indexes).  base_slots[k]
     indexes the light's own stack: its spot slot, or its first cube face
     (6 * p)."""
-    spot_taps: torch.Tensor | None   # (n_spot, S1, S1) i32 q16 planes
-    point_taps: torch.Tensor | None  # (n_point * 6, S2, S2) i32 q16 planes
+    spot_taps: torch.Tensor | None   # (n_spot, S1, S1) i32 q16 planes, or
+                                     # f32 depth (PCF, TAPS_U16 False)
+    point_taps: torch.Tensor | None  # (n_point * 6, S2, S2), the same
     spot_viewproj: torch.Tensor      # (n_spot, 16) row-major
     point_viewproj: torch.Tensor     # (n_point * 6, 16)
     caster_pos: torch.Tensor         # (K, 3)
@@ -371,12 +378,14 @@ def render_slot_depths(geom, objects, vp_stack, size: int, caster_mask,
 
 
 def _slot_tables(depth, pcf_radius, filter_mode, esm_c, slot_far):
-    """(n, S, S) i32 q16 tables: ESM's prefiltered soft map of the
-    linearised depth (the far clear 1.0 stays 1.0), or PCF's depth."""
+    """(n, S, S) tables: ESM's prefiltered soft map of the linearised depth
+    (the far clear 1.0 stays 1.0) in i32 q16 quanta; PCF's depth in i32
+    q16 quanta, or as it is (f32) where shadow_sample.TAPS_U16 is False
+    (lsr_tpu's soft tables are u16 whatever the flag says)."""
     if filter_mode == "esm":
         lin = _linearize01(depth, _F32(_SHADOW_NEAR), slot_far[:, None, None])
         return quantize_q16(prefilter_esm(lin, pcf_radius, esm_c))
-    return quantize_q16(depth)
+    return quantize_q16(depth) if shadow_sample.TAPS_U16 else depth
 
 
 def render_local_shadow_maps(geom, objects, lights, spot_ids: tuple,
@@ -490,11 +499,12 @@ def _texel(u, v, in_map, size: int):
 
 def _sample(sh: LocalShadowMaps, taps, plane, cx, cy, in_map, z01, far,
             bias, strength, size: int):
-    """Visibility of K planes from their q16 tables: taps (n, S, S), plane
+    """Visibility of K planes from their tables: taps (n, S, S), plane
     (K, H, W) i64 slot of each pixel's sample, texel (cx, cy), NDC01 depth
     z01 and bias (K, H, W), per-plane far and strength (K,).  ESM: one
-    fetch of the soft map, on linear depth (_esm_vis); PCF: the
-    (2r+1)^2 box of q16 depth tests on clamped texels (_pcf_from_rows)."""
+    fetch of the q16 soft map, on linear depth (_esm_vis); PCF: the
+    (2r+1)^2 box of depth tests on clamped texels (_pcf_from_rows), in q16
+    quanta on an int32 table, in f32 on an f32 one (count_lit)."""
     flat = taps.reshape(-1)
     base = plane * (size * size)
     st = torch.clamp(strength, 0.0, 1.0)[:, None, None]
@@ -505,7 +515,9 @@ def _sample(sh: LocalShadowMaps, taps, plane, cx, cy, in_map, z01, far,
         vis = 1.0 + (lit - 1.0) * st
         return torch.where(in_map, vis, torch.ones_like(vis))
     r = sh.pcf_radius
-    q = quantize_q16(z01 - bias)
+    q = z01 - bias
+    if taps.dtype != torch.float32:
+        q = quantize_q16(q)
     lit = torch.zeros_like(z01)
     for dy in range(-r, r + 1):
         y = torch.clamp(cy + dy, 0, size - 1) * size
@@ -702,19 +714,29 @@ def vis_planes_plain(sh: LocalShadowMaps, world_pos, normal, win, run):
     return torch.cat([planes, ones], 0)
 
 
-def local_shadow_vis_planes(sh: LocalShadowMaps, world_pos, normal):
-    """Plane-major visibility (K + 1, H, W): the form kernel B5 takes.
-    The windows by kernel V1, the planes by kernel V2 on a CUDA device
-    (their plain versions on the CPU); with vis_scale > 1 the planes are
-    evaluated every vis_scale-th pixel and upsampled bilinearly."""
-    from lsr_tpu_torch.lighting import vis_kernel
-
-    win, run = vis_kernel.vis_windows(sh, world_pos)
-    planes = vis_kernel.vis_planes(sh, world_pos, normal, win, run)
+def vis_planes_full_plain(sh: LocalShadowMaps, world_pos, normal, win,
+                          run):
+    """Plain version of kernel V2: the (K + 1, H, W) planes at full
+    resolution, vis_planes_plain on the strided grid and, at vis_scale >
+    1, resize_bilinear to world_pos's (H, W) (lsr_tpu's jax.image.resize
+    of the planes, :966-971)."""
+    planes = vis_planes_plain(sh, world_pos, normal, win, run)
     if max(1, int(sh.vis_scale)) > 1:
         planes = resize_bilinear(planes, (planes.shape[0],)
                                  + tuple(world_pos.shape[:-1]))
     return planes
+
+
+def local_shadow_vis_planes(sh: LocalShadowMaps, world_pos, normal):
+    """Plane-major visibility (K + 1, H, W): the form kernel B5 takes.
+    The windows by kernel V1, the full-resolution planes by kernel V2 on
+    a CUDA device (their plain versions on the CPU); with vis_scale > 1
+    the planes are evaluated every vis_scale-th pixel and upsampled
+    bilinearly."""
+    from lsr_tpu_torch.lighting import vis_kernel
+
+    win, run = vis_kernel.vis_windows(sh, world_pos)
+    return vis_kernel.vis_planes(sh, world_pos, normal, win, run)
 
 
 def local_shadow_vis_stack(sh: LocalShadowMaps, world_pos, normal):

@@ -14,7 +14,8 @@ centre with clamped fetches:
   q16(depth[texel]), q16(z) = clip(round(z * 65535), 0, 65535).  lsr_tpu
   assembles per-anchor tap windows for the TPU's gathers; window assembly is
   pure data movement, so fetching the clamped texel of the q16 plane gives
-  the same counts.  With pcf_step > 1 the taps are strided f32 tests;
+  the same counts.  With TAPS_U16 False (lsr_tpu's f32 windows) and with
+  pcf_step > 1 the taps are f32 tests on the depth map;
 - ESM: the box filter is baked into a prefiltered "soft" map (prefilter_esm),
   stored as its q16 plane, and sampled with one fetch:
   clip(exp(c * (soft - z_test)), 0, 1).
@@ -33,6 +34,13 @@ import numpy as np
 import torch
 
 Q16 = 65535.0
+
+# lsr_tpu's flag of the same name (lsr_tpu/lighting/shadow_sample.py:55):
+# True compares unit-step PCF taps in q16 quanta (the sun's taps_q16, the
+# local slots' int32 tables); False keeps them f32 (the sun samples its
+# depth map, the local slots' tables are their f32 depth).  ESM's soft
+# tables are q16 either way.  Read when a table is built.
+TAPS_U16 = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +131,8 @@ def make_shadow_context(depth, light_viewproj, bias_const: float = 0.0008,
                         filter_mode: str = "pcf",
                         esm_c: float = 80.0) -> ShadowContext:
     """The sampling context of a rendered map.  ESM prefilters and
-    quantizes the soft map; unit-step PCF quantizes the depth map."""
+    quantizes the soft map; unit-step PCF quantizes the depth map where
+    TAPS_U16 is set (else its taps are f32 tests on the depth map)."""
     if filter_mode not in ("pcf", "esm"):
         raise ValueError(f"make_shadow_context: unknown filter "
                          f"{filter_mode!r}")
@@ -135,7 +144,7 @@ def make_shadow_context(depth, light_viewproj, bias_const: float = 0.0008,
         taps = quantize_q16(prefilter_esm(depth, pcf_radius, esm_c))
     elif filter_mode == "esm":
         filter_mode = "pcf"   # radius 0 is a single hard tap either way
-    elif pcf_radius > 0 and pcf_step == 1:
+    elif pcf_radius > 0 and pcf_step == 1 and TAPS_U16:
         taps = quantize_q16(depth)
     return ShadowContext(
         depth=depth, light_viewproj=light_viewproj.to(torch.float32),

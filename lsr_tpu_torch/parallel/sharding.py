@@ -250,8 +250,8 @@ def _assemble(bands, device):
 
 
 def _slot_taps(geom, objects, vp_loc, n_real, size, caster_mask):
-    """One rank's slice of a local slot stack: (per, size, size) q16 PCF
-    tables.  Slots past the stack's end (zero view-projections, padding to
+    """One rank's slice of a local slot stack: (per, size, size) PCF
+    tables (local_shadows._slot_tables).  Slots past the stack's end (zero view-projections, padding to
     whole slices) are masked and stay all far; they are dropped after the
     gather, as lsr_tpu drops them."""
     en = torch.arange(vp_loc.shape[0], device=vp_loc.device) < n_real

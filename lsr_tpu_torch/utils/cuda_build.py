@@ -77,16 +77,20 @@ SIGNATURES = {
     "lsr_engine_synth_smem_bytes": (),
     # world_pos, its strides (y, x, component), h, w, vis_scale, info,
     # spot_vp, caster_pos, caster_range, enabled, levels, n_levels,
-    # has_crop, bounds, win, run, n_planes, stream
+    # has_crop, bounds (4 K + 1 ints of scratch), win, run, n_planes,
+    # n_blocks, stream
     "lsr_vis_windows": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _P, _P, _P, _I, _P),
-    # world_pos, its strides, normal, its strides, h, w, vis_scale, info,
-    # spot_vp, point_vp, caster_pos, caster_range, strength, spot_taps,
-    # point_taps, spot_size, point_size, win, run, uniforms, out, n_planes,
-    # esm, pcf_radius, stream
+                        _I, _I, _P, _P, _P, _I, _I, _P),
+    # world_pos, its strides, normal, its strides, h, w (full resolution),
+    # vis_scale, info, spot_vp, point_vp, caster_pos, caster_range,
+    # strength, spot_taps, point_taps, spot_size, point_size, f32_taps, win,
+    # run, uniforms, out, n_planes, esm, pcf_radius, the upsample's taps
+    # (rows i0, i1, w0, w1, then columns; null at vis_scale 1), tile_h,
+    # halo_h, halo_w, stream
     "lsr_vis_planes": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                       _I, _I, _P),
+                       _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _P),
 }
 
 _lib = None

@@ -524,9 +524,12 @@ def test_crop_windows_replay_on_one_capture(monkeypatch, config):
     plain versions recorded as fake kernels: camera 2 warms up, camera 20
     captures, camera 80 replays; one capture, the captured and replayed
     frames bit for bit their eager frames, and V1 and V2 launched once a
-    frame, replays included.  The eager frames' windows differ from
-    camera to camera (under PCF their levels too), with one key."""
+    frame, replays included.  V2 writes the full-resolution planes: no
+    resize_bilinear of a plane stack runs outside it, eager, captured or
+    replayed.  The eager frames' windows differ from camera to camera
+    (under PCF their levels too), with one key."""
     from lsr_tpu_torch import frame as fr
+    from lsr_tpu_torch.core import image
     from lsr_tpu_torch.lighting import local_shadows as ls
     from lsr_tpu_torch.lighting import resolve_kernel, shade_kernel
     from lsr_tpu_torch.raster import tiled
@@ -565,8 +568,26 @@ def test_crop_windows_replay_on_one_capture(monkeypatch, config):
                         (shade_kernel, "_shade_plain"),
                         (resolve_kernel, "_resolve_plain")):
         card.kernel(monkeypatch, owner, name)
+    inside, stray = [0], []
+    full_plain = ls.vis_planes_full_plain
+
+    def v2_plain(*a, **k):
+        inside[0] += 1
+        try:
+            return full_plain(*a, **k)
+        finally:
+            inside[0] -= 1
+
+    def resize(x, shape, orig=image.resize_bilinear):
+        if x.dim() == 3 and not inside[0]:
+            stray.append(tuple(x.shape))
+        return orig(x, shape)
+
+    monkeypatch.setattr(ls, "vis_planes_full_plain", v2_plain)
+    monkeypatch.setattr(ls, "resize_bilinear", resize)
+    monkeypatch.setattr(image, "resize_bilinear", resize)
     v1 = card.kernel(monkeypatch, ls, "vis_windows_plain")
-    v2 = card.kernel(monkeypatch, ls, "vis_planes_plain")
+    v2 = card.kernel(monkeypatch, ls, "vis_planes_full_plain")
     jf = jm.jit(frame)
     for n, i in enumerate(range(3), 1):
         out = jf(*cams[i])
@@ -574,3 +595,4 @@ def test_crop_windows_replay_on_one_capture(monkeypatch, config):
         if n > 1:
             assert all(torch.equal(a, b) for a, b in zip(out, eager[i]))
     assert jf.captures == 1 and len(jf.graphs) == 1
+    assert not stray

@@ -255,4 +255,5 @@ def test_crop_windows_are_capture_safe(monkeypatch, config):
 
     _guarded(monkeypatch, run)
     assert not torch.equal(outs[0][0], outs[1][0])
-    assert outs[1][1].shape[0] == stages[1][0].n_shadowed + 1
+    assert outs[1][1].shape == ((stages[1][0].n_shadowed + 1,)
+                                + tuple(stages[1][1].shape[:2]))

@@ -262,7 +262,9 @@ def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
     __wrapped__ still compiles) move a triangle of a grid-2 point face on
     the edge of a texel centre (68 texels of face 1 at 32^2), as jit moves
     the sun map's snap (ROADMAP C11).  A culled light's slots stay all far,
-    as its lax.cond makes them.  Returns lsr_tpu's LocalShadowMaps."""
+    as its lax.cond makes them.  PCF tables follow lsr_tpu's TAPS_U16 as
+    its packing does (local_shadows.py:400).  Returns lsr_tpu's
+    LocalShadowMaps."""
     from lsr_tpu.geometry.volumes import frustum_cull_objects
     from lsr_tpu.lighting import local_shadows as jls
     from lsr_tpu.lighting import shadow_sample as jss
@@ -300,8 +302,9 @@ def jax_local_atlas(geom, objects, lights, spot_ids, point_ids, map_size,
                 tabs.append(jss.pack_soft_u16(jss.prefilter_esm(
                     lin, pcf_radius, 80.0)))
             else:
-                tabs.append(jss.pack_shadow_taps_u16(d, pcf_radius,
-                                                     jls._TAP_STRIDE))
+                pack = (jss.pack_shadow_taps_u16 if jss.TAPS_U16
+                        else jss.pack_shadow_taps)
+                tabs.append(pack(d, pcf_radius, jls._TAP_STRIDE))
         return jnp.concatenate(tabs, 0) if tabs else None
 
     return jls.LocalShadowMaps(
