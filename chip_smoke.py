@@ -264,12 +264,12 @@ Then kernel B1's screen bands and the multi-device paths
     over four cameras), and no resize_bilinear on the planes path; V1
     exactly and V2 bit for bit against their plain versions at (d) on f32
     tables (kernel, wrapper and plain ms, bounds; the frame's HDR finite)
-    and in the drill's PCF cases on f32 tables at vis_scale 1 and 2; V1's
-    A/B on its three suspects (utils/vis_ab.py: its divisions, its f64
-    distance, its atomics, each patched out in a copy, ms at (a) and (d));
-    a summary of phase 34's V1 / V2 ms, the planes captured alone and the
+    and in the drill's PCF cases on f32 tables at vis_scale 1 and 2; a
+    summary of phase 34's V1 / V2 ms, the planes captured alone and the
     (a) / (d) replays.  `python3 chip_smoke.py --phase35` runs phases 34
-    and 35.
+    and 35.  V1's A/B on its three suspects (its divisions, its f64
+    distance, its atomics, each patched out in a copy) is a command of its
+    own: `python -m lsr_tpu_torch.utils.vis_ab`.
 
 28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
     stand-in for the monkey), each at its own size, counts reset before
@@ -3858,17 +3858,25 @@ def _ms_summary(ms):
             "ms_max": max(ms), "frame_ms_all": [round(m, 3) for m in ms]}
 
 
+PROFILE_PAD_S = 0.005  # host idle at each end of a profiled window
+
+
 def _busy(run, ms, match=None):
     """torch.profiler over one more call of run, warm: device busy ms (the
     sum of its kernels' times), kernels, and the busy share of ms (a
     call's time by CUDA events); given match (a predicate on kernel
-    names), also the busy ms and kernels of the matching ones."""
+    names), also the busy ms and kernels of the matching ones.  The window
+    holds PROFILE_PAD_S of host idle before and after the call, so that a
+    device activity stamped near its edge by the device clock still falls
+    inside it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         run()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     cuda = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     t = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
@@ -3899,27 +3907,53 @@ def _busy_seen(run, ms, match=None, tries=3):
     return res
 
 
+def _busy_replays(call, ms, n, match=None, tries=6):
+    """_busy over n calls of call in one profiled window, per call, and
+    whether the window recorded all n ("complete"): its kernels and
+    copies nonzero whole multiples of n and equal to those of an earlier
+    such window (then the busy ms is the mean of the two windows').  The
+    profiler drops some or all of the kernels of short graph replays, at
+    random or in every window of a run (a window of one replay lost 60 of
+    389 kernels five times in a row; windows of five came back empty every
+    other time on V1 + V2, or short by the same 64 of 1,945 eight times in
+    a row on the plain route), so up to tries windows are profiled; where
+    none agree, the fullest window's numbers are returned, complete False,
+    its busy ms a lower bound, with every window's counts (and a failure
+    where no window saw a kernel)."""
+    seen = []
+    for _ in range(tries):
+        res = _busy(lambda: [call() for _ in range(n)], ms * n, match)
+        k, c = res["kernels"], res["copies"]
+        same = [r for r in seen if (r["kernels"], r["copies"]) == (k, c)]
+        seen.append(res)
+        if k and k % n == 0 and c % n == 0 and same:
+            pair, complete = (same[-1], res), True
+            break
+    else:
+        pair, complete = (max(seen, key=lambda r: r["kernels"]),), False
+        check(pair[0]["kernels"] > 0,
+              f"torch.profiler saw no kernel in {tries} windows")
+    per = {"device_busy_ms": sum(r["device_busy_ms"] for r in pair)
+           / (len(pair) * n),
+           "kernels": pair[0]["kernels"] / n,
+           "copies": pair[0]["copies"] / n, "complete": complete,
+           "windows": [(r["kernels"], r["copies"]) for r in seen]}
+    if match is not None:
+        per["match_ms"] = sum(r["match_ms"] for r in pair) / (len(pair) * n)
+    if not complete:
+        log(f"# torch.profiler: no two windows of {n} calls agreed on "
+            f"whole multiples of {n} (kernels / copies {per['windows']}): "
+            f"the fullest one's busy ms is a lower bound")
+    return per
+
+
 def graph_ms(fn, iters=10):
-    """Device ms of one fn() (its kernels and memsets only): iters calls
-    captured into one CUDA graph, its replay timed by CUDA events.  A
-    wrapper's host work (checks, allocation) is left out, which a loop of
-    launches would time instead when the kernels are short."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    g.reset()
-    return ms
+    """Device ms of one fn() (its kernels and memsets only), by
+    lsr_tpu_torch.utils.devtime.graph_ms: iters calls in one captured
+    graph, its replay timed by CUDA events."""
+    from lsr_tpu_torch.utils.devtime import graph_ms as timed
+
+    return timed(fn, iters)
 
 
 def _captures(jitted_of):
@@ -5254,13 +5288,18 @@ def phase30(dev, synth_ref):
 VIS_TOL = 1e-6       # C1's kernel contract, for an op that is not bit for bit
 P34_REPLAYS = 3      # replayed frames a plane route
 P34_PROFILED = 5     # replays of the planes alone in one profiled window
-# Work counts for V1 / V2's bounds (f32 operations a pixel and plane):
-# V1's spot test projects by four rows (28) and divides thrice (u, v, z01)
-# with its compares; its point test is a distance (3 subtractions, the
-# norm's 5) and two compares.  V2's plane: the bias (norm, divide, dot,
-# clamps ~25), the projection and NDC (~40), the texel, the ESM fetch and
-# exp (~10) or the PCF box (3 a tap).
-V1_OPS_SPOT, V1_OPS_POINT = 40, 10
+# Work counts for V1 / V2's bounds (f32 operations).  V1's, counted on
+# the run's data (_v1_ops), as its test (vis_common.cuh in_map) leaves
+# off at the first false term: a spot plane's pixel projects w's row (6:
+# 3 products, 3 sums) and tests |w| >= 1e-8 (2), then w > 0 (1); each of
+# u, v, z01 that is reached takes its row, its division and * 0.5 + 0.5
+# (9) and its lower compare (1), its upper compare (1) only where the
+# lower held.  A point plane's pixel: the offset (3) and the norm (6, its
+# f64 products and sums counted at the f32 rate) and len > 1e-4 (1), then
+# len < range (1).  V2's plane, a pixel inside a running window: the bias
+# (norm, divide, dot, clamps ~25), the projection and NDC (~40), the
+# texel, the ESM fetch and exp (~10) or the PCF box (3 a tap).
+V1_OPS_W, V1_OPS_AXIS, V1_OPS_POINT = 8, 10, 10
 V2_OPS = 75
 # V2's upsample of an output at vis_scale > 1: three two-tap sums (6
 # products, 3 adds).
@@ -5317,6 +5356,43 @@ def _levels_of(sh, win, run, h, w):
     return out
 
 
+def _window_mask(win, run, h, w):
+    """(K, h, w) bool: the strided pixels inside each running plane's
+    window."""
+    ys = torch.arange(h, device=win.device)[None, :, None]
+    xs = torch.arange(w, device=win.device)[None, None, :]
+    y0, x0, ch, cw = (win[:, i, None, None] for i in range(4))
+    return (run[:, None, None] & (ys >= y0) & (ys < y0 + ch) & (xs >= x0)
+            & (xs < x0 + cw))
+
+
+def _v1_ops(sh, wp):
+    """V1's f32 operations on this run's data: each (strided pixel,
+    plane) charged the terms of its footprint test up to the first false
+    one (V1_OPS_*), from the plain version's projected values."""
+    from lsr_tpu_torch.core import math3d as m3
+    from lsr_tpu_torch.lighting import local_shadows as ls
+
+    g, _ = ls.vis_grid(sh, wp)
+    spot_ks, point_ks = ls._kinds(sh)
+    ops = 0
+    if spot_ks:
+        _, (px, py, pz, pw) = ls._spot_clip(sh, spot_ks, g)
+        u, v, z01, w_ok = ls._uvz(px, py, pz, pw)
+        at_u = w_ok & (pw > 0.0)
+        at_v = at_u & (u >= 0.0) & (u <= 1.0)
+        at_z = at_v & (v >= 0.0) & (v <= 1.0)
+        ops += (pw.numel() * V1_OPS_W + int(w_ok.sum())
+                + V1_OPS_AXIS * int(at_u.sum() + at_v.sum() + at_z.sum())
+                + int((at_u & (u >= 0.0)).sum() + (at_v & (v >= 0.0)).sum()
+                      + (at_z & (z01 > 0.0)).sum()))
+    if point_ks:
+        kt = torch.tensor(point_ks, device=g.device)
+        rel_len = m3.norm3(g[None] - sh.caster_pos[kt][:, None, None, :])
+        ops += rel_len.numel() * V1_OPS_POINT + int((rel_len > 1e-4).sum())
+    return ops
+
+
 def _touched_bytes(sh, wp, nm, win, run):
     """Bytes of the q16 tables the windows' pixels sample: the distinct
     texels of every in-map pixel inside a running plane's window (its
@@ -5336,11 +5412,7 @@ def _touched_bytes(sh, wp, nm, win, run):
     finally:
         ls._sample = orig
     h, w = calls[0][2].shape[1:] if calls else (0, 0)
-    ys = torch.arange(h, device=wp.device)[None, :, None]
-    xs = torch.arange(w, device=wp.device)[None, None, :]
-    y0, x0, ch, cw = (win[:, i, None, None] for i in range(4))
-    keep = (run[:, None, None] & (ys >= y0) & (ys < y0 + ch) & (xs >= x0)
-            & (xs < x0 + cw))
+    keep = _window_mask(win, run, h, w)
     r = 0 if sh.filter_mode == "esm" else int(sh.pcf_radius)
     total, i0 = 0, 0
     for taps, plane, cx, cy, in_map, size in calls:
@@ -5421,26 +5493,26 @@ def _vis_pair(tag, sh, wp, nm, timed=False):
             ms=cuda_ms(lambda: vk.vis_planes(sh, wp, nm, win_k, run_k), 20),
             plain_ms=cuda_ms(lambda: ls.vis_planes_full_plain(
                 sh, wp, nm, win_p, run_p), 3))
-        n_spot = sum(1 for t in sh.kinds if t != ls.SHADOW_POINT_CUBE)
         tables = nbytes(sh.spot_viewproj, sh.caster_pos, sh.caster_range)
-        v1.update(bound(h * w * 12 + tables + 17 * k,
-                        h * w * (n_spot * V1_OPS_SPOT
-                                 + (k - n_spot) * V1_OPS_POINT)))
+        v1.update(bound(h * w * 12 + tables + 17 * k, _v1_ops(sh, wp)))
         live = int(sum(c * d for (_, _, c, d), go in zip(win_k.tolist(),
                                                         run_k.tolist())
                        if go))
+        # World positions and normals are read where some running window
+        # holds the strided pixel.
+        read_px = int(_window_mask(win_k, run_k, h, w).any(0).sum())
         touched = _touched_bytes(sh, wp, nm, win_k, run_k)
         box = (1 if sh.filter_mode == "esm"
                else 3 * (2 * sh.pcf_radius + 1) ** 2)
         out_px = (k + 1) * wp.shape[0] * wp.shape[1]
         up = 0 if sh.vis_scale <= 1 else out_px * V2_UP_OPS
-        v2.update(bound(h * w * 24 + out_px * 4 + touched
+        v2.update(bound(read_px * 24 + out_px * 4 + touched
                         + nbytes(sh.spot_viewproj, sh.point_viewproj,
                                  sh.caster_pos, sh.caster_range,
                                  sh.strength) + 17 * k,
                         live * (V2_OPS + box) + up),
                   table_bytes_touched=touched, window_pixels=live,
-                  outputs=out_px)
+                  pixels_read=read_px, outputs=out_px)
         note = (f"; V1 kernel {v1['kernel_ms']:.4f} ms (wrapper "
                 f"{v1['ms']:.4f}, plain {v1['plain_ms']:.3f}, bound "
                 f"{v1['bound_ms']:.5f} by {v1['bound_by']}), V2 kernel "
@@ -5462,9 +5534,9 @@ def _planes_graph(tag, sh, wp, nm, dev, plain):
     one dummy argument keys it), on the plain route or on V1 + V2: the
     planes of a replay, its ms by CUDA events and torch.profiler's busy
     ms, kernels and copies (the output's copy out of the graph) a replay,
-    from P34_PROFILED replays in one profiled window: the profiler now and
-    then records no kernel of a window that holds one short replay (0.2 ms
-    on V1 + V2)."""
+    from windows of P34_PROFILED replays, flagged where no two windows
+    agree that they recorded them all (_busy_replays: profile_complete
+    False, a lower bound)."""
     from lsr_tpu_torch.lighting.local_shadows import local_shadow_vis_planes
     from lsr_tpu_torch.utils.jit import jit
 
@@ -5476,15 +5548,16 @@ def _planes_graph(tag, sh, wp, nm, dev, plain):
         jp(dummy)
         ms = [_timed(lambda: jp(dummy))[1] for _ in range(P34_REPLAYS)]
         out = jp(dummy)
-        n = P34_PROFILED
-        busy = _busy_seen(lambda: [jp(dummy) for _ in range(n)],
-                          statistics.median(ms) * n,
-                          match=lambda name: "Memcpy" not in name, tries=5)
+        busy = _busy_replays(lambda: jp(dummy), statistics.median(ms),
+                             P34_PROFILED,
+                             match=lambda name: "Memcpy" not in name)
         check(jp.captures == 1, f"planes {tag}: {jp.captures} captures")
         _drop_graphs(jp)
-    return out, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"] / n,
-                 "busy_ms_no_copies": busy["match_ms"] / n,
-                 "kernels": busy["kernels"] / n, "copies": busy["copies"] / n}
+    return out, {**_ms_summary(ms), "busy_ms": busy["device_busy_ms"],
+                 "busy_ms_no_copies": busy["match_ms"],
+                 "kernels": busy["kernels"], "copies": busy["copies"],
+                 "profile_complete": busy["complete"],
+                 "profiled_windows": busy["windows"]}
 
 
 def _frame_route(cfg, geom, objects, lights, ctx, cams, plain):
@@ -5757,14 +5830,12 @@ def phase35(geom, objects, lights, ctx, cams, dev, p34, whole=None):
       resize_bilinear on a plane stack while the planes are made;
     - flagship (d) (PCF control) with f32 tables: the frame's HDR finite,
       V1 exactly and V2 bit for bit against their plain versions, timed,
-      and the drill's PCF cases on f32 tables at vis_scale 1 and 2;
-    - V1's A/B on its three suspects (utils/vis_ab.ab) at (a) and (d).
+      and the drill's PCF cases on f32 tables at vis_scale 1 and 2.
     `python3 chip_smoke.py --phase35` runs phases 34 and 35.  Returns the
     result."""
     from lsr_tpu_torch.frame import bench_config, flagship_stages
     from lsr_tpu_torch.lighting import local_shadows as ls
     from lsr_tpu_torch.shading.models import _norm
-    from lsr_tpu_torch.utils import vis_ab
 
     t0 = time.perf_counter()
     out = {}
@@ -5778,12 +5849,10 @@ def phase35(geom, objects, lights, ctx, cams, dev, p34, whole=None):
         out["launches"] = _frames_launch_v1_v2(geom, objects, lights, ctx,
                                                cams)
     cam, ctx_i = cams[0]
-    cases = {}
     for key, mode in (("(a)", "esm"), ("(d)", "pcf")):
         st = flagship_stages(geom, objects, lights, ctx, cam, ctx_i, WIDTH,
                              HEIGHT, **bench_config(mode, WIDTH, HEIGHT))
         sh, gb = st["local"], st["gb"]
-        cases[key] = (sh, gb.world_pos, _norm(gb.normal_ws))
         calls = _resize_calls(lambda: ls.local_shadow_vis_planes(
             sh, gb.world_pos, _norm(gb.normal_ws)))
         check(not calls, f"phase 35 {key}: resize_bilinear ran on the "
@@ -5800,8 +5869,6 @@ def phase35(geom, objects, lights, ctx, cams, dev, p34, whole=None):
     out["f32_d"] = _vis_pair("phase 35 (d) [pcf, f32 tables] camera 0", sh,
                              gb.world_pos, _norm(gb.normal_ws), timed=True)
     out["f32_drill"] = _drill(dev, f32=True)
-    out["ab"] = vis_ab.ab(cases, log=log)
-    med = {r["input"]: r["median_ms"] for r in out["ab"]["rows"]}
     summary = {k: {"v1_kernel_ms": p34[k]["v1"]["kernel_ms"],
                    "v2_kernel_ms": p34[k]["v2"]["kernel_ms"],
                    "planes_graph_busy_ms": p34[k]["planes_graph"]["v1_v2"][
@@ -5815,8 +5882,8 @@ def phase35(geom, objects, lights, ctx, cams, dev, p34, whole=None):
         f"resize_bilinear on the planes path; f32 tables at (d): V1 kernel "
         f"{out['f32_d']['v1']['kernel_ms']:.4f} ms, V2 kernel "
         f"{out['f32_d']['v2']['kernel_ms']:.4f} ms (bound "
-        f"{out['f32_d']['v2']['bound_ms']:.5f}); V1's A/B (median ms) "
-        f"{med}; (a) / (d) from phase 34 {summary}")
+        f"{out['f32_d']['v2']['bound_ms']:.5f}); (a) / (d) from phase 34 "
+        f"{summary}")
     log(f"# phase 35 took {out['seconds']:.1f} s")
     return out
 
@@ -5894,7 +5961,7 @@ def main():
         return 0
     if sys.argv[1:] == ["--phase35"]:
         # Phases 34 and 35 (V1 in one launch, V2 at full resolution, f32
-        # PCF tables, V1's A/B).
+        # PCF tables).
         p34 = phase34(geom, objects, lights, ctx, cams, dev)
         phase35(geom, objects, lights, ctx, cams, dev, p34)
         log(f"phases 34-35 alone: ok ({card})")
@@ -6237,8 +6304,7 @@ def main():
               levels={k: p34[k]["histogram"] for k in ("a", "d")},
               drill=p34["drill"],
               f32_tables_d=sub(p35["f32_d"]["v1"]),
-              launches_phase35=p35["launches"], ab=p35["ab"]["rows"],
-              ab_registers=p35["ab"]["libraries"]),
+              launches_phase35=p35["launches"]),
         entry("vis_planes", "vis_planes.cu",
               "lsr_tpu/lighting/local_shadows.py:674 (lax.cond crop "
               "cascade; no pallas_call)",

@@ -13,12 +13,12 @@
 // camera.  Plain version: vis_windows_plain in lighting/local_shadows.py,
 // equal as integers.
 //
-// What bounds it on this card: operations and bytes, about even.  It
-// reads world positions once at the strided grid (12 bytes a pixel) and
-// writes 17 bytes a plane; each (pixel, plane) costs a spot ~40 f32
-// operations (four projected rows, three divisions, the compares) or a
-// point ~10 (a distance), so ten planes of flagship (a) need ~1.4x the
-// bytes' time.
+// What bounds it on this card: bytes.  It reads world positions once at
+// the strided grid (12 bytes a pixel) and writes 17 bytes a plane.  A
+// (pixel, plane) costs a spot at most ~42 f32 operations (four projected
+// rows, three divisions, the compares) and a point ~11 (a distance), but
+// the spot test stops at its first false term, so on flagship (a)'s data
+// the operations take less time than the bytes (chip_smoke._v1_ops).
 //
 // What the design does about it: one launch over all planes.  A thread
 // owns a strided pixel and loops over the K planes, so the world position
@@ -30,13 +30,15 @@
 // first and last column at once: lane 0 folds them into the warp's minima
 // in shared memory (maxima stored negated, so that all four are minima of
 // one sentinel), with no reduction and no atomic.  The grid is persistent
-// (the caller's blocks an SM, lighting/vis_kernel.V1_BLOCKS_PER_SM), each
-// block walking a contiguous run of warp rows; at its end a block folds
-// its warps per plane and makes one global atomicMin a (block, plane,
-// value) where the plane was seen.  The last block to finish (a ticket
-// counter behind __threadfence) picks the levels.  A call is one memset
-// of the scratch (bounds and ticket) and one launch, both on the caller's
-// stream, so a captured graph resets its scratch on every replay.  Of the
+// (the caller's blocks an SM, lighting/vis_kernel.V1_BLOCKS_PER_SM: 8,
+// 1.33 waves of the 6 resident at 40 registers, which evens out the
+// blocks' uneven work better than one wave), each block walking a
+// contiguous run of warp rows; at its end a block folds its warps per
+// plane and makes one global atomicMin a (block, plane, value) where the
+// plane was seen.  The last block to finish (a ticket counter behind
+// __threadfence) picks the levels.  A call is one memset of the scratch
+// (bounds and ticket) and one launch, both on the caller's stream, so a
+// captured graph resets its scratch on every replay.  Of the
 // costs suspected in the first V1 (one thread a (pixel, plane), a launch
 // a plane on blockIdx.z), its divisions cost it 8%, its f64 distance and
 // its atomics under 1% (utils/vis_ab.py on an H100).

@@ -32,8 +32,9 @@
 //
 // What bounds it on this card: bytes.  The full-resolution planes are
 // written once ((K + 1) H W 4 bytes, 91 MB at flagship (a)); world
-// positions and normals are read once at the strided grid (24 bytes a
-// pixel); the tables touched where the windows' pixels sample them.  The
+// positions and normals are read once at the strided pixels that some
+// running window holds (24 bytes a pixel); the tables touched where the
+// windows' pixels sample them.  The
 // operations (~60 a pixel and plane, 25 compares under PCF, 9 for the
 // upsample of an output) are far below.
 //

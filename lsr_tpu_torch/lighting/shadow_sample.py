@@ -39,7 +39,9 @@ Q16 = 65535.0
 # True compares unit-step PCF taps in q16 quanta (the sun's taps_q16, the
 # local slots' int32 tables); False keeps them f32 (the sun samples its
 # depth map, the local slots' tables are their f32 depth).  ESM's soft
-# tables are q16 either way.  Read when a table is built.
+# tables are q16 either way.  Read only when a table is built; everything
+# downstream decides from the table's dtype.  No entry point of the port
+# sets it: it is there to carry lsr_tpu's f32 tables.
 TAPS_U16 = True
 
 

@@ -79,9 +79,11 @@ def _info(sh, dev):
                         dev, torch.int32)
 
 
-# V1's persistent grid: blocks an SM (8 x 256 threads fill an SM; at
-# flagship (d) 8 took 0.0540 ms and 4 took 0.0642, utils/vis_ab.py on an
-# H100 80GB HBM3 at 700 W).
+# V1's persistent grid: blocks an SM.  At V1's 40 registers 6 blocks of
+# 256 threads are resident on an SM, so 8 launch 1.33 waves; the smaller
+# runs of warp rows even out the blocks' uneven work (the spot test stops
+# early off the light).  At flagship (d) 8 took 0.0540 ms, one wave of 6
+# 0.0624 and 4 0.0642 (utils/vis_ab.py on an H100 80GB HBM3 at 700 W).
 V1_BLOCKS_PER_SM = 8
 
 

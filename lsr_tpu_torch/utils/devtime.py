@@ -95,3 +95,27 @@ def slope_ms_paired(fn, *args, iters=(2, 8), reps=3):
     var = sum((s - mean) ** 2 for s in slopes) / max(1, n - 1)
     stderr = (var / n) ** 0.5
     return out, max(0.0, mean), stderr
+
+
+def graph_ms(fn, iters=10):
+    """Device ms of one fn() on the card (its kernels and memsets only):
+    iters calls captured into one CUDA graph, its replay timed by CUDA
+    events.  A wrapper's host work (checks, allocation) is left out, which
+    a loop of launches would time instead when the kernels are short.  (No
+    counterpart in lsr_tpu.)"""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    g.reset()
+    return ms

@@ -16,10 +16,11 @@ A patched variant computes another function (timing only): its windows
 are compared with the shipped kernel's and the differences reported, not
 checked.  The shipped kernels equal the plain version (vis_windows_plain)
 exactly, or the tool raises.  This tree's V1 is also timed at other
-persistent grids (blocks an SM).  V2's variants compute the same planes
-(checked bit for bit against the shipped kernel): its upsampling kernel
-held to 40 registers (__launch_bounds__ with 6 blocks an SM), and tiles of
-16 rows in place of 8.  Inputs: bench.py's whole frame at camera 0,
+persistent grids (blocks an SM; 6 is one wave at its 40 registers).
+V2's variants compute the same planes (checked bit for bit against the
+shipped kernel): its upsampling kernel held to 40 registers
+(__launch_bounds__ with 6 blocks an SM), and tiles of 16 rows in place
+of 8.  Inputs: bench.py's whole frame at camera 0,
 1920x1080, flagship (a) (ESM, planes at vis_scale 2) and (d) (PCF, vis_scale
 1), default cascade.
 
@@ -28,7 +29,9 @@ held to 40 registers (__launch_bounds__ with 6 blocks an SM), and tiles of
 Prints the card, each library's registers / spilled bytes per kernel
 (`-Xptxas -v`) and, per input, each library's ms a call (its memset and
 launch, CUDA events over 30 calls captured in one graph) over rounds in
-alternating order, with the median; one JSON row per input.
+alternating order, with the median; one JSON row per input.  A patch
+whose text is no longer in the source stops the tool: update the patch
+with the kernel.
 """
 
 from __future__ import annotations
@@ -44,10 +47,11 @@ import subprocess
 import torch
 
 from lsr_tpu_torch.utils import cuda_build
+from lsr_tpu_torch.utils.devtime import graph_ms
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FILES = ("vis_footprint.cu", "vis_planes.cu", "vis_common.cuh")
-V1_GRIDS = (2, 4, 16)   # blocks an SM, beside the shipped V1_BLOCKS_PER_SM
+V1_GRIDS = (2, 4, 6, 16)  # blocks an SM, beside the shipped V1_BLOCKS_PER_SM
 
 # An earlier tree's launcher (the first V1's): bounds (K, 4), no grid size.
 PARENT_SIGNATURE = (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
@@ -158,26 +162,6 @@ def _call(fn, parent, sh, wp, per_sm=None):
     return win, run
 
 
-def _graph_ms(fn, iters=30):
-    """ms of one fn() (memset and launches only): iters calls in one
-    captured graph, replayed under CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    g.replay()
-    e1.record()
-    torch.cuda.synchronize()
-    g.reset()
-    return e0.elapsed_time(e1) / iters
-
-
 def ab(cases, parent_dir=None, rounds=5, log=print):
     """V1's A/B: cases {name: (sh, wp, nm)} on the card; this tree's
     variants and grids and, with parent_dir, the earlier tree's; then V2's
@@ -231,7 +215,7 @@ def ab(cases, parent_dir=None, rounds=5, log=print):
         order = list(calls)
         for r in range(rounds):
             for t in (order if r % 2 == 0 else order[::-1]):
-                ms[t].append(_graph_ms(calls[t]))
+                ms[t].append(graph_ms(calls[t], 30))
         row = {"input": name,
                "median_ms": {t: statistics.median(v) for t, v in ms.items()},
                "ms": {t: [round(x, 5) for x in v] for t, v in ms.items()},
