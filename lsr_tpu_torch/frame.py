@@ -70,6 +70,7 @@ from lsr_tpu_torch.scene.scene import (
 )
 from lsr_tpu_torch.shading.common import checkerboard_texture, make_materials
 from lsr_tpu_torch.shading.models import make_shade_context
+from lsr_tpu_torch.utils import trace
 
 EYE0 = (6.0, 6.5, -10.0)
 FOV = np.pi / 3.2
@@ -205,46 +206,54 @@ def flagship_stages(geom, objects, lights, ctx, cam, ctx_t, width: int,
         spot_ids, point_ids = (plan_shadow_casters(lights) if casters is None
                                else casters)
     if with_cull:
-        objs, lights_f, occ = cull_frame(geom, objects, lights, cam)
-        ids = list(spot_ids) + list(point_ids)
-        if ids:
-            caster_en = lights_f.enabled[device_const(
-                ids, lights.enabled.device, torch.int64)]
+        with trace.stage("cull"):
+            objs, lights_f, occ = cull_frame(geom, objects, lights, cam)
+            ids = list(spot_ids) + list(point_ids)
+            if ids:
+                caster_en = lights_f.enabled[device_const(
+                    ids, lights.enabled.device, torch.int64)]
     local = None
     if spot_ids or point_ids:
-        local = render_local_shadow_maps(
-            geom, objects, lights_f, spot_ids, point_ids, map_size=local_map,
-            point_size=local_point, pcf_radius=2, vis_scale=vis_scale,
-            vis_crop=tuple(vis_crop), caster_enabled=caster_en,
-            filter_mode=shadow_filter, atlas_packed=atlas_packed)
+        with trace.stage("local_atlas"):
+            local = render_local_shadow_maps(
+                geom, objects, lights_f, spot_ids, point_ids,
+                map_size=local_map, point_size=local_point, pcf_radius=2,
+                vis_scale=vis_scale, vis_crop=tuple(vis_crop),
+                caster_enabled=caster_en, filter_mode=shadow_filter,
+                atlas_packed=atlas_packed)
 
-    shadow = make_sun_shadow(geom, objects, ctx_t.light_dir_ws,
-                             ShadowPassParams(map_size=shadow_size,
-                                              pcf_radius=2,
-                                              filter_mode=shadow_filter))
+    with trace.stage("sun_shadow"):
+        shadow = make_sun_shadow(geom, objects, ctx_t.light_dir_ws,
+                                 ShadowPassParams(map_size=shadow_size,
+                                                  pcf_radius=2,
+                                                  filter_mode=shadow_filter))
     ctx_sh = dataclasses.replace(ctx_t, shadow=shadow)
 
-    setup = scene_setup(
-        geom.positions, geom.normals, geom.uvs, geom.indices, geom.vtx_obj,
-        geom.tri_obj, objs.model, objs.normal_mat, cam.viewproj,
-        width, height, obj_visible=objs.visible)
-    depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
-                                           cam.zf, spatial_sort=True)
     gb = None
-    if use_resolve:
-        hdr, stats = resolve_forward_plus(
-            setup, depth, tid, ctx_sh, lights_f, cam.view, cam.proj, cam.zn,
-            cam.zf, width, height, cap=128, sun_model="pbr_mr",
-            rec_layout="lanes", local_shadows=local,
-            sun_vis_scale=sun_vis_scale)
-    else:
-        gb = interpolate_gbuffer(setup, depth, tid, materials=ctx.materials,
-                                 want_face_normal=False)
-        hdr, stats = shade_forward_plus(
-            gb, ctx_sh, lights_f, cam.view, cam.proj, cam.zn, cam.zf, width,
-            height, tile_size=16, cap=128, mode="tiled_depth_range",
-            sun_model="pbr_mr", local_shadows=local,
-            sun_vis_scale=sun_vis_scale)
+    with trace.stage("camera_raster"):
+        setup = scene_setup(
+            geom.positions, geom.normals, geom.uvs, geom.indices,
+            geom.vtx_obj, geom.tri_obj, objs.model, objs.normal_mat,
+            cam.viewproj, width, height, obj_visible=objs.visible)
+        depth, tid, max_sup = rasterize_direct(setup, width, height, cam.zn,
+                                               cam.zf, spatial_sort=True)
+        if not use_resolve:
+            gb = interpolate_gbuffer(setup, depth, tid,
+                                     materials=ctx.materials,
+                                     want_face_normal=False)
+    with trace.stage("lighting"):
+        if use_resolve:
+            hdr, stats = resolve_forward_plus(
+                setup, depth, tid, ctx_sh, lights_f, cam.view, cam.proj,
+                cam.zn, cam.zf, width, height, cap=128, sun_model="pbr_mr",
+                rec_layout="lanes", local_shadows=local,
+                sun_vis_scale=sun_vis_scale)
+        else:
+            hdr, stats = shade_forward_plus(
+                gb, ctx_sh, lights_f, cam.view, cam.proj, cam.zn, cam.zf,
+                width, height, tile_size=16, cap=128,
+                mode="tiled_depth_range", sun_model="pbr_mr",
+                local_shadows=local, sun_vis_scale=sun_vis_scale)
     return dict(obj_visible=objs.visible, light_enabled=lights_f.enabled,
                 occ_depth=occ, local=local, local_vis=stats["local_vis"],
                 setup=setup, depth=depth, tid=tid, max_sup=max_sup, gb=gb,
@@ -279,7 +288,8 @@ def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int,
     changes from frame to frame reaches it as a tensor of cam / ctx_t.
 
     Float32 products on the card run in full precision: TF32 is switched
-    off here for matmuls (the vertex transform) and cuDNN."""
+    off here for matmuls (the vertex transform) and cuDNN.  The frame's
+    stages are flagship_stages' and post (tonemap, FXAA)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     casters = plan_shadow_casters(lights) if with_local else ((), ())
@@ -294,7 +304,8 @@ def make_flagship_frame(geom, objects, lights, ctx, width: int, height: int,
                              local_point=local_point, vis_scale=vis_scale,
                              vis_crop=vis_crop, atlas_packed=atlas_packed,
                              casters=casters)
-        ldr = fxaa_pass(tonemap_pass(st["hdr"]))
+        with trace.stage("post"):
+            ldr = fxaa_pass(tonemap_pass(st["hdr"]))
         return (ldr, st["setup"].valid.sum(), st["max_sup"],
                 st["stats"]["max_lights_per_bin"],
                 st["stats"]["overflow_bins"])

@@ -6,19 +6,21 @@ The analog of PipelineRuntimeExecutor (pluggable_pipeline.hpp:62-236):
 - for each pass: build_execution_request -> (gate) -> execute_resolved --
   an invalid request means the pass is SKIPPED and recorded, never executed
   (vop_core_tests.cpp:258),
-- wall-clock per-pass timing recorded into the context debug stats.  The
-  card runs asynchronously, so that is the time to enqueue a pass unless
-  `sync_timing` synchronizes the state's device after each pass (lsr_tpu
-  blocks on the state's arrays there).
+- wall-clock per-pass timing recorded into the context debug stats: each
+  pass a host span (utils.trace, recorded whether tracing is on or not).
+  The card runs asynchronously, so that is the time to enqueue a pass
+  unless `sync_timing` synchronizes the state's device after each pass
+  (lsr_tpu blocks on the state's arrays there).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List
 
 import torch
+
+from lsr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -92,11 +94,11 @@ def execute_plan(plan, passes, ctx, frame_state: dict, fp) -> dict:
             if not req.valid:
                 ctx.debug.skipped_passes.append(f"{p.pass_id}: {req.error}")
                 continue
-            t0 = time.perf_counter()
-            frame_state = p.execute_resolved(ctx, frame_state, fp, req)
-            if ctx.sync_timing:
-                synchronize(frame_state)
-            ctx.debug.pass_ms[p.pass_id] = (time.perf_counter() - t0) * 1e3
+            with trace.recording(), trace.span(p.pass_id) as sp:
+                frame_state = p.execute_resolved(ctx, frame_state, fp, req)
+                if ctx.sync_timing:
+                    synchronize(frame_state)
+            ctx.debug.pass_ms[p.pass_id] = sp.host_ms
         if backend is not None:
             backend.end_frame(ctx)
     ctx.debug.frames += 1

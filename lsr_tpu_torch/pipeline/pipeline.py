@@ -18,20 +18,18 @@ card (run eagerly for a state on the CPU).
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
-
-import torch
 
 from lsr_tpu_torch.pipeline.executor import (
     RenderContext,
     TorchBackend,
     execute_plan,
-    state_device,
+    synchronize,
 )
 from lsr_tpu_torch.pipeline.planner import BackendCaps, build_execution_plan
 from lsr_tpu_torch.pipeline.recipe import compile_recipe
 from lsr_tpu_torch.pipeline.render_pass import RenderPass
+from lsr_tpu_torch.utils import trace
 from lsr_tpu_torch.utils.capacity import checked
 
 
@@ -152,9 +150,10 @@ class PluggablePipeline:
         the warm-up, a failed capture raising; on the CPU eagerly), and a
         frame whose raster exceeded its capacities (a compact setup above
         fp.compact_setup_threshold, kernel B3's lists) runs again eagerly
-        at grown capacities.  As in lsr_tpu, the jitted plan is cached on
-        (tuple(plan.order), id(fp)) and closes over ctx and fp: both are
-        fixed at capture, as lsr_tpu's trace fixes them."""
+        at grown capacities.  Each pass is a stage named by its pass_id
+        (utils.trace, with tracing on).  As in lsr_tpu, the jitted plan is
+        cached on (tuple(plan.order), id(fp)) and closes over ctx and fp:
+        both are fixed at capture, as lsr_tpu's trace fixes them."""
         plan = self._valid_plan(fp)
         key = (tuple(plan.order), id(fp))
         if self._jit_key != key:
@@ -166,7 +165,8 @@ class PluggablePipeline:
                     p = passes[idx]
                     req = p.build_execution_request(ctx, state, fp)
                     if req.valid:
-                        state = p.execute_resolved(ctx, state, fp, req)
+                        with trace.stage(p.pass_id):
+                            state = p.execute_resolved(ctx, state, fp, req)
                 state.pop("capacities")       # an input, not frame state
                 return state, state.get("raster_stats")
 
@@ -176,8 +176,9 @@ class PluggablePipeline:
 
     def execute_segmented(self, ctx: RenderContext, frame_state: dict,
                           fp) -> dict:
-        """Per-pass DEVICE timing (profiling mode): each pass is bracketed
-        by CUDA events on the current stream and its device ms lands in
+        """Per-pass DEVICE timing (profiling mode): each pass is a stage
+        (utils.trace, recorded whether tracing is on or not), bracketed by
+        CUDA events on the current stream, and its device ms lands in
         ctx.debug.pass_ms after one synchronize at the end of the frame
         (the reference's per-pass GPU timestamps,
         hello_rendering_paths.cpp:111); for a state on the CPU, wall ms.
@@ -185,31 +186,21 @@ class PluggablePipeline:
         it, which the events still place on the device's time line."""
         plan = self._valid_plan(fp)
         state = self._start(frame_state)
-        dev = state_device(state)
-        on_card = dev is not None and dev.type == "cuda"
-        marks = []
-        for idx in plan.order:
-            p = self._passes[idx]
-            req = p.build_execution_request(ctx, state, fp)
-            if not req.valid:
-                ctx.debug.skipped_passes.append(f"{p.pass_id}: {req.error}")
-                continue
-            if on_card:
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                state = p.execute_resolved(ctx, state, fp, req)
-                e1.record()
-                marks.append((p.pass_id, e0, e1))
-            else:
-                t0 = time.perf_counter()
-                state = p.execute_resolved(ctx, state, fp, req)
-                ctx.debug.pass_ms[p.pass_id] = \
-                    (time.perf_counter() - t0) * 1e3
-        if on_card:
-            torch.cuda.synchronize(dev)
-            for pid, e0, e1 in marks:
-                ctx.debug.pass_ms[pid] = e0.elapsed_time(e1)
+        stages = []
+        with trace.recording():
+            for idx in plan.order:
+                p = self._passes[idx]
+                req = p.build_execution_request(ctx, state, fp)
+                if not req.valid:
+                    ctx.debug.skipped_passes.append(
+                        f"{p.pass_id}: {req.error}")
+                    continue
+                with trace.stage(p.pass_id) as st:
+                    state = p.execute_resolved(ctx, state, fp, req)
+                stages.append(st)
+        synchronize(state)
+        for st in stages:
+            ctx.debug.pass_ms[st.name] = st.device_ms()
         return self._finish(ctx, state)
 
     def _capture_persistent(self, state: dict):

@@ -41,6 +41,7 @@ import dataclasses
 
 from lsr_tpu_torch.raster import tiled
 from lsr_tpu_torch.raster.tiled import fitted_cap
+from lsr_tpu_torch.utils import trace
 from lsr_tpu_torch.utils.jit import MAX_GRAPHS, jit, trace_key
 
 
@@ -127,7 +128,8 @@ class Checked:
     A key's first call runs fn(*args, None), the eager route that sizes its
     lists on the host, and keeps Capacities.sized of its stats.  Every
     later call runs jit(fn)(*args, caps) (warm-up, capture, replays, as
-    utils.jit does) and reads the flag once after it.  When it is set the
+    utils.jit does) and reads the flag once after it (the span
+    checked.flag, with tracing on).  When it is set the
     key's capacities grow (growths), its stale graph is released and the
     frame runs again eagerly at the new capacities as the new key's
     warm-up (retries counts such frames), until no flag is set.  The
@@ -156,7 +158,8 @@ class Checked:
             caps = Capacities.sized(stats)
         else:
             out, stats = self.jitted(*args, caps)
-            over = exceeded(stats)
+            with trace.span("checked.flag"):
+                over = exceeded(stats)
             self.retries += over
             while over:
                 grown = caps.grown(stats)

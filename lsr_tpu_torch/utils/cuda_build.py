@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import time
 
+from lsr_tpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -91,6 +93,9 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _P),
+    # stream, counts (n_types ints), n_types: the nodes of the graph the
+    # stream is capturing into, by cudaGraphNodeType (utils/trace.py)
+    "lsr_capture_nodes": (_P, _P, _I),
 }
 
 _lib = None
@@ -145,7 +150,8 @@ def _build(srcs: list[str], so: str) -> str:
 
 
 def load_kernels():
-    """The loaded kernel library (ctypes.CDLL), building it if needed."""
+    """The loaded kernel library (ctypes.CDLL), building it if needed (the
+    set-up span cuda_build.load, utils.trace)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -157,8 +163,9 @@ def load_kernels():
     so = os.path.join(BUILD_DIR, f"liblsr_kernels_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
     built = not os.path.exists(so)
-    log = _build(srcs, so) if built else ""
-    lib = ctypes.CDLL(so)
+    with trace.kept_span("cuda_build.load"):
+        log = _build(srcs, so) if built else ""
+        lib = ctypes.CDLL(so)
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)

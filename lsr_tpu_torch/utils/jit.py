@@ -50,6 +50,15 @@ The kernel wrappers count launches where they launch (launch_counters()).
 The capture moves those counters without launching anything, so jit takes
 that move back and adds it on every replay: the counts stay exact per frame.
 
+Spans (utils.trace): with tracing on, a call is the span jit.call, with the
+children jit.key, jit.copy_in, jit.replay and jit.clone_out, and a key
+captured while tracing is on keeps the frame's stages with their graph
+events and node counts: stage_ms() reads each stage's device ms at the last
+replay.  The set-up spans jit.warm_up and jit.capture (children
+jit.capture.record, the frame run under torch.cuda.graph and CaptureCheck;
+jit.capture.instantiate, the capture's end and the graph's instantiation;
+jit.capture.first_replay) are kept whether tracing is on or not.
+
 CPU inputs call fn eagerly: the caller asked for the CPU (the tests' route).
 On the card there is no fallback: a capture that fails raises and names the
 operation at fault, and never runs the eager frame instead.
@@ -60,12 +69,15 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import sys
 import time
 
 import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from lsr_tpu_torch.utils import trace
 
 
 def launch_counters():
@@ -344,7 +356,11 @@ class _Graph:
     """One captured key: static inputs, the graph, its static outputs, and
     what each launch counter moved during the capture; capture_ms (host
     time of the capture and the graph's instantiation) and pool_bytes (the
-    device memory the static inputs and the graph's private pool took)."""
+    device memory the static inputs and the graph's private pool took).
+    trace: the trace.Capture of its stages where it was captured with
+    tracing on, else None; outside_ops: the device copies a call makes
+    outside the graph (into the static inputs, out of the static
+    outputs)."""
 
     def __init__(self, fn, name, spec, leaves, hosts, dev):
         t0 = time.perf_counter()
@@ -360,9 +376,17 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         check = CaptureCheck()
         try:
-            with torch.cuda.graph(self.graph):
-                with check:
-                    out = fn(*args, **kwargs)
+            capture = torch.cuda.graph(self.graph)
+            with trace.kept_span("jit.capture.record"):
+                capture.__enter__()
+                try:
+                    with trace.capturing() as self.trace, check:
+                        out = fn(*args, **kwargs)
+                except BaseException:
+                    capture.__exit__(*sys.exc_info())
+                    raise
+            with trace.kept_span("jit.capture.instantiate"):
+                capture.__exit__(None, None, None)
         except Exception as e:
             _set_counts(counters, before)
             raise CaptureError(f"jit: capturing {name} failed at "
@@ -376,6 +400,10 @@ class _Graph:
         # For each output leaf: the index of the argument it is, or -1.
         self.out_arg = [pos.get(id(t), -1) for t in out_leaves]
         self.static_out = out_leaves
+        self.outside_ops = (
+            sum(1 for t in self.static_in if t.is_cuda and t.numel())
+            + len({id(t) for t, j in zip(out_leaves, self.out_arg)
+                   if j < 0 and t.is_cuda and t.numel()}))
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
@@ -386,19 +414,22 @@ class _Graph:
         self.graph.reset()
 
     def __call__(self, leaves):
-        for dst, src in zip(self.static_in, leaves):
-            dst.copy_(src)
-        self.graph.replay()
+        with trace.span("jit.copy_in"):
+            for dst, src in zip(self.static_in, leaves):
+                dst.copy_(src)
+        with trace.span("jit.replay"):
+            self.graph.replay()
         for (owner, attr), d in self.deltas:
             setattr(owner, attr, getattr(owner, attr) + d)
-        fresh, outs = {}, []
-        for t, j in zip(self.static_out, self.out_arg):
-            if j >= 0:
-                outs.append(leaves[j])
-            else:
-                if id(t) not in fresh:
-                    fresh[id(t)] = t.clone()
-                outs.append(fresh[id(t)])
+        with trace.span("jit.clone_out"):
+            fresh, outs = {}, []
+            for t, j in zip(self.static_out, self.out_arg):
+                if j >= 0:
+                    outs.append(leaves[j])
+                else:
+                    if id(t) not in fresh:
+                        fresh[id(t)] = t.clone()
+                    outs.append(fresh[id(t)])
         return unflatten(self.out_spec, iter(outs), iter(self.out_hosts))
 
 
@@ -406,7 +437,7 @@ class Jitted:
     """jit(fn): see the module docstring.  graphs maps each captured key to
     its _Graph, least recently used first (at most MAX_GRAPHS; pool_bytes:
     the memory each took); captures counts the graphs made and evictions
-    those released."""
+    those released; last is the _Graph replayed last."""
 
     def __init__(self, fn, name=None):
         self.fn = fn
@@ -414,30 +445,50 @@ class Jitted:
         self.graphs: collections.OrderedDict = collections.OrderedDict()
         self._warm: collections.OrderedDict = collections.OrderedDict()
         self._side = None
+        self.last = None              # the _Graph replayed last
         self.captures = self.evictions = 0
 
     def __call__(self, *args, **kwargs):
-        spec, leaves, hosts = trace_key(args, kwargs)
-        if not leaves:
-            raise ValueError(f"jit: {self.name} got no tensor argument, so "
-                             f"its device is unknown")
-        dev = _card_device(leaves)
-        if dev is None:
-            return self.fn(*args, **kwargs)
-        g = self.graphs.get(spec)
-        if g is None and spec in self._warm:
-            del self._warm[spec]
-            # Make room first: the evicted graph's memory is free for this
-            # capture.
-            while len(self.graphs) >= MAX_GRAPHS:
-                self._evict(self.graphs.popitem(last=False)[1])
+        with trace.span("jit.call", new_frame=True):
+            with trace.span("jit.key"):
+                spec, leaves, hosts = trace_key(args, kwargs)
+            if not leaves:
+                raise ValueError(f"jit: {self.name} got no tensor argument, "
+                                 f"so its device is unknown")
+            dev = _card_device(leaves)
+            if dev is None:
+                return self.fn(*args, **kwargs)
+            g = self.graphs.get(spec)
+            if g is None and spec in self._warm:
+                return self._capture(spec, leaves, hosts, dev)
+            if g is not None:
+                self.graphs.move_to_end(spec)
+                return self._replay(g, leaves)
+            return self._warm_up(spec, dev, args, kwargs)
+
+    def _capture(self, spec, leaves, hosts, dev):
+        del self._warm[spec]
+        # Make room first: the evicted graph's memory is free for this
+        # capture.
+        while len(self.graphs) >= MAX_GRAPHS:
+            self._evict(self.graphs.popitem(last=False)[1])
+        with trace.kept_span("jit.capture"):
             g = _Graph(self.fn, self.name, spec, leaves, hosts, dev)
             self.graphs[spec] = g
             self.captures += 1
-        if g is not None:
-            self.graphs.move_to_end(spec)
-            return g(leaves)
-        return self._warm_up(spec, dev, args, kwargs)
+            with trace.kept_span("jit.capture.first_replay"):
+                return self._replay(g, leaves)
+
+    def _replay(self, g, leaves):
+        self.last = g
+        return g(leaves)
+
+    def stage_ms(self) -> dict:
+        """{stage name: device ms} of the last replay of the graph replayed
+        last, where that graph was captured with tracing on; {} otherwise.
+        The caller synchronises first."""
+        cap = self.last.trace if self.last is not None else None
+        return {s.name: s.device_ms() for s in cap.stages} if cap else {}
 
     def warm_up(self, *args, **kwargs):
         """fn eagerly as the warm-up of this call's key: its next call
@@ -470,7 +521,7 @@ class Jitted:
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
         self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
+        with trace.kept_span("jit.warm_up"), torch.cuda.stream(self._side):
             out = self.fn(*args, **kwargs)
         cur.wait_stream(self._side)
         return out
