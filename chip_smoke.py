@@ -10,6 +10,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --phase33    # phase 33 alone, after the build
     python3 chip_smoke.py --phase34    # phase 34 alone, after the build
     python3 chip_smoke.py --phase35    # phases 34 and 35, after the build
+    python3 chip_smoke.py --phase36    # phase 36 alone, after the build
 
 It builds the hand-written CUDA kernels from lsr_tpu_torch/csrc/ (nvcc, at
 first use, into build/kernels/), then:
@@ -270,6 +271,21 @@ Then kernel B1's screen bands and the multi-device paths
     and 35.  V1's A/B on its three suspects (its divisions, its f64
     distance, its atomics, each patched out in a copy) is a command of its
     own: `python -m lsr_tpu_torch.utils.vis_ab`.
+36. Right after 35: kernel G1 (lighting/light_runtime
+    .accumulate_local_lights, csrc/local_lights.cu), the general lighting
+    branch's binned local-light sum, on the forward_classic+ssao
+    composition's own call at 1280x720 with 384 lights (the paths_720p
+    deployment: 3,600 lists of 128 slots, the local-shadow planes): G1
+    bit for bit its plain version (accumulate_local_lights_plain) on those
+    lists and on the same lights binned per cluster (16 slices), one
+    launch each; forward_plus's general branch, tiled and clustered, on
+    the same G-buffer, HDR bit for bit with the plain version in G1's
+    place; kernel, wrapper and plain ms, the pairs G1 evaluates and its
+    bound.  G1's launches are checked wherever phases count launches: one
+    a forward_classic+ssao frame (phases 23, 29, 31), one a camera band
+    of the sharded flagship and one a rank of the light-sharded forward
+    (phases 27, 29, 33), none elsewhere.  `python3 chip_smoke.py
+    --phase36` runs it alone.
 
 28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
     stand-in for the monkey), each at its own size, counts reset before
@@ -752,6 +768,7 @@ def small_reference(dev):
 
 def _wrappers():
     from lsr_tpu_torch.lighting.fplus_kernel import accumulate_lights
+    from lsr_tpu_torch.lighting.light_runtime import accumulate_local_lights
     from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
     from lsr_tpu_torch.lighting.shade_kernel import shade_fused
     from lsr_tpu_torch.raster import tiled
@@ -760,7 +777,8 @@ def _wrappers():
             "tiled_raster": tiled.rasterize_tiled,
             "chunklist_raster": tiled.rasterize_chunklist,
             "shade_fused": shade_fused, "resolve_fused": resolve_fused,
-            "fplus_accumulate": accumulate_lights}
+            "fplus_accumulate": accumulate_lights,
+            "local_lights": accumulate_local_lights}
 
 
 def reset_counts():
@@ -1793,7 +1811,8 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     counts reset: WARMUP + WHOLE_FRAMES frames along the orbit (device
     events and wall clock), the same frames again without a sync between
     them (pipelined), then exactly b1_per_frame B1 launches and one B2 (or
-    B5) per frame; the visible objects and lights per frame (cull_frame
+    B5) per frame, no G1 (the fused branch has no general-branch sum); the
+    visible objects and lights per frame (cull_frame
     again, after the counts are read).  Returns the result."""
     from lsr_tpu_torch.frame import cull_frame, make_flagship_frame
     from lsr_tpu_torch.io.png import write_png
@@ -1827,9 +1846,10 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     light_k = "resolve_fused" if route else "shade_fused"
     other_k = "shade_fused" if route else "resolve_fused"
     check(launches["direct_raster"] == b1_per_frame * n
-          and launches[light_k] == n and launches[other_k] == 0,
+          and launches[light_k] == n and launches[other_k] == 0
+          and launches["local_lights"] == 0,
           f"{name}: launches {launches} for {n} frames (expected "
-          f"{b1_per_frame} B1 and one {light_k} a frame)")
+          f"{b1_per_frame} B1 and one {light_k} a frame, no G1)")
     check(vis == {"vis_windows": n, "vis_planes": n},
           f"{name}: V1 / V2 launches {vis} for {n} frames (one each a "
           f"frame expected)")
@@ -2110,13 +2130,15 @@ def _timing(ms, pipelined, warmup, nf, b1_per_frame, launches, pass_ms):
             "frame_ms_all": [round(m, 3) for m in ms]}
 
 
-def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame):
+def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame,
+              g1_per_frame=0):
     """One render path at Phase F's resolution, a main path of its own:
     counts reset just before and read just after RP_WARMUP + RP_FRAMES
     frames by CUDA events and the same frames pipelined; exactly 3 + one
     per atlas slot B1 launches a frame (the occluders, the sun map, the
     camera and every slot: a slot of a light the cull disabled is launched
-    with its setup masked) and b2_per_frame B2 launches, nothing else;
+    with its setup masked), b2_per_frame B2 and g1_per_frame G1 launches,
+    nothing else;
     then execute_segmented's per-pass device ms of frame 0.  Returns the
     result."""
     from lsr_tpu_torch.pipeline.executor import RenderContext
@@ -2133,7 +2155,8 @@ def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame):
     launches = read_counts()
     want = {k: 0 for k in launches}
     want.update(direct_raster=b1_per_frame * nf,
-                shade_fused=b2_per_frame * nf)
+                shade_fused=b2_per_frame * nf,
+                local_lights=g1_per_frame * nf)
     check(launches == want, f"{kind} {name}: launches {launches} for {nf} "
           f"frames, expected {want}")
     ldr = outs[-1]
@@ -2301,7 +2324,8 @@ def compositions_phase(dev):
     frames by CUDA events and the same frames pipelined; exactly 3 + 20 B1
     launches a frame (the post passes and SSAO add none), one B2 a frame in
     forward_plus+full and none in the SSAO composition (its SSAO mask sends
-    the lighting down the general branch, as in lsr_tpu); execute_segmented's
+    the lighting down the general branch, as in lsr_tpu, whose local-light
+    sum is one G1 launch a frame); execute_segmented's
     per-pass device ms; the SSAO composition's LDR differs from
     forward_classic's (run_phases.py:292-300); kernel B2 against its plain
     version on forward_plus+full's own launch (one more frame, after the
@@ -2321,7 +2345,7 @@ def compositions_phase(dev):
                                ("forward_classic+ssao", 0)):
         pipe, fp, state_fn = pipes[name]
         out[name] = _path_run("composition", name, fns[name], pipe, fp,
-                              state_fn, b2_per_frame)
+                              state_fn, b2_per_frame, 1 - b2_per_frame)
     pipe, fp, state_fn = pipes["forward_plus+full"]
     with shade_calls() as sc:      # on execute(), as in phase 20
         st = pipe.execute(RenderContext(), state_fn(0), fp)
@@ -2842,10 +2866,11 @@ def check_band_calls(tag, calls):
 
 
 def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
-                 n=SHARD_FRAMES):
+                 g1_per_step=0, n=SHARD_FRAMES):
     """One sharded path, a main path of its own: counts reset, its steps,
-    exactly b1_per_step B1 launches a step (band_per_step of them B1b) and
-    no other kernel; the first step's B1b launches against their plain
+    exactly b1_per_step B1 launches a step (band_per_step of them B1b),
+    g1_per_step G1 launches (a band's local-light sum) and no other
+    kernel; the first step's B1b launches against their plain
     versions (check_band_calls); then torch.profiler over one more step:
     device busy ms and B1's (B1b's with it) kernel ms.  Returns (output,
     result)."""
@@ -2864,16 +2889,20 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
     band = tiled.rasterize_direct.band_launches
     steps = SHARD_WARMUP + n
     ms = ms[SHARD_WARMUP:]
-    others = {k: v for k, v in launches.items() if k != "direct_raster"}
+    others = {k: v for k, v in launches.items()
+              if k not in ("direct_raster", "local_lights")}
     check(launches["direct_raster"] == b1_per_step * steps
-          and band == band_per_step * steps and not any(others.values()),
+          and band == band_per_step * steps
+          and launches["local_lights"] == g1_per_step * steps
+          and not any(others.values()),
           f"{tag}: launches {launches}, B1b {band} over {steps} steps "
-          f"(expected {b1_per_step} B1, {band_per_step} of them B1b, a "
-          f"step)")
+          f"(expected {b1_per_step} B1, {band_per_step} of them B1b, and "
+          f"{g1_per_step} G1 a step)")
     res = {"ms": statistics.median(ms), "ms_all": ms, "ranks": ranks,
            "steps": steps, "b1_per_step": b1_per_step,
            "b1b_per_step": band_per_step, "launches": launches["direct_raster"],
-           "b1b_launches": band}
+           "b1b_launches": band, "g1_per_step": g1_per_step,
+           "g1_launches": launches["local_lights"]}
     if band_per_step:
         res.update(check_band_calls(
             tag, rec.calls[:len(rec.calls) // steps]))
@@ -2886,7 +2915,8 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
     log(f"{tag}: {ranks} ranks sharing one card (run one after another), "
         f"median {res['ms']:.3f} ms a step by CUDA events over {n} steps "
         f"after {SHARD_WARMUP} warm-up {[round(m, 3) for m in ms]}; B1 "
-        f"{b1_per_step} a step ({band_per_step} B1b), checked exactly; "
+        f"{b1_per_step} a step ({band_per_step} B1b) and G1 {g1_per_step}, "
+        f"checked exactly; "
         f"torch.profiler over one step: device busy {res['busy_ms']:.3f} ms "
         f"in {res['kernels_per_step']:.0f} kernels, B1 (B1b included) "
         f"{res['b1_kernel_ms']:.3f} ms"
@@ -2941,9 +2971,11 @@ def sharded_phase(geom, objects, lights, ctx, dev):
         b1 = (dp * sp * (cdiv(n_spot, sp) + cdiv(n_face, sp) + 1)
               + len(two) * sp * 2)
         b1b = (dp * sp + len(two) * sp) if sp > 1 else 0
+        # G1: a camera's band on each of its dp slice's sp ranks.
         frames[(dp, sp)], out[f"flagship_{dp}x{sp}"] = _sharded_run(
             f"sharded flagship (dp {dp}, sp {sp}) {w}x{h}, sun {SHADOW}^2",
-            dp * sp, step, (vps, views, proj, zn, zf, sun), b1, b1b)
+            dp * sp, step, (vps, views, proj, zn, zf, sun), b1, b1b,
+            len(two) * sp)
     ref = frames[(1, 1)]
     check(ref.shape == (2, h, w, 3) and float(
         (ref.int().sum(-1) > 0).float().mean()) > 0.5,
@@ -2972,7 +3004,7 @@ def sharded_phase(geom, objects, lights, ctx, dev):
         lp_frames[(sp, lp)], out[f"light_sharded_{sp}x{lp}"] = _sharded_run(
             f"light-sharded forward (sp {sp}, lp {lp}) {w}x{h}", sp * lp,
             step, (two[0].viewproj, two[0].view, proj, zn, zf), sp * lp,
-            sp * lp if sp > 1 else 0)
+            sp * lp if sp > 1 else 0, sp * lp)
     for key in ((2, 2), (1, 4)):
         d = (lp_frames[key].int() - lp_frames[(1, 1)].int()).abs()
         share = float((d != 0).float().mean())
@@ -3329,7 +3361,7 @@ def demo_expected(name, scene, kw):
     return {"direct_raster": b1, "direct_raster_band_h": b1a,
             "tiled_raster": int(name == "hello_shadows"),
             "shade_fused": b2, "chunklist_raster": 0, "resolve_fused": 0,
-            "fplus_accumulate": 0}
+            "fplus_accumulate": 0, "local_lights": 0}
 
 
 def _demo_contract(tag, cpu, card, need, size=DEMO_SMALL, hdr_share=0.999):
@@ -3496,19 +3528,21 @@ def rest_expected(name, fp=None):
     occluders, the sun map and the depth prepass (the G-buffer reuses it)
     plus one a caster slot (none: the demo sets no casters), B2 for the
     lighting (B2b on clustered_forward) but under SSAO (the general
-    branch); hello_parallelization (8 ranks) B1 1 for the (1, 1) mesh, 8
-    B1b for dp 2 x sp 4, 8 B1b for sp 4 x lp 2, 3 for the pp stream of 3
-    cameras."""
+    branch, whose sum is G1's); hello_parallelization (8 ranks) B1 1 for
+    the (1, 1) mesh, 8 B1b for dp 2 x sp 4, 8 B1b for sp 4 x lp 2, 3 for
+    the pp stream of 3 cameras, and G1 on each of the 8 (band, light
+    slice) ranks of sp 4 x lp 2."""
     want = {k: 0 for k in _wrappers()}
     if name == "hello_full_pipeline":
         want.update(direct_raster=2, shade_fused=1)
     elif name == "hello_parallelization":
-        want.update(direct_raster=1 + 8 + 8 + 3)
+        want.update(direct_raster=1 + 8 + 8 + 3, local_lights=8)
     else:
         lp = fp.pass_params.local_shadow
+        ssao = name.endswith("+ssao")
         want.update(direct_raster=3 + len(lp.spot_ids)
                     + 6 * len(lp.point_ids),
-                    shade_fused=0 if name.endswith("+ssao") else 1)
+                    shade_fused=0 if ssao else 1, local_lights=int(ssao))
     return want
 
 
@@ -4221,9 +4255,10 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
         (pipe_j, fp_j, state_fn), (pipe_e, fp_e, _) = (s[name]
                                                        for s in sides)
         lp = fp_j.pass_params.local_shadow
+        ssao = name == "forward_classic+ssao"
         want = dict(zero,
                     direct_raster=3 + len(lp.spot_ids) + 6 * len(lp.point_ids),
-                    shade_fused=0 if name == "forward_classic+ssao" else 1)
+                    shade_fused=0 if ssao else 1, local_lights=int(ssao))
         out[name] = _one_program(
             f"one-program execute_jitted [{name}] {RP_W}x{RP_H}",
             lambda p=pipe_j: p._jitted.jitted,
@@ -4617,19 +4652,19 @@ def _drop_graphs(jf):
     torch.cuda.empty_cache()
 
 
-def _sharded_program(tag, step, arg_sets, b1, b1b):
+def _sharded_program(tag, step, arg_sets, b1, b1b, g1=0):
     """One sharded step through jit against its undecorated eager step
     (step.fn): arg_sets[0] warms up and captures, the later sets replay.
-    _one_program's checks (launches, B1b's among them, exact at every
-    call; one capture) and numbers, every call from the capture on bit for
-    bit the eager step.  Releases the graph; returns the result."""
+    _one_program's checks (launches, B1b's and G1's among them, exact at
+    every call; one capture) and numbers, every call from the capture on
+    bit for bit the eager step.  Releases the graph; returns the result."""
     zero = {k: 0 for k in _wrappers()}
     sets = [arg_sets[0]] + list(arg_sets)
     steps = [(lambda a=a: step(*a), lambda a=a: step.fn(*a),
               lambda a=a: step.fn(*a)) for a in sets]
     res = _one_program(tag, lambda: step, steps, lambda o: {"ldr": o},
-                       dict(zero, direct_raster=b1), band=b1b,
-                       eager_busy=False)
+                       dict(zero, direct_raster=b1, local_lights=g1),
+                       band=b1b, eager_busy=False)
     check(all(px == 0 for px, _ in res["replay_vs_eager"].values()),
           f"{tag}: a replay differs from the eager step "
           f"{res['replay_vs_eager']}")
@@ -4677,7 +4712,8 @@ def sharded_program_phase(geom, objects, lights, ctx, dev):
         b1b = (dp * sp + 2 * sp) if sp > 1 else 0
         out[f"flagship_{dp}x{sp}"] = _sharded_program(
             f"one-program sharded flagship (dp {dp}, sp {sp}) {w}x{h}, sun "
-            f"{SHADOW}^2", step, [flag_args(p) for p in pairs], b1, b1b)
+            f"{SHADOW}^2", step, [flag_args(p) for p in pairs], b1, b1b,
+            2 * sp)
         del step
 
     mesh22 = shd.make_mesh(4, dp=2, devices=ranks(4))
@@ -4696,7 +4732,8 @@ def sharded_program_phase(geom, objects, lights, ctx, dev):
         out[f"light_sharded_{sp}x{lp}"] = _sharded_program(
             f"one-program light-sharded forward (sp {sp}, lp {lp}) {w}x{h}",
             step, [(p[0].viewproj, p[0].view, p[0].proj, p[0].zn, p[0].zf)
-                   for p in pairs], sp * lp, sp * lp if sp > 1 else 0)
+                   for p in pairs], sp * lp, sp * lp if sp > 1 else 0,
+            sp * lp)
         del step
 
     mesh_pp = shd.make_mesh_pp(2, devices=ranks(2))
@@ -5888,6 +5925,218 @@ def phase35(geom, objects, lights, ctx, cams, dev, p34, whole=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: kernel G1 (light_runtime.accumulate_local_lights), the general
+# lighting branch's local-light sum, at the SSAO composition's shapes
+# ---------------------------------------------------------------------------
+
+G1_LIGHTS = 384       # the paths_720p deployment's light count
+G1_SLICES = 16        # log-Z slices of the clustered check
+
+
+def _ssao_call(w, h, n_lights, dev):
+    """One eager frame of forward_classic+ssao at w x h with n_lights
+    lights.  Returns (the arguments of its accumulate_local_lights call by
+    name, the frame's state)."""
+    from lsr_tpu_torch import render_paths
+    from lsr_tpu_torch.passes import standard_passes
+    from lsr_tpu_torch.pipeline.executor import RenderContext
+
+    real_state = render_paths.scene_state
+
+    def state(width, height, **kw):
+        return real_state(width, height, **dict(kw, n_lights=n_lights))
+
+    render_paths.scene_state = state
+    try:
+        with module_calls(standard_passes, "accumulate_local_lights") as rec:
+            _, pipes = render_paths.build_preset_pipelines(
+                w, h, {"forward_classic+ssao"}, device=dev, with_pipes=True)
+            pipe, fp, state_fn = pipes["forward_classic+ssao"]
+            st = pipe.execute(RenderContext(), state_fn(0), fp)
+    finally:
+        render_paths.scene_state = real_state
+    check(len(rec.calls) == 1, f"forward_classic+ssao made {len(rec.calls)} "
+          "general-branch calls, one expected")
+    return rec.calls[0][0], st
+
+
+def _g1_pairs(call):
+    """{pairs, kept, shadowed} of one accumulate_local_lights call: the
+    (pixel, light) pairs its lists hold, those G1 evaluates (not left out by
+    light_walk.local_light_skips or a bounded pair's plane that reads 0),
+    and those of them whose light has a plane; read off the plain
+    version's own terms."""
+    from lsr_tpu_torch.lighting import light_runtime as lr
+    from lsr_tpu_torch.lighting import light_walk
+
+    evaluate, shadowed = lr.eval_local_lights, lr._shadowed
+    n = {"pairs": 0, "kept": 0, "shadowed": 0}
+    keep = {}
+
+    def terms(cols, wp, nrm, v):
+        skip, bounded = light_walk.local_light_skips(cols, wp, nrm)
+        keep["mask"], keep["bounded"] = ~skip, bounded
+        n["pairs"] += skip.numel()
+        n["kept"] += int((~skip).sum())
+        return evaluate(cols, wp, nrm, v)
+
+    def planes(d, s, vis_t, sidx):
+        t, px = vis_t.shape[:2]
+        full = (sidx[:, None, :].expand(t, px, sidx.shape[1])
+                if sidx.ndim == 2 else sidx)
+        dark = (keep["mask"] & keep["bounded"]
+                & (torch.gather(vis_t, 2, full) == 0.0))
+        n["kept"] -= int(dark.sum())
+        n["shadowed"] += int((keep["mask"] & ~dark
+                              & (full < vis_t.shape[2] - 1)).sum())
+        return shadowed(d, s, vis_t, sidx)
+
+    lr.eval_local_lights, lr._shadowed = terms, planes
+    try:
+        lr.accumulate_local_lights_plain(**call)
+    finally:
+        lr.eval_local_lights, lr._shadowed = evaluate, shadowed
+    return n
+
+
+def _g1_vs_plain(tag, call):
+    """G1 (the wrapper, counts reset: one launch, no other kernel) against
+    accumulate_local_lights_plain on the same call, bit for bit.  Returns
+    the wrapper's (diffuse, specular)."""
+    from lsr_tpu_torch.lighting import light_runtime as lr
+
+    reset_counts()
+    d, s = lr.accumulate_local_lights(**call)
+    got = read_counts()
+    check(got == dict({k: 0 for k in got}, local_lights=1),
+          f"{tag}: launches {got}, one G1 expected")
+    dp, sp = lr.accumulate_local_lights_plain(**call)
+    torch.cuda.synchronize()
+    for name, a, b in (("diffuse", d, dp), ("specular", s, sp)):
+        check(torch.equal(a, b), f"{tag}: G1's {name} differs from the "
+              f"plain version's in {int((a != b).sum())} values (max "
+              f"{float((a - b).abs().max()):.3g})")
+    check(float(dp.sum()) > 0.0, f"{tag}: no light reached the frame")
+    return d, s
+
+
+def _fplus_general(tag, st, w, h, mode):
+    """forward_plus's general branch (shade_forward_plus with use_kernel
+    False) on the SSAO frame's G-buffer, lights and planes, mode "tiled" or
+    "clustered" (G1_SLICES slices), cap 128: one G1 launch, HDR bit for bit
+    the same frame with the plain version in G1's place."""
+    from lsr_tpu_torch.lighting import light_runtime as lr
+    from lsr_tpu_torch.passes import forward_plus as fpm
+
+    cam = st["camera"]
+
+    def frame():
+        return fpm.shade_forward_plus(
+            st["gbuffer"], st["shade_ctx"], st["lights"], cam.view, cam.proj,
+            cam.zn, cam.zf, w, h, cap=128, mode=mode, slices=G1_SLICES,
+            use_kernel=False, local_shadows=st.get("local_shadow_maps"))[0]
+
+    reset_counts()
+    hdr = frame()
+    got = read_counts()
+    check(got == dict({k: 0 for k in got}, local_lights=1),
+          f"{tag}: launches {got}, one G1 expected")
+    real = fpm.accumulate_local_lights
+    fpm.accumulate_local_lights = lr.accumulate_local_lights_plain
+    try:
+        ref = frame()
+    finally:
+        fpm.accumulate_local_lights = real
+    torch.cuda.synchronize()
+    check(torch.equal(hdr, ref), f"{tag}: HDR differs from the plain "
+          f"version's in {int((hdr != ref).sum())} values")
+    return {"launches": got["local_lights"], "hdr_equal": True}
+
+
+def local_lights_phase(dev, w=RP_W, h=RP_H, n_lights=G1_LIGHTS):
+    """Phase 36.  Kernel G1 (light_runtime.accumulate_local_lights,
+    csrc/local_lights.cu) on the forward_classic+ssao composition's own
+    call at w x h with n_lights lights (the paths_720p deployment: 16-px
+    tiles of 128-slot lists, the local-shadow planes): G1 against
+    accumulate_local_lights_plain bit for bit, one launch; the same
+    G-buffer, lights and planes through forward_plus's general branch,
+    tiled and clustered (G1_SLICES slices, cap 128), one G1 launch each,
+    HDR bit for bit the plain version's.  Kernel ms (the launch on packed
+    records, tiled and clustered), wrapper and plain ms by CUDA events;
+    the pairs G1 evaluates (_g1_pairs) and its bound: the G-buffer's
+    position and normal read once a pixel (24 bytes), every list slot (8
+    bytes) and light record (128 bytes) once, one plane texel a kept pair
+    with a plane, 24 bytes written a pixel; LIGHT_OPS a kept pair.
+    Returns G1's entry."""
+    from lsr_tpu_torch.lighting import light_runtime as lr
+    from lsr_tpu_torch.lighting.light_culling import cull_lights_clustered
+    from lsr_tpu_torch.passes.forward_plus import _cluster_of_pixel
+    from lsr_tpu_torch.utils.cuda_build import load_kernels
+
+    t0 = time.perf_counter()
+    call, st = _ssao_call(w, h, n_lights, dev)
+    lists = call["tile_lists"]
+    planes = call["shadow_vis_stack"]
+    tag = (f"G1 forward_classic+ssao {w}x{h}, {n_lights} lights, lists "
+           f"{tuple(lists.shape)}, chunk {call['chunk']}, "
+           f"{0 if planes is None else planes.shape[-1]} planes")
+    d, _ = _g1_vs_plain(tag, call)
+    # The same frame's lights binned per cluster, each pixel its slice.
+    cam, gb = st["camera"], st["gbuffer"]
+    clustered = dict(
+        call, slices=G1_SLICES,
+        cluster_of_pixel=_cluster_of_pixel(gb.depth01, cam.zn, cam.zf,
+                                           G1_SLICES),
+        tile_lists=cull_lights_clustered(
+            call["lights"], cam.view, cam.proj, cam.zn, cam.zf, w, h,
+            tile_size=call["tile_size"], cap=lists.shape[1],
+            slices=G1_SLICES)[0])
+    _g1_vs_plain(f"{tag}, clustered ({G1_SLICES} slices)", clustered)
+    fplus = {m: _fplus_general(f"G1 forward_plus general branch [{m}] "
+                               f"{w}x{h}", st, w, h, m)
+             for m in ("tiled", "clustered")}
+
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    packed = lr.pack_light_records(call["lights"])
+
+    def launch(c):
+        return lambda: lr._local_lights_launch(
+            lib, c["gb_world_pos"], c["gb_normal"], c["camera_pos"], packed,
+            c["tile_lists"], w, h, c["tile_size"], c["chunk"],
+            c["cluster_of_pixel"], c["slices"], c["shadow_vis_stack"],
+            c["light_shadow_index"], stream)
+
+    def timed(fn, iters):
+        fn()
+        return cuda_ms(fn, iters)
+
+    kernel_ms = timed(launch(call), 20)
+    ms = timed(lambda: lr.accumulate_local_lights(**call), 20)
+    clustered_ms = timed(launch(clustered), 20)
+    plain_ms = timed(lambda: lr.accumulate_local_lights_plain(**call), 3)
+    n = _g1_pairs(call)
+    n_bytes = (48 * w * h + 8 * lists.numel() + 128 * call["lights"].count
+               + 4 * n["shadowed"])
+    res = {"max_abs_err": 0.0, "ms": ms, "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms,
+           **bound(n_bytes, LIGHT_OPS * n["kept"]), **n,
+           "clustered_kernel_ms": clustered_ms, "forward_plus_general": fplus,
+           "at": tag, "lit_px": int((d.sum(-1) > 0).sum()),
+           "seconds": time.perf_counter() - t0}
+    log(f"{tag}: G1 bit for bit the plain version (tiled, clustered and "
+        f"forward_plus's general branch tiled and clustered, one launch "
+        f"each); kernel {kernel_ms:.4f} ms (clustered {clustered_ms:.4f}), "
+        f"wrapper {ms:.4f}, plain {plain_ms:.3f}; pairs {n['pairs']}, "
+        f"evaluated {n['kept']} ({n['kept'] / n['pairs']:.1%}), with a "
+        f"plane {n['shadowed']}; bound {res['bound_ms']:.5f} ms "
+        f"({res['bound_by']}; {res['kernel_ms'] / res['bound_ms']:.1f}x "
+        f"it); registers / spilled bytes {resources_of('local_lights.cu')}")
+    log(f"# phase 36 took {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5924,6 +6173,11 @@ def main():
         # Phase 30 alone (S1, the loaders, the app layer), for work on them.
         entry_log("engine_synth", phase30(dev, synth_ref)["synth"])
         log(f"phase 30 alone: ok ({card})")
+        return 0
+    if sys.argv[1:] == ["--phase36"]:
+        # Phase 36 alone (G1, the general branch's local-light sum).
+        entry_log("local_lights", local_lights_phase(dev))
+        log(f"phase 36 alone: ok ({card})")
         return 0
 
     geom, objects, lights, ctx = build_flagship_scene(N_LIGHTS, SEED,
@@ -6073,6 +6327,9 @@ def main():
         entry_log(f"vis_windows ({key})", p34[key]["v1"])
         entry_log(f"vis_planes ({key})", p34[key]["v2"])
     p35 = phase35(geom, objects, lights, ctx, cams, dev, p34, whole)
+    # Kernel G1, the general lighting branch's local-light sum.
+    g1 = local_lights_phase(dev)
+    entry_log("local_lights", g1)
 
     # lsr_tpu's demo entry points, each a main path of its own with its
     # counts.
@@ -6324,6 +6581,23 @@ def main():
                                "table_bytes_touched", "window_pixels"),
               f32_drill=p35["f32_drill"],
               resize_on_planes_path=p35["resize_on_planes_path"]),
+        entry("local_lights", "local_lights.cu",
+              "lsr_tpu/lighting/light_runtime.py (accumulate_local_lights "
+              "in XLA; no pallas_call)",
+              comps["forward_classic+ssao"]["launches"]["local_lights"], g1,
+              **{k: g1[k] for k in (
+                  "at", "pairs", "kept", "shadowed", "bytes", "ops",
+                  "clustered_kernel_ms", "forward_plus_general")},
+              launches_on_compositions={
+                  k: v["launches"]["local_lights"]
+                  for k, v in comps.items()},
+              launches_on_phase29=on_rest("local_lights"),
+              sharded={k: v["g1_launches"] for k, v in shard.items()
+                       if v["g1_launches"]},
+              sharded_one_program={
+                  k: v["launches_per_frame"]["local_lights"]
+                  for k, v in p33["sharded"].items()
+                  if v["launches_per_frame"]["local_lights"]}),
         entry("engine_synth", "engine_synth.cu",
               "lsr_tpu/audio/engine_synth.py:84 (lax.scan; no pallas_call)",
               p30["synth"]["launches"], p30["synth"],
@@ -6351,7 +6625,7 @@ def main():
                 if isinstance(v, dict) and "replay" in v}
     for k in kernels:
         if k["name"] in ("direct_raster", "shade_fused", "resolve_fused",
-                         "tiled_raster", "chunklist_raster"):
+                         "tiled_raster", "chunklist_raster", "local_lights"):
             k["one_program_frames"] = {
                 p: v for p, v in op_paths.items()
                 if v["launches_per_frame"][k["name"]]}

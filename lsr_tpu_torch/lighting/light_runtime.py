@@ -6,8 +6,11 @@ collect_object_lights, animate_lights).
 
 accumulate_local_lights is lsr_tpu's XLA anchor of the binned light loop:
 per screen tile, chunk by chunk of its padded list, in list order, with the
-local-shadow plane of each light.  It stays torch ops, as lsr_tpu keeps it
-in XLA (kernel B6, lighting/fplus_kernel.py, bins its own lists).
+local-shadow plane of each light.  lsr_tpu keeps it in XLA; the port runs
+it as kernel G1 (csrc/local_lights.cu) on the card and as its plain
+version, accumulate_local_lights_plain (torch ops), on the CPU, and G1
+equals the plain version bit for bit on the card (kernel B6,
+lighting/fplus_kernel.py, bins its own lists).
 
 - Point:   shaping 1,                     spec (36.0, 0.30)
 - Spot:    smoothstep cone shaping,       spec (34.0, 0.32)
@@ -22,7 +25,7 @@ import dataclasses
 import torch
 
 from lsr_tpu_torch.core import math3d as m3
-from lsr_tpu_torch.core.util import device_const
+from lsr_tpu_torch.core.util import cdiv, device_const
 from lsr_tpu_torch.lighting.light_types import (
     LIGHT_ENV_PROBE,
     LIGHT_RECT_AREA,
@@ -31,6 +34,7 @@ from lsr_tpu_torch.lighting.light_types import (
     LightsSoA,
     light_bounding_spheres,
 )
+from lsr_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
 _HALF_PI = 1.5707963267948966
 
@@ -243,12 +247,14 @@ def _shadowed(d, s, vis_t, sidx):
     return d * vis[..., None], s * vis[..., None]
 
 
-def accumulate_local_lights(gb_world_pos, gb_normal, camera_pos,
-                            lights: LightsSoA, tile_lists, width: int,
-                            height: int, tile_size: int = 16, chunk: int = 8,
-                            cluster_of_pixel=None, slices: int = 1,
-                            shadow_vis_stack=None, light_shadow_index=None):
-    """Sum the binned local lights over the framebuffer.
+def accumulate_local_lights_plain(gb_world_pos, gb_normal, camera_pos,
+                                  lights: LightsSoA, tile_lists, width: int,
+                                  height: int, tile_size: int = 16,
+                                  chunk: int = 8, cluster_of_pixel=None,
+                                  slices: int = 1, shadow_vis_stack=None,
+                                  light_shadow_index=None):
+    """Sum the binned local lights over the framebuffer (the plain version
+    of kernel G1, what accumulate_local_lights runs for CPU tensors).
 
     tile_lists: (tiles [* slices], cap) -1-padded light indices, tiles of
     tile_size over (height, width) row-major.  cluster_of_pixel: optional
@@ -307,6 +313,125 @@ def accumulate_local_lights(gb_world_pos, gb_normal, camera_pos,
         spec = spec + s.sum(-2)
     return (_from_tiles(diff, tile_size, tiles_y, tiles_x, height, width),
             _from_tiles(spec, tile_size, tiles_y, tiles_x, height, width))
+
+
+# The bounds within which kernel G1 decides that a pair adds +0 (its kBound
+# and kNormalBound; light_walk.local_light_skips models the rule).
+SKIP_BOUND = 1e6         # the light fields, the position and the camera
+SKIP_NORMAL_BOUND = 2.0  # a normal component
+
+
+def _kernel_args(gb_world_pos, gb_normal, camera_pos, lights: LightsSoA,
+                 tile_lists, width, height, tile_size, chunk,
+                 cluster_of_pixel, slices, shadow_vis_stack,
+                 light_shadow_index):
+    """Raise ValueError on what kernel G1 does not take (host metadata
+    only: shapes, types, devices)."""
+    dev = gb_world_pos.device
+
+    def bad(msg):
+        raise ValueError(f"accumulate_local_lights: {msg}")
+
+    if tile_size < 1 or not 1 <= chunk <= 32:
+        bad("tile_size must be >= 1 and chunk in [1, 32] (PyTorch sums a "
+            "chunk of at most 32 in one thread, the order G1 follows)")
+    if lights.count < 1:
+        bad("needs at least one light")
+    rows = cdiv(width, tile_size) * cdiv(height, tile_size)
+    if cluster_of_pixel is not None:
+        rows *= slices
+        if (slices < 1 or tuple(cluster_of_pixel.shape) != (height, width)
+                or cluster_of_pixel.dtype.is_floating_point
+                or cluster_of_pixel.device != dev):
+            bad("cluster_of_pixel must be (height, width) integers on the "
+                "G-buffer's device")
+    if (tile_lists.ndim != 2 or tile_lists.shape[0] != rows
+            or tile_lists.dtype not in (torch.int32, torch.int64)
+            or tile_lists.device != dev):
+        bad(f"tile_lists must be ({rows}, cap) int32 / int64 on {dev}")
+    tensors = [("gb_world_pos", gb_world_pos, (height, width, 3)),
+               ("gb_normal", gb_normal, (height, width, 3)),
+               ("camera_pos", camera_pos, (3,))]
+    if shadow_vis_stack is not None:
+        if (light_shadow_index is None
+                or tuple(light_shadow_index.shape) != (lights.count,)
+                or light_shadow_index.dtype.is_floating_point
+                or light_shadow_index.device != dev):
+            bad("planes need light_shadow_index: (L,) integers")
+        tensors.append(("shadow_vis_stack", shadow_vis_stack,
+                        (height, width, max(shadow_vis_stack.shape[-1], 1))))
+    for name, t, shape in tensors:
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or t.numel() >= 2 ** 31):
+            bad(f"{name} must be {shape} f32 on {dev}")
+
+
+def _local_lights_launch(lib, gb_world_pos, gb_normal, camera_pos, packed,
+                         tile_lists, width, height, tile_size, chunk,
+                         cluster_of_pixel, slices, shadow_vis_stack,
+                         light_shadow_index, stream):
+    """Launch kernel G1 through the C interface; returns (diffuse,
+    specular), each (H, W, 3)."""
+    dev = gb_world_pos.device
+    i64 = lambda t: None if t is None else t.to(torch.int64)  # noqa: E731
+    lists = i64(tile_lists).contiguous()
+    sidx = i64(light_shadow_index)
+    sidx = None if sidx is None else sidx.contiguous()
+    cluster = i64(cluster_of_pixel)
+    cam = camera_pos.contiguous()
+    vis = shadow_vis_stack
+    diffuse = torch.empty((height, width, 3), dtype=torch.float32,
+                          device=dev)
+    specular = torch.empty_like(diffuse)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    cl_s = (0, 0) if cluster is None else cluster.stride()
+    v_s = (0, 0, 0) if vis is None else vis.stride()
+    err = lib.lsr_local_lights(
+        gb_world_pos.data_ptr(), *gb_world_pos.stride(), gb_normal.data_ptr(),
+        *gb_normal.stride(), cam.data_ptr(), packed.data_ptr(),
+        packed.shape[0], lists.data_ptr(), lists.shape[1], chunk,
+        ptr(cluster), *cl_s, slices if cluster is not None else 1, ptr(vis),
+        *v_s, 0 if vis is None else vis.shape[-1], ptr(sidx),
+        diffuse.data_ptr(), specular.data_ptr(), width, height, tile_size,
+        stream)
+    check_launch("lsr_local_lights", err)
+    return diffuse, specular
+
+
+def accumulate_local_lights(gb_world_pos, gb_normal, camera_pos,
+                            lights: LightsSoA, tile_lists, width: int,
+                            height: int, tile_size: int = 16, chunk: int = 8,
+                            cluster_of_pixel=None, slices: int = 1,
+                            shadow_vis_stack=None, light_shadow_index=None):
+    """Sum the binned local lights over the framebuffer: the arguments and
+    result of accumulate_local_lights_plain.  CPU tensors run the plain
+    version; CUDA tensors launch kernel G1 (csrc/local_lights.cu, once, on
+    the current stream, with no host read) or raise ValueError on what it
+    does not take: chunk outside [1, 32], G-buffer planes other than
+    (height, width, 3) f32, a list count other than the tiles' (times the
+    slices), planes without light_shadow_index, no light.  G1 leaves a
+    (pixel, light) pair out only where the plain version adds +0, and
+    decides that only where the pair's inputs lie within SKIP_BOUND (a
+    normal within SKIP_NORMAL_BOUND)."""
+    args = (gb_world_pos, gb_normal, camera_pos, lights, tile_lists, width,
+            height, tile_size, chunk, cluster_of_pixel, slices,
+            shadow_vis_stack, light_shadow_index)
+    dev = gb_world_pos.device
+    if dev.type == "cpu":
+        return accumulate_local_lights_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"accumulate_local_lights: unsupported device {dev}")
+    _kernel_args(*args)
+    out = _local_lights_launch(
+        load_kernels(), gb_world_pos, gb_normal, camera_pos,
+        pack_light_records(lights), tile_lists, width, height, tile_size,
+        chunk, cluster_of_pixel, slices, shadow_vis_stack,
+        light_shadow_index, torch.cuda.current_stream(dev).cuda_stream)
+    accumulate_local_lights.launches += 1
+    return out
+
+
+accumulate_local_lights.launches = 0
 
 
 def combine_local_light(albedo, diffuse, specular):

@@ -17,9 +17,12 @@ only in its own slice: the box and the vote count the covered pixels of the
 slice, and a light whose gain may be infinite or NaN (finite_gain) is kept
 and voted on by every reached pixel, whose gain * 0 is NaN.
 walked_pairs is the pairs the kernels evaluate, walk_counts what the walk
-meets and what the tests leave of it on a frame.  Nothing here runs on a
-path of the renderer: chip_smoke.py logs walk_counts, the tests hold the
-models against the plain versions.
+meets and what the tests leave of it on a frame.  local_light_skips is the
+same rule for kernel G1 (light_runtime.accumulate_local_lights), which
+walks every slot of a pixel's list and leaves out the pairs it proves add
++0.  Nothing here runs on a path of the renderer: chip_smoke.py logs
+walk_counts and G1's pairs, the tests hold the models against the plain
+versions.
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ from __future__ import annotations
 import torch
 
 from lsr_tpu_torch.core.util import cdiv
+from lsr_tpu_torch.lighting import light_runtime as lr
+from lsr_tpu_torch.lighting.light_types import (
+    LIGHT_RECT_AREA,
+    LIGHT_SPOT,
+    LIGHT_TUBE_AREA,
+)
 from lsr_tpu_torch.lighting.shade_kernel import (
     light_live,
     slice_lists,
@@ -265,3 +274,85 @@ def walked_terms(light_terms, counts, cap, chunk, th, tw, slices=0):
 
     terms.chunks, terms.pairs = 0, [0, 0]
     return terms
+
+
+def local_light_skips(lights_g, world_pos, normal):
+    """The (pixel, light) pairs kernel G1 leaves out of its sums, modelled on
+    eval_local_lights' inputs (the same operations, so the same values):
+    (skip (..., K) bool, bounded (..., K) bool).  A pair is bounded when
+    the pixel's position lies within 1e6, its normal within 2 and every
+    light column within 1e6 (G1 also asks it of the camera and of the
+    pixel's planes); a bounded pair is left out when its radiance is 0 or
+    it is not live (at the emitter, out of range, facing away, outside a
+    spot's cone, behind a rect, attenuated to 0).  G1 also leaves out a
+    bounded pair whose local-shadow plane reads 0, which this model of the
+    unshadowed terms does not see."""
+    p = world_pos[..., None, :]
+    n = normal[..., None, :]
+    ltype = lights_g["type"]
+    pos = lights_g["position"]
+    fwd = lr._norm(lights_g["direction"])
+    axis = lr._norm(lights_g["axis"])
+    up_hint = lr._norm(lights_g["up"])
+    right = lr._norm(torch.linalg.cross(up_hint, fwd))
+    up = lr._norm(torch.linalg.cross(fwd, right))
+    right = lr._norm(torch.linalg.cross(up, fwd))
+    dvec = p - pos
+    he = torch.clamp(lights_g["rect_half_extents"], min=0.05)
+    ux = torch.clamp((dvec * right).sum(-1, keepdim=True), -he[..., :1],
+                     he[..., :1])
+    uy = torch.clamp((dvec * up).sum(-1, keepdim=True), -he[..., 1:2],
+                     he[..., 1:2])
+    half_len = torch.clamp(lights_g["tube_half_length"], min=0.1)[..., None]
+    a = pos - axis * half_len
+    ab = axis * (2.0 * half_len)
+    denom = torch.clamp((ab * ab).sum(-1, keepdim=True), min=1e-8)
+    t = torch.clamp(((p - a) * ab).sum(-1, keepdim=True) / denom, 0.0, 1.0)
+    is_rect = (ltype == LIGHT_RECT_AREA)[..., None]
+    is_tube = (ltype == LIGHT_TUBE_AREA)[..., None]
+    emit = torch.where(is_rect, pos + right * ux + up * uy,
+                       torch.where(is_tube, a + ab * t, pos))
+    to_light = emit - p
+    dist = torch.sqrt((to_light * to_light).sum(-1))
+    l_dir = to_light / torch.clamp(dist, min=1e-8)[..., None]
+    inner = torch.clamp(lights_g["inner_angle"], 0.02, lr._HALF_PI - 0.02)
+    lo = inner + 0.005
+    outer = torch.minimum(
+        torch.maximum(torch.maximum(lo, lights_g["outer_angle"]), lo),
+        torch.full_like(lo, lr._HALF_PI - 0.005))
+    cos_inner = torch.cos(inner)
+    cos_outer = torch.cos(outer)
+    cos_theta = (-l_dir * fwd).sum(-1)
+    tt = torch.clamp((cos_theta - cos_outer)
+                     / torch.clamp(cos_inner - cos_outer, min=1e-5), 0.0, 1.0)
+    spot_shape = torch.where(cos_theta > cos_outer, tt * tt * (3.0 - 2.0 * tt),
+                             torch.zeros_like(tt))
+    facing = torch.clamp((fwd * (-l_dir)).sum(-1), min=0.0)
+    rect_shape = torch.where(facing > 0.0, 0.65 + 0.55 * facing,
+                             torch.zeros_like(facing))
+    soft = torch.clamp(1.0 - dist / torch.clamp(lights_g["range"], min=0.1),
+                       0.0, 1.0)
+    shaping = torch.where(
+        ltype == LIGHT_SPOT, spot_shape,
+        torch.where(ltype == LIGHT_RECT_AREA, rect_shape,
+                    torch.where(ltype == LIGHT_TUBE_AREA, 0.75 + 0.35 * soft,
+                                torch.ones_like(soft))))
+    ndl = torch.clamp((n * l_dir).sum(-1), min=0.0)
+    atten = lr.eval_distance_attenuation(
+        dist, lights_g["range"], lights_g["atten_model"],
+        lights_g["atten_power"], lights_g["atten_bias"],
+        lights_g["atten_cutoff"]) * torch.clamp(shaping, min=0.0)
+    live = (dist > 1e-4) & (ndl > 0.0) & (atten > 0.0)
+    no_radiance = ((torch.clamp(lights_g["color"], min=0.0)
+                    * torch.clamp(lights_g["intensity"], min=0.0)[..., None])
+                   == 0.0).all(-1)
+    light_ok = torch.ones_like(live)
+    for name in lr._COLUMNS:
+        col = lights_g[name].to(torch.float32)
+        if col.ndim > ltype.ndim:
+            col = col.abs().amax(-1)
+        light_ok = light_ok & (col.abs() <= lr.SKIP_BOUND)
+    pix_ok = ((world_pos.abs() <= lr.SKIP_BOUND).all(-1)
+              & (normal.abs() <= lr.SKIP_NORMAL_BOUND).all(-1))
+    bounded = light_ok & pix_ok[..., None]
+    return bounded & (no_radiance | ~live), bounded

@@ -93,6 +93,15 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _P),
+    # world_pos and its strides (y, x, component), normal and its strides,
+    # camera, packed records, n_lights, lists (int64), cap, chunk, cluster
+    # (int64, null for tiled lists) and its strides (y, x), slices, vis
+    # (null without planes) and its strides (y, x, plane), n_planes,
+    # shadow index (int64), diffuse, specular, width, height, tile_size,
+    # stream
+    "lsr_local_lights": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _I,
+                         _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+                         _I, _I, _I, _P),
     # stream, counts (n_types ints), n_types: the nodes of the graph the
     # stream is capturing into, by cudaGraphNodeType (utils/trace.py)
     "lsr_capture_nodes": (_P, _P, _I),

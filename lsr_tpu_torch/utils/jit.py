@@ -83,8 +83,8 @@ from lsr_tpu_torch.utils import trace
 def launch_counters():
     """[(owner, attribute)] of every kernel wrapper's launch counter."""
     from lsr_tpu_torch.audio import engine_synth
-    from lsr_tpu_torch.lighting import fplus_kernel, resolve_kernel
-    from lsr_tpu_torch.lighting import shade_kernel, vis_kernel
+    from lsr_tpu_torch.lighting import fplus_kernel, light_runtime
+    from lsr_tpu_torch.lighting import resolve_kernel, shade_kernel, vis_kernel
     from lsr_tpu_torch.raster import tiled
 
     return [(tiled.rasterize_direct, "launches"),
@@ -96,6 +96,7 @@ def launch_counters():
             (fplus_kernel.accumulate_lights, "launches"),
             (vis_kernel.vis_windows, "launches"),
             (vis_kernel.vis_planes, "launches"),
+            (light_runtime.accumulate_local_lights, "launches"),
             (engine_synth.synthesize, "launches")]
 
 
