@@ -2,7 +2,8 @@
 lsr_tpu/lighting/light_culling.py: view_space_spheres, tile_side_planes,
 _mask_to_lists,
 cull_lights_tiled, tile_depth_ranges_from_buffer, cluster_slice_bounds,
-view_depth_to_cluster_slice, cull_lights_clustered, cull_lights_camera).
+view_depth_to_cluster_slice, cull_lights_clustered, cull_lights_camera),
+and count_occupancy, the binned grids' counters under tracing.
 
 Per-tile (or per (tile, log-Z slice)) light index lists with a hard cap,
 built from masks + cumsum + scatter, submission order preserved.  No host
@@ -20,6 +21,7 @@ from lsr_tpu_torch.geometry.support_shapes import (
     transform_shapes,
 )
 from lsr_tpu_torch.lighting.light_types import light_bounding_spheres
+from lsr_tpu_torch.utils import trace
 
 
 def _tile_grid(width, height, tile_w, tile_h=None):
@@ -88,6 +90,19 @@ def _mask_to_lists(mask, cap):
     stats = {"max_count": counts.max(), "overflow_bins": (counts > cap).sum()}
     return lists[:-1].reshape(num_tiles, cap), torch.clamp(counts, max=cap), \
         stats
+
+
+def count_occupancy(name: str, counts, cap: int, stats) -> None:
+    """A binned grid's occupancy as utils.trace counters, computed only
+    while tracing is on (off, the frame gets no operation of this):
+    <name>.entries, the list entries (counts summed); <name>.full, the bins
+    whose list holds cap lights; <name>.max_count, the largest count before
+    the cap (stats["max_count"])."""
+    if not trace.enabled():
+        return
+    trace.count(f"{name}.entries", counts.sum())
+    trace.count(f"{name}.full", (counts == cap).sum())
+    trace.count(f"{name}.max_count", stats["max_count"])
 
 
 def _light_bounds(lights, view, planes, use_shapes):

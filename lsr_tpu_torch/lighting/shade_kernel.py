@@ -30,6 +30,7 @@ import torch
 
 from lsr_tpu_torch.core.util import cdiv
 from lsr_tpu_torch.lighting.light_culling import (
+    count_occupancy,
     cull_lights_clustered,
     cull_lights_tiled,
 )
@@ -405,6 +406,7 @@ def bin_light_records(lights, view, proj, width, height, tile_h, tile_w, cap,
         lists, counts, bin_stats = cull_lights_clustered(
             lights, view, proj, zn, zf, width, height, tile_size=tile_w,
             tile_h=tile_h, cap=cap, slices=slices)
+        count_occupancy("b2b_lists", counts, cap, bin_stats)
     else:
         lists, counts, bin_stats = cull_lights_tiled(
             lights, view, proj, width, height, tile_size=tile_w,

@@ -51,6 +51,7 @@ from lsr_tpu_torch.geometry.volumes import (
 )
 from lsr_tpu_torch.lighting.light_culling import (
     cluster_slice_bounds,
+    count_occupancy,
     cull_lights_camera,
     cull_lights_clustered,
     cull_lights_tiled,
@@ -505,6 +506,8 @@ class ClusterLightAssignPass(RenderPass):
             state["lights"], cam.view, cam.proj, cam.zn, cam.zf, fp.width,
             fp.height, tile_size=t.tile_size, cap=t.max_lights_per_tile,
             slices=t.cluster_slices)
+        count_occupancy("cluster_grid", counts, t.max_lights_per_tile,
+                        bin_stats)
         out = dict(state)
         out["light_grid"] = {"lists": lists, "counts": counts,
                              "max_count": bin_stats["max_count"],

@@ -20,6 +20,12 @@ nothing else does (no environment variable, no setting).
 - kept_span(name): a set-up span (the kernel library's load, jit's
   warm-ups and captures), recorded whether tracing is on or not, into
   kept(): a few a key, on no replay's path.
+- count(name, value): a frame's counter, a 0-d tensor the frame computes
+  only while tracing is on (the frame asks enabled() first), kept by name.
+  One computed inside a capture is an output of the captured graph, so
+  every replay of that graph writes it anew; counters() reads them on the
+  host once the caller has synchronised after the replay it reads.  No
+  counter is read inside a frame; enable() forgets those kept.
 
 With tracing off span() and stage() return one shared no-op, so a frame
 captured with tracing off is the same graph, node for node, as one
@@ -88,6 +94,7 @@ class _Tracer:
         self.open: list = []          # spans open, innermost last
         self.stages: list = []        # stages open, innermost last
         self.capture = None           # the Capture being recorded
+        self.counters: dict = {}      # name: the last 0-d tensor counted
 
 
 _T = _Tracer()
@@ -226,8 +233,9 @@ class Capture:
 
 
 def enable() -> None:
-    """Switch tracing on."""
+    """Switch tracing on, with no counter kept."""
     _T.on = True
+    _T.counters = {}
 
 
 def disable() -> None:
@@ -262,6 +270,19 @@ def stage(name: str):
 def kept_span(name: str) -> Span:
     """A set-up span, recorded into kept() whether tracing is on or not."""
     return Span(name, _T.kept)
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keeps a frame's counter under name, in place of the last one (see
+    the module docstring); nothing while tracing is off."""
+    if _T.on:
+        _T.counters[name] = value
+
+
+def counters() -> dict:
+    """{name: int} of the counters kept, each read on the host: the values
+    of the last frame that counted them (a captured one's last replay)."""
+    return {k: int(v) for k, v in _T.counters.items()}
 
 
 def drain() -> list:

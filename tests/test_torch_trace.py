@@ -7,7 +7,9 @@ execute still fill pass_ms through stages and spans; and on the recording
 fake card (torch_scenes.RecordingCard) a graph captured with tracing on
 keeps its stages, their event pairs re-run by every replay and their nodes
 counted, while a graph captured with tracing off holds the frame's
-operations alone, in the same order.
+operations alone, in the same order.  The clustered grids' occupancy
+counters equal what their lists hold, and add no operation to a graph
+captured with tracing off.
 
 On the CPU a stage's times are its host span's: CUDA events and the
 capture's node counts exist on the card only (renderbench/stages.py reads
@@ -16,6 +18,7 @@ them there).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 
@@ -335,3 +338,107 @@ def test_untraced_graph_holds_the_frame_alone(monkeypatch, flagship):
         assert stamps == (2 + 2 * len(FLAGSHIP_STAGES) if on else 0)
         assert bool(jf.stage_ms()) == on
     assert tapes[0] == tapes[1]
+
+
+# ---------------------------------------------------------------------------
+# The clustered grids' occupancy counters
+# ---------------------------------------------------------------------------
+
+CLUSTER_CAP = 4     # 48 lights at 96x54: some 16-px clusters overflow it
+
+
+def _clustered():
+    """clustered_forward at 96x54 (maps cut) with CLUSTER_CAP lights a
+    cluster (B2b's lists: twice that)."""
+    pipe, fp, state_fn = preset_pipeline("clustered_forward", W, H)
+    fp.technique.max_lights_per_tile = CLUSTER_CAP
+    return pipe, fp, state_fn
+
+
+def _occupancy(lights, cam, tile_w, tile_h, cap, slices):
+    """(entries, lists at cap, largest count before the cap) of a clustered
+    binning, worked out from its lists, and the largest count from the
+    same binning with room for every light."""
+    from lsr_tpu_torch.lighting.light_culling import cull_lights_clustered
+
+    def binned(c):
+        return cull_lights_clustered(lights, cam.view, cam.proj, cam.zn,
+                                     cam.zf, W, H, tile_size=tile_w,
+                                     tile_h=tile_h, cap=c, slices=slices)
+
+    n = (binned(cap)[0] >= 0).sum(1)
+    raw = (binned(lights.count)[0] >= 0).sum(1)
+    return int(n.sum()), int((n == cap).sum()), int(raw.max())
+
+
+def test_occupancy_counters_equal_the_lists():
+    """A clustered_forward frame on the CPU with tracing on: cluster_grid's
+    counters (list entries, clusters at their cap, the largest count before
+    the cap) are those of the frame's light grid, worked out from its
+    lists, and b2b_lists' those of B2b's lists (64x128 tiles, twice the
+    cap) binned again from the frame's lights and camera; some clusters of
+    each overflow.  With tracing off a frame keeps no counter."""
+    pipe, fp, state_fn = _clustered()
+    trace.enable()
+    st = pipe.execute_jitted(RenderContext(), state_fn(0), fp)
+    trace.disable()
+    got = trace.counters()
+    slices, cam = fp.technique.cluster_slices, st["camera"]
+    lists = st["light_grid"]["lists"]
+    n = (lists >= 0).sum(1)
+    assert lists.shape[1] == CLUSTER_CAP
+    assert int(n.sum()) == int(st["light_grid"]["counts"].sum())
+    want = {"cluster_grid": _occupancy(st["lights"], cam, 16, 16,
+                                       CLUSTER_CAP, slices),
+            "b2b_lists": _occupancy(st["lights"], cam, 128, 64,
+                                    2 * CLUSTER_CAP, slices)}
+    assert want["cluster_grid"][:2] == (int(n.sum()),
+                                        int((n == CLUSTER_CAP).sum()))
+    assert got == {f"{grid}.{k}": v for grid, vals in want.items()
+                   for k, v in zip(("entries", "full", "max_count"), vals)}
+    assert want["cluster_grid"][2] > CLUSTER_CAP
+    assert want["b2b_lists"][2] > 2 * CLUSTER_CAP
+    trace.enable()
+    trace.disable()
+    pipe.execute_jitted(RenderContext(), state_fn(1), fp)
+    assert trace.counters() == {}
+
+
+def test_counters_add_no_node_with_tracing_off(monkeypatch):
+    """clustered_forward through execute_jitted on the fake card (two
+    sizing frames, the warm-up, the capture).  Captured with tracing off,
+    its graph holds the same operations, in the same order, with the
+    occupancy counters wired in as with them stubbed out; captured with
+    tracing on, it holds those operations and, besides the stages' event
+    pairs, the counters' own alone: for each of the two grids a sum of the
+    counts, a compare with the cap and its sum."""
+    from lsr_tpu_torch.lighting import shade_kernel
+    from lsr_tpu_torch.passes import standard_passes
+
+    def ops(on, counting):
+        with monkeypatch.context() as m:
+            _fake_card(m, [])
+            if not counting:
+                for mod in (standard_passes, shade_kernel):
+                    m.setattr(mod, "count_occupancy", lambda *a: None)
+            pipe, fp, state_fn = _clustered()
+            ctx = RenderContext()
+            if on:
+                trace.enable()
+            for i in range(4):
+                pipe.execute_jitted(ctx, state_fn(i), fp)
+            trace.disable()
+            j = pipe._jitted.jitted
+            assert j.captures == 1 and (j.last.trace is not None) == on
+            return [e[0] if isinstance(e, tuple) else type(e).__name__
+                    for e in j.last.graph.tape if _operation(e)]
+
+    off = ops(False, True)
+    assert off == ops(False, False)
+    on = ops(True, True)
+    it = iter(on)             # off is a subsequence of on
+    assert all(any(op == x for x in it) for op in off)
+    assert len(on) - len(off) == 6
+    added = collections.Counter(map(str, on)) - collections.Counter(
+        map(str, off))
+    assert added == {"aten.sum.default": 4, "aten.eq.Scalar": 2}
