@@ -138,8 +138,10 @@ Then the whole frame's kernel branches:
 15. The atlas on the card against the plain versions, bit for bit, in the
     ESM default: B1 on the 320x180 occluders (view-z, depth only), on the
     busiest spot slot and cube face (NDC01), B1a (band_h) on both stacks
-    (and against one launch a slot); the "packed" atlas against the "map"
-    atlas, whole-table equal, for both filters at their sizes.
+    (and against one launch a slot); kernel F1 (the "map" atlas's front
+    end) against its plain version on both stacks, bit for bit, and its ms;
+    the "packed" atlas against the "map" atlas, whole-table equal, for both
+    filters at their sizes.
 16. B2a and B5a (local-shadow planes) against their plain versions at
     1920x1080 with the ESM default frame's real planes, within 1e-4, and
     each kernel's time with and without the planes, in one call, with the
@@ -771,14 +773,21 @@ def _wrappers():
     from lsr_tpu_torch.lighting.light_runtime import accumulate_local_lights
     from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
     from lsr_tpu_torch.lighting.shade_kernel import shade_fused
-    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster import slot_setup, tiled
 
     return {"direct_raster": tiled.rasterize_direct,
             "tiled_raster": tiled.rasterize_tiled,
             "chunklist_raster": tiled.rasterize_chunklist,
             "shade_fused": shade_fused, "resolve_fused": resolve_fused,
             "fplus_accumulate": accumulate_lights,
-            "local_lights": accumulate_local_lights}
+            "local_lights": accumulate_local_lights,
+            "slot_setup": slot_setup.slot_inputs}
+
+
+def f1_per_frame(spot_ids, point_ids, packed=False):
+    """F1's launches in one atlas render: one a non-empty stack under
+    "map", none under "packed" or "hybrid"."""
+    return 0 if packed else int(bool(spot_ids)) + int(bool(point_ids))
 
 
 def reset_counts():
@@ -1507,15 +1516,48 @@ def _b1_depth_entry(name, setup, w, h, zn, zf, mode, run, plain, dev,
     return res
 
 
+def f1_entry(geom, objects, vps, size, sm, tag, enabled=None):
+    """Kernel F1 (raster/slot_setup.slot_inputs) on one stack (slot_enabled
+    `enabled`) against its plain version on the card, bit for bit
+    (records, chunk boxes, super lists, counts), with both times and F1's
+    byte bound (the records, chunk boxes and lists written)."""
+    from lsr_tpu_torch.raster import slot_setup
+
+    args = (geom.positions, geom.indices, geom.vtx_obj, geom.tri_obj,
+            objects.model, vps, size, sm, enabled)
+    got = slot_setup.slot_inputs(*args)
+    want = slot_setup.slot_inputs_plain(*args)
+    torch.cuda.synchronize()
+    for name in ("rec", "chunk_bb", "lists", "counts"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(torch.equal(a, b), f"F1 {tag} stack: {name} differs from "
+                                 f"slot_inputs_plain")
+    ms = cuda_ms(lambda: slot_setup.slot_inputs(*args), 20)
+    plain_ms = cuda_ms(lambda: slot_setup.slot_inputs_plain(*args), 3)
+    b = nbytes(got.rec, got.chunk_bb, got.lists, got.counts)
+    log(f"F1 {tag} stack ({vps.shape[0]} slots of {size}^2, "
+        f"{geom.indices.shape[0]} triangles): bit for bit its plain version; "
+        f"{ms:.4f} ms (plain {plain_ms:.2f} ms), {b / 1e6:.1f} MB written, "
+        f"bound {b / 3.35e9:.4f} ms (bytes)")
+    return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": None,
+            "plain_ms": plain_ms, "bound_ms": b / 3.35e9, "bound_by": "bytes",
+            "bytes": b, "slots": vps.shape[0], "size": size,
+            "triangles": geom.indices.shape[0]}
+
+
 def atlas_phase(geom, objects, lights, cam, casters, dev):
     """Phase 15.  The atlas's kernel launches against their plain versions
     on the card, bit for bit, in bench.py's ESM default (spot slots 512^2,
     cube faces 256^2): B1 on the 320x180 occluders (view-z, depth only,
     partial tiles in both axes), on one spot slot and one cube face (NDC01),
     and B1a (band_h) on both stacks against rasterize_direct's plain
-    version and against one launch a slot.  Then the "packed" atlas against
-    the "map" atlas, whole-table equal, for both filters at their sizes.
-    Returns the entries {occluder, slot, band_h}."""
+    version and against one launch a slot; F1, the "map" route's front
+    end, against its plain version on both stacks (f1_entry; phase 19 holds
+    it on the render-path scene at 1024^2 / 512^2).  Then the "packed"
+    atlas against the "map" atlas, whole-table equal, for both filters at
+    their sizes.  Returns the entries {occluder, slot, band_h}."""
     from lsr_tpu_torch.frame import bench_config
     from lsr_tpu_torch.geometry.volumes import frustum_cull_objects
     from lsr_tpu_torch.lighting import local_shadows as ls
@@ -1579,6 +1621,7 @@ def atlas_phase(geom, objects, lights, cam, casters, dev):
             lambda st=st, size=size, n=n, d0=d0, t0=t0: tiled._banded_brute(
                 st, size, n * size, size, 0.0, 1.0, d0, t0, DEPTH_NDC01)[0],
             dev, band_h=size)
+        res["f1"] = f1_entry(geom, objects, vps, size, sm, tag)
         alone = ls.render_slot_depths(geom, objects, vps, size, cm, None,
                                       False).reshape(n * size, size)
         packed = ls.render_slot_depths(geom, objects, vps, size, cm, None,
@@ -1811,11 +1854,13 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     counts reset: WARMUP + WHOLE_FRAMES frames along the orbit (device
     events and wall clock), the same frames again without a sync between
     them (pipelined), then exactly b1_per_frame B1 launches and one B2 (or
-    B5) per frame, no G1 (the fused branch has no general-branch sum); the
-    visible objects and lights per frame (cull_frame
-    again, after the counts are read).  Returns the result."""
+    B5) per frame, no G1 (the fused branch has no general-branch sum), F1
+    once a stack under the "map" atlas; the visible objects and lights per
+    frame (cull_frame again, after the counts are read).  Returns the
+    result."""
     from lsr_tpu_torch.frame import cull_frame, make_flagship_frame
     from lsr_tpu_torch.io.png import write_png
+    from lsr_tpu_torch.lighting.local_shadows import plan_shadow_casters
     from lsr_tpu_torch.utils.jit import jit
 
     # jit(frame), as bench.py:344 jits it: the first camera warms up, the
@@ -1845,11 +1890,14 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     n = len(cams) + WHOLE_FRAMES
     light_k = "resolve_fused" if route else "shade_fused"
     other_k = "shade_fused" if route else "resolve_fused"
+    f1 = f1_per_frame(*plan_shadow_casters(lights),
+                      cfg.get("atlas_packed", False))
     check(launches["direct_raster"] == b1_per_frame * n
           and launches[light_k] == n and launches[other_k] == 0
-          and launches["local_lights"] == 0,
+          and launches["local_lights"] == 0
+          and launches["slot_setup"] == f1 * n,
           f"{name}: launches {launches} for {n} frames (expected "
-          f"{b1_per_frame} B1 and one {light_k} a frame, no G1)")
+          f"{b1_per_frame} B1, {f1} F1 and one {light_k} a frame, no G1)")
     check(vis == {"vis_windows": n, "vis_planes": n},
           f"{name}: V1 / V2 launches {vis} for {n} frames (one each a "
           f"frame expected)")
@@ -2137,8 +2185,8 @@ def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame,
     frames by CUDA events and the same frames pipelined; exactly 3 + one
     per atlas slot B1 launches a frame (the occluders, the sun map, the
     camera and every slot: a slot of a light the cull disabled is launched
-    with its setup masked), b2_per_frame B2 and g1_per_frame G1 launches,
-    nothing else;
+    with its setup masked), F1 once a stack, b2_per_frame B2 and
+    g1_per_frame G1 launches, nothing else;
     then execute_segmented's per-pass device ms of frame 0.  Returns the
     result."""
     from lsr_tpu_torch.pipeline.executor import RenderContext
@@ -2156,7 +2204,8 @@ def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame,
     want = {k: 0 for k in launches}
     want.update(direct_raster=b1_per_frame * nf,
                 shade_fused=b2_per_frame * nf,
-                local_lights=g1_per_frame * nf)
+                local_lights=g1_per_frame * nf,
+                slot_setup=f1_per_frame(lp.spot_ids, lp.point_ids) * nf)
     check(launches == want, f"{kind} {name}: launches {launches} for {nf} "
           f"frames, expected {want}")
     ldr = outs[-1]
@@ -2188,11 +2237,12 @@ def render_paths_phase(dev):
     frames again without a sync between them (pipelined); exactly 3 + 20
     B1 launches a frame (the occluders, the sun map, the camera and every
     atlas slot: a slot of a light the cull disabled is launched with its
-    setup masked) and one B2 launch, nothing else.  Then
+    setup masked), F1 once a stack and one B2 launch, nothing else.  Then
     execute_segmented's per-pass device ms for frame 0, kernel B2b against
-    its plain version on clustered_forward's own launch (phase 20), and the
-    contact sheet out/torch_render_paths.png.  Returns {preset: result,
-    "b2b": B2b's entry}."""
+    its plain version on clustered_forward's own launch (phase 20), kernel
+    F1 against its plain version on the scene's two stacks (f1_paths), and
+    the contact sheet out/torch_render_paths.png.  Returns {preset: result,
+    "b2b": B2b's entry, "f1": F1's entries}."""
     from lsr_tpu_torch.io.png import write_png
     from lsr_tpu_torch.pipeline.executor import RenderContext
     from lsr_tpu_torch.render_paths import build_preset_pipelines
@@ -2217,6 +2267,38 @@ def render_paths_phase(dev):
           "clustered_forward did not light through B2b")
     out["b2b"] = b2b_check("render-path scene, clustered_forward",
                            sc.calls[0], st["gbuffer"].depth01, dev)
+    out["f1"] = f1_paths(pipes["forward_classic"], dev)
+    return out
+
+
+def f1_paths(path, dev):
+    """Kernel F1 against its plain version (f1_entry) on the render-path
+    scene's two stacks at its atlas sizes, each slot enabled as
+    LocalShadowsPass enables it (the light's cull flag).  Returns {stack:
+    entry}."""
+    from lsr_tpu_torch.core.util import device_const
+    from lsr_tpu_torch.geometry.volumes import frustum_cull_objects
+    from lsr_tpu_torch.lighting import local_shadows as ls
+    from lsr_tpu_torch.scene.scene import object_world_aabbs
+
+    _, fp, state_fn = path
+    lp = fp.pass_params.local_shadow
+    st = state_fn(0)
+    geom, objects, lights = st["geom"], st["objects"], st["lights"]
+    plan = ls.plan_slot_stacks(lights, lp.spot_ids, lp.point_ids)
+    en = lights.enabled[device_const(list(lp.spot_ids) + list(lp.point_ids),
+                                     dev, torch.int64)].to(torch.bool)
+    n_spot = len(lp.spot_ids)
+    wmin, wmax = object_world_aabbs(objects)
+    cm = objects.casts_shadow & objects.visible
+    out = {}
+    for tag, vps, size, e in (
+            ("spot", plan[5], lp.map_size, en[:n_spot]),
+            ("point", plan[6], lp.point_size,
+             en[n_spot:].repeat_interleave(6))):
+        sm = cm[None] & frustum_cull_objects(vps, wmin, wmax)
+        out[tag] = f1_entry(geom, objects, vps, size, sm,
+                            f"render-path {tag}", e)
     return out
 
 
@@ -2866,12 +2948,13 @@ def check_band_calls(tag, calls):
 
 
 def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
-                 g1_per_step=0, n=SHARD_FRAMES):
+                 g1_per_step=0, f1_per_step=0, n=SHARD_FRAMES):
     """One sharded path, a main path of its own: counts reset, its steps,
     exactly b1_per_step B1 launches a step (band_per_step of them B1b),
-    g1_per_step G1 launches (a band's local-light sum) and no other
-    kernel; the first step's B1b launches against their plain
-    versions (check_band_calls); then torch.profiler over one more step:
+    g1_per_step G1 launches (a band's local-light sum), f1_per_step F1
+    launches (a rank's slot slices) and no other kernel; the first step's
+    B1b launches against their plain versions (check_band_calls); then
+    torch.profiler over one more step:
     device busy ms and B1's (B1b's with it) kernel ms.  Returns (output,
     result)."""
     from lsr_tpu_torch.raster import tiled
@@ -2890,19 +2973,21 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
     steps = SHARD_WARMUP + n
     ms = ms[SHARD_WARMUP:]
     others = {k: v for k, v in launches.items()
-              if k not in ("direct_raster", "local_lights")}
+              if k not in ("direct_raster", "local_lights", "slot_setup")}
     check(launches["direct_raster"] == b1_per_step * steps
           and band == band_per_step * steps
           and launches["local_lights"] == g1_per_step * steps
+          and launches["slot_setup"] == f1_per_step * steps
           and not any(others.values()),
           f"{tag}: launches {launches}, B1b {band} over {steps} steps "
-          f"(expected {b1_per_step} B1, {band_per_step} of them B1b, and "
-          f"{g1_per_step} G1 a step)")
+          f"(expected {b1_per_step} B1, {band_per_step} of them B1b, "
+          f"{g1_per_step} G1 and {f1_per_step} F1 a step)")
     res = {"ms": statistics.median(ms), "ms_all": ms, "ranks": ranks,
            "steps": steps, "b1_per_step": b1_per_step,
            "b1b_per_step": band_per_step, "launches": launches["direct_raster"],
            "b1b_launches": band, "g1_per_step": g1_per_step,
-           "g1_launches": launches["local_lights"]}
+           "g1_launches": launches["local_lights"],
+           "f1_per_step": f1_per_step, "f1_launches": launches["slot_setup"]}
     if band_per_step:
         res.update(check_band_calls(
             tag, rec.calls[:len(rec.calls) // steps]))
@@ -2971,11 +3056,12 @@ def sharded_phase(geom, objects, lights, ctx, dev):
         b1 = (dp * sp * (cdiv(n_spot, sp) + cdiv(n_face, sp) + 1)
               + len(two) * sp * 2)
         b1b = (dp * sp + len(two) * sp) if sp > 1 else 0
-        # G1: a camera's band on each of its dp slice's sp ranks.
+        # G1: a camera's band on each of its dp slice's sp ranks.  F1: a
+        # rank's slice of each stack.
         frames[(dp, sp)], out[f"flagship_{dp}x{sp}"] = _sharded_run(
             f"sharded flagship (dp {dp}, sp {sp}) {w}x{h}, sun {SHADOW}^2",
             dp * sp, step, (vps, views, proj, zn, zf, sun), b1, b1b,
-            len(two) * sp)
+            len(two) * sp, dp * sp * f1_per_frame(spots, points))
     ref = frames[(1, 1)]
     check(ref.shape == (2, h, w, 3) and float(
         (ref.int().sum(-1) > 0).float().mean()) > 0.5,
@@ -3342,13 +3428,13 @@ DEMO_WARMUP, DEMO_FRAMES = 1, 3
 def demo_expected(name, scene, kw):
     """The kernel launches of one render() of a demo, read from its code:
     B1 for each camera, occluder, sun-map and atlas-slot raster ("map":
-    one a slot; "packed": one B1a a stack), B3 for hello_shadows' camera,
-    B2 for each forward+ lighting."""
+    one a slot, F1 once a stack; "packed": one B1a a stack), B3 for
+    hello_shadows' camera, B2 for each forward+ lighting."""
     b1 = {"hello_blinn_phong": 1, "hello_shading_models": 9,
           "hello_water": 2, "hello_shadows": 2, "hello_ibl_skybox": 1,
           "hello_light_types": 1, "hello_normal_mapping": 1,
           "hello_shaders": 0}.get(name)
-    b1a = 0
+    b1a = f1 = 0
     if name == "hello_local_shadows":
         spots, points = scene["casters"]
         if kw.get("atlas") == "packed":
@@ -3356,12 +3442,13 @@ def demo_expected(name, scene, kw):
             b1 = 1 + b1a
         else:
             b1 = 1 + len(spots) + 6 * len(points)
+            f1 = f1_per_frame(spots, points)
     b2 = int(name in ("hello_ibl_skybox", "hello_light_types",
                       "hello_local_shadows", "hello_normal_mapping"))
     return {"direct_raster": b1, "direct_raster_band_h": b1a,
             "tiled_raster": int(name == "hello_shadows"),
             "shade_fused": b2, "chunklist_raster": 0, "resolve_fused": 0,
-            "fplus_accumulate": 0, "local_lights": 0}
+            "fplus_accumulate": 0, "local_lights": 0, "slot_setup": f1}
 
 
 def _demo_contract(tag, cpu, card, need, size=DEMO_SMALL, hdr_share=0.999):
@@ -3542,7 +3629,8 @@ def rest_expected(name, fp=None):
         ssao = name.endswith("+ssao")
         want.update(direct_raster=3 + len(lp.spot_ids)
                     + 6 * len(lp.point_ids),
-                    shade_fused=0 if ssao else 1, local_lights=int(ssao))
+                    shade_fused=0 if ssao else 1, local_lights=int(ssao),
+                    slot_setup=f1_per_frame(lp.spot_ids, lp.point_ids))
     return want
 
 
@@ -4192,6 +4280,7 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
     from lsr_tpu_torch.frame import FOV, bench_config, make_flagship_frame
     from lsr_tpu_torch.full_pipeline import (
         bake_ibl, build_full_pipeline, full_scene)
+    from lsr_tpu_torch.lighting.local_shadows import plan_shadow_casters
     from lsr_tpu_torch.render_paths import (
         build_forward_plus_full, build_preset_pipelines)
     from lsr_tpu_torch.scene.scene import make_camera
@@ -4202,6 +4291,7 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
                                                                  HEIGHT)
     zero = {k: 0 for k in _wrappers()}
     out = {}
+    f1 = f1_per_frame(*plan_shadow_casters(lights))
     for name, route, b1, cfg in (
             ("esm_b2", False, 3 + n_slots, esm),
             ("esm_b2_packed", False, 3 + 2, dict(esm, atlas_packed=True)),
@@ -4211,6 +4301,7 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
                                     HEIGHT, use_resolve=route, **cfg)
         jf = jit(frame)
         want = dict(zero, direct_raster=b1,
+                    slot_setup=0 if cfg.get("atlas_packed") else f1,
                     **{"resolve_fused" if route else "shade_fused": 1})
         out[name] = _one_program(f"one-program flagship [{name}]",
                                  lambda jf=jf: jf,
@@ -4258,7 +4349,8 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
         ssao = name == "forward_classic+ssao"
         want = dict(zero,
                     direct_raster=3 + len(lp.spot_ids) + 6 * len(lp.point_ids),
-                    shade_fused=0 if ssao else 1, local_lights=int(ssao))
+                    shade_fused=0 if ssao else 1, local_lights=int(ssao),
+                    slot_setup=f1_per_frame(lp.spot_ids, lp.point_ids))
         out[name] = _one_program(
             f"one-program execute_jitted [{name}] {RP_W}x{RP_H}",
             lambda p=pipe_j: p._jitted.jitted,
@@ -4652,18 +4744,20 @@ def _drop_graphs(jf):
     torch.cuda.empty_cache()
 
 
-def _sharded_program(tag, step, arg_sets, b1, b1b, g1=0):
+def _sharded_program(tag, step, arg_sets, b1, b1b, g1=0, f1=0):
     """One sharded step through jit against its undecorated eager step
     (step.fn): arg_sets[0] warms up and captures, the later sets replay.
-    _one_program's checks (launches, B1b's and G1's among them, exact at
-    every call; one capture) and numbers, every call from the capture on
-    bit for bit the eager step.  Releases the graph; returns the result."""
+    _one_program's checks (launches, B1b's, G1's and F1's among them,
+    exact at every call; one capture) and numbers, every call from the
+    capture on bit for bit the eager step.  Releases the graph; returns
+    the result."""
     zero = {k: 0 for k in _wrappers()}
     sets = [arg_sets[0]] + list(arg_sets)
     steps = [(lambda a=a: step(*a), lambda a=a: step.fn(*a),
               lambda a=a: step.fn(*a)) for a in sets]
     res = _one_program(tag, lambda: step, steps, lambda o: {"ldr": o},
-                       dict(zero, direct_raster=b1, local_lights=g1),
+                       dict(zero, direct_raster=b1, local_lights=g1,
+                            slot_setup=f1),
                        band=b1b, eager_busy=False)
     check(all(px == 0 for px, _ in res["replay_vs_eager"].values()),
           f"{tag}: a replay differs from the eager step "
@@ -4713,7 +4807,7 @@ def sharded_program_phase(geom, objects, lights, ctx, dev):
         out[f"flagship_{dp}x{sp}"] = _sharded_program(
             f"one-program sharded flagship (dp {dp}, sp {sp}) {w}x{h}, sun "
             f"{SHADOW}^2", step, [flag_args(p) for p in pairs], b1, b1b,
-            2 * sp)
+            2 * sp, dp * sp * f1_per_frame(spots, points))
         del step
 
     mesh22 = shd.make_mesh(4, dp=2, devices=ranks(4))
@@ -6598,6 +6692,33 @@ def main():
                   k: v["launches_per_frame"]["local_lights"]
                   for k, v in p33["sharded"].items()
                   if v["launches_per_frame"]["local_lights"]}),
+        entry("slot_setup", "slot_setup.cu",
+              "the \"map\" atlas's per-slot front end: lsr_tpu/raster/"
+              "setup.py scene_setup_depth + lsr_tpu/raster/tiled.py "
+              "_super_lists (XLA; no pallas_call)",
+              launches["slot_setup"], atlas["band_h"]["spot"]["f1"],
+              at=f"flagship spot stack, {atlas['band_h']['spot']['slots']} "
+                 f"slots of {atlas['band_h']['spot']['size']}^2",
+              stacks={**{f"flagship_{k}": v["f1"]
+                         for k, v in atlas["band_h"].items()},
+                      **{f"render_path_{k}": v for k, v in rp["f1"].items()}},
+              launches_per_frame={
+                  a: whole[c]["launches"]["slot_setup"] / whole[c]["frames"]
+                  for a, c in (("map", "esm_b2"), ("packed", "esm_b2_packed"),
+                               ("map_resolve", "esm_resolve"),
+                               ("map_pcf", "pcf_b2"))},
+              launches_on_compositions={
+                  k: v["launches"]["slot_setup"] for k, v in comps.items()},
+              launches_on_presets={
+                  k: rp[k]["launches"]["slot_setup"] for k in PRESETS},
+              launches_on_demos=on_demos("slot_setup"),
+              launches_on_phase29=on_rest("slot_setup"),
+              sharded={k: v["f1_launches"] for k, v in shard.items()
+                       if v["f1_launches"]},
+              sharded_one_program={
+                  k: v["launches_per_frame"]["slot_setup"]
+                  for k, v in p33["sharded"].items()
+                  if v["launches_per_frame"]["slot_setup"]}),
         entry("engine_synth", "engine_synth.cu",
               "lsr_tpu/audio/engine_synth.py:84 (lax.scan; no pallas_call)",
               p30["synth"]["launches"], p30["synth"],
@@ -6625,7 +6746,8 @@ def main():
                 if isinstance(v, dict) and "replay" in v}
     for k in kernels:
         if k["name"] in ("direct_raster", "shade_fused", "resolve_fused",
-                         "tiled_raster", "chunklist_raster", "local_lights"):
+                         "tiled_raster", "chunklist_raster", "local_lights",
+                         "slot_setup"):
             k["one_program_frames"] = {
                 p: v for p, v in op_paths.items()
                 if v["launches_per_frame"][k["name"]]}

@@ -8,7 +8,9 @@ faces, each slot a depth-only raster (kernel B1, NDC01, no ids) of the
 shadow casters inside the slot's own frustum.  Three strategies, as in
 lsr_tpu (atlas_packed):
   False ("map")   per slot: frustum cull, scene_setup_depth(CULL_NONE), one
-                  B1 launch;
+                  B1 launch; on the card kernel F1 (raster/slot_setup.py)
+                  builds every slot's B1 inputs in one launch, the same
+                  bits, before the slots' B1 launches;
   True ("packed") one scene_setup_slots_depth over the stack, the slots
                   merged into one tall target (_stack_slot_setups, each slot
                   padded to whole supers of 256 rows) and ONE B1 launch with
@@ -82,7 +84,12 @@ from lsr_tpu_torch.raster.setup import (
     scene_setup_depth,
     scene_setup_slots_depth,
 )
-from lsr_tpu_torch.raster.tiled import _SUPER, rasterize_direct
+from lsr_tpu_torch.raster.slot_setup import slot_inputs
+from lsr_tpu_torch.raster.tiled import (
+    _SUPER,
+    rasterize_direct,
+    rasterize_direct_records,
+)
 from lsr_tpu_torch.scene.scene import object_world_aabbs
 
 # shadow_technique.hpp:18-25
@@ -345,36 +352,64 @@ def render_slot_depths(geom, objects, vp_stack, size: int, caster_mask,
     n = vp_stack.shape[0]
     wmin, wmax = object_world_aabbs(objects)
     sm = caster_mask[None] & frustum_cull_objects(vp_stack, wmin, wmax)
-
-    def raster(st, height, band_h=0):
-        d, _, _ = rasterize_direct(st, size, height, 0.0, 1.0,
-                                   depth_mode=DEPTH_NDC01, track_ids=False,
-                                   tile_h=min(128, size),
-                                   tile_w=min(128, size), band_h=band_h)
-        return d
-
     if not packed:
-        maps = []
-        for s in range(n):
-            st = scene_setup_depth(geom.positions, geom.indices,
-                                   geom.vtx_obj, geom.tri_obj, objects.model,
-                                   vp_stack[s], size, size,
-                                   cull_mode=CULL_NONE, obj_visible=sm[s])
-            if slot_enabled is not None:
-                st = dataclasses.replace(st, valid=st.valid & slot_enabled[s])
-            maps.append(raster(st, size))
-        return torch.stack(maps)
+        route = (_slot_depths_card if vp_stack.device.type == "cuda"
+                 else _slot_depths_chain)
+        return route(geom, objects, vp_stack, size, sm, slot_enabled)
     ts = scene_setup_slots_depth(geom.positions, geom.indices, geom.vtx_obj,
                                  geom.tri_obj, objects.model, vp_stack, size,
                                  cull_mode=CULL_NONE, obj_visible_slots=sm)
     if slot_enabled is not None:
         ts = dataclasses.replace(ts, valid=ts.valid & slot_enabled[:, None])
     if packed == "hybrid":
-        return torch.stack([raster(TriSetup(**{
+        return torch.stack([_slot_raster(TriSetup(**{
             f.name: getattr(ts, f.name)[s] for f in dataclasses.fields(ts)}),
-            size) for s in range(n)])
-    return raster(_stack_slot_setups(ts, size), n * size,
-                  band_h=size).reshape(n, size, size)
+            size, size) for s in range(n)])
+    return _slot_raster(_stack_slot_setups(ts, size), size, n * size,
+                        band_h=size).reshape(n, size, size)
+
+
+def _slot_raster(st, size: int, height: int, band_h: int = 0):
+    """B1's NDC01 depth of a slot's setup (or of a band_h stack of them)."""
+    d, _, _ = rasterize_direct(st, size, height, 0.0, 1.0,
+                               depth_mode=DEPTH_NDC01, track_ids=False,
+                               tile_h=min(128, size), tile_w=min(128, size),
+                               band_h=band_h)
+    return d
+
+
+def _slot_depths_chain(geom, objects, vp_stack, size: int, sm,
+                       slot_enabled):
+    """The "map" strategy slot by slot: scene_setup_depth at CULL_NONE,
+    then rasterize_direct (the CPU route)."""
+    maps = []
+    for s in range(vp_stack.shape[0]):
+        st = scene_setup_depth(geom.positions, geom.indices, geom.vtx_obj,
+                               geom.tri_obj, objects.model, vp_stack[s],
+                               size, size, cull_mode=CULL_NONE,
+                               obj_visible=sm[s])
+        if slot_enabled is not None:
+            st = dataclasses.replace(st, valid=st.valid & slot_enabled[s])
+        maps.append(_slot_raster(st, size, size))
+    return torch.stack(maps)
+
+
+def _slot_depths_card(geom, objects, vp_stack, size: int, sm,
+                      slot_enabled):
+    """The "map" strategy on the card: kernel F1 builds every slot's B1
+    inputs at once (raster/slot_setup.slot_inputs, bit for bit what
+    _slot_depths_chain's scene_setup_depth and rasterize_direct build),
+    then one B1 launch a slot writes its map into the stack."""
+    n = vp_stack.shape[0]
+    inp = slot_inputs(geom.positions, geom.indices, geom.vtx_obj,
+                      geom.tri_obj, objects.model, vp_stack, size, sm,
+                      slot_enabled)
+    maps = torch.empty((n, size, size), dtype=torch.float32,
+                       device=vp_stack.device)
+    for s in range(n):
+        rasterize_direct_records(inp.rec[s], inp.chunk_bb[s], inp.lists[s],
+                                 inp.counts[s], maps[s])
+    return maps
 
 
 def _slot_tables(depth, pcf_radius, filter_mode, esm_c, slot_far):

@@ -245,8 +245,10 @@ def pack_direct_records(setup: TriSetup, spatial_sort: bool,
 
 def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
                    width, height, zn, zf, depth_mode, track_ids, tie_tid,
-                   stream, band_h=0, y_offset=0, full_height=None):
-    """Launch kernel B1 through the C interface; returns (depth, tid).
+                   stream, band_h=0, y_offset=0, full_height=None,
+                   depth=None):
+    """Launch kernel B1 through the C interface; returns (depth, tid),
+    the depth written into `depth` (height, width) where given.
     depth_init / tid_init None: the kernel starts from a cleared target
     (depth 1, id -1) without reading one.  track_ids False: depth only,
     tid comes back as it went in.  tie_tid: exact depth ties go to the
@@ -257,7 +259,8 @@ def _direct_launch(lib, rec, chunk_bb, slists, counts, depth_init, tid_init,
     full_height = height if full_height is None else full_height
     dev = rec.device
     zp = zparams(zn, zf, dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    if depth is None:
+        depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tid = torch.empty((height, width), dtype=torch.int32, device=dev)
     chunk_bb = chunk_bb.contiguous()
     err = lib.lsr_direct_raster(
@@ -383,6 +386,28 @@ def rasterize_direct(setup: TriSetup, width: int, height: int, zn,
 
 rasterize_direct.launches = 0
 rasterize_direct.band_launches = 0
+
+
+def rasterize_direct_records(rec, chunk_bb, slists, counts, depth):
+    """Kernel B1 on a slot's inputs already built on the card: the records,
+    chunk boxes and super lists of 128x128 tiles that pack_direct_records,
+    _chunk_bboxes and _super_lists give an unsorted setup (the atlas's
+    front end, raster/slot_setup.py, writes them for a stack of slots).
+    NDC01 depth only, from a cleared target, written into `depth` (size,
+    size) and returned; one launch, counted in rasterize_direct.launches.
+    CUDA tensors only (the CPU's atlas runs rasterize_direct)."""
+    dev = rec.device
+    if dev.type != "cuda":
+        raise ValueError(f"rasterize_direct_records: unsupported device "
+                         f"{dev}")
+    size = depth.shape[0]
+    _check_cuda_targets("rasterize_direct_records", dev, size, size, depth,
+                        None)
+    _direct_launch(load_kernels(), rec, chunk_bb, slists, counts, None, None,
+                   size, size, 0.0, 1.0, DEPTH_NDC01, False, False,
+                   _stream(dev), depth=depth)
+    rasterize_direct.launches += 1
+    return depth
 
 
 def _banded_brute(setup: TriSetup, width: int, height: int, band_h: int,

@@ -102,6 +102,11 @@ SIGNATURES = {
     "lsr_local_lights": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _I,
                          _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
                          _I, _I, _I, _P),
+    # positions, indices, vtx_obj, tri_obj, models, viewprojs, obj_visible,
+    # n_objects, slot_enabled (null: all), n_tris, n_slots, size, n_sup,
+    # rec, chunk_bb, lists, counts, super_bb, tickets, stream
+    "lsr_slot_setup": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P),
     # stream, counts (n_types ints), n_types: the nodes of the graph the
     # stream is capturing into, by cudaGraphNodeType (utils/trace.py)
     "lsr_capture_nodes": (_P, _P, _I),

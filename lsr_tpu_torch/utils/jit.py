@@ -85,7 +85,7 @@ def launch_counters():
     from lsr_tpu_torch.audio import engine_synth
     from lsr_tpu_torch.lighting import fplus_kernel, light_runtime
     from lsr_tpu_torch.lighting import resolve_kernel, shade_kernel, vis_kernel
-    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.raster import slot_setup, tiled
 
     return [(tiled.rasterize_direct, "launches"),
             (tiled.rasterize_direct, "band_launches"),
@@ -97,6 +97,7 @@ def launch_counters():
             (vis_kernel.vis_windows, "launches"),
             (vis_kernel.vis_planes, "launches"),
             (light_runtime.accumulate_local_lights, "launches"),
+            (slot_setup.slot_inputs, "launches"),
             (engine_synth.synthesize, "launches")]
 
 
