@@ -164,8 +164,9 @@ Then kernel B2's clustered branch and the render-path presets:
     render_paths.build_preset_pipelines at 1280x720, PCF (sun 2048^2, spot
     slots 1024^2, cube faces 512^2), each a main path of its own, counts
     reset before it: median ms per frame by CUDA events with [min, max],
-    pipelined ms, exactly 3 + 20 B1 launches and one B2 a frame, and
-    execute_segmented's per-pass device ms; the contact sheet
+    pipelined ms, exactly 3 + 20 B1 launches, F1 once a stack and one B2
+    a frame, and execute_segmented's per-pass device ms; F1 against its
+    plain version on the scene's 1024^2 and 512^2 stacks; the contact sheet
     out/torch_render_paths.png.
 20. B2b against its plain version on clustered_forward's own launch at
     1280x720 (with its local-shadow planes), timed and counted as in 18.
@@ -270,9 +271,7 @@ Then kernel B1's screen bands and the multi-device paths
     and in the drill's PCF cases on f32 tables at vis_scale 1 and 2; a
     summary of phase 34's V1 / V2 ms, the planes captured alone and the
     (a) / (d) replays.  `python3 chip_smoke.py --phase35` runs phases 34
-    and 35.  V1's A/B on its three suspects (its divisions, its f64
-    distance, its atomics, each patched out in a copy) is a command of its
-    own: `python -m lsr_tpu_torch.utils.vis_ab`.
+    and 35.
 36. Right after 35: kernel G1 (lighting/light_runtime
     .accumulate_local_lights, csrc/local_lights.cu), the general lighting
     branch's binned local-light sum, on the forward_classic+ssao
@@ -288,6 +287,10 @@ Then kernel B1's screen bands and the multi-device paths
     of the sharded flagship and one a rank of the light-sharded forward
     (phases 27, 29, 33), none elsewhere.  `python3 chip_smoke.py
     --phase36` runs it alone.
+
+Every launch check reads the counters utils.jit.launch_counters lists
+(read_counts), so a kernel listed there is held to 0 launches wherever a
+check does not name it; a counter read apart is also named in APART.
 
 28. lsr_tpu's demo entry points through lsr_tpu_torch.demos (the UV-sphere
     stand-in for the monkey), each at its own size, counts reset before
@@ -354,9 +357,11 @@ Then kernel B1's screen bands and the multi-device paths
 Each phase that measures a kernel logs its entry of the final kernels line
 as it ends ("# kernels entry [...]"), so a cut run keeps its numbers.
 
-Every kernel's bound is the larger of the bytes it must move over 3.35
-TB/s and the f32 operations this run's data needs over 67 TFLOP/s (the
-H100 SXM's published peaks), counted from the inputs of this run: a raster
+Every kernel's bound is renderbench.kernels.bounds.bound_ms: the larger of
+the bytes it must move over 3.35 TB/s and the f32 operations this run's
+data needs over 67 TFLOP/s (the H100 SXM's published peaks; the peaks and
+the operation counts RASTER_OPS, LIGHT_OPS and SUN_OPS are that module's,
+the benchmark's), counted from the inputs of this run: a raster
 does RASTER_OPS per (triangle, pixel) pair inside a valid triangle's bbox,
 a light loop LIGHT_OPS per live (covered pixel, binned light) pair (in
 range, inside the cone, facing the light: light_walk.walk_counts'
@@ -392,6 +397,8 @@ import time
 import numpy as np
 import torch
 
+from renderbench.kernels.bounds import LIGHT_OPS, RASTER_OPS, SUN_OPS, bound_ms
+
 WIDTH, HEIGHT = 1920, 1080
 N_LIGHTS = 256
 SEED = 42
@@ -410,14 +417,9 @@ WHOLE_FRAMES = 6                   # whole frames after warm-up, per config
 SMALL_LIGHTS = 32                  # lights of the small whole-frame check
 SMALL_LOCAL = 128                  # its spot slots and cube faces
 
-# Work counts for the bounds (f32 operations, sqrt / division / powf / cosf
-# counted as one each).
-RASTER_OPS = 25     # 3 edge functions, coverage test, 1/w sum, depth
-LIGHT_OPS = 60      # one live local light at one pixel (light_loop.cuh)
-SUN_OPS = 60        # sun BRDF, view vector, combine, per pixel
+# B5's work beyond the light loop and the sun for the bounds (f32
+# operations, sqrt / division / powf / cosf counted as one each).
 RESOLVE_OPS = 100   # B5's interpolation, normal and fake-IBL ambient
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 
 
 def log(msg):
@@ -456,9 +458,9 @@ def resources_of(src):
 def bound(n_bytes, n_ops):
     """{bound_ms, bound_by, bytes, ops}: the least time the card could take
     (bytes over peak bandwidth or operations over the f32 peak)."""
-    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
+    return {"bound_ms": bound_ms(n_bytes, n_ops),
+            "bound_by": ("bytes" if bound_ms(n_bytes, 0) >= bound_ms(0, n_ops)
+                         else "operations"),
             "bytes": int(n_bytes), "ops": int(n_ops)}
 
 
@@ -768,20 +770,45 @@ def small_reference(dev):
     return stages["cpu"], stages[str(dev)]
 
 
-def _wrappers():
-    from lsr_tpu_torch.lighting.fplus_kernel import accumulate_lights
-    from lsr_tpu_torch.lighting.light_runtime import accumulate_local_lights
-    from lsr_tpu_torch.lighting.resolve_kernel import resolve_fused
-    from lsr_tpu_torch.lighting.shade_kernel import shade_fused
-    from lsr_tpu_torch.raster import slot_setup, tiled
+# Counters the launch checks of whole frames leave out and read where they
+# check them: B1b's bands (a share of rasterize_direct's launches; phases
+# 27, 29, 31 and 33), V1 / V2 (phases 4, 34 and 35), S1 (phase 30).
+APART = ("rasterize_direct.band_launches", "vis_windows.launches",
+         "vis_planes.launches", "synthesize.launches")
 
-    return {"direct_raster": tiled.rasterize_direct,
-            "tiled_raster": tiled.rasterize_tiled,
-            "chunklist_raster": tiled.rasterize_chunklist,
-            "shade_fused": shade_fused, "resolve_fused": resolve_fused,
-            "fplus_accumulate": accumulate_lights,
-            "local_lights": accumulate_local_lights,
-            "slot_setup": slot_setup.slot_inputs}
+
+def counts():
+    """{"<wrapper>.<attribute>": launches since reset_counts()} of every
+    kernel wrapper utils.jit.launch_counters lists, by the names
+    renderbench prints."""
+    from lsr_tpu_torch.utils.jit import launch_counters
+
+    return {f"{owner.__name__}.{attr}": getattr(owner, attr)
+            for owner, attr in launch_counters()}
+
+
+def reset_counts():
+    from lsr_tpu_torch.utils.jit import launch_counters
+
+    for owner, attr in launch_counters():
+        setattr(owner, attr, 0)
+
+
+def read_counts():
+    """counts() but APART: what a launch check holds exactly, every kernel
+    not named in it at 0."""
+    return {k: v for k, v in counts().items() if k not in APART}
+
+
+def read_vis_counts():
+    c = counts()
+    return {k: c[f"{k}.launches"] for k in ("vis_windows", "vis_planes")}
+
+
+def expected(launches):
+    """read_counts()'s counters, each 0 but those in launches {counter:
+    count}."""
+    return {**dict.fromkeys(read_counts(), 0), **launches}
 
 
 def f1_per_frame(spot_ids, point_ids, packed=False):
@@ -790,28 +817,17 @@ def f1_per_frame(spot_ids, point_ids, packed=False):
     return 0 if packed else int(bool(spot_ids)) + int(bool(point_ids))
 
 
-def reset_counts():
-    from lsr_tpu_torch.audio.engine_synth import synthesize
-    from lsr_tpu_torch.lighting import vis_kernel
-    from lsr_tpu_torch.raster import tiled
-
-    for fn in _wrappers().values():
-        fn.launches = 0
-    tiled.rasterize_direct.band_launches = 0
-    synthesize.launches = 0        # S1 (phase 30), read apart
-    # V1 / V2 (the planes' windows and planes, phases 4 and 34), read apart
-    vis_kernel.vis_windows.launches = vis_kernel.vis_planes.launches = 0
-
-
-def read_vis_counts():
-    from lsr_tpu_torch.lighting import vis_kernel
-
-    return {"vis_windows": vis_kernel.vis_windows.launches,
-            "vis_planes": vis_kernel.vis_planes.launches}
-
-
-def read_counts():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+def pipeline_expected(fp, ssao):
+    """One frame's launches of a pass pipeline with frame params fp: B1 on
+    the occluders, the sun map, the camera and every atlas slot, F1 once a
+    stack, B2 (G1 instead under SSAO, the general branch)."""
+    lp = fp.pass_params.local_shadow
+    return expected({
+        "rasterize_direct.launches": (3 + len(lp.spot_ids)
+                                      + 6 * len(lp.point_ids)),
+        "shade_fused.launches": 0 if ssao else 1,
+        "accumulate_local_lights.launches": int(ssao),
+        "slot_inputs.launches": f1_per_frame(lp.spot_ids, lp.point_ids)})
 
 
 def targets(w, h, dev):
@@ -1082,7 +1098,8 @@ def highpoly_frame_phase(geom, objects, lights, ctx, dev):
         f"{rs['compact_fallback']}, raster_max_bin "
         f"{int(rs['raster_max_bin'])}, raster_cap_used "
         f"{rs['raster_cap_used']}, n_valid {n_valid}")
-    check(launches["tiled_raster"] > 0 and launches["shade_fused"] > 0,
+    check(launches["rasterize_tiled.launches"] > 0
+          and launches["shade_fused.launches"] > 0,
           f"a kernel of the high-poly path never launched: {launches}")
     check(rs["raster_cap_used"] >= int(rs["raster_max_bin"]),
           "the high-poly frame dropped triangles past the list cap")
@@ -1111,7 +1128,7 @@ def e2e_phase(geom, objects, ctx, dev):
     reset_counts()
     d_e, t_e, max_cnt, setup, cst = run()
     launches = read_counts()
-    check(launches["chunklist_raster"] > 0,
+    check(launches["rasterize_chunklist.launches"] > 0,
           f"the end-to-end step never launched B4: {launches}")
     check(not bool(cst.overflow), "end-to-end compact setup overflowed")
     ms = cuda_ms(run, 5)
@@ -1142,11 +1159,11 @@ def render_forward_phase(dev):
             ("flagship", lambda: build_flagship_scene(N_LIGHTS, SEED,
                                                       device=dev),
              lambda ctx: flagship_camera(0, ctx, WIDTH, HEIGHT, device=dev),
-             "direct_raster"),
+             "rasterize_direct.launches"),
             ("high-poly", lambda: build_highpoly_scene(HP_GRID, device=dev),
              lambda ctx: highpoly_camera(ctx, WIDTH, HEIGHT, HP_GRID,
                                          device=dev),
-             "tiled_raster")):
+             "rasterize_tiled.launches")):
         geom, objects, _, ctx = scene()
         cam, ctx_t = camera(ctx)
         batch = {k: getattr(geom, k) for k in cols}
@@ -1376,7 +1393,7 @@ def b6_phase(gb, ctx_t, lights, cam, dev):
     fk.accumulate_lights(*args(64, 256, 16))
     torch.cuda.synchronize()
     launches = read_counts()
-    check(launches["fplus_accumulate"] == 1,
+    check(launches["accumulate_lights.launches"] == 1,
           f"accumulate_lights did not launch B6: {launches}")
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1437,9 +1454,9 @@ def resolve_frame_phase(geom, objects, lights, ctx, cams, dev):
     pipelined = (time.perf_counter() - t0) * 1e3 / RES_FRAMES
     launches = read_counts()
     n_frames = len(cams) + RES_FRAMES
-    check(launches["direct_raster"] == 2 * n_frames
-          and launches["resolve_fused"] == n_frames
-          and launches["shade_fused"] == 0,
+    check(launches["rasterize_direct.launches"] == 2 * n_frames
+          and launches["resolve_fused.launches"] == n_frames
+          and launches["shade_fused.launches"] == 0,
           f"resolve frame launches {launches} for {n_frames} frames")
     ldr = out[0]
     check(ldr.shape == (HEIGHT, WIDTH, 3) and ldr.dtype == torch.uint8
@@ -1536,14 +1553,13 @@ def f1_entry(geom, objects, vps, size, sm, tag, enabled=None):
                                  f"slot_inputs_plain")
     ms = cuda_ms(lambda: slot_setup.slot_inputs(*args), 20)
     plain_ms = cuda_ms(lambda: slot_setup.slot_inputs_plain(*args), 3)
-    b = nbytes(got.rec, got.chunk_bb, got.lists, got.counts)
+    b = bound(nbytes(got.rec, got.chunk_bb, got.lists, got.counts), 0)
     log(f"F1 {tag} stack ({vps.shape[0]} slots of {size}^2, "
         f"{geom.indices.shape[0]} triangles): bit for bit its plain version; "
-        f"{ms:.4f} ms (plain {plain_ms:.2f} ms), {b / 1e6:.1f} MB written, "
-        f"bound {b / 3.35e9:.4f} ms (bytes)")
+        f"{ms:.4f} ms (plain {plain_ms:.2f} ms), {b['bytes'] / 1e6:.1f} MB "
+        f"written, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return {"max_abs_err": 0.0, "ms": ms, "kernel_ms": None,
-            "plain_ms": plain_ms, "bound_ms": b / 3.35e9, "bound_by": "bytes",
-            "bytes": b, "slots": vps.shape[0], "size": size,
+            "plain_ms": plain_ms, **b, "slots": vps.shape[0], "size": size,
             "triangles": geom.indices.shape[0]}
 
 
@@ -1888,14 +1904,14 @@ def whole_frame_phase(name, geom, objects, lights, ctx, cams, dev, route,
     launches = read_counts()
     vis = read_vis_counts()
     n = len(cams) + WHOLE_FRAMES
-    light_k = "resolve_fused" if route else "shade_fused"
-    other_k = "shade_fused" if route else "resolve_fused"
+    light_k = "resolve_fused.launches" if route else "shade_fused.launches"
+    other_k = "shade_fused.launches" if route else "resolve_fused.launches"
     f1 = f1_per_frame(*plan_shadow_casters(lights),
                       cfg.get("atlas_packed", False))
-    check(launches["direct_raster"] == b1_per_frame * n
+    check(launches["rasterize_direct.launches"] == b1_per_frame * n
           and launches[light_k] == n and launches[other_k] == 0
-          and launches["local_lights"] == 0
-          and launches["slot_setup"] == f1 * n,
+          and launches["accumulate_local_lights.launches"] == 0
+          and launches["slot_inputs.launches"] == f1 * n,
           f"{name}: launches {launches} for {n} frames (expected "
           f"{b1_per_frame} B1, {f1} F1 and one {light_k} a frame, no G1)")
     check(vis == {"vis_windows": n, "vis_planes": n},
@@ -2201,11 +2217,11 @@ def _path_run(kind, name, fn, pipe, fp, state_fn, b2_per_frame,
     reset_counts()
     ms, pipelined, outs = _frames(fn, n, RP_WARMUP)
     launches = read_counts()
-    want = {k: 0 for k in launches}
-    want.update(direct_raster=b1_per_frame * nf,
-                shade_fused=b2_per_frame * nf,
-                local_lights=g1_per_frame * nf,
-                slot_setup=f1_per_frame(lp.spot_ids, lp.point_ids) * nf)
+    want = expected({
+        "rasterize_direct.launches": b1_per_frame * nf,
+        "shade_fused.launches": b2_per_frame * nf,
+        "accumulate_local_lights.launches": g1_per_frame * nf,
+        "slot_inputs.launches": f1_per_frame(lp.spot_ids, lp.point_ids) * nf})
     check(launches == want, f"{kind} {name}: launches {launches} for {nf} "
           f"frames, expected {want}")
     ldr = outs[-1]
@@ -2480,8 +2496,8 @@ def full_pipeline_phase(dev):
     reset_counts()
     ms, pipelined, outs = _frames(frame_fn, n, RP_WARMUP)
     launches = read_counts()
-    want = {k: 0 for k in launches}
-    want.update(direct_raster=2 * nf, shade_fused=nf)
+    want = expected({"rasterize_direct.launches": 2 * nf,
+                     "shade_fused.launches": nf})
     check(launches == want, f"Config #5: launches {launches} for {nf} "
           f"frames, expected {want}")
     st0, st1 = outs[0], outs[1]
@@ -2957,10 +2973,9 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
     torch.profiler over one more step:
     device busy ms and B1's (B1b's with it) kernel ms.  Returns (output,
     result)."""
-    from lsr_tpu_torch.raster import tiled
+    from lsr_tpu_torch.parallel import sharding
 
     reset_counts()
-    from lsr_tpu_torch.parallel import sharding
 
     # The eager step: a one-device mesh's step is a Jitted (phase 33 runs
     # it as one program); its .fn is the undecorated step.
@@ -2969,25 +2984,24 @@ def _sharded_run(tag, ranks, step, args, b1_per_step, band_per_step,
         ms, _, outs = _frames(lambda i: step(*args), SHARD_WARMUP + n,
                               SHARD_WARMUP, pipelined=False)
     launches = read_counts()
-    band = tiled.rasterize_direct.band_launches
+    band = counts()["rasterize_direct.band_launches"]
     steps = SHARD_WARMUP + n
     ms = ms[SHARD_WARMUP:]
-    others = {k: v for k, v in launches.items()
-              if k not in ("direct_raster", "local_lights", "slot_setup")}
-    check(launches["direct_raster"] == b1_per_step * steps
-          and band == band_per_step * steps
-          and launches["local_lights"] == g1_per_step * steps
-          and launches["slot_setup"] == f1_per_step * steps
-          and not any(others.values()),
+    want = expected({"rasterize_direct.launches": b1_per_step * steps,
+                     "accumulate_local_lights.launches": g1_per_step * steps,
+                     "slot_inputs.launches": f1_per_step * steps})
+    check(launches == want and band == band_per_step * steps,
           f"{tag}: launches {launches}, B1b {band} over {steps} steps "
           f"(expected {b1_per_step} B1, {band_per_step} of them B1b, "
           f"{g1_per_step} G1 and {f1_per_step} F1 a step)")
     res = {"ms": statistics.median(ms), "ms_all": ms, "ranks": ranks,
            "steps": steps, "b1_per_step": b1_per_step,
-           "b1b_per_step": band_per_step, "launches": launches["direct_raster"],
+           "b1b_per_step": band_per_step,
+           "launches": launches["rasterize_direct.launches"],
            "b1b_launches": band, "g1_per_step": g1_per_step,
-           "g1_launches": launches["local_lights"],
-           "f1_per_step": f1_per_step, "f1_launches": launches["slot_setup"]}
+           "g1_launches": launches["accumulate_local_lights.launches"],
+           "f1_per_step": f1_per_step,
+           "f1_launches": launches["slot_inputs.launches"]}
     if band_per_step:
         res.update(check_band_calls(
             tag, rec.calls[:len(rec.calls) // steps]))
@@ -3445,10 +3459,12 @@ def demo_expected(name, scene, kw):
             f1 = f1_per_frame(spots, points)
     b2 = int(name in ("hello_ibl_skybox", "hello_light_types",
                       "hello_local_shadows", "hello_normal_mapping"))
-    return {"direct_raster": b1, "direct_raster_band_h": b1a,
-            "tiled_raster": int(name == "hello_shadows"),
-            "shade_fused": b2, "chunklist_raster": 0, "resolve_fused": 0,
-            "fplus_accumulate": 0, "local_lights": 0, "slot_setup": f1}
+    b3 = int(name == "hello_shadows")
+    return {**expected({"rasterize_direct.launches": b1,
+                        "rasterize_tiled.launches": b3,
+                        "shade_fused.launches": b2,
+                        "slot_inputs.launches": f1}),
+            "rasterize_direct(band_h)": b1a}
 
 
 def _demo_contract(tag, cpu, card, need, size=DEMO_SMALL, hdr_share=0.999):
@@ -3541,7 +3557,7 @@ def demos_phase(dev):
             out = demo.render(scene, w, h, **kw)
             torch.cuda.synchronize()
         launches = read_counts()
-        launches["direct_raster_band_h"] = sum(
+        launches["rasterize_direct(band_h)"] = sum(
             1 for a, _ in atlas.calls if a["band_h"] > 0)
         want = demo_expected(name, scene, kw)
         log(f"demo {tag} {w}x{h}: launches {launches} (expected {want})")
@@ -3619,29 +3635,21 @@ def rest_expected(name, fp=None):
     the (1, 1) mesh, 8 B1b for dp 2 x sp 4, 8 B1b for sp 4 x lp 2, 3 for
     the pp stream of 3 cameras, and G1 on each of the 8 (band, light
     slice) ranks of sp 4 x lp 2."""
-    want = {k: 0 for k in _wrappers()}
     if name == "hello_full_pipeline":
-        want.update(direct_raster=2, shade_fused=1)
-    elif name == "hello_parallelization":
-        want.update(direct_raster=1 + 8 + 8 + 3, local_lights=8)
-    else:
-        lp = fp.pass_params.local_shadow
-        ssao = name.endswith("+ssao")
-        want.update(direct_raster=3 + len(lp.spot_ids)
-                    + 6 * len(lp.point_ids),
-                    shade_fused=0 if ssao else 1, local_lights=int(ssao),
-                    slot_setup=f1_per_frame(lp.spot_ids, lp.point_ids))
-    return want
+        return expected({"rasterize_direct.launches": 2,
+                         "shade_fused.launches": 1})
+    if name == "hello_parallelization":
+        return expected({"rasterize_direct.launches": 1 + 8 + 8 + 3,
+                         "accumulate_local_lights.launches": 8})
+    return pipeline_expected(fp, name.endswith("+ssao"))
 
 
 def _check_launches(tag, want, n=1, band=0):
     """The counts since reset_counts equal want (a render's) times n, and
     B1b's band * n; returns the counts."""
-    from lsr_tpu_torch.raster import tiled
-
     launches = read_counts()
     want = {k: v * n for k, v in want.items()}
-    b1b = tiled.rasterize_direct.band_launches
+    b1b = counts()["rasterize_direct.band_launches"]
     log(f"{tag}: launches {launches}, B1b {b1b} (expected {want}, B1b "
         f"{band * n})")
     check(launches == want and b1b == band * n,
@@ -3784,7 +3792,7 @@ def rendering_paths_demo_phase(dev):
     scene = demo.build_scene(w, h, dev)
     pipes, rebuilds = demo.build_pipelines(w, h)
     check(rebuilds == 6, f"hello_rendering_paths: {rebuilds} rebuilds")
-    want = {k: 0 for k in _wrappers()}
+    want = expected({})
     for name, (_, fp, _) in pipes.items():
         for k, v in rest_expected(name, fp).items():
             want[k] += v
@@ -4105,8 +4113,6 @@ def _one_program(tag, jitted_of, steps, outs_of, want, band=None,
     both sides' replay steps again back to back (pipelined ms),
     torch.profiler over one replay and (eager_busy) one eager frame, the
     graph's numbers.  Returns the result."""
-    from lsr_tpu_torch.raster import tiled
-
     replay_ms, eager_ms, fit_ms, spread, self_spread = [], [], [], {}, None
     capture_call_ms = None
     captures0 = _captures(jitted_of)
@@ -4116,7 +4122,7 @@ def _one_program(tag, jitted_of, steps, outs_of, want, band=None,
         reset_counts()
         out_j, ms_j = _timed(jitted)
         got = read_counts()
-        got_band = tiled.rasterize_direct.band_launches
+        got_band = counts()["rasterize_direct.band_launches"]
         after = jitted_of().captures
         kind = ("capture" if after > before else
                 "replay" if "capture" in kinds else "warm")
@@ -4124,7 +4130,7 @@ def _one_program(tag, jitted_of, steps, outs_of, want, band=None,
         reset_counts()
         out_e, ms_e = _timed(eager)
         ref = read_counts()
-        ref_band = tiled.rasterize_direct.band_launches
+        ref_band = counts()["rasterize_direct.band_launches"]
         check(got == ref == want, f"{tag} step {i} ({kind}): launches "
               f"{got} (eager {ref}, expected {want})")
         check(band is None or got_band == ref_band == band,
@@ -4289,7 +4295,6 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
     t_phase = time.perf_counter()
     esm, pcf = bench_config("esm", WIDTH, HEIGHT), bench_config("pcf", WIDTH,
                                                                  HEIGHT)
-    zero = {k: 0 for k in _wrappers()}
     out = {}
     f1 = f1_per_frame(*plan_shadow_casters(lights))
     for name, route, b1, cfg in (
@@ -4300,9 +4305,10 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
         frame = make_flagship_frame(geom, objects, lights, ctx, WIDTH,
                                     HEIGHT, use_resolve=route, **cfg)
         jf = jit(frame)
-        want = dict(zero, direct_raster=b1,
-                    slot_setup=0 if cfg.get("atlas_packed") else f1,
-                    **{"resolve_fused" if route else "shade_fused": 1})
+        want = expected({
+            "rasterize_direct.launches": b1,
+            "slot_inputs.launches": 0 if cfg.get("atlas_packed") else f1,
+            "resolve_fused.launches" if route else "shade_fused.launches": 1})
         out[name] = _one_program(f"one-program flagship [{name}]",
                                  lambda jf=jf: jf,
                                  _flagship_steps(jf, frame, cams),
@@ -4345,12 +4351,7 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
     for name in sorted(sides[0]):
         (pipe_j, fp_j, state_fn), (pipe_e, fp_e, _) = (s[name]
                                                        for s in sides)
-        lp = fp_j.pass_params.local_shadow
-        ssao = name == "forward_classic+ssao"
-        want = dict(zero,
-                    direct_raster=3 + len(lp.spot_ids) + 6 * len(lp.point_ids),
-                    shade_fused=0 if ssao else 1, local_lights=int(ssao),
-                    slot_setup=f1_per_frame(lp.spot_ids, lp.point_ids))
+        want = pipeline_expected(fp_j, name == "forward_classic+ssao")
         out[name] = _one_program(
             f"one-program execute_jitted [{name}] {RP_W}x{RP_H}",
             lambda p=pipe_j: p._jitted.jitted,
@@ -4366,7 +4367,8 @@ def one_program_phase(geom, objects, lights, ctx, cams, dev, n_slots):
         f"one-program execute_jitted [Config #5] {FULL_W}x{FULL_H}",
         lambda: pipe_j._jitted.jitted,
         _pipeline_steps(pipe_j, fp_j, pipe_e, fp_e, lambda i: state),
-        _state_outs, dict(zero, direct_raster=2, shade_fused=1))
+        _state_outs, expected({"rasterize_direct.launches": 2,
+                               "shade_fused.launches": 1}))
 
     # A host read cannot be captured: the capture raises, naming it.
     bad = jit(lambda x: x * float(x.sum()), name="reads_host")
@@ -4631,7 +4633,6 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     from lsr_tpu_torch.scene.scene import make_camera
 
     t_phase = time.perf_counter()
-    zero = {k: 0 for k in _wrappers()}
     cols = ("positions", "normals", "uvs", "indices", "vtx_obj", "tri_obj")
     hp_cams = [_turned(hp_ctx, a, dev) for a in HP_TURNS]
     out = {}
@@ -4659,12 +4660,12 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     for name, g, o, cams, kernel in (
             ("render_forward_b1", geom, objects,
              [flagship_camera(i, ctx, WIDTH, HEIGHT, device=dev)
-              for i in range(2 + OP_REPLAYS)], "direct_raster"),
+              for i in range(2 + OP_REPLAYS)], "rasterize_direct.launches"),
             ("render_forward_b3", hp_geom, hp_objects, hp_cams,
-             "tiled_raster")):
+             "rasterize_tiled.launches")):
         calls = [forward_args(g, o, c, x) for c, x in cams]
         tag = f"one-program {name} {WIDTH}x{HEIGHT}"
-        want = dict(zero, **{kernel: 1})
+        want = expected({kernel: 1})
         sizing = _sized(tag, prog, forward, calls, want)
         out[name] = _one_program(tag, lambda: prog.jitted,
                                  _checked_steps(prog, forward, calls),
@@ -4679,7 +4680,8 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     frame = hp.make_highpoly_frame(hp_geom, hp_objects, hp_lights, hp_ctx,
                                    fp)
     tag = f"one-program highpoly_frame {WIDTH}x{HEIGHT}"
-    want = dict(zero, tiled_raster=1, shade_fused=1)
+    want = expected({"rasterize_tiled.launches": 1,
+                     "shade_fused.launches": 1})
     sizing = _sized(tag, frame, lambda a: frame(*a), hp_cams, want)
     out["highpoly_frame"] = _one_program(
         tag, lambda: frame.jitted,
@@ -4693,7 +4695,7 @@ def highpoly_program_phase(geom, objects, ctx, hp_geom, hp_objects,
     prog = hp.e2e_compact_chunklist.program
     calls = [(hp_geom, hp_objects, c, WIDTH, HEIGHT) for c, _ in hp_cams]
     tag = f"one-program e2e_compact_chunklist {WIDTH}x{HEIGHT}"
-    want = dict(zero, chunklist_raster=1)
+    want = expected({"rasterize_chunklist.launches": 1})
     step = lambda a: hp.e2e_compact_chunklist(*a)  # noqa: E731
     sizing = _sized(tag, prog, step, calls, want)
     out["e2e_compact_chunklist"] = _one_program(
@@ -4751,13 +4753,13 @@ def _sharded_program(tag, step, arg_sets, b1, b1b, g1=0, f1=0):
     exact at every call; one capture) and numbers, every call from the
     capture on bit for bit the eager step.  Releases the graph; returns
     the result."""
-    zero = {k: 0 for k in _wrappers()}
     sets = [arg_sets[0]] + list(arg_sets)
     steps = [(lambda a=a: step(*a), lambda a=a: step.fn(*a),
               lambda a=a: step.fn(*a)) for a in sets]
     res = _one_program(tag, lambda: step, steps, lambda o: {"ldr": o},
-                       dict(zero, direct_raster=b1, local_lights=g1,
-                            slot_setup=f1),
+                       expected({"rasterize_direct.launches": b1,
+                                 "accumulate_local_lights.launches": g1,
+                                 "slot_inputs.launches": f1}),
                        band=b1b, eager_busy=False)
     check(all(px == 0 for px, _ in res["replay_vs_eager"].values()),
           f"{tag}: a replay differs from the eager step "
@@ -5193,7 +5195,7 @@ def synth_phase(dev, ref):
     demo.main(["--device", str(dev), "--out", "out"])
     torch.cuda.synchronize()
     demo_s = time.perf_counter() - t0
-    launches = es.synthesize.launches
+    launches = counts()["synthesize.launches"]
     log(f"hello_engine_synth main(): {demo_s:.2f} s, S1 launches {launches}"
         f", other kernels {read_counts()}")
     check(launches == 1 and not any(read_counts().values()),
@@ -5303,11 +5305,10 @@ def _mesh_render(scene, w, h, eye=None, target=None):
 
 
 def _b1_only(tag, n):
-    want = {k: 0 for k in _wrappers()}
-    want["direct_raster"] = n
+    want = expected({"rasterize_direct.launches": n})
     got = read_counts()
     check(got == want, f"{tag}: launches {got}, expected {want}")
-    return got["direct_raster"]
+    return got["rasterize_direct.launches"]
 
 
 def loaders_phase(dev):
@@ -5697,10 +5698,9 @@ def _frame_route(cfg, geom, objects, lights, ctx, cams, plain):
     torch.profiler over one replay (V1 / V2's kernels by name).  Returns
     (outputs of the replays, the result)."""
     from lsr_tpu_torch.frame import make_flagship_frame
-    from lsr_tpu_torch.lighting import vis_kernel as vk
     from lsr_tpu_torch.utils.jit import jit
 
-    vk.vis_windows.launches = vk.vis_planes.launches = 0
+    reset_counts()
     with plain_planes() if plain else contextlib.nullcontext():
         jf = jit(make_flagship_frame(geom, objects, lights, ctx, WIDTH,
                                      HEIGHT, **cfg))
@@ -5925,7 +5925,6 @@ def _frames_launch_v1_v2(geom, objects, lights, ctx, cams, n=4):
     up, capture, replays), counts from zero: one V1 and one V2 a frame.
     Returns {config: (V1, V2) launches}."""
     from lsr_tpu_torch.frame import bench_config, make_flagship_frame
-    from lsr_tpu_torch.lighting import vis_kernel as vk
     from lsr_tpu_torch.utils.jit import jit
 
     esm, pcf = bench_config("esm", WIDTH, HEIGHT), bench_config("pcf", WIDTH,
@@ -5938,11 +5937,11 @@ def _frames_launch_v1_v2(geom, objects, lights, ctx, cams, n=4):
                              ("pcf_b2", False, pcf)):
         jf = jit(make_flagship_frame(geom, objects, lights, ctx, WIDTH,
                                      HEIGHT, use_resolve=route, **cfg))
-        vk.vis_windows.launches = vk.vis_planes.launches = 0
+        reset_counts()
         for c in cams[:n]:
             jf(*c)
         torch.cuda.synchronize()
-        got = (vk.vis_windows.launches, vk.vis_planes.launches)
+        got = tuple(read_vis_counts().values())
         check(got == (n, n) and jf.captures == 1,
               f"phase 35 [{name}]: V1 / V2 launches {got} in {n} frames "
               f"({jf.captures} captures)")
@@ -6103,7 +6102,7 @@ def _g1_vs_plain(tag, call):
     reset_counts()
     d, s = lr.accumulate_local_lights(**call)
     got = read_counts()
-    check(got == dict({k: 0 for k in got}, local_lights=1),
+    check(got == expected({"accumulate_local_lights.launches": 1}),
           f"{tag}: launches {got}, one G1 expected")
     dp, sp = lr.accumulate_local_lights_plain(**call)
     torch.cuda.synchronize()
@@ -6118,8 +6117,9 @@ def _g1_vs_plain(tag, call):
 def _fplus_general(tag, st, w, h, mode):
     """forward_plus's general branch (shade_forward_plus with use_kernel
     False) on the SSAO frame's G-buffer, lights and planes, mode "tiled" or
-    "clustered" (G1_SLICES slices), cap 128: one G1 launch, HDR bit for bit
-    the same frame with the plain version in G1's place."""
+    "clustered" (G1_SLICES slices), cap 128: one G1 launch (V1 / V2 for the
+    planes read apart), HDR bit for bit the same frame with the plain
+    version in G1's place."""
     from lsr_tpu_torch.lighting import light_runtime as lr
     from lsr_tpu_torch.passes import forward_plus as fpm
 
@@ -6134,7 +6134,7 @@ def _fplus_general(tag, st, w, h, mode):
     reset_counts()
     hdr = frame()
     got = read_counts()
-    check(got == dict({k: 0 for k in got}, local_lights=1),
+    check(got == expected({"accumulate_local_lights.launches": 1}),
           f"{tag}: launches {got}, one G1 expected")
     real = fpm.accumulate_local_lights
     fpm.accumulate_local_lights = lr.accumulate_local_lights_plain
@@ -6145,7 +6145,8 @@ def _fplus_general(tag, st, w, h, mode):
     torch.cuda.synchronize()
     check(torch.equal(hdr, ref), f"{tag}: HDR differs from the plain "
           f"version's in {int((hdr != ref).sum())} values")
-    return {"launches": got["local_lights"], "hdr_equal": True}
+    return {"launches": got["accumulate_local_lights.launches"],
+            "hdr_equal": True}
 
 
 def local_lights_phase(dev, w=RP_W, h=RP_H, n_lights=G1_LIGHTS):
@@ -6153,16 +6154,17 @@ def local_lights_phase(dev, w=RP_W, h=RP_H, n_lights=G1_LIGHTS):
     csrc/local_lights.cu) on the forward_classic+ssao composition's own
     call at w x h with n_lights lights (the paths_720p deployment: 16-px
     tiles of 128-slot lists, the local-shadow planes): G1 against
-    accumulate_local_lights_plain bit for bit, one launch; the same
+    accumulate_local_lights_plain bit for bit, one launch; the same on the
+    frame's lights binned per cluster (G1_SLICES slices); the same
     G-buffer, lights and planes through forward_plus's general branch,
-    tiled and clustered (G1_SLICES slices, cap 128), one G1 launch each,
-    HDR bit for bit the plain version's.  Kernel ms (the launch on packed
-    records, tiled and clustered), wrapper and plain ms by CUDA events;
-    the pairs G1 evaluates (_g1_pairs) and its bound: the G-buffer's
-    position and normal read once a pixel (24 bytes), every list slot (8
-    bytes) and light record (128 bytes) once, one plane texel a kept pair
-    with a plane, 24 bytes written a pixel; LIGHT_OPS a kept pair.
-    Returns G1's entry."""
+    tiled and clustered (cap 128), one G1 launch each, HDR bit for bit the
+    plain version's.  Kernel ms (the launch on packed records, tiled and
+    clustered), wrapper and plain ms by CUDA events; the pairs G1
+    evaluates (_g1_pairs) and its bound: the G-buffer's position and
+    normal read once a pixel (24 bytes), every list slot (8 bytes) and
+    light record (128 bytes) once, one plane texel a kept pair with a
+    plane, 24 bytes written a pixel; LIGHT_OPS a kept pair.  Returns G1's
+    entry."""
     from lsr_tpu_torch.lighting import light_runtime as lr
     from lsr_tpu_torch.lighting.light_culling import cull_lights_clustered
     from lsr_tpu_torch.passes.forward_plus import _cluster_of_pixel
@@ -6554,9 +6556,12 @@ def main():
                 for k, v in demos.items() if v["launches"][kernel]}
     kernels = [
         entry("direct_raster", "direct_raster.cu",
-              "lsr_tpu/raster/tiled.py:289", launches["direct_raster"], b1,
+              "lsr_tpu/raster/tiled.py:289",
+              launches["rasterize_direct.launches"], b1,
+              counter="rasterize_direct.launches",
               launches_per_frame={
-                  a: whole[c]["launches"]["direct_raster"] / whole[c]["frames"]
+                  a: whole[c]["launches"]["rasterize_direct.launches"]
+                  / whole[c]["frames"]
                   for a, c in (("map", "esm_b2"), ("packed", "esm_b2_packed"))},
               sun_map={k: sun[k] for k in sun_keys},
               occluder=sub(atlas["occluder"], "covered"),
@@ -6565,13 +6570,13 @@ def main():
               band_h={t: sub(v, "map_ms", "packed_ms", "slots", "size")
                       for t, v in atlas["band_h"].items()},
               launches_on_compositions={
-                  k: v["launches"]["direct_raster"]
+                  k: v["launches"]["rasterize_direct.launches"]
                   for k, v in comps.items()},
               highpoly_unsorted_kernel_ms=r1080["direct_raster"]["kernel_ms"],
-              launches_on_demos=on_demos("direct_raster",
+              launches_on_demos=on_demos("rasterize_direct.launches",
                                          "b1_mirrored_px_differ"),
-              band_h_launches_on_demos=on_demos("direct_raster_band_h"),
-              launches_on_phase29=on_rest("direct_raster"),
+              band_h_launches_on_demos=on_demos("rasterize_direct(band_h)"),
+              launches_on_phase29=on_rest("rasterize_direct.launches"),
               launches_on_phase30={
                   **{f"sphere{k}": v["b1_launches"]
                      for k, v in p30["loaders"].items()
@@ -6601,46 +6606,54 @@ def main():
                   "graph_mib": v["graph_bytes"] / 2**20,
                   "captures": v["captures"],
                   "launches_per_step": v["launches_per_frame"][
-                      "direct_raster"],
+                      "rasterize_direct.launches"],
                   "b1b_per_step": v["b1b_per_step"]}
                   for k, v in p33["sharded"].items()}),
         entry("shade_fused", "shade_fused.cu",
-              "lsr_tpu/lighting/shade_kernel.py:40", launches["shade_fused"],
-              b2, planes=sub(planes["b2"], "kernel_ms_planeless",
-                             "planes_change", "planes", *walk_keys),
+              "lsr_tpu/lighting/shade_kernel.py:40",
+              launches["shade_fused.launches"], b2,
+              counter="shade_fused.launches",
+              planes=sub(planes["b2"], "kernel_ms_planeless", "planes_change",
+                         "planes", *walk_keys),
               clustered={
                   "replaces": "lsr_tpu/lighting/shade_kernel.py:295-341",
                   "launches_on_clustered_forward":
-                      rp["clustered_forward"]["launches"]["shade_fused"],
+                      rp["clustered_forward"]["launches"][
+                          "shade_fused.launches"],
                   "flagship_1080p": sub(b2b, *b2b_keys),
                   "render_path_720p": sub(rp["b2b"], *b2b_keys)},
               presets={k: {f: rp[k][f] for f in preset_keys}
                        for k in PRESETS},
               compositions=compositions,
-              launches_on_demos=on_demos("shade_fused", "b2_max_abs_err"),
-              launches_on_phase29=on_rest("shade_fused"),
+              launches_on_demos=on_demos("shade_fused.launches",
+                                         "b2_max_abs_err"),
+              launches_on_phase29=on_rest("shade_fused.launches"),
               frames=frames, **{k: b2[k] for k in walk_keys}),
         entry("tiled_raster", "tiled_raster.cu", "lsr_tpu/raster/tiled.py:125",
-              hp_launches["tiled_raster"], r1080["tiled_raster"], at=at_1080p,
-              launches_on_demos=on_demos("tiled_raster", "b3_max_bin",
-                                         "b3_cap"),
+              hp_launches["rasterize_tiled.launches"], r1080["tiled_raster"],
+              counter="rasterize_tiled.launches", at=at_1080p,
+              launches_on_demos=on_demos("rasterize_tiled.launches",
+                                         "b3_max_bin", "b3_cap"),
               **{k: r1080["tiled_raster"][k] for k in pair_keys}),
         entry("chunklist_raster", "chunklist_raster.cu",
-              "lsr_tpu/raster/tiled.py:697", e2e_launches["chunklist_raster"],
-              r1080["chunklist_raster"], at=at_1080p,
+              "lsr_tpu/raster/tiled.py:697",
+              e2e_launches["rasterize_chunklist.launches"],
+              r1080["chunklist_raster"],
+              counter="rasterize_chunklist.launches", at=at_1080p,
               **{k: r1080["chunklist_raster"][k] for k in pair_keys}),
         entry("resolve_fused", "resolve_fused.cu",
               "lsr_tpu/lighting/resolve_kernel.py:65",
-              whole["esm_resolve"]["launches"]["resolve_fused"], b5,
+              whole["esm_resolve"]["launches"]["resolve_fused.launches"], b5,
+              counter="resolve_fused.launches",
               planes=sub(planes["b5"], "kernel_ms_planeless",
                          "planes_change", "planes", "pairs_live",
                          "pairs_live_shadowed"),
-              cut_frame_launches=res_launches["resolve_fused"],
+              cut_frame_launches=res_launches["resolve_fused.launches"],
               values_not_bit_equal=b5["values_not_bit_equal"],
               **{k: b5[k] for k in walk_keys}),
         entry("fplus_accumulate", "fplus_accumulate.cu",
               "lsr_tpu/lighting/fplus_kernel.py:46",
-              b6_launches["fplus_accumulate"], b6,
+              b6_launches["accumulate_lights.launches"], b6,
               tile_16x128=sub(b6["tile_16x128"], *walk_keys),
               **{k: b6[k] for k in walk_keys}),
         entry("vis_windows", "vis_footprint.cu",
@@ -6678,47 +6691,55 @@ def main():
         entry("local_lights", "local_lights.cu",
               "lsr_tpu/lighting/light_runtime.py (accumulate_local_lights "
               "in XLA; no pallas_call)",
-              comps["forward_classic+ssao"]["launches"]["local_lights"], g1,
+              comps["forward_classic+ssao"]["launches"][
+                  "accumulate_local_lights.launches"], g1,
+              counter="accumulate_local_lights.launches",
               **{k: g1[k] for k in (
                   "at", "pairs", "kept", "shadowed", "bytes", "ops",
                   "clustered_kernel_ms", "forward_plus_general")},
               launches_on_compositions={
-                  k: v["launches"]["local_lights"]
+                  k: v["launches"]["accumulate_local_lights.launches"]
                   for k, v in comps.items()},
-              launches_on_phase29=on_rest("local_lights"),
+              launches_on_phase29=on_rest("accumulate_local_lights.launches"),
               sharded={k: v["g1_launches"] for k, v in shard.items()
                        if v["g1_launches"]},
               sharded_one_program={
-                  k: v["launches_per_frame"]["local_lights"]
+                  k: v["launches_per_frame"][
+                      "accumulate_local_lights.launches"]
                   for k, v in p33["sharded"].items()
-                  if v["launches_per_frame"]["local_lights"]}),
+                  if v["launches_per_frame"][
+                      "accumulate_local_lights.launches"]}),
         entry("slot_setup", "slot_setup.cu",
               "the \"map\" atlas's per-slot front end: lsr_tpu/raster/"
               "setup.py scene_setup_depth + lsr_tpu/raster/tiled.py "
               "_super_lists (XLA; no pallas_call)",
-              launches["slot_setup"], atlas["band_h"]["spot"]["f1"],
+              launches["slot_inputs.launches"], atlas["band_h"]["spot"]["f1"],
+              counter="slot_inputs.launches",
               at=f"flagship spot stack, {atlas['band_h']['spot']['slots']} "
                  f"slots of {atlas['band_h']['spot']['size']}^2",
               stacks={**{f"flagship_{k}": v["f1"]
                          for k, v in atlas["band_h"].items()},
                       **{f"render_path_{k}": v for k, v in rp["f1"].items()}},
               launches_per_frame={
-                  a: whole[c]["launches"]["slot_setup"] / whole[c]["frames"]
+                  a: whole[c]["launches"]["slot_inputs.launches"]
+                  / whole[c]["frames"]
                   for a, c in (("map", "esm_b2"), ("packed", "esm_b2_packed"),
                                ("map_resolve", "esm_resolve"),
                                ("map_pcf", "pcf_b2"))},
               launches_on_compositions={
-                  k: v["launches"]["slot_setup"] for k, v in comps.items()},
+                  k: v["launches"]["slot_inputs.launches"]
+                  for k, v in comps.items()},
               launches_on_presets={
-                  k: rp[k]["launches"]["slot_setup"] for k in PRESETS},
-              launches_on_demos=on_demos("slot_setup"),
-              launches_on_phase29=on_rest("slot_setup"),
+                  k: rp[k]["launches"]["slot_inputs.launches"]
+                  for k in PRESETS},
+              launches_on_demos=on_demos("slot_inputs.launches"),
+              launches_on_phase29=on_rest("slot_inputs.launches"),
               sharded={k: v["f1_launches"] for k, v in shard.items()
                        if v["f1_launches"]},
               sharded_one_program={
-                  k: v["launches_per_frame"]["slot_setup"]
+                  k: v["launches_per_frame"]["slot_inputs.launches"]
                   for k, v in p33["sharded"].items()
-                  if v["launches_per_frame"]["slot_setup"]}),
+                  if v["launches_per_frame"]["slot_inputs.launches"]}),
         entry("engine_synth", "engine_synth.cu",
               "lsr_tpu/audio/engine_synth.py:84 (lax.scan; no pallas_call)",
               p30["synth"]["launches"], p30["synth"],
@@ -6745,12 +6766,10 @@ def main():
                 for k, v in {**one_program, **hp_program}.items()
                 if isinstance(v, dict) and "replay" in v}
     for k in kernels:
-        if k["name"] in ("direct_raster", "shade_fused", "resolve_fused",
-                         "tiled_raster", "chunklist_raster", "local_lights",
-                         "slot_setup"):
+        if "counter" in k:
             k["one_program_frames"] = {
                 p: v for p, v in op_paths.items()
-                if v["launches_per_frame"][k["name"]]}
+                if v["launches_per_frame"][k["counter"]]}
         if k["name"] == "tiled_raster":
             k["one_program_overflow_drill"] = hp_program["overflow_drill"]
         if k["name"] == "direct_raster":

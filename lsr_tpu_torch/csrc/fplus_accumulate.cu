@@ -24,11 +24,11 @@
 // chunks); each chunk is summed in light order, then added to the running
 // sums, as the plain version does, a skipped light entering as its +0.
 //
-// The choices (kernel ms from `python -m lsr_tpu_torch.utils.b2_variants
-// --parent ...` on an NVIDIA H100 80GB HBM3 at 700 W, one call, the cut
-// flagship frame's G-buffer at 1920x1080, medians of 4, every variant's
-// output equal bit for bit to the shipped kernel's and the one before;
-// registers / spilled bytes as the script prints them from -Xptxas -v):
+// The choices, each timed as a patched copy of this source (kernel ms on
+// an NVIDIA H100 80GB HBM3 at 700 W, one call, the cut flagship frame's
+// G-buffer at 1920x1080, medians of 4, every variant's output equal bit
+// for bit to the shipped kernel's and the one before; registers / spilled
+// bytes from -Xptxas -v):
 //   variant                                   64x128, chunk 16  16x128, 8
 //   as built: a copy of the light math per
 //   kind, (256, 4): 64 registers, 12 B spilled         0.220      0.184

@@ -35,12 +35,11 @@
 // < K) that a warp shades reads its own plane's texel, and the gain of
 // every other light is multiplied by 1.0, which leaves it as it is.
 //
-// The choices, each a patch of the source in b2_variants (kernel ms from
-// `python -m lsr_tpu_torch.utils.b2_variants --parent ...` on an NVIDIA
-// H100 80GB HBM3 at 700 W, one call, 1920x1080, medians of 4, every
-// variant's output equal to the shipped kernel's and to the kernel's
+// The choices, each timed as a patched copy of this source (kernel ms on
+// an NVIDIA H100 80GB HBM3 at 700 W, one call, 1920x1080, medians of 4,
+// every variant's output equal to the shipped kernel's and to the kernel's
 // before this design bit for bit; registers / spilled bytes planeless and
-// with planes as the script prints them from -Xptxas -v):
+// with planes from -Xptxas -v):
 //   variant                          ESM, planes  ESM, none  cut   high-poly
 //   as built: box test, vote, a copy
 //   per light kind, a planeless copy,

@@ -83,7 +83,8 @@ def _info(sh, dev):
 # 256 threads are resident on an SM, so 8 launch 1.33 waves; the smaller
 # runs of warp rows even out the blocks' uneven work (the spot test stops
 # early off the light).  At flagship (d) 8 took 0.0540 ms, one wave of 6
-# 0.0624 and 4 0.0642 (utils/vis_ab.py on an H100 80GB HBM3 at 700 W).
+# 0.0624 and 4 0.0642 (patched copies of the source, timed on an NVIDIA
+# H100 80GB HBM3 at 700 W).
 V1_BLOCKS_PER_SM = 8
 
 
@@ -154,8 +155,8 @@ def _uniforms(sh, dev):
 
 # V2's output tile at vis_scale > 1: 128 columns (32 lanes x 4) and the
 # most rows of V2_TILE_ROWS whose halos of K planes fit V2_SMEM bytes (at
-# flagship (a) 8 rows took 0.0669 ms and 16 took 0.0703, utils/vis_ab.py
-# on an H100 80GB HBM3 at 700 W).
+# flagship (a) 8 rows took 0.0669 ms and 16 took 0.0703, patched copies
+# of the source timed on an NVIDIA H100 80GB HBM3 at 700 W).
 V2_TILE_W = 128
 V2_TILE_ROWS = (8, 4, 2, 1)
 V2_SMEM = 48 * 1024

@@ -81,7 +81,12 @@ from lsr_tpu_torch.utils import trace
 
 
 def launch_counters():
-    """[(owner, attribute)] of every kernel wrapper's launch counter."""
+    """[(owner, attribute)] of every kernel wrapper's launch counter.
+
+    chip_smoke.py's launch checks read every counter listed here and hold
+    each to 0 where a check does not name it; a counter that its phases
+    check apart from whole frames (as B1b's bands, V1, V2 and S1) is also
+    named in chip_smoke.APART."""
     from lsr_tpu_torch.audio import engine_synth
     from lsr_tpu_torch.lighting import fplus_kernel, light_runtime
     from lsr_tpu_torch.lighting import resolve_kernel, shade_kernel, vis_kernel

@@ -6,19 +6,22 @@ per-slot chain it replaces (scene_setup_depth -> pack_direct_records ->
 _chunk_bboxes -> _super_lists) bit for bit, records, chunk boxes, super
 lists and counts, on the flagship's procedural scene (grid 2): a spot stack
 on 2x2 list tiles of which the last row and column are partial, a cube-face
-stack, slots disabled by slot_enabled, objects culled per slot, a point
-light inside a caster (rows crossing the near plane) and zero
-view-projections (the sharded atlas's padding); B1's walk on those inputs
-gives the chain's maps; the CPU's "map" route stays the per-slot chain and
-the card's wrappers raise off the card; the launch counter is listed and
-named by the benchmark's kernel file.
+stack, spot slots and a point light's six faces disabled by slot_enabled
+(as render_local_shadow_maps repeats a light's cull flag over its faces),
+objects culled per slot, a point light inside a caster (rows crossing the
+near plane) and zero view-projections (the sharded atlas's padding); B1's
+walk on those inputs gives the chain's maps; the CPU's "map" route stays
+the per-slot chain and the card's wrappers raise off the card; the launch
+counter is listed and named by the benchmark's kernel file.
 
 On the card (marked `card`, skipped without one): F1 against the plain
 version on the card, bit for bit, on both benchmark deployments' scenes at
-their atlas sizes and on the near-plane and padding cases; the atlas of
-render_local_shadow_maps by "map" (F1) against "packed" and against the
-per-slot chain; captured flagship and forward_classic+ssao frames with F1
-against the same frames on the per-slot chain, and F1's launches a replay.
+their atlas sizes (the flagship's 512^2 / 256^2 stacks, the render paths'
+1024^2 / 512^2), slots enabled and disabled, and on the near-plane and
+padding cases; the atlas of render_local_shadow_maps by "map" (F1) against
+"packed" and against the per-slot chain; captured flagship and
+forward_classic+ssao frames with F1 against the same frames on the per-slot
+chain, and F1's launches a replay.
 Run them on the card with
     python -m pytest tests/test_torch_slot_setup.py -q -m card
 """
@@ -60,7 +63,7 @@ def stack_case(case, geom, objects, lights, spot=200, face=64):
     cm = objects.casts_shadow & objects.visible
     wmin, wmax = object_world_aabbs(objects)
     vps, size, en = plan[5], spot, None
-    if case in ("faces", "near"):
+    if case in ("faces", "near", "faces_disabled"):
         vps, size = plan[6], face
     if case == "near":
         pos = torch.tensor([INSIDE], dtype=torch.float32, device=dev)
@@ -71,6 +74,9 @@ def stack_case(case, geom, objects, lights, spot=200, face=64):
     if case == "disabled":
         en = torch.tensor([True, False, True, True, False, True, False, True],
                           device=dev)
+    if case == "faces_disabled":   # every other point light's six faces
+        lit = torch.arange(vps.shape[0] // 6, device=dev) % 2 == 0
+        en = lit.repeat_interleave(6)
     sm = cm[None] & frustum_cull_objects(vps, wmin, wmax)
     if case == "culled":
         rng = np.random.default_rng(3)
@@ -128,7 +134,8 @@ def cpu_scene():
     return flagship("cpu")
 
 
-CASES = ["spots", "faces", "disabled", "culled", "near", "zero_vp"]
+CASES = ["spots", "faces", "disabled", "faces_disabled", "culled", "near",
+         "zero_vp"]
 
 
 @pytest.mark.parametrize("case", CASES)
